@@ -1,0 +1,22 @@
+"""Architecture registry: ``get_config("<arch-id>")`` / ``--arch <id>``."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig
+
+_ARCH_MODULES = {
+    "starcoder2-7b": "repro_torch.configs.starcoder2_7b",
+}
+
+ARCH_NAMES = tuple(_ARCH_MODULES)
+
+
+def get_config(name: str, *, reduced: bool = False) -> ModelConfig:
+    if name not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCH_MODULES)}")
+    mod = importlib.import_module(_ARCH_MODULES[name])
+    return mod.reduced() if reduced else mod.config()
+
+
+__all__ = ["ARCH_NAMES", "ModelConfig", "get_config"]

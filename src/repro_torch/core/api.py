@@ -1,0 +1,103 @@
+"""Unified attention dispatch — the framework-facing entry point.
+
+``AttentionConfig.impl`` selects the implementation:
+
+  reference    — naive exact softmax oracle
+  xla_flash    — FA-2 blockwise exact, plain PyTorch (name kept from the
+                 reference so configs carry over)
+  distr        — DistrAttention, plain PyTorch
+  pallas_flash — hand-written FA-2 CUDA kernel (plain version on the CPU)
+  pallas_distr — hand-written DistrAttention CUDA kernel (plain version on
+                 the CPU)
+
+Block sizes are static: ``None`` resolves to 128, and the decode split to
+``min(128, cache length)``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+
+import torch
+
+from repro_torch.core import grouping
+from repro_torch.core.distr_attention import DEFAULT_BLOCK, DistrConfig, distr_attention
+from repro_torch.core.flash_reference import blockwise_flash_reference, reference_attention
+
+IMPLS = ("reference", "xla_flash", "distr", "pallas_flash", "pallas_distr")
+
+
+@dataclass(frozen=True)
+class AttentionConfig:
+    impl: str = "xla_flash"
+    distr: DistrConfig = field(default_factory=DistrConfig)
+    # Tiles of the exact blockwise path; None → 128.
+    block_q: int | None = None
+    block_k: int | None = None
+    # Decode split-K length; None → min(128, cache length).
+    block_k_decode: int | None = None
+
+    def with_impl(self, impl: str) -> "AttentionConfig":
+        return replace(self, impl=impl)
+
+
+def attend(q, k, v, cfg: AttentionConfig, *, causal: bool = False,
+           scale: float | None = None,
+           proj: torch.Tensor | None = None) -> torch.Tensor:
+    """Multi-head attention with the configured implementation.
+
+    q: (B, Hq, N, d); k, v: (B, Hkv, Nk, d).  ``proj`` is the LSH projection
+    of the distr impls (None draws it from ``cfg.distr.proj_seed``).
+    """
+    if cfg.impl == "reference":
+        return reference_attention(q, k, v, causal=causal, scale=scale)
+    if cfg.impl == "xla_flash":
+        return blockwise_flash_reference(
+            q, k, v, block_q=cfg.block_q or DEFAULT_BLOCK,
+            block_k=cfg.block_k or DEFAULT_BLOCK, causal=causal, scale=scale,
+        )
+    if cfg.impl == "distr":
+        return distr_attention(q, k, v, cfg.distr, causal=causal, scale=scale, proj=proj)
+    if cfg.impl in ("pallas_flash", "pallas_distr"):
+        from repro_torch.kernels import ops
+
+        if cfg.impl == "pallas_flash":
+            return ops.flash_attention(q, k, v, causal=causal, scale=scale)
+        return ops.distr_attention(q, k, v, cfg.distr, causal=causal,
+                                   scale=scale, proj=proj)
+    raise ValueError(f"unknown attention impl {cfg.impl!r}; choose from {IMPLS}")
+
+
+def attend_decode(q, k, v, cfg: AttentionConfig, *,
+                  lengths: torch.Tensor | None = None,
+                  k_fused: torch.Tensor | None = None,
+                  perm: torch.Tensor | None = None, group_size: int = 1,
+                  scale: float | None = None) -> torch.Tensor:
+    """Decode-path attention over a contiguous cache with per-slot live
+    ``lengths``: every impl except ``reference`` runs the split-K decode
+    kernel (``kernels.ops.decode_attention``).
+
+    q: (B, Hq, q_len, d); k, v: (B, Hkv, S, d).  The fused-K̂ variant takes
+    ``k_fused`` (B, Hkv, S, d/G*) + ``perm`` (Hkv, d) + ``group_size``.
+    ``scale`` refers to the full head dim (default 1/√d from V).
+    """
+    if cfg.impl not in IMPLS:
+        raise ValueError(f"unknown attention impl {cfg.impl!r}; choose from {IMPLS}")
+    scale = float(scale) if scale is not None else 1.0 / (v.shape[-1] ** 0.5)
+    if cfg.impl == "reference":
+        nk = (k_fused if k_fused is not None else k).shape[2]
+        kv_mask = (
+            torch.arange(nk, device=q.device)[None, :] < lengths[:, None]
+            if lengths is not None else None
+        )
+        if k_fused is not None:
+            q_s = grouping.sample_q_heads(q, perm, group_size)
+            return reference_attention(q_s, k_fused.to(q_s.dtype), v.to(q_s.dtype),
+                                       scale=scale, kv_mask=kv_mask)
+        return reference_attention(q, k.to(q.dtype), v.to(q.dtype),
+                                   scale=scale, kv_mask=kv_mask)
+    from repro_torch.kernels import ops
+
+    return ops.decode_attention(
+        q, k, v, lengths=lengths, k_fused=k_fused, perm=perm,
+        group_size=group_size, scale=scale, block_k=cfg.block_k_decode,
+    )

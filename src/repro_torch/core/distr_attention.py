@@ -1,0 +1,144 @@
+"""DistrAttention — block-wise grouped-dimension attention (paper §3).
+
+Plain PyTorch; the CUDA kernel (``repro_torch.kernels.distr_attention``)
+computes the same math fused.
+
+Q is split into row blocks of ``block_q``.  Each block hashes its d columns
+with LSH (over R^block_q), sorts, and derives one permutation; the
+permutation samples the block's Q columns and fuses (sums) every K row it
+meets.  Scores contract over d/G*; softmax and the PV product keep the full
+context and the full value width.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+import torch
+
+from repro_torch.core import grouping, lsh
+from repro_torch.core.flash_reference import NEG_INF
+
+DEFAULT_BLOCK = 128
+
+
+@dataclass(frozen=True)
+class DistrConfig:
+    """The paper's tunables.
+
+    group_size: the sampling rate G* (2, 4, 8, 16); d_eff = d / G*.
+    block_q: the Q block of §3.3.1 and the LSH permutation granularity;
+      ``None`` takes the static default 128.  (The KV tile is the kernel's
+      own choice.)
+    estimator: "sample" (paper) | "mean" (beyond-paper).
+    shared_kv_perm: one permutation per KV group, hashed from the group's
+      mean query block (beyond-paper).
+    proj_seed: seed of the fixed LSH projection.
+    hash_method: "sign_gray" (paper) | "proj_morton".
+    """
+
+    group_size: int = 2
+    block_q: int | None = 128
+    estimator: str = "sample"
+    shared_kv_perm: bool = False
+    proj_seed: int = 0
+    hash_method: str = "sign_gray"
+
+    def d_eff(self, d: int) -> int:
+        return d // self.group_size
+
+    def resolved(self) -> "DistrConfig":
+        """Static block size: ``None`` becomes 128."""
+        return replace(self, block_q=self.block_q or DEFAULT_BLOCK)
+
+
+def default_projection(cfg: DistrConfig, device=None) -> torch.Tensor:
+    """The fixed LSH projection drawn from ``cfg.proj_seed``."""
+    gen = torch.Generator().manual_seed(cfg.proj_seed)
+    proj = lsh.make_projection(gen, cfg.resolved().block_q)
+    return proj.to(device) if device is not None else proj
+
+
+def pad_to_multiple(x: torch.Tensor, block: int, dim: int) -> torch.Tensor:
+    """Zero-pad ``dim`` of x up to a multiple of ``block``."""
+    pad = (-x.shape[dim]) % block
+    if pad == 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+
+def compute_block_permutations(q: torch.Tensor, cfg: DistrConfig,
+                               proj: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-Q-block LSH permutations.
+
+    q: (B, H, N, d) with N divisible by block_q → perms (B, H, nq, d) int64.
+    """
+    cfg = cfg.resolved()
+    b, h, n, d = q.shape
+    nq = n // cfg.block_q
+    if proj is None:
+        proj = default_projection(cfg, q.device)
+    blocks = q.reshape(b, h, nq, cfg.block_q, d)
+    return lsh.lsh_permutation(blocks, proj, cfg.hash_method)
+
+
+def block_permutations(qp: torch.Tensor, cfg: DistrConfig, proj, hkv: int):
+    """Permutations for a block_q-padded q, honouring ``shared_kv_perm``."""
+    b, hq, n_pad, d = qp.shape
+    if not cfg.shared_kv_perm:
+        return compute_block_permutations(qp, cfg, proj)
+    r = hq // hkv
+    q_mean = qp.reshape(b, hkv, r, n_pad, d).mean(dim=2)
+    perms = compute_block_permutations(q_mean, cfg, proj)  # (b, hkv, nq, d)
+    nq = perms.shape[2]
+    return perms[:, :, None].expand(b, hkv, r, nq, d).reshape(b, hq, nq, d)
+
+
+def sample_q(q_blocks: torch.Tensor, perms: torch.Tensor,
+             cfg: DistrConfig) -> torch.Tensor:
+    """Q̂ from q blocks (..., nq, block_q, d) under per-block perms."""
+    if cfg.estimator == "sample":
+        return grouping.sample_columns(q_blocks, perms, cfg.group_size)
+    if cfg.estimator == "mean":
+        return grouping.mean_columns(q_blocks, perms, cfg.group_size)
+    raise ValueError(f"unknown estimator {cfg.estimator!r}")
+
+
+def distr_attention(q, k, v, cfg: DistrConfig = DistrConfig(), *,
+                    causal: bool = False, scale: float | None = None,
+                    proj: torch.Tensor | None = None) -> torch.Tensor:
+    """Block-wise DistrAttention, GQA-aware.
+
+    q: (B, Hq, N, d); k, v: (B, Hkv, Nk, d) with Hq % Hkv == 0.
+    """
+    cfg = cfg.resolved()
+    b, hq, n, d = q.shape
+    dv = v.shape[-1]
+    n_kv, nk = k.shape[1], k.shape[2]
+    r = hq // n_kv
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    g, dg = cfg.group_size, cfg.d_eff(d)
+
+    qp = pad_to_multiple(q, cfg.block_q, dim=2)
+    n_pad = qp.shape[2]
+    nq = n_pad // cfg.block_q
+    if proj is None:
+        proj = default_projection(cfg, q.device)
+    perms = block_permutations(qp, cfg, proj, n_kv)  # (b, hq, nq, d)
+    q_hat = sample_q(qp.reshape(b, hq, nq, cfg.block_q, d), perms, cfg)
+
+    kj = torch.arange(nk, device=q.device)[None, :]
+    outs = []
+    for iq in range(nq):
+        perm_g = perms[:, :, iq].reshape(b, n_kv, r, d)
+        k_hat = grouping.fuse_columns(k[:, :, None], perm_g, g)  # (b,hkv,r,nk,dg)
+        qg = q_hat[:, :, iq].reshape(b, n_kv, r, cfg.block_q, dg)
+        s = torch.einsum("bgrld,bgrnd->bgrln", qg.float(), k_hat.float()) * scale
+        if causal:
+            qi = iq * cfg.block_q + torch.arange(cfg.block_q, device=q.device)[:, None]
+            s = torch.where(kj <= qi, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bgrln,bgnd->bgrld", p.to(q.dtype).float(), v.float())
+        outs.append(o.reshape(b, hq, cfg.block_q, dv).to(q.dtype))
+    return torch.cat(outs, dim=2)[:, :, :n]

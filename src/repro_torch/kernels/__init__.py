@@ -1,0 +1,7 @@
+"""Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
+
+``csrc/`` holds the CUDA sources, ``build.py`` compiles them at first use,
+and each of ``flash_attention``, ``distr_attention`` and ``decode`` holds
+one kernel's wrapper, its plain version and its launch counter.  ``ops``
+is the public surface.
+"""

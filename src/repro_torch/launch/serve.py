@@ -1,0 +1,116 @@
+"""Serving launcher: the slot engine over a model with seeded random weights.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \
+      --impl pallas_distr --requests 6 --max-new 32 --max-len 2048
+
+Runs on the GPU unless ``--device cpu`` is given (then use ``--reduced``:
+the CPU runs the kernels' plain PyTorch versions).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.core.api import IMPLS
+from repro_torch.models import lm
+from repro_torch.serve.engine import ServeEngine
+from repro_torch.utils.device import resolve_device
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run(cfg, params, *, requests: int = 8, max_new: int = 16, max_slots: int = 4,
+        max_len: int = 256, temperature: float = 0.0,
+        prompt_lens: list[int] | None = None, seed: int = 0,
+        device: str | torch.device = "cuda") -> dict:
+    """Serve ``requests`` random prompts to completion.  Prompt lengths are
+    ``prompt_lens`` when given, else drawn in [4, 16] as the reference
+    launcher does.  Returns the finished requests, per-request metrics,
+    the token count, the wall time and tokens/s."""
+    dev = resolve_device(device)
+    eng = ServeEngine(cfg, params, max_slots=max_slots, max_len=max_len,
+                      temperature=temperature, seed=seed, device=dev)
+    rng = np.random.default_rng(seed)
+    lens = prompt_lens if prompt_lens is not None else [
+        int(rng.integers(4, 17)) for _ in range(requests)
+    ]
+    _sync(dev)
+    t0 = time.perf_counter()
+    for n in lens:
+        eng.add_request(rng.integers(1, cfg.vocab, size=n).tolist(), max_new_tokens=max_new)
+    done = eng.run_to_completion()
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    total = sum(len(r.generated) for r in done)
+    return {"done": done, "metrics": eng.metrics(), "tokens": total,
+            "seconds": dt, "tok_per_s": total / dt}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_NAMES, required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--impl", choices=IMPLS, default=None,
+                    help="attention impl (default: the config's)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--prompt-lens", default=None,
+                    help="comma-separated prompt lengths (overrides --requests)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--profile", action="store_true",
+                    help="after one warm-up run, profile a second run: device "
+                         "time by kernel and the device's busy share")
+    args = ap.parse_args()
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch, reduced=args.reduced)
+    if args.impl is not None:
+        cfg = cfg.replace(attention=cfg.attention.with_impl(args.impl))
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    lens = ([int(x) for x in args.prompt_lens.split(",")] if args.prompt_lens
+            else None)
+    kw = dict(requests=args.requests, max_new=args.max_new, max_slots=args.max_slots,
+              max_len=args.max_len, temperature=args.temperature, prompt_lens=lens,
+              device=dev)
+    out = run(cfg, params, **kw)
+    print(f"[serve] {len(out['done'])} requests, {out['tokens']} tokens in "
+          f"{out['seconds']:.2f}s ({out['tok_per_s']:.1f} tok/s)")
+    for m in out["metrics"]:
+        print(f"  req {m['uid']}: ttft {m['ttft_s']:.4f}s tpot {m['tpot_s']:.4f}s")
+    for r in out["done"][:4]:
+        print(f"  req {r.uid}: {r.generated[:12]}")
+    if args.profile:
+        _profile(cfg, params, kw, dev)
+
+
+def _profile(cfg, params, kw: dict, dev: torch.device) -> None:
+    """Profile one more (warm) run and print the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = dev.type == "cuda"
+    acts = [ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]
+    with profile(activities=acts) as prof:
+        out = run(cfg, params, **kw)
+    events = prof.key_averages()
+    sort = "self_cuda_time_total" if cuda else "self_cpu_time_total"
+    print(events.table(sort_by=sort, row_limit=20))
+    if cuda:
+        busy_us = sum(getattr(e, "self_device_time_total", None)
+                      or getattr(e, "self_cuda_time_total", 0) for e in events)
+        print(f"[profile] device busy {busy_us / 1e6:.4f}s of {out['seconds']:.4f}s "
+              f"wall ({busy_us / 1e6 / out['seconds']:.1%}); "
+              f"{out['tok_per_s']:.1f} tok/s under the profiler")
+
+
+if __name__ == "__main__":
+    main()

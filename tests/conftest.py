@@ -30,6 +30,7 @@ def rng():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test")
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU; skips without one")
     config.addinivalue_line(
         "markers", "timeout(seconds): per-test wall-clock limit"
     )

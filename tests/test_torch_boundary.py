@@ -1,0 +1,104 @@
+"""Package boundary of the port: repro_torch and chip_smoke.py import
+neither JAX nor the JAX package, repro_torch calls no library attention and
+no torch.compile, entry points refuse to fall back to the CPU, and a CPU
+tensor given to a kernel wrapper takes the plain path without counting a
+launch."""
+import ast
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import decode as dec  # noqa: E402
+from repro_torch.kernels import distr_attention as dk  # noqa: E402
+from repro_torch.kernels import flash_attention as fk  # noqa: E402
+from repro_torch.launch.serve import run  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.serve.engine import ServeEngine  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN_CALLS = ("scaled_dot_product_attention", "torch.compile", "cudnn",
+                   "flash_attn", "flashinfer")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py"))
+
+
+def _imported_modules(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", _port_files() + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_and_no_reference_imports(path):
+    for name in _imported_modules(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "flax"), f"{path}: imports {name}"
+        assert top != "repro", f"{path}: imports the JAX package ({name})"
+
+
+def test_port_calls_no_library_attention_or_compile():
+    for path in _port_files() + sorted((PORT / "kernels" / "csrc").iterdir()):
+        text = path.read_text()
+        for word in FORBIDDEN_CALLS:
+            assert word not in text, f"{path}: mentions {word}"
+
+
+def test_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid here")
+    cfg = get_config("starcoder2-7b", reduced=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_params(cfg)
+    params = lm.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run(cfg, params, requests=1)
+
+
+def test_cpu_tensors_take_the_plain_path_without_counting():
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(4, 64, 64, generator=g)
+    k = torch.randn(2, 64, 64, generator=g)
+    before = (fk.launches, dk.launches, dec.launches)
+
+    o = fk.flash_attention_kernel_call(q, k, k, q_per_kv=2, scale=0.125, causal=True,
+                                       kv_len=64)
+    assert torch.equal(o, fk.flash_attention_plain(q, k, k, q_per_kv=2, scale=0.125,
+                                                   causal=True, kv_len=64))
+    perm = torch.stack([torch.randperm(64, generator=g) for _ in range(4)])[:, None]
+    kw = dict(q_per_kv=2, causal=True, group_size=2, block_q=64, kv_len=64)
+    o = dk.distr_attention_kernel_call(q[..., :32], k, k, perm, **kw)
+    assert torch.equal(o, dk.distr_attention_plain(q[..., :32], k, k, perm, **kw))
+    lengths = torch.tensor([5, 64])
+    qd, kd = torch.randn(2, 2, 3, 64, generator=g), torch.randn(2, 2, 64, 64, generator=g)
+    o = dec.decode_kernel_call(qd, kd, kd, lengths, scale=0.125, block_k=32, q_len=1)
+    want = dec.decode_plain(qd, kd, kd, lengths, scale=0.125, block_k=32, q_len=1)
+    assert all(torch.equal(a, b) for a, b in zip(o, want))
+
+    assert (fk.launches, dk.launches, dec.launches) == before
+
+
+def test_non_cpu_non_cuda_tensor_raises_instead_of_falling_back():
+    q = torch.empty(4, 64, 64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fk.flash_attention_kernel_call(q, q[:2], q[:2], q_per_kv=2, scale=0.125,
+                                       causal=True, kv_len=64)
+
+
+def test_kernel_sources_are_found_without_building():
+    names = [p.name for p in build.sources()]
+    assert names == ["decode.cu", "distr_attention.cu", "flash_attention.cu"]
+    assert len(build.source_hash()) == 16

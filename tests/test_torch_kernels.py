@@ -1,0 +1,214 @@
+"""Port parity: repro_torch.kernels.ops (the kernels' plain versions on the
+CPU) against the JAX reference's repro.kernels.ops (Pallas in interpret
+mode) on the same numpy inputs, at the reference tests' tolerances:
+flash 2e-5 f32 / 2e-2 bf16, distr 2e-5 / 3e-2, decode 1e-4 / 1e-2."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import DistrConfig as RefDistrConfig  # noqa: E402
+from repro.core import grouping as rg  # noqa: E402
+from repro.core import lsh as rl  # noqa: E402
+from repro.kernels import ops as rops  # noqa: E402
+from repro_torch.core.distr_attention import DistrConfig, pad_to_multiple  # noqa: E402
+from repro_torch.kernels import flash_attention as tflash  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+
+DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _pair(x: np.ndarray, dtype: str):
+    """The same values in both packages (bf16 rounds identically from f32)."""
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(x).astype(jd), torch.from_numpy(np.array(x)).to(td)
+
+
+def _qkv(seed, b, hq, hkv, n, nk, d, dtype, q_len=None):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hq, q_len or n, d)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, nk, d)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, nk, d)).astype(np.float32)
+    return _pair(q, dtype), _pair(k, dtype), _pair(v, dtype)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+FLASH_CASES = [
+    # (b, hq, hkv, n, nk, d, dtype, causal)
+    (1, 1, 1, 128, 128, 64, "f32", False),
+    (2, 4, 4, 128, 128, 64, "f32", True),
+    (2, 8, 2, 128, 128, 64, "f32", True),   # GQA
+    (1, 2, 2, 192, 192, 32, "f32", True),   # ragged N
+    (1, 2, 2, 128, 256, 64, "f32", False),  # rectangular
+    (2, 4, 4, 128, 128, 64, "bf16", True),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,n,nk,d,dtype,causal", FLASH_CASES)
+def test_flash_attention_matches_reference(b, hq, hkv, n, nk, d, dtype, causal):
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(0, b, hq, hkv, n, nk, d, dtype)
+    want = rops.flash_attention(qj, kj, vj, causal=causal, block_q=64, block_k=64)
+    got = tops.flash_attention(qt, kt, vt, causal=causal)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    _close(got, want, 2e-2 if dtype == "bf16" else 2e-5)
+
+
+DISTR_CASES = [
+    # (b, hq, hkv, n, d, g, dtype, causal)
+    (1, 1, 1, 128, 64, 2, "f32", False),
+    (2, 4, 4, 128, 64, 2, "f32", True),
+    (2, 8, 2, 128, 64, 4, "f32", True),   # GQA + G*=4
+    (1, 2, 2, 192, 32, 2, "f32", True),   # Q padded to block_q
+    (2, 4, 4, 128, 64, 2, "bf16", True),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,n,d,g,dtype,causal", DISTR_CASES)
+def test_distr_attention_matches_reference(b, hq, hkv, n, d, g, dtype, causal):
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(1, b, hq, hkv, n, n, d, dtype)
+    rcfg = RefDistrConfig(group_size=g, block_q=64)
+    tcfg = DistrConfig(group_size=g, block_q=64)
+    proj = np.array(rl.make_projection(jax.random.PRNGKey(rcfg.proj_seed), 64))
+    proj_t = torch.from_numpy(proj)
+    scale = 1.0 / d ** 0.5
+
+    # Stage 1: the permutations are exactly the reference's, Q̂ matches.
+    qp_j, _ = rops._pad_seq(qj, 64)
+    qhat_j, perms_j = rops.distr_stage1(rcfg, qp_j, scale, hkv=hkv)
+    qhat_t, perms_t = tops.distr_stage1(tcfg, pad_to_multiple(qt, 64, 2), scale,
+                                        proj=proj_t, hkv=hkv)
+    np.testing.assert_array_equal(perms_t.numpy(), np.asarray(perms_j))
+    _close(qhat_t, qhat_j, 1e-6 if dtype == "f32" else 1e-2)
+
+    want = rops.distr_attention(qj, kj, vj, rcfg, causal=causal)
+    got = tops.distr_attention(qt, kt, vt, tcfg, causal=causal, proj=proj_t)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    _close(got, want, 3e-2 if dtype == "bf16" else 2e-5)
+
+
+DECODE_CASES = [
+    # (b, hq, hkv, s, d, lengths, block_k, dtype, q_len)
+    (1, 1, 1, 128, 64, (5,), 64, "f32", 1),            # < one block
+    (2, 4, 4, 256, 64, (37, 256), 64, "f32", 1),       # partial and full
+    (2, 8, 2, 256, 64, (64, 129), 64, "f32", 1),       # GQA, split edge
+    (2, 8, 1, 512, 32, (1, 511), 128, "f32", 1),       # extremes
+    (2, 4, 2, 192, 32, (100, 192), 64, "f32", 1),      # S not a multiple of block_k
+    (2, 8, 2, 256, 64, (64, 200), 64, "bf16", 1),
+    (2, 4, 2, 256, 64, (9, 200), 64, "f32", 2),        # q_len 2 band
+    (3, 8, 2, 256, 64, (0, 130, 256), 128, "bf16", 2),  # length 0, q_len 2
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,lengths,block_k,dtype,q_len", DECODE_CASES)
+def test_decode_attention_matches_reference(b, hq, hkv, s, d, lengths, block_k, dtype, q_len):
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(2, b, hq, hkv, s, s, d, dtype, q_len=q_len)
+    lens = np.asarray(lengths, np.int32)
+    want = rops.decode_attention(qj, kj, vj, lengths=jnp.asarray(lens), block_k=block_k)
+    got = tops.decode_attention(qt, kt, vt, lengths=torch.from_numpy(lens), block_k=block_k)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    _close(got, want, 1e-2 if dtype == "bf16" else 1e-4)
+
+
+@pytest.mark.parametrize("g", [2, 4])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_decode_attention_fused_score_width(g, dtype):
+    """d_score = d/G*: sampled Q against a fused K̂ cache, full-width V."""
+    b, hq, hkv, s, d = 2, 8, 2, 256, 64
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(3, b, hq, hkv, s, s, d, "f32", q_len=1)
+    rng = np.random.default_rng(4)
+    perm = np.stack([rng.permutation(d) for _ in range(hkv)]).astype(np.int32)
+    kf = np.asarray(rg.fuse_columns(kj, jnp.asarray(perm)[None], g))
+    (qj, qt), (kfj, kft), (vj, vt) = (
+        _pair(np.asarray(qj), dtype), _pair(kf, dtype), _pair(np.asarray(vj), dtype))
+    lens = np.asarray([50, 222], np.int32)
+    scale = 1.0 / d ** 0.5
+    want = rops.decode_attention(qj, None, vj, lengths=jnp.asarray(lens), k_fused=kfj,
+                                 perm=jnp.asarray(perm), group_size=g, scale=scale, block_k=64)
+    got = tops.decode_attention(qt, None, vt, lengths=torch.from_numpy(lens), k_fused=kft,
+                                perm=torch.from_numpy(perm), group_size=g, scale=scale,
+                                block_k=64)
+    _close(got, want, 1e-2 if dtype == "bf16" else 1e-4)
+
+
+def test_decode_attention_no_lengths_means_all_live():
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(5, 2, 4, 4, 128, 128, 32, "f32", q_len=1)
+    want = rops.decode_attention(qj, kj, vj, block_k=64)
+    got = tops.decode_attention(qt, kt, vt, block_k=64)
+    _close(got, want, 1e-4)
+
+
+def test_fully_masked_rows_are_zero_not_nan():
+    """Length 0 masks every key; under q_len = 2 at length 1 the first
+    query token sees nothing.  Both rows come out exactly 0."""
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(6, 2, 4, 2, 128, 128, 64, "f32", q_len=2)
+    lens = np.asarray([0, 1], np.int32)
+    got = tops.decode_attention(qt, kt, vt, lengths=torch.from_numpy(lens), block_k=64)
+    want = rops.decode_attention(qj, kj, vj, lengths=jnp.asarray(lens), block_k=64)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert torch.equal(got[1, :, 0], torch.zeros_like(got[1, :, 0]))
+    _close(got, want, 1e-4)
+    # The flash kernel's contract for a row with no visible key: O = 0,
+    # LSE = -1e30.
+    q = torch.randn(4, 16, 64)
+    k = torch.randn(2, 16, 64)
+    o, lse = tflash.flash_attention_kernel_call(q, k, k, q_per_kv=2, scale=0.125,
+                                                causal=True, kv_len=0, return_lse=True)
+    assert torch.equal(o, torch.zeros_like(o)) and bool((lse == -1e30).all())
+
+
+@pytest.mark.parametrize("kw", [dict(estimator="mean"), dict(shared_kv_perm=True),
+                                dict(hash_method="proj_morton")])
+def test_distr_attention_variants_match_reference(kw):
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(7, 2, 4, 2, 128, 128, 64, "f32")
+    rcfg = RefDistrConfig(group_size=2, block_q=64, block_k=64, **kw)
+    proj = np.array(rl.make_projection(jax.random.PRNGKey(rcfg.proj_seed), 64))
+    want = rops.distr_attention(qj, kj, vj, rcfg, causal=True)
+    got = tops.distr_attention(qt, kt, vt, DistrConfig(group_size=2, block_q=64, **kw),
+                               causal=True, proj=torch.from_numpy(proj))
+    _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("impl", ["reference", "xla_flash", "distr", "pallas_flash",
+                                  "pallas_distr"])
+def test_attend_every_impl_matches_reference(impl):
+    from repro.core.api import AttentionConfig as RefAttentionConfig
+    from repro.core.api import attend as ref_attend
+    from repro_torch.core.api import AttentionConfig, attend
+
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(8, 2, 8, 2, 160, 160, 32, "f32")
+    rcfg = RefAttentionConfig(impl=impl, distr=RefDistrConfig(group_size=2, block_q=32))
+    tcfg = AttentionConfig(impl=impl, distr=DistrConfig(group_size=2, block_q=32))
+    proj = np.array(rl.make_projection(jax.random.PRNGKey(0), 32))
+    want = ref_attend(qj, kj, vj, rcfg, causal=True)
+    got = attend(qt, kt, vt, tcfg, causal=True, proj=torch.from_numpy(proj))
+    _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_attend_decode_reference_impl_matches_reference(fused):
+    from repro.core.api import AttentionConfig as RefAttentionConfig
+    from repro.core.api import attend_decode as ref_attend_decode
+    from repro_torch.core.api import AttentionConfig, attend_decode
+
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(9, 2, 4, 2, 96, 96, 32, "f32", q_len=1)
+    lens = np.asarray([17, 96], np.int32)
+    kw_j, kw_t = {}, {}
+    if fused:
+        perm = np.stack([np.random.default_rng(h).permutation(32) for h in range(2)])
+        perm = perm.astype(np.int32)
+        kf = np.asarray(rg.fuse_columns(kj, jnp.asarray(perm)[None], 2))
+        kw_j = dict(k_fused=jnp.asarray(kf), perm=jnp.asarray(perm), group_size=2)
+        kw_t = dict(k_fused=torch.from_numpy(kf), perm=torch.from_numpy(perm), group_size=2)
+    want = ref_attend_decode(qj, kj, vj, RefAttentionConfig(impl="reference"),
+                             lengths=jnp.asarray(lens), **kw_j)
+    got = attend_decode(qt, kt, vt, AttentionConfig(impl="reference"),
+                        lengths=torch.from_numpy(lens), **kw_t)
+    _close(got, want, 1e-5)

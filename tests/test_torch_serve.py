@@ -1,0 +1,132 @@
+"""Port parity on the serving path: starcoder2-7b reduced() (2 layers, GQA
+4/2, f32) with the reference's lm.init_params(PRNGKey(0)) weights carried
+over by models.convert.from_jax_params.  Prefill logits and cache, one
+decode step, and the greedy tokens of a 2-slot engine serving 3 requests
+match the JAX reference under both kernel impls."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as ref_get_config  # noqa: E402
+from repro.core.distr_attention import compute_block_permutations as ref_block_perms  # noqa: E402,E501
+from repro.core import lsh as ref_lsh  # noqa: E402
+from repro.models import attention as ref_attn  # noqa: E402
+from repro.models import layers as ref_layers  # noqa: E402
+from repro.models import lm as ref_lm  # noqa: E402
+from repro.models import transformer as ref_tf  # noqa: E402
+from repro.serve.engine import ServeEngine as RefEngine  # noqa: E402
+from repro.serve.serve_step import make_decode_step as ref_decode  # noqa: E402
+from repro.serve.serve_step import make_prefill as ref_prefill  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.distr_attention import compute_block_permutations as port_block_perms  # noqa: E402,E501
+from repro_torch.models import attention as port_attn  # noqa: E402
+from repro_torch.models import layers as port_layers  # noqa: E402
+from repro_torch.models import lm as port_lm  # noqa: E402
+from repro_torch.models import transformer as port_tf  # noqa: E402
+from repro_torch.models.convert import from_jax_params  # noqa: E402
+from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from repro_torch.serve.serve_step import make_decode_step, make_prefill  # noqa: E402
+
+ARCH = "starcoder2-7b"
+IMPLS = ["pallas_distr", "pallas_flash"]
+MAX_LEN = 64
+PROMPTS = ([5, 6, 7], [9, 1, 4, 4, 2, 8, 3, 3, 1, 7, 7], list(range(1, 38)))
+
+
+@pytest.fixture(scope="module")
+def models():
+    rcfg = ref_get_config(ARCH, reduced=True)
+    tcfg = get_config(ARCH, reduced=True)
+    rparams = ref_lm.init_params(jax.random.PRNGKey(0), rcfg)
+    dcfg = rcfg.attention.distr
+    proj = np.array(ref_lsh.make_projection(jax.random.PRNGKey(dcfg.proj_seed), dcfg.block_q))
+    tparams = from_jax_params(jax.tree_util.tree_map(np.asarray, rparams), tcfg,
+                              proj=proj, device="cpu")
+    return rcfg, rparams, tcfg, tparams
+
+
+def _with_impl(rcfg, tcfg, impl):
+    return (rcfg.replace(attention=rcfg.attention.with_impl(impl)),
+            tcfg.replace(attention=tcfg.attention.with_impl(impl)))
+
+
+def _tokens(seed, b, n, vocab):
+    return np.random.default_rng(seed).integers(0, vocab, size=(b, n)).astype(np.int32)
+
+
+def test_converted_params_match_layout(models):
+    rcfg, rparams, tcfg, tparams = models
+    assert len(tparams["blocks"]) == tcfg.n_layers
+    np.testing.assert_array_equal(tparams["blocks"][1]["attn"]["wq"]["w"].numpy(),
+                                  np.asarray(rparams["blocks"]["attn"]["wq"]["w"][1]))
+    assert tparams["final_norm"]["scale"].dtype == torch.float32
+    assert tparams["lsh_proj"].shape == (16, tcfg.attention.distr.block_q)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_prefill_and_decode_step_match_reference(models, impl):
+    rcfg, rparams, tcfg, tparams = models
+    rcfg, tcfg = _with_impl(rcfg, tcfg, impl)
+    toks = _tokens(1, 2, 40, rcfg.vocab)
+    r_logits, r_cache = ref_prefill(rcfg, MAX_LEN)(rparams, jnp.asarray(toks))
+    t_logits, t_cache = make_prefill(tcfg, MAX_LEN)(tparams, torch.from_numpy(toks))
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(r_logits), atol=1e-4, rtol=1e-4)
+    for key in ("k", "v"):
+        assert t_cache[key].shape == r_cache[key].shape
+        np.testing.assert_allclose(t_cache[key].numpy(), np.asarray(r_cache[key]),
+                                   atol=1e-4, rtol=1e-4)
+    np.testing.assert_array_equal(t_cache["length"].numpy(), np.asarray(r_cache["length"]))
+
+    nxt = _tokens(2, 2, 1, rcfg.vocab)
+    pos = np.asarray([40, 40], np.int32)
+    r_logits, r_cache = ref_decode(rcfg)(rparams, jnp.asarray(nxt), r_cache, jnp.asarray(pos))
+    t_logits, t_cache = make_decode_step(tcfg)(tparams, torch.from_numpy(nxt), t_cache,
+                                               torch.from_numpy(pos))
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(r_logits), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(t_cache["k"].numpy(), np.asarray(r_cache["k"]),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_prefill_permutation_match_rate(models):
+    """The layer-0 LSH permutations of a real prefill agree with the
+    reference's (each package hashes its own f32 queries)."""
+    rcfg, rparams, tcfg, tparams = models
+    toks = _tokens(3, 2, 64, rcfg.vocab)
+    dcfg = rcfg.attention.distr
+    b0 = jax.tree_util.tree_map(lambda p: p[0], rparams["blocks"])
+    x = ref_layers.embedding_apply(rparams["embed"], jnp.asarray(toks), jnp.float32)
+    h = ref_tf.norm_apply(b0["norm1"], x, rcfg)
+    q = ref_attn._split_heads(ref_layers.linear_apply(b0["attn"]["wq"], h), rcfg.n_heads)
+    q = ref_layers.apply_rope(q, jnp.broadcast_to(jnp.arange(64), (2, 64)), rcfg.rope_theta)
+    want = np.asarray(ref_block_perms(q, dcfg))
+
+    p0 = tparams["blocks"][0]
+    xt = port_lm.embed(tparams, tcfg, torch.from_numpy(toks).long())
+    ht = port_tf.norm_apply(p0["norm1"], xt, tcfg)
+    qt = port_attn._split_heads(port_layers.linear_apply(p0["attn"]["wq"], ht), tcfg.n_heads)
+    qt = port_layers.apply_rope(qt, torch.arange(64).expand(2, 64), tcfg.rope_theta)
+    got = port_block_perms(qt, tcfg.attention.distr, tparams["lsh_proj"]).numpy()
+    rate = float((got == want).mean())
+    print(f"layer-0 prefill permutation match rate: {rate:.4f}")
+    assert rate >= 0.99
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_engine_greedy_tokens_match_reference(models, impl):
+    """Three requests on a 2-slot engine (more requests than slots)."""
+    rcfg, rparams, tcfg, tparams = models
+    rcfg, tcfg = _with_impl(rcfg, tcfg, impl)
+    outs = []
+    for eng in (RefEngine(rcfg, rparams, max_slots=2, max_len=MAX_LEN),
+                ServeEngine(tcfg, tparams, max_slots=2, max_len=MAX_LEN, device="cpu")):
+        for p in PROMPTS:
+            eng.add_request(p, max_new_tokens=4)
+        done = eng.run_to_completion()
+        assert all(r.status == "done" for r in done)
+        outs.append({r.uid: r.generated for r in done})
+    assert len(outs[1]) == len(PROMPTS)
+    assert outs[1] == outs[0]
