@@ -7,11 +7,10 @@ In order: prints the card's name and power limit; builds the CUDA kernels
 from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a; holds each
 kernel against its plain PyTorch version at the serving path's shapes in
 bf16 (and times kernel, plain version and, as a yardstick only, one
-PyTorch library call); checks the port's GPU path against its CPU path on a
-small model; then serves starcoder2-7b at full width with seeded random
-weights through ``repro_torch.launch.serve.run`` under ``pallas_distr`` and
-``pallas_flash`` (6 requests on 4 slots, max_len 2048, 32 new tokens,
-greedy), counting each kernel's launches in those runs.  The line before
+PyTorch library call); then serves starcoder2-7b at full width with seeded
+random weights through ``repro_torch.launch.serve.run`` under
+``pallas_distr`` and ``pallas_flash`` (6 requests on 4 slots, max_len 2048,
+32 new tokens, greedy), counting each kernel's launches in those runs.  The line before
 the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without CUDA, or outside a checkout, it exits non-zero before any result.
@@ -34,7 +33,10 @@ SRC = ROOT / "src"
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
-TOL = {"flash": 2e-2, "distr": 3e-2, "decode": 1e-2}  # bf16, the reference's
+# Element-wise atol = rtol.  Flash and distr: the reference's bf16
+# tolerances (O is rounded to bf16).  Decode: both sides accumulate in f32
+# from the same bf16 inputs and the merged output stays f32.
+TOL = {"flash": 2e-2, "distr": 3e-2, "decode": 1e-4}
 PREFILL_NS = (600, 2048)
 DECODE_LENGTHS = (1, 200, 1537, 2048)
 SERVE_PROMPTS = (96, 200, 517, 1000, 1100, 1536)
@@ -79,11 +81,14 @@ def max_err(torch, a, b) -> float:
 
 
 def check_close(torch, name, got, want, tol) -> float:
-    err = max_err(torch, got, want)
-    bound = tol * (1.0 + float(want.float().abs().max()))
-    if not torch.isfinite(got.float()).all() or err > bound:
-        raise AssertionError(f"{name}: max |diff| {err:.3e} > {bound:.3e}")
-    return err
+    """Element by element, |got - want| <= tol + tol·|want|, and all finite.
+    Returns the largest |got - want|; logs the largest error as a share of
+    its element's allowance."""
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol, msg=lambda m: f"{name}: {m}")
+    share = float(((got - want).abs() / (tol + tol * want.abs())).max())
+    log(f"  {name}: largest error is {share:.3g} of its element's allowance (tol {tol})")
+    return max_err(torch, got, want)
 
 
 def prefill_phase(torch, flush) -> dict:
@@ -199,11 +204,12 @@ def decode_phase(torch, flush) -> dict:
                 ms = time_ms(torch, lambda: dec.decode_kernel_call(qp, k, v, lengths, **kw), 20, flush)
                 plain_ms = time_ms(torch, lambda: dec.decode_plain(qp, k, v, lengths, **kw), 5, flush)
                 lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(q, kx, vx, attn_mask=mask), 20, flush)
+                # Live K/V once, q, lengths, and the merged f32 output.  The
+                # split partials are the kernel's own traffic, not the work's.
                 live = int(lengths.sum())
                 rows = hq // hkv * q_len
-                splits = -(-s // bk)
                 nbytes = (2 * live * hkv * (ds + d) + 2 * b * hq * ds + 4 * b
-                          + 4 * b * hkv * splits * rows * (d + 2))
+                          + 4 * b * hkv * rows * d)
                 flops = 4 * rows * live * hkv * d
                 bound = max(nbytes / PEAK_HBM_BYTES, flops / PEAK_BF16_FLOPS) * 1e3
                 out.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
@@ -212,53 +218,6 @@ def decode_phase(torch, flush) -> dict:
                 log(f"[decode serve shape] {ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
                     f"{lib_ms:.4f}, bound {bound:.4f})")
     return out
-
-
-def small_model_phase(torch) -> None:
-    """The port's GPU path against its CPU path (plain kernel versions) on a
-    small f32 model: prefill logits and three teacher-forced decode steps."""
-    from repro_torch.configs import get_config
-    from repro_torch.core.api import AttentionConfig
-    from repro_torch.core.distr_attention import DistrConfig
-    from repro_torch.models import lm
-    from repro_torch.serve.serve_step import make_decode_step, make_prefill
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    base = get_config("starcoder2-7b", reduced=True).replace(
-        d_model=256, n_heads=4, n_kv_heads=2, head_dim=64,
-        attention=AttentionConfig(distr=DistrConfig(group_size=2, block_q=64)),
-    )
-    params_cpu = lm.init_params(base, torch.Generator().manual_seed(0), "cpu")
-
-    def to(tree, dev):
-        if isinstance(tree, dict):
-            return {k: to(v, dev) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, dev) for v in tree]
-        return tree.to(dev)
-
-    params_gpu = to(params_cpu, "cuda")
-    toks = torch.randint(0, base.vocab, (2, 100), generator=torch.Generator().manual_seed(2))
-    # Flash is exact, so GPU and CPU differ by summation order only.  Under
-    # distr a near-zero LSH projection may hash to the other sign on the two
-    # devices and regroup one block's columns: a different (still valid)
-    # approximation, hence the wider bound.
-    for impl, tol in (("pallas_flash", 1e-3), ("pallas_distr", 5e-2)):
-        cfg = base.replace(attention=base.attention.with_impl(impl))
-        outs = []
-        for params, dev in ((params_cpu, "cpu"), (params_gpu, "cuda")):
-            logits, cache = make_prefill(cfg, 128)(params, toks[:, :96].to(dev))
-            steps = [logits]
-            decode = make_decode_step(cfg)
-            for t in range(3):
-                pos = torch.full((2,), 96 + t, dtype=torch.int32, device=dev)
-                lg, cache = decode(params, toks[:, 96 + t:97 + t].to(dev), cache, pos)
-                steps.append(lg)
-            outs.append(torch.cat(steps, dim=1).cpu())
-        err = max_err(torch, outs[1], outs[0])
-        log(f"[small model {impl}] GPU vs CPU logits max |diff| {err:.3e} (tol {tol})")
-        if not torch.isfinite(outs[1]).all() or err > tol:
-            raise AssertionError(f"small model {impl}: GPU vs CPU {err:.3e} > {tol}")
 
 
 def serve_phase(torch) -> dict:
@@ -338,7 +297,6 @@ def main() -> int:
     results = {"card": card, "prefill_shapes": pre.pop("shapes")}
     launches = {"flash": 0, "distr": 0, "decode": 0}
     if args.only != "kernels":
-        small_model_phase(torch)
         launches = serve_phase(torch)
 
     csrc = "src/repro_torch/kernels/csrc"

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.api import AttentionConfig, attend, attend_decode
+from repro_torch.core.api import attend, attend_decode
 from repro_torch.models import layers
 
 
@@ -36,12 +36,10 @@ def attention_init(generator, cfg, dtype=torch.float32) -> dict:
 
 def attention_apply(params: dict, x: torch.Tensor, cfg, *,
                     positions: torch.Tensor | None = None, causal: bool = True,
-                    attn_cfg: AttentionConfig | None = None,
                     proj: torch.Tensor | None = None):
     """Self-attention for prefill.  Returns ``(out, (k, v))`` with the raw
     per-head K/V (B, Hkv, N, dh) so the serve layer can build caches."""
     b, n, _ = x.shape
-    attn_cfg = attn_cfg if attn_cfg is not None else cfg.attention
     q = _split_heads(layers.linear_apply(params["wq"], x), cfg.n_heads)
     k = _split_heads(layers.linear_apply(params["wk"], x), cfg.n_kv_heads)
     v = _split_heads(layers.linear_apply(params["wv"], x), cfg.n_kv_heads)
@@ -49,7 +47,7 @@ def attention_apply(params: dict, x: torch.Tensor, cfg, *,
         positions = torch.arange(n, device=x.device).expand(b, n)
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
-    o = attend(q, k, v, attn_cfg, causal=causal, proj=proj)
+    o = attend(q, k, v, cfg.attention, causal=causal, proj=proj)
     out = layers.linear_apply(params["wo"], _merge_heads(o))
     return out, (k, v)
 

@@ -53,15 +53,12 @@ def embed(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
     return layers.embedding_apply(params["embed"], tokens).to(compute_dtype(cfg))
 
 
-def backbone(params: dict, cfg, tokens: torch.Tensor, *, collect_cache: bool = False,
-             attn_cfg=None):
+def backbone(params: dict, cfg, tokens: torch.Tensor, *, collect_cache: bool = False):
     """Trunk → (hidden (B, N, D) after the final norm, kv) where kv is a
     list of per-layer (k, v) (B, Hkv, N, dh) when ``collect_cache``."""
     x = embed(params, cfg, tokens)
     b, n = tokens.shape
     positions = torch.arange(n, device=tokens.device).expand(b, n)
-    if attn_cfg is not None:
-        cfg = cfg.replace(attention=attn_cfg)
     kvs = []
     for lp in params["blocks"]:
         x, kv = transformer.block_apply(lp, x, cfg, positions=positions,
