@@ -5,20 +5,27 @@
 
 In order: prints the card's name and power limit; builds the CUDA kernels
 from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a; holds each
-kernel against its plain PyTorch version at the serving path's shapes in
-bf16 (and times kernel, plain version and, as a yardstick only, one
-PyTorch library call); then serves starcoder2-7b at full width with seeded
-random weights through ``repro_torch.launch.serve.run`` under
-``pallas_distr`` and ``pallas_flash`` (6 requests on 4 slots, max_len 2048,
-32 new tokens, greedy), counting each kernel's launches in those runs.  The line before
-the last is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
-without CUDA, or outside a checkout, it exits non-zero before any result.
+kernel against its plain PyTorch version in bf16 at the shapes of the
+serving path (starcoder2-7b) and of the training path (minicpm-2b) — the
+forward kernels with their LSE, the five backward kernels at both — and
+times kernel, plain version and, as a yardstick only, one PyTorch library
+call; serves starcoder2-7b at full width with seeded random weights through
+``repro_torch.launch.serve.run`` under ``pallas_distr`` and
+``pallas_flash`` (6 requests on 4 slots, max_len 2048, 32 new tokens,
+greedy); then trains minicpm-2b at its published size with seeded random
+f32 params through ``repro_torch.launch.train.run`` under both impls (4
+steps of 4 × 2048 tokens, full remat), and profiles one more step per impl
+for the attention kernels' share.  Each kernel's launches are counted in
+the serve and train runs.  The line before the last is
+``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.  Any
+failure raises and exits non-zero; without CUDA, or outside a checkout, it
+exits non-zero before any result.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -34,12 +41,24 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 # Element-wise atol = rtol.  Flash and distr: the reference's bf16
-# tolerances (O is rounded to bf16).  Decode: both sides accumulate in f32
-# from the same bf16 inputs and the merged output stays f32.
-TOL = {"flash": 2e-2, "distr": 3e-2, "decode": 1e-4}
+# tolerances (O is rounded to bf16).  Decode, LSE, delta and the backward
+# kernels: both sides compute in f32 from the same bf16 inputs and write
+# f32, so they differ only in summation order and exp; set from the
+# readings (PERF.md).
+TOL = {"flash": 2e-2, "distr": 3e-2, "decode": 1e-4, "lse": 1e-4, "delta": 1e-4,
+       "bwd": 1e-4}
 PREFILL_NS = (600, 2048)
 DECODE_LENGTHS = (1, 200, 1537, 2048)
 SERVE_PROMPTS = (96, 200, 517, 1000, 1100, 1536)
+# Attention shapes (B·Hq, Hkv, d, G*) at N = 2048, causal: the training
+# path's (minicpm-2b, MHA, head dim 64) and a GQA one (starcoder2-7b).
+TRAIN_SHAPE = (36, 36, 64, 2)
+GQA_SHAPE = (36, 4, 128, 2)
+TRAIN_N = 2048
+TRAIN_BATCH, TRAIN_STEPS = 4, 4
+# Kernel names (C++ templates) that count as attention in the profile.
+ATTN_KERNEL_NAMES = ("attn_fwd_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel",
+                     "delta_kernel")
 
 
 def log(msg: str) -> None:
@@ -80,6 +99,12 @@ def max_err(torch, a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time (ms) the card could take, and what bounds it."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
+
+
 def check_close(torch, name, got, want, tol) -> float:
     """Element by element, |got - want| <= tol + tol·|want|, and all finite.
     Returns the largest |got - want|; logs the largest error as a share of
@@ -87,7 +112,8 @@ def check_close(torch, name, got, want, tol) -> float:
     got, want = got.float(), want.float()
     torch.testing.assert_close(got, want, atol=tol, rtol=tol, msg=lambda m: f"{name}: {m}")
     share = float(((got - want).abs() / (tol + tol * want.abs())).max())
-    log(f"  {name}: largest error is {share:.3g} of its element's allowance (tol {tol})")
+    log(f"  {name}: largest error is {share:.3g} of its element's allowance (tol {tol}); "
+        f"largest |want| {float(want.abs().max()):.3g}")
     return max_err(torch, got, want)
 
 
@@ -167,6 +193,161 @@ def prefill_phase(torch, flush) -> dict:
             out["distr"].update(ms=t["distr_ms"], plain_ms=t["distr_plain_ms"],
                                 library_ms=None, bound_ms=bounds["distr"][0],
                                 bound_by=bounds["distr"][1])
+    out["shapes"].append(train_shape_forward(torch, flush, out))
+    return out
+
+
+def train_shape_forward(torch, flush, out: dict) -> dict:
+    """Both forward kernels at the training path's shape (minicpm-2b:
+    B·Hq = 36, MHA, d = 64, G* = 2, N = 2048, causal, bf16) with the LSE
+    the backward reads; O and LSE held against the plain versions."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.distr_attention import DistrConfig
+    from repro_torch.kernels import distr_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ops
+
+    hq, hkv, d, g = TRAIN_SHAPE
+    n = TRAIN_N
+    dcfg = DistrConfig(group_size=g, block_q=128)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (torch.randn((1, h, n, d), generator=gen, device="cuda").to(torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    qf, kf, vf = q[0].contiguous(), k[0].contiguous(), v[0].contiguous()
+    kw = dict(q_per_kv=hq // hkv, scale=d ** -0.5, causal=True, kv_len=n, return_lse=True)
+    o, lse = fk.flash_attention_kernel_call(qf, kf, vf, **kw)
+    o_p, lse_p = fk.flash_attention_plain(qf, kf, vf, **kw)
+    torch.cuda.synchronize()
+    err_f = check_close(torch, "flash d=64 O", o, o_p, TOL["flash"])
+    check_close(torch, "flash d=64 LSE", lse, lse_p, TOL["lse"])
+    q_hat, perms = ops.distr_stage1(dcfg, q, d ** -0.5, hkv=hkv)
+    q_hat, perm = q_hat[0].contiguous(), perms[0].to(torch.int32).contiguous()
+    dkw = dict(q_per_kv=hq // hkv, causal=True, group_size=g, block_q=dcfg.block_q,
+               kv_len=n, return_lse=True)
+    od, lsed = dk.distr_attention_kernel_call(q_hat, kf, vf, perm, **dkw)
+    od_p, lsed_p = dk.distr_attention_plain(q_hat, kf, vf, perm, **dkw)
+    torch.cuda.synchronize()
+    err_d = check_close(torch, "distr d=64 O", od, od_p, TOL["distr"])
+    check_close(torch, "distr d=64 LSE", lsed, lsed_p, TOL["lse"])
+    out["flash"]["max_abs_err"] = max(out["flash"]["max_abs_err"], err_f)
+    out["distr"]["max_abs_err"] = max(out["distr"]["max_abs_err"], err_d)
+    t = {
+        "flash_ms": time_ms(torch, lambda: fk.flash_attention_kernel_call(qf, kf, vf, **kw), 10, flush),
+        "flash_plain_ms": time_ms(torch, lambda: fk.flash_attention_plain(qf, kf, vf, **kw), 3, flush),
+        "sdpa_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 10, flush),
+        "distr_ms": time_ms(torch, lambda: dk.distr_attention_kernel_call(q_hat, kf, vf, perm, **dkw), 10, flush),
+        "distr_plain_ms": time_ms(torch, lambda: dk.distr_attention_plain(q_hat, kf, vf, perm, **dkw), 3, flush),
+    }
+    pairs = n * (n + 1) // 2 * hq
+    f_bound = bound(4 * d * pairs, 2 * 4 * hq * n * d + 4 * hq * n)
+    d_bound = bound((2 * (d // g) + 2 * d) * pairs,
+                    2 * (hq * n * (d // g) + 3 * hq * n * d) + 4 * hq * (n // 128) * d + 4 * hq * n)
+    log(f"[prefill train shape d=64 N={n}, with LSE] flash {t['flash_ms']:.3f} ms (plain "
+        f"{t['flash_plain_ms']:.3f}, sdpa {t['sdpa_ms']:.3f}, bound {f_bound[0]:.4f}) | distr "
+        f"{t['distr_ms']:.3f} ms (plain {t['distr_plain_ms']:.3f}, bound {d_bound[0]:.4f})")
+    return {"n": n, "d": d, "hkv": hkv, **t, "flash_bound_ms": f_bound[0],
+            "distr_bound_ms": d_bound[0]}
+
+
+def backward_phase(torch, flush) -> dict:
+    """The five backward kernels at the training shape (minicpm-2b) and at
+    a GQA shape (starcoder2-7b), N = 2048, causal, bf16: each held element
+    by element against its plain version on the same inputs (the forward
+    kernels' O and LSE), timed beside it, with its bound.  The yardstick
+    for flash dq and dkv is one backward of SDPA (dQ, dK, dV together),
+    split between the two in proportion to their products (3 : 4)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.distr_attention import DistrConfig
+    from repro_torch.kernels import backward as bwd
+    from repro_torch.kernels import distr_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ops
+
+    names = ("delta", "flash_dq", "flash_dkv", "distr_dq", "distr_dkv")
+    out = {name: {"max_abs_err": 0.0} for name in names}
+    shapes = []
+    n = TRAIN_N
+    for label, (hq, hkv, d, g) in (("minicpm-2b", TRAIN_SHAPE), ("starcoder2-7b", GQA_SHAPE)):
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        q, k, v, do = (torch.randn((1, h, n, d), generator=gen, device="cuda").to(torch.bfloat16)
+                       for h in (hq, hkv, hkv, hq))
+        qf, kf, vf, dof = (x[0].contiguous() for x in (q, k, v, do))
+        scale = d ** -0.5
+        r = hq // hkv
+        fkw = dict(q_per_kv=r, scale=scale, causal=True, kv_len=n)
+        o, lse = fk.flash_attention_kernel_call(qf, kf, vf, return_lse=True, **fkw)
+        dcfg = DistrConfig(group_size=g, block_q=128)
+        q_hat, perms = ops.distr_stage1(dcfg, q, scale, hkv=hkv)
+        q_hat, perm = q_hat[0].contiguous(), perms[0].to(torch.int32).contiguous()
+        dkw = dict(q_per_kv=r, causal=True, group_size=g, block_q=dcfg.block_q, kv_len=n)
+        od, lsed = dk.distr_attention_kernel_call(q_hat, kf, vf, perm, return_lse=True, **dkw)
+        delta = bwd.delta_plain(o, dof)
+        deltad = bwd.delta_plain(od, dof)
+        calls = {
+            "delta": (lambda: bwd.delta_kernel_call(o, dof), lambda: bwd.delta_plain(o, dof)),
+            "flash_dq": (lambda: bwd.flash_dq_kernel_call(qf, kf, vf, dof, lse, delta, **fkw),
+                         lambda: bwd.flash_dq_plain(qf, kf, vf, dof, lse, delta, **fkw)),
+            "flash_dkv": (lambda: bwd.flash_dkv_kernel_call(qf, kf, vf, dof, lse, delta, **fkw),
+                          lambda: bwd.flash_dkv_plain(qf, kf, vf, dof, lse, delta, **fkw)),
+            "distr_dq": (lambda: bwd.distr_dq_kernel_call(q_hat, kf, vf, perm, dof, lsed, deltad, **dkw),
+                         lambda: bwd.distr_dq_plain(q_hat, kf, vf, perm, dof, lsed, deltad, **dkw)),
+            "distr_dkv": (lambda: bwd.distr_dkv_kernel_call(q_hat, kf, vf, perm, dof, lsed, deltad, **dkw),
+                          lambda: bwd.distr_dkv_plain(q_hat, kf, vf, perm, dof, lsed, deltad, **dkw)),
+        }
+        pairs = n * (n + 1) // 2 * hq
+        ds = d // g
+        in_f = 2 * (2 * hq * n * d + 2 * hkv * n * d) + 8 * hq * n  # q, do, k, v; lse, delta
+        in_d = 2 * (hq * n * ds + hq * n * d + 2 * hkv * n * d) + 8 * hq * n + 4 * hq * (n // 128) * d
+        work = {
+            "delta": (2 * hq * n * d, 2 * 2 * hq * n * d + 4 * hq * n),
+            "flash_dq": (6 * d * pairs, in_f + 4 * hq * n * d),
+            "flash_dkv": (8 * d * pairs, in_f + 8 * hq * n * d),
+            "distr_dq": ((4 * ds + 2 * d) * pairs, in_d + 4 * hq * n * ds),
+            "distr_dkv": ((4 * ds + 4 * d) * pairs, in_d + 8 * hq * n * d),
+        }
+        row = {"shape": label, "bhq": hq, "hkv": hkv, "d": d, "group_size": g, "n": n}
+        for name in names:
+            kern, plain = calls[name]
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            tol = TOL["delta"] if name == "delta" else TOL["bwd"]
+            err = max(check_close(torch, f"{name} {label}{' d' + 'kv'[i] if len(got) > 1 else ''}",
+                                  a, b, tol) for i, (a, b) in enumerate(zip(got, want)))
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+            del got, want
+            ms = time_ms(torch, kern, 10, flush)
+            plain_ms = time_ms(torch, plain, 3, flush)
+            b_ms, b_by = bound(*work[name])
+            row[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                         "max_abs_err": err}
+            log(f"[backward {label}] {name}: {ms:.3f} ms (plain {plain_ms:.3f}, bound "
+                f"{b_ms:.4f} by {b_by}) err {err:.3e}")
+        # SDPA's backward as the yardstick of flash dq + dkv (K/V expanded
+        # to the query heads outside the timed call, as ours are per head).
+        qg = q.detach().requires_grad_(True)
+        kx = k.repeat_interleave(r, dim=1).requires_grad_(True)
+        vx = v.repeat_interleave(r, dim=1).requires_grad_(True)
+        sdpa_out = F.scaled_dot_product_attention(qg, kx, vx, is_causal=True)
+        sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(
+            sdpa_out, (qg, kx, vx), do, retain_graph=True), 10, flush)
+        row["sdpa_bwd_ms"] = sdpa_bwd
+        row["flash_dq"]["library_ms"] = sdpa_bwd * 3 / 7
+        row["flash_dkv"]["library_ms"] = sdpa_bwd * 4 / 7
+        log(f"[backward {label}] SDPA backward {sdpa_bwd:.3f} ms (dq {sdpa_bwd * 3 / 7:.3f}, "
+            f"dkv {sdpa_bwd * 4 / 7:.3f} by the 3 : 4 product split)")
+        shapes.append(row)
+        del sdpa_out, qg, kx, vx
+    headline = shapes[0]  # the training path's shape
+    for name in names:
+        h = headline[name]
+        out[name].update(ms=h["ms"], plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
+                         bound_by=h["bound_by"], library_ms=h.get("library_ms"))
+    out["shapes"] = shapes
+    torch.cuda.empty_cache()
     return out
 
 
@@ -260,6 +441,93 @@ def serve_phase(torch) -> dict:
     return launches
 
 
+def _attention_device_ms(torch, run_one) -> tuple[float, float, dict]:
+    """Profile ``run_one()``: (attention kernels' device ms, all device ms,
+    device ms by attention kernel name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_one()
+        torch.cuda.synchronize()
+    total, attn, by_name = 0.0, 0.0, {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        total += us
+        for name in ATTN_KERNEL_NAMES:
+            if name in e.key:
+                attn += us
+                by_name[name] = by_name.get(name, 0.0) + us / 1e3
+    return attn / 1e3, total / 1e3, by_name
+
+
+def train_phase(torch) -> dict:
+    """minicpm-2b at its published size (40 layers), seeded random f32
+    params, trained through the launcher's run function under both kernel
+    impls: 4 steps of 4 × 2048 tokens (the first is warm-up), full remat.
+    Raises if a loss or grad norm is not finite, a step was skipped, or a
+    kernel of the impl's path never launched (the other impl's kernels
+    must stay at 0).  One more profiled step per impl gives the attention
+    kernels' share of the device time."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import backward as bwd
+    from repro_torch.kernels import decode as dec
+    from repro_torch.kernels import distr_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.launch.train import init_train_params, run
+
+    cfg = get_config("minicpm-2b")
+    launches = {"flash": 0, "distr": 0, **{name: 0 for name in bwd.launches}}
+    report = {}
+    for impl, mine, other in (("pallas_distr", "distr", "flash"),
+                              ("pallas_flash", "flash", "distr")):
+        cfg_i = cfg.replace(attention=cfg.attention.with_impl(impl))
+        t0 = time.perf_counter()
+        params = init_train_params(cfg_i, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        log(f"[train {impl}] minicpm-2b params (f32) on the card in "
+            f"{time.perf_counter() - t0:.1f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        fk.launches = dk.launches = dec.launches = 0
+        for name in bwd.launches:
+            bwd.launches[name] = 0
+        res = run(cfg_i, params, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_N, lr=1e-3,
+                  seed=0, device="cuda")
+        counts = {"flash": fk.launches, "distr": dk.launches, "decode": dec.launches,
+                  **bwd.launches}
+        hist = res["history"]
+        log(f"[train {impl}] losses {[r['loss'] for r in hist]} grad norms "
+            f"{[r['grad_norm'] for r in hist]}")
+        log(f"[train {impl}] step times {res['step_times']} s; {res['tok_per_s']:.1f} tok/s "
+            f"after the warm-up step; peak allocated "
+            f"{res['max_memory_allocated'] / 2**30:.2f} GiB; launches {counts}")
+        bad = [r for r in hist if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]))]
+        if bad or res["nan_skips"]:
+            raise AssertionError(f"train {impl}: non-finite or skipped steps: {bad}, "
+                                 f"{res['nan_skips']} skipped")
+        path = (mine, "delta", f"{mine}_dq", f"{mine}_dkv")
+        off = (other, f"{other}_dq", f"{other}_dkv", "decode")
+        if any(counts[name] == 0 for name in path) or any(counts[name] for name in off):
+            raise AssertionError(f"train {impl}: launches off the path: {counts}")
+        for name in path:
+            launches[name] += counts[name]
+        steady = res["step_times"][1:]
+        step_s = sum(steady) / len(steady)
+        attn_ms, device_ms, by_name = _attention_device_ms(
+            torch, lambda: run(cfg_i, params, steps=1, batch=TRAIN_BATCH, seq=TRAIN_N,
+                               lr=1e-3, seed=1, device="cuda"))
+        log(f"[train {impl}] profiled step: attention kernels {attn_ms:.1f} ms of "
+            f"{device_ms:.1f} ms device time; {attn_ms / 1e3 / step_s:.1%} of the mean "
+            f"steady step ({step_s:.3f} s); by kernel {by_name}")
+        report[impl] = {"losses": [r["loss"] for r in hist],
+                        "grad_norms": [r["grad_norm"] for r in hist],
+                        "step_times": res["step_times"], "tok_per_s": res["tok_per_s"],
+                        "max_memory_allocated": res["max_memory_allocated"],
+                        "launches": counts, "attention_device_ms": attn_ms,
+                        "device_ms": device_ms, "attention_ms_by_kernel": by_name}
+        del params, res
+        torch.cuda.empty_cache()
+    return {"launches": launches, "report": report}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="also write the results as JSON here")
@@ -290,14 +558,23 @@ def main() -> int:
         if "registers" in line or "spill" in line or "error" in line.lower():
             log("  " + line.strip())
 
+    # The plain versions' f32 products run in full f32, not TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     pre = prefill_phase(torch, flush)
     dec = decode_phase(torch, flush)
+    back = backward_phase(torch, flush)
     del flush
-    results = {"card": card, "prefill_shapes": pre.pop("shapes")}
-    launches = {"flash": 0, "distr": 0, "decode": 0}
+    results = {"card": card, "prefill_shapes": pre.pop("shapes"),
+               "backward_shapes": back.pop("shapes")}
+    launches = {"flash": 0, "distr": 0, "decode": 0, **dict.fromkeys(back, 0)}
     if args.only != "kernels":
-        launches = serve_phase(torch)
+        launches.update(serve_phase(torch))
+        train = train_phase(torch)
+        results["train"] = train["report"]
+        for name, count in train["launches"].items():
+            launches[name] += count
 
     csrc = "src/repro_torch/kernels/csrc"
     kernels = [
@@ -310,6 +587,14 @@ def main() -> int:
         {"name": "decode_splitk", "route": "cuda", "source": f"{csrc}/decode.cu",
          "replaces": "src/repro/kernels/decode.py:68", "launches": launches["decode"], **dec},
     ]
+    for name, source, line in (("delta", "delta.cu", 50), ("flash_dq", "flash_backward.cu", 114),
+                               ("flash_dkv", "flash_backward.cu", 199),
+                               ("distr_dq", "distr_backward.cu", 306),
+                               ("distr_dkv", "distr_backward.cu", 398)):
+        kernels.append({"name": f"{name}_bwd",
+                        "route": "cuda", "source": f"{csrc}/{source}",
+                        "replaces": f"src/repro/kernels/backward.py:{line}",
+                        "launches": launches[name], **back[name]})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: kern[k] for k in keys} for kern in kernels]

@@ -6,6 +6,7 @@ import importlib
 from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES = {
+    "minicpm-2b": "repro_torch.configs.minicpm_2b",
     "starcoder2-7b": "repro_torch.configs.starcoder2_7b",
 }
 

@@ -2,7 +2,7 @@
 
 One ``ModelConfig`` per architecture; ``configs/<arch>.py`` holds the
 published dimensions plus a ``reduced()`` variant for CPU tests.  Only the
-fields the dense slot-engine path reads are carried over.
+fields the dense slot-engine and training paths read are carried over.
 """
 from __future__ import annotations
 
@@ -26,12 +26,17 @@ class ModelConfig:
     vocab: int
     head_dim: int = 0  # 0 → d_model // n_heads
     qkv_bias: bool = False
+    tie_embeddings: bool = False  # the LM head reads the embedding table
     act: str = "silu"  # silu (SwiGLU) | gelu (tanh approximation)
     norm: str = "rmsnorm"  # rmsnorm | layernorm
     rope_theta: float = 10000.0  # RoPE on every layer
     norm_eps: float = 1e-6
     attention: AttentionConfig = field(default_factory=AttentionConfig)
-    compute_dtype: str = "bfloat16"  # weights, activations and caches
+    compute_dtype: str = "bfloat16"  # activations and caches; serving's weights
+    # training
+    param_dtype: str = "float32"  # master weights (AdamW moments are f32)
+    remat: str = "full"  # full (recompute each block in the backward) | none
+    schedule: str = "cosine"  # cosine | wsd
 
     @property
     def padded_vocab(self) -> int:

@@ -1,0 +1,35 @@
+"""minicpm-2b [dense] — 40L d=2304 36H (kv=36) ff=5760 vocab=122753.
+WSD schedule, llama-like trunk, tied embeddings.  [arXiv:2404.06395; hf]
+"""
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.api import AttentionConfig
+from repro_torch.core.distr_attention import DistrConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="minicpm-2b",
+        family="dense",
+        n_layers=40,
+        d_model=2304,
+        n_heads=36,
+        n_kv_heads=36,
+        d_ff=5760,
+        vocab=122753,
+        head_dim=64,
+        tie_embeddings=True,
+        schedule="wsd",
+        attention=AttentionConfig(
+            impl="distr",
+            distr=DistrConfig(group_size=2, block_q=128),
+        ),
+    )
+
+
+def reduced() -> ModelConfig:
+    return config().replace(
+        compute_dtype="float32",
+        n_layers=2, d_model=128, n_heads=4, n_kv_heads=4, head_dim=32,
+        d_ff=256, vocab=512,
+        attention=AttentionConfig(impl="distr", distr=DistrConfig(group_size=2, block_q=32)),
+    )

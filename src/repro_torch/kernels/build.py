@@ -39,6 +39,11 @@ SIGNATURES = {
                         _I, _P),
     "repro_decode_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _P),
+    "repro_delta": (_P, _P, _P, _I, _I, _I, _P),
+    "repro_flash_dq": (_P,) * 7 + (_I,) * 7 + (_F, _I, _P),
+    "repro_flash_dkv": (_P,) * 8 + (_I,) * 7 + (_F, _I, _P),
+    "repro_distr_dq": (_P,) * 8 + (_I,) * 11 + (_P,),
+    "repro_distr_dkv": (_P,) * 9 + (_I,) * 11 + (_P,),
 }
 
 _lock = threading.Lock()

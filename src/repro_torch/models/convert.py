@@ -2,7 +2,7 @@
 
 The reference keeps per-layer parameters stacked on axis 0 under
 ``blocks`` and linear weights as ``(d_in, d_out)``; the port keeps the same
-layout, one dict per layer.
+layout, one dict per layer.  A tied-embedding tree has no ``lm_head``.
 """
 from __future__ import annotations
 
@@ -37,15 +37,18 @@ def _convert(tree, path, cdtype, device):
 
 
 def from_jax_params(params_np: dict, cfg, *, proj: np.ndarray | None = None,
-                    device: str | torch.device = "cuda") -> dict:
+                    device: str | torch.device = "cuda",
+                    dtype: torch.dtype | None = None) -> dict:
     """Reference ``lm.init_params`` tree (numpy leaves, ``blocks`` stacked on
-    the layer axis) → the port's parameter dict.  ``proj`` is the
+    the layer axis) → the port's parameter dict, with matmul weights,
+    tables and biases in ``dtype`` (default the compute dtype, as serving
+    holds them; training passes ``lm.param_dtype(cfg)``).  ``proj`` is the
     reference's LSH projection ``(16, block_q)``; without it the port's
     own seeded projection is kept."""
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r}: the port serves dense models")
     dev = resolve_device(device)
-    cdtype = compute_dtype(cfg)
+    cdtype = dtype or compute_dtype(cfg)
     blocks = [_convert(_layer(params_np["blocks"], i), ("blocks",), cdtype, dev)
               for i in range(cfg.n_layers)]
     params = {
@@ -55,5 +58,6 @@ def from_jax_params(params_np: dict, cfg, *, proj: np.ndarray | None = None,
         "lsh_proj": (_tensor(proj, torch.float32, dev) if proj is not None
                      else init_lsh_projection(cfg, dev)),
     }
-    params["lm_head"] = _convert(params_np["lm_head"], ("lm_head",), cdtype, dev)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _convert(params_np["lm_head"], ("lm_head",), cdtype, dev)
     return params

@@ -64,6 +64,11 @@ def embedding_apply(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     return params["table"][tokens]
 
 
+def embedding_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Tied-embedding readout: ``x @ tableᵀ`` in x's dtype."""
+    return x @ params["table"].to(x.dtype).T
+
+
 def rope_frequencies(dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
                                          device=device) / dim))

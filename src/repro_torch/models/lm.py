@@ -1,22 +1,34 @@
-"""Dense decoder LM: init, trunk, logits.
+"""Dense decoder LM: init, trunk, logits, loss.
 
 Parameters are a dict: ``embed``, ``blocks`` (one dict per layer),
-``final_norm``, ``lm_head`` (untied) and ``lsh_proj`` — the fixed LSH projection of
-the DistrAttention impls, model state drawn once at init.
+``final_norm``, ``lm_head`` (absent under tied embeddings, where the LM head
+reads the embedding table) and ``lsh_proj`` — the fixed LSH projection of
+the DistrAttention impls, model state drawn once at init and never trained.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import lsh
 from repro_torch.models import layers, transformer
 from repro_torch.utils.device import resolve_device
 
 PAD_LOGIT = -1e30
+Z_LOSS_WEIGHT = 1e-4
+
+
+def _dtype(name: str) -> torch.dtype:
+    return torch.bfloat16 if name == "bfloat16" else torch.float32
 
 
 def compute_dtype(cfg) -> torch.dtype:
-    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    return _dtype(cfg.compute_dtype)
+
+
+def param_dtype(cfg) -> torch.dtype:
+    """The dtype training holds its master weights in."""
+    return _dtype(cfg.param_dtype)
 
 
 def init_lsh_projection(cfg, device) -> torch.Tensor:
@@ -27,42 +39,76 @@ def init_lsh_projection(cfg, device) -> torch.Tensor:
 
 
 def init_params(cfg, generator: torch.Generator | None = None,
-                device: str | torch.device = "cuda") -> dict:
+                device: str | torch.device = "cuda", dtype: torch.dtype | None = None) -> dict:
     """Random weights with the reference's distributions, drawn on
     ``device``: linear ``normal · d_in^-0.5`` with zero biases, embedding
     ``normal · 0.02``, norms ones/zeros.  Matmul weights, embeddings and
-    biases are held in the compute dtype, norm parameters in f32.
-    Raises when ``device`` is CUDA and CUDA is absent."""
+    biases are held in ``dtype`` — by default the compute dtype, as serving
+    holds them; training passes ``param_dtype(cfg)`` — and norm parameters in
+    f32.  Raises when ``device`` is CUDA and CUDA is absent."""
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r}: the port serves dense models")
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    dtype = compute_dtype(cfg)
+    dtype = dtype or compute_dtype(cfg)
     params = {
         "embed": layers.embedding_init(generator, cfg.padded_vocab, cfg.d_model, dtype),
         "blocks": [transformer.block_init(generator, cfg, dtype) for _ in range(cfg.n_layers)],
         "final_norm": transformer.norm_init(cfg, dev),
         "lsh_proj": init_lsh_projection(cfg, dev),
-        "lm_head": layers.linear_init(generator, cfg.d_model, cfg.padded_vocab, dtype=dtype),
     }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = layers.linear_init(generator, cfg.d_model, cfg.padded_vocab,
+                                               dtype=dtype)
     return params
+
+
+def trainable(params: dict) -> list[torch.Tensor]:
+    """The trained leaves of ``params`` in a fixed order: every tensor but
+    the LSH projection."""
+    leaves: list[torch.Tensor] = []
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            for key in sorted(tree):
+                walk(tree[key])
+        elif isinstance(tree, list):
+            for item in tree:
+                walk(item)
+        else:
+            leaves.append(tree)
+
+    walk({k: v for k, v in params.items() if k != "lsh_proj"})
+    return leaves
 
 
 def embed(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
     return layers.embedding_apply(params["embed"], tokens).to(compute_dtype(cfg))
 
 
+def _block_hidden(lp: dict, x: torch.Tensor, cfg, positions, proj) -> torch.Tensor:
+    return transformer.block_apply(lp, x, cfg, positions=positions, proj=proj)[0]
+
+
 def backbone(params: dict, cfg, tokens: torch.Tensor, *, collect_cache: bool = False):
     """Trunk → (hidden (B, N, D) after the final norm, kv) where kv is a
-    list of per-layer (k, v) (B, Hkv, N, dh) when ``collect_cache``."""
+    list of per-layer (k, v) (B, Hkv, N, dh) when ``collect_cache``.
+
+    Under autograd with ``cfg.remat == "full"`` each block is one
+    ``checkpoint``: only its input is kept, and the backward recomputes the
+    block (the reference's ``_remat``)."""
     x = embed(params, cfg, tokens)
     b, n = tokens.shape
     positions = torch.arange(n, device=tokens.device).expand(b, n)
+    proj = params.get("lsh_proj")
+    remat = cfg.remat == "full" and torch.is_grad_enabled() and not collect_cache
     kvs = []
     for lp in params["blocks"]:
-        x, kv = transformer.block_apply(lp, x, cfg, positions=positions,
-                                        proj=params.get("lsh_proj"))
+        if remat:
+            x = checkpoint(_block_hidden, lp, x, cfg, positions, proj, use_reentrant=False)
+            continue
+        x, kv = transformer.block_apply(lp, x, cfg, positions=positions, proj=proj)
         if collect_cache:
             kvs.append(kv)
     x = transformer.norm_apply(params["final_norm"], x, cfg)
@@ -70,7 +116,10 @@ def backbone(params: dict, cfg, tokens: torch.Tensor, *, collect_cache: bool = F
 
 
 def logits_fn(params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
-    logits = layers.linear_apply(params["lm_head"], hidden)
+    if cfg.tie_embeddings:
+        logits = layers.embedding_logits(params["embed"], hidden)
+    else:
+        logits = layers.linear_apply(params["lm_head"], hidden)
     if cfg.padded_vocab != cfg.vocab:
         pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab
         logits = logits.masked_fill(pad, PAD_LOGIT)
@@ -81,3 +130,19 @@ def forward(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
     """Full-sequence logits (B, N, padded_vocab)."""
     hidden, _ = backbone(params, cfg, tokens)
     return logits_fn(params, cfg, hidden)
+
+
+def loss_fn(params: dict, cfg, batch: dict):
+    """Next-token cross-entropy over f32 logits plus the 1e-4 z-loss →
+    (loss, metrics).  Labels below 0 are masked out.  The reference adds a
+    router aux term; a dense model has none, so ``aux`` is 0."""
+    logits = forward(params, cfg, batch["tokens"]).float()
+    labels = batch["labels"].long()
+    mask = (labels >= 0).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    nll = lse - logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    denom = mask.sum().clamp(min=1.0)
+    ce = (nll * mask).sum() / denom
+    zloss = (lse.square() * mask).sum() / denom
+    aux = torch.zeros((), device=logits.device)
+    return ce + Z_LOSS_WEIGHT * zloss, {"ce": ce, "aux": aux, "zloss": zloss}

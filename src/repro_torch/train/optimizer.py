@@ -1,0 +1,88 @@
+"""AdamW with LR schedules (constant, cosine, WSD), as ``repro.train.optimizer``.
+
+Parameters, gradients and both moments are flat lists of tensors in
+``lm.trainable`` order; the moments are f32.  ``clip_by_global_norm`` and
+``adamw_update`` work in place, so training holds one copy of the params,
+one of the grads and one of each moment on the card (16 bytes a parameter).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    peak_lr: float = 3e-4
+    min_lr_ratio: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    schedule: str = "cosine"  # cosine | wsd | constant
+    wsd_decay_frac: float = 0.1  # WSD: final fraction of steps spent decaying
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    grad_accum: int = 1  # microbatch accumulation steps
+
+
+def schedule(opt_cfg: OptimizerConfig, step: int) -> float:
+    """Learning rate at ``step``: linear warmup, then the configured decay."""
+    warm = opt_cfg.warmup_steps
+    total = opt_cfg.total_steps
+    peak = opt_cfg.peak_lr
+    floor = peak * opt_cfg.min_lr_ratio
+    if step < warm:
+        return peak * step / max(warm, 1)
+    if opt_cfg.schedule == "constant":
+        return peak
+    if opt_cfg.schedule == "cosine":
+        frac = min(max((step - warm) / max(total - warm, 1), 0.0), 1.0)
+        return floor + 0.5 * (peak - floor) * (1 + math.cos(math.pi * frac))
+    if opt_cfg.schedule == "wsd":
+        # Warmup-Stable-Decay (minicpm): hold at peak, then decay linearly
+        # over the final wsd_decay_frac of training.
+        decay_steps = max(total * opt_cfg.wsd_decay_frac, 1)
+        frac = min(max((step - (total - decay_steps)) / decay_steps, 0.0), 1.0)
+        return peak - (peak - floor) * frac
+    raise ValueError(f"unknown schedule {opt_cfg.schedule!r}")
+
+
+def adamw_init(params: list[torch.Tensor]) -> dict:
+    zeros = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in params]
+    return {"m": zeros, "v": [torch.zeros_like(z) for z in zeros], "count": 0}
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float):
+    """Scale ``grads`` in place so their global norm is at most
+    ``max_norm`` → (grads, their global f32 norm before clipping)."""
+    gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    for g in grads:
+        g.mul_(scale.to(g.dtype))
+    return grads, gnorm
+
+
+@torch.no_grad()
+def adamw_update(params: list[torch.Tensor], grads: list[torch.Tensor], state: dict,
+                 opt_cfg: OptimizerConfig, lr: float):
+    """One AdamW step, in place on ``params`` and ``state`` →
+    (params, state).  Decoupled weight decay on every float leaf."""
+    count = state["count"] + 1
+    b1, b2 = opt_cfg.b1, opt_cfg.b2
+    c1 = 1.0 - b1 ** count
+    c2 = 1.0 - b2 ** count
+    for p, g, m, v in zip(params, grads, state["m"], state["v"]):
+        g = g.float()
+        m.mul_(b1).add_(g, alpha=1 - b1)
+        v.mul_(b2).addcmul_(g, g, value=1 - b2)
+        step = (m / c1) / (torch.sqrt(v / c2) + opt_cfg.eps)
+        if opt_cfg.weight_decay:
+            step.add_(p.float(), alpha=opt_cfg.weight_decay)
+        p.copy_(p.float() - lr * step)
+    state["count"] = count
+    return params, state

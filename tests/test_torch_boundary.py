@@ -11,10 +11,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import backward as bwd  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import decode as dec  # noqa: E402
 from repro_torch.kernels import distr_attention as dk  # noqa: E402
 from repro_torch.kernels import flash_attention as fk  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.serve import run  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
@@ -66,13 +68,19 @@ def test_entry_points_raise_without_cuda():
         ServeEngine(cfg, params)
     with pytest.raises(RuntimeError, match="CUDA"):
         run(cfg, params, requests=1)
+    train_cfg = get_config("minicpm-2b", reduced=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_train.init_train_params(train_cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_train.run(train_cfg, launch_train.init_train_params(train_cfg, device="cpu"),
+                         steps=1)
 
 
 def test_cpu_tensors_take_the_plain_path_without_counting():
     g = torch.Generator().manual_seed(0)
     q = torch.randn(4, 64, 64, generator=g)
     k = torch.randn(2, 64, 64, generator=g)
-    before = (fk.launches, dk.launches, dec.launches)
+    before = (fk.launches, dk.launches, dec.launches, dict(bwd.launches))
 
     o = fk.flash_attention_kernel_call(q, k, k, q_per_kv=2, scale=0.125, causal=True,
                                        kv_len=64)
@@ -88,7 +96,21 @@ def test_cpu_tensors_take_the_plain_path_without_counting():
     want = dec.decode_plain(qd, kd, kd, lengths, scale=0.125, block_k=32, q_len=1)
     assert all(torch.equal(a, b) for a, b in zip(o, want))
 
-    assert (fk.launches, dk.launches, dec.launches) == before
+    lse = torch.zeros(4, 64)
+    assert torch.equal(bwd.delta_kernel_call(q, q), bwd.delta_plain(q, q))
+    fkw = dict(q_per_kv=2, scale=0.125, causal=True, kv_len=64)
+    assert torch.equal(bwd.flash_dq_kernel_call(q, k, k, q, lse, lse, **fkw),
+                       bwd.flash_dq_plain(q, k, k, q, lse, lse, **fkw))
+    got = bwd.flash_dkv_kernel_call(q, k, k, q, lse, lse, **fkw)
+    assert all(torch.equal(a, b) for a, b in zip(got, bwd.flash_dkv_plain(
+        q, k, k, q, lse, lse, **fkw)))
+    assert torch.equal(bwd.distr_dq_kernel_call(q[..., :32], k, k, perm, q, lse, lse, **kw),
+                       bwd.distr_dq_plain(q[..., :32], k, k, perm, q, lse, lse, **kw))
+    got = bwd.distr_dkv_kernel_call(q[..., :32], k, k, perm, q, lse, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, bwd.distr_dkv_plain(
+        q[..., :32], k, k, perm, q, lse, lse, **kw)))
+
+    assert (fk.launches, dk.launches, dec.launches, bwd.launches) == before
 
 
 def test_non_cpu_non_cuda_tensor_raises_instead_of_falling_back():
@@ -100,5 +122,9 @@ def test_non_cpu_non_cuda_tensor_raises_instead_of_falling_back():
 
 def test_kernel_sources_are_found_without_building():
     names = [p.name for p in build.sources()]
-    assert names == ["decode.cu", "distr_attention.cu", "flash_attention.cu"]
+    assert names == ["decode.cu", "delta.cu", "distr_attention.cu", "distr_backward.cu",
+                     "flash_attention.cu", "flash_backward.cu"]
+    assert set(build.SIGNATURES) == {
+        "repro_flash_fwd", "repro_distr_fwd", "repro_decode_fwd", "repro_delta",
+        "repro_flash_dq", "repro_flash_dkv", "repro_distr_dq", "repro_distr_dkv"}
     assert len(build.source_hash()) == 16

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small shapes and edge cases (ragged tiles, kv_len below the buffer,
-length 0, 32 packed rows, f32 and bf16).  Marked ``cuda``; skips without a
-GPU.  This file imports neither JAX nor the JAX package, so on a machine
+length 0, 32 packed rows, f32 and bf16), forward and backward, and the
+differentiable ops on the card against the same ops on the CPU.  Marked
+``cuda``; skips without a GPU.  This file imports neither JAX nor the JAX package, so on a machine
 without JAX it runs alone:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -10,12 +11,18 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core.distr_attention import DistrConfig  # noqa: E402
+from repro_torch.kernels import backward as bwd  # noqa: E402
 from repro_torch.kernels import decode as dec  # noqa: E402
 from repro_torch.kernels import distr_attention as dk  # noqa: E402
 from repro_torch.kernels import flash_attention as fk  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# Backward outputs are f32 on both sides, computed in f32 from the same
+# inputs; they differ only in summation order and exp.
+BWD_TOL = 1e-3
 
 
 @pytest.fixture
@@ -54,17 +61,113 @@ def test_flash_kernel_matches_plain(cuda, dtype, n, nk, kv_len, d, causal):
     torch.testing.assert_close(lse, lse_p, atol=1e-3, rtol=1e-3)
 
 
+def _perms(bhq, n, block_q, d):
+    perm = torch.stack([torch.randperm(d, device="cuda") for _ in range(bhq * (n // block_q))])
+    return perm.reshape(bhq, n // block_q, d)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,g,block_q,causal", [(128, 2, 64, True), (256, 4, 128, False)])
-def test_distr_kernel_matches_plain(cuda, dtype, n, g, block_q, causal):
-    d = 128
+@pytest.mark.parametrize("n,g,block_q,causal,d", [
+    (128, 2, 64, True, 128), (256, 4, 128, False, 128),
+    (256, 2, 128, True, 64),  # the training path's head: d = 64, d/G* = 32
+])
+def test_distr_kernel_matches_plain(cuda, dtype, n, g, block_q, causal, d):
     q_hat = _randn((4, n, d // g), dtype, 3)
     k, v = _randn((2, n - 7, d), dtype, 4), _randn((2, n - 7, d), dtype, 5)
-    perm = torch.stack([torch.randperm(d, device="cuda") for _ in range(4 * (n // block_q))])
-    perm = perm.reshape(4, n // block_q, d)
+    perm = _perms(4, n, block_q, d)
+    kw = dict(q_per_kv=2, causal=causal, group_size=g, block_q=block_q, kv_len=n - 7,
+              return_lse=True)
+    o, lse = dk.distr_attention_kernel_call(q_hat, k, v, perm, **kw)
+    o_p, lse_p = dk.distr_attention_plain(q_hat, k, v, perm, **kw)
+    _close(o, o_p, dtype)
+    torch.testing.assert_close(lse, lse_p, atol=1e-3, rtol=1e-3)
+
+
+def _bwd_close(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=BWD_TOL, rtol=BWD_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,nk,kv_len,d,causal", [
+    (1, 1, 1, 64, True),
+    (100, 100, 100, 64, True),    # ragged row and key tiles: rows past N take LSE_PAD
+    (64, 200, 150, 128, False),   # kv_len below the buffer
+    (130, 130, 130, 128, True),
+    (64, 64, 0, 64, False),       # every row fully masked: exactly zero
+])
+def test_flash_backward_kernels_match_plain(cuda, dtype, n, nk, kv_len, d, causal):
+    q, k, v = _randn((6, n, d), dtype, 10), _randn((2, nk, d), dtype, 11), _randn((2, nk, d), dtype, 12)
+    do = _randn((6, n, d), dtype, 13)
+    kw = dict(q_per_kv=3, scale=d ** -0.5, causal=causal, kv_len=kv_len)
+    o, lse = fk.flash_attention_kernel_call(q, k, v, return_lse=True, **kw)
+    before = dict(bwd.launches)
+    delta = bwd.delta_kernel_call(o, do)
+    _bwd_close(delta, bwd.delta_plain(o, do))
+    _bwd_close(bwd.flash_dq_kernel_call(q, k, v, do, lse, delta, **kw),
+               bwd.flash_dq_plain(q, k, v, do, lse, delta, **kw))
+    got = bwd.flash_dkv_kernel_call(q, k, v, do, lse, delta, **kw)
+    for g_, w_ in zip(got, bwd.flash_dkv_plain(q, k, v, do, lse, delta, **kw)):
+        _bwd_close(g_, w_)
+        if kv_len == 0:
+            assert torch.equal(g_, torch.zeros_like(g_))
+    assert {k_: bwd.launches[k_] - before[k_] for k_ in before} == {
+        "delta": 1, "flash_dq": 1, "flash_dkv": 1, "distr_dq": 0, "distr_dkv": 0}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,g,block_q,causal,d", [
+    (128, 2, 64, True, 128), (256, 4, 128, False, 128), (256, 2, 128, True, 64),
+    (192, 4, 64, True, 64),  # d/G* = 16: half a thread row of score columns
+])
+def test_distr_backward_kernels_match_plain(cuda, dtype, n, g, block_q, causal, d):
+    q_hat = _randn((4, n, d // g), dtype, 14)
+    k, v = _randn((2, n - 7, d), dtype, 15), _randn((2, n - 7, d), dtype, 16)
+    do = _randn((4, n, d), dtype, 17)
+    perm = _perms(4, n, block_q, d)
     kw = dict(q_per_kv=2, causal=causal, group_size=g, block_q=block_q, kv_len=n - 7)
-    _close(dk.distr_attention_kernel_call(q_hat, k, v, perm, **kw),
-           dk.distr_attention_plain(q_hat, k, v, perm, **kw), dtype)
+    o, lse = dk.distr_attention_kernel_call(q_hat, k, v, perm, return_lse=True, **kw)
+    delta = bwd.delta_kernel_call(o, do)
+    _bwd_close(bwd.distr_dq_kernel_call(q_hat, k, v, perm, do, lse, delta, **kw),
+               bwd.distr_dq_plain(q_hat, k, v, perm, do, lse, delta, **kw))
+    got = bwd.distr_dkv_kernel_call(q_hat, k, v, perm, do, lse, delta, **kw)
+    for g_, w_ in zip(got, bwd.distr_dkv_plain(q_hat, k, v, perm, do, lse, delta, **kw)):
+        _bwd_close(g_, w_)
+
+
+@pytest.mark.parametrize("call", [bwd.distr_dq_kernel_call, bwd.distr_dkv_kernel_call])
+def test_distr_backward_rejects_group_size_one(cuda, call):
+    """The backward kernels hold at most d/2 score columns per row."""
+    n, d = 64, 64
+    q_hat, k, v, do = (_randn(s, torch.float32, 30 + i) for i, s in
+                       enumerate([(2, n, d), (2, n, d), (2, n, d), (2, n, d)]))
+    lse = delta = torch.zeros((2, n), device="cuda")
+    before = dict(bwd.launches)
+    with pytest.raises(ValueError, match="G\\* >= 2"):
+        call(q_hat, k, v, _perms(2, n, 64, d), do, lse, delta, q_per_kv=1, causal=True,
+             group_size=1, block_q=64, kv_len=n)
+    assert bwd.launches == before
+
+
+@pytest.mark.parametrize("impl", ["flash", "distr"])
+def test_op_gradients_on_card_match_cpu(cuda, impl):
+    """The autograd ops on CUDA tensors (kernels) against the same ops on
+    CPU tensors (plain versions), f32, GQA 4 over 2, ragged N = 100."""
+    b, hq, hkv, n, d = 2, 4, 2, 100, 64
+    cfg = DistrConfig(group_size=2, block_q=64)
+    fn = ((lambda q, k, v: ops.flash_attention(q, k, v, causal=True)) if impl == "flash" else
+          (lambda q, k, v: ops.distr_attention(q, k, v, cfg, causal=True)))
+    ins = [_randn(s, torch.float32, 20 + i)
+           for i, s in enumerate([(b, hq, n, d), (b, hkv, n, d), (b, hkv, n, d)])]
+    w = torch.cos(torch.arange(d, dtype=torch.float32))
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        xs = [x.detach().to(dev).requires_grad_(True) for x in ins]
+        (fn(*xs) * w.to(dev)).sum().backward()
+        grads[dev] = [x.grad for x in xs]
+    for g_cuda, g_cpu in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(g_cuda.cpu(), g_cpu, atol=BWD_TOL, rtol=BWD_TOL)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,0 +1,248 @@
+"""Port parity on the training path's attention: the backward kernels' plain
+versions (``repro_torch.kernels.backward``) against the reference's Pallas
+backward kernels in interpret mode, and gradients through
+``repro_torch.kernels.ops`` against ``jax.grad`` of the reference ops, on
+the same numpy inputs.  Tolerances are the reference's own
+(tests/test_kernels_grad.py): 1e-4 in f32, 1e-2 in bf16."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import DistrConfig as RefDistrConfig  # noqa: E402
+from repro.core import lsh as rl  # noqa: E402
+from repro.kernels import backward as rbwd  # noqa: E402
+from repro.kernels import ops as rops  # noqa: E402
+from repro_torch.core.distr_attention import DistrConfig  # noqa: E402
+from repro_torch.kernels import backward as bwd  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels.distr_attention import distr_attention_plain  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
+
+BLOCK = 32
+DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+TOL = {"f32": 1e-4, "bf16": 1e-2}
+
+
+def _randn(rng, *shape) -> np.ndarray:
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x))
+
+
+def _close(got, want, tol, what=""):
+    np.testing.assert_allclose(got.detach().float().numpy(), np.asarray(want, np.float32),
+                               atol=tol, rtol=tol, err_msg=what)
+
+
+# ---------------------------------------------------------------------------
+# The plain versions against the reference kernels
+# ---------------------------------------------------------------------------
+
+
+def test_delta_matches_reference():
+    rng = np.random.default_rng(0)
+    o, do = _randn(rng, 4, 64, 32), _randn(rng, 4, 64, 32)
+    want = rbwd.delta_kernel_call(jnp.asarray(o), jnp.asarray(do), block_q=BLOCK)
+    _close(bwd.delta_kernel_call(_t(o), _t(do)), want, 1e-5)
+
+
+@pytest.mark.parametrize("causal,kv_len", [(True, 64), (False, 50)])
+def test_flash_backward_plain_matches_reference(causal, kv_len):
+    rng = np.random.default_rng(1)
+    q, k, v, do = (_randn(rng, 4, 64, 32), _randn(rng, 2, 64, 32), _randn(rng, 2, 64, 32),
+                   _randn(rng, 4, 64, 32))
+    kw = dict(q_per_kv=2, scale=32 ** -0.5, causal=causal, kv_len=kv_len)
+    o, lse = flash_attention_plain(_t(q), _t(k), _t(v), return_lse=True, **kw)
+    delta = bwd.delta_plain(o, _t(do))
+    args_t = (_t(q), _t(k), _t(v), _t(do), lse, delta)
+    args_j = tuple(jnp.asarray(x.numpy() if isinstance(x, torch.Tensor) else x)
+                   for x in (q, k, v, do, lse, delta))
+    rkw = dict(kw, block_q=BLOCK, block_k=BLOCK)
+    _close(bwd.flash_dq_kernel_call(*args_t, **kw), rbwd.flash_dq_kernel_call(*args_j, **rkw),
+           1e-4, "dq")
+    for got, want, name in zip(bwd.flash_dkv_kernel_call(*args_t, **kw),
+                               rbwd.flash_dkv_kernel_call(*args_j, **rkw), "kv"):
+        _close(got, want, 1e-4, f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_distr_backward_plain_matches_reference(causal):
+    """The dkv plain version keeps the reference's inverse-permutation
+    gather; the reference kernel is handed argsort(perm) as its inv_perm."""
+    rng = np.random.default_rng(2)
+    g, d, n = 2, 32, 64
+    q_hat, k, v, do = (_randn(rng, 4, n, d // g), _randn(rng, 2, n, d), _randn(rng, 2, n, d),
+                       _randn(rng, 4, n, d))
+    perm = np.stack([rng.permutation(d) for _ in range(4 * n // BLOCK)]).astype(np.int32)
+    perm = perm.reshape(4, n // BLOCK, d)
+    kw = dict(q_per_kv=2, causal=causal, group_size=g, block_q=BLOCK, kv_len=n)
+    o, lse = distr_attention_plain(_t(q_hat), _t(k), _t(v), _t(perm), return_lse=True, **kw)
+    delta = bwd.delta_plain(o, _t(do))
+    args_t = (_t(q_hat), _t(k), _t(v), _t(perm), _t(do), lse, delta)
+    jx = {name: jnp.asarray(x.numpy() if isinstance(x, torch.Tensor) else x)
+          for name, x in dict(q_hat=q_hat, k=k, v=v, perm=perm, do=do, lse=lse,
+                              delta=delta).items()}
+    rkw = dict(kw, block_k=BLOCK)
+    want_dq = rbwd.distr_dq_kernel_call(jx["q_hat"], jx["k"], jx["v"], jx["perm"], jx["do"],
+                                        jx["lse"], jx["delta"], **rkw)
+    _close(bwd.distr_dq_kernel_call(*args_t, **kw), want_dq, 1e-4, "dq_hat")
+    inv_perm = jnp.argsort(jx["perm"], axis=-1).astype(jnp.int32)
+    want_dkv = rbwd.distr_dkv_kernel_call(jx["q_hat"], jx["k"], jx["v"], jx["perm"], inv_perm,
+                                          jx["do"], jx["lse"], jx["delta"], **rkw)
+    for got, want, name in zip(bwd.distr_dkv_kernel_call(*args_t, **kw), want_dkv, "kv"):
+        _close(got, want, 1e-4, f"d{name}")
+
+
+# ---------------------------------------------------------------------------
+# Gradients through the ops against jax.grad of the reference ops
+# ---------------------------------------------------------------------------
+
+
+def _inputs(seed, b, hq, hkv, n, d, dtype):
+    rng = np.random.default_rng(seed)
+    arrays = (_randn(rng, b, hq, n, d), _randn(rng, b, hkv, n, d), _randn(rng, b, hkv, n, d))
+    jd, td = DTYPES[dtype]
+    return ([jnp.asarray(x).astype(jd) for x in arrays],
+            [torch.from_numpy(x).to(td).requires_grad_(True) for x in arrays])
+
+
+def _weights(d):
+    """Non-uniform cotangent so dO varies per output column."""
+    return np.cos(np.arange(d)).astype(np.float32)
+
+
+def _grads_match(port_fn, ref_fn, seed, b, hq, hkv, n, d, dtype):
+    (qj, kj, vj), (qt, kt, vt) = _inputs(seed, b, hq, hkv, n, d, dtype)
+    w = _weights(d)
+    want = jax.grad(lambda q, k, v: (ref_fn(q, k, v).astype(jnp.float32) * w).sum(),
+                    argnums=(0, 1, 2))(qj, kj, vj)
+    (port_fn(qt, kt, vt).float() * torch.from_numpy(w)).sum().backward()
+    for t, j, name in zip((qt, kt, vt), want, "qkv"):
+        assert t.grad.dtype == t.dtype and t.grad.shape == t.shape
+        _close(t.grad, j, TOL[dtype], f"d{name}")
+
+
+FLASH_CASES = [
+    # (b, hq, hkv, n, d, dtype, causal)
+    (1, 2, 2, 64, 32, "f32", False),
+    (2, 4, 2, 64, 32, "f32", True),    # GQA 4 over 2
+    (1, 4, 2, 50, 32, "f32", True),    # ragged N
+    (1, 4, 2, 50, 32, "f32", False),
+    (2, 4, 2, 64, 32, "bf16", True),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,n,d,dtype,causal", FLASH_CASES)
+def test_flash_grad_matches_jax_grad(b, hq, hkv, n, d, dtype, causal):
+    _grads_match(
+        lambda q, k, v: tops.flash_attention(q, k, v, causal=causal),
+        lambda q, k, v: rops.flash_attention(q, k, v, causal=causal, block_q=BLOCK,
+                                             block_k=BLOCK),
+        0, b, hq, hkv, n, d, dtype,
+    )
+
+
+DISTR_CASES = [
+    # (b, hq, hkv, n, d, dtype, causal, cfg_kw)
+    (1, 2, 2, 64, 32, "f32", False, {}),
+    (2, 4, 2, 64, 32, "f32", True, {}),                       # GQA 4 over 2
+    (1, 4, 2, 50, 32, "f32", True, {}),                       # ragged N: Q padded
+    (2, 4, 2, 64, 32, "f32", True, {"estimator": "mean"}),
+    (1, 4, 2, 50, 32, "f32", False, {"estimator": "mean"}),
+    (2, 4, 2, 64, 32, "f32", True, {"shared_kv_perm": True}),
+    (2, 4, 2, 64, 32, "bf16", True, {}),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,n,d,dtype,causal,cfg_kw", DISTR_CASES)
+def test_distr_grad_matches_jax_grad(b, hq, hkv, n, d, dtype, causal, cfg_kw):
+    rcfg = RefDistrConfig(group_size=2, block_q=BLOCK, block_k=BLOCK, **cfg_kw)
+    tcfg = DistrConfig(group_size=2, block_q=BLOCK, **cfg_kw)
+    proj = _t(rl.make_projection(jax.random.PRNGKey(rcfg.proj_seed), BLOCK))
+    _grads_match(
+        lambda q, k, v: tops.distr_attention(q, k, v, tcfg, causal=causal, proj=proj),
+        lambda q, k, v: rops.distr_attention(q, k, v, rcfg, causal=causal),
+        1, b, hq, hkv, n, d, dtype,
+    )
+
+
+def test_distr_grad_straight_through_column_count():
+    """No gradient flows into the LSH stage: under ``sample`` exactly d/G*
+    columns of each Q block get gradient, the block's sampled ones."""
+    g, d, n = 2, 32, 64
+    _, (q, k, v) = _inputs(3, 1, 2, 2, n, d, "f32")
+    cfg = DistrConfig(group_size=g, block_q=BLOCK)
+    (tops.distr_attention(q, k, v, cfg, causal=False) * torch.from_numpy(_weights(d))).sum() \
+        .backward()
+    live = q.grad.abs().reshape(1, 2, n // BLOCK, BLOCK, d).sum(dim=3) > 0
+    assert (live.sum(dim=-1) == d // g).all()
+
+
+def test_fully_masked_rows_get_zero_gradient():
+    """A row that sees no key (forward LSE = -1e30) gets exactly zero dQ,
+    and adds nothing to dK / dV: no NaN anywhere."""
+    rng = np.random.default_rng(4)
+    q, k, do = _t(_randn(rng, 4, 32, 32)), _t(_randn(rng, 2, 32, 32)), _t(_randn(rng, 4, 32, 32))
+    kw = dict(q_per_kv=2, scale=0.125, causal=True, kv_len=0)
+    o, lse = flash_attention_plain(q, k, k, return_lse=True, **kw)
+    assert bool((lse == -1e30).all())
+    delta = bwd.delta_kernel_call(o, do)
+    dq = bwd.flash_dq_kernel_call(q, k, k, do, lse, delta, **kw)
+    dk, dv = bwd.flash_dkv_kernel_call(q, k, k, do, lse, delta, **kw)
+    for x in (dq, dk, dv):
+        assert torch.equal(x, torch.zeros_like(x))
+
+    perm = torch.stack([torch.randperm(32) for _ in range(4)]).reshape(4, 1, 32)
+    dkw = dict(q_per_kv=2, causal=True, group_size=2, block_q=32, kv_len=0)
+    q_hat = q[..., :16].contiguous()
+    o, lse = distr_attention_plain(q_hat, k, k, perm, return_lse=True, **dkw)
+    delta = bwd.delta_kernel_call(o, do)
+    dq_hat = bwd.distr_dq_kernel_call(q_hat, k, k, perm, do, lse, delta, **dkw)
+    dk, dv = bwd.distr_dkv_kernel_call(q_hat, k, k, perm, do, lse, delta, **dkw)
+    for x in (dq_hat, dk, dv):
+        assert torch.equal(x, torch.zeros_like(x))
+
+
+def test_padded_rows_with_lse_pad_add_nothing():
+    """The LSE_PAD rule: query rows past N, with LSE = LSE_PAD, dO = 0 and
+    D = 0, leave dK / dV exactly as without them."""
+    rng = np.random.default_rng(5)
+    q, k, v, do = (_t(_randn(rng, 2, 40, 32)), _t(_randn(rng, 2, 40, 32)),
+                   _t(_randn(rng, 2, 40, 32)), _t(_randn(rng, 2, 40, 32)))
+    kw = dict(q_per_kv=1, scale=32 ** -0.5, causal=False, kv_len=40)
+    o, lse = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    delta = bwd.delta_plain(o, do)
+    want = bwd.flash_dkv_plain(q, k, v, do, lse, delta, **kw)
+
+    def pad(x, value=0.0):
+        return torch.cat([x, torch.full((2, 24, *x.shape[2:]), value)], dim=1)
+
+    got = bwd.flash_dkv_plain(pad(q, 3.0), k, v, pad(do), pad(lse, bwd.LSE_PAD), pad(delta),
+                              **kw)
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_, w_)
+
+
+def test_primal_path_asks_for_no_lse(monkeypatch):
+    """Without grad the op runs the forward kernel alone, with no LSE;
+    with grad it asks for the LSE residual."""
+    calls = []
+    real = tops.flash_attention_kernel_call
+
+    def spy(*args, **kw):
+        calls.append(kw.get("return_lse", False))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tops, "flash_attention_kernel_call", spy)
+    _, (q, k, v) = _inputs(6, 1, 2, 2, 32, 32, "f32")
+    with torch.no_grad():
+        out = tops.flash_attention(q, k, v, causal=True)
+    assert out.grad_fn is None
+    tops.flash_attention(q, k, v, causal=True).sum().backward()
+    assert calls == [False, True]
