@@ -7,16 +7,21 @@ In order: prints the card's name and power limit; builds the CUDA kernels
 from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a; holds each
 kernel against its plain PyTorch version in bf16 at the shapes of the
 serving path (starcoder2-7b) and of the training path (minicpm-2b) — the
-forward kernels with their LSE, the five backward kernels at both — and
-times kernel, plain version and, as a yardstick only, one PyTorch library
-call; serves starcoder2-7b at full width with seeded random weights through
+forward kernels with their LSE, DistrAttention also at G* = 4, the decode
+and paged decode kernels, the five backward kernels at both — and times
+kernel, plain version and, as a yardstick only, one PyTorch library call;
+serves starcoder2-7b at full width with seeded random weights through
 ``repro_torch.launch.serve.run`` under ``pallas_distr`` and
 ``pallas_flash`` (6 requests on 4 slots, max_len 2048, 32 new tokens,
-greedy); then trains minicpm-2b at its published size with seeded random
-f32 params through ``repro_torch.launch.train.run`` under both impls (4
-steps of 4 × 2048 tokens, full remat), and profiles one more step per impl
-for the attention kernels' share.  Each kernel's launches are counted in
-the serve and train runs.  The line before the last is
+greedy); serves 8 requests with the same weights through
+``PagedServeEngine`` (block pool, continuous-batching scheduler, chunked
+prefill on the paged kernel): a raw-K pool, a fused-K̂ pool, a pool small
+enough to preempt, and an overload that turns on the degradation dial;
+then trains minicpm-2b at its published size with seeded random f32 params
+through ``repro_torch.launch.train.run`` under both impls (4 steps of
+4 × 2048 tokens, full remat), and profiles one more step per impl for the
+attention kernels' share.  Each kernel's launches are counted in the serve
+and train runs.  The line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero; without CUDA, or outside a checkout, it
 exits non-zero before any result.
@@ -29,6 +34,7 @@ import math
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -56,6 +62,18 @@ TRAIN_SHAPE = (36, 36, 64, 2)
 GQA_SHAPE = (36, 4, 128, 2)
 TRAIN_N = 2048
 TRAIN_BATCH, TRAIN_STEPS = 4, 4
+# The paged kernel at the serving shape: 8 requests, 36 query heads over 4
+# KV heads, head dim 128, 16 blocks of 128 per table; the last length
+# overhangs the table as a padded chunk window does.
+PAGED_LENGTHS = (1, 127, 128, 129, 1000, 1537, 2048, 2048 + 31)
+PAGED_PROMPTS = (96, 200, 517, 1000, 1100, 1536, 1800, 2000)
+PAGED_NEW = 32
+# The pressure run: the least pool the engine accepts (one whole request of
+# 16 blocks plus the garbage block) and 40 new tokens.  The admission
+# watermark keeps these prompts from ever preempting at 32 new tokens, at
+# any pool size from 17 to 40 blocks (the scheduler run on the CPU with a
+# fake engine); 40 is the fewest that make a decode grow into a full pool.
+PRESSURE_BLOCKS, PRESSURE_NEW = 17, 40
 # Kernel names (C++ templates) that count as attention in the profile.
 ATTN_KERNEL_NAMES = ("attn_fwd_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel",
                      "delta_kernel")
@@ -401,9 +419,122 @@ def decode_phase(torch, flush) -> dict:
     return out
 
 
-def serve_phase(torch) -> dict:
+def distr_g4_phase(torch, flush) -> dict:
+    """The DistrAttention forward kernel at G* = 4 (score width 32) at the
+    starcoder2-7b prefill shape, N = 2048, causal, bf16: the degraded
+    prefill's second level."""
+    from repro_torch.core.distr_attention import DistrConfig
+    from repro_torch.kernels import distr_attention as dk
+    from repro_torch.kernels import ops
+
+    hq, hkv, d, g, n = 36, 4, 128, 4, max(PREFILL_NS)
+    dcfg = DistrConfig(group_size=g, block_q=128)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((1, h, n, d), generator=gen, device="cuda").to(torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    kf, vf = k[0].contiguous(), v[0].contiguous()
+    q_hat, perms = ops.distr_stage1(dcfg, q, d ** -0.5, hkv=hkv)
+    q_hat, perm = q_hat[0].contiguous(), perms[0].to(torch.int32).contiguous()
+    dkw = dict(q_per_kv=hq // hkv, causal=True, group_size=g, block_q=dcfg.block_q, kv_len=n)
+    got = dk.distr_attention_kernel_call(q_hat, kf, vf, perm, **dkw)
+    want = dk.distr_attention_plain(q_hat, kf, vf, perm, **dkw)
+    torch.cuda.synchronize()
+    err = check_close(torch, f"distr G*=4 N={n}", got, want, TOL["distr"])
+    ms = time_ms(torch, lambda: dk.distr_attention_kernel_call(q_hat, kf, vf, perm, **dkw), 10, flush)
+    plain_ms = time_ms(torch, lambda: dk.distr_attention_plain(q_hat, kf, vf, perm, **dkw), 3, flush)
+    pairs = n * (n + 1) // 2 * hq
+    b_ms, b_by = bound((2 * (d // g) + 2 * d) * pairs,
+                       2 * (hq * n * (d // g) + 2 * hkv * n * d + hq * n * d)
+                       + 4 * hq * (n // dcfg.block_q) * d)
+    log(f"[prefill G*=4 N={n}] distr {ms:.3f} ms (plain {plain_ms:.3f}, bound {b_ms:.4f} by "
+        f"{b_by}) err {err:.3e}")
+    return {"n": n, "group_size": g, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": err}
+
+
+def paged_kernel_phase(torch, flush) -> dict:
+    """The paged decode kernel at the serving shape: B = 8, Hq 36 over Hkv 4,
+    d = 128, blocks of 128, 16 per table, a pool of 129 blocks whose physical
+    ids are shuffled from a seed and whose garbage block 0 holds NaN,
+    lengths PAGED_LENGTHS; q_len 1 (a decode tick) and 32 (a prefill chunk),
+    score width 128 (raw K) and 64 (fused K̂, G* = 2), bf16.  o, m and l are
+    held against the plain version element by element.  The yardstick is
+    SDPA with a boolean band mask over the same KV gathered into a
+    contiguous cache beforehand (the gather is not timed)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels.ops import _pack_gqa_rows
+
+    b, hq, hkv, d, bs, mb = len(PAGED_LENGTHS), 36, 4, 128, 128, 16
+    cap = bs * mb
+    lengths = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bt = (torch.randperm(b * mb, generator=gen, device="cuda") + 1).reshape(b, mb)
+    bt = bt.to(torch.int32)
+    for i, n in enumerate(PAGED_LENGTHS):  # entries past a request's blocks
+        bt[i, -(-min(n, cap) // bs):] = pd.GARBAGE_BLOCK
+    out = {"max_abs_err": 0.0, "shapes": []}
+    for q_len in (1, 32):
+        for ds in (128, 64):
+            q = torch.randn((b, hq, q_len, ds), generator=gen, device="cuda").to(torch.bfloat16)
+            k_pool = torch.randn((1 + b * mb, hkv, bs, ds), generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+            v_pool = torch.randn((1 + b * mb, hkv, bs, d), generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+            k_pool[pd.GARBAGE_BLOCK] = float("nan")
+            v_pool[pd.GARBAGE_BLOCK] = float("nan")
+            qp = _pack_gqa_rows(q, hkv)
+            kw = dict(scale=d ** -0.5, q_len=q_len)
+            got = pd.paged_decode_kernel_call(qp, k_pool, v_pool, bt, lengths, **kw)
+            want = pd.paged_decode_plain(qp, k_pool, v_pool, bt, lengths, **kw)
+            torch.cuda.synchronize()
+            err = max(check_close(torch, f"paged q_len={q_len} d_score={ds} {name}", g_, w_,
+                                  TOL["decode"])
+                      for name, g_, w_ in zip("oml", got, want))
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            del got, want
+            ms = time_ms(torch, lambda: pd.paged_decode_kernel_call(qp, k_pool, v_pool, bt,
+                                                                    lengths, **kw), 20, flush)
+            plain_ms = time_ms(torch, lambda: pd.paged_decode_plain(qp, k_pool, v_pool, bt,
+                                                                    lengths, **kw), 3, flush)
+            # Live K/V read once, q, the table and lengths, and the
+            # partials written once; the products over the live (row, key)
+            # pairs of the band.
+            rows = hq // hkv * q_len
+            live = sum(min(n, cap) for n in PAGED_LENGTHS)
+            nbytes = (2 * live * hkv * (ds + d) + 2 * b * hq * q_len * ds + 4 * b * (mb + 1)
+                      + 4 * b * hkv * mb * rows * (d + 2))
+            pairs = hq * sum(max(0, min(n - (q_len - 1 - i), cap))
+                             for n in PAGED_LENGTHS for i in range(q_len))
+            b_ms, b_by = bound(pairs * (2 * ds + 2 * d), nbytes)
+            row = {"q_len": q_len, "d_score": ds, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err, "library_ms": None}
+            if ds == d:
+                k_c = pd.gather_blocks(k_pool, bt)
+                v_c = pd.gather_blocks(v_pool, bt)
+                col = torch.arange(cap, device="cuda")
+                dead = (col[None, :] >= lengths[:, None])[:, None, :, None]
+                kx = k_c.masked_fill(dead, 0).repeat_interleave(hq // hkv, dim=1)
+                vx = v_c.masked_fill(dead, 0).repeat_interleave(hq // hkv, dim=1)
+                tok = torch.arange(q_len, device="cuda")
+                band = col[None, None, :] < (lengths[:, None, None] - (q_len - 1 - tok)[None, :, None])
+                mask = band[:, None]  # (B, 1, q_len, S)
+                row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q, kx, vx, attn_mask=mask), 20, flush)
+                del k_c, v_c, kx, vx
+            out["shapes"].append(row)
+            log(f"[paged q_len={q_len} d_score={ds}] {ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
+                f"{row['library_ms']}, bound {b_ms:.4f} by {b_by}) err {err:.3e}")
+    head = out["shapes"][0]  # a decode tick over the raw-K pool
+    out.update({k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    return out
+
+
+def serve_phase(torch):
     """starcoder2-7b at full width, seeded random weights, served through
-    the launcher's run function under both kernel impls."""
+    the launcher's run function under both kernel impls.  Returns the
+    launches and the weights, which the paged serve phase reuses."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode as dec
     from repro_torch.kernels import distr_attention as dk
@@ -436,9 +567,102 @@ def serve_phase(torch) -> dict:
             raise AssertionError(f"serve {impl}: a kernel of the path never launched: {counts}")
         launches[kernel] += counts[kernel]
         launches["decode"] += counts["decode"]
-    del params
-    torch.cuda.empty_cache()
-    return launches
+    return launches, params
+
+
+def paged_serve_phase(torch, params) -> dict:
+    """starcoder2-7b at full width through ``PagedServeEngine`` with the slot
+    phase's weights: 8 requests (prompts PAGED_PROMPTS, greedy), 8 lanes,
+    max_len 2048, blocks of 128, chunks of 32.  (a) A raw-K pool under
+    pallas_flash and (b) a fused-K̂ pool (G* = 2) under pallas_distr: every
+    request done with its tokens, the paged kernel launched and the
+    contiguous decode, flash and distr kernels not (chunked prefill runs on
+    the paged kernel).  (c) (a) in a pool that forces preemption: the pool
+    comes back whole.  (d) (a) under overload with the degradation dial on:
+    degraded prefills run the DistrAttention kernel."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode as dec
+    from repro_torch.kernels import distr_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.serve.degrade import DegradeConfig
+    from repro_torch.serve.engine import PagedServeEngine
+    from repro_torch.serve.lifecycle import is_terminal
+
+    base = get_config("starcoder2-7b")
+    flash = base.replace(attention=base.attention.with_impl("pallas_flash"))
+    fused = base.replace(attention=replace(base.attention, impl="pallas_distr",
+                                           distr_decode=True))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, base.vocab, size=n).tolist() for n in PAGED_PROMPTS]
+    overload = DegradeConfig(group_sizes=(2, 4), high_watermark=2, low_watermark=0,
+                             up_after=1, down_after=2)
+    runs = (("a_raw", flash, {}, PAGED_NEW), ("b_fused", fused, {}, PAGED_NEW),
+            ("c_pressure", flash, {"num_blocks": PRESSURE_BLOCKS}, PRESSURE_NEW),
+            ("d_overload", flash, {"degrade": overload}, PAGED_NEW))
+    report, tokens = {}, {}
+    launches = {"paged": 0, "distr": 0}
+    for name, cfg, kw, new in runs:
+        eng = PagedServeEngine(cfg, params, max_batch=8, max_len=2048, block_size=128,
+                               prefill_chunk=32, device="cuda", **kw)
+        pool_gib = sum(p.numel() * p.element_size() for p in eng.cache.pools.values()) / 2**30
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fk.launches = dk.launches = dec.launches = pd.launches = 0
+        t0 = time.perf_counter()
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=new)
+        done = eng.run_to_completion()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {"paged": pd.launches, "decode": dec.launches, "flash": fk.launches,
+                  "distr": dk.launches}
+        metrics = eng.metrics()
+        counters = eng.counters_snapshot()
+        n_tok = sum(len(r.generated) for r in done)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[paged {name}] {len(done)} requests, {n_tok} tokens in {seconds:.2f}s "
+            f"({n_tok / seconds:.1f} tok/s); pools {sorted(eng.cache.pools)} {pool_gib:.3f} GiB "
+            f"of {eng.cache.pool.num_blocks} blocks; peak allocated {peak / 2**30:.2f} GiB; "
+            f"launches {counts}; counters "
+            f"{ {k: v for k, v in counters.items() if v} }")
+        for m in metrics:
+            log(f"  req {m['uid']}: status {m['status']} ttft {m['ttft_s']:.4f}s tpot "
+                f"{m['tpot_s']:.4f}s n={m['n_generated']} preemptions {m['n_preemptions']} "
+                f"G* {m['degrade_group']}")
+        tokens[name] = {r.uid: r.generated for r in done}
+        if len(done) != len(prompts) or any(not is_terminal(r.status) for r in done):
+            raise AssertionError(f"paged {name}: requests not terminal: {metrics}")
+        if counts["paged"] == 0 or counts["decode"]:
+            raise AssertionError(f"paged {name}: launches off the path: {counts}")
+        if name != "d_overload":
+            bad = [r.uid for r in done if r.status != "done" or len(r.generated) != new]
+            if bad or counts["flash"] or counts["distr"]:
+                raise AssertionError(f"paged {name}: requests not done {bad} or prefill "
+                                     f"off the paged kernel: {counts}")
+        if name == "b_fused" and "k" in eng.cache.pools:
+            raise AssertionError("paged b_fused: the fused pool kept raw K")
+        if name == "c_pressure":
+            n_pre = sum(m["n_preemptions"] for m in metrics)
+            if n_pre == 0 or eng.cache.pool.num_free != eng.cache.pool.num_blocks - 1:
+                raise AssertionError(f"paged c_pressure: {n_pre} preemptions, "
+                                     f"{eng.cache.pool.num_free} blocks free")
+            same = sum(a == b for uid, toks in tokens[name].items()
+                       for a, b in zip(toks[:PAGED_NEW], tokens["a_raw"][uid]))
+            log(f"[paged c_pressure] {same} of {PAGED_NEW * len(prompts)} of the first "
+                f"{PAGED_NEW} tokens equal run (a)'s (not gated: bf16, a different batch)")
+        if name == "d_overload" and (counters["degraded_prefills"] == 0 or counts["distr"] == 0):
+            raise AssertionError(f"paged d_overload: no degraded prefill: {counters} {counts}")
+        launches["paged"] += counts["paged"]
+        launches["distr"] += counts["distr"]
+        report[name] = {"seconds": seconds, "tokens": n_tok, "tok_per_s": n_tok / seconds,
+                        "pool_gib": pool_gib, "peak_allocated": peak, "launches": counts,
+                        "counters": counters, "metrics": metrics}
+        del eng
+        torch.cuda.empty_cache()
+    return {"launches": launches, "report": report}
 
 
 def _attention_device_ms(torch, run_one) -> tuple[float, float, dict]:
@@ -563,14 +787,24 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     pre = prefill_phase(torch, flush)
+    g4 = distr_g4_phase(torch, flush)
+    pre["distr"]["max_abs_err"] = max(pre["distr"]["max_abs_err"], g4["max_abs_err"])
     dec = decode_phase(torch, flush)
+    pdec = paged_kernel_phase(torch, flush)
     back = backward_phase(torch, flush)
     del flush
-    results = {"card": card, "prefill_shapes": pre.pop("shapes"),
-               "backward_shapes": back.pop("shapes")}
-    launches = {"flash": 0, "distr": 0, "decode": 0, **dict.fromkeys(back, 0)}
+    results = {"card": card, "prefill_shapes": pre.pop("shapes"), "distr_g4": g4,
+               "paged_shapes": pdec.pop("shapes"), "backward_shapes": back.pop("shapes")}
+    launches = {"flash": 0, "distr": 0, "decode": 0, "paged": 0, **dict.fromkeys(back, 0)}
     if args.only != "kernels":
-        launches.update(serve_phase(torch))
+        serve_launches, params = serve_phase(torch)
+        launches.update(serve_launches)
+        paged = paged_serve_phase(torch, params)
+        del params
+        torch.cuda.empty_cache()
+        results["paged_serve"] = paged["report"]
+        for name, count in paged["launches"].items():
+            launches[name] += count
         train = train_phase(torch)
         results["train"] = train["report"]
         for name, count in train["launches"].items():
@@ -586,6 +820,9 @@ def main() -> int:
          **pre["distr"]},
         {"name": "decode_splitk", "route": "cuda", "source": f"{csrc}/decode.cu",
          "replaces": "src/repro/kernels/decode.py:68", "launches": launches["decode"], **dec},
+        {"name": "paged_decode", "route": "cuda", "source": f"{csrc}/paged_decode.cu",
+         "replaces": "src/repro/kernels/paged_decode.py:58", "launches": launches["paged"],
+         **pdec},
     ]
     for name, source, line in (("delta", "delta.cu", 50), ("flash_dq", "flash_backward.cu", 114),
                                ("flash_dkv", "flash_backward.cu", 199),

@@ -11,7 +11,8 @@
                  the CPU)
 
 Block sizes are static: ``None`` resolves to 128, and the decode split to
-``min(128, cache length)``.
+``min(128, cache length)``.  The paged decode path splits once per pool
+block.
 """
 from __future__ import annotations
 
@@ -35,9 +36,23 @@ class AttentionConfig:
     block_k: int | None = None
     # Decode split-K length; None → min(128, cache length).
     block_k_decode: int | None = None
+    # Serve-side fused-K̂ decode cache under a static permutation
+    # (serve.kv_cache): the paged pool keeps K̂ (d/G* wide) and no raw K.
+    distr_decode: bool = False
 
     def with_impl(self, impl: str) -> "AttentionConfig":
         return replace(self, impl=impl)
+
+    def degraded(self, group_size: int) -> "AttentionConfig":
+        """The overload-degradation dial (serve.degrade): this config with
+        prefill switched onto DistrAttention at G* = ``group_size``.
+        ``group_size <= 1`` returns the config unchanged.  The kernel impls
+        degrade to the DistrAttention kernel, the plain ones to plain
+        DistrAttention; every other field rides along."""
+        if group_size <= 1:
+            return self
+        impl = "pallas_distr" if self.impl.startswith("pallas") else "distr"
+        return replace(self, impl=impl, distr=replace(self.distr, group_size=group_size))
 
 
 def attend(q, k, v, cfg: AttentionConfig, *, causal: bool = False,
@@ -71,18 +86,30 @@ def attend_decode(q, k, v, cfg: AttentionConfig, *,
                   lengths: torch.Tensor | None = None,
                   k_fused: torch.Tensor | None = None,
                   perm: torch.Tensor | None = None, group_size: int = 1,
-                  scale: float | None = None) -> torch.Tensor:
-    """Decode-path attention over a contiguous cache with per-slot live
-    ``lengths``: every impl except ``reference`` runs the split-K decode
-    kernel (``kernels.ops.decode_attention``).
+                  scale: float | None = None,
+                  block_tables: torch.Tensor | None = None) -> torch.Tensor:
+    """Decode-path attention with per-slot live ``lengths``: every impl
+    except ``reference`` runs a split-K decode kernel.
 
-    q: (B, Hq, q_len, d); k, v: (B, Hkv, S, d).  The fused-K̂ variant takes
-    ``k_fused`` (B, Hkv, S, d/G*) + ``perm`` (Hkv, d) + ``group_size``.
-    ``scale`` refers to the full head dim (default 1/√d from V).
+    Contiguous caches (``block_tables=None``): k, v are (B, Hkv, S, d) and
+    the op is ``kernels.ops.decode_attention``.  Paged caches
+    (``block_tables`` (B, max_blocks)): k, v are shared (P, Hkv, bs, d)
+    pools read through the table (``kernels.ops.paged_decode_attention``),
+    and a multi-token q is banded — query token i sees positions
+    < length − (q_len − 1 − i) — which is what chunked prefill rides.
+
+    q: (B, Hq, q_len, d).  The fused-K̂ variant takes ``k_fused`` (the
+    d/G*-wide cache or pool) + ``perm`` (Hkv, d) + ``group_size``; ``k``
+    may then be None.  ``scale`` refers to the full head dim (default 1/√d
+    from V).
     """
     if cfg.impl not in IMPLS:
         raise ValueError(f"unknown attention impl {cfg.impl!r}; choose from {IMPLS}")
     scale = float(scale) if scale is not None else 1.0 / (v.shape[-1] ** 0.5)
+    if block_tables is not None:
+        return _attend_decode_paged(q, k, v, cfg, lengths=lengths, k_fused=k_fused,
+                                    perm=perm, group_size=group_size, scale=scale,
+                                    block_tables=block_tables)
     if cfg.impl == "reference":
         nk = (k_fused if k_fused is not None else k).shape[2]
         kv_mask = (
@@ -100,4 +127,37 @@ def attend_decode(q, k, v, cfg: AttentionConfig, *,
     return ops.decode_attention(
         q, k, v, lengths=lengths, k_fused=k_fused, perm=perm,
         group_size=group_size, scale=scale, block_k=cfg.block_k_decode,
+    )
+
+
+def _attend_decode_paged(q, k, v, cfg, *, lengths, k_fused, perm, group_size, scale,
+                         block_tables):
+    if cfg.impl == "reference":
+        # The banded oracle over the pools gathered into contiguous caches
+        # (the materialisation the kernel path avoids).
+        from repro_torch.kernels.paged_decode import gather_blocks
+
+        capacity = block_tables.shape[1] * v.shape[2]
+        # Like the kernel op, lengths are not clamped to capacity.
+        lengths = (lengths.to(torch.int64) if lengths is not None else
+                   torch.full((q.shape[0],), capacity, dtype=torch.int64, device=q.device))
+        q_len = q.shape[2]
+        col = torch.arange(capacity, device=q.device)[None, None, :]
+        row = torch.arange(q_len, device=q.device)[None, :, None]
+        band = col < (lengths[:, None, None] - (q_len - 1 - row))  # (B, q_len, Nk)
+        v_c = gather_blocks(v, block_tables).to(q.dtype)
+        if k_fused is not None:
+            q_r = grouping.sample_q_heads(q, perm, group_size)
+            k_c = gather_blocks(k_fused, block_tables).to(q.dtype)
+        else:
+            q_r = q
+            k_c = gather_blocks(k, block_tables).to(q.dtype)
+        outs = [reference_attention(q_r[:, :, i:i + 1], k_c, v_c, scale=scale,
+                                    kv_mask=band[:, i]) for i in range(q_len)]
+        return torch.cat(outs, dim=2)
+    from repro_torch.kernels import ops
+
+    return ops.paged_decode_attention(
+        q, k, v, block_tables=block_tables, lengths=lengths, k_fused_pool=k_fused,
+        perm=perm, group_size=group_size, scale=scale,
     )

@@ -39,6 +39,7 @@ SIGNATURES = {
                         _I, _P),
     "repro_decode_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _P),
+    "repro_paged_decode_fwd": (_P,) * 8 + (_I,) * 9 + (_F, _P),
     "repro_delta": (_P, _P, _P, _I, _I, _I, _P),
     "repro_flash_dq": (_P,) * 7 + (_I,) * 7 + (_F, _I, _P),
     "repro_flash_dkv": (_P,) * 8 + (_I,) * 7 + (_F, _I, _P),

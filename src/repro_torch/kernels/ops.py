@@ -2,7 +2,8 @@
 
 Handles what the kernels keep out of their grids: GQA flattening, the
 DistrAttention stage 1 (LSH permutations and Q̂ sampling with the softmax
-scale folded in), GQA row packing for decode, and the cross-split merge.
+scale folded in), GQA row packing for decode (contiguous and paged), and the
+cross-split merge.
 Each op takes the kernel on CUDA tensors and the kernel's plain version on
 CPU tensors (``kernels/*.py``).
 
@@ -28,12 +29,13 @@ from repro_torch.kernels import decode as decode_kernels
 from repro_torch.kernels.decode import merge_splits
 from repro_torch.kernels.distr_attention import distr_attention_kernel_call
 from repro_torch.kernels.flash_attention import flash_attention_kernel_call
+from repro_torch.kernels.paged_decode import paged_decode_kernel_call
 
 DEFAULT_DECODE_BLOCK = 128
 
 __all__ = [
     "decode_attention", "distr_attention", "distr_dq_from_dq_hat", "distr_stage1",
-    "flash_attention", "merge_splits",
+    "flash_attention", "merge_splits", "paged_decode_attention",
 ]
 
 
@@ -267,6 +269,50 @@ def decode_attention(q, k, v, *, lengths: torch.Tensor | None = None,
         _pack_gqa_rows(q_score, hkv), k_score.to(q.dtype).contiguous(),
         v.to(q.dtype).contiguous(), lengths,
         scale=scale, block_k=block_k, q_len=q_len,
+    )
+    out = merge_splits(o, m, l)  # (B, Hkv, rows, d) f32
+    return out.reshape(b, hq, q_len, d).to(q.dtype)
+
+
+def paged_decode_attention(q, k_pool, v_pool, *, block_tables: torch.Tensor,
+                           lengths: torch.Tensor | None,
+                           k_fused_pool: torch.Tensor | None = None,
+                           perm: torch.Tensor | None = None, group_size: int = 1,
+                           scale: float | None = None) -> torch.Tensor:
+    """Block-table split-K flash-decoding over a paged KV pool.
+
+    q: (B, Hq, q_len, d), q_len 1 (a decode tick) or a chunked-prefill
+    window, banded: query token i sees positions < length − (q_len − 1 − i);
+    k_pool, v_pool: (P, Hkv, bs, d); ``block_tables`` (B, max_blocks)
+    physical block ids; ``lengths`` (B,) live token counts (None ⇒ the whole
+    table).  The fused-K̂ variant takes ``k_fused_pool`` (P, Hkv, bs, d/G*),
+    the layer's static ``perm`` (Hkv, d) and ``group_size``; ``k_pool`` may
+    then be None.  ``scale`` refers to the full head dim.  The kernel reads
+    one dtype: q is cast to the pool's (the pool is never copied).  Returns
+    (B, Hq, q_len, d) in q's dtype.
+    """
+    b, hq, q_len, _ = q.shape
+    d = v_pool.shape[-1]
+    scale = float(scale) if scale is not None else 1.0 / (d ** 0.5)
+    if lengths is None:
+        capacity = block_tables.shape[1] * v_pool.shape[2]
+        lengths = torch.full((b,), capacity, dtype=torch.int32, device=q.device)
+    # Deliberately NOT clamped to capacity: a padded chunk window may
+    # overhang it (lengths = pos + w with the last rows dead), and clamping
+    # would shift the live rows' band col < length − (q_len − 1 − i) down,
+    # dropping their most recent context.  The kernel bounds every read by
+    # the block's live-key count, so an overhanging length is safe.
+    if k_fused_pool is not None:
+        if perm is None or group_size <= 1:
+            raise ValueError("k_fused_pool needs perm and group_size > 1")
+        k_score = k_fused_pool
+        q_score = grouping.sample_q_heads(q, perm, group_size)
+    else:
+        k_score, q_score = k_pool, q
+    hkv = k_score.shape[1]
+    o, m, l = paged_decode_kernel_call(
+        _pack_gqa_rows(q_score, hkv).to(k_score.dtype), k_score, v_pool,
+        block_tables, lengths, scale=scale, q_len=q_len,
     )
     out = merge_splits(o, m, l)  # (B, Hkv, rows, d) f32
     return out.reshape(b, hq, q_len, d).to(q.dtype)

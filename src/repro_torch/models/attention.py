@@ -1,13 +1,14 @@
-"""GQA/MHA attention with a ring KV cache.
+"""GQA/MHA attention with a ring KV cache or a paged block pool.
 
 Every score stage dispatches through ``repro_torch.core.api`` so
-DistrAttention drops in via config.  The cache is updated in place.
+DistrAttention drops in via config.  Caches and pools are updated in place.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.api import attend, attend_decode
+from repro_torch.kernels.paged_decode import GARBAGE_BLOCK
 from repro_torch.models import layers
 
 
@@ -94,3 +95,86 @@ def attention_decode_apply(params: dict, x: torch.Tensor, cfg, *,
     o = attend_decode(q, cache_k, cache_v, cfg.attention, lengths=lengths)
     out = layers.linear_apply(params["wo"], _merge_heads(o.to(x.dtype)))
     return out, (cache_k, cache_v)
+
+
+def paged_insert(pool: torch.Tensor, new: torch.Tensor, block_tables: torch.Tensor,
+                 pos: torch.Tensor, count: torch.Tensor | None = None) -> torch.Tensor:
+    """Write a token window into a paged pool through the block table, in
+    place.
+
+    pool: (P, Hkv, bs, d); new: (B, Hkv, w, d); block_tables: (B,
+    max_blocks); pos: (B,) start positions.  Token t of request b lands in
+    block ``bt[b, (pos + t) // bs]`` at offset ``(pos + t) % bs``.  Rows
+    ``t ≥ count[b]`` (chunk padding, idle lanes) and positions past the
+    table's capacity go to the garbage block, whose content is never read.
+    Returns ``pool``.
+    """
+    bs = pool.shape[2]
+    b, hkv, w, d = new.shape
+    max_blocks = block_tables.shape[1]
+    p = pos.to(torch.int64)[:, None] + torch.arange(w, device=pool.device)[None, :]
+    blk_idx = torch.clamp(p // bs, max=max_blocks - 1)
+    blk = torch.gather(block_tables.to(torch.int64), 1, blk_idx)  # (B, w)
+    live = torch.arange(w, device=pool.device)[None, :] < (
+        count.to(torch.int64)[:, None] if count is not None else w)
+    # Past capacity a clamped index would overwrite the last live block.
+    live = live & (p < max_blocks * bs)
+    blk = torch.where(live, blk, GARBAGE_BLOCK)
+    vals = new.to(pool.dtype).transpose(1, 2).reshape(b * w, hkv, d)
+    pool[blk.reshape(-1), :, (p % bs).reshape(-1)] = vals
+    return pool
+
+
+def attention_decode_paged(params: dict, x: torch.Tensor, cfg, *,
+                           pool_k: torch.Tensor | None, pool_v: torch.Tensor,
+                           block_tables: torch.Tensor, cache_index,
+                           count: torch.Tensor | None = None,
+                           pool_k_fused: torch.Tensor | None = None,
+                           perm: torch.Tensor | None = None):
+    """Windowed decode against the paged pool (w = 1: a decode tick; w = the
+    chunk width: chunked prefill).
+
+    x: (B, w, d_model); ``cache_index`` (B,) start positions; ``count`` (B,)
+    live tokens of the window (padded rows write to the garbage block and
+    the caller ignores their outputs).  Token t sees positions ≤ pos + t,
+    so a chunk reproduces causal prefill exactly.  The fused-K̂ variant
+    takes ``pool_k_fused`` and the layer's static ``perm``; raw K is then
+    neither read nor written.
+
+    Decode slides past the table's capacity: the write position wraps
+    (``pos % capacity``), recycling the request's head blocks, and the
+    kernel attends ``min(pos + w, capacity)`` positions; RoPE stays at the
+    absolute position, as in the slot engine's ring.  Pools are updated in
+    place; returns ``(out, (pool_k, pool_v, pool_k_fused))``.
+    """
+    from repro_torch.serve import kv_cache as kvc
+
+    b, w, _ = x.shape
+    pos = _as_pos_vector(cache_index, b, x.device)
+    positions = pos[:, None] + torch.arange(w, device=x.device)[None, :]
+    q = _split_heads(layers.linear_apply(params["wq"], x), cfg.n_heads)
+    k = _split_heads(layers.linear_apply(params["wk"], x), cfg.n_kv_heads)
+    v = _split_heads(layers.linear_apply(params["wv"], x), cfg.n_kv_heads)
+    q = layers.apply_rope(q, positions, cfg.rope_theta)
+    k = layers.apply_rope(k, positions, cfg.rope_theta)
+
+    capacity = block_tables.shape[1] * pool_v.shape[2]
+    wpos = pos % capacity
+    paged_insert(pool_v, v, block_tables, wpos, count)
+    scale = 1.0 / (cfg.head_dim_ ** 0.5)
+    # The kernel's lengths include the whole window: live row t's band
+    # col < pos + t + 1 lands on its own position; padded rows widen only
+    # their own (discarded) reads.  Past capacity every position is live.
+    lengths = torch.clamp(pos + w, max=capacity).to(torch.int32)
+    if pool_k_fused is not None:
+        g = cfg.attention.distr.group_size
+        paged_insert(pool_k_fused, kvc.fuse_new_k(k, perm, g), block_tables, wpos, count)
+        o = attend_decode(q, None, pool_v, cfg.attention, lengths=lengths,
+                          k_fused=pool_k_fused, perm=perm, group_size=g, scale=scale,
+                          block_tables=block_tables)
+    else:
+        paged_insert(pool_k, k, block_tables, wpos, count)
+        o = attend_decode(q, pool_k, pool_v, cfg.attention, lengths=lengths, scale=scale,
+                          block_tables=block_tables)
+    out = layers.linear_apply(params["wo"], _merge_heads(o.to(x.dtype)))
+    return out, (pool_k, pool_v, pool_k_fused)

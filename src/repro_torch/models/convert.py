@@ -3,6 +3,9 @@
 The reference keeps per-layer parameters stacked on axis 0 under
 ``blocks`` and linear weights as ``(d_in, d_out)``; the port keeps the same
 layout, one dict per layer.  A tied-embedding tree has no ``lm_head``.
+The reference draws two pieces of model state from ``jax.random`` that torch
+cannot regenerate: the LSH projection (``from_jax_params(proj=)``) and the
+fused-K̂ cache's static permutations (``convert_perms``).
 """
 from __future__ import annotations
 
@@ -61,3 +64,15 @@ def from_jax_params(params_np: dict, cfg, *, proj: np.ndarray | None = None,
     if not cfg.tie_embeddings:
         params["lm_head"] = _convert(params_np["lm_head"], ("lm_head",), cdtype, dev)
     return params
+
+
+def convert_perms(perms_np, cfg, device: str | torch.device = "cuda") -> torch.Tensor:
+    """The reference's static decode permutations (``serve.kv_cache.
+    static_perms``: (L, Hkv, dh) int32, numpy) → the port's (L, Hkv, dh)
+    int64 tensor, for the ``perms=`` argument of the paged steps and
+    ``PagedServeEngine``."""
+    perms = np.asarray(perms_np)
+    want = (cfg.n_layers, cfg.n_kv_heads, cfg.head_dim_)
+    if perms.shape != want:
+        raise ValueError(f"static perms of shape {perms.shape}, want {want}")
+    return torch.from_numpy(perms.astype(np.int64)).to(resolve_device(device))

@@ -1,4 +1,5 @@
-"""Dense pre-norm transformer block (prefill and one-token decode)."""
+"""Dense pre-norm transformer block (prefill, one-token decode, and windowed
+decode against the paged pool)."""
 from __future__ import annotations
 
 import torch
@@ -52,3 +53,18 @@ def block_decode_apply(params: dict, x: torch.Tensor, cfg, *, cache: dict,
     x = x + o
     h2 = norm_apply(params["norm2"], x, cfg)
     return x + layers.mlp_apply(params["ffn"], h2, act=cfg.act), {**cache, "k": ck, "v": cv}
+
+
+def block_paged_decode_apply(params: dict, x: torch.Tensor, cfg, *, pool_k, pool_v,
+                             block_tables, pos, count=None, pool_k_fused=None, perm=None):
+    """Windowed decode of one block against the paged pool (w = 1: a decode
+    tick; w = the chunk width: chunked prefill).  Pools are updated in
+    place.  Returns ``(x, (pool_k, pool_v, pool_k_fused))``."""
+    h = norm_apply(params["norm1"], x, cfg)
+    o, pools = attn_mod.attention_decode_paged(
+        params["attn"], h, cfg, pool_k=pool_k, pool_v=pool_v, block_tables=block_tables,
+        cache_index=pos, count=count, pool_k_fused=pool_k_fused, perm=perm,
+    )
+    x = x + o
+    h2 = norm_apply(params["norm2"], x, cfg)
+    return x + layers.mlp_apply(params["ffn"], h2, act=cfg.act), pools

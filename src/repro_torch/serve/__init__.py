@@ -1,1 +1,2 @@
-"""Serving: ring KV cache, prefill/decode steps, sampler, slot engine."""
+"""Serving: ring KV cache and slot engine; block-pool KV, continuous-batching
+scheduler and paged engine; steps, sampler, lifecycle, degradation dial."""

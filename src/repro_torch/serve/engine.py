@@ -1,7 +1,9 @@
-"""The slot serving engine over contiguous ring caches.
+"""Serving engines: the slot engine over contiguous ring caches, and the
+paged engine over a shared block pool driven by the continuous-batching
+scheduler (``PagedServeEngine``, below).
 
-The decode cache holds ``max_slots`` sequences with a ``max_len`` slab
-each.  Requests are prefilled one at a time (prompts right-padded to a
+The slot engine's decode cache holds ``max_slots`` sequences with a
+``max_len`` slab each.  Requests are prefilled one at a time (prompts right-padded to a
 bucket) and their caches copied into free slots; every ``step()`` decodes
 one token for all active slots.  A finished sequence frees its slot at
 once.  Decoding continues past ``max_len`` by sliding the ring window.
@@ -18,18 +20,23 @@ from dataclasses import dataclass, field
 
 import torch
 
-from repro_torch.serve import kv_cache, lifecycle
+from repro_torch.serve import kv_cache, lifecycle, paged
+from repro_torch.serve.degrade import DegradeConfig
 from repro_torch.serve.lifecycle import IncompleteRun
 from repro_torch.serve.sampler import sample
-from repro_torch.serve.serve_step import make_decode_step, make_prefill
+from repro_torch.serve.scheduler import Scheduler, SchedulerConfig
+from repro_torch.serve.serve_step import (
+    make_decode_step, make_degraded_paged_prefill, make_paged_step, make_prefill,
+)
 from repro_torch.utils.device import resolve_device
 
 BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
 
 
-def _validate_request(prompt, limit: int, max_new_tokens: int) -> None:
+def _validate_request(prompt, limit: int, max_new_tokens: int,
+                      what: str = "max_len") -> None:
     if len(prompt) > limit:
-        raise ValueError(f"prompt length {len(prompt)} exceeds the engine's max_len={limit}")
+        raise ValueError(f"prompt length {len(prompt)} exceeds the engine's {what}={limit}")
     if not prompt:
         raise ValueError("prompt must hold at least one token")
     if max_new_tokens <= 0:
@@ -52,6 +59,12 @@ class Request:
     generated: list[int] = field(default_factory=list)
     done: bool = False  # completed successfully (status == "done")
     status: str = lifecycle.QUEUED
+    # Deadlines in clock units relative to submission (paged engine); None
+    # → none.
+    deadline_ttft: float | None = None
+    deadline_e2e: float | None = None
+    # G* the prefill ran at (1 = exact; > 1 = degraded under overload).
+    degrade_group: int = 1
 
 
 class ServeEngine:
@@ -190,3 +203,214 @@ class ServeEngine:
         """Per-request TTFT / TPOT rows, in completion order."""
         return [self._metric_records[r.uid] for r in self.finished
                 if r.uid in self._metric_records]
+
+
+class PagedServeEngine:
+    """Serving engine over the paged KV cache (serve.paged, serve.scheduler,
+    kernels/paged_decode.py).
+
+    KV is committed per live token (rounded to ``block_size``), not per
+    worst-case sequence.  Every ``step()`` is one tick of the
+    continuous-batching :class:`~repro_torch.serve.scheduler.Scheduler`:
+    token-budget admission, chunked prefill on the paged decode kernel, FCFS
+    with whole-request preemption to host when the pool runs dry, and the
+    optional degradation dial.  A request's prompt is bounded by the table
+    (``max_len``); its decode slides past it by recycling head blocks.
+
+    Dense family only; fused-K̂ pools under ``attention.distr_decode`` with
+    static ``perms`` (L, Hkv, dh) (None draws the port's own).
+    ``block_size=None`` resolves to 128, the reference's value without its
+    tuner.  ``device`` defaults to CUDA and raises when it is absent.
+    """
+
+    #: Decode slides past capacity by recycling head blocks.
+    window_decode = True
+
+    def __init__(self, cfg, params, *, max_batch: int = 8, max_len: int = 512,
+                 block_size: int | None = None, num_blocks: int | None = None,
+                 prefill_chunk: int = 32, token_budget: int = 0,
+                 temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
+                 seed: int = 0, cache_dtype=torch.bfloat16, clock=None,
+                 max_waiting: int | None = None, degrade: DegradeConfig | None = None,
+                 device: str | torch.device = "cuda", perms: torch.Tensor | None = None):
+        if cfg.family != "dense":
+            raise NotImplementedError(f"family {cfg.family!r}: the port pages dense models")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.temperature = temperature
+        self.top_k = top_k
+        self.top_p = top_p
+        self._uid = itertools.count()
+        self._generator = torch.Generator(device=self.device).manual_seed(seed)
+
+        self.block_size = min(block_size or 128, max_len)
+        self.max_blocks = -(-max_len // self.block_size)
+        self.capacity_tokens = self.max_blocks * self.block_size
+        if num_blocks is None:  # every lane can hold max_len
+            num_blocks = 1 + max_batch * self.max_blocks
+        if num_blocks - 1 < self.max_blocks:
+            raise ValueError(
+                f"pool of {num_blocks} blocks (1 reserved) cannot hold one full request "
+                f"({self.max_blocks} blocks of {self.block_size}); preemption could not "
+                "guarantee progress"
+            )
+        self.cache = paged.PagedKVCache(cfg, num_blocks, self.block_size, dtype=cache_dtype,
+                                        device=self.device)
+        self.prefill_chunk = min(prefill_chunk, max_len)
+        self.scheduler = Scheduler(
+            SchedulerConfig(max_batch=max_batch, prefill_chunk=self.prefill_chunk,
+                            token_budget=token_budget, max_waiting=max_waiting),
+            clock=clock, degrade=degrade,
+        )
+        self.perms = perms
+        self._decode = make_paged_step(cfg, 1, perms)
+        self._chunk = make_paged_step(cfg, self.prefill_chunk, perms)
+        self._degraded: dict[int, object] = {}
+        self.finished: list[Request] = []
+
+    # -- public API -------------------------------------------------------
+
+    def add_request(self, prompt: list[int], *, max_new_tokens: int = 32,
+                    eos_id: int | None = None, deadline_ttft: float | None = None,
+                    deadline_e2e: float | None = None) -> int:
+        # The first decode token writes at position len(prompt), so a prompt
+        # leaves one table slot free; max_new_tokens may cross capacity.
+        _validate_request(prompt, min(self.max_len, self.capacity_tokens - 1),
+                          max_new_tokens, what="max_len (capacity − 1)")
+        req = Request(next(self._uid), list(prompt), max_new_tokens, eos_id,
+                      deadline_ttft=deadline_ttft, deadline_e2e=deadline_e2e)
+        if self.scheduler.submit(req) is None:
+            self.finished.append(req)  # shed at the gate (status rejected)
+        return req.uid
+
+    def cancel(self, uid: int) -> bool:
+        """Terminate ``uid`` now; False for unknown or terminal uids."""
+        if self.scheduler.cancel(uid, self):
+            self.finished.append(self.scheduler.done[-1].req)
+            return True
+        return False
+
+    def step(self) -> list[Request]:
+        """One scheduler tick: admission, chunked prefill, batched decode."""
+        done = self.scheduler.tick(self)
+        self.finished.extend(done)
+        return done
+
+    def run_to_completion(self, max_steps: int = 10_000) -> list[Request]:
+        for _ in range(max_steps):
+            self.step()
+            if not self.scheduler.has_work():
+                return self.finished
+        raise IncompleteRun(
+            sorted([e.uid for e in self.scheduler.waiting]
+                   + [e.uid for e in self.scheduler.running.values()]),
+            max_steps,
+        )
+
+    def metrics(self) -> list[dict]:
+        """Per-request TTFT / TPOT / preemptions / status / degradation
+        level (``lifecycle.METRIC_KEYS``)."""
+        return self.scheduler.metrics()
+
+    def counters_snapshot(self) -> dict:
+        """Robustness counters, frozen to ``lifecycle.COUNTER_KEYS``."""
+        return self.scheduler.counters_snapshot()
+
+    # -- scheduler primitives --------------------------------------------
+
+    def free_lane(self) -> int:
+        for lane in range(self.max_batch):
+            if lane not in self.scheduler.running:
+                return lane
+        raise RuntimeError("no free lane (scheduler admitted past max_batch)")
+
+    def alloc(self, entry, n_tokens: int) -> bool:
+        try:
+            self.cache.allocate_to(entry.uid, min(n_tokens, self.capacity_tokens))
+            return True
+        except paged.PoolExhausted:
+            return False
+
+    def can_admit(self, entry) -> bool:
+        """Admission watermark: the whole prompt plus one decode token must
+        fit in free blocks before the first chunk runs."""
+        need = self.cache.blocks_for(min(len(entry.req.prompt) + 1, self.capacity_tokens))
+        return self.cache.pool.num_free >= need
+
+    def evict(self, entry) -> None:
+        self.cache.evict_to_host(entry.uid, entry.length, pad_to=self.max_blocks)
+
+    def restore(self, entry) -> bool:
+        try:
+            self.cache.restore(entry.uid)
+            return True
+        except paged.PoolExhausted:
+            return False
+
+    def release(self, entry) -> None:
+        self.cache.free(entry.uid)
+
+    def holds_blocks(self, entry) -> bool:
+        return bool(self.cache.tables.get(entry.uid))
+
+    def sample_one(self, logits_row: torch.Tensor) -> int:
+        tok = sample(logits_row[None], generator=self._generator,
+                     temperature=self.temperature, top_k=self.top_k, top_p=self.top_p)
+        return int(tok[0])
+
+    def _ints(self, values) -> torch.Tensor:
+        return torch.tensor(values, dtype=torch.int64).to(self.device)
+
+    def prefill_chunk_run(self, entry, chunk: int) -> torch.Tensor:
+        """One chunked-prefill window for ``entry`` (B = 1); returns the last
+        live row's logits (the exact last-position distribution once the
+        prompt completes)."""
+        start = entry.prompt_done
+        toks = [0] * self.prefill_chunk
+        toks[:chunk] = entry.req.prompt[start:start + chunk]
+        bt = self.cache.table_array([entry.uid], self.max_blocks)
+        logits, _ = self._chunk(self.params, self._ints([toks]), self.cache.pools, bt,
+                                self._ints([start]), self._ints([chunk]))
+        return logits[0, chunk - 1]
+
+    def prefill_full_run(self, entry, group: int) -> torch.Tensor:
+        """Whole-prompt degraded prefill (serve.degrade): one forward under
+        DistrAttention at G* = ``group`` writes the prompt's K/V into the
+        already-allocated blocks; returns the last live row's logits."""
+        n = len(entry.req.prompt)
+        bucket = min(_bucket(n), self.max_len)
+        toks = list(entry.req.prompt) + [0] * (bucket - n)
+        if group not in self._degraded:
+            self._degraded[group] = make_degraded_paged_prefill(self.cfg, bucket, group,
+                                                                self.perms)
+        bt = self.cache.table_array([entry.uid], self.max_blocks)
+        row, _ = self._degraded[group](self.params, self._ints([toks]), n,
+                                       self.cache.pools, bt)
+        return row
+
+    def decode_tick(self, running: dict):
+        """One batched decode over all running lanes → ``(tokens, ok)``:
+        (max_batch,) sampled tokens (idle lanes decode garbage that is never
+        read) and the numeric health mask (False: that lane's logits went
+        non-finite)."""
+        occupied = [False] * self.max_batch
+        pos = [0] * self.max_batch
+        toks = [[0] for _ in range(self.max_batch)]
+        uids = [-1] * self.max_batch
+        for lane, e in running.items():
+            occupied[lane] = True
+            pos[lane] = e.length
+            toks[lane][0] = e.next_token
+            uids[lane] = e.uid
+        bt = self.cache.table_array(uids, self.max_blocks)
+        logits, _ = self._decode(self.params, self._ints(toks), self.cache.pools, bt,
+                                 self._ints(pos), self._ints([int(o) for o in occupied]))
+        ok = (torch.isfinite(logits[:, -1]).all(dim=-1).cpu()
+              | ~torch.tensor(occupied)).tolist()
+        next_tokens = sample(logits[:, -1], generator=self._generator,
+                             temperature=self.temperature, top_k=self.top_k,
+                             top_p=self.top_p)
+        return next_tokens.cpu().tolist(), ok

@@ -25,6 +25,34 @@ def is_terminal(status: str) -> bool:
     return status in TERMINAL
 
 
+# -- frozen observability schema (the reference's, key for key) --------------
+
+#: Robustness counters of the scheduler (``counters_snapshot``).
+COUNTER_KEYS = (
+    "shed",  # load-shed at submission (bounded waiting queue)
+    "expired",  # missed a TTFT / e2e deadline
+    "cancelled",  # explicit cancel(uid)
+    "failed_numeric",  # non-finite logits quarantined
+    "failed_fault",  # step/restore retry budget exhausted
+    "step_retries",  # faulting model steps retried in place
+    "restore_retries",  # faulting restores retried with backoff
+    "watchdog_fails",  # global-stall watchdog fired
+    "degraded_prefills",  # prompts served under coarser grouping
+    "mesh_prefills",  # whole-prompt ring prefills (mesh one-tick admission)
+)
+
+#: Per-request ``metrics()`` row keys of the paged engine and the scheduler.
+METRIC_KEYS = (
+    "uid", "ttft_s", "tpot_s", "n_generated", "n_preemptions", "status",
+    "degrade_group",
+)
+
+
+def counters_view(counters) -> dict:
+    """Freeze a Counter/dict into the canonical zero-filled schema."""
+    return {k: int(counters.get(k, 0)) for k in COUNTER_KEYS}
+
+
 class IncompleteRun(RuntimeError):
     """``run_to_completion(max_steps)`` ran out of steps with requests still
     in flight (listed by uid in ``uids``)."""

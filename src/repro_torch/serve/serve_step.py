@@ -1,13 +1,18 @@
 """Serving steps for the dense family: prefill (build the cache from a full
-forward) and one-token decode over the ring cache.
+forward) and one-token decode over the ring cache; the paged step (a decode
+tick or a chunked-prefill window over the block pool) and the whole-prompt
+paged prefill of the degradation dial.
 
-The decode step updates the cache's K/V in place.
+Steps update caches and pools in place.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import grouping
 from repro_torch.models import lm, transformer
+from repro_torch.models.attention import paged_insert
+from repro_torch.serve import kv_cache
 
 
 def _pad_seq_to(x: torch.Tensor, max_len: int, dim: int) -> torch.Tensor:
@@ -64,3 +69,95 @@ def make_decode_step(cfg):
         return lm.logits_fn(params, cfg, x), {**cache, "length": total}
 
     return decode_step
+
+
+def _resolve_perms(cfg, perms: torch.Tensor | None) -> torch.Tensor | None:
+    """The fused-K̂ pool's static perms (L, Hkv, dh), or None for a raw-K
+    pool.  ``perms`` passes given ones across (the tests hand over the
+    reference's); None draws the port's own."""
+    if not cfg.attention.distr_decode:
+        return None
+    return perms if perms is not None else kv_cache.static_perms(cfg)
+
+
+def make_paged_step(cfg, width: int, perms: torch.Tensor | None = None):
+    """→ paged_step(params, tokens (B, width), pools, block_tables, pos,
+    count) → (logits (B, width, V), pools).
+
+    ``width = 1`` is the batched decode tick, ``width = chunk`` one
+    chunked-prefill window: the same banded windowed decode, so chunked
+    prefill runs on the paged decode kernel.  pos: (B,) start positions;
+    count: (B,) live tokens per row (padding writes go to the garbage block;
+    the caller ignores padded logits).  Under ``attention.distr_decode`` the
+    pools hold fused K̂ under ``perms`` (see ``_resolve_perms``)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r}: the port pages dense models")
+    perms = _resolve_perms(cfg, perms)
+
+    @torch.no_grad()
+    def paged_step(params, tokens, pools, block_tables, pos, count):
+        nonlocal perms
+        x = lm.embed(params, cfg, tokens)
+        if perms is not None and perms.device != x.device:
+            perms = perms.to(x.device)  # once, not a host copy every step
+        fused = perms
+        for i, lp in enumerate(params["blocks"]):
+            x, _ = transformer.block_paged_decode_apply(
+                lp, x, cfg, pool_k=None if fused is not None else pools["k"][i],
+                pool_v=pools["v"][i], block_tables=block_tables, pos=pos, count=count,
+                pool_k_fused=pools["k_fused"][i] if fused is not None else None,
+                perm=fused[i] if fused is not None else None,
+            )
+        x = transformer.norm_apply(params["final_norm"], x, cfg)
+        return lm.logits_fn(params, cfg, x), pools
+
+    return paged_step
+
+
+def _make_paged_full_prefill(cfg, backbone_cfg, perms: torch.Tensor | None = None):
+    """Whole-prompt paged prefill: one forward under ``backbone_cfg``, the
+    last live row's logits, and every layer's K/V written into the
+    request's blocks through the table (padded rows go to the garbage
+    block).  A fused K̂ is always written at the engine's own G* from its
+    static perms, whatever attention ``backbone_cfg`` ran: the cache layout
+    belongs to the engine, the forward to the caller."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r}: the port pages dense models")
+    perms = _resolve_perms(cfg, perms)
+
+    @torch.no_grad()
+    def prefill(params, tokens, n, pools, block_tables):
+        nonlocal perms
+        if perms is not None and perms.device != tokens.device:
+            perms = perms.to(tokens.device)
+        hidden, kvs = lm.backbone(params, backbone_cfg, tokens, collect_cache=True)
+        logits = lm.logits_fn(params, cfg, hidden[:, n - 1])[0]  # (V,)
+        pos0 = torch.zeros((1,), dtype=torch.int64, device=tokens.device)
+        count = torch.full((1,), n, dtype=torch.int64, device=tokens.device)
+        g = cfg.attention.distr.group_size
+        for i, (k, v) in enumerate(kvs):
+            paged_insert(pools["v"][i], v, block_tables, pos0, count)
+            if perms is not None:
+                k_f = grouping.fuse_columns(k.float(), perms[i][None], g)
+                paged_insert(pools["k_fused"][i], k_f, block_tables, pos0, count)
+            else:
+                paged_insert(pools["k"][i], k, block_tables, pos0, count)
+        return logits, pools
+
+    return prefill
+
+
+def make_degraded_paged_prefill(cfg, bucket: int, group_size: int,
+                                perms: torch.Tensor | None = None):
+    """→ prefill(params, tokens (1, bucket), n, pools, block_tables) →
+    (last live row's logits (V,), pools).
+
+    The degradation dial's prefill (serve.degrade): under overload the
+    scheduler trades chunked exact prefill for one whole-prompt forward
+    whose attention runs DistrAttention at G* = ``group_size``
+    (``AttentionConfig.degraded``), then writes the resulting K/V into the
+    request's blocks.  Decode continues on the paged kernel untouched.
+    ``bucket`` is the padded prompt length, which the tokens carry."""
+    del bucket
+    dcfg = cfg.replace(attention=cfg.attention.degraded(group_size))
+    return _make_paged_full_prefill(cfg, dcfg, perms)

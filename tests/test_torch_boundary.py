@@ -16,10 +16,11 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import decode as dec  # noqa: E402
 from repro_torch.kernels import distr_attention as dk  # noqa: E402
 from repro_torch.kernels import flash_attention as fk  # noqa: E402
+from repro_torch.kernels import paged_decode as pd  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.serve import run  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
-from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from repro_torch.serve.engine import PagedServeEngine, ServeEngine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -113,6 +114,29 @@ def test_cpu_tensors_take_the_plain_path_without_counting():
     assert (fk.launches, dk.launches, dec.launches, bwd.launches) == before
 
 
+def test_paged_engine_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid here")
+    cfg = get_config("starcoder2-7b", reduced=True)
+    params = lm.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedServeEngine(cfg, params)
+
+
+def test_paged_cpu_tensors_take_the_plain_path_without_counting():
+    g = torch.Generator().manual_seed(1)
+    q = torch.randn(2, 2, 8, 64, generator=g)
+    pool = torch.randn(5, 2, 16, 64, generator=g)
+    bt = torch.tensor([[1, 2], [3, 0]])
+    lengths = torch.tensor([20, 40])  # the second overhangs its table
+    before = pd.launches
+    kw = dict(scale=0.125, q_len=4)
+    got = pd.paged_decode_kernel_call(q, pool, pool, bt, lengths, **kw)
+    want = pd.paged_decode_plain(q, pool, pool, bt, lengths, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert pd.launches == before
+
+
 def test_non_cpu_non_cuda_tensor_raises_instead_of_falling_back():
     q = torch.empty(4, 64, 64, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
@@ -123,8 +147,9 @@ def test_non_cpu_non_cuda_tensor_raises_instead_of_falling_back():
 def test_kernel_sources_are_found_without_building():
     names = [p.name for p in build.sources()]
     assert names == ["decode.cu", "delta.cu", "distr_attention.cu", "distr_backward.cu",
-                     "flash_attention.cu", "flash_backward.cu"]
+                     "flash_attention.cu", "flash_backward.cu", "paged_decode.cu"]
     assert set(build.SIGNATURES) == {
         "repro_flash_fwd", "repro_distr_fwd", "repro_decode_fwd", "repro_delta",
-        "repro_flash_dq", "repro_flash_dkv", "repro_distr_dq", "repro_distr_dkv"}
+        "repro_flash_dq", "repro_flash_dkv", "repro_distr_dq", "repro_distr_dkv",
+        "repro_paged_decode_fwd"}
     assert len(build.source_hash()) == 16

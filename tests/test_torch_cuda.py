@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small shapes and edge cases (ragged tiles, kv_len below the buffer,
-length 0, 32 packed rows, f32 and bf16), forward and backward, and the
+length 0, 32 packed rows, f32 and bf16; for the paged kernel dead blocks, a
+NaN-filled garbage block, lengths past the table and more than 32 rows),
+forward and backward, and the
 differentiable ops on the card against the same ops on the CPU.  Marked
 ``cuda``; skips without a GPU.  This file imports neither JAX nor the JAX package, so on a machine
 without JAX it runs alone:
@@ -17,6 +19,7 @@ from repro_torch.kernels import decode as dec  # noqa: E402
 from repro_torch.kernels import distr_attention as dk  # noqa: E402
 from repro_torch.kernels import flash_attention as fk  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import paged_decode as pd  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -182,3 +185,54 @@ def test_decode_kernel_matches_plain(cuda, dtype, rows, q_len, ds, block_k):
     want = dec.decode_plain(q, k, v, lengths, **kw)
     _close(dec.merge_splits(*got), dec.merge_splits(*want), dtype)
     assert bool((got[1][0] == -1e30).all()) and bool((got[2][0] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,q_len,ds,d,bs", [
+    (9, 1, 128, 128, 16),     # a decode tick at starcoder2-7b's packing
+    (72, 8, 64, 128, 16),     # a fused-K̂ chunk: three row tiles
+    (40, 4, 64, 64, 16),      # a ragged last row tile, d = 64
+    (288, 32, 128, 128, 128),  # a 32-token chunk at the serving block size
+])
+def test_paged_decode_kernel_matches_plain(cuda, dtype, rows, q_len, ds, d, bs):
+    """Request 0 has length 0 (every block dead), request 1 ends mid-block
+    with garbage entries past it, request 2 overhangs the table by 6; block 0
+    (the garbage block) holds NaN and must never be read."""
+    b, hkv, mb = 3, 2, 5
+    p = 1 + b * mb
+    q = _randn((b, hkv, rows, ds), dtype, 40)
+    k_pool, v_pool = _randn((p, hkv, bs, ds), dtype, 41), _randn((p, hkv, bs, d), dtype, 42)
+    k_pool[0], v_pool[0] = float("nan"), float("nan")
+    g = torch.Generator(device="cuda").manual_seed(43)
+    bt = (torch.randperm(p - 1, generator=g, device="cuda") + 1).reshape(b, mb).to(torch.int32)
+    length_1 = 2 * bs + 5
+    bt[0] = pd.GARBAGE_BLOCK
+    bt[1, 3:] = pd.GARBAGE_BLOCK
+    lengths = torch.tensor([0, length_1, mb * bs + 6], dtype=torch.int32, device="cuda")
+    kw = dict(scale=d ** -0.5, q_len=q_len)
+    before = pd.launches
+    got = pd.paged_decode_kernel_call(q, k_pool, v_pool, bt, lengths, **kw)
+    assert pd.launches == before + 1
+    want = pd.paged_decode_plain(q, k_pool, v_pool, bt, lengths, **kw)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == torch.float32 and torch.isfinite(g_).all()
+        torch.testing.assert_close(g_, w_, atol=1e-4, rtol=1e-4)
+    o, m, l = got
+    for dead in (o[0], o[1, :, 3:]):
+        assert bool((dead == 0).all())
+    for dead in (m[0], m[1, :, 3:]):
+        assert bool((dead == -1e30).all())
+    for dead in (l[0], l[1, :, 3:]):
+        assert bool((dead == 0).all())
+
+
+def test_paged_decode_kernel_rejects_mixed_dtypes(cuda):
+    q = _randn((1, 2, 9, 128), torch.float32, 44)
+    pool = _randn((3, 2, 16, 128), torch.bfloat16, 45)
+    bt = torch.tensor([[1, 2]], dtype=torch.int32, device="cuda")
+    lengths = torch.tensor([20], dtype=torch.int32, device="cuda")
+    before = pd.launches
+    with pytest.raises(TypeError, match="one dtype"):
+        pd.paged_decode_kernel_call(q, pool, pool, bt, lengths, scale=0.1, q_len=1)
+    assert pd.launches == before
