@@ -20,8 +20,14 @@ enough to preempt, and an overload that turns on the degradation dial;
 then trains minicpm-2b at its published size with seeded random f32 params
 through ``repro_torch.launch.train.run`` under both impls (4 steps of
 4 × 2048 tokens, full remat), and profiles one more step per impl for the
-attention kernels' share.  Each kernel's launches are counted in the serve
-and train runs.  The line before the last is
+attention kernels' share.  The hybrid slice: the SSD kernel against its
+plain version at zamba2-7b's shape (112 heads of 64, state 64, chunk 128;
+N = 2048 and the ragged 600, B = 1 and 2) and mamba2-130m's (24 heads,
+state 128); the flash, DistrAttention (G* = 2) and decode kernels at
+zamba2-7b's head dim 112; and zamba2-7b served at full width (81 Mamba-2
+layers, 2 shared attention blocks applied 13 times) through the same
+launcher and slot engine under both impls.  Each kernel's launches are
+counted in the serve and train runs.  The line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero; without CUDA, or outside a checkout, it
 exits non-zero before any result.
@@ -74,6 +80,18 @@ PAGED_NEW = 32
 # any pool size from 17 to 40 blocks (the scheduler run on the CPU with a
 # fake engine); 40 is the fewest that make a decode grow into a full pool.
 PRESSURE_BLOCKS, PRESSURE_NEW = 17, 40
+# The SSD kernel: (label, B, H, P, G, S, chunk, N).  zamba2-7b's Mamba-2
+# heads (the headline: B = 1, N = 2048), its ragged tail and B = 2, and
+# mamba2-130m's state width 128.
+SSD_SHAPES = (("zamba2-7b", 1, 112, 64, 1, 64, 128, 2048),
+              ("zamba2-7b ragged", 1, 112, 64, 1, 64, 128, 600),
+              ("zamba2-7b B=2", 2, 112, 64, 1, 64, 128, 2048),
+              ("mamba2-130m", 1, 24, 64, 1, 128, 128, 2048))
+# SSD tolerances, element-wise atol = rtol: y is bf16 on both sides (set
+# from the readings, PERF.md); the state is f32 on both sides.
+SSD_TOL = {"y": 2e-2, "state": 1e-3}
+# zamba2-7b's shared attention blocks: 32 heads (MHA) of 112, G* = 2.
+HYBRID_ATTN = (32, 32, 112, 2)
 # Kernel names (C++ templates) that count as attention in the profile.
 ATTN_KERNEL_NAMES = ("attn_fwd_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel",
                      "delta_kernel")
@@ -531,6 +549,185 @@ def paged_kernel_phase(torch, flush) -> dict:
     return out
 
 
+def ssd_phase(torch, flush) -> dict:
+    """The SSD kernel at SSD_SHAPES, bf16 x / b / c and f32 log-decays
+    a = −softplus(N(0, 1)): y and the final state held against the plain
+    version element by element; kernel and plain version timed at each
+    shape (the plain one at the headline only).  The bound: x, a, b, c read
+    once and y and the state written once, against the reference's
+    ``ssd_cost`` FLOPs (``repro/kernels/ops.py:870``: the full Q × Q
+    products a chunk) at the bf16 tensor-core rate."""
+    from repro_torch.kernels import ssd as sk
+
+    out = {"max_abs_err": 0.0, "shapes": []}
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for label, b, h, p, g, s, chunk, n in SSD_SHAPES:
+        x = torch.randn((b * h, n, p), generator=gen, device="cuda").to(torch.bfloat16)
+        a = -torch.nn.functional.softplus(torch.randn((b * h, n), generator=gen, device="cuda"))
+        bm = torch.randn((b * g, n, s), generator=gen, device="cuda").to(torch.bfloat16)
+        c = torch.randn((b * g, n, s), generator=gen, device="cuda").to(torch.bfloat16)
+        kw = dict(heads_per_group=h // g, chunk=chunk, return_state=True)
+        y, state = sk.ssd_kernel_call(x, a, bm, c, **kw)
+        y_p, state_p = sk.ssd_plain(x, a, bm, c, **kw)
+        torch.cuda.synchronize()
+        err = check_close(torch, f"ssd {label} y", y, y_p, SSD_TOL["y"])
+        err_s = check_close(torch, f"ssd {label} state", state, state_p, SSD_TOL["state"])
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        ms = time_ms(torch, lambda: sk.ssd_kernel_call(x, a, bm, c, **kw), 10, flush)
+        headline = not out["shapes"]
+        plain_ms = (time_ms(torch, lambda: sk.ssd_plain(x, a, bm, c, **kw), 3, flush)
+                    if headline else None)
+        nc = -(-n // chunk)
+        flops = 2 * b * h * nc * (chunk * chunk * s + chunk * chunk * p + 2 * chunk * s * p)
+        nbytes = 2 * b * h * n * p * 2 + 4 * b * h * n + 2 * 2 * b * g * n * s + 4 * b * h * s * p
+        b_ms, b_by = bound(flops, nbytes)
+        row = {"label": label, "b": b, "h": h, "p": p, "g": g, "s": s, "chunk": chunk, "n": n,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "max_abs_err": err, "state_max_abs_err": err_s}
+        out["shapes"].append(row)
+        log(f"[ssd {label}] {ms:.4f} ms (plain {plain_ms}, bound {b_ms:.4f} by {b_by}) "
+            f"y err {err:.3e} state err {err_s:.3e}")
+        del x, a, bm, c, y, state, y_p, state_p
+    head = out["shapes"][0]
+    out.update(ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+               bound_by=head["bound_by"], library_ms=None)
+    return out
+
+
+def attn112_phase(torch, flush) -> dict:
+    """The flash, DistrAttention (G* = 2, block_q 128) and decode kernels at
+    zamba2-7b's shared-block shape, head dim 112: B·Hq = 32, MHA, N = 2048,
+    causal; decode B = 4 slots, 32 KV heads, one query row each, S = 2048,
+    lengths DECODE_LENGTHS.  Held against the plain versions at TOL, timed
+    beside them and an SDPA yardstick."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.distr_attention import DistrConfig
+    from repro_torch.kernels import decode as dec
+    from repro_torch.kernels import distr_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ops import _pack_gqa_rows
+
+    hq, hkv, d, g = HYBRID_ATTN
+    n = max(PREFILL_NS)
+    dcfg = DistrConfig(group_size=g, block_q=128)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn((1, h, n, d), generator=gen, device="cuda").to(torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    qf, kf, vf = q[0].contiguous(), k[0].contiguous(), v[0].contiguous()
+    kw = dict(q_per_kv=hq // hkv, scale=d ** -0.5, causal=True, kv_len=n)
+    err_f = check_close(torch, "flash d=112", fk.flash_attention_kernel_call(qf, kf, vf, **kw),
+                        fk.flash_attention_plain(qf, kf, vf, **kw), TOL["flash"])
+    q_hat, perms = ops.distr_stage1(dcfg, q, d ** -0.5, hkv=hkv)
+    q_hat, perm = q_hat[0].contiguous(), perms[0].to(torch.int32).contiguous()
+    dkw = dict(q_per_kv=hq // hkv, causal=True, group_size=g, block_q=dcfg.block_q, kv_len=n)
+    err_d = check_close(torch, "distr d=112", dk.distr_attention_kernel_call(q_hat, kf, vf, perm, **dkw),
+                        dk.distr_attention_plain(q_hat, kf, vf, perm, **dkw), TOL["distr"])
+    pairs = n * (n + 1) // 2 * hq
+    out = {
+        "flash": {"ms": time_ms(torch, lambda: fk.flash_attention_kernel_call(qf, kf, vf, **kw), 10, flush),
+                  "plain_ms": time_ms(torch, lambda: fk.flash_attention_plain(qf, kf, vf, **kw), 3, flush),
+                  "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 10, flush),
+                  "max_abs_err": err_f},
+        "distr": {"ms": time_ms(torch, lambda: dk.distr_attention_kernel_call(q_hat, kf, vf, perm, **dkw), 10, flush),
+                  "plain_ms": time_ms(torch, lambda: dk.distr_attention_plain(q_hat, kf, vf, perm, **dkw), 3, flush),
+                  "library_ms": None, "max_abs_err": err_d},
+    }
+    out["flash"]["bound_ms"], out["flash"]["bound_by"] = bound(4 * d * pairs, 2 * 4 * hq * n * d)
+    out["distr"]["bound_ms"], out["distr"]["bound_by"] = bound(
+        (2 * (d // g) + 2 * d) * pairs,
+        2 * (hq * n * (d // g) + 2 * hkv * n * d + hq * n * d) + 4 * hq * (n // dcfg.block_q) * d)
+    del q, k, v, qf, kf, vf, q_hat, perm
+
+    b, s_len = 4, max(PREFILL_NS)
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
+    qd = torch.randn((b, hq, 1, d), generator=gen, device="cuda").to(torch.bfloat16)
+    kd, vd = (torch.randn((b, hkv, s_len, d), generator=gen, device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+    qp = _pack_gqa_rows(qd, hkv)
+    dkw = dict(scale=d ** -0.5, block_k=128, q_len=1)
+    got = dec.merge_splits(*dec.decode_kernel_call(qp, kd, vd, lengths, **dkw))
+    want = dec.merge_splits(*dec.decode_plain(qp, kd, vd, lengths, **dkw))
+    err = check_close(torch, "decode d=112", got, want, TOL["decode"])
+    mask = (torch.arange(s_len, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+    live = int(lengths.sum())
+    out["decode"] = {
+        "ms": time_ms(torch, lambda: dec.decode_kernel_call(qp, kd, vd, lengths, **dkw), 20, flush),
+        "plain_ms": time_ms(torch, lambda: dec.decode_plain(qp, kd, vd, lengths, **dkw), 5, flush),
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask), 20, flush),
+        "max_abs_err": err,
+    }
+    out["decode"]["bound_ms"], out["decode"]["bound_by"] = bound(
+        4 * live * hkv * d, 2 * live * hkv * 2 * d + 2 * b * hq * d + 4 * b + 4 * b * hq * d)
+    for name, row in out.items():
+        log(f"[d=112 {name}] {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, library "
+            f"{row['library_ms']}, bound {row['bound_ms']:.4f} by {row['bound_by']}) "
+            f"err {row['max_abs_err']:.3e}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_serve_phase(torch) -> dict:
+    """zamba2-7b at full width (81 Mamba-2 layers, d_model 3584, 2 shared
+    attention blocks of 32 heads of 112 applied after every 6th layer),
+    seeded random bf16 weights initialised on the card, served through the
+    launcher's run function under both kernel impls: 6 requests on 4 slots,
+    prompts SERVE_PROMPTS, 32 new tokens, greedy, max_len 2048.  Every
+    request must finish ``done`` with its tokens (a non-finite logit row
+    fails its request), and each prefill must launch the SSD kernel 81
+    times and the impl's attention kernel 13 times, each decode step the
+    decode kernel 13 times."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode as dec
+    from repro_torch.kernels import distr_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ssd as sk
+    from repro_torch.launch.serve import run
+    from repro_torch.models import lm
+
+    cfg = get_config("zamba2-7b")
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    log(f"[hybrid serve] zamba2-7b params on the card in {time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    n_sites, _ = lm.hybrid_layout(cfg)
+    launches = {"flash": 0, "distr": 0, "decode": 0, "ssd": 0}
+    report = {}
+    for impl, kernel in (("pallas_distr", "distr"), ("pallas_flash", "flash")):
+        cfg_i = cfg.replace(attention=cfg.attention.with_impl(impl))
+        fk.launches = dk.launches = dec.launches = sk.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        res = run(cfg_i, params, max_new=32, max_slots=4, max_len=2048,
+                  prompt_lens=list(SERVE_PROMPTS), device="cuda")
+        peak = torch.cuda.max_memory_allocated()
+        counts = {"flash": fk.launches, "distr": dk.launches, "decode": dec.launches,
+                  "ssd": sk.launches}
+        log(f"[hybrid serve {impl}] {len(res['done'])} requests, {res['tokens']} tokens in "
+            f"{res['seconds']:.2f}s ({res['tok_per_s']:.1f} tok/s); peak allocated "
+            f"{peak / 2**30:.2f} GiB; launches {counts}")
+        for m in res["metrics"]:
+            log(f"  req {m['uid']}: status {m['status']} ttft {m['ttft_s']:.4f}s "
+                f"tpot {m['tpot_s']:.4f}s n={m['n_generated']}")
+        bad = [r.uid for r in res["done"] if r.status != "done" or len(r.generated) != 32]
+        if len(res["done"]) != len(SERVE_PROMPTS) or bad:
+            raise AssertionError(f"hybrid serve {impl}: requests not done: {bad}")
+        n_req = len(SERVE_PROMPTS)
+        other = "flash" if kernel == "distr" else "distr"
+        if (counts["ssd"] != cfg.n_layers * n_req or counts[kernel] != n_sites * n_req
+                or counts[other] or counts["decode"] == 0 or counts["decode"] % n_sites):
+            raise AssertionError(f"hybrid serve {impl}: launches off the path: {counts}")
+        for name in (kernel, "decode", "ssd"):
+            launches[name] += counts[name]
+        report[impl] = {"seconds": res["seconds"], "tokens": res["tokens"],
+                        "tok_per_s": res["tok_per_s"], "peak_allocated": peak,
+                        "launches": counts, "metrics": res["metrics"]}
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "report": report}
+
+
 def serve_phase(torch):
     """starcoder2-7b at full width, seeded random weights, served through
     the launcher's run function under both kernel impls.  Returns the
@@ -792,10 +989,17 @@ def main() -> int:
     dec = decode_phase(torch, flush)
     pdec = paged_kernel_phase(torch, flush)
     back = backward_phase(torch, flush)
+    ssd = ssd_phase(torch, flush)
+    a112 = attn112_phase(torch, flush)
+    for name in ("flash", "distr"):
+        pre[name]["max_abs_err"] = max(pre[name]["max_abs_err"], a112[name]["max_abs_err"])
+    dec["max_abs_err"] = max(dec["max_abs_err"], a112["decode"]["max_abs_err"])
     del flush
     results = {"card": card, "prefill_shapes": pre.pop("shapes"), "distr_g4": g4,
-               "paged_shapes": pdec.pop("shapes"), "backward_shapes": back.pop("shapes")}
-    launches = {"flash": 0, "distr": 0, "decode": 0, "paged": 0, **dict.fromkeys(back, 0)}
+               "paged_shapes": pdec.pop("shapes"), "backward_shapes": back.pop("shapes"),
+               "ssd_shapes": ssd.pop("shapes"), "head_dim_112": a112}
+    launches = {"flash": 0, "distr": 0, "decode": 0, "paged": 0, "ssd": 0,
+                **dict.fromkeys(back, 0)}
     if args.only != "kernels":
         serve_launches, params = serve_phase(torch)
         launches.update(serve_launches)
@@ -804,6 +1008,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         results["paged_serve"] = paged["report"]
         for name, count in paged["launches"].items():
+            launches[name] += count
+        hybrid = hybrid_serve_phase(torch)
+        results["hybrid_serve"] = hybrid["report"]
+        for name, count in hybrid["launches"].items():
             launches[name] += count
         train = train_phase(torch)
         results["train"] = train["report"]
@@ -832,6 +1040,9 @@ def main() -> int:
                         "route": "cuda", "source": f"{csrc}/{source}",
                         "replaces": f"src/repro/kernels/backward.py:{line}",
                         "launches": launches[name], **back[name]})
+    kernels.append({"name": "ssd_chunk_scan", "route": "cuda", "source": f"{csrc}/ssd.cu",
+                    "replaces": "src/repro/kernels/ssd.py:28", "launches": launches["ssd"],
+                    **ssd})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: kern[k] for k in keys} for kern in kernels]

@@ -6,8 +6,10 @@ import importlib
 from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES = {
+    "mamba2-130m": "repro_torch.configs.mamba2_130m",
     "minicpm-2b": "repro_torch.configs.minicpm_2b",
     "starcoder2-7b": "repro_torch.configs.starcoder2_7b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 ARCH_NAMES = tuple(_ARCH_MODULES)

@@ -1,8 +1,9 @@
-"""Model configuration: the dense-decoder subset of ``repro.configs.base``.
+"""Model configuration: the dense, SSM and hybrid subset of
+``repro.configs.base``.
 
 One ``ModelConfig`` per architecture; ``configs/<arch>.py`` holds the
 published dimensions plus a ``reduced()`` variant for CPU tests.  Only the
-fields the dense slot-engine and training paths read are carried over.
+fields the port's serving and training paths read are carried over.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from repro_torch.core.api import AttentionConfig
 class ModelConfig:
     # identity
     name: str
-    family: str  # dense (the only family this port serves so far)
+    family: str  # dense | ssm (attention-free Mamba-2) | hybrid (Mamba-2 + shared attention)
     # transformer trunk
     n_layers: int
     d_model: int
@@ -37,6 +38,15 @@ class ModelConfig:
     param_dtype: str = "float32"  # master weights (AdamW moments are f32)
     remat: str = "full"  # full (recompute each block in the backward) | none
     schedule: str = "cosine"  # cosine | wsd
+    # SSM / hybrid (Mamba-2 blocks)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_groups: int = 1
+    ssm_conv: int = 4
+    ssm_chunk: int = 128
+    attn_every: int = 0  # hybrid: a shared attention block after every k Mamba layers
+    n_shared_attn_blocks: int = 2
 
     @property
     def padded_vocab(self) -> int:
@@ -46,6 +56,18 @@ class ModelConfig:
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def d_inner(self) -> int:  # SSM inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

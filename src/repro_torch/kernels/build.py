@@ -28,6 +28,8 @@ NVCC_FLAGS = (
 )
 LIB_NAME = "librepro_torch_kernels.so"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Value widths the forward and decode kernels are instantiated for.
+HEAD_DIMS = (64, 112, 128)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +47,7 @@ SIGNATURES = {
     "repro_flash_dkv": (_P,) * 8 + (_I,) * 7 + (_F, _I, _P),
     "repro_distr_dq": (_P,) * 8 + (_I,) * 11 + (_P,),
     "repro_distr_dkv": (_P,) * 9 + (_I,) * 11 + (_P,),
+    "repro_ssd_fwd": (_P,) * 6 + (_I,) * 7 + (_P,),
 }
 
 _lock = threading.Lock()

@@ -7,9 +7,11 @@
 // carries between CTAs; the KV walk is a loop inside the block.
 //
 // Thread (r, c) = (tid / 8, tid % 8) owns query rows 4r..4r+3, score
-// columns 4c..4c+3 of a tile, and output columns 32j + 4c..32j + 4c+3.  The
-// eight threads of a row group are eight consecutive lanes, so the row max
-// and row sum reduce with three xor-shuffles.
+// columns 4c..4c+3 of a tile, and output columns 32j + 4c..32j + 4c+3 for
+// every j with 32j + 4c < DV: a width that is not a multiple of 32
+// (DV = 112) leaves the last float4 chunk to the first threads of the row
+// group.  The eight threads of a row group are eight consecutive lanes, so
+// the row max and row sum reduce with three xor-shuffles.
 //
 // Shared memory, all f32: Q and the score-side K tile are stored transposed
 // (feature-major) so that every thread reads its four rows / four keys as
@@ -96,7 +98,10 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_kernel(AttnArgs a) {
     n_tiles = min(n_tiles, last_row / BN + 1);  // skip tiles above the diagonal
   }
 
-  constexpr int OJ = DV / 32;  // float4 output chunks per thread and row
+  static_assert(DV % 4 == 0, "output columns are owned in float4 chunks");
+  constexpr int OJ = (DV + 31) / 32;  // float4 output chunks per thread and row, at most
+  // Whether this thread owns output chunk jj (always, when 32 divides DV).
+  auto owns = [c](int jj) { return DV % 32 == 0 || jj * 32 + c * 4 < DV; };
   float m_i[4], l_i[4], acc[4][OJ * 4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -206,6 +211,7 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_kernel(AttnArgs a) {
       const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
 #pragma unroll
       for (int jj = 0; jj < OJ; ++jj) {
+        if (!owns(jj)) continue;
         const float4 vb = *reinterpret_cast<const float4*>(sV + key * DV + jj * 32 + c * 4);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -227,9 +233,11 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_kernel(AttnArgs a) {
     const float denom = l_i[i] == 0.f ? 1.f : l_i[i];
     T* orow = o + (size_t)row * DV;
 #pragma unroll
-    for (int jj = 0; jj < OJ; ++jj)
+    for (int jj = 0; jj < OJ; ++jj) {
+      if (!owns(jj)) continue;
 #pragma unroll
       for (int u = 0; u < 4; ++u) orow[jj * 32 + c * 4 + u] = from_float<T>(acc[i][jj * 4 + u] / denom);
+    }
     if (a.lse != nullptr && c == 0) {
       a.lse[(size_t)bh * a.n_rows + row] = l_i[i] == 0.f ? NEG_INF : m_i[i] + logf(denom);
     }
@@ -252,9 +260,11 @@ template <bool DISTR>
 int dispatch_attn_fwd(const AttnArgs& a, int dtype, int dv, int bhq, cudaStream_t stream) {
   if (dtype == DTYPE_BF16) {
     if (dv == 128) return launch_attn_fwd<__nv_bfloat16, 128, DISTR>(a, bhq, stream);
+    if (dv == 112) return launch_attn_fwd<__nv_bfloat16, 112, DISTR>(a, bhq, stream);
     if (dv == 64) return launch_attn_fwd<__nv_bfloat16, 64, DISTR>(a, bhq, stream);
   } else if (dtype == DTYPE_F32) {
     if (dv == 128) return launch_attn_fwd<float, 128, DISTR>(a, bhq, stream);
+    if (dv == 112) return launch_attn_fwd<float, 112, DISTR>(a, bhq, stream);
     if (dv == 64) return launch_attn_fwd<float, 64, DISTR>(a, bhq, stream);
   }
   return (int)cudaErrorInvalidValue;

@@ -194,9 +194,11 @@ extern "C" int repro_decode_fwd(const void* q, const void* k, const void* v, con
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == rt::DTYPE_BF16) {
     if (dv == 128) return rt::launch_decode<__nv_bfloat16, 128>(a, b, st);
+    if (dv == 112) return rt::launch_decode<__nv_bfloat16, 112>(a, b, st);
     if (dv == 64) return rt::launch_decode<__nv_bfloat16, 64>(a, b, st);
   } else if (dtype == rt::DTYPE_F32) {
     if (dv == 128) return rt::launch_decode<float, 128>(a, b, st);
+    if (dv == 112) return rt::launch_decode<float, 112>(a, b, st);
     if (dv == 64) return rt::launch_decode<float, 64>(a, b, st);
   }
   return (int)cudaErrorInvalidValue;

@@ -65,7 +65,7 @@ def decode_kernel_call(q, k, v, lengths, *, scale: float, block_k: int, q_len: i
     b, hkv, rows, ds = q.shape
     s_len, d = k.shape[2], v.shape[3]
     if (k.shape[:2] != (b, hkv) or k.shape[3] != ds or v.shape[:3] != k.shape[:3]
-            or rows > MAX_ROWS or ds % 8 or d not in (64, 128) or lengths.shape != (b,)):
+            or rows > MAX_ROWS or ds % 8 or d not in build.HEAD_DIMS or lengths.shape != (b,)):
         raise ValueError(
             f"decode kernel shapes q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}"
         )

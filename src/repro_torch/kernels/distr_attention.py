@@ -78,7 +78,7 @@ def distr_attention_kernel_call(q_hat, k, v, perm, *, q_per_kv: int,
     bhq, n, dg = q_hat.shape
     bhkv, nk, d = k.shape
     if (bhq != bhkv * q_per_kv or k.shape != v.shape or dg * group_size != d
-            or d not in (64, 128) or n % block_q or block_q % ROW_TILE
+            or d not in build.HEAD_DIMS or n % block_q or block_q % ROW_TILE
             or perm.shape != (bhq, n // block_q, d)):
         raise ValueError(
             f"distr kernel shapes q_hat={tuple(q_hat.shape)} k={tuple(k.shape)} "

@@ -56,7 +56,7 @@ def flash_attention_kernel_call(q, k, v, *, q_per_kv: int, scale: float,
     build.require_cuda(q, k, v)
     bhq, n, d = q.shape
     bhkv, nk, dv = v.shape
-    if bhq != bhkv * q_per_kv or k.shape != v.shape or dv != d or d not in (64, 128):
+    if bhq != bhkv * q_per_kv or k.shape != v.shape or dv != d or d not in build.HEAD_DIMS:
         raise ValueError(f"flash kernel shapes q={tuple(q.shape)} k={tuple(k.shape)}")
     if not (k.dtype == v.dtype == q.dtype):
         raise TypeError("flash kernel wants q, k, v of one dtype")

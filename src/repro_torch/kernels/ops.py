@@ -2,8 +2,8 @@
 
 Handles what the kernels keep out of their grids: GQA flattening, the
 DistrAttention stage 1 (LSH permutations and Q̂ sampling with the softmax
-scale folded in), GQA row packing for decode (contiguous and paged), and the
-cross-split merge.
+scale folded in), GQA row packing for decode (contiguous and paged), the
+cross-split merge, and the head flattening of the Mamba-2 SSD.
 Each op takes the kernel on CUDA tensors and the kernel's plain version on
 CPU tensors (``kernels/*.py``).
 
@@ -30,12 +30,13 @@ from repro_torch.kernels.decode import merge_splits
 from repro_torch.kernels.distr_attention import distr_attention_kernel_call
 from repro_torch.kernels.flash_attention import flash_attention_kernel_call
 from repro_torch.kernels.paged_decode import paged_decode_kernel_call
+from repro_torch.kernels.ssd import ssd_kernel_call
 
 DEFAULT_DECODE_BLOCK = 128
 
 __all__ = [
     "decode_attention", "distr_attention", "distr_dq_from_dq_hat", "distr_stage1",
-    "flash_attention", "merge_splits", "paged_decode_attention",
+    "flash_attention", "merge_splits", "paged_decode_attention", "ssd",
 ]
 
 
@@ -316,3 +317,27 @@ def paged_decode_attention(q, k_pool, v_pool, *, block_tables: torch.Tensor,
     )
     out = merge_splits(o, m, l)  # (B, Hkv, rows, d) f32
     return out.reshape(b, hq, q_len, d).to(q.dtype)
+
+
+def ssd(x, a, b, c, *, chunk: int = 64, return_state: bool = False):
+    """Mamba-2 SSD.  x: (B, N, H, P); a: (B, N, H) log-decays; b, c: (B, N,
+    G, S) → y (B, N, H, P) in x's dtype, and with ``return_state`` also the
+    state at position N, (B, H, S, P) f32 (``ssd_xla(return_state=True)``).
+
+    Flattens to (B·H, N, P) / (B·G, N, S) for the kernel, as the reference's
+    ``_ssd_jit`` does.  The kernel masks a ragged tail itself and has no
+    backward: a CUDA input that wants a gradient raises."""
+    if _wants_grad(x, a, b, c) and x.device.type != "cpu":
+        raise NotImplementedError("the SSD kernel has no backward")
+    bsz, n, h, p = x.shape
+    g, s = b.shape[2], b.shape[3]
+    res = ssd_kernel_call(
+        x.transpose(1, 2).reshape(bsz * h, n, p).contiguous(),
+        a.transpose(1, 2).reshape(bsz * h, n).contiguous(),
+        b.transpose(1, 2).reshape(bsz * g, n, s).contiguous(),
+        c.transpose(1, 2).reshape(bsz * g, n, s).contiguous(),
+        heads_per_group=h // g, chunk=chunk, return_state=return_state,
+    )
+    y, state = res if return_state else (res, None)
+    y = y.reshape(bsz, h, n, p).transpose(1, 2)
+    return (y, state.reshape(bsz, h, s, p)) if return_state else y

@@ -3,8 +3,10 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \
       --impl pallas_distr --requests 6 --max-new 32 --max-len 2048
 
-Runs on the GPU unless ``--device cpu`` is given (then use ``--reduced``:
-the CPU runs the kernels' plain PyTorch versions).
+``--arch`` takes every registered config: the dense starcoder2-7b and
+minicpm-2b, the attention-free mamba2-130m and the hybrid zamba2-7b.  Runs
+on the GPU unless ``--device cpu`` is given (then use ``--reduced``: the CPU
+runs the kernels' plain PyTorch versions).
 """
 from __future__ import annotations
 

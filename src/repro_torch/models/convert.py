@@ -1,8 +1,10 @@
 """Build the port's parameters from the reference's parameter tree.
 
 The reference keeps per-layer parameters stacked on axis 0 under
-``blocks`` and linear weights as ``(d_in, d_out)``; the port keeps the same
-layout, one dict per layer.  A tied-embedding tree has no ``lm_head``.
+``blocks`` (the hybrid: on axes 0 and 1 under ``groups``, axis 0 under
+``tail``, and a list of unstacked ``shared`` blocks) and linear weights as
+``(d_in, d_out)``; the port keeps the same layout, one dict per layer.  A
+tied-embedding tree has no ``lm_head``.
 The reference draws two pieces of model state from ``jax.random`` that torch
 cannot regenerate: the LSH projection (``from_jax_params(proj=)``) and the
 fused-K̂ cache's static permutations (``convert_perms``).
@@ -12,7 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models.lm import compute_dtype, init_lsh_projection
+from repro_torch.models.lm import (
+    check_family, compute_dtype, hybrid_layout, init_lsh_projection,
+)
 from repro_torch.utils.device import resolve_device
 
 
@@ -27,10 +31,16 @@ def _layer(stacked, i: int):
     return np.asarray(stacked)[i]
 
 
+# Mamba parameters held in f32 whatever the compute dtype (``mamba_init``).
+F32_LEAVES = ("conv_w", "conv_b", "a_log", "dt_bias", "d_skip")
+
+
 def _leaf_dtype(path: tuple, cdtype: torch.dtype) -> torch.dtype:
-    """Norm parameters stay f32; matmul weights, biases and tables take the
-    compute dtype."""
-    return torch.float32 if any("norm" in p for p in path) else cdtype
+    """Norm parameters and the Mamba leaves of ``F32_LEAVES`` stay f32;
+    matmul weights, biases and tables take the compute dtype."""
+    if any("norm" in p for p in path) or path[-1] in F32_LEAVES:
+        return torch.float32
+    return cdtype
 
 
 def _convert(tree, path, cdtype, device):
@@ -42,25 +52,32 @@ def _convert(tree, path, cdtype, device):
 def from_jax_params(params_np: dict, cfg, *, proj: np.ndarray | None = None,
                     device: str | torch.device = "cuda",
                     dtype: torch.dtype | None = None) -> dict:
-    """Reference ``lm.init_params`` tree (numpy leaves, ``blocks`` stacked on
-    the layer axis) → the port's parameter dict, with matmul weights,
+    """Reference ``lm.init_params`` tree (numpy leaves, layers stacked as
+    the module docstring says) → the port's parameter dict, with matmul weights,
     tables and biases in ``dtype`` (default the compute dtype, as serving
     holds them; training passes ``lm.param_dtype(cfg)``).  ``proj`` is the
     reference's LSH projection ``(16, block_q)``; without it the port's
     own seeded projection is kept."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r}: the port serves dense models")
+    check_family(cfg)
     dev = resolve_device(device)
     cdtype = dtype or compute_dtype(cfg)
-    blocks = [_convert(_layer(params_np["blocks"], i), ("blocks",), cdtype, dev)
-              for i in range(cfg.n_layers)]
-    params = {
-        "embed": _convert(params_np["embed"], ("embed",), cdtype, dev),
-        "blocks": blocks,
-        "final_norm": _convert(params_np["final_norm"], ("final_norm",), cdtype, dev),
-        "lsh_proj": (_tensor(proj, torch.float32, dev) if proj is not None
-                     else init_lsh_projection(cfg, dev)),
-    }
+
+    def unstack(stacked, n: int, name: str) -> list:
+        return [_convert(_layer(stacked, i), (name,), cdtype, dev) for i in range(n)]
+
+    params = {"embed": _convert(params_np["embed"], ("embed",), cdtype, dev)}
+    if cfg.family == "hybrid":
+        n_groups, n_tail = hybrid_layout(cfg)
+        params["groups"] = [unstack(_layer(params_np["groups"], gi), cfg.attn_every, "groups")
+                            for gi in range(n_groups)]
+        if n_tail:
+            params["tail"] = unstack(params_np["tail"], n_tail, "tail")
+        params["shared"] = [_convert(sp, ("shared",), cdtype, dev) for sp in params_np["shared"]]
+    else:
+        params["blocks"] = unstack(params_np["blocks"], cfg.n_layers, "blocks")
+    params["final_norm"] = _convert(params_np["final_norm"], ("final_norm",), cdtype, dev)
+    params["lsh_proj"] = (_tensor(proj, torch.float32, dev) if proj is not None
+                          else init_lsh_projection(cfg, dev))
     if not cfg.tie_embeddings:
         params["lm_head"] = _convert(params_np["lm_head"], ("lm_head",), cdtype, dev)
     return params

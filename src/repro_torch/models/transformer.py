@@ -1,11 +1,15 @@
-"""Dense pre-norm transformer block (prefill, one-token decode, and windowed
-decode against the paged pool)."""
+"""Pre-norm blocks: the dense transformer block (prefill, one-token decode,
+and windowed decode against the paged pool), the Mamba-2 block, and the
+hybrid's shared attention block.
+
+``layer_type`` is ``"dense"`` or ``"mamba"``.  A dense block returns its
+(k, v); a Mamba block returns its (conv_state, ssm_state) when asked."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import layers
+from repro_torch.models import layers, mamba
 
 
 def norm_init(cfg, device=None) -> dict:
@@ -20,7 +24,10 @@ def norm_apply(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     return layers.layernorm_apply(params, x, cfg.norm_eps)
 
 
-def block_init(generator, cfg, dtype=torch.float32) -> dict:
+def block_init(generator, cfg, dtype=torch.float32, layer_type: str = "dense") -> dict:
+    if layer_type == "mamba":
+        return {"norm1": norm_init(cfg, generator.device),
+                "mixer": mamba.mamba_init(generator, cfg, dtype)}
     return {
         "norm1": norm_init(cfg, generator.device),
         "norm2": norm_init(cfg, generator.device),
@@ -30,8 +37,17 @@ def block_init(generator, cfg, dtype=torch.float32) -> dict:
 
 
 def block_apply(params: dict, x: torch.Tensor, cfg, *, positions=None,
-                causal: bool = True, proj: torch.Tensor | None = None):
-    """Full-sequence block.  Returns ``(x, (k, v))``."""
+                causal: bool = True, proj: torch.Tensor | None = None,
+                layer_type: str = "dense", collect_cache: bool = False):
+    """Full-sequence block.  Returns ``(x, (k, v))`` for a dense block, and
+    ``(x, (conv_state, ssm_state))`` for a Mamba block with
+    ``collect_cache`` (else ``(x, None)``)."""
+    if layer_type == "mamba":
+        h = norm_apply(params["norm1"], x, cfg)
+        if collect_cache:
+            y, states = mamba.mamba_apply(params["mixer"], h, cfg, return_state=True)
+            return x + y, states
+        return x + mamba.mamba_apply(params["mixer"], h, cfg), None
     h = norm_apply(params["norm1"], x, cfg)
     o, kv = attn_mod.attention_apply(params["attn"], h, cfg, positions=positions,
                                      causal=causal, proj=proj)
@@ -41,10 +57,18 @@ def block_apply(params: dict, x: torch.Tensor, cfg, *, positions=None,
 
 
 def block_decode_apply(params: dict, x: torch.Tensor, cfg, *, cache: dict,
-                       cache_index, length=None):
-    """One-token decode.  ``cache`` holds this layer's ``k``/``v``
-    (B, Hkv, S, dh), updated in place; ``length`` is the per-slot live
-    token count including the new token.  Returns ``(x, cache)``."""
+                       cache_index, length=None, layer_type: str = "dense"):
+    """One-token decode.  A dense block's ``cache`` holds this layer's
+    ``k``/``v`` (B, Hkv, S, dh), updated in place; ``length`` is the
+    per-slot live token count including the new token (None: pos + 1).  A
+    Mamba block's holds ``conv``/``ssm``, returned anew.  Returns
+    ``(x, cache)``."""
+    if layer_type == "mamba":
+        y, (conv_s, ssm_s) = mamba.mamba_decode_apply(
+            params["mixer"], norm_apply(params["norm1"], x, cfg), cfg,
+            conv_state=cache["conv"], ssm_state=cache["ssm"],
+        )
+        return x + y, {**cache, "conv": conv_s, "ssm": ssm_s}
     h = norm_apply(params["norm1"], x, cfg)
     o, (ck, cv) = attn_mod.attention_decode_apply(
         params["attn"], h, cfg, cache_k=cache["k"], cache_v=cache["v"],
@@ -68,3 +92,34 @@ def block_paged_decode_apply(params: dict, x: torch.Tensor, cfg, *, pool_k, pool
     x = x + o
     h2 = norm_apply(params["norm2"], x, cfg)
     return x + layers.mlp_apply(params["ffn"], h2, act=cfg.act), pools
+
+
+# ---------------------------------------------------------------------------
+# Hybrid (zamba2) shared attention block: fuse(concat(x, x0)) → dense block
+# ---------------------------------------------------------------------------
+
+
+def shared_block_init(generator, cfg, dtype=torch.float32) -> dict:
+    return {
+        "fuse": layers.linear_init(generator, 2 * cfg.d_model, cfg.d_model, dtype=dtype),
+        "block": block_init(generator, cfg, dtype),
+    }
+
+
+def shared_block_apply(params: dict, x: torch.Tensor, x0: torch.Tensor, cfg, *,
+                       positions=None, proj: torch.Tensor | None = None):
+    """Fuse the trunk with the embedded input ``x0``, run a dense block, and
+    add only its residual delta to the trunk.  Returns ``(x, (k, v))``."""
+    h = layers.linear_apply(params["fuse"], torch.cat([x, x0], dim=-1))
+    y, kv = block_apply(params["block"], h, cfg, positions=positions, causal=True, proj=proj)
+    return x + (y - h), kv
+
+
+def shared_block_decode_apply(params: dict, x: torch.Tensor, x0: torch.Tensor, cfg, *,
+                              cache: dict, cache_index):
+    """One-token decode of a shared block over its site's ``k``/``v``
+    cache; the live length is ``cache_index + 1``.  Returns ``(x, cache)``."""
+    h = layers.linear_apply(params["fuse"], torch.cat([x, x0], dim=-1))
+    y, new_cache = block_decode_apply(params["block"], h, cfg, cache=cache,
+                                      cache_index=cache_index)
+    return x + (y - h), new_cache

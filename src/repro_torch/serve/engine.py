@@ -6,11 +6,15 @@ The slot engine's decode cache holds ``max_slots`` sequences with a
 ``max_len`` slab each.  Requests are prefilled one at a time (prompts right-padded to a
 bucket) and their caches copied into free slots; every ``step()`` decodes
 one token for all active slots.  A finished sequence frees its slot at
-once.  Decoding continues past ``max_len`` by sliding the ring window.
+once.  A dense model's decoding continues past ``max_len`` by sliding the
+ring window; the ssm and hybrid caches have no ring, so their sequences
+finish at ``pos ≥ max_len − 2``.
 
 As in the reference engine, admission sets ``pos = n - 1`` and the next
 token to the prompt's last token, so the first decode step feeds that token
 again at position ``n``; the prefill logits only guard numeric health.
+Also as there, an ssm / hybrid prefill's SSM and conv state is the state
+after the whole bucket, the pad tokens (id 0) included.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from repro_torch.models.lm import check_family
 from repro_torch.serve import kv_cache, lifecycle, paged
 from repro_torch.serve.degrade import DegradeConfig
 from repro_torch.serve.lifecycle import IncompleteRun
@@ -71,8 +76,7 @@ class ServeEngine:
     def __init__(self, cfg, params, *, max_slots: int = 8, max_len: int = 512,
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
                  seed: int = 0, device: str | torch.device = "cuda"):
-        if cfg.family != "dense":
-            raise NotImplementedError(f"family {cfg.family!r}: the port serves dense models")
+        check_family(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -122,7 +126,15 @@ class ServeEngine:
         """Free a slot; its garbage decode then walks one KV block."""
         del self.active[slot]
         self.pos[slot] = 0
-        self.cache["length"][slot] = 0
+        if "length" in self.cache:
+            self.cache["length"][slot] = 0
+
+    @staticmethod
+    def _slot_axis(key: str) -> int:
+        """The slot axis of each cache layout (serve.kv_cache)."""
+        if key == "length":
+            return 0
+        return 2 if key.startswith("groups_") else 1
 
     def _free_slots(self) -> list[int]:
         return [s for s in range(self.max_slots) if s not in self.active]
@@ -143,10 +155,13 @@ class ServeEngine:
                 done_now.append(req)
                 continue
             req.status = lifecycle.RUNNING
-            for key in ("k", "v"):  # cache1 is zero-padded to max_len
-                self.cache[key][:, slot].copy_(cache1[key][:, 0])
-            # Bucketed prefill right-pads the prompt: only n tokens are live.
-            self.cache["length"][slot] = n
+            for key in self.cache:  # cache1's K/V are zero-padded to max_len
+                if key != "length":
+                    axis = self._slot_axis(key)
+                    self.cache[key].select(axis, slot).copy_(cache1[key].select(axis, 0))
+            if "length" in self.cache:
+                # Bucketed prefill right-pads the prompt: only n tokens are live.
+                self.cache["length"][slot] = n
             self.pos[slot] = n - 1
             self.tokens[slot, 0] = req.prompt[-1]
             self.active[slot] = req
@@ -170,6 +185,9 @@ class ServeEngine:
         self.pos = step_pos
         self.tokens = next_tokens[:, None]
         toks = next_tokens.cpu().tolist()
+        # Without the ring's ``length`` a sequence must finish before wrap.
+        no_room = (set() if "length" in self.cache else
+                   {s for s, p in enumerate(step_pos.cpu().tolist()) if p >= self.max_len - 2})
         now = time.perf_counter()
         for slot, req in list(self.active.items()):
             if not row_ok[slot]:
@@ -182,7 +200,7 @@ class ServeEngine:
             if len(req.generated) == 1:
                 self._t_first[req.uid] = now
             if len(req.generated) >= req.max_new_tokens or (
-                    req.eos_id is not None and t == req.eos_id):
+                    req.eos_id is not None and t == req.eos_id) or slot in no_room:
                 req.done = True
                 self._release_slot(slot)
                 self._terminal(req, lifecycle.DONE, now)

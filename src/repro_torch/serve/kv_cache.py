@@ -1,25 +1,56 @@
-"""The dense GQA ring KV cache, and the static permutations of the fused-K̂
-decode cache.
+"""The slot engine's cache layouts per family, and the static permutations
+of the fused-K̂ decode cache.
 
-Layout (L = layers, B = slots, S = max_len): ``k``, ``v`` (L, B, Hkv, S, dh)
-and ``length`` (B,) int32.  Writes land at ``pos mod S``; ``length`` counts
+Layouts (L = layers, B = slots, S = max_len, G = hybrid groups):
+  dense:  ``k``, ``v`` (L, B, Hkv, S, dh) and ``length`` (B,) int32
+  ssm:    ``conv`` (L, B, k−1, conv_dim), ``ssm`` (L, B, H, S_state, P) f32
+  hybrid: ``groups_conv`` (G, attn_every, B, k−1, conv_dim), ``groups_ssm``
+          (G, attn_every, B, H, S_state, P) f32, ``shared_k`` / ``shared_v``
+          (G, B, Hkv, S, dh) for the shared block after each group, and
+          ``tail_conv`` / ``tail_ssm`` for the Mamba layers past the last group
+
+The dense cache is a ring: writes land at ``pos mod S``; ``length`` counts
 every token ever written, so the live window is the most recent
-``min(length, S)`` tokens and RoPE positions stay absolute.
+``min(length, S)`` tokens and RoPE positions stay absolute.  The ssm and
+hybrid layouts have no ``length``: their sequences finish before the
+window would wrap.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import grouping
+from repro_torch.models.lm import hybrid_layout
+from repro_torch.models.mamba import conv_dim
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                device: str | torch.device = "cuda") -> dict:
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim_)
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    conv = (cfg.ssm_conv - 1, conv_dim(cfg))
+    ssm = (cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim)
+    if cfg.family == "ssm":
+        return {"conv": zeros((cfg.n_layers, batch) + conv),
+                "ssm": zeros((cfg.n_layers, batch) + ssm, torch.float32)}
+    kv = (cfg.n_kv_heads, max_len, cfg.head_dim_)
+    if cfg.family == "hybrid":
+        g, t = hybrid_layout(cfg)
+        cache = {
+            "groups_conv": zeros((g, cfg.attn_every, batch) + conv),
+            "groups_ssm": zeros((g, cfg.attn_every, batch) + ssm, torch.float32),
+            "shared_k": zeros((g, batch) + kv),
+            "shared_v": zeros((g, batch) + kv),
+        }
+        if t:
+            cache["tail_conv"] = zeros((t, batch) + conv)
+            cache["tail_ssm"] = zeros((t, batch) + ssm, torch.float32)
+        return cache
     return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "length": torch.zeros((batch,), dtype=torch.int32, device=device),
+        "k": zeros((cfg.n_layers, batch) + kv),
+        "v": zeros((cfg.n_layers, batch) + kv),
+        "length": zeros((batch,), torch.int32),
     }
 
 

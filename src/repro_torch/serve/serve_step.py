@@ -1,7 +1,8 @@
-"""Serving steps for the dense family: prefill (build the cache from a full
-forward) and one-token decode over the ring cache; the paged step (a decode
-tick or a chunked-prefill window over the block pool) and the whole-prompt
-paged prefill of the degradation dial.
+"""Serving steps: prefill (build the cache from a full forward) and
+one-token decode for the dense (ring cache), ssm and hybrid families; for
+the dense family also the paged step (a decode tick or a chunked-prefill
+window over the block pool) and the whole-prompt paged prefill of the
+degradation dial.
 
 Steps update caches and pools in place.
 """
@@ -24,15 +25,43 @@ def _pad_seq_to(x: torch.Tensor, max_len: int, dim: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros(shape)], dim=dim)
 
 
+def _stack_states(states: list, dtype: torch.dtype):
+    """Per-layer (conv_state, ssm_state) → (conv (L, B, ...) in ``dtype``,
+    ssm (L, B, ...) f32)."""
+    return (torch.stack([c for c, _ in states]).to(dtype),
+            torch.stack([s for _, s in states]))
+
+
+def _mamba_prefill_cache(cfg, parts, max_len: int, dtype: torch.dtype) -> dict:
+    if cfg.family == "ssm":
+        conv, ssm = _stack_states(parts, dtype)
+        return {"conv": conv, "ssm": ssm}
+    groups = [_stack_states(states, dtype) for states in parts["groups"]]
+    cache = {
+        "groups_conv": torch.stack([c for c, _ in groups]),  # (G, attn_every, B, ...)
+        "groups_ssm": torch.stack([s for _, s in groups]),
+        "shared_k": _pad_seq_to(torch.stack([k for k, _ in parts["shared_kv"]]).to(dtype),
+                                max_len, 3),
+        "shared_v": _pad_seq_to(torch.stack([v for _, v in parts["shared_kv"]]).to(dtype),
+                                max_len, 3),
+    }
+    if parts["tail"]:
+        cache["tail_conv"], cache["tail_ssm"] = _stack_states(parts["tail"], dtype)
+    return cache
+
+
 def make_prefill(cfg, max_len: int):
     """→ prefill(params, tokens (B, N)) → (logits (B, 1, V) of the last
-    position, cache ready for decode at position N)."""
+    position, cache ready for decode at position N).  For ssm / hybrid the
+    SSM state is the state after all N tokens, padding included."""
 
     @torch.no_grad()
     def prefill(params, tokens):
         hidden, kvs = lm.backbone(params, cfg, tokens, collect_cache=True)
         logits = lm.logits_fn(params, cfg, hidden[:, -1:])
         dtype = lm.compute_dtype(cfg)
+        if cfg.family in ("ssm", "hybrid"):
+            return logits, _mamba_prefill_cache(cfg, kvs, max_len, dtype)
         k = torch.stack([kv[0] for kv in kvs]).to(dtype)  # (L, B, Hkv, N, dh)
         v = torch.stack([kv[1] for kv in kvs]).to(dtype)
         cache = {
@@ -48,15 +77,64 @@ def make_prefill(cfg, max_len: int):
     return prefill
 
 
+def _widen_conv(cache: dict, cfg) -> dict:
+    """The conv caches in the dtype a decode step writes: the wider of the
+    cache's and the compute dtype (the reference's decode window promotes,
+    so an engine's bf16 conv cache turns f32 under f32 activations)."""
+    out = dict(cache)
+    for key in ("conv", "groups_conv", "tail_conv"):
+        if key in out:
+            want = torch.promote_types(out[key].dtype, lm.compute_dtype(cfg))
+            if out[key].dtype != want:
+                out[key] = out[key].to(want)
+    return out
+
+
+def _mamba_decode(cfg, lp: dict, x: torch.Tensor, conv: torch.Tensor, ssm: torch.Tensor,
+                  idx: tuple) -> torch.Tensor:
+    """Decode one Mamba layer and write its new conv / SSM state back into
+    ``conv[idx]`` / ``ssm[idx]`` in place."""
+    x, nc = transformer.block_decode_apply(
+        lp, x, cfg, cache={"conv": conv[idx], "ssm": ssm[idx]}, cache_index=None,
+        layer_type="mamba")
+    conv[idx].copy_(nc["conv"])
+    ssm[idx].copy_(nc["ssm"])
+    return x
+
+
+def _mamba_decode_trunk(cfg, params: dict, x: torch.Tensor, cache: dict, pos) -> torch.Tensor:
+    if cfg.family == "ssm":
+        for i, lp in enumerate(params["blocks"]):
+            x = _mamba_decode(cfg, lp, x, cache["conv"], cache["ssm"], (i,))
+        return x
+    x0 = x
+    for gi, group in enumerate(params["groups"]):
+        for li, lp in enumerate(group):
+            x = _mamba_decode(cfg, lp, x, cache["groups_conv"], cache["groups_ssm"], (gi, li))
+        x, _ = transformer.shared_block_decode_apply(
+            params["shared"][gi % cfg.n_shared_attn_blocks], x, x0, cfg,
+            cache={"k": cache["shared_k"][gi], "v": cache["shared_v"][gi]}, cache_index=pos)
+    for i, lp in enumerate(params.get("tail", [])):
+        x = _mamba_decode(cfg, lp, x, cache["tail_conv"], cache["tail_ssm"], (i,))
+    return x
+
+
 def make_decode_step(cfg):
     """→ decode_step(params, tokens (B, 1), cache, pos (B,)) → (logits
-    (B, 1, V), cache).  Each slot writes its token at ``pos mod S``; the
-    live length becomes ``min(max(length, pos + 1), S)``."""
+    (B, 1, V), cache).  Dense: each slot writes its token at ``pos mod S``;
+    the live length becomes ``min(max(length, pos + 1), S)``.  ssm /
+    hybrid: each Mamba layer steps its recurrence, and each shared block
+    writes at ``pos`` and attends over ``pos + 1`` positions."""
 
     @torch.no_grad()
     def decode_step(params, tokens, cache, pos):
         x = lm.embed(params, cfg, tokens)
         pos = pos.to(torch.int32)
+        if cfg.family in ("ssm", "hybrid"):
+            cache = _widen_conv(cache, cfg)
+            x = _mamba_decode_trunk(cfg, params, x, cache, pos)
+            x = transformer.norm_apply(params["final_norm"], x, cfg)
+            return lm.logits_fn(params, cfg, x), cache
         max_len = cache["k"].shape[3]
         total = torch.maximum(cache["length"], pos + 1)
         length = torch.clamp(total, max=max_len)

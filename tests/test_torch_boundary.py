@@ -1,8 +1,8 @@
 """Package boundary of the port: repro_torch and chip_smoke.py import
 neither JAX nor the JAX package, repro_torch calls no library attention and
-no torch.compile, entry points refuse to fall back to the CPU, and a CPU
-tensor given to a kernel wrapper takes the plain path without counting a
-launch."""
+no torch.compile, entry points refuse to fall back to the CPU (for the
+dense, ssm and hybrid families alike), and a CPU tensor given to a kernel
+wrapper takes the plain path without counting a launch."""
 import ast
 from pathlib import Path
 
@@ -16,10 +16,13 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import decode as dec  # noqa: E402
 from repro_torch.kernels import distr_attention as dk  # noqa: E402
 from repro_torch.kernels import flash_attention as fk  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_decode as pd  # noqa: E402
+from repro_torch.kernels import ssd as ssd_kernels  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.serve import run  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import mamba  # noqa: E402
 from repro_torch.serve.engine import PagedServeEngine, ServeEngine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -147,9 +150,50 @@ def test_non_cpu_non_cuda_tensor_raises_instead_of_falling_back():
 def test_kernel_sources_are_found_without_building():
     names = [p.name for p in build.sources()]
     assert names == ["decode.cu", "delta.cu", "distr_attention.cu", "distr_backward.cu",
-                     "flash_attention.cu", "flash_backward.cu", "paged_decode.cu"]
+                     "flash_attention.cu", "flash_backward.cu", "paged_decode.cu", "ssd.cu"]
     assert set(build.SIGNATURES) == {
         "repro_flash_fwd", "repro_distr_fwd", "repro_decode_fwd", "repro_delta",
         "repro_flash_dq", "repro_flash_dkv", "repro_distr_dq", "repro_distr_dkv",
-        "repro_paged_decode_fwd"}
+        "repro_paged_decode_fwd", "repro_ssd_fwd"}
     assert len(build.source_hash()) == 16
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-130m"])
+def test_mamba_families_refuse_the_cpu_unless_asked(arch):
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid here")
+    cfg = get_config(arch, reduced=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_params(cfg)
+    params = lm.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run(cfg, params, requests=1)
+    eng = ServeEngine(cfg, params, max_slots=1, max_len=64, device="cpu")
+    eng.add_request([1, 2, 3], max_new_tokens=2)
+    assert [r.status for r in eng.run_to_completion()] == ["done"]
+
+
+def test_ssd_cpu_tensors_take_the_plain_path_without_counting():
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(4, 40, 8, generator=g)
+    a = -torch.rand(4, 40, generator=g)
+    b, c = torch.randn(2, 40, 4, generator=g), torch.randn(2, 40, 4, generator=g)
+    before = ssd_kernels.launches
+    kw = dict(heads_per_group=2, chunk=16, return_state=True)
+    got = ssd_kernels.ssd_kernel_call(x, a, b, c, **kw)
+    want = ssd_kernels.ssd_plain(x, a, b, c, **kw)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+    assert ssd_kernels.launches == before
+    assert mamba.conv_dim(get_config("zamba2-7b")) == 7168 + 2 * 64
+
+
+def test_ssd_on_a_device_without_a_backward_raises_for_grad():
+    x = torch.empty(1, 8, 2, 4, device="meta", requires_grad=True)
+    a = torch.empty(1, 8, 2, device="meta")
+    b = torch.empty(1, 8, 1, 4, device="meta")
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.ssd(x, a, b, b, chunk=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.ssd(x.detach(), a, b, b, chunk=4)

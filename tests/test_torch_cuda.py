@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small shapes and edge cases (ragged tiles, kv_len below the buffer,
 length 0, 32 packed rows, f32 and bf16; for the paged kernel dead blocks, a
-NaN-filled garbage block, lengths past the table and more than 32 rows),
+NaN-filled garbage block, lengths past the table and more than 32 rows; head
+dim 112 for the forward and decode kernels; for the SSD kernel short and
+ragged sequences, strong decays, grouped heads and state width 128),
 forward and backward, and the
 differentiable ops on the card against the same ops on the CPU.  Marked
 ``cuda``; skips without a GPU.  This file imports neither JAX nor the JAX package, so on a machine
@@ -20,6 +22,7 @@ from repro_torch.kernels import distr_attention as dk  # noqa: E402
 from repro_torch.kernels import flash_attention as fk  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_decode as pd  # noqa: E402
+from repro_torch.kernels import ssd as ssd_kernels  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -236,3 +239,85 @@ def test_paged_decode_kernel_rejects_mixed_dtypes(cuda):
     with pytest.raises(TypeError, match="one dtype"):
         pd.paged_decode_kernel_call(q, pool, pool, bt, lengths, scale=0.1, q_len=1)
     assert pd.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("impl", ["flash", "distr"])
+def test_forward_kernels_at_head_dim_112(cuda, dtype, impl):
+    """zamba2-7b's head: d = 112 (a float4 chunk past the last 32 columns),
+    the distr score width 56, a ragged kv_len below the buffer."""
+    d, n, kv_len = 112, 192, 150
+    q, k, v = _randn((4, n, d), dtype, 50), _randn((2, n, d), dtype, 51), _randn((2, n, d), dtype, 52)
+    if impl == "flash":
+        kw = dict(q_per_kv=2, scale=d ** -0.5, causal=True, kv_len=kv_len, return_lse=True)
+        o, lse = fk.flash_attention_kernel_call(q, k, v, **kw)
+        o_p, lse_p = fk.flash_attention_plain(q, k, v, **kw)
+    else:
+        perm = _perms(4, n, 64, d)
+        q_hat = _randn((4, n, d // 2), dtype, 53)
+        kw = dict(q_per_kv=2, causal=False, group_size=2, block_q=64, kv_len=kv_len,
+                  return_lse=True)
+        o, lse = dk.distr_attention_kernel_call(q_hat, k, v, perm, **kw)
+        o_p, lse_p = dk.distr_attention_plain(q_hat, k, v, perm, **kw)
+    _close(o, o_p, dtype)
+    torch.testing.assert_close(lse, lse_p, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_at_head_dim_112(cuda, dtype):
+    b, hkv, s, d = 3, 2, 300, 112
+    q = _randn((b, hkv, 1, d), dtype, 54)
+    k, v = _randn((b, hkv, s, d), dtype, 55), _randn((b, hkv, s, d), dtype, 56)
+    lengths = torch.tensor([1, 137, 300], dtype=torch.int32, device="cuda")
+    kw = dict(scale=d ** -0.5, block_k=128, q_len=1)
+    got = dec.decode_kernel_call(q, k, v, lengths, **kw)
+    want = dec.decode_plain(q, k, v, lengths, **kw)
+    for g_, w_ in zip(got, want):
+        torch.cuda.synchronize()
+        assert torch.isfinite(g_).all()
+        torch.testing.assert_close(g_, w_, atol=1e-4, rtol=1e-4)
+
+
+SSD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+
+
+def _ssd_inputs(bh, bg, n, p, s, dtype, seed, decay=1.0):
+    x = _randn((bh, n, p), dtype, seed)
+    a = -torch.nn.functional.softplus(_randn((bh, n), torch.float32, seed + 1)) * decay
+    return x, a, _randn((bg, n, s), dtype, seed + 2), _randn((bg, n, s), dtype, seed + 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,bg,n,p,s,chunk,decay", [
+    (2, 2, 1, 16, 8, 32, 1.0),       # N = 1
+    (2, 2, 20, 16, 8, 32, 1.0),      # N < chunk
+    (4, 2, 200, 32, 16, 64, 1.0),    # ragged tail, G > 1 with 2 heads a group
+    (3, 1, 300, 64, 64, 128, 1.0),   # zamba2's widths, 3 heads on one group
+    (2, 1, 260, 64, 128, 128, 1.0),  # mamba2-130m's S = 128 (score rows in bands of 32)
+    (2, 2, 256, 16, 8, 128, 300.0),  # strong decays: exp overflows above the diagonal
+])
+def test_ssd_kernel_matches_plain(cuda, dtype, bh, bg, n, p, s, chunk, decay):
+    x, a, b, c = _ssd_inputs(bh, bg, n, p, s, dtype, 60, decay)
+    kw = dict(heads_per_group=bh // bg, chunk=chunk, return_state=True)
+    before = ssd_kernels.launches
+    y, state = ssd_kernels.ssd_kernel_call(x, a, b, c, **kw)
+    assert ssd_kernels.launches == before + 1
+    y_p, state_p = ssd_kernels.ssd_plain(x, a, b, c, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y.float()).all() and torch.isfinite(state).all()
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), y_p.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, state_p, atol=1e-3, rtol=1e-3)
+
+
+def test_ssd_op_on_card_matches_cpu(cuda):
+    """``ops.ssd`` in its (B, N, H, P) layout: the kernel on the card against
+    the plain version on the CPU, f32, with the state."""
+    bsz, n, h, p, g, s = 2, 150, 4, 32, 2, 16
+    ins = [_randn(shape, torch.float32, 70 + i) for i, shape in
+           enumerate([(bsz, n, h, p), (bsz, n, h), (bsz, n, g, s), (bsz, n, g, s)])]
+    ins[1] = -torch.nn.functional.softplus(ins[1])
+    y, state = ops.ssd(*ins, chunk=64, return_state=True)
+    y_c, state_c = ops.ssd(*(t.cpu() for t in ins), chunk=64, return_state=True)
+    torch.testing.assert_close(y.cpu(), y_c, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(state.cpu(), state_c, atol=1e-3, rtol=1e-3)
