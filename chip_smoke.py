@@ -4,7 +4,10 @@
     python3 chip_smoke.py [--out PATH] [--only kernels]
 
 In order: prints the card's name and power limit; builds the CUDA kernels
-from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a; holds each
+from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a; counts the bf16
+flash forward's tensor-core (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
+instructions in the library's SASS and fails on a zero count or a register
+spill; holds each
 kernel against its plain PyTorch version in bf16 at the shapes of the
 serving path (starcoder2-7b) and of the training path (minicpm-2b) — the
 forward kernels with their LSE, DistrAttention also at G* = 4, the decode
@@ -37,6 +40,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -93,8 +97,12 @@ SSD_TOL = {"y": 2e-2, "state": 1e-3}
 # zamba2-7b's shared attention blocks: 32 heads (MHA) of 112, G* = 2.
 HYBRID_ATTN = (32, 32, 112, 2)
 # Kernel names (C++ templates) that count as attention in the profile.
-ATTN_KERNEL_NAMES = ("attn_fwd_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel",
-                     "delta_kernel")
+ATTN_KERNEL_NAMES = ("attn_fwd_mma_kernel", "attn_fwd_kernel", "attn_bwd_dq_kernel",
+                     "attn_bwd_dkv_kernel", "delta_kernel")
+# The bf16 flash forward's template (csrc/flash_fwd_tc.cuh): its SASS must
+# hold tensor-core products (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS).
+TC_KERNEL = "attn_fwd_mma_kernel"
+TC_SASS_OPS = ("HMMA", "LDSM", "LDGSTS")
 
 
 def log(msg: str) -> None:
@@ -107,6 +115,45 @@ def gpu_name_and_power() -> str:
         check=True, capture_output=True, text=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def tensor_core_check(build) -> dict:
+    """Proof that the bf16 flash forward runs on the tensor cores: count its
+    HMMA, LDSM and LDGSTS instructions in the built library's SASS
+    (``cuobjdump -sass``) and read its registers and spills from nvcc's
+    ``-Xptxas -v`` output.  Raises if an instantiation lacks one of the
+    three or spills."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(build.build())], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    found, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if TC_KERNEL in fn:
+                found[fn] = dict.fromkeys(TC_SASS_OPS, 0)
+        elif fn in found:
+            for op in TC_SASS_OPS:
+                found[fn][op] += f" {op}." in line or f" {op} " in line
+    fn = None
+    for line in build.build_log().splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn in found and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            found[fn]["spill_bytes"] = nums[1] + nums[2]
+        elif fn in found and "Used" in line and "registers" in line:
+            found[fn]["registers"] = int(line.split("Used")[1].split()[0])
+    if len(found) != 3:
+        raise AssertionError(f"expected 3 instantiations of {TC_KERNEL} in the SASS, got {found}")
+    for fn, row in found.items():
+        d = int(fn.split("ILi")[1].split("E")[0])
+        row["head_dim"] = d
+        row["dynamic_smem_bytes"] = (64 + 4 * 64) * (d + 8) * 2  # Q + 2 stages of K, V
+        log(f"[tensor cores] {TC_KERNEL}<{d}>: {row}")
+        if any(row[op] == 0 for op in TC_SASS_OPS) or row.get("spill_bytes", 1) != 0:
+            raise AssertionError(f"{fn}: no {TC_SASS_OPS} in its SASS, or spills: {row}")
+    return {row["head_dim"]: row for row in found.values()}
 
 
 def time_ms(torch, fn, iters: int, flush: "torch.Tensor") -> float:
@@ -978,6 +1025,7 @@ def main() -> int:
     for line in build.build_log().splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
             log("  " + line.strip())
+    tensor_cores = tensor_core_check(build)
 
     # The plain versions' f32 products run in full f32, not TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -995,7 +1043,8 @@ def main() -> int:
         pre[name]["max_abs_err"] = max(pre[name]["max_abs_err"], a112[name]["max_abs_err"])
     dec["max_abs_err"] = max(dec["max_abs_err"], a112["decode"]["max_abs_err"])
     del flush
-    results = {"card": card, "prefill_shapes": pre.pop("shapes"), "distr_g4": g4,
+    results = {"card": card, "tensor_cores": tensor_cores,
+               "prefill_shapes": pre.pop("shapes"), "distr_g4": g4,
                "paged_shapes": pdec.pop("shapes"), "backward_shapes": back.pop("shapes"),
                "ssd_shapes": ssd.pop("shapes"), "head_dim_112": a112}
     launches = {"flash": 0, "distr": 0, "decode": 0, "paged": 0, "ssd": 0,

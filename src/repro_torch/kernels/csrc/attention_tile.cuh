@@ -1,5 +1,6 @@
-// The FA-2 forward loop shared by the exact (flash_attention.cu) and the
-// DistrAttention (distr_attention.cu) prefill kernels.
+// The FA-2 forward loop on CUDA-core FMA of the DistrAttention prefill
+// kernel (distr_attention.cu) and of the exact kernel's f32 path
+// (flash_attention.cu; its bf16 path is flash_fwd_tc.cuh).
 //
 // One CTA of 128 threads owns BM = 64 query rows of one (batch, query head)
 // and walks the KV sequence in tiles of BN = 32 keys, keeping the online

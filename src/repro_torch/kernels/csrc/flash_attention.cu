@@ -10,13 +10,12 @@
 //
 // Bound on this card: operations.  At prefill lengths the work is
 // 4·N²·d/2 FLOPs (causal) against 4·N·d bytes per head, far above the
-// ~295 FLOP/byte bf16 ridge.  This first version runs the two products as
-// f32 FMA loops on CUDA cores over f32 shared-memory tiles (register tiles
-// of 4 rows × 4 keys and 4 rows × 16 value columns per thread), so it is
-// bounded by the f32 FMA rate and shared-memory bandwidth rather than the
-// tensor cores; moving both products to wgmma is the next step.  The tile
-// loop itself is in attention_tile.cuh.
-#include "attention_tile.cuh"
+// ~295 FLOP/byte bf16 ridge.  bf16, the dtype of every full-size config,
+// runs on the tensor cores (flash_fwd_tc.cuh: mma.sync with ldmatrix
+// operands and a cp.async K/V ring).  f32 runs the FMA tile that
+// DistrAttention shares (attention_tile.cuh): tensor cores would compute
+// f32 as TF32, a different result.
+#include "flash_fwd_tc.cuh"
 
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                                int dtype, int bhq, int n_rows, int nk, int kv_len, int d,
@@ -38,5 +37,11 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v, void
   a.n_perm_blocks = 0;
   a.scale = scale;
   a.causal = causal;
-  return rt::dispatch_attn_fwd<false>(a, dtype, d, bhq, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == rt::DTYPE_BF16) return rt::tc::dispatch_attn_fwd_mma(a, d, bhq, s);
+  if (dtype != rt::DTYPE_F32) return (int)cudaErrorInvalidValue;
+  if (d == 128) return rt::launch_attn_fwd<float, 128, false>(a, bhq, s);
+  if (d == 112) return rt::launch_attn_fwd<float, 112, false>(a, bhq, s);
+  if (d == 64) return rt::launch_attn_fwd<float, 64, false>(a, bhq, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,345 @@
+// Exact FA-2 forward on Hopper's tensor cores, bf16 in and out (sm_90a).
+//
+// Replaces: src/repro/kernels/flash_attention.py::_flash_kernel for bf16
+// inputs (flash_attention.cu routes f32 to the FMA tile, attention_tile.cuh).
+//
+// Bound on this card: operations.  Causal N = 2048, d = 128, 36 heads is
+// 38.7 GFLOP against 38 MB, 0.0391 ms at 989 TFLOP/s.  The design is FA-2's
+// (Dao 2023, §3) on mma.sync rather than wgmma: both products run as
+// mma.sync.m16n8k16 bf16 → f32 with operands from ldmatrix, P never leaves
+// registers, and the K/V tiles stream through a two-stage cp.async ring so
+// that the next tile's loads overlap this tile's products.  What it leaves
+// to later work: wgmma (the only path to the full tensor-core rate), TMA and
+// warp-specialised producers.
+//
+// One CTA of 4 warps owns BM = 64 query rows of one (batch, query head),
+// 16 rows a warp, and walks the keys in tiles of BN = 64.  A warp keeps its
+// Q fragments (d/16 k-steps × 4 registers), its 16 × 64 f32 scores and its
+// 16 × d f32 output in registers.  In the m16n8k16 layouts, lane l holds
+// rows l/4 and l/4 + 8 of a fragment, and columns 2(l%4) and 2(l%4) + 1 of
+// each 8-wide n-tile; so a row's values lie in a quad of lanes, and the
+// accumulator of two adjacent n-tiles of S is, packed to bf16, the A operand
+// of one k-step of P·V.
+//
+// Shared memory, bf16, rows padded by 8 elements (16 bytes) so that the 8
+// row addresses of each ldmatrix phase fall in distinct bank groups: Q
+// (BM × (d + 8)), then K and V, each 2 stages of BN × (d + 8).  At d = 128
+// that is 87,040 bytes and 231 registers a thread: two CTAs an SM.  The grid
+// is (heads, row blocks) with the last row block first, so under a causal
+// mask the CTAs with the most key tiles start first.
+//
+// Softmax: exponentials are one FFMA (scale · log2 e folded in) and one
+// ex2.approx a score; the row max is taken on the raw scores.  Keys at or
+// past kv_len and, when causal, keys past the row take NEG_INF, on the
+// tiles that cross kv_len or the warp's diagonal only.  A row whose keys so
+// far are all masked has m = NEG_INF; its exponentials are taken against 0
+// instead, so exp2(NEG_INF · scale · log2 e) gives P = 0 exactly (never a
+// product with a mask, which would give inf · 0).  Keys at or past kv_len
+// load as zeros (cp.async's zero-fill from a clamped in-bounds address), so
+// memory past nk is never read.
+#pragma once
+
+#include "attention_tile.cuh"
+
+namespace rt {
+namespace tc {
+
+constexpr int BM = 64;  // query rows per CTA
+constexpr int BN = 64;  // keys per KV tile
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// Bytes of dynamic shared memory: Q, then two stages each of K and V.
+template <int D>
+constexpr size_t smem_bytes() {
+  return (size_t)(BM + 4 * BN) * (D + 8) * sizeof(__nv_bfloat16);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global → shared; with valid = false the destination is zero-filled
+// and nothing is read (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0, uint32_t& r1,
+                                              uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+// c += a · b on one m16n8k16 tile: bf16 operands, f32 accumulator.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x in one MUFU instruction; 2^(-huge) = +0.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two f32 as one bf16x2 register, lo in the low half (the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS) attn_fwd_mma_kernel(AttnArgs a) {
+  static_assert(D % 16 == 0, "head dim must be a multiple of the mma depth");
+  static_assert(BM * (D / 8) % THREADS == 0 && BN * (D / 8) % THREADS == 0,
+                "every thread loads the same number of 16-byte chunks");
+  constexpr int LD = D + 8;         // shared-memory row stride, elements
+  constexpr int CHUNKS = D / 8;     // 16-byte chunks a row
+  constexpr int KSTEPS = D / 16;    // k-steps of Q·Kᵀ
+  constexpr int NT_S = BN / 8;      // n-tiles of a warp's scores
+  constexpr int NT_O = D / 8;       // n-tiles of a warp's output
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [BM][LD]
+  bf16* sK = sQ + BM * LD;                       // [2][BN][LD]
+  bf16* sV = sK + 2 * BN * LD;                   // [2][BN][LD]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  // Heads vary fastest and row blocks run from the last (most causal key
+  // tiles) to the first, so the longest CTAs start first and the card's
+  // tail is short ones; CTAs of one KV head are neighbours in L2.
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const int bkv = bh / a.q_per_kv;
+  const bf16* q = static_cast<const bf16*>(a.q) + (size_t)bh * a.n_rows * D;
+  const bf16* k = static_cast<const bf16*>(a.k) + (size_t)bkv * a.nk * D;
+  const bf16* v = static_cast<const bf16*>(a.v) + (size_t)bkv * a.nk * D;
+
+  int n_tiles = (a.kv_len + BN - 1) / BN;
+  if (a.causal) {
+    const int last_row = min(q0 + BM, a.n_rows) - 1;
+    n_tiles = min(n_tiles, last_row / BN + 1);  // skip tiles above the diagonal
+  }
+
+  // Keys at or past kv_len land as zeros, read from a clamped address.
+  auto load_kv = [&](int t, int stage) {
+    bf16* dk = sK + stage * BN * LD;
+    bf16* dv = sV + stage * BN * LD;
+#pragma unroll
+    for (int it = 0; it < BN * CHUNKS / THREADS; ++it) {
+      const int i = tid + it * THREADS;
+      const int row = i / CHUNKS;
+      const int col = (i - row * CHUNKS) * 8;
+      const int key = t * BN + row;
+      const size_t src = (size_t)min(key, a.kv_len - 1) * D + col;
+      cp_async16(smem_addr(dk + row * LD + col), k + src, key < a.kv_len);
+      cp_async16(smem_addr(dv + row * LD + col), v + src, key < a.kv_len);
+    }
+  };
+
+  // Lane l's rows of the warp's fragments: r_lo = row of c0, c1; r_lo + 8 of c2, c3.
+  const int r_lo = q0 + warp * 16 + (lane >> 2);
+  float m_i[2] = {NEG_INF, NEG_INF};  // running max, log2 units of scale · s
+  float l_i[2] = {0.f, 0.f};          // this lane's share of the running sum
+  float acc[NT_O][4];
+#pragma unroll
+  for (int j = 0; j < NT_O; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  if (n_tiles > 0) {
+#pragma unroll
+    for (int it = 0; it < BM * CHUNKS / THREADS; ++it) {
+      const int i = tid + it * THREADS;
+      const int row = i / CHUNKS;
+      const int col = (i - row * CHUNKS) * 8;
+      const size_t src = (size_t)min(q0 + row, a.n_rows - 1) * D + col;
+      cp_async16(smem_addr(sQ + row * LD + col), q + src, q0 + row < a.n_rows);
+    }
+    load_kv(0, 0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  // Q's A fragments, held for the whole walk.  ldmatrix.x4 matrices: rows
+  // 0-7 / 8-15 of the warp's 16, columns k0 / k0 + 8: a0..a3 of m16n8k16.
+  uint32_t qf[KSTEPS][4];
+  {
+    const uint32_t base =
+        smem_addr(sQ + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8);
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk)
+      ldsm_x4(base + kk * 16 * sizeof(bf16), qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3]);
+  }
+  const float sl2 = a.scale * LOG2E;
+  // Lane offsets of the K (no .trans) and V (.trans) ldmatrix.x4 addresses:
+  // K: matrices (keys +0, cols +0), (+0, +8), (+8, +0), (+8, +8) give b0, b1
+  // of two adjacent key n-tiles; V: (keys +0, cols +0), (+8, +0), (+0, +8),
+  // (+8, +8) give b0, b1 of two adjacent output n-tiles.
+  const int k_off = ((lane >> 4) * 8 + (lane & 7)) * LD + ((lane >> 3) & 1) * 8;
+  const int v_off = (((lane >> 3) & 1) * 8 + (lane & 7)) * LD + (lane >> 4) * 8;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t & 1;
+    // The next tile's loads go out before this tile's products.  Its stage
+    // was last read in iteration t - 1, which ended in __syncthreads().
+    if (t + 1 < n_tiles) load_kv(t + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    // S = Q Kᵀ: 16 × 64 a warp, in 8 n-tiles of 8 keys.
+    float s[NT_S][4];
+#pragma unroll
+    for (int j = 0; j < NT_S; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    const uint32_t k_base = smem_addr(sK + stage * BN * LD + k_off);
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+#pragma unroll
+      for (int jp = 0; jp < NT_S / 2; ++jp) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4(k_base + (jp * 16 * LD + kk * 16) * sizeof(bf16), b0, b1, b2, b3);
+        mma_bf16(s[2 * jp], qf[kk], b0, b1);
+        mma_bf16(s[2 * jp + 1], qf[kk], b2, b3);
+      }
+    }
+
+    // Online softmax in log2 units.  Masks only where the tile crosses
+    // kv_len or this warp's diagonal; the row max is taken on the raw
+    // scores (scale > 0) and the scale folds into one FFMA a score.
+    const int kv0 = t * BN;
+    const bool masked =
+        kv0 + BN > a.kv_len || (a.causal && kv0 + BN - 1 > q0 + warp * 16);
+    if (masked) {
+#pragma unroll
+      for (int j = 0; j < NT_S; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = kv0 + j * 8 + (lane & 3) * 2 + (e & 1);
+          const int row = r_lo + (e >> 1) * 8;
+          if (col >= a.kv_len || (a.causal && col > row)) s[j][e] = NEG_INF;
+        }
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < NT_S; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_i[h], mx == NEG_INF ? NEG_INF : mx * sl2);
+      // All keys so far masked: take exponentials against 0, so masked
+      // entries give exp2(NEG_INF · sl2) = 0 and not exp2(0) = 1.
+      const float base = m_new == NEG_INF ? 0.f : m_new;
+      alpha[h] = exp2_approx(m_i[h] - base);
+      m_i[h] = m_new;
+      float ls = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT_S; ++j) {
+        s[j][2 * h] = exp2_approx(fmaf(s[j][2 * h], sl2, -base));
+        s[j][2 * h + 1] = exp2_approx(fmaf(s[j][2 * h + 1], sl2, -base));
+        ls += s[j][2 * h] + s[j][2 * h + 1];
+      }
+      l_i[h] = l_i[h] * alpha[h] + ls;
+    }
+#pragma unroll
+    for (int j = 0; j < NT_O; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+
+    // O += P V: P's accumulator registers, rounded to bf16, are the A
+    // fragments of 4 k-steps of 16 keys.
+    const uint32_t v_base = smem_addr(sV + stage * BN * LD + v_off);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int jp = 0; jp < NT_O / 2; ++jp) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_trans(v_base + (kk * 16 * LD + jp * 16) * sizeof(bf16), b0, b1, b2, b3);
+        mma_bf16(acc[2 * jp], pa, b0, b1);
+        mma_bf16(acc[2 * jp + 1], pa, b2, b3);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  bf16* o = static_cast<bf16*>(a.o) + (size_t)bh * a.n_rows * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_i[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = r_lo + h * 8;
+    if (row >= a.n_rows) continue;
+    // A row that saw no key (l = 0) writes O = 0 and LSE = NEG_INF.
+    const float inv = l == 0.f ? 1.f : 1.f / l;
+    bf16* orow = o + (size_t)row * D + (lane & 3) * 2;
+#pragma unroll
+    for (int j = 0; j < NT_O; ++j) {
+      *reinterpret_cast<uint32_t*>(orow + j * 8) =
+          pack_bf16(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
+    }
+    if (a.lse != nullptr && (lane & 3) == 0) {
+      a.lse[(size_t)bh * a.n_rows + row] = l == 0.f ? NEG_INF : m_i[h] * LN2 + logf(l);
+    }
+  }
+}
+
+template <int D>
+int launch_attn_fwd_mma(const AttnArgs& a, int bhq, cudaStream_t stream) {
+  constexpr size_t bytes = smem_bytes<D>();
+  auto kern = attn_fwd_mma_kernel<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(bhq, (a.n_rows + BM - 1) / BM);
+  kern<<<grid, THREADS, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+inline int dispatch_attn_fwd_mma(const AttnArgs& a, int d, int bhq, cudaStream_t stream) {
+  if (d == 128) return launch_attn_fwd_mma<128>(a, bhq, stream);
+  if (d == 112) return launch_attn_fwd_mma<112>(a, bhq, stream);
+  if (d == 64) return launch_attn_fwd_mma<64>(a, bhq, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace tc
+}  // namespace rt

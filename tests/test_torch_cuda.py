@@ -1,6 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small shapes and edge cases (ragged tiles, kv_len below the buffer,
-length 0, 32 packed rows, f32 and bf16; for the paged kernel dead blocks, a
+length 0, 32 packed rows, f32 and bf16; for the bf16 tensor-core flash
+forward rows one short of and one past its 64-row CTA, a ragged last key
+tile, kv_len = 0, GQA 36 over 4 and MHA, and its LSE fed to the backward
+kernels; for the paged kernel dead blocks, a
 NaN-filled garbage block, lengths past the table and more than 32 rows; head
 dim 112 for the forward and decode kernels; for the SSD kernel short and
 ragged sequences, strong decays, grouped heads and state width 128),
@@ -50,21 +53,59 @@ def _close(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,nk,kv_len,d,causal", [
-    (1, 1, 1, 64, True),
-    (100, 100, 100, 128, True),   # ragged row and key tiles
-    (64, 200, 150, 64, False),    # kv_len below the buffer
-    (130, 130, 130, 128, False),
+@pytest.mark.parametrize("hkv,q_per_kv,n,nk,kv_len,d,causal", [
+    (2, 3, 1, 1, 1, 64, True),
+    (2, 3, 100, 100, 100, 128, True),   # ragged row and key tiles
+    (2, 3, 64, 200, 150, 64, False),    # kv_len below the buffer
+    (2, 3, 130, 130, 130, 128, False),
+    # Edges of the bf16 tensor-core kernel (64-row CTAs, 64-key tiles).
+    (2, 3, 100, 100, 100, 112, True),   # d = 112: seven k-steps of 16
+    (2, 3, 65, 65, 0, 128, False),      # kv_len = 0: O = 0, LSE = -1e30
+    (2, 3, 65, 65, 0, 64, True),
+    (2, 3, 1, 130, 130, 128, False),    # one row against three key tiles
+    (2, 3, 63, 63, 63, 64, True),       # one row short of a CTA
+    (2, 3, 65, 65, 65, 112, True),      # one row past a CTA
+    (2, 3, 96, 200, 130, 128, False),   # last key tile ragged inside the buffer
+    (2, 3, 150, 200, 130, 64, True),
+    (2, 3, 100, 200, 200, 128, True),   # causal with fewer rows than keys
+    (4, 9, 130, 130, 130, 128, True),   # GQA 36 over 4 (starcoder2-7b)
+    (4, 1, 100, 100, 100, 64, True),    # MHA (minicpm-2b)
 ])
-def test_flash_kernel_matches_plain(cuda, dtype, n, nk, kv_len, d, causal):
-    q, k, v = _randn((6, n, d), dtype, 0), _randn((2, nk, d), dtype, 1), _randn((2, nk, d), dtype, 2)
-    kw = dict(q_per_kv=3, scale=d ** -0.5, causal=causal, kv_len=kv_len, return_lse=True)
+def test_flash_kernel_matches_plain(cuda, dtype, hkv, q_per_kv, n, nk, kv_len, d, causal):
+    q = _randn((hkv * q_per_kv, n, d), dtype, 0)
+    k, v = _randn((hkv, nk, d), dtype, 1), _randn((hkv, nk, d), dtype, 2)
+    kw = dict(q_per_kv=q_per_kv, scale=d ** -0.5, causal=causal, kv_len=kv_len, return_lse=True)
     before = fk.launches
     o, lse = fk.flash_attention_kernel_call(q, k, v, **kw)
     o_p, lse_p = fk.flash_attention_plain(q, k, v, **kw)
     assert fk.launches == before + 1
     _close(o, o_p, dtype)
     torch.testing.assert_close(lse, lse_p, atol=1e-3, rtol=1e-3)
+    if kv_len == 0:
+        assert torch.equal(o, torch.zeros_like(o))
+        assert torch.equal(lse, torch.full_like(lse, -1e30))
+
+
+@pytest.mark.parametrize("hkv,q_per_kv,n,d", [(4, 9, 130, 128), (4, 1, 100, 64)])
+def test_flash_forward_lse_feeds_backward_like_plain_lse(cuda, hkv, q_per_kv, n, d):
+    """The bf16 forward kernel's LSE gives the backward kernels the same dQ,
+    dK and dV as the plain version's LSE (both f32; 1e-4 as the backward
+    kernels are held against their plain versions on the card)."""
+    dtype, tol = torch.bfloat16, 1e-4
+    q, do = _randn((hkv * q_per_kv, n, d), dtype, 40), _randn((hkv * q_per_kv, n, d), dtype, 41)
+    k, v = _randn((hkv, n, d), dtype, 42), _randn((hkv, n, d), dtype, 43)
+    kw = dict(q_per_kv=q_per_kv, scale=d ** -0.5, causal=True, kv_len=n)
+    o, lse = fk.flash_attention_kernel_call(q, k, v, return_lse=True, **kw)
+    _, lse_p = fk.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    delta = bwd.delta_kernel_call(o, do)
+    got = [bwd.flash_dq_kernel_call(q, k, v, do, lse, delta, **kw),
+           *bwd.flash_dkv_kernel_call(q, k, v, do, lse, delta, **kw)]
+    want = [bwd.flash_dq_kernel_call(q, k, v, do, lse_p, delta, **kw),
+            *bwd.flash_dkv_kernel_call(q, k, v, do, lse_p, delta, **kw)]
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        assert torch.isfinite(g_).all()
+        torch.testing.assert_close(g_, w_, atol=tol, rtol=tol)
 
 
 def _perms(bhq, n, block_q, d):
