@@ -5,9 +5,9 @@
 
 In order: prints the card's name and power limit; builds the CUDA kernels
 from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a; counts the bf16
-flash forward's tensor-core (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
-instructions in the library's SASS and fails on a zero count or a register
-spill; holds each
+flash forward's and backward's (dq, dkv) tensor-core (HMMA), ldmatrix
+(LDSM) and cp.async (LDGSTS) instructions in the library's SASS and fails
+on a zero count or a register spill; holds each
 kernel against its plain PyTorch version in bf16 at the shapes of the
 serving path (starcoder2-7b) and of the training path (minicpm-2b) — the
 forward kernels with their LSE, DistrAttention also at G* = 4, the decode
@@ -97,12 +97,29 @@ SSD_TOL = {"y": 2e-2, "state": 1e-3}
 # zamba2-7b's shared attention blocks: 32 heads (MHA) of 112, G* = 2.
 HYBRID_ATTN = (32, 32, 112, 2)
 # Kernel names (C++ templates) that count as attention in the profile.
-ATTN_KERNEL_NAMES = ("attn_fwd_mma_kernel", "attn_fwd_kernel", "attn_bwd_dq_kernel",
-                     "attn_bwd_dkv_kernel", "delta_kernel")
-# The bf16 flash forward's template (csrc/flash_fwd_tc.cuh): its SASS must
-# hold tensor-core products (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS).
-TC_KERNEL = "attn_fwd_mma_kernel"
+# Matched by substring, so each template is named whole.
+ATTN_KERNEL_NAMES = ("attn_fwd_mma_kernel", "attn_fwd_kernel", "attn_bwd_dq_mma_kernel",
+                     "attn_bwd_dkv_mma_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel",
+                     "delta_kernel")
+# The bf16 flash templates on the tensor cores (csrc/flash_fwd_tc.cuh,
+# csrc/flash_bwd_tc.cuh) and their head dims: the SASS of every
+# instantiation must hold tensor-core products (HMMA), ldmatrix (LDSM) and
+# cp.async (LDGSTS).
+TC_KERNELS = {"attn_fwd_mma_kernel": (64, 112, 128), "attn_bwd_dq_mma_kernel": (64, 128),
+              "attn_bwd_dkv_mma_kernel": (64, 128)}
 TC_SASS_OPS = ("HMMA", "LDSM", "LDGSTS")
+
+
+def tc_smem_bytes(template: str, d: int) -> int:
+    """Dynamic shared memory of a tensor-core template at head dim d: bf16
+    tiles with rows padded by 8 (the headers' smem_bytes functions)."""
+    row = (d + 8) * 2
+    if template == "attn_fwd_mma_kernel":  # Q, 2 stages of K and V
+        return (64 + 4 * 64) * row
+    if template == "attn_bwd_dq_mma_kernel":  # Q, dO, 2 stages of K and V
+        return (2 * 64 + 4 * 64) * row
+    rows = 32 if d > 64 else 64  # dkv: K, V, 2 stages of Q, dO, LSE, D
+    return (2 * 64 + 4 * rows) * row + 4 * rows * 4
 
 
 def log(msg: str) -> None:
@@ -118,11 +135,11 @@ def gpu_name_and_power() -> str:
 
 
 def tensor_core_check(build) -> dict:
-    """Proof that the bf16 flash forward runs on the tensor cores: count its
-    HMMA, LDSM and LDGSTS instructions in the built library's SASS
-    (``cuobjdump -sass``) and read its registers and spills from nvcc's
-    ``-Xptxas -v`` output.  Raises if an instantiation lacks one of the
-    three or spills."""
+    """Proof that the bf16 flash forward and backward run on the tensor
+    cores: count each instantiation's HMMA, LDSM and LDGSTS instructions in
+    the built library's SASS (``cuobjdump -sass``) and read its registers
+    and spills from nvcc's ``-Xptxas -v`` output.  Raises if an
+    instantiation is missing, lacks one of the three or spills."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(build.build())], check=True,
                           capture_output=True, text=True, timeout=300).stdout
@@ -130,7 +147,7 @@ def tensor_core_check(build) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            if TC_KERNEL in fn:
+            if any(name in fn for name in TC_KERNELS):
                 found[fn] = dict.fromkeys(TC_SASS_OPS, 0)
         elif fn in found:
             for op in TC_SASS_OPS:
@@ -144,16 +161,20 @@ def tensor_core_check(build) -> dict:
             found[fn]["spill_bytes"] = nums[1] + nums[2]
         elif fn in found and "Used" in line and "registers" in line:
             found[fn]["registers"] = int(line.split("Used")[1].split()[0])
-    if len(found) != 3:
-        raise AssertionError(f"expected 3 instantiations of {TC_KERNEL} in the SASS, got {found}")
+    out = {}
     for fn, row in found.items():
+        template = next(name for name in TC_KERNELS if name in fn)
         d = int(fn.split("ILi")[1].split("E")[0])
-        row["head_dim"] = d
-        row["dynamic_smem_bytes"] = (64 + 4 * 64) * (d + 8) * 2  # Q + 2 stages of K, V
-        log(f"[tensor cores] {TC_KERNEL}<{d}>: {row}")
+        row.update(template=template, head_dim=d, dynamic_smem_bytes=tc_smem_bytes(template, d))
+        log(f"[tensor cores] {template}<{d}>: {row}")
         if any(row[op] == 0 for op in TC_SASS_OPS) or row.get("spill_bytes", 1) != 0:
             raise AssertionError(f"{fn}: no {TC_SASS_OPS} in its SASS, or spills: {row}")
-    return {row["head_dim"]: row for row in found.values()}
+        out[f"{template}<{d}>"] = row
+    want = {f"{name}<{d}>" for name, dims in TC_KERNELS.items() for d in dims}
+    if set(out) != want:
+        raise AssertionError(f"expected the instantiations {sorted(want)} in the SASS, "
+                             f"got {sorted(out)}")
+    return out
 
 
 def time_ms(torch, fn, iters: int, flush: "torch.Tensor") -> float:

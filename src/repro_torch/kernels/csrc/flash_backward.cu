@@ -15,13 +15,23 @@
 //
 // Bound on this card: operations.  Per causal (q, k) pair dq does 3
 // products (S, dP, dQ: 6·d FLOPs) and dkv 4 (S, dP, dV, dK: 8·d), where the
-// forward does 2, against O(N·d) bytes per head.  This first version runs
-// every product as f32 FMA loops on CUDA cores over f32 shared-memory tiles
-// (4 × 4 register tiles, float4 operand reads, causal tile skip), so it is
-// bounded by the f32 FMA rate and shared-memory bandwidth, not by the
-// tensor cores; wgmma and TMA staging are the next step.  The loops are in
-// attention_bwd_tile.cuh.
-#include "attention_bwd_tile.cuh"
+// forward does 2, against O(N·d) bytes per head.  bf16, the dtype of every
+// full-size config, runs on the tensor cores (flash_bwd_tc.cuh: mma.sync
+// with ldmatrix operands, P and dS split into bf16 hi + lo, a cp.async
+// ring).  f32 runs the FMA tile that the DistrAttention backward shares
+// (attention_bwd_tile.cuh): tensor cores would compute f32 as TF32, a
+// different result.
+#include "flash_bwd_tc.cuh"
+
+template <bool DKV>
+static int flash_bwd(const rt::BwdArgs& a, int dtype, int d, int bhq, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == rt::DTYPE_BF16) return rt::tc::dispatch_attn_bwd_mma<DKV>(a, d, bhq, s);
+  if (dtype != rt::DTYPE_F32) return (int)cudaErrorInvalidValue;
+  if (d == 128) return rt::launch_attn_bwd<float, 128, false, DKV>(a, bhq, s);
+  if (d == 64) return rt::launch_attn_bwd<float, 64, false, DKV>(a, bhq, s);
+  return (int)cudaErrorInvalidValue;
+}
 
 extern "C" int repro_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                               const void* lse, const void* delta, void* dq, int dtype, int bhq,
@@ -29,7 +39,7 @@ extern "C" int repro_flash_dq(const void* q, const void* k, const void* v, const
                               int causal, void* stream) {
   const rt::BwdArgs a = rt::bwd_args(q, k, v, nullptr, dout, lse, delta, dq, nullptr, nullptr,
                                      n_rows, nk, kv_len, d, q_per_kv, 1, 0, 0, scale, causal);
-  return rt::dispatch_attn_bwd<false, false>(a, dtype, d, bhq, static_cast<cudaStream_t>(stream));
+  return flash_bwd<false>(a, dtype, d, bhq, stream);
 }
 
 extern "C" int repro_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
@@ -38,5 +48,5 @@ extern "C" int repro_flash_dkv(const void* q, const void* k, const void* v, cons
                                float scale, int causal, void* stream) {
   const rt::BwdArgs a = rt::bwd_args(q, k, v, nullptr, dout, lse, delta, nullptr, dk, dv, n_rows,
                                      nk, kv_len, d, q_per_kv, 1, 0, 0, scale, causal);
-  return rt::dispatch_attn_bwd<false, true>(a, dtype, d, bhq, static_cast<cudaStream_t>(stream));
+  return flash_bwd<true>(a, dtype, d, bhq, stream);
 }

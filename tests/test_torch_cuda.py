@@ -3,7 +3,8 @@ at small shapes and edge cases (ragged tiles, kv_len below the buffer,
 length 0, 32 packed rows, f32 and bf16; for the bf16 tensor-core flash
 forward rows one short of and one past its 64-row CTA, a ragged last key
 tile, kv_len = 0, GQA 36 over 4 and MHA, and its LSE fed to the backward
-kernels; for the paged kernel dead blocks, a
+kernels; the same edges for the bf16 tensor-core backward kernels; for the
+paged kernel dead blocks, a
 NaN-filled garbage block, lengths past the table and more than 32 rows; head
 dim 112 for the forward and decode kernels; for the SSD kernel short and
 ragged sequences, strong decays, grouped heads and state width 128),
@@ -137,27 +138,38 @@ def _bwd_close(got, want):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,nk,kv_len,d,causal", [
-    (1, 1, 1, 64, True),
-    (100, 100, 100, 64, True),    # ragged row and key tiles: rows past N take LSE_PAD
-    (64, 200, 150, 128, False),   # kv_len below the buffer
-    (130, 130, 130, 128, True),
-    (64, 64, 0, 64, False),       # every row fully masked: exactly zero
+@pytest.mark.parametrize("hkv,q_per_kv,n,nk,kv_len,d,causal", [
+    (2, 3, 1, 1, 1, 64, True),
+    (2, 3, 100, 100, 100, 64, True),    # ragged row and key tiles: rows past N take LSE_PAD
+    (2, 3, 64, 200, 150, 128, False),   # kv_len below the buffer
+    (2, 3, 130, 130, 130, 128, True),
+    (2, 3, 64, 64, 0, 64, False),       # every row fully masked: exactly zero
+    # Edges of the bf16 tensor-core kernels (dq: 64-row CTAs, 64-key tiles;
+    # dkv: 64-key CTAs, Q tiles of 64 rows at d = 64 and 32 at d = 128).
+    (2, 3, 63, 63, 63, 64, True),       # one row short of a 64 tile
+    (2, 3, 65, 65, 65, 128, True),      # one row past a 64 (and a 32) tile
+    (2, 3, 96, 200, 130, 128, False),   # last key tile ragged inside the buffer
+    (2, 3, 100, 200, 200, 64, True),    # causal with fewer rows than keys
+    (2, 3, 65, 65, 0, 128, True),       # kv_len = 0 at d = 128
+    (4, 9, 130, 130, 130, 128, True),   # GQA 36 over 4 (starcoder2-7b)
+    (4, 1, 100, 100, 100, 64, True),    # MHA (minicpm-2b)
 ])
-def test_flash_backward_kernels_match_plain(cuda, dtype, n, nk, kv_len, d, causal):
-    q, k, v = _randn((6, n, d), dtype, 10), _randn((2, nk, d), dtype, 11), _randn((2, nk, d), dtype, 12)
-    do = _randn((6, n, d), dtype, 13)
-    kw = dict(q_per_kv=3, scale=d ** -0.5, causal=causal, kv_len=kv_len)
+def test_flash_backward_kernels_match_plain(cuda, dtype, hkv, q_per_kv, n, nk, kv_len, d, causal):
+    bhq = hkv * q_per_kv
+    q, k, v = _randn((bhq, n, d), dtype, 10), _randn((hkv, nk, d), dtype, 11), _randn((hkv, nk, d), dtype, 12)
+    do = _randn((bhq, n, d), dtype, 13)
+    kw = dict(q_per_kv=q_per_kv, scale=d ** -0.5, causal=causal, kv_len=kv_len)
     o, lse = fk.flash_attention_kernel_call(q, k, v, return_lse=True, **kw)
     before = dict(bwd.launches)
     delta = bwd.delta_kernel_call(o, do)
     _bwd_close(delta, bwd.delta_plain(o, do))
-    _bwd_close(bwd.flash_dq_kernel_call(q, k, v, do, lse, delta, **kw),
-               bwd.flash_dq_plain(q, k, v, do, lse, delta, **kw))
+    dq = bwd.flash_dq_kernel_call(q, k, v, do, lse, delta, **kw)
+    _bwd_close(dq, bwd.flash_dq_plain(q, k, v, do, lse, delta, **kw))
     got = bwd.flash_dkv_kernel_call(q, k, v, do, lse, delta, **kw)
     for g_, w_ in zip(got, bwd.flash_dkv_plain(q, k, v, do, lse, delta, **kw)):
         _bwd_close(g_, w_)
-        if kv_len == 0:
+    if kv_len == 0:
+        for g_ in (dq, *got):
             assert torch.equal(g_, torch.zeros_like(g_))
     assert {k_: bwd.launches[k_] - before[k_] for k_ in before} == {
         "delta": 1, "flash_dq": 1, "flash_dkv": 1, "distr_dq": 0, "distr_dkv": 0}
@@ -197,24 +209,32 @@ def test_distr_backward_rejects_group_size_one(cuda, call):
     assert bwd.launches == before
 
 
-@pytest.mark.parametrize("impl", ["flash", "distr"])
-def test_op_gradients_on_card_match_cpu(cuda, impl):
+@pytest.mark.parametrize("impl,dtype", [("flash", torch.float32), ("distr", torch.float32),
+                                        ("flash", torch.bfloat16)])
+def test_op_gradients_on_card_match_cpu(cuda, impl, dtype):
     """The autograd ops on CUDA tensors (kernels) against the same ops on
-    CPU tensors (plain versions), f32, GQA 4 over 2, ragged N = 100."""
+    CPU tensors (plain versions), GQA 4 over 2, ragged N = 100: f32 at
+    ``BWD_TOL``, and bf16 (the tensor-core forward and backward) at the
+    bf16 tolerance, since both sides round O and the gradients to bf16."""
     b, hq, hkv, n, d = 2, 4, 2, 100, 64
     cfg = DistrConfig(group_size=2, block_q=64)
     fn = ((lambda q, k, v: ops.flash_attention(q, k, v, causal=True)) if impl == "flash" else
           (lambda q, k, v: ops.distr_attention(q, k, v, cfg, causal=True)))
-    ins = [_randn(s, torch.float32, 20 + i)
+    ins = [_randn(s, dtype, 20 + i)
            for i, s in enumerate([(b, hq, n, d), (b, hkv, n, d), (b, hkv, n, d)])]
-    w = torch.cos(torch.arange(d, dtype=torch.float32))
+    w = torch.cos(torch.arange(d, dtype=torch.float32)).to(dtype)
     grads = {}
+    before = dict(bwd.launches)
     for dev in ("cuda", "cpu"):
         xs = [x.detach().to(dev).requires_grad_(True) for x in ins]
         (fn(*xs) * w.to(dev)).sum().backward()
         grads[dev] = [x.grad for x in xs]
+    assert bwd.launches[f"{impl}_dq"] == before[f"{impl}_dq"] + 1
+    assert bwd.launches[f"{impl}_dkv"] == before[f"{impl}_dkv"] + 1
+    tol = BWD_TOL if dtype == torch.float32 else TOL[torch.bfloat16]
     for g_cuda, g_cpu in zip(grads["cuda"], grads["cpu"]):
-        torch.testing.assert_close(g_cuda.cpu(), g_cpu, atol=BWD_TOL, rtol=BWD_TOL)
+        assert g_cuda.dtype == dtype
+        torch.testing.assert_close(g_cuda.cpu().float(), g_cpu.float(), atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
