@@ -5,9 +5,10 @@
 
 In order: prints the card's name and power limit; builds the CUDA kernels
 from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a; counts the bf16
-flash forward's and backward's (dq, dkv) tensor-core (HMMA), ldmatrix
-(LDSM) and cp.async (LDGSTS) instructions in the library's SASS and fails
-on a zero count or a register spill; holds each
+flash forward's and backward's (dq, dkv) and the bf16 decode and paged
+decode kernels' tensor-core (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
+instructions in the library's SASS and fails on a zero count or a register
+spill; holds each
 kernel against its plain PyTorch version in bf16 at the shapes of the
 serving path (starcoder2-7b) and of the training path (minicpm-2b) — the
 forward kernels with their LSE, DistrAttention also at G* = 4, the decode
@@ -40,6 +41,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -101,23 +103,33 @@ HYBRID_ATTN = (32, 32, 112, 2)
 ATTN_KERNEL_NAMES = ("attn_fwd_mma_kernel", "attn_fwd_kernel", "attn_bwd_dq_mma_kernel",
                      "attn_bwd_dkv_mma_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel",
                      "delta_kernel")
-# The bf16 flash templates on the tensor cores (csrc/flash_fwd_tc.cuh,
-# csrc/flash_bwd_tc.cuh) and their head dims: the SASS of every
-# instantiation must hold tensor-core products (HMMA), ldmatrix (LDSM) and
-# cp.async (LDGSTS).
-TC_KERNELS = {"attn_fwd_mma_kernel": (64, 112, 128), "attn_bwd_dq_mma_kernel": (64, 128),
-              "attn_bwd_dkv_mma_kernel": (64, 128)}
+# The bf16 templates on the tensor cores and their instantiations (template
+# arguments): the flash forward and backward (csrc/flash_fwd_tc.cuh,
+# csrc/flash_bwd_tc.cuh) at each head dim, and the decode and paged decode
+# kernels on the tile of csrc/decode_tc.cuh at each value width and number
+# of warps that share an m-tile (4: one m-tile, 2: two, 1: more).  The SASS
+# of every instantiation must hold tensor-core products (HMMA), ldmatrix
+# (LDSM) and cp.async (LDGSTS).
+TC_KERNELS = {"attn_fwd_mma_kernel": ((64,), (112,), (128,)),
+              "attn_bwd_dq_mma_kernel": ((64,), (128,)),
+              "attn_bwd_dkv_mma_kernel": ((64,), (128,)),
+              "decode_mma_kernel": tuple((d, kw) for d in (64, 112, 128) for kw in (4, 2)),
+              "paged_mma_kernel": tuple((d, kw) for d in (64, 112, 128) for kw in (4, 2, 1))}
 TC_SASS_OPS = ("HMMA", "LDSM", "LDGSTS")
 
 
-def tc_smem_bytes(template: str, d: int) -> int:
-    """Dynamic shared memory of a tensor-core template at head dim d: bf16
-    tiles with rows padded by 8 (the headers' smem_bytes functions)."""
+def tc_smem_bytes(template: str, args: tuple) -> int:
+    """Dynamic shared memory of a tensor-core instantiation: bf16 tiles with
+    rows padded by 8 (the headers' smem_bytes functions); the decode tile's
+    at a score width equal to its value width."""
+    d = args[0]
     row = (d + 8) * 2
     if template == "attn_fwd_mma_kernel":  # Q, 2 stages of K and V
         return (64 + 4 * 64) * row
     if template == "attn_bwd_dq_mma_kernel":  # Q, dO, 2 stages of K and V
         return (2 * 64 + 4 * 64) * row
+    if template in ("decode_mma_kernel", "paged_mma_kernel"):  # 2 stages of K, V and Q
+        return 2 * (64 * 2 * row + 16 * (4 // args[1]) * row)
     rows = 32 if d > 64 else 64  # dkv: K, V, 2 stages of Q, dO, LSE, D
     return (2 * 64 + 4 * rows) * row + 4 * rows * 4
 
@@ -135,11 +147,12 @@ def gpu_name_and_power() -> str:
 
 
 def tensor_core_check(build) -> dict:
-    """Proof that the bf16 flash forward and backward run on the tensor
-    cores: count each instantiation's HMMA, LDSM and LDGSTS instructions in
-    the built library's SASS (``cuobjdump -sass``) and read its registers
-    and spills from nvcc's ``-Xptxas -v`` output.  Raises if an
-    instantiation is missing, lacks one of the three or spills."""
+    """Proof that the bf16 flash forward and backward and the bf16 decode
+    and paged decode kernels run on the tensor cores: count each
+    instantiation's HMMA, LDSM and LDGSTS instructions in the built
+    library's SASS (``cuobjdump -sass``) and read its registers and spills
+    from nvcc's ``-Xptxas -v`` output.  Raises if an instantiation is
+    missing, lacks one of the three or spills."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(build.build())], check=True,
                           capture_output=True, text=True, timeout=300).stdout
@@ -164,13 +177,17 @@ def tensor_core_check(build) -> dict:
     out = {}
     for fn, row in found.items():
         template = next(name for name in TC_KERNELS if name in fn)
-        d = int(fn.split("ILi")[1].split("E")[0])
-        row.update(template=template, head_dim=d, dynamic_smem_bytes=tc_smem_bytes(template, d))
-        log(f"[tensor cores] {template}<{d}>: {row}")
+        # Template arguments of the mangled name: I Li<n>E ... E.
+        args = tuple(int(x) for x in re.findall(r"Li(\d+)E", fn.split(template, 1)[1]))
+        key = f"{template}<{', '.join(map(str, args))}>"
+        row.update(template=template, args=list(args),
+                   dynamic_smem_bytes=tc_smem_bytes(template, args))
+        log(f"[tensor cores] {key}: {row}")
         if any(row[op] == 0 for op in TC_SASS_OPS) or row.get("spill_bytes", 1) != 0:
             raise AssertionError(f"{fn}: no {TC_SASS_OPS} in its SASS, or spills: {row}")
-        out[f"{template}<{d}>"] = row
-    want = {f"{name}<{d}>" for name, dims in TC_KERNELS.items() for d in dims}
+        out[key] = row
+    want = {f"{name}<{', '.join(map(str, args))}>" for name, inst in TC_KERNELS.items()
+            for args in inst}
     if set(out) != want:
         raise AssertionError(f"expected the instantiations {sorted(want)} in the SASS, "
                              f"got {sorted(out)}")

@@ -16,11 +16,14 @@
 //
 // Bound on this card: bytes.  A decode step reads the live K/V once
 // (2·length·d·2 bytes per KV head in bf16) for ~4·rows·length·d FLOPs —
-// below 10 FLOP/byte, far under the ridge.  Thread t owns key t of the split
-// for the scores (16-byte vector loads along its K row) and value column t
-// for P·V (neighbouring threads read neighbouring V addresses), so every
-// live K/V byte is read from device memory once per CTA.
-#include "common.cuh"
+// below 10 FLOP/byte, far under the ridge.  bf16, the dtype of every
+// full-size config, runs the tensor-core tile decode_tc.cuh (a cp.async K/V
+// ring, mma.sync scores, P·V with P split into bf16 hi + lo).  f32 runs the
+// FMA loops below (tensor cores would compute f32 as TF32): thread t owns
+// key t of the split for the scores (16-byte vector loads along its K row)
+// and value column t for P·V, so every live K/V byte is read from device
+// memory once per CTA.
+#include "decode_tc.cuh"
 
 namespace rt {
 
@@ -156,6 +159,50 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(DecodeArgs a) {
   }
 }
 
+// The bf16 kernel: the split's K, V and q rows handed to the tensor-core tile.
+template <int DV, int KW>
+__global__ void __launch_bounds__(tc::DT_THREADS) decode_mma_kernel(DecodeArgs a) {
+  using bf16 = __nv_bfloat16;
+  const int split = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int length = a.lengths[b];
+  const int kv0 = split * a.block_k;
+  const size_t bh = (size_t)b * a.hkv + h;
+  const size_t stat = (bh * a.splits + split) * a.rows;
+  tc::DecodeTile t;
+  t.o = a.o + stat * DV;
+  t.m = a.m + stat;
+  t.l = a.l + stat;
+  if (kv0 >= length) {  // dead split
+    tc::write_identity<DV>(t.o, t.m, t.l, a.rows);
+    return;
+  }
+  t.q = static_cast<const bf16*>(a.q) + bh * a.rows * a.ds;
+  t.k = static_cast<const bf16*>(a.k) + (bh * a.s + kv0) * a.ds;
+  t.v = static_cast<const bf16*>(a.v) + (bh * a.s + kv0) * DV;
+  t.rows = a.rows;
+  t.ds = a.ds;
+  t.q_len = a.q_len;
+  t.n_live = min(a.block_k, length - kv0);
+  t.len0 = length - kv0 - (a.q_len - 1);
+  t.scale = a.scale;
+  tc::decode_tile<DV, KW>(t);
+}
+
+template <int DV>
+int launch_decode_mma(const DecodeArgs& a, int b, cudaStream_t stream) {
+  const int kw = tc::decode_kw(a.rows);
+  const size_t bytes = tc::decode_smem_bytes(a.ds, DV, kw);
+  auto kern = kw == 4 ? decode_mma_kernel<DV, 4> : decode_mma_kernel<DV, 2>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.splits, a.hkv, b);
+  kern<<<grid, tc::DT_THREADS, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int DV>
 int launch_decode(const DecodeArgs& a, int b, cudaStream_t stream) {
   const size_t bytes = (size_t)a.rows * (a.ds + a.block_k) * sizeof(float);
@@ -174,7 +221,9 @@ extern "C" int repro_decode_fwd(const void* q, const void* k, const void* v, con
                                 void* o, void* m, void* l, int dtype, int b, int hkv, int rows,
                                 int s, int ds, int dv, int block_k, int q_len, float scale,
                                 void* stream) {
-  if (rows < 1 || rows > rt::MAX_ROWS || ds % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (rows < 1 || rows > rt::MAX_ROWS || ds % 8 != 0 || block_k < 1 || q_len < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
   rt::DecodeArgs a;
   a.q = q;
   a.k = k;
@@ -193,9 +242,9 @@ extern "C" int repro_decode_fwd(const void* q, const void* k, const void* v, con
   a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == rt::DTYPE_BF16) {
-    if (dv == 128) return rt::launch_decode<__nv_bfloat16, 128>(a, b, st);
-    if (dv == 112) return rt::launch_decode<__nv_bfloat16, 112>(a, b, st);
-    if (dv == 64) return rt::launch_decode<__nv_bfloat16, 64>(a, b, st);
+    if (dv == 128) return rt::launch_decode_mma<128>(a, b, st);
+    if (dv == 112) return rt::launch_decode_mma<112>(a, b, st);
+    if (dv == 64) return rt::launch_decode_mma<64>(a, b, st);
   } else if (dtype == rt::DTYPE_F32) {
     if (dv == 128) return rt::launch_decode<float, 128>(a, b, st);
     if (dv == 112) return rt::launch_decode<float, 112>(a, b, st);

@@ -1,7 +1,8 @@
 // Fragment helpers shared by the tensor-core attention kernels
-// (flash_fwd_tc.cuh, flash_bwd_tc.cuh): cp.async copies into shared memory,
-// ldmatrix operand loads, mma.sync.m16n8k16 (bf16 in, f32 accumulate), a
-// one-instruction exp2 and bf16x2 packing.
+// (flash_fwd_tc.cuh, flash_bwd_tc.cuh, decode_tc.cuh): cp.async copies into
+// shared memory, ldmatrix operand loads and their lane offsets,
+// mma.sync.m16n8k16 (bf16 in, f32 accumulate), a one-instruction exp2,
+// bf16x2 packing, and the bf16 hi + lo split of an f32 A operand.
 //
 // In the m16n8k16 layouts, lane l holds rows l/4 and l/4 + 8 of an A or C
 // fragment, and columns 2(l%4) and 2(l%4) + 1 of each 8-wide n-tile; so the
@@ -74,6 +75,53 @@ __device__ __forceinline__ float exp2_approx(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// x0, x1 ≈ hi + lo: hi = bf16(x), lo = bf16(x - hi), each as bf16x2.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// The hi and lo A fragments of k-step kk of a product whose A is a warp's
+// 16-row accumulator c: n-tiles 2kk and 2kk + 1 are the k-step's 16 columns.
+template <int NT>
+__device__ __forceinline__ void split_a(const float (&c)[NT][4], int kk, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+  split_bf16(c[2 * kk][0], c[2 * kk][1], hi[0], lo[0]);
+  split_bf16(c[2 * kk][2], c[2 * kk][3], hi[1], lo[1]);
+  split_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1], hi[2], lo[2]);
+  split_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3], hi[3], lo[3]);
+}
+
+// c0, c1 += (hi + lo) · B, with B's two adjacent n-tiles from one
+// ldmatrix.x4.trans at addr.
+__device__ __forceinline__ void mma_split(float (&c0)[4], float (&c1)[4], const uint32_t (&hi)[4],
+                                          const uint32_t (&lo)[4], uint32_t addr) {
+  uint32_t b0, b1, b2, b3;
+  ldsm_x4_trans(addr, b0, b1, b2, b3);
+  mma_bf16(c0, hi, b0, b1);
+  mma_bf16(c1, hi, b2, b3);
+  mma_bf16(c0, lo, b0, b1);
+  mma_bf16(c1, lo, b2, b3);
+}
+
+// Lane offsets (elements) of the ldmatrix.x4 addresses in a tile of row
+// stride ld.  A: rows 0-7 / 8-15 of the warp's 16, columns +0 / +8 give
+// a0..a3.  B from rows (no .trans): matrices (rows +0, cols +0), (+0, +8),
+// (+8, +0), (+8, +8) give b0, b1 of two adjacent n-tiles of rows.  B with
+// .trans: (rows +0, cols +0), (+8, +0), (+0, +8), (+8, +8) give b0, b1 of
+// two adjacent n-tiles of columns.
+__device__ __forceinline__ int a_lane_off(int lane, int ld) {
+  return (lane & 15) * ld + (lane >> 4) * 8;
+}
+__device__ __forceinline__ int b_lane_off(int lane, int ld) {
+  return ((lane >> 4) * 8 + (lane & 7)) * ld + ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ int bt_lane_off(int lane, int ld) {
+  return (((lane >> 3) & 1) * 8 + (lane & 7)) * ld + (lane >> 4) * 8;
 }
 
 }  // namespace tc

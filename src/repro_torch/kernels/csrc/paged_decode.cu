@@ -17,18 +17,19 @@
 // unnormalised partials o = Σ exp(s − m)·V, m = rowmax s, l = Σ exp(s − m).
 //
 // Bound on this card: bytes for a decode tick (q_per_kv = 9 rows against
-// each live K/V byte, far below the ridge).  The live K and V of the block
-// are staged once in shared memory (16-byte loads; K rows padded by 16 bytes
-// so the per-key score reads do not collide on banks) and every row tile of
-// ≤ 32 packed rows reuses them, so a chunked-prefill window of any row count
-// (9 · 32 = 288 at starcoder2-7b) reads each live K/V byte from device memory
-// once per CTA.  Thread t owns key t for the scores and value column t for
-// P·V; the sums stay in registers.  What sets the time is not the bytes but
-// the FMA loops over 32 unrolled register sums (row_tile): a full tile runs
-// them unconditionally, a short one leaves them after its last row, so a
-// decode tick's 9 rows cost 9 rows of work (a version that predicated the
-// unused rows off took as long for 9 rows as for 32).
-#include "common.cuh"
+// each live K/V byte, far below the ridge).  bf16, the pools' dtype at full
+// size, runs the tensor-core tile decode_tc.cuh, the same tile as the
+// contiguous decode kernel: the block's K/V stream through a cp.async ring
+// (resident at the serving block of 128) while the packed rows run as
+// 16-row m-tiles, keys over warps for a tick, rows over warps for a chunk
+// (288 rows at starcoder2-7b).  f32 runs the FMA loops below: the live K
+// and V of the block are staged once in shared memory (16-byte loads; K
+// rows padded by 16 bytes so the per-key score reads do not collide on
+// banks) and every row tile of ≤ 32 packed rows reuses them; thread t owns
+// key t for the scores and value column t for P·V, the sums in registers.
+// A full tile runs the unrolled row loops unconditionally, a short one
+// leaves them after its last row.
+#include "decode_tc.cuh"
 
 namespace rt {
 
@@ -215,6 +216,55 @@ __global__ void __launch_bounds__(PD_THREADS) paged_decode_kernel(PagedArgs a) {
   }
 }
 
+// The bf16 kernel: block block_tables[b, j] of the pools handed to the
+// tensor-core tile.
+template <int DV, int KW>
+__global__ void __launch_bounds__(tc::DT_THREADS) paged_mma_kernel(PagedArgs a) {
+  using bf16 = __nv_bfloat16;
+  const int j = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int length = a.lengths[b];
+  const int kv0 = j * a.bs;
+  const size_t bh = (size_t)b * a.hkv + h;
+  const size_t stat = (bh * a.max_blocks + j) * a.rows;
+  tc::DecodeTile t;
+  t.o = a.o + stat * DV;
+  t.m = a.m + stat;
+  t.l = a.l + stat;
+  if (kv0 >= length) {  // dead logical block
+    tc::write_identity<DV>(t.o, t.m, t.l, a.rows);
+    return;
+  }
+  const size_t phys = (size_t)a.block_tables[(size_t)b * a.max_blocks + j];
+  const size_t blk = phys * a.hkv + h;
+  t.q = static_cast<const bf16*>(a.q) + bh * a.rows * a.ds;
+  t.k = static_cast<const bf16*>(a.k) + blk * a.bs * a.ds;
+  t.v = static_cast<const bf16*>(a.v) + blk * a.bs * DV;
+  t.rows = a.rows;
+  t.ds = a.ds;
+  t.q_len = a.q_len;
+  t.n_live = min(a.bs, length - kv0);
+  t.len0 = length - kv0 - (a.q_len - 1);
+  t.scale = a.scale;
+  tc::decode_tile<DV, KW>(t);
+}
+
+template <int DV>
+int launch_paged_mma(const PagedArgs& a, int b, cudaStream_t stream) {
+  const int kw = tc::decode_kw(a.rows);
+  const size_t bytes = tc::decode_smem_bytes(a.ds, DV, kw);
+  auto kern = kw == 4   ? paged_mma_kernel<DV, 4>
+              : kw == 2 ? paged_mma_kernel<DV, 2>
+                        : paged_mma_kernel<DV, 1>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.max_blocks, a.hkv, b);
+  kern<<<grid, tc::DT_THREADS, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int DV>
 int launch_paged(const PagedArgs& a, int b, cudaStream_t stream) {
   const size_t bytes = paged_smem_bytes<T, DV>(a.ds, a.bs);
@@ -255,10 +305,12 @@ extern "C" int repro_paged_decode_fwd(const void* q, const void* k, const void* 
   a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == rt::DTYPE_BF16) {
-    if (dv == 128) return rt::launch_paged<__nv_bfloat16, 128>(a, b, st);
-    if (dv == 64) return rt::launch_paged<__nv_bfloat16, 64>(a, b, st);
+    if (dv == 128) return rt::launch_paged_mma<128>(a, b, st);
+    if (dv == 112) return rt::launch_paged_mma<112>(a, b, st);
+    if (dv == 64) return rt::launch_paged_mma<64>(a, b, st);
   } else if (dtype == rt::DTYPE_F32) {
     if (dv == 128) return rt::launch_paged<float, 128>(a, b, st);
+    if (dv == 112) return rt::launch_paged<float, 112>(a, b, st);
     if (dv == 64) return rt::launch_paged<float, 64>(a, b, st);
   }
   return (int)cudaErrorInvalidValue;

@@ -1,7 +1,8 @@
 """Split-K flash-decoding: the CUDA kernel's wrapper, its plain PyTorch
 version and the cross-split merge.
 
-The kernel (``csrc/decode.cu``) replaces the Pallas TPU kernel
+The kernel (``csrc/decode.cu``; bf16 on the tensor-core tile
+``csrc/decode_tc.cuh``, f32 on FMA loops) replaces the Pallas TPU kernel
 ``repro/kernels/decode.py::_decode_kernel``.  Each split of ``block_k``
 cache positions emits unnormalised partials
 

@@ -1,7 +1,9 @@
 """Block-table (paged) split-K flash-decoding: the CUDA kernel's wrapper and
 its plain PyTorch version.
 
-The kernel (``csrc/paged_decode.cu``) replaces the Pallas TPU kernel
+The kernel (``csrc/paged_decode.cu``; bf16 on the tensor-core tile
+``csrc/decode_tc.cuh`` it shares with the contiguous decode kernel, f32 on
+FMA loops) replaces the Pallas TPU kernel
 ``repro/kernels/paged_decode.py::_paged_decode_kernel``.  KV lives in a
 shared block pool ``(P, Hkv, bs, ·)``; logical block ``j`` of request ``b``
 is physical block ``block_tables[b, j]``.  One split per logical block
@@ -70,7 +72,7 @@ def paged_decode_kernel_call(q, k_pool, v_pool, block_tables, lengths, *, scale:
     max_blocks = block_tables.shape[1]
     if (k_pool.shape[1:] != (hkv, bs, ds) or v_pool.shape[:3] != k_pool.shape[:3]
             or block_tables.shape[0] != b or lengths.shape != (b,) or ds % 8
-            or d not in (64, 128) or q_len < 1 or rows % q_len):
+            or d not in build.HEAD_DIMS or q_len < 1 or rows % q_len):
         raise ValueError(
             f"paged decode kernel shapes q={tuple(q.shape)} k_pool={tuple(k_pool.shape)} "
             f"v_pool={tuple(v_pool.shape)} block_tables={tuple(block_tables.shape)}"

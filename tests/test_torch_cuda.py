@@ -5,8 +5,11 @@ forward rows one short of and one past its 64-row CTA, a ragged last key
 tile, kv_len = 0, GQA 36 over 4 and MHA, and its LSE fed to the backward
 kernels; the same edges for the bf16 tensor-core backward kernels; for the
 paged kernel dead blocks, a
-NaN-filled garbage block, lengths past the table and more than 32 rows; head
-dim 112 for the forward and decode kernels; for the SSD kernel short and
+NaN-filled garbage block and NaN past the last live key of a live block,
+lengths past the table and more than 32 rows; for the bf16 tensor-core
+decode tile one and two m-tiles, ragged and streamed key tiles, d_score 56
+and NaN past a slot's length; head dim 112 for the forward, decode and
+paged kernels; for the SSD kernel short and
 ragged sequences, strong decays, grouped heads and state width 128),
 forward and backward, and the
 differentiable ops on the card against the same ops on the CPU.  Marked
@@ -237,10 +240,21 @@ def test_op_gradients_on_card_match_cpu(cuda, impl, dtype):
         torch.testing.assert_close(g_cuda.cpu().float(), g_cpu.float(), atol=tol, rtol=tol)
 
 
+# (rows, q_len, d_score, d, block_k).  The bf16 tile takes keys in tiles of
+# 64 and rows in m-tiles of 16: one m-tile (keys over 4 warps), two (2 warps
+# each), a split of 100 or 200 keys (a ragged tile; three or four tiles
+# stream through its 2-stage ring), and d_score 56 against d = 112 (a half
+# k-step padded with zero columns).
+DECODE_KERNEL_CASES = [
+    (9, 1, 128, 128, 128), (32, 2, 64, 128, 64), (1, 1, 64, 128, 128),
+    (1, 1, 56, 112, 128), (9, 1, 128, 128, 100), (18, 2, 56, 112, 200), (16, 1, 64, 64, 1),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,q_len,ds,block_k", [(9, 1, 128, 128), (32, 2, 64, 64), (1, 1, 64, 128)])
-def test_decode_kernel_matches_plain(cuda, dtype, rows, q_len, ds, block_k):
-    b, hkv, s, d = 3, 2, 300, 128
+@pytest.mark.parametrize("rows,q_len,ds,d,block_k", DECODE_KERNEL_CASES)
+def test_decode_kernel_matches_plain(cuda, dtype, rows, q_len, ds, d, block_k):
+    b, hkv, s = 3, 2, 300
     q = _randn((b, hkv, rows, ds), dtype, 6)
     k, v = _randn((b, hkv, s, ds), dtype, 7), _randn((b, hkv, s, d), dtype, 8)
     lengths = torch.tensor([0, 1, 300], dtype=torch.int32, device="cuda")
@@ -252,16 +266,43 @@ def test_decode_kernel_matches_plain(cuda, dtype, rows, q_len, ds, block_k):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,q_len,ds,d,block_k", [(9, 1, 128, 128, 128), (32, 2, 56, 112, 100)])
+def test_decode_kernel_ignores_cache_past_lengths(cuda, dtype, rows, q_len, ds, d, block_k):
+    """NaN in every cache position at or past a slot's length, inside live
+    splits too: the partials must equal the plain version's over a cache
+    whose tail is zero (a tensor-core P·V reads whole key tiles, and
+    0 · NaN = NaN)."""
+    b, hkv, s = 3, 2, 300
+    q = _randn((b, hkv, rows, ds), dtype, 9)
+    k, v = _randn((b, hkv, s, ds), dtype, 10), _randn((b, hkv, s, d), dtype, 11)
+    lengths = torch.tensor([5, 170, 299], dtype=torch.int32, device="cuda")
+    tail = (torch.arange(s, device="cuda")[None, :] >= lengths[:, None])[:, None, :, None]
+    kw = dict(scale=d ** -0.5, block_k=block_k, q_len=q_len)
+    want = dec.decode_plain(q, k.masked_fill(tail, 0), v.masked_fill(tail, 0), lengths, **kw)
+    got = dec.decode_kernel_call(q, k.masked_fill(tail, float("nan")),
+                                 v.masked_fill(tail, float("nan")), lengths, **kw)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        assert torch.isfinite(g_).all()
+        torch.testing.assert_close(g_, w_, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,q_len,ds,d,bs", [
     (9, 1, 128, 128, 16),     # a decode tick at starcoder2-7b's packing
     (72, 8, 64, 128, 16),     # a fused-K̂ chunk: three row tiles
     (40, 4, 64, 64, 16),      # a ragged last row tile, d = 64
     (288, 32, 128, 128, 128),  # a 32-token chunk at the serving block size
+    (9, 1, 112, 112, 16),     # head dim 112 (zamba2-7b's)
+    (72, 8, 56, 112, 100),    # d = 112, fused K̂ (56), a ragged key tile
+    (72, 8, 64, 128, 160),    # blocks of three key tiles: the ring streams
+    (24, 2, 128, 128, 16),    # two m-tiles
 ])
 def test_paged_decode_kernel_matches_plain(cuda, dtype, rows, q_len, ds, d, bs):
     """Request 0 has length 0 (every block dead), request 1 ends mid-block
     with garbage entries past it, request 2 overhangs the table by 6; block 0
-    (the garbage block) holds NaN and must never be read."""
+    (the garbage block) and the slots past request 1's last live key hold
+    NaN and must never reach the output."""
     b, hkv, mb = 3, 2, 5
     p = 1 + b * mb
     q = _randn((b, hkv, rows, ds), dtype, 40)
@@ -272,6 +313,8 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype, rows, q_len, ds, d, bs):
     length_1 = 2 * bs + 5
     bt[0] = pd.GARBAGE_BLOCK
     bt[1, 3:] = pd.GARBAGE_BLOCK
+    k_pool[bt[1, 2].long(), :, 5:] = float("nan")  # request 1's live block past its 5 keys
+    v_pool[bt[1, 2].long(), :, 5:] = float("nan")
     lengths = torch.tensor([0, length_1, mb * bs + 6], dtype=torch.int32, device="cuda")
     kw = dict(scale=d ** -0.5, q_len=q_len)
     before = pd.launches

@@ -2,6 +2,8 @@
 CPU) against the JAX reference's repro.kernels.ops (Pallas in interpret
 mode) on the same numpy inputs, at the reference tests' tolerances:
 flash 2e-5 f32 / 2e-2 bf16, distr 2e-5 / 3e-2, decode 1e-4 / 1e-2."""
+import math
+
 import numpy as np
 import pytest
 
@@ -16,6 +18,7 @@ from repro.core import lsh as rl  # noqa: E402
 from repro.kernels import ops as rops  # noqa: E402
 from repro_torch.core.distr_attention import DistrConfig, pad_to_multiple  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
+from repro_torch.kernels.decode import decode_plain  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -135,6 +138,77 @@ def test_decode_attention_fused_score_width(g, dtype):
                                 perm=torch.from_numpy(perm), group_size=g, scale=scale,
                                 block_k=64)
     _close(got, want, 1e-2 if dtype == "bf16" else 1e-4)
+
+
+def _decode_split_p(q, k, v, lengths, *, scale, block_k, q_len, parts, tile=64):
+    """The bf16 tensor-core decode tile's arithmetic (``csrc/decode_tc.cuh``)
+    on the CPU: per split, 64-key tiles with an online softmax in raw-score
+    units (exp2 of (s − m)·scale·log2 e), S in f32 from the bf16 q and k,
+    and P·V as the sum of each part of P (``parts``) times V in f32."""
+    b, hkv, rows, _ = q.shape
+    s_len, d = k.shape[2], v.shape[3]
+    splits = -(-s_len // block_k)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    sl2 = scale * math.log2(math.e)
+    tok = torch.arange(rows) % q_len
+    row_len = lengths.long()[:, None] - (q_len - 1 - tok)[None, :]  # (B, rows)
+    o = torch.zeros((b, hkv, splits, rows, d))
+    m = torch.full((b, hkv, splits, rows), -1e30)
+    l = torch.zeros((b, hkv, splits, rows))
+    for j in range(splits):
+        kv0 = j * block_k
+        acc = torch.zeros((b, hkv, rows, d))
+        m_i = torch.full((b, hkv, rows), -1e30)
+        l_i = torch.zeros((b, hkv, rows))
+        for t0 in range(0, min(block_k, s_len - kv0), tile):
+            keys = torch.arange(kv0 + t0, min(kv0 + t0 + tile, kv0 + block_k, s_len))
+            s = torch.einsum("bhrd,bhkd->bhrk", qf, kf[:, :, keys])
+            live = (keys[None, None, :] < row_len[:, :, None])[:, None]
+            s = torch.where(live, s, -1e30)
+            m_new = torch.maximum(m_i, s.amax(-1))
+            alpha = torch.exp2((m_i - m_new) * sl2)
+            p = torch.where(live, torch.exp2(s * sl2 - (m_new * sl2)[..., None]), 0.0)
+            l_i = l_i * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + sum(
+                torch.einsum("bhrk,bhkd->bhrd", part, vf[:, :, keys]) for part in parts(p))
+            m_i = m_new
+        o[:, :, j], l[:, :, j] = acc, l_i
+        m[:, :, j] = torch.where(m_i == -1e30, -1e30, m_i * scale)
+    return o, m, l
+
+
+def _split_bf16(x):
+    """x ≈ hi + lo with hi = bf16(x) and lo = bf16(x − hi), as f32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _bf16_only(x):
+    return (x.to(torch.bfloat16).float(),)
+
+
+@pytest.mark.parametrize("rows,q_len", [(9, 1), (288, 32)], ids=["tick", "chunk"])
+def test_decode_split_p_holds_1e4(rows, q_len):
+    """The bf16 decode and paged-decode kernels' arithmetic, emulated on the
+    CPU at a tick (9 packed rows) and a 32-token chunk (288 rows): with P
+    split into bf16 hi + lo, o, m and l stay within the 1e-4 the card holds
+    the kernels to against ``decode_plain``.  Rounding P to bf16 alone is
+    logged, not asserted: it is the reason for the split."""
+    rng = np.random.default_rng(11)
+    b, hkv, s_len, d, block_k = 2, 2, 300, 64, 128
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32)).to(torch.bfloat16)
+               for shape in ((b, hkv, rows, d), (b, hkv, s_len, d), (b, hkv, s_len, d)))
+    lengths = torch.tensor([37, 300], dtype=torch.int32)
+    kw = dict(scale=d ** -0.5, block_k=block_k, q_len=q_len)
+    want = decode_plain(q, k, v, lengths, **kw)
+    tol = 1e-4
+    got = {name: _decode_split_p(q, k, v, lengths, parts=parts, **kw)
+           for name, parts in (("hi + lo", _split_bf16), ("bf16 only", _bf16_only))}
+    shares = {name: [float(((g_ - w_).abs() / (tol + tol * w_.abs())).max())
+                     for g_, w_ in zip(outs, want)] for name, outs in got.items()}
+    print(f"largest error as a share of the 1e-4 allowance (o, m, l): {shares}")
+    for g_, w_, what in zip(got["hi + lo"], want, "oml"):
+        torch.testing.assert_close(g_, w_, atol=tol, rtol=tol, msg=lambda msg: f"{what}: {msg}")
 
 
 def test_decode_attention_no_lengths_means_all_live():

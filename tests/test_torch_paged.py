@@ -534,9 +534,9 @@ def _serve(eng, prompts, max_new):
     return {r.uid: r.generated for r in done}, pre
 
 
-def _engines(models, fused, **kw):
+def _engines(models, fused, impl="pallas_flash", **kw):
     _, rparams, _, tparams, perms = models
-    rc, tc = _configs(models, "pallas_flash", fused)
+    rc, tc = _configs(models, impl, fused)
     return (RefPagedEngine(rc, rparams, cache_dtype=jnp.float32, **kw),
             PagedServeEngine(tc, tparams, cache_dtype=torch.float32, device="cpu",
                              perms=perms, **kw))
@@ -550,18 +550,22 @@ def test_engine_greedy_tokens_match_reference(models, fused):
     assert outs[1] == outs[0] and not any(outs[1][1].values())
 
 
-def test_engine_preemption_and_window_decode_match_reference(models):
+@pytest.mark.parametrize("impl", ["pallas_flash", "pallas_distr"])
+@pytest.mark.parametrize("fused", [False, True], ids=["raw_k", "fused_k"])
+def test_engine_preemption_and_window_decode_match_reference(models, impl, fused):
     """The same six requests in a 5-block pool: identical tokens and
     preemption counts to the reference, and tokens equal to the roomy run's;
     and a request decoding past the table's capacity (head-block
-    recycling)."""
+    recycling); under each kernel impl, over a raw-K and a fused-K̂ pool."""
     (ref_tokens, ref_pre), (tokens, pre) = (
-        _serve(eng, PROMPTS, MAX_NEW) for eng in _engines(models, False, num_blocks=5, **ENGINE))
+        _serve(eng, PROMPTS, MAX_NEW)
+        for eng in _engines(models, fused, impl, num_blocks=5, **ENGINE))
     assert tokens == ref_tokens and pre == ref_pre and sum(pre.values()) > 0
-    roomy = _engines(models, False, **ENGINE)[1]
+    roomy = _engines(models, fused, impl, **ENGINE)[1]
     assert _serve(roomy, PROMPTS, MAX_NEW)[0] == tokens
 
-    engines = _engines(models, False, max_batch=2, max_len=16, block_size=8, prefill_chunk=8)
+    engines = _engines(models, fused, impl, max_batch=2, max_len=16, block_size=8,
+                       prefill_chunk=8)
     assert engines[1].capacity_tokens == 16
     outs = [_serve(eng, [[3, 1, 4, 1, 5, 9]], [20]) for eng in engines]
     assert len(outs[1][0][0]) == 20 and outs[1] == outs[0]

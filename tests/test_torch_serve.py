@@ -130,3 +130,23 @@ def test_engine_greedy_tokens_match_reference(models, impl):
         outs.append({r.uid: r.generated for r in done})
     assert len(outs[1]) == len(PROMPTS)
     assert outs[1] == outs[0]
+
+
+@pytest.mark.parametrize("impl", ["reference", *IMPLS])
+def test_engine_sliding_window_past_max_len_matches_reference(models, impl):
+    """Two requests on a 2-slot engine of max_len 32 generating 40 tokens
+    each, so both caches wrap their ring (the sliding window past
+    max_len): the greedy tokens match the reference engine's."""
+    rcfg, rparams, tcfg, tparams = models
+    rcfg, tcfg = _with_impl(rcfg, tcfg, impl)
+    prompts = (list(range(3, 23)), [4, 8, 15, 16, 23, 42, 7, 1])
+    outs = []
+    for eng in (RefEngine(rcfg, rparams, max_slots=2, max_len=32),
+                ServeEngine(tcfg, tparams, max_slots=2, max_len=32, device="cpu")):
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=40)
+        done = eng.run_to_completion()
+        assert all(r.status == "done" for r in done)
+        outs.append({r.uid: r.generated for r in done})
+    assert sorted(len(g) for g in outs[1].values()) == [40, 40]
+    assert outs[1] == outs[0]
