@@ -5,14 +5,14 @@
 
 In order: prints the card's name and power limit; builds the CUDA kernels
 from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a; counts the bf16
-flash forward's and backward's (dq, dkv) and the bf16 decode and paged
-decode kernels' tensor-core (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
-instructions in the library's SASS and fails on a zero count or a register
-spill; holds each
-kernel against its plain PyTorch version in bf16 at the shapes of the
-serving path (starcoder2-7b) and of the training path (minicpm-2b) — the
-forward kernels with their LSE, DistrAttention also at G* = 4, the decode
-and paged decode kernels, the five backward kernels at both — and times
+flash forward's and backward's (dq, dkv), the bf16 DistrAttention
+forward's and the bf16 decode and paged decode kernels' tensor-core (HMMA),
+ldmatrix (LDSM) and cp.async (LDGSTS) instructions in the library's SASS
+and fails on a zero count or a register spill; holds each kernel against
+its plain PyTorch version in bf16 at the shapes of the serving path
+(starcoder2-7b) and of the training path (minicpm-2b) — the forward
+kernels with their LSE, DistrAttention also at G* = 4, the decode and
+paged decode kernels, the five backward kernels at both — and times
 kernel, plain version and, as a yardstick only, one PyTorch library call;
 serves starcoder2-7b at full width with seeded random weights through
 ``repro_torch.launch.serve.run`` under ``pallas_distr`` and
@@ -31,7 +31,9 @@ state 128); the flash, DistrAttention (G* = 2) and decode kernels at
 zamba2-7b's head dim 112; and zamba2-7b served at full width (81 Mamba-2
 layers, 2 shared attention blocks applied 13 times) through the same
 launcher and slot engine under both impls.  Each kernel's launches are
-counted in the serve and train runs.  The line before the last is
+counted in the serve and train runs.  Before the last three lines come
+the ``[distr vs flash]`` lines: the DistrAttention kernel beside the flash
+kernel at each of its four shapes.  The line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero; without CUDA, or outside a checkout, it
 exits non-zero before any result.
@@ -100,17 +102,19 @@ SSD_TOL = {"y": 2e-2, "state": 1e-3}
 HYBRID_ATTN = (32, 32, 112, 2)
 # Kernel names (C++ templates) that count as attention in the profile.
 # Matched by substring, so each template is named whole.
-ATTN_KERNEL_NAMES = ("attn_fwd_mma_kernel", "attn_fwd_kernel", "attn_bwd_dq_mma_kernel",
-                     "attn_bwd_dkv_mma_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel",
-                     "delta_kernel")
+ATTN_KERNEL_NAMES = ("attn_fwd_mma_kernel", "attn_fwd_kernel", "distr_fwd_exact_kernel",
+                     "attn_bwd_dq_mma_kernel", "attn_bwd_dkv_mma_kernel", "attn_bwd_dq_kernel",
+                     "attn_bwd_dkv_kernel", "delta_kernel")
 # The bf16 templates on the tensor cores and their instantiations (template
 # arguments): the flash forward and backward (csrc/flash_fwd_tc.cuh,
-# csrc/flash_bwd_tc.cuh) at each head dim, and the decode and paged decode
+# csrc/flash_bwd_tc.cuh) and the DistrAttention forward
+# (csrc/distr_fwd_tc.cuh) at each head dim, and the decode and paged decode
 # kernels on the tile of csrc/decode_tc.cuh at each value width and number
 # of warps that share an m-tile (4: one m-tile, 2: two, 1: more).  The SASS
 # of every instantiation must hold tensor-core products (HMMA), ldmatrix
 # (LDSM) and cp.async (LDGSTS).
 TC_KERNELS = {"attn_fwd_mma_kernel": ((64,), (112,), (128,)),
+              "distr_fwd_exact_kernel": ((64,), (112,), (128,)),
               "attn_bwd_dq_mma_kernel": ((64,), (128,)),
               "attn_bwd_dkv_mma_kernel": ((64,), (128,)),
               "decode_mma_kernel": tuple((d, kw) for d in (64, 112, 128) for kw in (4, 2)),
@@ -124,7 +128,7 @@ def tc_smem_bytes(template: str, args: tuple) -> int:
     at a score width equal to its value width."""
     d = args[0]
     row = (d + 8) * 2
-    if template == "attn_fwd_mma_kernel":  # Q, 2 stages of K and V
+    if template in ("attn_fwd_mma_kernel", "distr_fwd_exact_kernel"):  # Q, 2 stages of K and V
         return (64 + 4 * 64) * row
     if template == "attn_bwd_dq_mma_kernel":  # Q, dO, 2 stages of K and V
         return (2 * 64 + 4 * 64) * row
@@ -147,9 +151,9 @@ def gpu_name_and_power() -> str:
 
 
 def tensor_core_check(build) -> dict:
-    """Proof that the bf16 flash forward and backward and the bf16 decode
-    and paged decode kernels run on the tensor cores: count each
-    instantiation's HMMA, LDSM and LDGSTS instructions in the built
+    """Proof that the bf16 flash forward and backward, the bf16
+    DistrAttention forward and the bf16 decode and paged decode kernels run
+    on the tensor cores: count each instantiation's HMMA, LDSM and LDGSTS instructions in the built
     library's SASS (``cuobjdump -sass``) and read its registers and spills
     from nvcc's ``-Xptxas -v`` output.  Raises if an instantiation is
     missing, lacks one of the three or spills."""
@@ -1034,6 +1038,24 @@ def train_phase(torch) -> dict:
     return {"launches": launches, "report": report}
 
 
+def distr_vs_flash_table(prefill_shapes: list, g4: dict, a112: dict) -> list:
+    """The bf16 DistrAttention kernel beside the flash kernel at N = 2048,
+    causal, from this run, ms: the serving shapes without the LSE, the
+    training shape with it."""
+    head = next(r for r in prefill_shapes if r["n"] == max(PREFILL_NS) and "d" not in r)
+    train = next(r for r in prefill_shapes if r.get("d") == TRAIN_SHAPE[2])
+    return [
+        {"shape": "starcoder2-7b d=128 G*=2", "distr_ms": head["distr_ms"],
+         "flash_ms": head["flash_ms"], "bound_ms": head["distr_bound_ms"]},
+        {"shape": "starcoder2-7b d=128 G*=4", "distr_ms": g4["ms"],
+         "flash_ms": head["flash_ms"], "bound_ms": g4["bound_ms"]},
+        {"shape": "minicpm-2b d=64 G*=2 with LSE", "distr_ms": train["distr_ms"],
+         "flash_ms": train["flash_ms"], "bound_ms": train["distr_bound_ms"]},
+        {"shape": "zamba2-7b d=112 G*=2", "distr_ms": a112["distr"]["ms"],
+         "flash_ms": a112["flash"]["ms"], "bound_ms": a112["distr"]["bound_ms"]},
+    ]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="also write the results as JSON here")
@@ -1082,6 +1104,7 @@ def main() -> int:
     dec["max_abs_err"] = max(dec["max_abs_err"], a112["decode"]["max_abs_err"])
     del flush
     results = {"card": card, "tensor_cores": tensor_cores,
+               "distr_vs_flash": distr_vs_flash_table(pre["shapes"], g4, a112),
                "prefill_shapes": pre.pop("shapes"), "distr_g4": g4,
                "paged_shapes": pdec.pop("shapes"), "backward_shapes": back.pop("shapes"),
                "ssd_shapes": ssd.pop("shapes"), "head_dim_112": a112}
@@ -1136,6 +1159,8 @@ def main() -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({**results, "kernels": kernels}, indent=1))
+    for row in results["distr_vs_flash"]:
+        log(f"[distr vs flash] {json.dumps(row)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,8 @@
-// The FA-2 forward loop on CUDA-core FMA of the DistrAttention prefill
-// kernel (distr_attention.cu) and of the exact kernel's f32 path
-// (flash_attention.cu; its bf16 path is flash_fwd_tc.cuh).
+// The FA-2 forward loop on CUDA-core FMA: the f32 path of the exact kernel
+// (flash_attention.cu) and of the DistrAttention kernel
+// (distr_attention.cu).  Their bf16 paths run on the tensor cores
+// (flash_fwd_tc.cuh, distr_fwd_tc.cuh); in f32 the tensor cores would
+// compute TF32, a different result.
 //
 // One CTA of 128 threads owns BM = 64 query rows of one (batch, query head)
 // and walks the KV sequence in tiles of BN = 32 keys, keeping the online
@@ -255,20 +257,6 @@ int launch_attn_fwd(const AttnArgs& a, int bhq, cudaStream_t stream) {
   const dim3 grid((a.n_rows + BM - 1) / BM, bhq);
   kern<<<grid, ATTN_THREADS, bytes, stream>>>(a);
   return (int)cudaGetLastError();
-}
-
-template <bool DISTR>
-int dispatch_attn_fwd(const AttnArgs& a, int dtype, int dv, int bhq, cudaStream_t stream) {
-  if (dtype == DTYPE_BF16) {
-    if (dv == 128) return launch_attn_fwd<__nv_bfloat16, 128, DISTR>(a, bhq, stream);
-    if (dv == 112) return launch_attn_fwd<__nv_bfloat16, 112, DISTR>(a, bhq, stream);
-    if (dv == 64) return launch_attn_fwd<__nv_bfloat16, 64, DISTR>(a, bhq, stream);
-  } else if (dtype == DTYPE_F32) {
-    if (dv == 128) return launch_attn_fwd<float, 128, DISTR>(a, bhq, stream);
-    if (dv == 112) return launch_attn_fwd<float, 112, DISTR>(a, bhq, stream);
-    if (dv == 64) return launch_attn_fwd<float, 64, DISTR>(a, bhq, stream);
-  }
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace rt

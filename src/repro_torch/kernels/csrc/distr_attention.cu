@@ -4,18 +4,18 @@
 // TPU kernel launched by distr_attention_kernel_call, with fuse_k_columns).
 //
 // Q arrives sampled and pre-scaled (Q̂, width d/G*), with one int32
-// permutation per block_q query rows.  For every KV tile the kernel gathers
-// K's d columns by the CTA's permutation and sums each run of G* in shared
-// memory (K̂ is never written to device memory: it depends on the
-// (Q block, K tile) pair), contracts the scores over d/G* and runs the same
-// online softmax and full-width P·V as the exact kernel.  The CTA's 64 rows
-// lie inside one permutation block because the wrapper requires 64 | block_q.
+// permutation per block_q query rows; K̂[j][g] = Σ_u K[j][perm[g·G* + u]]
+// depends on the (Q block, K tile) pair and never reaches device memory.
+// The CTA's 64 rows lie inside one permutation block because the wrapper
+// requires 64 | block_q.
 //
 // Bound on this card: operations, as for the exact kernel, with the score
-// product cut by G*.  The paper fuses K with warp shuffles; here the fusion
-// is a shared-memory gather per tile, and both products are f32 FMA loops on
-// CUDA cores (attention_tile.cuh) — tensor-core products come later.
-#include "attention_tile.cuh"
+// product cut by G*.  bf16 runs on the tensor cores (distr_fwd_tc.cuh, on
+// the flash forward's mma.sync walk) as the exact product Q̃·Kᵀ, Q̂
+// scattered through the permutation, which the backward's recomputed K̂
+// agrees with.  f32 runs the FMA tile (attention_tile.cuh), which fuses K̂
+// per tile: tensor cores would compute f32 as TF32, a different result.
+#include "distr_fwd_tc.cuh"
 
 extern "C" int repro_distr_fwd(const void* q_hat, const void* k, const void* v, const void* perm,
                                void* o, void* lse, int dtype, int bhq, int n_rows, int nk,
@@ -38,5 +38,11 @@ extern "C" int repro_distr_fwd(const void* q_hat, const void* k, const void* v, 
   a.n_perm_blocks = n_perm_blocks;
   a.scale = 1.0f;  // Q̂ carries the softmax scale
   a.causal = causal;
-  return rt::dispatch_attn_fwd<true>(a, dtype, d, bhq, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == rt::DTYPE_BF16) return rt::tc::dispatch_distr_fwd_mma(a, d, bhq, s);
+  if (dtype != rt::DTYPE_F32) return (int)cudaErrorInvalidValue;
+  if (d == 128) return rt::launch_attn_fwd<float, 128, true>(a, bhq, s);
+  if (d == 112) return rt::launch_attn_fwd<float, 112, true>(a, bhq, s);
+  if (d == 64) return rt::launch_attn_fwd<float, 64, true>(a, bhq, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -12,6 +12,10 @@
 // to later work: wgmma (the only path to the full tensor-core rate), TMA and
 // warp-specialised producers.
 //
+// The walk (fwd_mma_walk) is shared with the bf16 DistrAttention forward
+// (distr_fwd_tc.cuh): a policy class fills its Q tile, and everything else
+// (K/V ring, scores, softmax, P·V, masks, epilogue) is one code.
+//
 // One CTA of 4 warps owns BM = 64 query rows of one (batch, query head),
 // 16 rows a warp, and walks the keys in tiles of BN = 64.  A warp keeps its
 // Q fragments (d/16 k-steps × 4 registers), its 16 × 64 f32 scores and its
@@ -50,23 +54,49 @@ constexpr int BN = 64;  // keys per KV tile
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 
+using bf16 = __nv_bfloat16;
+
+// How a walk fills its Q tile (BM × (D + 8)).  A policy QK gives load_q(),
+// which issues the tile's loads beside the first K/V tile's and may use
+// ring stage 1 of K (idle until the walk starts) as scratch, and finish_q(),
+// which runs after they landed and the prologue's __syncthreads().  The
+// flash forward's: Q through cp.async, nothing to finish.
+template <int D>
+struct FlashQK {
+  __device__ __forceinline__ void load_q(const AttnArgs& a, bf16* sQ, bf16*, int bh, int q0) {
+    constexpr int CHUNKS = D / 8;
+    static_assert(BM * CHUNKS % THREADS == 0, "every thread loads the same number of chunks");
+    const bf16* q = static_cast<const bf16*>(a.q) + (size_t)bh * a.n_rows * D;
+#pragma unroll
+    for (int it = 0; it < BM * CHUNKS / THREADS; ++it) {
+      const int i = threadIdx.x + it * THREADS;
+      const int row = i / CHUNKS;
+      const int col = (i - row * CHUNKS) * 8;
+      const size_t src = (size_t)min(q0 + row, a.n_rows - 1) * D + col;
+      cp_async16(smem_addr(sQ + row * (D + 8) + col), q + src, q0 + row < a.n_rows);
+    }
+  }
+  __device__ __forceinline__ void finish_q(const AttnArgs&, bf16*, bf16*) {}
+};
+
 // Bytes of dynamic shared memory: Q, then two stages each of K and V.
 template <int D>
 constexpr size_t smem_bytes() {
   return (size_t)(BM + 4 * BN) * (D + 8) * sizeof(__nv_bfloat16);
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS) attn_fwd_mma_kernel(AttnArgs a) {
+// One CTA's walk over the keys: its BM rows of one (batch, query head)
+// against every key tile they see, at head dim D, its Q tile as QK fills it.
+template <int D, class QK>
+__device__ __forceinline__ void fwd_mma_walk(const AttnArgs& a, QK& qk) {
   static_assert(D % 16 == 0, "head dim must be a multiple of the mma depth");
-  static_assert(BM * (D / 8) % THREADS == 0 && BN * (D / 8) % THREADS == 0,
+  static_assert(BN * (D / 8) % THREADS == 0,
                 "every thread loads the same number of 16-byte chunks");
   constexpr int LD = D + 8;         // shared-memory row stride, elements
   constexpr int CHUNKS = D / 8;     // 16-byte chunks a row
   constexpr int KSTEPS = D / 16;    // k-steps of Q·Kᵀ
   constexpr int NT_S = BN / 8;      // n-tiles of a warp's scores
   constexpr int NT_O = D / 8;       // n-tiles of a warp's output
-  using bf16 = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [BM][LD]
   bf16* sK = sQ + BM * LD;                       // [2][BN][LD]
@@ -81,7 +111,6 @@ __global__ void __launch_bounds__(THREADS) attn_fwd_mma_kernel(AttnArgs a) {
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
   const int bkv = bh / a.q_per_kv;
-  const bf16* q = static_cast<const bf16*>(a.q) + (size_t)bh * a.n_rows * D;
   const bf16* k = static_cast<const bf16*>(a.k) + (size_t)bkv * a.nk * D;
   const bf16* v = static_cast<const bf16*>(a.v) + (size_t)bkv * a.nk * D;
 
@@ -116,18 +145,12 @@ __global__ void __launch_bounds__(THREADS) attn_fwd_mma_kernel(AttnArgs a) {
   for (int j = 0; j < NT_O; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
   if (n_tiles > 0) {
-#pragma unroll
-    for (int it = 0; it < BM * CHUNKS / THREADS; ++it) {
-      const int i = tid + it * THREADS;
-      const int row = i / CHUNKS;
-      const int col = (i - row * CHUNKS) * 8;
-      const size_t src = (size_t)min(q0 + row, a.n_rows - 1) * D + col;
-      cp_async16(smem_addr(sQ + row * LD + col), q + src, q0 + row < a.n_rows);
-    }
+    qk.load_q(a, sQ, sK, bh, q0);
     load_kv(0, 0);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
+    qk.finish_q(a, sQ, sK);
   }
 
   // Q's A fragments, held for the whole walk.  ldmatrix.x4 matrices: rows
@@ -264,9 +287,15 @@ __global__ void __launch_bounds__(THREADS) attn_fwd_mma_kernel(AttnArgs a) {
 }
 
 template <int D>
-int launch_attn_fwd_mma(const AttnArgs& a, int bhq, cudaStream_t stream) {
+__global__ void __launch_bounds__(THREADS) attn_fwd_mma_kernel(AttnArgs a) {
+  FlashQK<D> qk;
+  fwd_mma_walk<D>(a, qk);
+}
+
+// Launch a walk kernel on a grid of (heads, row blocks).
+template <int D>
+int launch_walk(void (*kern)(AttnArgs), const AttnArgs& a, int bhq, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
-  auto kern = attn_fwd_mma_kernel<D>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
@@ -276,9 +305,9 @@ int launch_attn_fwd_mma(const AttnArgs& a, int bhq, cudaStream_t stream) {
 }
 
 inline int dispatch_attn_fwd_mma(const AttnArgs& a, int d, int bhq, cudaStream_t stream) {
-  if (d == 128) return launch_attn_fwd_mma<128>(a, bhq, stream);
-  if (d == 112) return launch_attn_fwd_mma<112>(a, bhq, stream);
-  if (d == 64) return launch_attn_fwd_mma<64>(a, bhq, stream);
+  if (d == 128) return launch_walk<128>(attn_fwd_mma_kernel<128>, a, bhq, stream);
+  if (d == 112) return launch_walk<112>(attn_fwd_mma_kernel<112>, a, bhq, stream);
+  if (d == 64) return launch_walk<64>(attn_fwd_mma_kernel<64>, a, bhq, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,6 @@
 // Fragment helpers shared by the tensor-core attention kernels
-// (flash_fwd_tc.cuh, flash_bwd_tc.cuh, decode_tc.cuh): cp.async copies into
-// shared memory, ldmatrix operand loads and their lane offsets,
+// (flash_fwd_tc.cuh, flash_bwd_tc.cuh, decode_tc.cuh; distr_fwd_tc.cuh
+// through the first): cp.async copies into shared memory, ldmatrix operand loads and their lane offsets,
 // mma.sync.m16n8k16 (bf16 in, f32 accumulate), a one-instruction exp2,
 // bf16x2 packing, and the bf16 hi + lo split of an f32 A operand.
 //

@@ -3,8 +3,12 @@ wrapper and its plain PyTorch version.
 
 The kernel (``csrc/distr_attention.cu``) replaces the Pallas TPU kernel
 ``repro/kernels/distr_attention.py::_distr_kernel``.  Q̂ arrives sampled
-and pre-scaled; each K tile is fused in the kernel under its Q block's
-permutation.  ``launches`` counts the wrapper's kernel launches.
+and pre-scaled, with one permutation per block_q rows.  In bf16 it runs on
+the tensor cores (``csrc/distr_fwd_tc.cuh``) as the exact product Q̃·Kᵀ,
+Q̂ scattered through the permutation (``scatter_q_hat``), so its scores
+and LSE agree with the f32 K̂ the plain version and the backward use.  f32
+runs an FMA tile that fuses K̂ in f32.  ``launches`` counts the wrapper's
+kernel launches.
 """
 from __future__ import annotations
 
@@ -23,6 +27,19 @@ def fuse_k_columns(k: torch.Tensor, perm: torch.Tensor, group_size: int) -> torc
     idx = perm.to(torch.int64).unsqueeze(-2).expand(*k.shape[:-1], d)
     permuted = torch.gather(k.float(), -1, idx)
     return permuted.reshape(*k.shape[:-1], d // group_size, group_size).sum(dim=-1)
+
+
+def scatter_q_hat(q_hat: torch.Tensor, perm: torch.Tensor, group_size: int,
+                  block_q: int) -> torch.Tensor:
+    """Q̃ with Q̃[..., perm[g·G* + u]] = Q̂[..., g] for u < G*, in each
+    permutation block: Q̃·Kᵀ = Q̂·K̂ᵀ term for term, since every column of K
+    lies in one group.  The bf16 kernel builds Q̃ in shared memory; this plain version is for the tests.  q_hat (BHq, N, d/G*),
+    perm (BHq, N/block_q, d) → (BHq, N, d), q_hat's dtype."""
+    bhq, n, _ = q_hat.shape
+    d = perm.shape[-1]
+    src = q_hat.repeat_interleave(group_size, dim=-1).reshape(bhq, n // block_q, block_q, d)
+    idx = perm.to(torch.int64)[:, :, None, :].expand_as(src)
+    return torch.zeros_like(src).scatter_(-1, idx, src).reshape(bhq, n, d)
 
 
 def distr_attention_plain(q_hat, k, v, perm, *, q_per_kv: int, causal: bool,
@@ -64,8 +81,9 @@ def distr_attention_kernel_call(q_hat, k, v, perm, *, q_per_kv: int,
                                 causal: bool, group_size: int, block_q: int,
                                 kv_len: int, return_lse: bool = False):
     """Launch the DistrAttention kernel.  Shapes as for the plain version;
-    N is a multiple of block_q and ROW_TILE divides block_q.  A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel or raises."""
+    N is a multiple of block_q, ROW_TILE divides block_q, and each row of
+    ``perm`` is a permutation of range(d).  A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel or raises."""
     global launches
     if q_hat.device.type == "cpu":
         return distr_attention_plain(

@@ -8,8 +8,11 @@ paged kernel dead blocks, a
 NaN-filled garbage block and NaN past the last live key of a live block,
 lengths past the table and more than 32 rows; for the bf16 tensor-core
 decode tile one and two m-tiles, ragged and streamed key tiles, d_score 56
-and NaN past a slot's length; head dim 112 for the forward, decode and
-paged kernels; for the SSD kernel short and
+and NaN past a slot's length; for the bf16 tensor-core DistrAttention
+kernel, with and without the LSE, kv_len = 0, a ragged kv_len, fewer rows
+than keys, GQA 36 over 4, ds 56, 28, 16 and 14 and G* 1, 8 and 16, and its
+launch count and range; head dim 112 for the forward, decode and paged
+kernels; for the SSD kernel short and
 ragged sequences, strong decays, grouped heads and state width 128),
 forward and backward, and the
 differentiable ops on the card against the same ops on the CPU.  Marked
@@ -132,6 +135,76 @@ def test_distr_kernel_matches_plain(cuda, dtype, n, g, block_q, causal, d):
     o_p, lse_p = dk.distr_attention_plain(q_hat, k, v, perm, **kw)
     _close(o, o_p, dtype)
     torch.testing.assert_close(lse, lse_p, atol=1e-3, rtol=1e-3)
+
+
+# Edges of the bf16 tensor-core DistrAttention kernel:
+# (hkv, q_per_kv, n, nk, kv_len, d, G*, block_q, causal).  ds = d/G*.
+DISTR_TC_CASES = [
+    (2, 2, 128, 128, 0, 128, 2, 64, False),    # kv_len = 0: O = 0, LSE = -1e30
+    (2, 2, 128, 128, 0, 64, 4, 64, True),
+    (2, 2, 192, 200, 130, 128, 2, 64, False),  # kv_len ragged inside the buffer
+    (2, 2, 128, 200, 200, 64, 2, 64, True),    # causal with fewer rows than keys
+    (4, 9, 128, 130, 130, 128, 2, 128, True),  # GQA 36 over 4 (starcoder2-7b)
+    (2, 2, 128, 150, 150, 112, 2, 64, True),   # ds = 56 (zamba2-7b)
+    (2, 2, 128, 150, 140, 112, 4, 64, True),   # ds = 28
+    (2, 2, 128, 150, 150, 64, 4, 64, False),   # ds = 16
+    (2, 2, 128, 130, 130, 128, 8, 64, True),   # G* = 8 (ds = 16)
+    (2, 2, 64, 100, 100, 112, 8, 64, True),    # G* = 8 (ds = 14)
+    (2, 2, 128, 130, 130, 128, 1, 64, True),   # G* = 1 (ds = d)
+    (2, 2, 128, 130, 130, 128, 16, 64, True),  # G* = 16 (ds = 8)
+]
+
+
+@pytest.mark.parametrize("return_lse", [True, False])
+@pytest.mark.parametrize("hkv,q_per_kv,n,nk,kv_len,d,g,block_q,causal", DISTR_TC_CASES)
+def test_distr_tc_kernel_matches_plain(cuda, return_lse, hkv, q_per_kv, n, nk, kv_len, d, g,
+                                       block_q, causal):
+    """The bf16 DistrAttention kernel against its plain version, O (and
+    the LSE when asked for) at the bf16 tolerance and 1e-3 for the LSE."""
+    dtype, bhq = torch.bfloat16, hkv * q_per_kv
+    q_hat = _randn((bhq, n, d // g), torch.float32, 80) * d ** -0.5
+    q_hat = q_hat.to(dtype)
+    k, v = _randn((hkv, nk, d), dtype, 81), _randn((hkv, nk, d), dtype, 82)
+    perm = _perms(bhq, n, block_q, d)
+    kw = dict(q_per_kv=q_per_kv, causal=causal, group_size=g, block_q=block_q, kv_len=kv_len)
+    before = dk.launches
+    if return_lse:
+        o, lse = dk.distr_attention_kernel_call(q_hat, k, v, perm, return_lse=True, **kw)
+        o_p, lse_p = dk.distr_attention_plain(q_hat, k, v, perm, return_lse=True, **kw)
+        torch.testing.assert_close(lse, lse_p, atol=1e-3, rtol=1e-3)
+        if kv_len == 0:
+            assert torch.equal(lse, torch.full_like(lse, -1e30))
+    else:
+        o = dk.distr_attention_kernel_call(q_hat, k, v, perm, **kw)
+        o_p = dk.distr_attention_plain(q_hat, k, v, perm, **kw)
+    assert dk.launches == before + 1
+    _close(o, o_p, dtype)
+    if kv_len == 0:
+        assert torch.equal(o, torch.zeros_like(o))
+
+
+def test_distr_kernel_launch_count_and_range(cuda):
+    """A bf16 call adds one launch, with or without the LSE; a head dim outside
+    ``build.HEAD_DIMS``, a block_q that 64 does not divide, or mixed dtypes
+    raise before any launch."""
+    bhq, n, d = 4, 128, 128
+    q_hat = _randn((bhq, n, d // 2), torch.bfloat16, 83)
+    k, v = _randn((2, n, d), torch.bfloat16, 84), _randn((2, n, d), torch.bfloat16, 85)
+    kw = dict(q_per_kv=2, causal=True, group_size=2, block_q=64, kv_len=n)
+    for lse in (False, True):
+        before = dk.launches
+        dk.distr_attention_kernel_call(q_hat, k, v, _perms(bhq, n, 64, d), return_lse=lse, **kw)
+        assert dk.launches == before + 1
+    before = dk.launches
+    d96 = [_randn(s, torch.bfloat16, 86) for s in ((bhq, n, 48), (2, n, 96), (2, n, 96))]
+    with pytest.raises(ValueError, match="distr kernel shapes"):
+        dk.distr_attention_kernel_call(*d96, _perms(bhq, n, 64, 96), **kw)
+    with pytest.raises(ValueError, match="distr kernel shapes"):
+        dk.distr_attention_kernel_call(q_hat, k, v, _perms(bhq, n, 32, d),
+                                       **{**kw, "block_q": 32})
+    with pytest.raises(TypeError, match="one dtype"):
+        dk.distr_attention_kernel_call(q_hat, k.float(), v, _perms(bhq, n, 64, d), **kw)
+    assert dk.launches == before
 
 
 def _bwd_close(got, want):
