@@ -6,7 +6,8 @@
 In order: prints the card's name and power limit; builds the CUDA kernels
 from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a; counts the bf16
 flash forward's and backward's (dq, dkv), the bf16 DistrAttention
-forward's and the bf16 decode and paged decode kernels' tensor-core (HMMA),
+forward's and backward's (dq, dkv) and the bf16 decode and paged decode
+kernels' tensor-core (HMMA),
 ldmatrix (LDSM) and cp.async (LDGSTS) instructions in the library's SASS
 and fails on a zero count or a register spill; holds each kernel against
 its plain PyTorch version in bf16 at the shapes of the serving path
@@ -32,8 +33,10 @@ zamba2-7b's head dim 112; and zamba2-7b served at full width (81 Mamba-2
 layers, 2 shared attention blocks applied 13 times) through the same
 launcher and slot engine under both impls.  Each kernel's launches are
 counted in the serve and train runs.  Before the last three lines come
-the ``[distr vs flash]`` lines: the DistrAttention kernel beside the flash
-kernel at each of its four shapes.  The line before the last is
+the ``[distr vs flash]`` lines: the DistrAttention forward beside the
+flash forward at each of its four shapes, and the DistrAttention backward
+kernels beside the flash ones at both backward shapes.  The line before
+the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero; without CUDA, or outside a checkout, it
 exits non-zero before any result.
@@ -104,11 +107,12 @@ HYBRID_ATTN = (32, 32, 112, 2)
 # Matched by substring, so each template is named whole.
 ATTN_KERNEL_NAMES = ("attn_fwd_mma_kernel", "attn_fwd_kernel", "distr_fwd_exact_kernel",
                      "attn_bwd_dq_mma_kernel", "attn_bwd_dkv_mma_kernel", "attn_bwd_dq_kernel",
-                     "attn_bwd_dkv_kernel", "delta_kernel")
+                     "attn_bwd_dkv_kernel", "distr_expand_q_kernel", "distr_bwd_dq_mma_kernel",
+                     "distr_bwd_dkv_mma_kernel", "delta_kernel")
 # The bf16 templates on the tensor cores and their instantiations (template
 # arguments): the flash forward and backward (csrc/flash_fwd_tc.cuh,
-# csrc/flash_bwd_tc.cuh) and the DistrAttention forward
-# (csrc/distr_fwd_tc.cuh) at each head dim, and the decode and paged decode
+# csrc/flash_bwd_tc.cuh), the DistrAttention forward (csrc/distr_fwd_tc.cuh)
+# and backward (csrc/distr_bwd_tc.cuh) at each head dim, and the decode and paged decode
 # kernels on the tile of csrc/decode_tc.cuh at each value width and number
 # of warps that share an m-tile (4: one m-tile, 2: two, 1: more).  The SASS
 # of every instantiation must hold tensor-core products (HMMA), ldmatrix
@@ -117,6 +121,8 @@ TC_KERNELS = {"attn_fwd_mma_kernel": ((64,), (112,), (128,)),
               "distr_fwd_exact_kernel": ((64,), (112,), (128,)),
               "attn_bwd_dq_mma_kernel": ((64,), (128,)),
               "attn_bwd_dkv_mma_kernel": ((64,), (128,)),
+              "distr_bwd_dq_mma_kernel": ((64,), (128,)),
+              "distr_bwd_dkv_mma_kernel": ((64,), (128,)),
               "decode_mma_kernel": tuple((d, kw) for d in (64, 112, 128) for kw in (4, 2)),
               "paged_mma_kernel": tuple((d, kw) for d in (64, 112, 128) for kw in (4, 2, 1))}
 TC_SASS_OPS = ("HMMA", "LDSM", "LDGSTS")
@@ -130,7 +136,7 @@ def tc_smem_bytes(template: str, args: tuple) -> int:
     row = (d + 8) * 2
     if template in ("attn_fwd_mma_kernel", "distr_fwd_exact_kernel"):  # Q, 2 stages of K and V
         return (64 + 4 * 64) * row
-    if template == "attn_bwd_dq_mma_kernel":  # Q, dO, 2 stages of K and V
+    if template in ("attn_bwd_dq_mma_kernel", "distr_bwd_dq_mma_kernel"):  # Q, dO, 2 stages of K, V
         return (2 * 64 + 4 * 64) * row
     if template in ("decode_mma_kernel", "paged_mma_kernel"):  # 2 stages of K, V and Q
         return 2 * (64 * 2 * row + 16 * (4 // args[1]) * row)
@@ -152,7 +158,7 @@ def gpu_name_and_power() -> str:
 
 def tensor_core_check(build) -> dict:
     """Proof that the bf16 flash forward and backward, the bf16
-    DistrAttention forward and the bf16 decode and paged decode kernels run
+    DistrAttention forward and backward and the bf16 decode and paged decode kernels run
     on the tensor cores: count each instantiation's HMMA, LDSM and LDGSTS instructions in the built
     library's SASS (``cuobjdump -sass``) and read its registers and spills
     from nvcc's ``-Xptxas -v`` output.  Raises if an instantiation is
@@ -451,6 +457,9 @@ def backward_phase(torch, flush) -> dict:
                          "max_abs_err": err}
             log(f"[backward {label}] {name}: {ms:.3f} ms (plain {plain_ms:.3f}, bound "
                 f"{b_ms:.4f} by {b_by}) err {err:.3e}")
+        log(f"[distr vs flash] backward {label}: distr dq {row['distr_dq']['ms']:.4f} / dkv "
+            f"{row['distr_dkv']['ms']:.4f} ms, flash dq {row['flash_dq']['ms']:.4f} / dkv "
+            f"{row['flash_dkv']['ms']:.4f} ms")
         # SDPA's backward as the yardstick of flash dq + dkv (K/V expanded
         # to the query heads outside the timed call, as ours are per head).
         qg = q.detach().requires_grad_(True)
@@ -1038,10 +1047,11 @@ def train_phase(torch) -> dict:
     return {"launches": launches, "report": report}
 
 
-def distr_vs_flash_table(prefill_shapes: list, g4: dict, a112: dict) -> list:
-    """The bf16 DistrAttention kernel beside the flash kernel at N = 2048,
-    causal, from this run, ms: the serving shapes without the LSE, the
-    training shape with it."""
+def distr_vs_flash_table(prefill_shapes: list, g4: dict, a112: dict, back: list) -> list:
+    """The bf16 DistrAttention kernels beside the flash kernels at N = 2048,
+    causal, from this run, ms: the forward at the serving shapes without the
+    LSE and at the training shape with it; the backward dq and dkv at both
+    backward shapes."""
     head = next(r for r in prefill_shapes if r["n"] == max(PREFILL_NS) and "d" not in r)
     train = next(r for r in prefill_shapes if r.get("d") == TRAIN_SHAPE[2])
     return [
@@ -1053,6 +1063,9 @@ def distr_vs_flash_table(prefill_shapes: list, g4: dict, a112: dict) -> list:
          "flash_ms": train["flash_ms"], "bound_ms": train["distr_bound_ms"]},
         {"shape": "zamba2-7b d=112 G*=2", "distr_ms": a112["distr"]["ms"],
          "flash_ms": a112["flash"]["ms"], "bound_ms": a112["distr"]["bound_ms"]},
+        *({"shape": f"backward {r['shape']} d={r['d']} G*={r['group_size']} {part}",
+           "distr_ms": r[f"distr_{part}"]["ms"], "flash_ms": r[f"flash_{part}"]["ms"],
+           "bound_ms": r[f"distr_{part}"]["bound_ms"]} for r in back for part in ("dq", "dkv")),
     ]
 
 
@@ -1104,7 +1117,7 @@ def main() -> int:
     dec["max_abs_err"] = max(dec["max_abs_err"], a112["decode"]["max_abs_err"])
     del flush
     results = {"card": card, "tensor_cores": tensor_cores,
-               "distr_vs_flash": distr_vs_flash_table(pre["shapes"], g4, a112),
+               "distr_vs_flash": distr_vs_flash_table(pre["shapes"], g4, a112, back["shapes"]),
                "prefill_shapes": pre.pop("shapes"), "distr_g4": g4,
                "paged_shapes": pdec.pop("shapes"), "backward_shapes": back.pop("shapes"),
                "ssd_shapes": ssd.pop("shapes"), "head_dim_112": a112}

@@ -15,6 +15,10 @@ of the same name in ``repro/kernels/backward.py``:
 * ``distr_dkv``  — dV, and dK̂ = dSᵀ Q̂ taken back to full-width dK
                    through each Q block's permutation (``csrc/distr_backward.cu``)
 
+In bf16 the two distr wrappers hand their kernels a scratch Q̃, Q̂ expanded
+to full width through each block's permutation (``scatter_q_hat`` is its
+plain version): the kernels write it, then run the flash walks over it.
+
 dK / dV come out per query head; ``ops._gqa_sum`` reduces each GQA group.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  ``launches[name]`` counts each wrapper's kernel launches.
@@ -248,6 +252,14 @@ def _check_distr(q_hat, k, v, perm, do, lse, delta, q_per_kv, group_size, block_
         raise ValueError(f"kv_len={kv_len} outside [0, {nk}]")
 
 
+def _q_tilde_scratch(q_hat: torch.Tensor, d: int) -> torch.Tensor:
+    """The bf16 kernels' Q̃ (BHq, N, d), written by the kernel itself; f32
+    takes none (an empty tensor)."""
+    bhq, n, _ = q_hat.shape
+    shape = (bhq, n, d) if q_hat.dtype == torch.bfloat16 else (0,)
+    return torch.empty(shape, device=q_hat.device, dtype=q_hat.dtype)
+
+
 def distr_dq_kernel_call(q_hat, k, v, perm, do, lse, delta, *, q_per_kv: int, causal: bool,
                          group_size: int, block_q: int, kv_len: int) -> torch.Tensor:
     """Launch the distr dq kernel; shapes as for the plain version."""
@@ -261,11 +273,12 @@ def distr_dq_kernel_call(q_hat, k, v, perm, do, lse, delta, *, q_per_kv: int, ca
     d = k.shape[2]
     dq_hat = torch.empty((bhq, n, dg), device=q_hat.device, dtype=torch.float32)
     if n:
+        q_tilde = _q_tilde_scratch(q_hat, d)
         err = build.lib().repro_distr_dq(
             q_hat.data_ptr(), k.data_ptr(), v.data_ptr(), perm.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq_hat.data_ptr(), build.dtype_code(q_hat), bhq,
-            n, k.shape[1], kv_len, d, group_size, block_q, n // block_q, q_per_kv, int(causal),
-            build.stream_handle(q_hat),
+            lse.data_ptr(), delta.data_ptr(), dq_hat.data_ptr(), q_tilde.data_ptr(),
+            build.dtype_code(q_hat), bhq, n, k.shape[1], kv_len, d, group_size, block_q,
+            n // block_q, q_per_kv, int(causal), build.stream_handle(q_hat),
         )
         build.check(err, "repro_distr_dq")
         launches["distr_dq"] += 1
@@ -275,7 +288,7 @@ def distr_dq_kernel_call(q_hat, k, v, perm, do, lse, delta, *, q_per_kv: int, ca
 def distr_dkv_kernel_call(q_hat, k, v, perm, do, lse, delta, *, q_per_kv: int, causal: bool,
                           group_size: int, block_q: int, kv_len: int):
     """Launch the distr dkv kernel → (dK, dV) per query head, f32.  The
-    kernel scatters dK̂ through ``perm`` itself, so it takes no inverse
+    kernel takes dK back through ``perm`` itself, so it takes no inverse
     permutation."""
     if q_hat.device.type == "cpu":
         return distr_dkv_plain(q_hat, k, v, perm, do, lse, delta, q_per_kv=q_per_kv,
@@ -288,9 +301,10 @@ def distr_dkv_kernel_call(q_hat, k, v, perm, do, lse, delta, *, q_per_kv: int, c
     dk = torch.empty((bhq, nk, d), device=q_hat.device, dtype=torch.float32)
     dv = torch.empty_like(dk)
     if nk:
+        q_tilde = _q_tilde_scratch(q_hat, d)
         err = build.lib().repro_distr_dkv(
             q_hat.data_ptr(), k.data_ptr(), v.data_ptr(), perm.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), q_tilde.data_ptr(),
             build.dtype_code(q_hat), bhq, n, nk, kv_len, d, group_size, block_q,
             n // block_q, q_per_kv, int(causal), build.stream_handle(q_hat),
         )

@@ -45,8 +45,8 @@ SIGNATURES = {
     "repro_delta": (_P, _P, _P, _I, _I, _I, _P),
     "repro_flash_dq": (_P,) * 7 + (_I,) * 7 + (_F, _I, _P),
     "repro_flash_dkv": (_P,) * 8 + (_I,) * 7 + (_F, _I, _P),
-    "repro_distr_dq": (_P,) * 8 + (_I,) * 11 + (_P,),
-    "repro_distr_dkv": (_P,) * 9 + (_I,) * 11 + (_P,),
+    "repro_distr_dq": (_P,) * 9 + (_I,) * 11 + (_P,),
+    "repro_distr_dkv": (_P,) * 10 + (_I,) * 11 + (_P,),
     "repro_ssd_fwd": (_P,) * 6 + (_I,) * 7 + (_P,),
 }
 

@@ -1,5 +1,6 @@
 // The FA-2 backward loops shared by the exact (flash_backward.cu) and the
-// DistrAttention (distr_backward.cu) kernels.
+// DistrAttention (distr_backward.cu) kernels for f32 inputs (bf16 runs on
+// the tensor cores: flash_bwd_tc.cuh, distr_bwd_tc.cuh).
 //
 // Both recompute each score tile from (Q, K) and the forward's per-row LSE,
 // and mask P directly: P = mask ? exp(S - LSE) : 0, dS = P * (dO·Vᵀ - D),
@@ -80,7 +81,7 @@ __host__ __device__ constexpr size_t dq_smem_floats(int ds) {
          (size_t)DQ_BN * ds + (size_t)DQ_BN * PAD64 + (DISTR ? (size_t)DQ_BN * DV + DV : 0);
 }
 
-template <typename T, int DV, bool DISTR>
+template <int DV, bool DISTR>
 __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dq_kernel(BwdArgs a) {
   extern __shared__ __align__(16) float smem[];
   constexpr int DSMAX = DISTR ? DV / 2 : DV;  // distr: G* >= 2 (the wrapper checks)
@@ -101,21 +102,21 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dq_kernel(BwdArgs a) {
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * DQ_BM;
   const int bkv = bh / a.q_per_kv;
-  const T* q = static_cast<const T*>(a.q) + (size_t)bh * a.n_rows * ds;
-  const T* dout = static_cast<const T*>(a.dout) + (size_t)bh * a.n_rows * DV;
-  const T* k = static_cast<const T*>(a.k) + (size_t)bkv * a.nk * DV;
-  const T* v = static_cast<const T*>(a.v) + (size_t)bkv * a.nk * DV;
+  const float* q = static_cast<const float*>(a.q) + (size_t)bh * a.n_rows * ds;
+  const float* dout = static_cast<const float*>(a.dout) + (size_t)bh * a.n_rows * DV;
+  const float* k = static_cast<const float*>(a.k) + (size_t)bkv * a.nk * DV;
+  const float* v = static_cast<const float*>(a.v) + (size_t)bkv * a.nk * DV;
 
   for (int idx = tid; idx < DQ_BM * ds; idx += BWD_THREADS) {
     const int row = idx / ds;
     const int col = idx - row * ds;
-    sQt[col * PAD64 + row] = q0 + row < a.n_rows ? to_float(q[(size_t)(q0 + row) * ds + col]) : 0.f;
+    sQt[col * PAD64 + row] = q0 + row < a.n_rows ? q[(size_t)(q0 + row) * ds + col] : 0.f;
   }
   for (int idx = tid; idx < DQ_BM * DV; idx += BWD_THREADS) {
     const int row = idx / DV;
     const int col = idx - row * DV;
     sdOt[col * PAD64 + row] =
-        q0 + row < a.n_rows ? to_float(dout[(size_t)(q0 + row) * DV + col]) : 0.f;
+        q0 + row < a.n_rows ? dout[(size_t)(q0 + row) * DV + col] : 0.f;
   }
   if (DISTR) {
     // DQ_BM divides block_q (checked by the wrapper): one permutation per CTA.
@@ -151,13 +152,13 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dq_kernel(BwdArgs a) {
       for (int idx = tid; idx < DQ_BN * DV; idx += BWD_THREADS) {
         const int key = idx / DV;
         const int col = idx - key * DV;
-        sKraw[idx] = kv0 + key < a.kv_len ? to_float(k[(size_t)(kv0 + key) * DV + col]) : 0.f;
+        sKraw[idx] = kv0 + key < a.kv_len ? k[(size_t)(kv0 + key) * DV + col] : 0.f;
       }
     } else {
       for (int idx = tid; idx < DQ_BN * ds; idx += BWD_THREADS) {
         const int key = idx / ds;
         const int col = idx - key * ds;
-        const float val = kv0 + key < a.kv_len ? to_float(k[(size_t)(kv0 + key) * ds + col]) : 0.f;
+        const float val = kv0 + key < a.kv_len ? k[(size_t)(kv0 + key) * ds + col] : 0.f;
         sKt[col * PAD32 + key] = val;
         sK[key * ds + col] = val;
       }
@@ -165,7 +166,7 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dq_kernel(BwdArgs a) {
     for (int idx = tid; idx < DQ_BN * DV; idx += BWD_THREADS) {
       const int key = idx / DV;
       const int col = idx - key * DV;
-      sVt[col * PAD32 + key] = kv0 + key < a.kv_len ? to_float(v[(size_t)(kv0 + key) * DV + col]) : 0.f;
+      sVt[col * PAD32 + key] = kv0 + key < a.kv_len ? v[(size_t)(kv0 + key) * DV + col] : 0.f;
     }
     __syncthreads();
     if (DISTR) {
@@ -268,7 +269,7 @@ __host__ __device__ constexpr size_t dkv_smem_floats(int ds) {
          (DISTR ? (size_t)DKV_BK * DV + DV : 0);
 }
 
-template <typename T, int DV, bool DISTR>
+template <int DV, bool DISTR>
 __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dkv_kernel(BwdArgs a) {
   extern __shared__ __align__(16) float smem[];
   constexpr int DSMAX = DISTR ? DV / 2 : DV;  // distr: G* >= 2 (the wrapper checks)
@@ -294,17 +295,17 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dkv_kernel(BwdArgs a) {
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * DKV_BK;
   const int bkv = bh / a.q_per_kv;
-  const T* q = static_cast<const T*>(a.q) + (size_t)bh * a.n_rows * ds;
-  const T* dout = static_cast<const T*>(a.dout) + (size_t)bh * a.n_rows * DV;
-  const T* k = static_cast<const T*>(a.k) + (size_t)bkv * a.nk * DV;
-  const T* v = static_cast<const T*>(a.v) + (size_t)bkv * a.nk * DV;
+  const float* q = static_cast<const float*>(a.q) + (size_t)bh * a.n_rows * ds;
+  const float* dout = static_cast<const float*>(a.dout) + (size_t)bh * a.n_rows * DV;
+  const float* k = static_cast<const float*>(a.k) + (size_t)bkv * a.nk * DV;
+  const float* v = static_cast<const float*>(a.v) + (size_t)bkv * a.nk * DV;
 
   for (int idx = tid; idx < DKV_BK * DV; idx += BWD_THREADS) {
     const int key = idx / DV;
     const int col = idx - key * DV;
     const bool live = k0 + key < a.kv_len;
-    sVt[col * PAD64 + key] = live ? to_float(v[(size_t)(k0 + key) * DV + col]) : 0.f;
-    if (!DISTR) sKt[col * PAD64 + key] = live ? to_float(k[(size_t)(k0 + key) * DV + col]) : 0.f;
+    sVt[col * PAD64 + key] = live ? v[(size_t)(k0 + key) * DV + col] : 0.f;
+    if (!DISTR) sKt[col * PAD64 + key] = live ? k[(size_t)(k0 + key) * DV + col] : 0.f;
     if (DISTR) sdK[idx] = 0.f;
   }
 
@@ -338,8 +339,8 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dkv_kernel(BwdArgs a) {
           const int col = idx - key * ds;
           float sum = 0.f;
           if (k0 + key < a.kv_len) {
-            const T* krow = k + (size_t)(k0 + key) * DV;
-            for (int u = 0; u < g; ++u) sum += to_float(krow[sPerm[col * g + u]]);
+            const float* krow = k + (size_t)(k0 + key) * DV;
+            for (int u = 0; u < g; ++u) sum += krow[sPerm[col * g + u]];
           }
           sKt[col * PAD64 + key] = sum;
         }
@@ -348,7 +349,7 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dkv_kernel(BwdArgs a) {
     for (int idx = tid; idx < DKV_BQ * ds; idx += BWD_THREADS) {
       const int row = idx / ds;
       const int col = idx - row * ds;
-      const float val = row0 + row < a.n_rows ? to_float(q[(size_t)(row0 + row) * ds + col]) : 0.f;
+      const float val = row0 + row < a.n_rows ? q[(size_t)(row0 + row) * ds + col] : 0.f;
       sQt[col * PAD32 + row] = val;
       sQ[idx] = val;
     }
@@ -356,7 +357,7 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dkv_kernel(BwdArgs a) {
       const int row = idx / DV;
       const int col = idx - row * DV;
       const float val =
-          row0 + row < a.n_rows ? to_float(dout[(size_t)(row0 + row) * DV + col]) : 0.f;
+          row0 + row < a.n_rows ? dout[(size_t)(row0 + row) * DV + col] : 0.f;
       sdOt[col * PAD32 + row] = val;
       sdO[idx] = val;
     }
@@ -500,16 +501,16 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dkv_kernel(BwdArgs a) {
   }
 }
 
-template <typename T, int DV, bool DISTR, bool DKV>
+template <int DV, bool DISTR, bool DKV>
 int launch_attn_bwd(const BwdArgs& a, int bhq, cudaStream_t stream) {
   size_t bytes;
   void (*kern)(BwdArgs);
   if constexpr (DKV) {
     bytes = dkv_smem_floats<DV, DISTR>(a.ds) * sizeof(float);
-    kern = attn_bwd_dkv_kernel<T, DV, DISTR>;
+    kern = attn_bwd_dkv_kernel<DV, DISTR>;
   } else {
     bytes = dq_smem_floats<DV, DISTR>(a.ds) * sizeof(float);
-    kern = attn_bwd_dq_kernel<T, DV, DISTR>;
+    kern = attn_bwd_dq_kernel<DV, DISTR>;
   }
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -518,18 +519,6 @@ int launch_attn_bwd(const BwdArgs& a, int bhq, cudaStream_t stream) {
   const dim3 grid(n_tiles, bhq);
   kern<<<grid, BWD_THREADS, bytes, stream>>>(a);
   return (int)cudaGetLastError();
-}
-
-template <bool DISTR, bool DKV>
-int dispatch_attn_bwd(const BwdArgs& a, int dtype, int dv, int bhq, cudaStream_t stream) {
-  if (dtype == DTYPE_BF16) {
-    if (dv == 128) return launch_attn_bwd<__nv_bfloat16, 128, DISTR, DKV>(a, bhq, stream);
-    if (dv == 64) return launch_attn_bwd<__nv_bfloat16, 64, DISTR, DKV>(a, bhq, stream);
-  } else if (dtype == DTYPE_F32) {
-    if (dv == 128) return launch_attn_bwd<float, 128, DISTR, DKV>(a, bhq, stream);
-    if (dv == 64) return launch_attn_bwd<float, 64, DISTR, DKV>(a, bhq, stream);
-  }
-  return (int)cudaErrorInvalidValue;
 }
 
 inline BwdArgs bwd_args(const void* q, const void* k, const void* v, const void* perm,

@@ -28,8 +28,8 @@ static int flash_bwd(const rt::BwdArgs& a, int dtype, int d, int bhq, void* stre
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rt::DTYPE_BF16) return rt::tc::dispatch_attn_bwd_mma<DKV>(a, d, bhq, s);
   if (dtype != rt::DTYPE_F32) return (int)cudaErrorInvalidValue;
-  if (d == 128) return rt::launch_attn_bwd<float, 128, false, DKV>(a, bhq, s);
-  if (d == 64) return rt::launch_attn_bwd<float, 64, false, DKV>(a, bhq, s);
+  if (d == 128) return rt::launch_attn_bwd<128, false, DKV>(a, bhq, s);
+  if (d == 64) return rt::launch_attn_bwd<64, false, DKV>(a, bhq, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,5 +1,6 @@
 // Exact FA-2 backward on Hopper's tensor cores, bf16 in, f32 out (sm_90a):
-// dQ, and dK / dV per query head.
+// dQ, and dK / dV per query head; and, on the same two walks, the bf16
+// DistrAttention backward (distr_bwd_tc.cuh).
 //
 // Replaces: src/repro/kernels/backward.py::_flash_dq_kernel and
 // ::_flash_dkv_kernel for bf16 inputs (flash_backward.cu routes f32 to the
@@ -13,14 +14,25 @@
 // registers, and the streamed tiles go through a two-stage cp.async ring.
 // What it leaves to later work: wgmma, TMA and warp-specialised producers.
 //
+// The walks (bwd_dq_mma_walk, bwd_dkv_mma_walk) read Q at width D from
+// a.q and are shared with the DistrAttention backward, which hands them Q̂
+// expanded to full width.  dq's one policy point is how its accumulator
+// leaves the CTA: FlashDqStore writes scale · dQ at width D.  The walks
+// take the kernel's arguments by value: through a reference, ptxas gave
+// the flash kernels up to 200 more instructions and dkv 18-24 more
+// registers (168 → 192 at d = 64: one CTA an SM fewer), 7-12% slower; by
+// value their SASS is the one-kernel version's, instruction for
+// instruction (PERF.md §6).
+//
 // dq: one CTA of 4 warps owns 64 query rows of one (batch, query head), 16
 //     rows a warp, and walks the keys in tiles of 64 (causal tile skip).
 //     S = Q·Kᵀ and dP = dO·Vᵀ take A from ldmatrix on the row-major Q / dO
 //     tile and B from ldmatrix (no .trans) on the row-major K / V tile;
 //     dQ += dS·K takes dS from the accumulators of two adjacent n-tiles and
 //     K's B operand from ldmatrix.trans.  dQ (16 × d f32 a warp) stays in
-//     registers and is scaled and written once.  K/V stream through the
-//     ring; the last row block starts first (it has the most key tiles).
+//     registers and leaves once, through the store policy.  K/V stream
+//     through the ring; the last row block starts first (it has the most
+//     key tiles).
 // dkv: one CTA of 4 warps owns 64 keys of one query head, 16 keys a warp,
 //     and walks the Q tiles (64 rows at d = 64, 32 at d = 128, so that dK,
 //     dV and two score tiles fit the registers) from the first one that can
@@ -86,8 +98,34 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
 }
 
+// The flash dq's store: dQ = scale · acc, straight from the fragments at
+// width D (lane l holds rows r_lo, r_lo + 8 of the (batch, head) and columns
+// 2(l%4), 2(l%4) + 1 of each 8-wide n-tile).
 template <int D>
-__global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dq_mma_kernel(BwdArgs a) {
+struct FlashDqStore {
+  __device__ __forceinline__ void store(const BwdArgs& a, const float (&acc)[D / 8][4], int bh,
+                                        int, int r_lo) const {
+    const int lane = threadIdx.x & 31;
+    float* dq = a.dq + (size_t)bh * a.n_rows * D;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r_lo + h * 8;
+      if (row >= a.n_rows) continue;
+      float* out = dq + (size_t)row * D + (lane & 3) * 2;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<float2*>(out + j * 8) =
+            make_float2(acc[j][2 * h] * a.scale, acc[j][2 * h + 1] * a.scale);
+      }
+    }
+  }
+};
+
+// One dq CTA: its 64 rows of one (batch, query head) against every key tile
+// they see; the accumulator leaves through st.store() after the last tile's
+// __syncthreads(), when shared memory is free.
+template <int D, class Store>
+__device__ __forceinline__ void bwd_dq_mma_walk(const BwdArgs a, const Store& st) {
   static_assert(D % 16 == 0, "head dim must be a multiple of the mma depth");
   static_assert(DQ_ROWS * (D / 8) % BWD_THREADS == 0 && DQ_KEYS * (D / 8) % BWD_THREADS == 0,
                 "every thread loads the same number of 16-byte chunks");
@@ -238,23 +276,18 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dq_mma_kernel(BwdArgs a)
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
-
-  float* dq = a.dq + (size_t)bh * a.n_rows * D;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = r_lo + h * 8;
-    if (row >= a.n_rows) continue;
-    float* out = dq + (size_t)row * D + (lane & 3) * 2;
-#pragma unroll
-    for (int j = 0; j < NT_O; ++j) {
-      *reinterpret_cast<float2*>(out + j * 8) =
-          make_float2(acc[j][2 * h] * a.scale, acc[j][2 * h + 1] * a.scale);
-    }
-  }
+  st.store(a, acc, bh, q0, r_lo);
 }
 
 template <int D>
-__global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dkv_mma_kernel(BwdArgs a) {
+__global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dq_mma_kernel(BwdArgs a) {
+  bwd_dq_mma_walk<D>(a, FlashDqStore<D>{});
+}
+
+// One dkv CTA: its 64 keys of one query head against every Q tile that
+// sees them.
+template <int D>
+__device__ __forceinline__ void bwd_dkv_mma_walk(const BwdArgs a) {
   constexpr int R = dkv_rows<D>();  // query rows per Q tile
   static_assert(D % 16 == 0 && R % 16 == 0, "head dim and Q tile must be multiples of 16");
   static_assert(DKV_KEYS * (D / 8) % BWD_THREADS == 0 && R * (D / 8) % BWD_THREADS == 0 &&
@@ -441,20 +474,18 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dkv_mma_kernel(BwdArgs a
   }
 }
 
+template <int D>
+__global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dkv_mma_kernel(BwdArgs a) {
+  bwd_dkv_mma_walk<D>(a);
+}
+
+// Launch a dq (DKV = false) or dkv kernel of the walks above, flash's or
+// DistrAttention's, on the walk's grid and shared memory.
 template <int D, bool DKV>
-int launch_attn_bwd_mma(const BwdArgs& a, int bhq, cudaStream_t stream) {
-  size_t bytes;
-  void (*kern)(BwdArgs);
-  int blocks;
-  if constexpr (DKV) {
-    bytes = dkv_smem_bytes<D>();
-    kern = attn_bwd_dkv_mma_kernel<D>;
-    blocks = (a.nk + DKV_KEYS - 1) / DKV_KEYS;
-  } else {
-    bytes = dq_smem_bytes<D>();
-    kern = attn_bwd_dq_mma_kernel<D>;
-    blocks = (a.n_rows + DQ_ROWS - 1) / DQ_ROWS;
-  }
+int launch_bwd_walk(void (*kern)(BwdArgs), const BwdArgs& a, int bhq, cudaStream_t stream) {
+  const size_t bytes = DKV ? dkv_smem_bytes<D>() : dq_smem_bytes<D>();
+  const int blocks =
+      DKV ? (a.nk + DKV_KEYS - 1) / DKV_KEYS : (a.n_rows + DQ_ROWS - 1) / DQ_ROWS;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
@@ -466,8 +497,12 @@ int launch_attn_bwd_mma(const BwdArgs& a, int bhq, cudaStream_t stream) {
 
 template <bool DKV>
 int dispatch_attn_bwd_mma(const BwdArgs& a, int d, int bhq, cudaStream_t stream) {
-  if (d == 128) return launch_attn_bwd_mma<128, DKV>(a, bhq, stream);
-  if (d == 64) return launch_attn_bwd_mma<64, DKV>(a, bhq, stream);
+  if (d == 128)
+    return launch_bwd_walk<128, DKV>(
+        DKV ? attn_bwd_dkv_mma_kernel<128> : attn_bwd_dq_mma_kernel<128>, a, bhq, stream);
+  if (d == 64)
+    return launch_bwd_walk<64, DKV>(
+        DKV ? attn_bwd_dkv_mma_kernel<64> : attn_bwd_dq_mma_kernel<64>, a, bhq, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -33,7 +33,9 @@ def scatter_q_hat(q_hat: torch.Tensor, perm: torch.Tensor, group_size: int,
                   block_q: int) -> torch.Tensor:
     """Q̃ with Q̃[..., perm[g·G* + u]] = Q̂[..., g] for u < G*, in each
     permutation block: Q̃·Kᵀ = Q̂·K̂ᵀ term for term, since every column of K
-    lies in one group.  The bf16 kernel builds Q̃ in shared memory; this plain version is for the tests.  q_hat (BHq, N, d/G*),
+    lies in one group.  The bf16 forward kernel builds Q̃ in shared memory,
+    the bf16 backward in device memory (``distr_expand_q_kernel``); this
+    plain version is for the tests.  q_hat (BHq, N, d/G*),
     perm (BHq, N/block_q, d) → (BHq, N, d), q_hat's dtype."""
     bhq, n, _ = q_hat.shape
     d = perm.shape[-1]

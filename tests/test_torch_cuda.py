@@ -11,7 +11,9 @@ decode tile one and two m-tiles, ragged and streamed key tiles, d_score 56
 and NaN past a slot's length; for the bf16 tensor-core DistrAttention
 kernel, with and without the LSE, kv_len = 0, a ragged kv_len, fewer rows
 than keys, GQA 36 over 4, ds 56, 28, 16 and 14 and G* 1, 8 and 16, and its
-launch count and range; head dim 112 for the forward, decode and paged
+launch count and range; for the bf16 tensor-core DistrAttention backward
+G* 2 to 16, a 128-row permutation block over four 32-row dkv Q tiles, and
+which kernels a bf16 and an f32 call launch; head dim 112 for the forward, decode and paged
 kernels; for the SSD kernel short and
 ragged sequences, strong decays, grouped heads and state width 128),
 forward and backward, and the
@@ -255,6 +257,12 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, hkv, q_per_kv, n, nk, k
 @pytest.mark.parametrize("n,g,block_q,causal,d", [
     (128, 2, 64, True, 128), (256, 4, 128, False, 128), (256, 2, 128, True, 64),
     (192, 4, 64, True, 64),  # d/G* = 16: half a thread row of score columns
+    # The bf16 tensor-core kernels (Q̂ expanded to Q̃, the flash walks, dQ̂ by
+    # a gather-sum of G* columns): G* up to 16, d/G* down to 4.
+    (128, 8, 64, False, 64),
+    (128, 16, 64, True, 64),
+    (192, 16, 64, False, 128),
+    (256, 8, 128, True, 128),  # one block_q spans four 32-row dkv Q tiles; kv_len ragged
 ])
 def test_distr_backward_kernels_match_plain(cuda, dtype, n, g, block_q, causal, d):
     q_hat = _randn((4, n, d // g), dtype, 14)
@@ -269,6 +277,33 @@ def test_distr_backward_kernels_match_plain(cuda, dtype, n, g, block_q, causal, 
     got = bwd.distr_dkv_kernel_call(q_hat, k, v, perm, do, lse, delta, **kw)
     for g_, w_ in zip(got, bwd.distr_dkv_plain(q_hat, k, v, perm, do, lse, delta, **kw)):
         _bwd_close(g_, w_)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_distr_backward_launches_its_dtype_route(cuda, dtype):
+    """A bf16 call runs the expansion and the tensor-core instantiations
+    (``distr_bwd_tc.cuh``) and never the FMA tile; an f32 call runs the FMA
+    tile only.  Kernel names from the profiler's device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n, d, g = 128, 64, 2
+    q_hat = _randn((2, n, d // g), dtype, 40)
+    k, v, do = (_randn((2, n, d), dtype, 41 + i) for i in range(3))
+    lse = torch.full((2, n), 5.0, device="cuda")
+    delta = torch.zeros((2, n), device="cuda")
+    kw = dict(q_per_kv=1, causal=True, group_size=g, block_q=64, kv_len=n)
+    perm = _perms(2, n, 64, d)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bwd.distr_dq_kernel_call(q_hat, k, v, perm, do, lse, delta, **kw)
+        bwd.distr_dkv_kernel_call(q_hat, k, v, perm, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+    names = " ".join(e.key for e in prof.key_averages())
+    tc = ("distr_expand_q_kernel", "distr_bwd_dq_mma_kernel", "distr_bwd_dkv_mma_kernel")
+    fma = ("attn_bwd_dq_kernel", "attn_bwd_dkv_kernel")
+    want, never = (tc, fma) if dtype == torch.bfloat16 else (fma, tc)
+    assert all(name in names for name in want), names
+    assert not any(name in names for name in never), names
+    assert "attn_bwd_dq_mma_kernel" not in names and "attn_bwd_dkv_mma_kernel" not in names
 
 
 @pytest.mark.parametrize("call", [bwd.distr_dq_kernel_call, bwd.distr_dkv_kernel_call])

@@ -145,6 +145,119 @@ def test_distr_backward_plain_matches_reference(causal):
         _close(got, want, 1e-4, f"d{name}")
 
 
+def _gather_sum(dq_tilde, perm, group_size, block_q):
+    """dQ̂[:, g] = Σ_u dQ̃[:, perm[g·G* + u]] in each permutation block: the
+    bf16 dq kernel's store.  dq_tilde (BHq, N, d), perm (BHq, N/block_q, d)
+    → (BHq, N, d/G*)."""
+    bhq, n, d = dq_tilde.shape
+    idx = perm.to(torch.int64).repeat_interleave(block_q, dim=1)
+    return torch.gather(dq_tilde, -1, idx).reshape(bhq, n, d // group_size, group_size).sum(-1)
+
+
+@pytest.mark.parametrize("g", [2, 4, 8, 16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_q_tilde_backward_is_the_fused_k_backward(d, g):
+    """What the bf16 backward kernels compute through Q̃ (Q̂ expanded by
+    ``scatter_q_hat``): the gather-sum of dS·K equals dS·K̂ with K̂ from the
+    reference's ``fuse_k_columns``, and dSᵀ·Q̃ equals the reference's dK,
+    dK̂ = dSᵀ·Q̂ replicated to each group's G* members and gathered back by
+    the inverse permutation, summed over Q blocks; in f32, where sums of 96
+    products reach |40|, so summation order alone moves them by ~2e-5:
+    atol 1e-4, rtol 1e-5."""
+    from repro.kernels.distr_attention import fuse_k_columns as ref_fuse
+    from repro_torch.kernels.distr_attention import scatter_q_hat
+
+    rng = np.random.default_rng(13)
+    bhq, n, m, block_q = 2, 128, 96, 64
+    nb = n // block_q
+    q_hat = _randn(rng, bhq, n, d // g)
+    k = _randn(rng, m, d)
+    ds = _randn(rng, bhq, n, m)
+    perm = np.stack([[rng.permutation(d) for _ in range(nb)] for _ in range(bhq)])
+    perm = perm.astype(np.int32)
+    q_t = scatter_q_hat(_t(q_hat), _t(perm), g, block_q)
+    got_dq = _gather_sum(_t(ds) @ _t(k), _t(perm), g, block_q).numpy()
+    got_dk = (_t(ds).transpose(1, 2) @ q_t).numpy()
+    for h in range(bhq):
+        want_dk = jnp.zeros((m, d), jnp.float32)
+        for blk in range(nb):
+            rows = slice(blk * block_q, (blk + 1) * block_q)
+            pj = jnp.asarray(perm[h, blk])
+            k_hat = ref_fuse(jnp.asarray(k), pj, g)
+            np.testing.assert_allclose(got_dq[h, rows], ds[h, rows] @ np.asarray(k_hat),
+                                       atol=1e-4, rtol=1e-5)
+            dk_hat = jnp.asarray(ds[h, rows]).T @ jnp.asarray(q_hat[h, rows])
+            dk_rep = jnp.broadcast_to(dk_hat[:, :, None], (m, d // g, g)).reshape(m, d)
+            want_dk = want_dk + jnp.take(dk_rep, jnp.argsort(pj), axis=1)
+        np.testing.assert_allclose(got_dk[h], np.asarray(want_dk), atol=1e-4, rtol=1e-5)
+
+
+def _distr_bwd_tc_emulation(q_hat, k, v, perm, do, lse, delta, *, q_per_kv, causal, group_size,
+                            block_q, kv_len, split=_split_bf16):
+    """The arithmetic of the bf16 tensor-core DistrAttention backward
+    (``csrc/distr_bwd_tc.cuh``) on the CPU: Q̃ = Q̂ expanded through the
+    permutation (bf16 values, so exact); S = Q̃·Kᵀ and dP = dO·Vᵀ in f32 from
+    bf16 inputs; P and dS split into bf16 hi + lo as the A operands of
+    dQ̃ = dS·K, dV = Pᵀ·dO and dK = dSᵀ·Q̃, every part summed into one f32
+    accumulator; then dQ̂ by the gather-sum of dQ̃'s columns."""
+    from repro_torch.kernels.distr_attention import scatter_q_hat
+
+    bhq, n, _ = q_hat.shape
+    nk = k.shape[1]
+    kv = torch.arange(bhq) // q_per_kv
+    kf, vf = k.float()[kv], v.float()[kv]  # (BHq, Nk, d)
+    q_t = scatter_q_hat(q_hat, perm, group_size, block_q).float()
+    s = q_t @ kf.transpose(1, 2)
+    dp = do.float() @ vf.transpose(1, 2)
+    p, ds = bwd._p_and_ds(s, bwd._mask(n, nk, kv_len, causal, "cpu"), lse, delta, dp)
+    dq_t = sum(part @ kf for part in split(ds))
+    dv = sum(part.transpose(1, 2) @ do.float() for part in split(p))
+    dk = sum(part.transpose(1, 2) @ q_t for part in split(ds))
+    return _gather_sum(dq_t, perm, group_size, block_q), dk, dv
+
+
+@pytest.mark.parametrize("d,g,causal,kv_len", [
+    (64, 2, True, 128), (128, 4, True, 121), (64, 16, False, 100), (128, 8, True, 128),
+])
+def test_distr_backward_tc_emulation_holds_1e4(d, g, causal, kv_len):
+    """The bf16 kernels' arithmetic (``_distr_bwd_tc_emulation``) against the
+    reference's Pallas kernels in interpret mode on the same bf16-valued
+    inputs, at the 1e-4 the card holds the kernels to.  Rounding P and dS
+    to bf16 alone is logged, not asserted."""
+    rng = np.random.default_rng(8)
+    hq, hkv, n, block_q = 4, 2, 128, 64
+    nk = 128
+
+    def bf16(x):
+        return _t(x).to(torch.bfloat16)
+
+    q_hat = bf16(_randn(rng, hq, n, d // g) * d ** -0.5)
+    k, v, do = bf16(_randn(rng, hkv, nk, d)), bf16(_randn(rng, hkv, nk, d)), bf16(
+        _randn(rng, hq, n, d))
+    perm = _t(np.stack([[rng.permutation(d) for _ in range(n // block_q)]
+                        for _ in range(hq)]).astype(np.int32))
+    kw = dict(q_per_kv=hq // hkv, causal=causal, group_size=g, block_q=block_q, kv_len=kv_len)
+    o, lse = distr_attention_plain(q_hat, k, v, perm, return_lse=True, **kw)
+    delta = bwd.delta_plain(o, do)
+    jx = [jnp.asarray(x.float().numpy()) for x in (q_hat, k, v, perm, do, lse, delta)]
+    jx[3] = jx[3].astype(jnp.int32)
+    rkw = dict(kw, block_k=64)
+    want = (rbwd.distr_dq_kernel_call(*jx, **rkw),
+            *rbwd.distr_dkv_kernel_call(*jx[:4], jnp.argsort(jx[3], axis=-1).astype(jnp.int32),
+                                        *jx[4:], **rkw))
+    tol = 1e-4
+    shares = {}
+    for name, split in (("hi + lo", _split_bf16), ("bf16 only", _bf16_only)):
+        got = _distr_bwd_tc_emulation(q_hat, k, v, perm, do, lse, delta, split=split, **kw)
+        shares[name] = [float((np.abs(g_.numpy() - np.asarray(w_)) /
+                               (tol + tol * np.abs(np.asarray(w_)))).max())
+                        for g_, w_ in zip(got, want)]
+    print(f"largest error as a share of the 1e-4 allowance (dq_hat, dk, dv): {shares}")
+    got = _distr_bwd_tc_emulation(q_hat, k, v, perm, do, lse, delta, **kw)
+    for g_, w_, what in zip(got, want, ("dq_hat", "dk", "dv")):
+        _close(g_, w_, tol, what)
+
+
 # ---------------------------------------------------------------------------
 # Gradients through the ops against jax.grad of the reference ops
 # ---------------------------------------------------------------------------
