@@ -6,8 +6,8 @@
 In order: prints the card's name and power limit; builds the CUDA kernels
 from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a; counts the bf16
 flash forward's and backward's (dq, dkv), the bf16 DistrAttention
-forward's and backward's (dq, dkv) and the bf16 decode and paged decode
-kernels' tensor-core (HMMA),
+forward's and backward's (dq, dkv), the bf16 decode and paged decode
+kernels' and the bf16 SSD kernel's tensor-core (HMMA),
 ldmatrix (LDSM) and cp.async (LDGSTS) instructions in the library's SASS
 and fails on a zero count or a register spill; holds each kernel against
 its plain PyTorch version in bf16 at the shapes of the serving path
@@ -28,8 +28,9 @@ through ``repro_torch.launch.train.run`` under both impls (4 steps of
 attention kernels' share.  The hybrid slice: the SSD kernel against its
 plain version at zamba2-7b's shape (112 heads of 64, state 64, chunk 128;
 N = 2048 and the ragged 600, B = 1 and 2) and mamba2-130m's (24 heads,
-state 128); the flash, DistrAttention (G* = 2) and decode kernels at
-zamba2-7b's head dim 112; and zamba2-7b served at full width (81 Mamba-2
+state 128), and ``ops.ssd`` (head flattening included) at the first; the
+flash, DistrAttention (G* = 2) and decode kernels at zamba2-7b's head dim
+112; and zamba2-7b served at full width (81 Mamba-2
 layers, 2 shared attention blocks applied 13 times) through the same
 launcher and slot engine under both impls.  Each kernel's launches are
 counted in the serve and train runs.  Before the last three lines come
@@ -114,7 +115,9 @@ ATTN_KERNEL_NAMES = ("attn_fwd_mma_kernel", "attn_fwd_kernel", "distr_fwd_exact_
 # csrc/flash_bwd_tc.cuh), the DistrAttention forward (csrc/distr_fwd_tc.cuh)
 # and backward (csrc/distr_bwd_tc.cuh) at each head dim, and the decode and paged decode
 # kernels on the tile of csrc/decode_tc.cuh at each value width and number
-# of warps that share an m-tile (4: one m-tile, 2: two, 1: more).  The SASS
+# of warps that share an m-tile (4: one m-tile, 2: two, 1: more), and the
+# SSD kernel (csrc/ssd_tc.cuh) at each P-slice width and k-steps of the
+# state width (4: S ≤ 64, 8: S ≤ 128).  The SASS
 # of every instantiation must hold tensor-core products (HMMA), ldmatrix
 # (LDSM) and cp.async (LDGSTS).
 TC_KERNELS = {"attn_fwd_mma_kernel": ((64,), (112,), (128,)),
@@ -124,15 +127,22 @@ TC_KERNELS = {"attn_fwd_mma_kernel": ((64,), (112,), (128,)),
               "distr_bwd_dq_mma_kernel": ((64,), (128,)),
               "distr_bwd_dkv_mma_kernel": ((64,), (128,)),
               "decode_mma_kernel": tuple((d, kw) for d in (64, 112, 128) for kw in (4, 2)),
-              "paged_mma_kernel": tuple((d, kw) for d in (64, 112, 128) for kw in (4, 2, 1))}
+              "paged_mma_kernel": tuple((d, kw) for d in (64, 112, 128) for kw in (4, 2, 1)),
+              "ssd_mma_kernel": ((16, 4), (16, 8), (32, 4), (32, 8))}
 TC_SASS_OPS = ("HMMA", "LDSM", "LDGSTS")
 
 
 def tc_smem_bytes(template: str, args: tuple) -> int:
     """Dynamic shared memory of a tensor-core instantiation: bf16 tiles with
     rows padded by 8 (the headers' smem_bytes functions); the decode tile's
-    at a score width equal to its value width."""
+    at a score width equal to its value width; the SSD kernel's at
+    chunk 128 and the widest state its k-steps hold (64: zamba2-7b; 128:
+    mamba2-130m)."""
     d = args[0]
+    if template == "ssd_mma_kernel":  # 2 stages of b, c, x; H hi, lo; a; 8 warps' scans
+        q, s = 128, 16 * args[1]
+        return (2 * 2 * q * (s + 8) * 2 + 2 * q * (d + 8) * 2 + 2 * s * (d + 8) * 2
+                + 2 * q * 4 + 8 * 2 * q * 4)
     row = (d + 8) * 2
     if template in ("attn_fwd_mma_kernel", "distr_fwd_exact_kernel"):  # Q, 2 stages of K and V
         return (64 + 4 * 64) * row
@@ -158,8 +168,9 @@ def gpu_name_and_power() -> str:
 
 def tensor_core_check(build) -> dict:
     """Proof that the bf16 flash forward and backward, the bf16
-    DistrAttention forward and backward and the bf16 decode and paged decode kernels run
-    on the tensor cores: count each instantiation's HMMA, LDSM and LDGSTS instructions in the built
+    DistrAttention forward and backward, the bf16 decode and paged decode
+    kernels and the bf16 SSD kernel run on the tensor cores: count each
+    instantiation's HMMA, LDSM and LDGSTS instructions in the built
     library's SASS (``cuobjdump -sass``) and read its registers and spills
     from nvcc's ``-Xptxas -v`` output.  Raises if an instantiation is
     missing, lacks one of the three or spills."""
@@ -651,10 +662,16 @@ def ssd_phase(torch, flush) -> dict:
     """The SSD kernel at SSD_SHAPES, bf16 x / b / c and f32 log-decays
     a = −softplus(N(0, 1)): y and the final state held against the plain
     version element by element; kernel and plain version timed at each
-    shape (the plain one at the headline only).  The bound: x, a, b, c read
-    once and y and the state written once, against the reference's
+    shape (the plain one at the headline only), and the instantiation that
+    ran (its P-slice width) read from the profiler.  At the headline also
+    ``ops.ssd`` on the same values in the model's (B, N, H, P) layout: the
+    op's head flattening copies beside the kernel.  The bound: x, a, b, c
+    read once and y and the state written once, against the reference's
     ``ssd_cost`` FLOPs (``repro/kernels/ops.py:870``: the full Q × Q
     products a chunk) at the bf16 tensor-core rate."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
     from repro_torch.kernels import ssd as sk
 
     out = {"max_abs_err": 0.0, "shapes": []}
@@ -672,19 +689,33 @@ def ssd_phase(torch, flush) -> dict:
         err_s = check_close(torch, f"ssd {label} state", state, state_p, SSD_TOL["state"])
         out["max_abs_err"] = max(out["max_abs_err"], err)
         ms = time_ms(torch, lambda: sk.ssd_kernel_call(x, a, bm, c, **kw), 10, flush)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sk.ssd_kernel_call(x, a, bm, c, **kw)
+            torch.cuda.synchronize()
+        ran = sorted({e.key for e in prof.key_averages() if "ssd" in e.key})
         headline = not out["shapes"]
         plain_ms = (time_ms(torch, lambda: sk.ssd_plain(x, a, bm, c, **kw), 3, flush)
                     if headline else None)
+        op_ms = None
+        if headline:
+            x4, a3 = (t.reshape(b, h, n, *t.shape[2:]).transpose(1, 2).contiguous() for t in (x, a))
+            b4, c4 = (t.reshape(b, g, n, s).transpose(1, 2).contiguous() for t in (bm, c))
+            y_op, state_op = ops.ssd(x4, a3, b4, c4, chunk=chunk, return_state=True)
+            torch.testing.assert_close(y_op.transpose(1, 2).reshape(b * h, n, p), y, atol=0, rtol=0)
+            torch.testing.assert_close(state_op.reshape(b * h, s, p), state, atol=0, rtol=0)
+            op_ms = time_ms(torch, lambda: ops.ssd(x4, a3, b4, c4, chunk=chunk, return_state=True),
+                            10, flush)
+            del x4, a3, b4, c4, y_op, state_op
         nc = -(-n // chunk)
         flops = 2 * b * h * nc * (chunk * chunk * s + chunk * chunk * p + 2 * chunk * s * p)
         nbytes = 2 * b * h * n * p * 2 + 4 * b * h * n + 2 * 2 * b * g * n * s + 4 * b * h * s * p
         b_ms, b_by = bound(flops, nbytes)
         row = {"label": label, "b": b, "h": h, "p": p, "g": g, "s": s, "chunk": chunk, "n": n,
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "max_abs_err": err, "state_max_abs_err": err_s}
+               "ms": ms, "plain_ms": plain_ms, "op_ms": op_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "max_abs_err": err, "state_max_abs_err": err_s, "kernel": ran}
         out["shapes"].append(row)
-        log(f"[ssd {label}] {ms:.4f} ms (plain {plain_ms}, bound {b_ms:.4f} by {b_by}) "
-            f"y err {err:.3e} state err {err_s:.3e}")
+        log(f"[ssd {label}] {ms:.4f} ms (plain {plain_ms}, ops.ssd {op_ms}, bound {b_ms:.4f} "
+            f"by {b_by}) y err {err:.3e} state err {err_s:.3e}; ran {ran}")
         del x, a, bm, c, y, state, y_p, state_p
     head = out["shapes"][0]
     out.update(ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],

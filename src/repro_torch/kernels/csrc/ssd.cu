@@ -20,36 +20,24 @@
 // rows past N load a = 0, b = c = x = 0, so they leave the state untouched
 // and the final state is the state at N; their y is not written.
 //
+// bf16 inputs run on the tensor cores (ssd_tc.cuh, one CTA per head and
+// slice of P); this file's kernel takes f32 inputs.
+//
 // Bound on this card: bytes.  At zamba2-7b's shape (S = P = 64, Q = 128)
 // the work is ~2.8 FLOP per input byte, far under the ~295 FLOP/byte bf16
-// ridge.  This first version stages each chunk as f32 tiles in shared
-// memory (b and c feature-major) and runs all four products as f32 FMA
-// loops on 4 × 4 register tiles; with one CTA per head the CUDA-core rate
-// and shared-memory traffic bound it, not the bytes.  The score tile is
-// built in row bands (64 rows, 32 at S = 128) so that S = 128 fits the
-// 227 KB of shared memory.
-#include "common.cuh"
+// ridge.  This kernel stages each chunk as f32 tiles in shared memory (b
+// and c feature-major) and runs all four products as f32 FMA loops on
+// 4 × 4 register tiles; with one CTA per head the CUDA-core rate and
+// shared-memory traffic bound it, not the bytes.  The score tile is built
+// in row bands (64 rows, 32 at S = 128) so that S = 128 fits the 227 KB of
+// shared memory.
+#include "ssd_tc.cuh"
 
 namespace rt {
 
 constexpr int SSD_THREADS = 256;
 constexpr int SSD_MAX_CHUNK = 128;
 constexpr size_t SSD_MAX_SMEM = 232448;
-
-struct SsdArgs {
-  const void* x;    // (BH, N, P)
-  const float* a;   // (BH, N) log-decays
-  const void* b;    // (BG, N, S)
-  const void* c;    // (BG, N, S)
-  void* y;          // (BH, N, P), x's dtype
-  float* state;     // (BH, S, P) f32, or null
-  int n;
-  int p;
-  int s;
-  int heads_per_group;
-  int chunk;        // Q: a multiple of 4, at most 128
-  int band;         // rows of the score tile built at once: a multiple of 4
-};
 
 __host__ __device__ inline size_t ssd_smem_floats(int q, int p, int s, int band) {
   // sX [Q][P], sBt / sCt [S][Q + 4], sGt [Q][band], sH [S][P], sAcum / sW [Q]
@@ -254,15 +242,16 @@ extern "C" int repro_ssd_fwd(const void* x, const void* a, const void* b, const 
   args.s = s;
   args.heads_per_group = heads_per_group;
   args.chunk = chunk;
-  // The widest score band that fits: 64 rows, else 32 (S = 128), else 4.
+  args.band = 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == rt::DTYPE_BF16) return rt::tc::dispatch_ssd_mma(args, bh, st);
+  if (dtype != rt::DTYPE_F32) return (int)cudaErrorInvalidValue;
+  // f32: the widest score band that fits: 64 rows, else 32 (S = 128), else 4.
   int band = chunk < 64 ? chunk : 64;
   while (band > 4 && rt::ssd_smem_floats(chunk, p, s, band) * sizeof(float) > rt::SSD_MAX_SMEM)
     band = band > 32 ? 32 : band - 4;
   args.band = band;
   const size_t bytes = rt::ssd_smem_floats(chunk, p, s, band) * sizeof(float);
   if (bytes > rt::SSD_MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == rt::DTYPE_BF16) return rt::launch_ssd<__nv_bfloat16>(args, bh, bytes, st);
-  if (dtype == rt::DTYPE_F32) return rt::launch_ssd<float>(args, bh, bytes, st);
-  return (int)cudaErrorInvalidValue;
+  return rt::launch_ssd<float>(args, bh, bytes, st);
 }

@@ -2,7 +2,9 @@
 its plain PyTorch version.
 
 The kernel (``csrc/ssd.cu``) replaces the Pallas TPU kernel
-``repro/kernels/ssd.py::_ssd_kernel``.  Per head, with the sequence cut into
+``repro/kernels/ssd.py::_ssd_kernel``: bf16 inputs run on the tensor cores
+(``csrc/ssd_tc.cuh``, one CTA per head and slice of P, the slice width
+chosen from the grid), f32 inputs on an FMA kernel.  Per head, with the sequence cut into
 chunks of ``chunk`` steps and ``a_cum`` the inclusive cumsum of the
 log-decays inside a chunk:
 

@@ -96,7 +96,8 @@ def main() -> None:
 
 
 def _profile(cfg, params, kw: dict, dev: torch.device) -> None:
-    """Profile one more (warm) run and print the device's busy share."""
+    """Profile one more (warm) run and print the device's busy share and
+    the device time of each of the port's own kernels (``rt::``)."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = dev.type == "cuda"
@@ -107,8 +108,13 @@ def _profile(cfg, params, kw: dict, dev: torch.device) -> None:
     sort = "self_cuda_time_total" if cuda else "self_cpu_time_total"
     print(events.table(sort_by=sort, row_limit=20))
     if cuda:
-        busy_us = sum(getattr(e, "self_device_time_total", None)
-                      or getattr(e, "self_cuda_time_total", 0) for e in events)
+        def device_us(e):
+            return (getattr(e, "self_device_time_total", None)
+                    or getattr(e, "self_cuda_time_total", 0))
+
+        for e in sorted((e for e in events if "rt::" in e.key), key=device_us, reverse=True):
+            print(f"[profile] {e.key}: {device_us(e) / 1e3:.3f} ms over {e.count} calls")
+        busy_us = sum(device_us(e) for e in events)
         print(f"[profile] device busy {busy_us / 1e6:.4f}s of {out['seconds']:.4f}s "
               f"wall ({busy_us / 1e6 / out['seconds']:.1%}); "
               f"{out['tok_per_s']:.1f} tok/s under the profiler")

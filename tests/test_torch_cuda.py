@@ -15,7 +15,9 @@ launch count and range; for the bf16 tensor-core DistrAttention backward
 G* 2 to 16, a 128-row permutation block over four 32-row dkv Q tiles, and
 which kernels a bf16 and an f32 call launch; head dim 112 for the forward, decode and paged
 kernels; for the SSD kernel short and
-ragged sequences, strong decays, grouped heads and state width 128),
+ragged sequences, strong decays, grouped heads and state width 128, and
+for its bf16 tensor-core kernel each P-slice width, 8-byte copies, a
+padded chunk and state width and which kernel each dtype runs),
 forward and backward, and the
 differentiable ops on the card against the same ops on the CPU.  Marked
 ``cuda``; skips without a GPU.  This file imports neither JAX nor the JAX package, so on a machine
@@ -499,6 +501,16 @@ def _ssd_inputs(bh, bg, n, p, s, dtype, seed, decay=1.0):
     return x, a, _randn((bg, n, s), dtype, seed + 2), _randn((bg, n, s), dtype, seed + 3)
 
 
+def _ssd_close(got, want, dtype):
+    """y at its dtype's tolerance, the f32 state at 1e-3."""
+    torch.cuda.synchronize()
+    (y, state), (y_p, state_p) = got, want
+    assert torch.isfinite(y.float()).all() and torch.isfinite(state).all()
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), y_p.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, state_p, atol=1e-3, rtol=1e-3)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bh,bg,n,p,s,chunk,decay", [
     (2, 2, 1, 16, 8, 32, 1.0),       # N = 1
@@ -507,19 +519,56 @@ def _ssd_inputs(bh, bg, n, p, s, dtype, seed, decay=1.0):
     (3, 1, 300, 64, 64, 128, 1.0),   # zamba2's widths, 3 heads on one group
     (2, 1, 260, 64, 128, 128, 1.0),  # mamba2-130m's S = 128 (score rows in bands of 32)
     (2, 2, 256, 16, 8, 128, 300.0),  # strong decays: exp overflows above the diagonal
+    # Edges of the bf16 tensor-core kernel (16-row blocks, S padded to 64).
+    (2, 1, 300, 20, 12, 36, 1.0),    # 8-byte copies; chunk padded to 48; a P slice past P
+    (3, 3, 77, 64, 8, 100, 1.0),     # N inside the first chunk, padded to 112 rows
+    (2, 2, 129, 16, 128, 128, 1.0),  # one live step in the last chunk; S = 128
 ])
 def test_ssd_kernel_matches_plain(cuda, dtype, bh, bg, n, p, s, chunk, decay):
     x, a, b, c = _ssd_inputs(bh, bg, n, p, s, dtype, 60, decay)
     kw = dict(heads_per_group=bh // bg, chunk=chunk, return_state=True)
     before = ssd_kernels.launches
-    y, state = ssd_kernels.ssd_kernel_call(x, a, b, c, **kw)
+    got = ssd_kernels.ssd_kernel_call(x, a, b, c, **kw)
     assert ssd_kernels.launches == before + 1
-    y_p, state_p = ssd_kernels.ssd_plain(x, a, b, c, **kw)
-    torch.cuda.synchronize()
-    assert torch.isfinite(y.float()).all() and torch.isfinite(state).all()
-    tol = SSD_TOL[dtype]
-    torch.testing.assert_close(y.float(), y_p.float(), atol=tol, rtol=tol)
-    torch.testing.assert_close(state, state_p, atol=1e-3, rtol=1e-3)
+    _ssd_close(got, ssd_kernels.ssd_plain(x, a, b, c, **kw), dtype)
+
+
+def _ssd_kernel_names(call):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return " ".join(e.key for e in prof.key_averages())
+
+
+@pytest.mark.parametrize("width", [16, 32])
+def test_ssd_tc_kernel_at_each_slice_width(cuda, width):
+    """The bf16 kernel takes a slice of P per CTA: 32 columns where that
+    grid covers the card's SMs, else 16.  P = 64 over as many heads as give
+    each width, N = 300 so the last chunk of 128 holds 44 steps.  The
+    profiler names the width."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bh = {32: -(-sms // 2), 16: 2}[width]
+    x, a, b, c = _ssd_inputs(bh, 1, 300, 64, 64, torch.bfloat16, 80)
+    kw = dict(heads_per_group=bh, chunk=128, return_state=True)
+    got = []
+    names = _ssd_kernel_names(lambda: got.append(ssd_kernels.ssd_kernel_call(x, a, b, c, **kw)))
+    assert f"ssd_mma_kernel<{width}," in names, names
+    _ssd_close(got[0], ssd_kernels.ssd_plain(x, a, b, c, **kw), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_launches_its_dtype_route(cuda, dtype):
+    """bf16 runs the tensor-core kernel (``ssd_tc.cuh``) and never the FMA
+    kernel ``ssd_kernel``; f32 runs the FMA kernel only.  Kernel names
+    from the profiler's device events."""
+    x, a, b, c = _ssd_inputs(2, 1, 200, 64, 64, dtype, 82)
+    names = _ssd_kernel_names(lambda: ssd_kernels.ssd_kernel_call(
+        x, a, b, c, heads_per_group=2, chunk=128, return_state=True))
+    tc, fma = "ssd_mma_kernel", "ssd_kernel<"
+    want, never = (tc, fma) if dtype == torch.bfloat16 else (fma, tc)
+    assert want in names and never not in names, names
 
 
 def test_ssd_op_on_card_matches_cpu(cuda):
