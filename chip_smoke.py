@@ -9,11 +9,15 @@ flash forward's and backward's (dq, dkv), the bf16 DistrAttention
 forward's and backward's (dq, dkv), the bf16 decode and paged decode
 kernels' and the bf16 SSD kernel's tensor-core (HMMA),
 ldmatrix (LDSM) and cp.async (LDGSTS) instructions in the library's SASS
-and fails on a zero count or a register spill; holds each kernel against
+and fails on a zero count or a register spill; checks that every
+instantiation of the delta kernel loads 16-byte vectors (LDG.E.128) and
+spills nothing; holds each kernel against
 its plain PyTorch version in bf16 at the shapes of the serving path
 (starcoder2-7b) and of the training path (minicpm-2b) — the forward
 kernels with their LSE, DistrAttention also at G* = 4, the decode and
-paged decode kernels, the five backward kernels at both — and times
+paged decode kernels, the five backward kernels at both, and delta also
+at the training step's own call, head dim 112, a ragged row count and
+f32 — and times
 kernel, plain version and, as a yardstick only, one PyTorch library call;
 serves starcoder2-7b at full width with seeded random weights through
 ``repro_torch.launch.serve.run`` under ``pallas_distr`` and
@@ -130,6 +134,19 @@ TC_KERNELS = {"attn_fwd_mma_kernel": ((64,), (112,), (128,)),
               "paged_mma_kernel": tuple((d, kw) for d in (64, 112, 128) for kw in (4, 2, 1)),
               "ssd_mma_kernel": ((16, 4), (16, 8), (32, 4), (32, 8))}
 TC_SASS_OPS = ("HMMA", "LDSM", "LDGSTS")
+# The delta kernel's instantiations (csrc/delta.cu): dtype, lanes a row
+# (8, 16, 32 by head dim) and row-steps a warp takes a pass (4 in bf16, 2
+# in f32: the same bytes).
+DELTA_INSTANCES = {f"delta_kernel<{t}, {lpr}, {u}>" for t, u in (("bf16", 4), ("f32", 2))
+                   for lpr in (8, 16, 32)}
+# Delta alone beyond the two backward shapes (label, B·Hq, N, d, dtype): the
+# training step's own call (B = 4), zamba2-7b's head dim 112, a ragged row
+# count (not a multiple of a warp's 16 rows) and f32.
+DELTA_SHAPES = (("minicpm-2b train B=4", 4 * 36, 2048, 64, "bf16"),
+                ("zamba2-7b d=112", 32, 2048, 112, "bf16"),
+                ("ragged 36x601", 36, 601, 64, "bf16"),
+                ("minicpm-2b f32", 36, 2048, 64, "f32"))
+DELTA_ITERS = 50  # delta takes ~10 µs a call
 
 
 def tc_smem_bytes(template: str, args: tuple) -> int:
@@ -166,14 +183,11 @@ def gpu_name_and_power() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def tensor_core_check(build) -> dict:
-    """Proof that the bf16 flash forward and backward, the bf16
-    DistrAttention forward and backward, the bf16 decode and paged decode
-    kernels and the bf16 SSD kernel run on the tensor cores: count each
-    instantiation's HMMA, LDSM and LDGSTS instructions in the built
-    library's SASS (``cuobjdump -sass``) and read its registers and spills
-    from nvcc's ``-Xptxas -v`` output.  Raises if an instantiation is
-    missing, lacks one of the three or spills."""
+def kernel_sass(build, templates, ops: dict) -> dict:
+    """Every function of the built library whose name holds one of
+    ``templates``: how many of its SASS lines (``cuobjdump -sass``) match
+    each pattern of ``ops``, and its registers and spill bytes from nvcc's
+    ``-Xptxas -v`` output."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(build.build())], check=True,
                           capture_output=True, text=True, timeout=300).stdout
@@ -181,11 +195,11 @@ def tensor_core_check(build) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            if any(name in fn for name in TC_KERNELS):
-                found[fn] = dict.fromkeys(TC_SASS_OPS, 0)
+            if any(name in fn for name in templates):
+                found[fn] = dict.fromkeys(ops, 0)
         elif fn in found:
-            for op in TC_SASS_OPS:
-                found[fn][op] += f" {op}." in line or f" {op} " in line
+            for op, pattern in ops.items():
+                found[fn][op] += bool(pattern.search(line))
     fn = None
     for line in build.build_log().splitlines():
         if "Compiling entry function" in line:
@@ -195,6 +209,17 @@ def tensor_core_check(build) -> dict:
             found[fn]["spill_bytes"] = nums[1] + nums[2]
         elif fn in found and "Used" in line and "registers" in line:
             found[fn]["registers"] = int(line.split("Used")[1].split()[0])
+    return found
+
+
+def tensor_core_check(build) -> dict:
+    """Proof that the bf16 flash forward and backward, the bf16
+    DistrAttention forward and backward, the bf16 decode and paged decode
+    kernels and the bf16 SSD kernel run on the tensor cores: count each
+    instantiation's HMMA, LDSM and LDGSTS instructions in the built
+    library's SASS and read its registers and spills.  Raises if an
+    instantiation is missing, lacks one of the three or spills."""
+    found = kernel_sass(build, TC_KERNELS, {op: re.compile(rf" {op}[. ]") for op in TC_SASS_OPS})
     out = {}
     for fn, row in found.items():
         template = next(name for name in TC_KERNELS if name in fn)
@@ -211,6 +236,29 @@ def tensor_core_check(build) -> dict:
             for args in inst}
     if set(out) != want:
         raise AssertionError(f"expected the instantiations {sorted(want)} in the SASS, "
+                             f"got {sorted(out)}")
+    return out
+
+
+def delta_sass_check(build) -> dict:
+    """Every instantiation of the delta kernel (``csrc/delta.cu``) loads
+    its rows as 16-byte vectors (``LDG.E.128``, whatever cache modifiers)
+    and spills nothing.  Raises otherwise, or if one is missing."""
+    found = kernel_sass(build, ("delta_kernel",),
+                        {"LDG.E.128": re.compile(r" LDG\.E(?:\.\w+)*\.128\b")})
+    out = {}
+    for fn, row in found.items():
+        m = re.search(r"delta_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", fn)
+        if m is None:
+            raise AssertionError(f"unexpected delta kernel in the SASS: {fn}")
+        dtype = "f32" if m.group(1) == "f" else "bf16"
+        key = f"delta_kernel<{dtype}, {m.group(2)}, {m.group(3)}>"
+        log(f"[delta sass] {key}: {row}")
+        if row["LDG.E.128"] == 0 or row.get("spill_bytes", 1) != 0:
+            raise AssertionError(f"{fn}: no LDG.E.128 in its SASS, or spills: {row}")
+        out[key] = row
+    if set(out) != DELTA_INSTANCES:
+        raise AssertionError(f"expected the delta instantiations {sorted(DELTA_INSTANCES)}, "
                              f"got {sorted(out)}")
     return out
 
@@ -398,7 +446,9 @@ def backward_phase(torch, flush) -> dict:
     by element against its plain version on the same inputs (the forward
     kernels' O and LSE), timed beside it, with its bound.  The yardstick
     for flash dq and dkv is one backward of SDPA (dQ, dK, dV together),
-    split between the two in proportion to their products (3 : 4)."""
+    split between the two in proportion to their products (3 : 4); delta's
+    is ``torch.linalg.vecdot``, which reads the same bytes but writes bf16.
+    Delta is then held and timed alone at ``DELTA_SHAPES``."""
     import torch.nn.functional as F
 
     from repro_torch.core.distr_attention import DistrConfig
@@ -461,13 +511,17 @@ def backward_phase(torch, flush) -> dict:
                                   a, b, tol) for i, (a, b) in enumerate(zip(got, want)))
             out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
             del got, want
-            ms = time_ms(torch, kern, 10, flush)
+            ms = time_ms(torch, kern, DELTA_ITERS if name == "delta" else 10, flush)
             plain_ms = time_ms(torch, plain, 3, flush)
             b_ms, b_by = bound(*work[name])
             row[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                          "max_abs_err": err}
             log(f"[backward {label}] {name}: {ms:.3f} ms (plain {plain_ms:.3f}, bound "
                 f"{b_ms:.4f} by {b_by}) err {err:.3e}")
+        row["delta"]["library_ms"] = time_ms(torch, lambda: torch.linalg.vecdot(o, dof),
+                                             DELTA_ITERS, flush)
+        log(f"[backward {label}] delta's yardstick torch.linalg.vecdot (same bytes read, "
+            f"bf16 out): {row['delta']['library_ms']:.4f} ms")
         log(f"[distr vs flash] backward {label}: distr dq {row['distr_dq']['ms']:.4f} / dkv "
             f"{row['distr_dkv']['ms']:.4f} ms, flash dq {row['flash_dq']['ms']:.4f} / dkv "
             f"{row['flash_dkv']['ms']:.4f} ms")
@@ -486,6 +540,25 @@ def backward_phase(torch, flush) -> dict:
             f"dkv {sdpa_bwd * 4 / 7:.3f} by the 3 : 4 product split)")
         shapes.append(row)
         del sdpa_out, qg, kx, vx
+    out["delta_shapes"] = []
+    for label, bhq, n, d, dtype in DELTA_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        o, dof = (torch.randn((bhq, n, d), generator=gen, device="cuda").to(
+            torch.bfloat16 if dtype == "bf16" else torch.float32) for _ in range(2))
+        err = check_close(torch, f"delta {label}", bwd.delta_kernel_call(o, dof),
+                          bwd.delta_plain(o, dof), TOL["delta"])
+        out["delta"]["max_abs_err"] = max(out["delta"]["max_abs_err"], err)
+        b_ms, b_by = bound(2 * bhq * n * d, 2 * o.element_size() * bhq * n * d + 4 * bhq * n)
+        row = {"shape": label, "bhq": bhq, "n": n, "d": d, "dtype": dtype, "max_abs_err": err,
+               "ms": time_ms(torch, lambda: bwd.delta_kernel_call(o, dof), DELTA_ITERS, flush),
+               "plain_ms": time_ms(torch, lambda: bwd.delta_plain(o, dof), 3, flush),
+               "library_ms": time_ms(torch, lambda: torch.linalg.vecdot(o, dof), DELTA_ITERS,
+                                     flush),
+               "bound_ms": b_ms, "bound_by": b_by}
+        log(f"[backward delta {label}] {row['ms']:.4f} ms (plain {row['plain_ms']:.3f}, vecdot "
+            f"{row['library_ms']:.4f}, bound {b_ms:.5f} by {b_by}) err {err:.3e}")
+        out["delta_shapes"].append(row)
+        del o, dof
     headline = shapes[0]  # the training path's shape
     for name in names:
         h = headline[name]
@@ -1130,6 +1203,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or "error" in line.lower():
             log("  " + line.strip())
     tensor_cores = tensor_core_check(build)
+    delta_sass = delta_sass_check(build)
 
     # The plain versions' f32 products run in full f32, not TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1147,10 +1221,11 @@ def main() -> int:
         pre[name]["max_abs_err"] = max(pre[name]["max_abs_err"], a112[name]["max_abs_err"])
     dec["max_abs_err"] = max(dec["max_abs_err"], a112["decode"]["max_abs_err"])
     del flush
-    results = {"card": card, "tensor_cores": tensor_cores,
+    results = {"card": card, "tensor_cores": tensor_cores, "delta_sass": delta_sass,
                "distr_vs_flash": distr_vs_flash_table(pre["shapes"], g4, a112, back["shapes"]),
                "prefill_shapes": pre.pop("shapes"), "distr_g4": g4,
                "paged_shapes": pdec.pop("shapes"), "backward_shapes": back.pop("shapes"),
+               "delta_shapes": back.pop("delta_shapes"),
                "ssd_shapes": ssd.pop("shapes"), "head_dim_112": a112}
     launches = {"flash": 0, "distr": 0, "decode": 0, "paged": 0, "ssd": 0,
                 **dict.fromkeys(back, 0)}

@@ -13,7 +13,9 @@ kernel, with and without the LSE, kv_len = 0, a ragged kv_len, fewer rows
 than keys, GQA 36 over 4, ds 56, 28, 16 and 14 and G* 1, 8 and 16, and its
 launch count and range; for the bf16 tensor-core DistrAttention backward
 G* 2 to 16, a 128-row permutation block over four 32-row dkv Q tiles, and
-which kernels a bf16 and an f32 call launch; head dim 112 for the forward, decode and paged
+which kernels a bf16 and an f32 call launch; for the delta kernel each
+width of lanes a row, dead lanes, the column loop past d = 256, ragged row
+counts and its range; head dim 112 for the forward, decode and paged
 kernels; for the SSD kernel short and
 ragged sequences, strong decays, grouped heads and state width 128, and
 for its bf16 tensor-core kernel each P-slice width, 8-byte copies, a
@@ -215,6 +217,38 @@ def _bwd_close(got, want):
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     torch.testing.assert_close(got, want, atol=BWD_TOL, rtol=BWD_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bhq,n", [(1, 1), (3, 1), (1, 31), (8, 125), (1, 73729)])
+@pytest.mark.parametrize("d", [8, 24, 64, 112, 128, 256, 264])
+def test_delta_kernel_matches_plain(cuda, dtype, bhq, n, d):
+    """D = rowsum(dO ∘ O) at 1e-4: 8, 16 and 32 lanes a row (d <= 64, <= 128,
+    above), dead lanes (d = 8, 24, 112), the column loop past 256 (264), and
+    row counts that leave a warp's last tile ragged (1, 3, 31, 1000, 73,729)."""
+    o, do = _randn((bhq, n, d), dtype, 50), _randn((bhq, n, d), dtype, 51)
+    before = bwd.launches["delta"]
+    got = bwd.delta_kernel_call(o, do)
+    assert bwd.launches["delta"] == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (bhq, n)
+    torch.testing.assert_close(got, bwd.delta_plain(o, do), atol=1e-4, rtol=1e-4)
+
+
+def test_delta_kernel_range(cuda):
+    """No rows: an empty result and no launch.  d not a multiple of 8, or O
+    and dO of other shapes or dtypes: the wrapper raises before a launch."""
+    before = bwd.launches["delta"]
+    empty = torch.empty((4, 0, 64), device="cuda", dtype=torch.bfloat16)
+    assert bwd.delta_kernel_call(empty, empty).shape == (4, 0)
+    o = _randn((2, 16, 64), torch.bfloat16, 52)
+    bad = [(_randn((2, 16, 60), torch.bfloat16, 53),) * 2,
+           (o, _randn((2, 15, 64), torch.bfloat16, 54)),
+           (o, o.float())]
+    for args in bad:
+        with pytest.raises(ValueError, match="delta kernel shapes"):
+            bwd.delta_kernel_call(*args)
+    assert bwd.launches["delta"] == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -45,11 +45,22 @@ def _close(got, want, tol, what=""):
 # ---------------------------------------------------------------------------
 
 
-def test_delta_matches_reference():
+@pytest.mark.parametrize("d,dtype,tol", [
+    (32, "f32", 1e-5),
+    # The head dims whose lanes a row the card's kernel sets apart (8 at
+    # d <= 64, 16 at 112 and 128, two of them dead at 112).
+    (64, "f32", 1e-5), (112, "f32", 1e-5), (128, "f32", 1e-5),
+    # bf16 in, f32 out on both sides (the reference kernel in interpret mode).
+    (64, "bf16", 1e-4),
+])
+def test_delta_matches_reference(d, dtype, tol):
     rng = np.random.default_rng(0)
-    o, do = _randn(rng, 4, 64, 32), _randn(rng, 4, 64, 32)
-    want = rbwd.delta_kernel_call(jnp.asarray(o), jnp.asarray(do), block_q=BLOCK)
-    _close(bwd.delta_kernel_call(_t(o), _t(do)), want, 1e-5)
+    o, do = _randn(rng, 4, 64, d), _randn(rng, 4, 64, d)
+    jdt, tdt = DTYPES[dtype]
+    want = rbwd.delta_kernel_call(jnp.asarray(o, jdt), jnp.asarray(do, jdt), block_q=BLOCK)
+    got = bwd.delta_kernel_call(_t(o).to(tdt), _t(do).to(tdt))
+    assert got.dtype == torch.float32 and got.shape == (4, 64)
+    _close(got, want, tol)
 
 
 @pytest.mark.parametrize("causal,kv_len", [(True, 64), (False, 50)])
