@@ -18,7 +18,13 @@ kernels with their LSE, DistrAttention also at G* = 4, the decode and
 paged decode kernels, the five backward kernels at both, and delta also
 at the training step's own call, head dim 112, a ragged row count and
 f32 — and times
-kernel, plain version and, as a yardstick only, one PyTorch library call;
+kernel, plain version and, as a yardstick only, one PyTorch library call,
+each kernel against its bound, the package's count of the function's
+least work (``kernels/ops.py::attention_work``, ``delta_work``,
+``ssd_work``, ``roofline/analysis.py::decode_attention_work``) through
+``obs/utilization.py::kernel_bound``, with the bound of the package's cost
+model of the mechanism (``attention_cost``, ``ssd_cost``,
+``decode_attention_cost``, ``paged_decode_attention_cost``) logged beside;
 serves starcoder2-7b at full width with seeded random weights through
 ``repro_torch.launch.serve.run`` under ``pallas_distr`` and
 ``pallas_flash`` (6 requests on 4 slots, max_len 2048, 32 new tokens,
@@ -36,8 +42,12 @@ state 128), and ``ops.ssd`` (head flattening included) at the first; the
 flash, DistrAttention (G* = 2) and decode kernels at zamba2-7b's head dim
 112; and zamba2-7b served at full width (81 Mamba-2
 layers, 2 shared attention blocks applied 13 times) through the same
-launcher and slot engine under both impls.  Each kernel's launches are
-counted in the serve and train runs.  Before the last three lines come
+launcher and slot engine under both impls.  The engines run their decode
+steps as CUDA graphs (``serve/graphs.py``), whose replays add the launches
+their capture counted; each kernel's launches are counted in the serve
+and train runs, and each training impl prints its ``model_flops_share``
+(6 · active params · tokens over the bf16 peak and the steady step).
+Before the last three lines come
 the ``[distr vs flash]`` lines: the DistrAttention forward beside the
 flash forward at each of its four shapes, and the DistrAttention backward
 kernels beside the flash ones at both backward shapes.  The line before
@@ -45,12 +55,19 @@ the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero; without CUDA, or outside a checkout, it
 exits non-zero before any result.
+
+``python3 chip_smoke.py --serve-load slot|hybrid|paged`` runs none of the
+above: it serves one serve workload as a closed-loop load under both
+impls (timed passes and the device's busy share, ``serve_load``) and
+prints a JSON summary last.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
+import statistics
 import re
 import shutil
 import subprocess
@@ -61,12 +78,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-
-# Published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core rate
-# and HBM3 bandwidth.  Bounds are stated against these with the card's
-# power limit printed beside them.
-PEAK_BF16_FLOPS = 989e12
-PEAK_HBM_BYTES = 3.35e12
 
 # Element-wise atol = rtol.  Flash and distr: the reference's bf16
 # tolerances (O is rounded to bf16).  Decode, LSE, delta and the backward
@@ -90,6 +101,13 @@ TRAIN_BATCH, TRAIN_STEPS = 4, 4
 PAGED_LENGTHS = (1, 127, 128, 129, 1000, 1537, 2048, 2048 + 31)
 PAGED_PROMPTS = (96, 200, 517, 1000, 1100, 1536, 1800, 2000)
 PAGED_NEW = 32
+# ``--serve-load``: the serve workloads' prompts LOAD_PASSES times over as
+# a closed-loop stream, LOAD_NEW new tokens a request, LOAD_RUNS timed runs
+# and a window of LOAD_PROFILE_STEPS engine steps under the profiler.  The
+# paged engine's max_len holds the longest prompt and its new tokens (17
+# blocks of 128).
+LOAD_PASSES, LOAD_NEW, LOAD_RUNS, LOAD_PROFILE_STEPS = 2, 96, 3, 64
+LOAD_PAGED_MAX_LEN = 2176
 # The pressure run: the least pool the engine accepts (one whole request of
 # 16 blocks plus the garbage block) and 40 new tokens.  The admission
 # watermark keeps these prompts from ever preempting at 32 new tokens, at
@@ -289,10 +307,30 @@ def max_err(torch, a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """The least time (ms) the card could take, and what bounds it."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
+def roofline(work: dict, ms: float, model: dict | None = None) -> dict:
+    """A kernel row's bound: ``obs.utilization.kernel_bound`` over the
+    package's count of the function's least work (a ``*_work`` function),
+    that is the least time the card could take, what bounds it, and the
+    share of it achieved in ``ms``.  ``model_bound_ms``, logged beside it,
+    is the bound of the package's cost model of the mechanism
+    (``attention_cost``, ``decode_attention_cost``,
+    ``paged_decode_attention_cost``, ``ssd_cost``) through
+    ``utilization_columns``: those count work the function does not need
+    (whole diagonal blocks, K/V a query head, split partials), so they
+    are no kernel's bound."""
+    from repro_torch.obs.utilization import kernel_bound, utilization_columns
+
+    row = kernel_bound(work, ms)
+    if model is not None:
+        row["model_bound_ms"] = utilization_columns(model, ms * 1e3)["roofline_lower_bound_us"] / 1e3
+    return row
+
+
+def summed(costs) -> dict:
+    """One cost dict of several calls' (the per-request decode costs of a
+    ragged batch: every term is linear in the batch)."""
+    costs = list(costs)
+    return {k: sum(c[k] for c in costs) for k in ("total_flops", "hbm_bytes")}
 
 
 def check_close(torch, name, got, want, tol) -> float:
@@ -316,6 +354,7 @@ def prefill_phase(torch, flush) -> dict:
     from repro_torch.kernels import distr_attention as dk
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ops
+    from repro_torch.kernels.ops import attention_cost, attention_work
 
     hq, hkv, d, g = 36, 4, 128, 2
     dcfg = DistrConfig(group_size=g, block_q=128)
@@ -357,32 +396,28 @@ def prefill_phase(torch, flush) -> dict:
             "distr_ms": time_ms(torch, lambda: dk.distr_attention_kernel_call(q_hat, kf, vf, perm, **dkw), 10, flush),
             "distr_plain_ms": time_ms(torch, lambda: dk.distr_attention_plain(q_hat, kf, vf, perm, **dkw), 3, flush),
         }
-        pairs = n * (n + 1) // 2  # causal (row, key) pairs this input needs
-        flops_f = 4 * d * pairs * hq
-        bytes_f = 2 * (2 * hq * n * d + 2 * hkv * n * d)
-        flops_d = (2 * (d // g) + 2 * d) * pairs * hq
-        n_pad = qp.shape[2]
-        bytes_d = 2 * (hq * n_pad * (d // g) + 2 * hkv * n * d + hq * n_pad * d) \
-            + 4 * hq * (n_pad // dcfg.block_q) * d
+        dist = dict(group_size=g, block_q=dcfg.block_q)
         bounds = {
-            "flash": (max(flops_f / PEAK_BF16_FLOPS, bytes_f / PEAK_HBM_BYTES) * 1e3,
-                      "operations" if flops_f / PEAK_BF16_FLOPS > bytes_f / PEAK_HBM_BYTES else "bytes"),
-            "distr": (max(flops_d / PEAK_BF16_FLOPS, bytes_d / PEAK_HBM_BYTES) * 1e3,
-                      "operations" if flops_d / PEAK_BF16_FLOPS > bytes_d / PEAK_HBM_BYTES else "bytes"),
+            "flash": roofline(attention_work(1, hq, hkv, n, n, d, causal=True)["fwd"],
+                              t["flash_ms"], attention_cost(1, hq, n, n, d, causal=True)),
+            "distr": roofline(attention_work(1, hq, hkv, n, n, d, causal=True, **dist)["fwd"],
+                              t["distr_ms"], attention_cost(1, hq, n, n, d, causal=True, **dist)),
         }
         log(f"[prefill N={n}] flash err {err_f:.3e} {t['flash_ms']:.3f} ms "
             f"(plain {t['flash_plain_ms']:.3f}, sdpa {t['sdpa_ms']:.3f}, bound "
-            f"{bounds['flash'][0]:.4f}) | distr err {err_d:.3e} {t['distr_ms']:.3f} ms "
-            f"(plain {t['distr_plain_ms']:.3f}, bound {bounds['distr'][0]:.4f})")
-        out.setdefault("shapes", []).append({"n": n, **t, "flash_bound_ms": bounds["flash"][0],
-                                             "distr_bound_ms": bounds["distr"][0]})
+            f"{bounds['flash']['bound_ms']:.4f}, {bounds['flash']['utilization']:.1%} of it; "
+            f"model {bounds['flash']['model_bound_ms']:.4f}) | distr err {err_d:.3e} "
+            f"{t['distr_ms']:.3f} ms (plain {t['distr_plain_ms']:.3f}, bound "
+            f"{bounds['distr']['bound_ms']:.4f}, {bounds['distr']['utilization']:.1%} of it; "
+            f"model {bounds['distr']['model_bound_ms']:.4f})")
+        out.setdefault("shapes", []).append(
+            {"n": n, **t, **{f"{k}_{c}": bounds[k][c] for k in bounds
+                             for c in ("bound_ms", "model_bound_ms")}})
         if n == max(PREFILL_NS):  # the headline shape of the JSON line
             out["flash"].update(ms=t["flash_ms"], plain_ms=t["flash_plain_ms"],
-                                library_ms=t["sdpa_ms"], bound_ms=bounds["flash"][0],
-                                bound_by=bounds["flash"][1])
+                                library_ms=t["sdpa_ms"], **bounds["flash"])
             out["distr"].update(ms=t["distr_ms"], plain_ms=t["distr_plain_ms"],
-                                library_ms=None, bound_ms=bounds["distr"][0],
-                                bound_by=bounds["distr"][1])
+                                library_ms=None, **bounds["distr"])
     out["shapes"].append(train_shape_forward(torch, flush, out))
     return out
 
@@ -397,6 +432,7 @@ def train_shape_forward(torch, flush, out: dict) -> dict:
     from repro_torch.kernels import distr_attention as dk
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ops
+    from repro_torch.kernels.ops import attention_cost, attention_work
 
     hq, hkv, d, g = TRAIN_SHAPE
     n = TRAIN_N
@@ -429,15 +465,19 @@ def train_shape_forward(torch, flush, out: dict) -> dict:
         "distr_ms": time_ms(torch, lambda: dk.distr_attention_kernel_call(q_hat, kf, vf, perm, **dkw), 10, flush),
         "distr_plain_ms": time_ms(torch, lambda: dk.distr_attention_plain(q_hat, kf, vf, perm, **dkw), 3, flush),
     }
-    pairs = n * (n + 1) // 2 * hq
-    f_bound = bound(4 * d * pairs, 2 * 4 * hq * n * d + 4 * hq * n)
-    d_bound = bound((2 * (d // g) + 2 * d) * pairs,
-                    2 * (hq * n * (d // g) + 3 * hq * n * d) + 4 * hq * (n // 128) * d + 4 * hq * n)
+    dist = dict(group_size=g, block_q=dcfg.block_q)
+    f_bound = roofline(attention_work(1, hq, hkv, n, n, d, causal=True, lse=True)["fwd"],
+                       t["flash_ms"], attention_cost(1, hq, n, n, d, causal=True))
+    d_bound = roofline(attention_work(1, hq, hkv, n, n, d, causal=True, lse=True, **dist)["fwd"],
+                       t["distr_ms"], attention_cost(1, hq, n, n, d, causal=True, **dist))
     log(f"[prefill train shape d=64 N={n}, with LSE] flash {t['flash_ms']:.3f} ms (plain "
-        f"{t['flash_plain_ms']:.3f}, sdpa {t['sdpa_ms']:.3f}, bound {f_bound[0]:.4f}) | distr "
-        f"{t['distr_ms']:.3f} ms (plain {t['distr_plain_ms']:.3f}, bound {d_bound[0]:.4f})")
-    return {"n": n, "d": d, "hkv": hkv, **t, "flash_bound_ms": f_bound[0],
-            "distr_bound_ms": d_bound[0]}
+        f"{t['flash_plain_ms']:.3f}, sdpa {t['sdpa_ms']:.3f}, bound {f_bound['bound_ms']:.4f}, "
+        f"model {f_bound['model_bound_ms']:.4f}) | distr {t['distr_ms']:.3f} ms (plain "
+        f"{t['distr_plain_ms']:.3f}, bound {d_bound['bound_ms']:.4f}, model "
+        f"{d_bound['model_bound_ms']:.4f})")
+    return {"n": n, "d": d, "hkv": hkv, **t, "flash_bound_ms": f_bound["bound_ms"],
+            "distr_bound_ms": d_bound["bound_ms"], "flash_model_bound_ms": f_bound["model_bound_ms"],
+            "distr_model_bound_ms": d_bound["model_bound_ms"]}
 
 
 def backward_phase(torch, flush) -> dict:
@@ -456,6 +496,7 @@ def backward_phase(torch, flush) -> dict:
     from repro_torch.kernels import distr_attention as dk
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ops
+    from repro_torch.kernels.ops import attention_work, delta_work
 
     names = ("delta", "flash_dq", "flash_dkv", "distr_dq", "distr_dkv")
     out = {name: {"max_abs_err": 0.0} for name in names}
@@ -488,17 +529,12 @@ def backward_phase(torch, flush) -> dict:
             "distr_dkv": (lambda: bwd.distr_dkv_kernel_call(q_hat, kf, vf, perm, dof, lsed, deltad, **dkw),
                           lambda: bwd.distr_dkv_plain(q_hat, kf, vf, perm, dof, lsed, deltad, **dkw)),
         }
-        pairs = n * (n + 1) // 2 * hq
-        ds = d // g
-        in_f = 2 * (2 * hq * n * d + 2 * hkv * n * d) + 8 * hq * n  # q, do, k, v; lse, delta
-        in_d = 2 * (hq * n * ds + hq * n * d + 2 * hkv * n * d) + 8 * hq * n + 4 * hq * (n // 128) * d
-        work = {
-            "delta": (2 * hq * n * d, 2 * 2 * hq * n * d + 4 * hq * n),
-            "flash_dq": (6 * d * pairs, in_f + 4 * hq * n * d),
-            "flash_dkv": (8 * d * pairs, in_f + 8 * hq * n * d),
-            "distr_dq": ((4 * ds + 2 * d) * pairs, in_d + 4 * hq * n * ds),
-            "distr_dkv": ((4 * ds + 4 * d) * pairs, in_d + 8 * hq * n * d),
-        }
+        flash_w = attention_work(1, hq, hkv, n, n, d, causal=True)
+        distr_w = attention_work(1, hq, hkv, n, n, d, causal=True, group_size=g,
+                                 block_q=dcfg.block_q)
+        work = {"delta": delta_work(hq * n, d, 2),
+                **{f"flash_{k}": flash_w[k] for k in ("dq", "dkv")},
+                **{f"distr_{k}": distr_w[k] for k in ("dq", "dkv")}}
         row = {"shape": label, "bhq": hq, "hkv": hkv, "d": d, "group_size": g, "n": n}
         for name in names:
             kern, plain = calls[name]
@@ -513,11 +549,10 @@ def backward_phase(torch, flush) -> dict:
             del got, want
             ms = time_ms(torch, kern, DELTA_ITERS if name == "delta" else 10, flush)
             plain_ms = time_ms(torch, plain, 3, flush)
-            b_ms, b_by = bound(*work[name])
-            row[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            row[name] = {"ms": ms, "plain_ms": plain_ms, **roofline(work[name], ms),
                          "max_abs_err": err}
             log(f"[backward {label}] {name}: {ms:.3f} ms (plain {plain_ms:.3f}, bound "
-                f"{b_ms:.4f} by {b_by}) err {err:.3e}")
+                f"{row[name]['bound_ms']:.4f} by {row[name]['bound_by']}) err {err:.3e}")
         row["delta"]["library_ms"] = time_ms(torch, lambda: torch.linalg.vecdot(o, dof),
                                              DELTA_ITERS, flush)
         log(f"[backward {label}] delta's yardstick torch.linalg.vecdot (same bytes read, "
@@ -548,15 +583,15 @@ def backward_phase(torch, flush) -> dict:
         err = check_close(torch, f"delta {label}", bwd.delta_kernel_call(o, dof),
                           bwd.delta_plain(o, dof), TOL["delta"])
         out["delta"]["max_abs_err"] = max(out["delta"]["max_abs_err"], err)
-        b_ms, b_by = bound(2 * bhq * n * d, 2 * o.element_size() * bhq * n * d + 4 * bhq * n)
         row = {"shape": label, "bhq": bhq, "n": n, "d": d, "dtype": dtype, "max_abs_err": err,
                "ms": time_ms(torch, lambda: bwd.delta_kernel_call(o, dof), DELTA_ITERS, flush),
                "plain_ms": time_ms(torch, lambda: bwd.delta_plain(o, dof), 3, flush),
                "library_ms": time_ms(torch, lambda: torch.linalg.vecdot(o, dof), DELTA_ITERS,
-                                     flush),
-               "bound_ms": b_ms, "bound_by": b_by}
+                                     flush)}
+        row.update(roofline(delta_work(bhq * n, d, o.element_size()), row["ms"]))
         log(f"[backward delta {label}] {row['ms']:.4f} ms (plain {row['plain_ms']:.3f}, vecdot "
-            f"{row['library_ms']:.4f}, bound {b_ms:.5f} by {b_by}) err {err:.3e}")
+            f"{row['library_ms']:.4f}, bound {row['bound_ms']:.5f} by {row['bound_by']}) "
+            f"err {err:.3e}")
         out["delta_shapes"].append(row)
         del o, dof
     headline = shapes[0]  # the training path's shape
@@ -577,6 +612,7 @@ def decode_phase(torch, flush) -> dict:
 
     from repro_torch.kernels import decode as dec
     from repro_torch.kernels.ops import _pack_gqa_rows
+    from repro_torch.roofline.analysis import decode_attention_cost, decode_attention_work
 
     b, hq, hkv, s, d, bk = 4, 36, 4, 2048, 128, 128
     lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
@@ -603,19 +639,14 @@ def decode_phase(torch, flush) -> dict:
                 ms = time_ms(torch, lambda: dec.decode_kernel_call(qp, k, v, lengths, **kw), 20, flush)
                 plain_ms = time_ms(torch, lambda: dec.decode_plain(qp, k, v, lengths, **kw), 5, flush)
                 lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(q, kx, vx, attn_mask=mask), 20, flush)
-                # Live K/V once, q, lengths, and the merged f32 output.  The
-                # split partials are the kernel's own traffic, not the work's.
-                live = int(lengths.sum())
-                rows = hq // hkv * q_len
-                nbytes = (2 * live * hkv * (ds + d) + 2 * b * hq * ds + 4 * b
-                          + 4 * b * hkv * rows * d)
-                flops = 4 * rows * live * hkv * d
-                bound = max(nbytes / PEAK_HBM_BYTES, flops / PEAK_BF16_FLOPS) * 1e3
-                out.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                           bound_by="bytes" if nbytes / PEAK_HBM_BYTES > flops / PEAK_BF16_FLOPS
-                           else "operations")
+                cost = summed(decode_attention_cost(1, hq, hkv, n, s, d, block_k=bk)
+                              for n in DECODE_LENGTHS)
+                out.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           **roofline(decode_attention_work(DECODE_LENGTHS, hq, hkv, d, s),
+                                      ms, cost))
                 log(f"[decode serve shape] {ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
-                    f"{lib_ms:.4f}, bound {bound:.4f})")
+                    f"{lib_ms:.4f}, bound {out['bound_ms']:.4f}, model "
+                    f"{out['model_bound_ms']:.4f})")
     return out
 
 
@@ -626,6 +657,7 @@ def distr_g4_phase(torch, flush) -> dict:
     from repro_torch.core.distr_attention import DistrConfig
     from repro_torch.kernels import distr_attention as dk
     from repro_torch.kernels import ops
+    from repro_torch.kernels.ops import attention_cost, attention_work
 
     hq, hkv, d, g, n = 36, 4, 128, 4, max(PREFILL_NS)
     dcfg = DistrConfig(group_size=g, block_q=128)
@@ -642,14 +674,12 @@ def distr_g4_phase(torch, flush) -> dict:
     err = check_close(torch, f"distr G*=4 N={n}", got, want, TOL["distr"])
     ms = time_ms(torch, lambda: dk.distr_attention_kernel_call(q_hat, kf, vf, perm, **dkw), 10, flush)
     plain_ms = time_ms(torch, lambda: dk.distr_attention_plain(q_hat, kf, vf, perm, **dkw), 3, flush)
-    pairs = n * (n + 1) // 2 * hq
-    b_ms, b_by = bound((2 * (d // g) + 2 * d) * pairs,
-                       2 * (hq * n * (d // g) + 2 * hkv * n * d + hq * n * d)
-                       + 4 * hq * (n // dcfg.block_q) * d)
-    log(f"[prefill G*=4 N={n}] distr {ms:.3f} ms (plain {plain_ms:.3f}, bound {b_ms:.4f} by "
-        f"{b_by}) err {err:.3e}")
-    return {"n": n, "group_size": g, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "max_abs_err": err}
+    dist = dict(group_size=g, block_q=dcfg.block_q)
+    b = roofline(attention_work(1, hq, hkv, n, n, d, causal=True, **dist)["fwd"], ms,
+                 attention_cost(1, hq, n, n, d, causal=True, **dist))
+    log(f"[prefill G*=4 N={n}] distr {ms:.3f} ms (plain {plain_ms:.3f}, bound "
+        f"{b['bound_ms']:.4f} by {b['bound_by']}, model {b['model_bound_ms']:.4f}) err {err:.3e}")
+    return {"n": n, "group_size": g, "ms": ms, "plain_ms": plain_ms, **b, "max_abs_err": err}
 
 
 def paged_kernel_phase(torch, flush) -> dict:
@@ -665,6 +695,7 @@ def paged_kernel_phase(torch, flush) -> dict:
 
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels.ops import _pack_gqa_rows
+    from repro_torch.roofline.analysis import decode_attention_work, paged_decode_attention_cost
 
     b, hq, hkv, d, bs, mb = len(PAGED_LENGTHS), 36, 4, 128, 128, 16
     cap = bs * mb
@@ -698,18 +729,13 @@ def paged_kernel_phase(torch, flush) -> dict:
                                                                     lengths, **kw), 20, flush)
             plain_ms = time_ms(torch, lambda: pd.paged_decode_plain(qp, k_pool, v_pool, bt,
                                                                     lengths, **kw), 3, flush)
-            # Live K/V read once, q, the table and lengths, and the
-            # partials written once; the products over the live (row, key)
-            # pairs of the band.
-            rows = hq // hkv * q_len
-            live = sum(min(n, cap) for n in PAGED_LENGTHS)
-            nbytes = (2 * live * hkv * (ds + d) + 2 * b * hq * q_len * ds + 4 * b * (mb + 1)
-                      + 4 * b * hkv * mb * rows * (d + 2))
-            pairs = hq * sum(max(0, min(n - (q_len - 1 - i), cap))
-                             for n in PAGED_LENGTHS for i in range(q_len))
-            b_ms, b_by = bound(pairs * (2 * ds + 2 * d), nbytes)
+            cost = summed(paged_decode_attention_cost(1, hq, hkv, n, mb, bs, d,
+                                                      group_size=d // ds, q_len=q_len)
+                          for n in PAGED_LENGTHS)
+            work = decode_attention_work(PAGED_LENGTHS, hq, hkv, d, cap, group_size=d // ds,
+                                         q_len=q_len, table_entries=mb)
             row = {"q_len": q_len, "d_score": ds, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err, "library_ms": None}
+                   **roofline(work, ms, cost), "max_abs_err": err, "library_ms": None}
             if ds == d:
                 k_c = pd.gather_blocks(k_pool, bt)
                 v_c = pd.gather_blocks(v_pool, bt)
@@ -725,7 +751,8 @@ def paged_kernel_phase(torch, flush) -> dict:
                 del k_c, v_c, kx, vx
             out["shapes"].append(row)
             log(f"[paged q_len={q_len} d_score={ds}] {ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
-                f"{row['library_ms']}, bound {b_ms:.4f} by {b_by}) err {err:.3e}")
+                f"{row['library_ms']}, bound {row['bound_ms']:.4f} by {row['bound_by']}, model "
+                f"{row['model_bound_ms']:.4f}) err {err:.3e}")
     head = out["shapes"][0]  # a decode tick over the raw-K pool
     out.update({k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     return out
@@ -738,14 +765,16 @@ def ssd_phase(torch, flush) -> dict:
     shape (the plain one at the headline only), and the instantiation that
     ran (its P-slice width) read from the profiler.  At the headline also
     ``ops.ssd`` on the same values in the model's (B, N, H, P) layout: the
-    op's head flattening copies beside the kernel.  The bound: x, a, b, c
-    read once and y and the state written once, against the reference's
-    ``ssd_cost`` FLOPs (``repro/kernels/ops.py:870``: the full Q × Q
-    products a chunk) at the bf16 tensor-core rate."""
+    op's head flattening copies beside the kernel.  The bound is
+    ``kernels.ops.ssd_work``'s (x, a, b, c read once, y and the state
+    written once, a chunk's causal triangle); the model bound beside it
+    takes ``kernels.ops.ssd_cost``'s FLOPs (the full Q × Q products a
+    chunk), which counts no bytes, with the same bytes."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd as sk
+    from repro_torch.kernels.ops import ssd_cost, ssd_work
 
     out = {"max_abs_err": 0.0, "shapes": []}
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -779,16 +808,16 @@ def ssd_phase(torch, flush) -> dict:
             op_ms = time_ms(torch, lambda: ops.ssd(x4, a3, b4, c4, chunk=chunk, return_state=True),
                             10, flush)
             del x4, a3, b4, c4, y_op, state_op
-        nc = -(-n // chunk)
-        flops = 2 * b * h * nc * (chunk * chunk * s + chunk * chunk * p + 2 * chunk * s * p)
-        nbytes = 2 * b * h * n * p * 2 + 4 * b * h * n + 2 * 2 * b * g * n * s + 4 * b * h * s * p
-        b_ms, b_by = bound(flops, nbytes)
+        work = ssd_work(b, n, h, p, g, s, chunk=chunk)
+        cost = {"total_flops": ssd_cost(b, n, h, p, s, chunk=chunk)["total_flops"],
+                "hbm_bytes": work["hbm_bytes"]}
         row = {"label": label, "b": b, "h": h, "p": p, "g": g, "s": s, "chunk": chunk, "n": n,
-               "ms": ms, "plain_ms": plain_ms, "op_ms": op_ms, "bound_ms": b_ms,
-               "bound_by": b_by, "max_abs_err": err, "state_max_abs_err": err_s, "kernel": ran}
+               "ms": ms, "plain_ms": plain_ms, "op_ms": op_ms, **roofline(work, ms, cost),
+               "max_abs_err": err, "state_max_abs_err": err_s, "kernel": ran}
         out["shapes"].append(row)
-        log(f"[ssd {label}] {ms:.4f} ms (plain {plain_ms}, ops.ssd {op_ms}, bound {b_ms:.4f} "
-            f"by {b_by}) y err {err:.3e} state err {err_s:.3e}; ran {ran}")
+        log(f"[ssd {label}] {ms:.4f} ms (plain {plain_ms}, ops.ssd {op_ms}, bound "
+            f"{row['bound_ms']:.4f} by {row['bound_by']}, model {row['model_bound_ms']:.4f}) y err {err:.3e} state err "
+            f"{err_s:.3e}; ran {ran}")
         del x, a, bm, c, y, state, y_p, state_p
     head = out["shapes"][0]
     out.update(ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
@@ -809,7 +838,8 @@ def attn112_phase(torch, flush) -> dict:
     from repro_torch.kernels import distr_attention as dk
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ops import _pack_gqa_rows
+    from repro_torch.kernels.ops import _pack_gqa_rows, attention_cost, attention_work
+    from repro_torch.roofline.analysis import decode_attention_cost, decode_attention_work
 
     hq, hkv, d, g = HYBRID_ATTN
     n = max(PREFILL_NS)
@@ -826,7 +856,6 @@ def attn112_phase(torch, flush) -> dict:
     dkw = dict(q_per_kv=hq // hkv, causal=True, group_size=g, block_q=dcfg.block_q, kv_len=n)
     err_d = check_close(torch, "distr d=112", dk.distr_attention_kernel_call(q_hat, kf, vf, perm, **dkw),
                         dk.distr_attention_plain(q_hat, kf, vf, perm, **dkw), TOL["distr"])
-    pairs = n * (n + 1) // 2 * hq
     out = {
         "flash": {"ms": time_ms(torch, lambda: fk.flash_attention_kernel_call(qf, kf, vf, **kw), 10, flush),
                   "plain_ms": time_ms(torch, lambda: fk.flash_attention_plain(qf, kf, vf, **kw), 3, flush),
@@ -836,10 +865,12 @@ def attn112_phase(torch, flush) -> dict:
                   "plain_ms": time_ms(torch, lambda: dk.distr_attention_plain(q_hat, kf, vf, perm, **dkw), 3, flush),
                   "library_ms": None, "max_abs_err": err_d},
     }
-    out["flash"]["bound_ms"], out["flash"]["bound_by"] = bound(4 * d * pairs, 2 * 4 * hq * n * d)
-    out["distr"]["bound_ms"], out["distr"]["bound_by"] = bound(
-        (2 * (d // g) + 2 * d) * pairs,
-        2 * (hq * n * (d // g) + 2 * hkv * n * d + hq * n * d) + 4 * hq * (n // dcfg.block_q) * d)
+    dist = dict(group_size=g, block_q=dcfg.block_q)
+    out["flash"].update(roofline(attention_work(1, hq, hkv, n, n, d, causal=True)["fwd"],
+                                 out["flash"]["ms"], attention_cost(1, hq, n, n, d, causal=True)))
+    out["distr"].update(roofline(attention_work(1, hq, hkv, n, n, d, causal=True, **dist)["fwd"],
+                                 out["distr"]["ms"],
+                                 attention_cost(1, hq, n, n, d, causal=True, **dist)))
     del q, k, v, qf, kf, vf, q_hat, perm
 
     b, s_len = 4, max(PREFILL_NS)
@@ -853,19 +884,21 @@ def attn112_phase(torch, flush) -> dict:
     want = dec.merge_splits(*dec.decode_plain(qp, kd, vd, lengths, **dkw))
     err = check_close(torch, "decode d=112", got, want, TOL["decode"])
     mask = (torch.arange(s_len, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
-    live = int(lengths.sum())
     out["decode"] = {
         "ms": time_ms(torch, lambda: dec.decode_kernel_call(qp, kd, vd, lengths, **dkw), 20, flush),
         "plain_ms": time_ms(torch, lambda: dec.decode_plain(qp, kd, vd, lengths, **dkw), 5, flush),
         "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask), 20, flush),
         "max_abs_err": err,
     }
-    out["decode"]["bound_ms"], out["decode"]["bound_by"] = bound(
-        4 * live * hkv * d, 2 * live * hkv * 2 * d + 2 * b * hq * d + 4 * b + 4 * b * hq * d)
+    out["decode"].update(roofline(decode_attention_work(DECODE_LENGTHS, hq, hkv, d, s_len),
+                                  out["decode"]["ms"],
+                                  summed(decode_attention_cost(1, hq, hkv, n, s_len, d,
+                                                               block_k=128)
+                                         for n in DECODE_LENGTHS)))
     for name, row in out.items():
         log(f"[d=112 {name}] {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, library "
-            f"{row['library_ms']}, bound {row['bound_ms']:.4f} by {row['bound_by']}) "
-            f"err {row['max_abs_err']:.3e}")
+            f"{row['library_ms']}, bound {row['bound_ms']:.4f} by {row['bound_by']}, model "
+            f"{row['model_bound_ms']:.4f}) err {row['max_abs_err']:.3e}")
     torch.cuda.empty_cache()
     return out
 
@@ -1091,14 +1124,16 @@ def train_phase(torch) -> dict:
     kernel of the impl's path never launched (the other impl's kernels
     must stay at 0).  One more profiled step per impl gives the attention
     kernels' share of the device time."""
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.kernels import backward as bwd
     from repro_torch.kernels import decode as dec
     from repro_torch.kernels import distr_attention as dk
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.launch.train import init_train_params, run
+    from repro_torch.roofline.analysis import PEAK_FLOPS, active_params, model_flops
 
     cfg = get_config("minicpm-2b")
+    shape = ShapeSpec("chip_smoke", "train", TRAIN_N, TRAIN_BATCH)
     launches = {"flash": 0, "distr": 0, **{name: 0 for name in bwd.launches}}
     report = {}
     for impl, mine, other in (("pallas_distr", "distr", "flash"),
@@ -1134,6 +1169,14 @@ def train_phase(torch) -> dict:
             launches[name] += counts[name]
         steady = res["step_times"][1:]
         step_s = sum(steady) / len(steady)
+        # The whole step's share of the card: 6 · active params · tokens
+        # over the bf16 peak and the measured step (printed, not a metric).
+        _, active = active_params(cfg_i, params)
+        flops = model_flops(cfg_i, shape, active)
+        share = flops / PEAK_FLOPS / step_s
+        log(f"[train {impl}] model_flops_share {share:.4f}: {flops:.4e} model FLOPs a step "
+            f"(6 x {active} active params x {TRAIN_BATCH * TRAIN_N} tokens) over "
+            f"{PEAK_FLOPS:.4g} FLOP/s and the mean steady step {step_s:.4f} s")
         attn_ms, device_ms, by_name = _attention_device_ms(
             torch, lambda: run(cfg_i, params, steps=1, batch=TRAIN_BATCH, seq=TRAIN_N,
                                lr=1e-3, seed=1, device="cuda"))
@@ -1144,7 +1187,8 @@ def train_phase(torch) -> dict:
                         "grad_norms": [r["grad_norm"] for r in hist],
                         "step_times": res["step_times"], "tok_per_s": res["tok_per_s"],
                         "max_memory_allocated": res["max_memory_allocated"],
-                        "launches": counts, "attention_device_ms": attn_ms,
+                        "launches": counts, "model_flops": flops,
+                        "model_flops_share": share, "attention_device_ms": attn_ms,
                         "device_ms": device_ms, "attention_ms_by_kernel": by_name}
         del params, res
         torch.cuda.empty_cache()
@@ -1173,11 +1217,124 @@ def distr_vs_flash_table(prefill_shapes: list, g4: dict, a112: dict, back: list)
     ]
 
 
+def closed_loop(eng, prompts, lanes: int, new: int):
+    """Serve ``prompts`` in order as a closed loop holding ``lanes``
+    requests in flight (one is submitted as one ends), yielding after each
+    engine step."""
+    queue, in_flight = list(prompts), 0
+    while queue or in_flight:
+        while queue and in_flight < lanes:
+            eng.add_request(queue.pop(0), max_new_tokens=new)
+            in_flight += 1
+        in_flight -= len(eng.step())
+        yield
+
+
+def serve_load_run(torch, eng, prompts, lanes: int) -> dict:
+    """One timed pass of the load: wall time (clock stopped after a
+    synchronise), engine steps, tokens/s, mean TTFT (from submission) and
+    mean TPOT of its requests; every request must finish with its tokens."""
+    seen = len(eng.metrics())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = sum(1 for _ in closed_loop(eng, prompts, lanes, LOAD_NEW))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rows = eng.metrics()[seen:]
+    if len(rows) != len(prompts) or any(r["status"] != "done" or r["n_generated"] != LOAD_NEW
+                                        for r in rows):
+        raise AssertionError(f"serve load: requests not done: {rows}")
+    tokens = sum(r["n_generated"] for r in rows)
+    return {"seconds": seconds, "steps": steps, "tokens": tokens, "tok_per_s": tokens / seconds,
+            "ttft_s": statistics.fmean(r["ttft_s"] for r in rows),
+            "tpot_s": statistics.fmean(r["tpot_s"] for r in rows)}
+
+
+def serve_load_busy(torch, eng, prompts, lanes: int, start: int) -> dict:
+    """The device's busy share over LOAD_PROFILE_STEPS engine steps of one
+    more pass, from step ``start``, under ``torch.profiler``: device time
+    (``launch.serve.device_busy_s``) over the window's wall time.  The
+    pass is left unfinished; its engine is not used again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import device_busy_s
+
+    steps = closed_loop(eng, prompts, lanes, LOAD_NEW)
+    for _ in itertools.islice(steps, start):
+        pass
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        n = sum(1 for _ in itertools.islice(steps, LOAD_PROFILE_STEPS))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    busy = device_busy_s(prof)
+    return {"start": start, "steps": n, "seconds": seconds, "device_s": busy,
+            "busy_share": busy / seconds}
+
+
+def serve_load(torch, workload: str) -> dict:
+    """``--serve-load``: one serve workload at full width with seeded random
+    weights, as a closed-loop stream (its prompts LOAD_PASSES times over,
+    LOAD_NEW new tokens each, greedy, as many in flight as the engine has
+    lanes).  slot: starcoder2-7b on the slot engine (4 slots, max_len
+    2048, prompts SERVE_PROMPTS); hybrid: zamba2-7b on the same; paged:
+    starcoder2-7b on ``PagedServeEngine`` over a raw-K pool (8 lanes,
+    blocks of 128, chunks of 32, max_len LOAD_PAGED_MAX_LEN, prompts
+    PAGED_PROMPTS).  Under each impl: one engine, a warm-up request of 64
+    prompt tokens (kernel builds, graph captures; not reported), LOAD_RUNS
+    timed passes, then the busy share over a window in the middle of one
+    more.  Only the engines' public calls are used, so the same file
+    measures an older tree's engines."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import PagedServeEngine, ServeEngine
+
+    base = get_config("zamba2-7b" if workload == "hybrid" else "starcoder2-7b")
+    params = lm.init_params(base, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    rng = np.random.default_rng(0)
+    lens = PAGED_PROMPTS if workload == "paged" else SERVE_PROMPTS
+    prompts = [rng.integers(1, base.vocab, size=n).tolist() for n in lens] * LOAD_PASSES
+    out = {}
+    for impl in ("pallas_distr", "pallas_flash"):
+        cfg = base.replace(attention=base.attention.with_impl(impl))
+        if workload == "paged":
+            lanes = 8
+            eng = PagedServeEngine(cfg, params, max_batch=lanes, max_len=LOAD_PAGED_MAX_LEN,
+                                   block_size=128, prefill_chunk=32, device="cuda")
+        else:
+            lanes = 4
+            eng = ServeEngine(cfg, params, max_slots=lanes, max_len=2048, device="cuda")
+        for _ in closed_loop(eng, [prompts[0][:64]], 1, LOAD_NEW):
+            pass
+        runs = []
+        for i in range(LOAD_RUNS):
+            runs.append(serve_load_run(torch, eng, prompts, lanes))
+            r = runs[-1]
+            log(f"[load {workload} {impl}] run {i}: {r['tokens']} tokens, {r['steps']} steps in "
+                f"{r['seconds']:.3f}s, {r['tok_per_s']:.2f} tok/s, mean TTFT {r['ttft_s']:.4f}s, "
+                f"mean TPOT {r['tpot_s']:.5f}s")
+        start = max(0, runs[0]["steps"] // 2 - LOAD_PROFILE_STEPS // 2)
+        busy = serve_load_busy(torch, eng, prompts, lanes, start)
+        log(f"[load {workload} {impl}] steps {start}-{start + busy['steps']} of a pass under the "
+            f"profiler: device busy {busy['device_s']:.4f}s of {busy['seconds']:.4f}s "
+            f"({busy['busy_share']:.1%})")
+        out[impl] = {"runs": runs, "busy": busy}
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="also write the results as JSON here")
     ap.add_argument("--only", choices=("kernels",), default=None,
                     help="stop after the kernel phases")
+    ap.add_argument("--serve-load", choices=("slot", "paged", "hybrid"), default=None,
+                    help="only serve this workload as a closed-loop load under both impls "
+                         "(timed passes and the device's busy share), no checks")
     args = ap.parse_args()
 
     import torch
@@ -1199,6 +1356,18 @@ def main() -> int:
     t0 = time.perf_counter()
     build.lib()
     log(f"[build] kernels ready in {time.perf_counter() - t0:.1f}s")
+    if args.serve_load:
+        load = serve_load(torch, args.serve_load)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps({"card": card, **load}, indent=1))
+        log(card)
+        summary = {impl: {**{k: [r[k] for r in res["runs"]] for k in ("tok_per_s", "ttft_s",
+                                                                        "tpot_s")},
+                          "busy_share": res["busy"]["busy_share"]}
+                   for impl, res in load.items()}
+        print(json.dumps(summary), flush=True)
+        return 0
     for line in build.build_log().splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
             log("  " + line.strip())

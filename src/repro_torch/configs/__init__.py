@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeSpec
 
 _ARCH_MODULES = {
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
@@ -22,4 +22,4 @@ def get_config(name: str, *, reduced: bool = False) -> ModelConfig:
     return mod.reduced() if reduced else mod.config()
 
 
-__all__ = ["ARCH_NAMES", "ModelConfig", "get_config"]
+__all__ = ["ARCH_NAMES", "SHAPES", "ModelConfig", "ShapeSpec", "get_config"]

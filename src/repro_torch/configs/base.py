@@ -4,6 +4,8 @@
 One ``ModelConfig`` per architecture; ``configs/<arch>.py`` holds the
 published dimensions plus a ``reduced()`` variant for CPU tests.  Only the
 fields the port's serving and training paths read are carried over.
+``SHAPES`` are the reference's named workload shapes, which
+``roofline.analysis.model_flops`` reads.
 """
 from __future__ import annotations
 
@@ -11,6 +13,22 @@ import dataclasses
 from dataclasses import dataclass, field
 
 from repro_torch.core.api import AttentionConfig
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str  # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}
 
 
 @dataclass(frozen=True)

@@ -23,7 +23,7 @@ import torch
 from repro_torch.core.distr_attention import (
     DistrConfig, block_permutations, default_projection, pad_to_multiple, sample_q,
 )
-from repro_torch.core import grouping
+from repro_torch.core import grouping, lsh
 from repro_torch.kernels import backward as bwd
 from repro_torch.kernels import decode as decode_kernels
 from repro_torch.kernels.decode import merge_splits
@@ -35,8 +35,9 @@ from repro_torch.kernels.ssd import ssd_kernel_call
 DEFAULT_DECODE_BLOCK = 128
 
 __all__ = [
-    "decode_attention", "distr_attention", "distr_dq_from_dq_hat", "distr_stage1",
-    "flash_attention", "merge_splits", "paged_decode_attention", "ssd",
+    "attention_cost", "decode_attention", "distr_attention", "distr_dq_from_dq_hat",
+    "distr_stage1", "flash_attention", "merge_splits", "paged_decode_attention", "ssd",
+    "ssd_cost",
 ]
 
 
@@ -341,3 +342,187 @@ def ssd(x, a, b, c, *, chunk: int = 64, return_state: bool = False):
     y, state = res if return_state else (res, None)
     y = y.reshape(bsz, h, n, p).transpose(1, 2)
     return (y, state.reshape(bsz, h, s, p)) if return_state else y
+
+
+# ---------------------------------------------------------------------------
+# Analytic cost models (the roofline bounds of chip_smoke.py).
+# ---------------------------------------------------------------------------
+
+
+def attention_cost(
+    b: int,
+    hq: int,
+    n: int,
+    nk: int,
+    d: int,
+    *,
+    causal: bool = False,
+    group_size: int = 1,
+    block_q: int = 128,
+) -> dict:
+    """FLOPs / bytes model of (Distr)FlashAttention, forward and backward
+    (the reference's ``ops.attention_cost``, counted alike).
+
+    Forward keys model one fused forward pass: matmul FLOPs, the K-fusion
+    adds, the LSH stage, and HBM bytes (bf16 in and out; S and P never
+    reach memory).  ``bwd_*`` keys model the backward: the dQ kernel
+    recomputes S and runs dP, dQ; the dK/dV kernel recomputes S and runs
+    dP, dV, dK; plus the D = rowsum(dO ∘ O) precompute.  Score-space
+    matmuls (S, dQ, dK) contract over d/G*, the paper's work for the
+    mechanism, whatever implements it (the port's bf16 kernels run them at
+    full width over Q̃); context-space ones (dP, dV) over the full d.
+    ``group_size=1`` is exact FA-2.  The ``bwd_*`` keys price the whole
+    backward (delta, dq and dkv together) and split into no per-kernel
+    share: a kernel's own bound is ``attention_work``'s.
+    """
+    frac = 0.5 * (1 + 1 / max(nk // max(block_q, 1), 1)) if causal else 1.0
+    d_eff = d // group_size
+    score_mm = 2 * b * hq * n * nk * d_eff * frac  # one reduced-d matmul
+    full_mm = 2 * b * hq * n * nk * d * frac  # one full-d matmul
+    qk_flops = score_mm
+    pv_flops = full_mm
+    softmax_flops = 4 * b * hq * n * nk * frac  # exp, max, sum, scale
+    # K fusion: for each (q-block, kv element) a d-length permuted add chain.
+    fusion_adds = (
+        b * hq * (n // max(block_q, 1)) * nk * d * frac if group_size > 1 else 0
+    )
+    lsh_flops = (
+        2 * b * hq * (n // max(block_q, 1)) * lsh.N_PRIME * block_q * d
+        if group_size > 1
+        else 0
+    )
+    w = 2  # bf16
+    io_bytes = w * (
+        b * hq * n * ((d + d // group_size) if group_size > 1 else d)  # Q (+Q̂)
+        # K̂ is built inside the kernel and never reaches memory: 0 bytes.
+        + 2 * b * hq * nk * d  # K, V read (per-head upper bound)
+        + b * hq * n * d  # O write
+    )
+
+    # dq kernel: S recompute (d_eff) + dP (d) + dQ (d_eff)
+    # dkv kernel: S recompute (d_eff) + dP (d) + dV (d) + dK (d_eff)
+    bwd_mxu_flops = 4 * score_mm + 3 * full_mm
+    # P from the saved LSE (exp) twice + dS = P∘(dP−D) twice + D precompute.
+    bwd_vpu_flops = 6 * b * hq * n * nk * frac + 2 * b * hq * n * d
+    # K̂ re-fused in both backward kernels; dK̂ replication adds back to d.
+    bwd_fusion_adds = 3 * fusion_adds
+    bwd_io_bytes = w * (
+        2 * b * hq * n * ((d + d // group_size) if group_size > 1 else d)  # Q(+Q̂) ×2 kernels
+        + 4 * b * hq * nk * d  # K, V read in both kernels
+        + 4 * b * hq * n * d  # dO read ×2 kernels + O + dO reads (delta)
+    ) + 4 * (
+        # LSE and D are per-row f32 scalars: one write each (forward
+        # kernel / delta kernel) and one read each in both backward kernels.
+        6 * b * hq * n
+        + b * hq * n * d  # dQ write, f32
+        + 2 * b * hq * nk * d  # per-q-head dK, dV writes, f32
+    )
+
+    return {
+        "qk_flops": qk_flops,
+        "pv_flops": pv_flops,
+        "softmax_flops": softmax_flops,
+        "fusion_adds": fusion_adds,
+        "lsh_flops": lsh_flops,
+        "mxu_flops": qk_flops + pv_flops,
+        "total_flops": qk_flops + pv_flops + softmax_flops + fusion_adds + lsh_flops,
+        "hbm_bytes": io_bytes,
+        "bwd_mxu_flops": bwd_mxu_flops,
+        "bwd_total_flops": bwd_mxu_flops + bwd_vpu_flops + bwd_fusion_adds,
+        "bwd_hbm_bytes": bwd_io_bytes,
+        "fwd_bwd_mxu_flops": qk_flops + pv_flops + bwd_mxu_flops,
+        "fwd_bwd_hbm_bytes": io_bytes + bwd_io_bytes,
+    }
+
+
+def attention_pairs(n: int, nk: int, *, causal: bool) -> int:
+    """(query row, key) pairs of one head's scores: all ``n·nk``, or under
+    the kernels' causal mask (row i sees keys 0..i) the band."""
+    if not causal:
+        return n * nk
+    m = min(n, nk)
+    return m * (m + 1) // 2 + (n - m) * nk
+
+
+def attention_work(
+    b: int,
+    hq: int,
+    hkv: int,
+    n: int,
+    nk: int,
+    d: int,
+    *,
+    causal: bool = False,
+    group_size: int = 1,
+    block_q: int = 128,
+    lse: bool = False,
+) -> dict:
+    """The least work of each attention kernel on its own inputs: the
+    roofline bound of a kernel row (``obs.utilization.kernel_bound``).
+
+    Unlike ``attention_cost`` (the reference's model of the mechanism,
+    which counts whole diagonal blocks and K/V once per query head), this
+    counts what the function needs: the (row, key) pairs of the causal band
+    exactly, each input read once (K and V at their ``hkv`` heads) and each
+    output written once.  ``fwd`` is the forward kernel (O, plus the f32
+    LSE when ``lse``); ``dq`` and ``dkv`` the backward kernels, which read
+    Q (or Q̂), K, V, dO, the LSE and D and write f32 dQ (dQ̂) or per-query-
+    head f32 dK and dV.  Tensor-core products: the score products (S, dQ,
+    dK) at the score width d/G*, the context ones (O, dP, dV) at d.  f32
+    work: the softmax (4 a pair, as ``attention_cost``), P and dS in each
+    backward kernel (4 a pair), and for DistrAttention the K̂ fusion, d − d/G*
+    adds for each (q-block, key) a block sees, in every kernel that
+    builds K̂.  The LSH stage that makes Q̂ and the permutation is not
+    these kernels' work: they take both as inputs.
+    """
+    pairs = b * hq * attention_pairs(n, nk, causal=causal)
+    ds = d // group_size
+    distr = group_size > 1
+    blocks = -(-n // block_q)
+    fusion = 0
+    if distr:
+        keys = sum(min(min((j + 1) * block_q, n), nk) if causal else nk for j in range(blocks))
+        fusion = b * hq * keys * (d - ds)
+    perm = 4 * b * hq * blocks * d if distr else 0  # int32 permutation a q-block
+    ins = 2 * b * hq * n * ds + 2 * 2 * b * hkv * nk * d + perm  # Q or Q̂, K, V
+    bwd_ins = ins + 2 * b * hq * n * d + 2 * 4 * b * hq * n  # + dO, LSE, D
+    return {
+        "fwd": {"tensor_flops": 2 * (ds + d) * pairs, "f32_flops": 4 * pairs + fusion,
+                "hbm_bytes": ins + 2 * b * hq * n * d + (4 * b * hq * n if lse else 0)},
+        "dq": {"tensor_flops": 2 * (2 * ds + d) * pairs, "f32_flops": 4 * pairs + fusion,
+               "hbm_bytes": bwd_ins + 4 * b * hq * n * ds},
+        "dkv": {"tensor_flops": 2 * (2 * ds + 2 * d) * pairs, "f32_flops": 4 * pairs + fusion,
+                "hbm_bytes": bwd_ins + 2 * 4 * b * hq * nk * d},
+    }
+
+
+def delta_work(rows: int, d: int, itemsize: int) -> dict:
+    """The least work of D = rowsum(dO ∘ O): O and dO read once, D written
+    once in f32, a multiply and an add an element."""
+    return {"tensor_flops": 0, "f32_flops": 2 * rows * d,
+            "hbm_bytes": 2 * itemsize * rows * d + 4 * rows}
+
+
+def ssd_cost(b: int, n: int, h: int, p: int, s: int, *, chunk: int = 64) -> dict:
+    """FLOPs model of the chunked SSD forward (no bytes: the caller counts
+    them)."""
+    nc = n // chunk
+    intra = 2 * b * h * nc * (chunk * chunk * s + chunk * chunk * p)
+    inter = 2 * b * h * nc * (chunk * s * p * 2)
+    return {"total_flops": intra + inter, "mxu_flops": intra + inter}
+
+
+def ssd_work(b: int, n: int, h: int, p: int, g: int, s: int, *, chunk: int = 64) -> dict:
+    """The least work of the chunked SSD scan on its inputs (x, y: bf16
+    (B·H, N, P); a: f32 (B·H, N); b, c: bf16 (B·G, N, S); the f32 final
+    state (B·H, S, P)).  Unlike ``ssd_cost``, a chunk's Q × Q products
+    count only their causal triangle, and a ragged last chunk its own
+    length.  f32 work: a decay factor (an exp and a multiply) a pair."""
+    tensor = f32 = 0
+    for length in [chunk] * (n // chunk) + ([n % chunk] if n % chunk else []):
+        tri = length * (length + 1) // 2
+        tensor += 2 * tri * (s + p) + 4 * length * s * p  # C·Bᵀ, G·X; C·H, (B∘w)ᵀ·X
+        f32 += 2 * tri
+    return {"tensor_flops": b * h * tensor, "f32_flops": b * h * f32,
+            "hbm_bytes": 2 * 2 * b * h * n * p + 4 * b * h * n + 2 * 2 * b * g * n * s
+            + 4 * b * h * s * p}

@@ -1,1 +1,2 @@
-"""Observability: the port's clock (``obs.clock``)."""
+"""Observability: the port's clock (``obs.clock``) and measured-vs-roofline
+utilization (``obs.utilization``)."""

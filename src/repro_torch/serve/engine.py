@@ -27,6 +27,7 @@ import torch
 from repro_torch.models.lm import check_family
 from repro_torch.serve import kv_cache, lifecycle, paged
 from repro_torch.serve.degrade import DegradeConfig
+from repro_torch.serve.graphs import StepGraph
 from repro_torch.serve.lifecycle import IncompleteRun
 from repro_torch.serve.sampler import sample
 from repro_torch.serve.scheduler import Scheduler, SchedulerConfig
@@ -95,7 +96,9 @@ class ServeEngine:
         self.pending: list[Request] = []
         self.finished: list[Request] = []
         self._prefill = make_prefill(cfg, max_len)
-        self._decode = make_decode_step(cfg)
+        # A CUDA graph on the card (tokens and positions are its inputs);
+        # the cache, pos and tokens are updated in place, never rebound.
+        self._decode = StepGraph(make_decode_step(cfg), inputs=(1, 3))
         self._t_submit: dict[int, float] = {}
         self._t_first: dict[int, float] = {}
         self._metric_records: dict[int, dict] = {}
@@ -177,13 +180,16 @@ class ServeEngine:
         occupied[list(self.active)] = True
         # Idle slots stay pinned at 0 so their garbage decode walks one block.
         step_pos = torch.where(occupied.to(self.device), self.pos + 1, 0).to(torch.int32)
-        logits, self.cache = self._decode(self.params, self.tokens, self.cache, step_pos)
+        logits, cache = self._decode(self.params, self.tokens, self.cache, step_pos)
+        for key, t in cache.items():  # a conv cache the first step widened
+            if t is not self.cache[key]:
+                self.cache[key] = t
         row_ok = torch.isfinite(logits[:, -1]).all(dim=-1).cpu()
         next_tokens = sample(logits, generator=self._generator,
                              temperature=self.temperature, top_k=self.top_k,
                              top_p=self.top_p)
-        self.pos = step_pos
-        self.tokens = next_tokens[:, None]
+        self.pos.copy_(step_pos)
+        self.tokens.copy_(next_tokens[:, None])
         toks = next_tokens.cpu().tolist()
         # Without the ring's ``length`` a sequence must finish before wrap.
         no_room = (set() if "length" in self.cache else
@@ -284,8 +290,13 @@ class PagedServeEngine:
             clock=clock, degrade=degrade,
         )
         self.perms = perms
-        self._decode = make_paged_step(cfg, 1, perms)
-        self._chunk = make_paged_step(cfg, self.prefill_chunk, perms)
+        # The decode tick and the chunk window run as CUDA graphs on the
+        # card; their inputs are static buffers filled in place each step.
+        self._decode = StepGraph(make_paged_step(cfg, 1, perms), inputs=(1, 3, 4, 5))
+        self._chunk = StepGraph(make_paged_step(cfg, self.prefill_chunk, perms),
+                                inputs=(1, 3, 4, 5))
+        self._tick_in = self._step_buffers(max_batch, 1)
+        self._chunk_in = self._step_buffers(1, self.prefill_chunk)
         self._degraded: dict[int, object] = {}
         self.finished: list[Request] = []
 
@@ -382,16 +393,33 @@ class PagedServeEngine:
     def _ints(self, values) -> torch.Tensor:
         return torch.tensor(values, dtype=torch.int64).to(self.device)
 
+    def _step_buffers(self, batch: int, width: int) -> dict:
+        """A paged step's inputs: tokens (batch, width), the block table,
+        start positions and live counts (batch,)."""
+        ints = dict(dtype=torch.int64, device=self.device)
+        return {"tokens": torch.zeros((batch, width), **ints),
+                "table": torch.zeros((batch, self.max_blocks), dtype=torch.int32,
+                                     device=self.device),
+                "pos": torch.zeros((batch,), **ints), "count": torch.zeros((batch,), **ints)}
+
+    def _run_paged(self, step, bufs: dict, uids, toks, pos, count) -> torch.Tensor:
+        """Fill ``bufs`` in place and run ``step`` on them → logits."""
+        self.cache.table_array(uids, self.max_blocks, out=bufs["table"])
+        for key, values in (("tokens", toks), ("pos", pos), ("count", count)):
+            bufs[key].copy_(torch.tensor(values, dtype=torch.int64))
+        logits, _ = step(self.params, bufs["tokens"], self.cache.pools, bufs["table"],
+                         bufs["pos"], bufs["count"])
+        return logits
+
     def prefill_chunk_run(self, entry, chunk: int) -> torch.Tensor:
         """One chunked-prefill window for ``entry`` (B = 1); returns the last
         live row's logits (the exact last-position distribution once the
-        prompt completes)."""
+        prompt completes), a view the next window overwrites."""
         start = entry.prompt_done
         toks = [0] * self.prefill_chunk
         toks[:chunk] = entry.req.prompt[start:start + chunk]
-        bt = self.cache.table_array([entry.uid], self.max_blocks)
-        logits, _ = self._chunk(self.params, self._ints([toks]), self.cache.pools, bt,
-                                self._ints([start]), self._ints([chunk]))
+        logits = self._run_paged(self._chunk, self._chunk_in, [entry.uid], [toks], [start],
+                                 [chunk])
         return logits[0, chunk - 1]
 
     def prefill_full_run(self, entry, group: int) -> torch.Tensor:
@@ -423,9 +451,8 @@ class PagedServeEngine:
             pos[lane] = e.length
             toks[lane][0] = e.next_token
             uids[lane] = e.uid
-        bt = self.cache.table_array(uids, self.max_blocks)
-        logits, _ = self._decode(self.params, self._ints(toks), self.cache.pools, bt,
-                                 self._ints(pos), self._ints([int(o) for o in occupied]))
+        logits = self._run_paged(self._decode, self._tick_in, uids, toks, pos,
+                                 [int(o) for o in occupied])
         ok = (torch.isfinite(logits[:, -1]).all(dim=-1).cpu()
               | ~torch.tensor(occupied)).tolist()
         next_tokens = sample(logits[:, -1], generator=self._generator,

@@ -139,14 +139,15 @@ class PagedKVCache:
             self.pool.free(b)
         self.evicted.pop(uid, None)
 
-    def table_array(self, uids, max_blocks: int) -> torch.Tensor:
+    def table_array(self, uids, max_blocks: int, out: torch.Tensor | None = None) -> torch.Tensor:
         """(len(uids), max_blocks) int32 block-table rows on the pools'
-        device; absent or short tables pad with the garbage block."""
-        out = torch.full((len(uids), max_blocks), GARBAGE_BLOCK, dtype=torch.int32)
+        device; absent or short tables pad with the garbage block.  With
+        ``out`` the rows are written into it in place and it is returned."""
+        rows = torch.full((len(uids), max_blocks), GARBAGE_BLOCK, dtype=torch.int32)
         for i, uid in enumerate(uids):
             t = self.tables.get(uid, [])
-            out[i, :len(t)] = torch.tensor(t, dtype=torch.int32)
-        return out.to(self.device)
+            rows[i, :len(t)] = torch.tensor(t, dtype=torch.int32)
+        return rows.to(self.device) if out is None else out.copy_(rows)
 
     def share_prefix(self, src_uid: int, dst_uid: int, n_tokens: int) -> int:
         """Seed ``dst``'s table with ``src``'s full blocks covering the first

@@ -122,9 +122,13 @@ def _mamba_decode_trunk(cfg, params: dict, x: torch.Tensor, cache: dict, pos) ->
 def make_decode_step(cfg):
     """→ decode_step(params, tokens (B, 1), cache, pos (B,)) → (logits
     (B, 1, V), cache).  Dense: each slot writes its token at ``pos mod S``;
-    the live length becomes ``min(max(length, pos + 1), S)``.  ssm /
-    hybrid: each Mamba layer steps its recurrence, and each shared block
-    writes at ``pos`` and attends over ``pos + 1`` positions."""
+    the live length becomes ``min(max(length, pos + 1), S)``, and
+    ``length`` counts ``max(length, pos + 1)`` in place.  ssm / hybrid:
+    each Mamba layer steps its recurrence, and each shared block writes at
+    ``pos`` and attends over ``pos + 1`` positions.  Every cache tensor is
+    written in place, so a captured step reads and writes fixed addresses;
+    only a conv cache narrower than the compute dtype comes back as a new,
+    wider tensor (``_widen_conv``)."""
 
     @torch.no_grad()
     def decode_step(params, tokens, cache, pos):
@@ -143,8 +147,9 @@ def make_decode_step(cfg):
                 lp, x, cfg, cache={"k": cache["k"][i], "v": cache["v"][i]},
                 cache_index=pos, length=length,
             )
+        cache["length"].copy_(total)
         x = transformer.norm_apply(params["final_norm"], x, cfg)
-        return lm.logits_fn(params, cfg, x), {**cache, "length": total}
+        return lm.logits_fn(params, cfg, x), cache
 
     return decode_step
 

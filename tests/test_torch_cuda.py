@@ -21,7 +21,11 @@ ragged sequences, strong decays, grouped heads and state width 128, and
 for its bf16 tensor-core kernel each P-slice width, 8-byte copies, a
 padded chunk and state width and which kernel each dtype runs),
 forward and backward, and the
-differentiable ops on the card against the same ops on the CPU.  Marked
+differentiable ops on the card against the same ops on the CPU; and the
+serving steps captured as CUDA graphs against the same step functions
+driven eagerly (greedy tokens and launch counts, the slot engine for each
+family and the paged engine over a raw-K and a fused-K̂ pool through
+preemption).  Marked
 ``cuda``; skips without a GPU.  This file imports neither JAX nor the JAX package, so on a machine
 without JAX it runs alone:
 
@@ -616,3 +620,88 @@ def test_ssd_op_on_card_matches_cpu(cuda):
     y_c, state_c = ops.ssd(*(t.cpu() for t in ins), chunk=64, return_state=True)
     torch.testing.assert_close(y.cpu(), y_c, atol=1e-3, rtol=1e-3)
     torch.testing.assert_close(state.cpu(), state_c, atol=1e-3, rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# Serving steps as CUDA graphs (serve/graphs.py) against eager steps
+# ---------------------------------------------------------------------------
+
+
+def _served_both_ways(make_engine, graphs: tuple, prompts, max_new):
+    """Serve ``prompts`` on one engine through its StepGraphs and on an
+    identical one whose step functions run eagerly → (tokens, launch-count
+    advance, the graphed engine) of each way."""
+    from repro_torch.serve.graphs import LaunchCounters
+
+    counters = LaunchCounters()
+    out = {}
+    for mode in ("eager", "graph"):
+        eng = make_engine()
+        if mode == "eager":
+            for name in graphs:
+                setattr(eng, name, getattr(eng, name).fn)
+        before = counters.read()
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=max_new)
+        done = eng.run_to_completion(max_steps=500)
+        torch.cuda.synchronize()
+        after = counters.read()
+        assert all(r.status == "done" for r in done), [r.status for r in done]
+        out[mode] = ({r.uid: r.generated for r in done},
+                     {k: after[k] - before[k] for k in after}, eng)
+    return out
+
+
+def _graph_config(arch: str):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch, reduced=True)
+    # The card's attention kernels take head dims 64, 112 and 128.
+    return cfg if cfg.family == "ssm" else cfg.replace(head_dim=64)
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "mamba2-130m", "zamba2-7b"])
+def test_slot_decode_graph_replay_matches_eager_steps(cuda, arch):
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = _graph_config(arch)
+    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    prompts = [[1, 2, 3], [4, 5, 6, 7, 8, 9, 10], [11, 12], [13] * 40]
+    out = _served_both_ways(
+        lambda: ServeEngine(cfg, params, max_slots=2, max_len=64, device="cuda"),
+        ("_decode",), prompts, 6)
+    (eager_tokens, eager_counts, _), (tokens, counts, eng) = out["eager"], out["graph"]
+    assert tokens == eager_tokens
+    assert counts == eager_counts
+    if cfg.family != "ssm":
+        assert counts["decode"] > 0
+    assert len(eng._decode._captured) == 1  # the decode step ran as a graph
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["raw_k", "fused_k"])
+def test_paged_steps_graph_replay_matches_eager_steps_through_preemption(cuda, fused):
+    """The decode tick and the chunk window as graphs: a 3-block pool of 16
+    (two usable blocks for three lanes) preempts; tokens, preemptions and
+    launch counts equal the eager steps'."""
+    from dataclasses import replace
+
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import PagedServeEngine
+
+    cfg = _graph_config("starcoder2-7b")
+    cfg = cfg.replace(attention=replace(cfg.attention, impl="pallas_flash", distr_decode=fused))
+    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    prompts = [list(range(1 + i, 4 + 2 * i)) for i in range(5)] + [[9, 9, 9]]
+    out = _served_both_ways(
+        lambda: PagedServeEngine(cfg, params, max_batch=3, max_len=32, block_size=16,
+                                 prefill_chunk=8, num_blocks=3, cache_dtype=torch.float32,
+                                 device="cuda"),
+        ("_decode", "_chunk"), prompts, 16)
+    (eager_tokens, eager_counts, eager_eng), (tokens, counts, eng) = out["eager"], out["graph"]
+    assert tokens == eager_tokens
+    assert counts == eager_counts and counts["paged_decode"] > 0
+    pre = [m["n_preemptions"] for m in eng.metrics()]
+    assert pre == [m["n_preemptions"] for m in eager_eng.metrics()] and sum(pre) > 0
+    assert len(eng._decode._captured) == 1 and len(eng._chunk._captured) == 1
+    assert eng.cache.pool.num_free == eng.cache.pool.num_blocks - 1
