@@ -32,7 +32,14 @@ greedy); serves 8 requests with the same weights through
 ``PagedServeEngine`` (block pool, continuous-batching scheduler, chunked
 prefill on the paged kernel): a raw-K pool, a fused-K̂ pool, a pool small
 enough to preempt, and an overload that turns on the degradation dial;
-then trains minicpm-2b at its published size with seeded random f32 params
+serves the same prompts on the slot engine over the fused-K̂ cache
+(``distr_decode``, G* = 2: the decode kernel at score width 64 in the
+captured decode step); runs the chaos runs, 3 requests an engine on a
+tick clock with one injected fault each (``serve/faults.py``: NaN logits,
+a stuck step, a slow step against a deadline, a cancel, and on the paged
+engine an exhausted pool and a failing restore), each held to its
+terminal statuses, counters, pool and the other requests' tokens; then
+trains minicpm-2b at its published size with seeded random f32 params
 through ``repro_torch.launch.train.run`` under both impls (4 steps of
 4 × 2048 tokens, full remat), and profiles one more step per impl for the
 attention kernels' share.  The hybrid slice: the SSD kernel against its
@@ -58,8 +65,8 @@ exits non-zero before any result.
 
 ``python3 chip_smoke.py --serve-load slot|hybrid|paged`` runs none of the
 above: it serves one serve workload as a closed-loop load under both
-impls (timed passes and the device's busy share, ``serve_load``) and
-prints a JSON summary last.
+impls, the slot workload also over the fused-K̂ cache (timed passes and
+the device's busy share, ``serve_load``) and prints a JSON summary last.
 """
 from __future__ import annotations
 
@@ -114,6 +121,15 @@ LOAD_PAGED_MAX_LEN = 2176
 # any pool size from 17 to 40 blocks (the scheduler run on the CPU with a
 # fake engine); 40 is the fewest that make a decode grow into a full pool.
 PRESSURE_BLOCKS, PRESSURE_NEW = 17, 40
+# The chaos phase: 3 requests a run on the slot engine (4 slots) and the
+# paged one (8 lanes), CHAOS_NEW new tokens, greedy, on a tick clock; the
+# fault always on uid 1.  restore_failure runs in the 17-block pool with
+# two 1000-token prompts: uid 0's decode grows into a full pool at its
+# 25th token and preempts uid 1, the newest block holder (uid 2 waits
+# behind it for a free block), whose restores then fail.
+CHAOS_PROMPTS = (96, 200, 517)
+CHAOS_PRESSURE_PROMPTS = (1000, 1000, 96)
+CHAOS_NEW, CHAOS_CANCEL_STEP, CHAOS_MAX_STEPS = 32, 10, 400
 # The SSD kernel: (label, B, H, P, G, S, chunk, N).  zamba2-7b's Mamba-2
 # heads (the headline: B = 1, N = 2048), its ragged tail and B = 2, and
 # mamba2-130m's state width 128.
@@ -981,11 +997,13 @@ def serve_phase(torch):
     log(f"[serve] starcoder2-7b params on the card in {time.perf_counter() - t0:.1f}s, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
     launches = {"flash": 0, "distr": 0, "decode": 0}
+    tokens = {}
     for impl, kernel in (("pallas_distr", "distr"), ("pallas_flash", "flash")):
         cfg_i = cfg.replace(attention=cfg.attention.with_impl(impl))
         fk.launches = dk.launches = dec.launches = 0
         res = run(cfg_i, params, max_new=32, max_slots=4, max_len=2048,
                   prompt_lens=list(SERVE_PROMPTS), device="cuda")
+        tokens[impl] = {r.uid: r.generated for r in res["done"]}
         counts = {"flash": fk.launches, "distr": dk.launches, "decode": dec.launches}
         log(f"[serve {impl}] {len(res['done'])} requests, {res['tokens']} tokens in "
             f"{res['seconds']:.2f}s ({res['tok_per_s']:.1f} tok/s); launches {counts}")
@@ -999,7 +1017,194 @@ def serve_phase(torch):
             raise AssertionError(f"serve {impl}: a kernel of the path never launched: {counts}")
         launches[kernel] += counts[kernel]
         launches["decode"] += counts["decode"]
-    return launches, params
+    return launches, params, tokens
+
+
+def fused_slot_phase(torch, params, raw_tokens: dict, base=None, device="cuda") -> dict:
+    """starcoder2-7b at full width with the serve phase's weights on the
+    slot engine over the fused-K̂ cache: pallas_distr with
+    ``distr_decode`` at G* = 2, 4 slots, max_len 2048, the serve phase's
+    prompts (SERVE_PROMPTS, drawn as ``launch.serve.run`` draws them), 32
+    new tokens, greedy, the decode step captured as a CUDA graph.  Raises
+    unless every request is done, the cache holds ``k_fused`` d/G* = 64
+    wide, the decode kernel launched (from the graph's replays) and the
+    first decode step's logits are finite.  Logs the share of its tokens
+    equal to the raw-K pallas_distr serve run's (not gated: the fused
+    decode approximates the scores)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode as dec
+    from repro_torch.kernels import distr_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.serve.engine import ServeEngine
+
+    base = base or get_config("starcoder2-7b")
+    cfg = base.replace(attention=replace(base.attention, impl="pallas_distr", distr_decode=True))
+    width = cfg.head_dim_ // cfg.attention.distr.group_size
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, size=n).tolist() for n in SERVE_PROMPTS]
+    eng = ServeEngine(cfg, params, max_slots=4, max_len=2048, device=device)
+    graph, first = eng._decode, []
+
+    def decode_step(*args):  # keeps a copy of the first step's logits
+        out = graph(*args)
+        if not first:
+            first.append(out[0].clone())
+        return out
+
+    eng._decode = decode_step
+    fk.launches = dk.launches = dec.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in prompts:
+        eng.add_request(p, max_new_tokens=32)
+    done = eng.run_to_completion()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {"flash": fk.launches, "distr": dk.launches, "decode": dec.launches}
+    tokens = {r.uid: r.generated for r in done}
+    n_tok = sum(len(g) for g in tokens.values())
+    same = sum(a == b for uid, g in tokens.items() for a, b in zip(g, raw_tokens[uid]))
+    log(f"[fused slot] {len(done)} requests, {n_tok} tokens in {seconds:.2f}s "
+        f"({n_tok / seconds:.1f} tok/s); k_fused {tuple(eng.cache['k_fused'].shape)}; "
+        f"launches {counts}; graphs captured {len(graph._captured)}; {same} of {n_tok} tokens "
+        f"({same / n_tok:.3f}) equal the raw-K pallas_distr run's (not gated)")
+    bad = [r.uid for r in done if r.status != "done" or len(r.generated) != 32]
+    if len(done) != len(prompts) or bad:
+        raise AssertionError(f"fused slot: requests not done: {bad}")
+    if eng.cache["k_fused"].shape[-1] != width or width != base.head_dim_ // 2:
+        raise AssertionError(f"fused slot: k_fused {tuple(eng.cache['k_fused'].shape)}, "
+                             f"want a last dimension of {width}")
+    if counts["decode"] == 0 or counts["distr"] == 0 or counts["flash"] or not graph._captured:
+        raise AssertionError(f"fused slot: launches off the path: {counts}")
+    if not bool(torch.isfinite(first[0]).all()):
+        raise AssertionError("fused slot: the first decode step's logits are not finite")
+    return {"launches": counts, "seconds": seconds, "tokens": n_tok,
+            "tok_per_s": n_tok / seconds, "agreement": same / n_tok}
+
+
+class TickClock:
+    """A clock the chaos phase advances by one a step: deadlines in steps."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def chaos_phase(torch, params, base=None, device="cuda") -> dict:
+    """starcoder2-7b at full width with the serve phase's weights under
+    pallas_flash, 3 requests a run on the slot engine (4 slots, max_len
+    2048) and on ``PagedServeEngine`` (8 lanes, blocks of 128, chunks of
+    32), CHAOS_NEW new tokens, greedy, a tick clock; a fault on uid 1 a
+    run: ``nan_logits`` from its 13th logits row on, a persistent
+    ``stuck_step``, a ``slow_step`` of 50 ticks against its e2e deadline of
+    20, a ``cancel`` at step CHAOS_CANCEL_STEP, and on the paged engine
+    also a persistent ``pool_exhausted`` (the watchdog fails it) and a
+    persistent ``restore_failure`` in the 17-block pool.  Raises unless
+    every request is terminal, the pool's free blocks are back at their
+    count at the start, the robustness counters are exactly those the
+    reference's chaos tests expect, uid 1 ends failed, expired or
+    cancelled, and the other requests' tokens equal those of the
+    fault-free run of the same engine."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.faults import FaultInjector, FaultSpec
+    from repro_torch.kernels import decode as dec
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.serve.engine import PagedServeEngine, ServeEngine
+    from repro_torch.serve.lifecycle import is_terminal
+
+    base = base or get_config("starcoder2-7b")
+    cfg = base.replace(attention=base.attention.with_impl("pallas_flash"))
+    rng = np.random.default_rng(1)
+    prompts = {key: [rng.integers(1, cfg.vocab, size=n).tolist() for n in lens]
+               for key, lens in (("roomy", CHAOS_PROMPTS), ("pressure", CHAOS_PRESSURE_PROMPTS))}
+
+    def engine(kind, pool, clock, faults):
+        if kind == "slot":
+            return ServeEngine(cfg, params, max_slots=4, max_len=2048, clock=clock,
+                               faults=faults, device=device)
+        return PagedServeEngine(cfg, params, max_batch=8, max_len=2048, block_size=128,
+                                prefill_chunk=32, clock=clock, faults=faults, device=device,
+                                **({"num_blocks": PRESSURE_BLOCKS} if pool == "pressure" else {}))
+
+    failed_fault = {"failed_fault": 1, "step_retries": 3}
+    cases = [  # engine, pool, name, spec on uid 1, uid 1's deadline, cancel, counters, uid 1 ends
+        (kind, "roomy", name, spec, dl, cancel, want, status)
+        for kind in ("slot", "paged")
+        for name, spec, dl, cancel, want, status in (
+            ("clean", None, {}, False, {}, "done"),
+            ("nan_logits", dict(point="nan_logits", uid=1, after=12, times=-1), {}, False,
+             {"failed_numeric": 1}, "failed"),
+            ("stuck_step", dict(point="stuck_step", uid=1, times=-1), {}, False, failed_fault,
+             "failed"),
+            ("slow_step", dict(point="slow_step", after=3, delay=50.0),
+             {"deadline_e2e": 20.0}, False, {"expired": 1}, "expired"),
+            ("cancel", None, {}, True, {"cancelled": 1}, "cancelled"))
+    ] + [
+        ("paged", "roomy", "pool_exhausted", dict(point="pool_exhausted", uid=1, times=-1), {},
+         False, {"watchdog_fails": 1}, "failed"),
+        ("paged", "pressure", "clean", None, {}, False, {}, "done"),
+        ("paged", "pressure", "restore_failure", dict(point="restore_failure", uid=1, times=-1),
+         {}, False, {"failed_fault": 1, "restore_retries": 5}, "failed"),
+    ]
+    clean, report = {}, {}
+    launches = {"flash": 0, "decode": 0, "paged": 0}
+    for kind, pool, name, spec, deadline, cancel, want, status in cases:
+        clock = TickClock()
+        eng = engine(kind, pool, clock, FaultInjector([FaultSpec(**spec)] if spec else []))
+        free0 = eng.cache.pool.num_free if kind == "paged" else None
+        fk.launches = dec.launches = pd.launches = 0
+        t0 = time.perf_counter()
+        for uid, p in enumerate(prompts[pool]):
+            eng.add_request(p, max_new_tokens=CHAOS_NEW, **(deadline if uid == 1 else {}))
+        for step in range(CHAOS_MAX_STEPS):
+            if cancel and step == CHAOS_CANCEL_STEP and not eng.cancel(1):
+                raise AssertionError(f"chaos {kind} {name}: cancel(1) found no request")
+            eng.step()
+            clock.t += 1
+            if not eng.has_work():
+                break
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        reqs = {r.uid: r for r in eng.finished}
+        counters = {k: v for k, v in eng.counters_snapshot().items() if v}
+        counts = {"flash": fk.launches, "decode": dec.launches, "paged": pd.launches}
+        free = eng.cache.pool.num_free if kind == "paged" else None
+        log(f"[chaos {kind} {pool} {name}] {step + 1} steps in {seconds:.2f}s; statuses "
+            f"{ {u: r.status for u, r in sorted(reqs.items())} }; tokens "
+            f"{ {u: len(r.generated) for u, r in sorted(reqs.items())} }; counters {counters}; "
+            f"free blocks {free} of {free0}; launches {counts}")
+        if eng.has_work() or sorted(reqs) != [0, 1, 2] or not all(
+                is_terminal(r.status) for r in reqs.values()):
+            raise AssertionError(f"chaos {kind} {name}: requests not terminal")
+        if free != free0:
+            raise AssertionError(f"chaos {kind} {name}: {free0 - free} pool blocks leaked")
+        if counters != want or reqs[1].status != status:
+            raise AssertionError(f"chaos {kind} {name}: counters {counters} (want {want}), "
+                                 f"uid 1 {reqs[1].status} (want {status})")
+        tokens = {u: r.generated for u, r in reqs.items()}
+        if name == "clean":
+            if any(len(g) != CHAOS_NEW for g in tokens.values()):
+                raise AssertionError(f"chaos {kind} {pool}: the clean run is short")
+            clean[kind, pool] = tokens
+        elif any(tokens[u] != clean[kind, pool][u] for u in (0, 2)):
+            raise AssertionError(f"chaos {kind} {name}: the other requests' tokens differ "
+                                 "from the fault-free run's")
+        if name == "cancel" and not 0 < len(tokens[1]) < CHAOS_NEW:
+            raise AssertionError(f"chaos {kind} cancel: not mid-decode ({len(tokens[1])} tokens)")
+        for key, n in counts.items():
+            launches[key] += n
+        report[f"{kind} {pool} {name}"] = {"steps": step + 1, "seconds": seconds,
+                                           "counters": counters, "launches": counts}
+        del eng
+        torch.cuda.empty_cache()
+    return {"launches": launches, "report": report}
 
 
 def paged_serve_phase(torch, params) -> dict:
@@ -1220,26 +1425,37 @@ def distr_vs_flash_table(prefill_shapes: list, g4: dict, a112: dict, back: list)
 def closed_loop(eng, prompts, lanes: int, new: int):
     """Serve ``prompts`` in order as a closed loop holding ``lanes``
     requests in flight (one is submitted as one ends), yielding after each
-    engine step."""
+    engine step whether the step took a request off the waiting queue
+    (the slot engine: admitted and prefilled it)."""
     queue, in_flight = list(prompts), 0
     while queue or in_flight:
         while queue and in_flight < lanes:
             eng.add_request(queue.pop(0), max_new_tokens=new)
             in_flight += 1
+        waiting = eng.queue_depth()
         in_flight -= len(eng.step())
-        yield
+        yield eng.queue_depth() < waiting
 
 
 def serve_load_run(torch, eng, prompts, lanes: int) -> dict:
     """One timed pass of the load: wall time (clock stopped after a
     synchronise), engine steps, tokens/s, mean TTFT (from submission) and
-    mean TPOT of its requests; every request must finish with its tokens."""
+    mean TPOT of its requests, the median wall time of the steps that took
+    no request off the queue and the mean of those that did (a step ends
+    in the host's read of its tokens, which waits for the device; on the
+    slot engine the first are decode steps and the second carry a prefill,
+    and TPOT carries both); every request must finish with its tokens."""
     seen = len(eng.metrics())
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    steps = sum(1 for _ in closed_loop(eng, prompts, lanes, LOAD_NEW))
+    t0 = last = time.perf_counter()
+    step_ms, admit_ms = [], []
+    for admitted in closed_loop(eng, prompts, lanes, LOAD_NEW):
+        now = time.perf_counter()
+        (admit_ms if admitted else step_ms).append((now - last) * 1e3)
+        last = now
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    steps = len(step_ms) + len(admit_ms)
     rows = eng.metrics()[seen:]
     if len(rows) != len(prompts) or any(r["status"] != "done" or r["n_generated"] != LOAD_NEW
                                         for r in rows):
@@ -1247,7 +1463,9 @@ def serve_load_run(torch, eng, prompts, lanes: int) -> dict:
     tokens = sum(r["n_generated"] for r in rows)
     return {"seconds": seconds, "steps": steps, "tokens": tokens, "tok_per_s": tokens / seconds,
             "ttft_s": statistics.fmean(r["ttft_s"] for r in rows),
-            "tpot_s": statistics.fmean(r["tpot_s"] for r in rows)}
+            "tpot_s": statistics.fmean(r["tpot_s"] for r in rows),
+            "step_ms_median": statistics.median(step_ms),
+            "admit_step_ms": statistics.fmean(admit_ms) if admit_ms else None}
 
 
 def serve_load_busy(torch, eng, prompts, lanes: int, start: int) -> dict:
@@ -1278,14 +1496,16 @@ def serve_load(torch, workload: str) -> dict:
     weights, as a closed-loop stream (its prompts LOAD_PASSES times over,
     LOAD_NEW new tokens each, greedy, as many in flight as the engine has
     lanes).  slot: starcoder2-7b on the slot engine (4 slots, max_len
-    2048, prompts SERVE_PROMPTS); hybrid: zamba2-7b on the same; paged:
-    starcoder2-7b on ``PagedServeEngine`` over a raw-K pool (8 lanes,
-    blocks of 128, chunks of 32, max_len LOAD_PAGED_MAX_LEN, prompts
-    PAGED_PROMPTS).  Under each impl: one engine, a warm-up request of 64
+    2048, prompts SERVE_PROMPTS), and under pallas_distr also over the
+    fused-K̂ cache (``distr_decode``, G* = 2); hybrid: zamba2-7b on the
+    same; paged: starcoder2-7b on ``PagedServeEngine`` over a raw-K pool
+    (8 lanes, blocks of 128, chunks of 32, max_len LOAD_PAGED_MAX_LEN,
+    prompts PAGED_PROMPTS).  Under each impl: one engine, a warm-up request of 64
     prompt tokens (kernel builds, graph captures; not reported), LOAD_RUNS
     timed passes, then the busy share over a window in the middle of one
-    more.  Only the engines' public calls are used, so the same file
-    measures an older tree's engines."""
+    more.  Only the engines' public calls are used (``queue_depth``
+    among them), so the same file measures another tree whose engines
+    have them."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1298,8 +1518,12 @@ def serve_load(torch, workload: str) -> dict:
     lens = PAGED_PROMPTS if workload == "paged" else SERVE_PROMPTS
     prompts = [rng.integers(1, base.vocab, size=n).tolist() for n in lens] * LOAD_PASSES
     out = {}
-    for impl in ("pallas_distr", "pallas_flash"):
-        cfg = base.replace(attention=base.attention.with_impl(impl))
+    runs = [("pallas_distr", False), ("pallas_flash", False)]
+    if workload == "slot":
+        runs.append(("pallas_distr", True))  # the fused-K̂ decode cache, G* = 2
+    for impl, fused in runs:
+        cfg = base.replace(attention=replace(base.attention, impl=impl, distr_decode=fused))
+        name = impl + ("+fused_k" if fused else "")
         if workload == "paged":
             lanes = 8
             eng = PagedServeEngine(cfg, params, max_batch=lanes, max_len=LOAD_PAGED_MAX_LEN,
@@ -1309,19 +1533,20 @@ def serve_load(torch, workload: str) -> dict:
             eng = ServeEngine(cfg, params, max_slots=lanes, max_len=2048, device="cuda")
         for _ in closed_loop(eng, [prompts[0][:64]], 1, LOAD_NEW):
             pass
-        runs = []
+        timed = []
         for i in range(LOAD_RUNS):
-            runs.append(serve_load_run(torch, eng, prompts, lanes))
-            r = runs[-1]
-            log(f"[load {workload} {impl}] run {i}: {r['tokens']} tokens, {r['steps']} steps in "
+            timed.append(serve_load_run(torch, eng, prompts, lanes))
+            r = timed[-1]
+            log(f"[load {workload} {name}] run {i}: {r['tokens']} tokens, {r['steps']} steps in "
                 f"{r['seconds']:.3f}s, {r['tok_per_s']:.2f} tok/s, mean TTFT {r['ttft_s']:.4f}s, "
-                f"mean TPOT {r['tpot_s']:.5f}s")
-        start = max(0, runs[0]["steps"] // 2 - LOAD_PROFILE_STEPS // 2)
+                f"mean TPOT {r['tpot_s']:.5f}s, median step {r['step_ms_median']:.3f} ms, "
+                f"mean admitting step {r['admit_step_ms']} ms")
+        start = max(0, timed[0]["steps"] // 2 - LOAD_PROFILE_STEPS // 2)
         busy = serve_load_busy(torch, eng, prompts, lanes, start)
-        log(f"[load {workload} {impl}] steps {start}-{start + busy['steps']} of a pass under the "
+        log(f"[load {workload} {name}] steps {start}-{start + busy['steps']} of a pass under the "
             f"profiler: device busy {busy['device_s']:.4f}s of {busy['seconds']:.4f}s "
             f"({busy['busy_share']:.1%})")
-        out[impl] = {"runs": runs, "busy": busy}
+        out[name] = {"runs": timed, "busy": busy}
         del eng
         torch.cuda.empty_cache()
     return out
@@ -1362,8 +1587,9 @@ def main() -> int:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps({"card": card, **load}, indent=1))
         log(card)
-        summary = {impl: {**{k: [r[k] for r in res["runs"]] for k in ("tok_per_s", "ttft_s",
-                                                                        "tpot_s")},
+        summary = {impl: {**{k: [r[k] for r in res["runs"]]
+                             for k in ("tok_per_s", "ttft_s", "tpot_s", "step_ms_median",
+                                       "admit_step_ms")},
                           "busy_share": res["busy"]["busy_share"]}
                    for impl, res in load.items()}
         print(json.dumps(summary), flush=True)
@@ -1399,13 +1625,19 @@ def main() -> int:
     launches = {"flash": 0, "distr": 0, "decode": 0, "paged": 0, "ssd": 0,
                 **dict.fromkeys(back, 0)}
     if args.only != "kernels":
-        serve_launches, params = serve_phase(torch)
+        serve_launches, params, serve_tokens = serve_phase(torch)
         launches.update(serve_launches)
         paged = paged_serve_phase(torch, params)
-        del params
-        torch.cuda.empty_cache()
         results["paged_serve"] = paged["report"]
         for name, count in paged["launches"].items():
+            launches[name] += count
+        fused = fused_slot_phase(torch, params, serve_tokens["pallas_distr"])
+        results["fused_slot"] = fused
+        chaos = chaos_phase(torch, params)
+        results["chaos"] = chaos["report"]
+        del params
+        torch.cuda.empty_cache()
+        for name, count in (*fused["launches"].items(), *chaos["launches"].items()):
             launches[name] += count
         hybrid = hybrid_serve_phase(torch)
         results["hybrid_serve"] = hybrid["report"]

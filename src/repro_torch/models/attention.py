@@ -76,25 +76,55 @@ def _live_lengths(length, pos: torch.Tensor, max_len: int) -> torch.Tensor:
                        max=max_len)
 
 
+def _decode_qkv(params: dict, x: torch.Tensor, cfg, pos: torch.Tensor):
+    """The new token's q, k and v split into heads, q and k rotated to its
+    absolute position ``pos`` (B,)."""
+    q = _split_heads(layers.linear_apply(params["wq"], x), cfg.n_heads)
+    k = _split_heads(layers.linear_apply(params["wk"], x), cfg.n_kv_heads)
+    v = _split_heads(layers.linear_apply(params["wv"], x), cfg.n_kv_heads)
+    return (layers.apply_rope(q, pos[:, None], cfg.rope_theta),
+            layers.apply_rope(k, pos[:, None], cfg.rope_theta), v)
+
+
 def attention_decode_apply(params: dict, x: torch.Tensor, cfg, *,
                            cache_k: torch.Tensor, cache_v: torch.Tensor,
                            cache_index, length: torch.Tensor | None = None):
     """One-token decode against a (B, Hkv, S, dh) ring cache: inserts the
     new K/V at ``cache_index`` (in place) and attends over the live window
     through the split-K decode kernel.  Returns ``(out, (cache_k, cache_v))``."""
-    b = x.shape[0]
-    pos = _as_pos_vector(cache_index, b, x.device)
-    q = _split_heads(layers.linear_apply(params["wq"], x), cfg.n_heads)
-    k = _split_heads(layers.linear_apply(params["wk"], x), cfg.n_kv_heads)
-    v = _split_heads(layers.linear_apply(params["wv"], x), cfg.n_kv_heads)
-    q = layers.apply_rope(q, pos[:, None], cfg.rope_theta)
-    k = layers.apply_rope(k, pos[:, None], cfg.rope_theta)
+    pos = _as_pos_vector(cache_index, x.shape[0], x.device)
+    q, k, v = _decode_qkv(params, x, cfg, pos)
     cache_insert(cache_k, k, pos)
     cache_insert(cache_v, v, pos)
     lengths = _live_lengths(length, pos, cache_k.shape[2])
     o = attend_decode(q, cache_k, cache_v, cfg.attention, lengths=lengths)
     out = layers.linear_apply(params["wo"], _merge_heads(o.to(x.dtype)))
     return out, (cache_k, cache_v)
+
+
+def attention_decode_fused(params: dict, x: torch.Tensor, cfg, *,
+                           cache_v: torch.Tensor, cache_k_fused: torch.Tensor,
+                           perm: torch.Tensor, cache_index,
+                           length: torch.Tensor | None = None):
+    """One-token decode against the fused-K̂ ring cache: scores read K̂
+    (B, Hkv, S, dh/G*) under the layer's static ``perm`` (Hkv, dh) in place
+    of K, so the split-K decode kernel streams d/G* score columns a token.
+    Writes V and the newly fused K̂ row in place at ``cache_index``; raw K
+    is neither read nor written (it stays as the prefill left it).  Returns
+    ``(out, (cache_v, cache_k_fused))``."""
+    from repro_torch.serve import kv_cache as kvc
+
+    g = cfg.attention.distr.group_size
+    pos = _as_pos_vector(cache_index, x.shape[0], x.device)
+    q, k, v = _decode_qkv(params, x, cfg, pos)
+    cache_insert(cache_v, v, pos)
+    cache_insert(cache_k_fused, kvc.fuse_new_k(k, perm, g), pos)
+    lengths = _live_lengths(length, pos, cache_k_fused.shape[2])
+    o = attend_decode(q, None, cache_v, cfg.attention, lengths=lengths,
+                      k_fused=cache_k_fused, perm=perm, group_size=g,
+                      scale=1.0 / (cfg.head_dim_ ** 0.5))
+    out = layers.linear_apply(params["wo"], _merge_heads(o.to(x.dtype)))
+    return out, (cache_v, cache_k_fused)
 
 
 def paged_insert(pool: torch.Tensor, new: torch.Tensor, block_tables: torch.Tensor,

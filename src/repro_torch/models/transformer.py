@@ -57,12 +57,14 @@ def block_apply(params: dict, x: torch.Tensor, cfg, *, positions=None,
 
 
 def block_decode_apply(params: dict, x: torch.Tensor, cfg, *, cache: dict,
-                       cache_index, length=None, layer_type: str = "dense"):
+                       cache_index, length=None, layer_type: str = "dense",
+                       perm: torch.Tensor | None = None):
     """One-token decode.  A dense block's ``cache`` holds this layer's
     ``k``/``v`` (B, Hkv, S, dh), updated in place; ``length`` is the
-    per-slot live token count including the new token (None: pos + 1).  A
-    Mamba block's holds ``conv``/``ssm``, returned anew.  Returns
-    ``(x, cache)``."""
+    per-slot live token count including the new token (None: pos + 1).
+    With the layer's static ``perm`` the cache holds ``v`` and ``k_fused``
+    instead, and scores read K̂ (``attention_decode_fused``).  A Mamba
+    block's holds ``conv``/``ssm``, returned anew.  Returns ``(x, cache)``."""
     if layer_type == "mamba":
         y, (conv_s, ssm_s) = mamba.mamba_decode_apply(
             params["mixer"], norm_apply(params["norm1"], x, cfg), cfg,
@@ -70,13 +72,21 @@ def block_decode_apply(params: dict, x: torch.Tensor, cfg, *, cache: dict,
         )
         return x + y, {**cache, "conv": conv_s, "ssm": ssm_s}
     h = norm_apply(params["norm1"], x, cfg)
-    o, (ck, cv) = attn_mod.attention_decode_apply(
-        params["attn"], h, cfg, cache_k=cache["k"], cache_v=cache["v"],
-        cache_index=cache_index, length=length,
-    )
+    if perm is not None:
+        o, (cv, ckf) = attn_mod.attention_decode_fused(
+            params["attn"], h, cfg, cache_v=cache["v"], cache_k_fused=cache["k_fused"],
+            perm=perm, cache_index=cache_index, length=length,
+        )
+        new = {"v": cv, "k_fused": ckf}
+    else:
+        o, (ck, cv) = attn_mod.attention_decode_apply(
+            params["attn"], h, cfg, cache_k=cache["k"], cache_v=cache["v"],
+            cache_index=cache_index, length=length,
+        )
+        new = {"k": ck, "v": cv}
     x = x + o
     h2 = norm_apply(params["norm2"], x, cfg)
-    return x + layers.mlp_apply(params["ffn"], h2, act=cfg.act), {**cache, "k": ck, "v": cv}
+    return x + layers.mlp_apply(params["ffn"], h2, act=cfg.act), {**cache, **new}
 
 
 def block_paged_decode_apply(params: dict, x: torch.Tensor, cfg, *, pool_k, pool_v,

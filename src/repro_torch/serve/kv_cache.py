@@ -2,7 +2,8 @@
 of the fused-K̂ decode cache.
 
 Layouts (L = layers, B = slots, S = max_len, G = hybrid groups):
-  dense:  ``k``, ``v`` (L, B, Hkv, S, dh) and ``length`` (B,) int32
+  dense:  ``k``, ``v`` (L, B, Hkv, S, dh) and ``length`` (B,) int32; under
+          ``attention.distr_decode`` also ``k_fused`` (L, B, Hkv, S, dh/G*)
   ssm:    ``conv`` (L, B, k−1, conv_dim), ``ssm`` (L, B, H, S_state, P) f32
   hybrid: ``groups_conv`` (G, attn_every, B, k−1, conv_dim), ``groups_ssm``
           (G, attn_every, B, H, S_state, P) f32, ``shared_k`` / ``shared_v``
@@ -14,6 +15,11 @@ every token ever written, so the live window is the most recent
 ``min(length, S)`` tokens and RoPE positions stay absolute.  The ssm and
 hybrid layouts have no ``length``: their sequences finish before the
 window would wrap.
+
+The fused-K̂ decode cache holds K̂ = fuse(K, perm) under one static
+permutation per (layer, KV head): decode scores read d/G* columns a token
+in place of d, and raw K is no longer written at decode (it stays as the
+prefill left it).
 """
 from __future__ import annotations
 
@@ -47,11 +53,16 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
             cache["tail_conv"] = zeros((t, batch) + conv)
             cache["tail_ssm"] = zeros((t, batch) + ssm, torch.float32)
         return cache
-    return {
+    cache = {
         "k": zeros((cfg.n_layers, batch) + kv),
         "v": zeros((cfg.n_layers, batch) + kv),
         "length": zeros((batch,), torch.int32),
     }
+    if cfg.attention.distr_decode:
+        g = cfg.attention.distr.group_size
+        cache["k_fused"] = zeros((cfg.n_layers, batch, cfg.n_kv_heads, max_len,
+                                  cfg.head_dim_ // g))
+    return cache
 
 
 def static_perms(cfg) -> torch.Tensor:

@@ -26,12 +26,17 @@ deciding every tick:
   * **Graceful degradation** (serve.degrade).  Under sustained overload new
     prompts switch from exact chunked prefill to one whole-prompt
     DistrAttention forward (``engine.prefill_full_run``) at a per-level G*.
+  * **Fault containment** (serve.faults).  A model step (chunk, whole-prompt
+    prefill, decode tick) that raises :class:`InjectedFault` is retried
+    ``step_max_retries`` times before the culprit alone is failed; a
+    ``restore`` that raises backs off ``restore_backoff_ticks`` doubling
+    per attempt, holding the FCFS head, for ``restore_max_retries``
+    attempts; the ``slow_step`` fault moves the clock the deadlines read.
   * **Per-request metrics**: TTFT, TPOT, preemptions, terminal status and
     degradation level, plus ``counters_snapshot()``.
 
-The reference's fault-injection branches (injected faults, bounded retries
-and restore backoff), trace spans and mesh admission are not ported yet;
-each would slot in where the engine primitive it wraps is called.
+The reference's trace spans and its mesh admission (``prefill_mesh_run``)
+are not ported yet.
 
 The scheduler is pure policy: it talks to the engine through a small
 primitive surface (``free_lane``, ``alloc``, ``can_admit``,
@@ -50,6 +55,7 @@ import torch
 from repro_torch.obs.clock import resolve_clock
 from repro_torch.serve import lifecycle
 from repro_torch.serve.degrade import DegradationController, DegradeConfig
+from repro_torch.serve.faults import NULL_INJECTOR, InjectedFault
 
 
 @dataclass
@@ -63,8 +69,16 @@ class SchedulerConfig:
     # unbounded.
     max_waiting: int | None = None
     # Global-stall watchdog: ticks with work present and no progress
-    # anywhere before the queue head is failed.
+    # anywhere before the queue head is failed.  It must outlast the restore
+    # backoff (the sum of restore_backoff_ticks · 2^k) or it fires mid-backoff.
     watchdog_ticks: int = 16
+    # Bounded retry with backoff for a restore that raises (a False return
+    # is a capacity wait and costs no retry).
+    restore_max_retries: int = 4
+    restore_backoff_ticks: int = 1  # doubles each attempt
+    # Bounded retry for a model step that raises (chunk, whole-prompt
+    # prefill, decode tick).
+    step_max_retries: int = 2
 
     def budget(self) -> int:
         return self.token_budget or (self.max_batch + 2 * self.prefill_chunk)
@@ -100,6 +114,9 @@ class Entry:
     next_token: int | None = None  # sampled, not yet fed to decode
     lane: int | None = None
     evicted: bool = False
+    restore_tries: int = 0  # consecutive restores that raised (not waits)
+    restore_next_tick: int = 0  # backoff: no restore attempt before this tick
+    step_tries: int = 0  # consecutive model steps that raised
     metrics: RequestMetrics = field(default_factory=RequestMetrics)
 
     @property
@@ -115,19 +132,27 @@ class Scheduler:
     """FCFS continuous batching with chunked prefill and preemption."""
 
     def __init__(self, cfg: SchedulerConfig, *, clock=None,
-                 degrade: DegradeConfig | DegradationController | None = None):
+                 degrade: DegradeConfig | DegradationController | None = None,
+                 faults=NULL_INJECTOR):
         self.cfg = cfg
         self.clock = resolve_clock(clock)
         if isinstance(degrade, DegradeConfig):
             degrade = DegradationController(degrade)
         self.degrade = degrade
+        self.faults = faults
         self.waiting: deque[Entry] = deque()
         self.running: dict[int, Entry] = {}  # lane → entry
         self.done: list[Entry] = []
         self.counters: Counter = Counter()
         self._tick = 0
+        # Advanced only by the slow_step fault: deadlines, TTFT and TPOT read
+        # clock() + offset, so a straggling step ages them without a sleep.
+        self._clock_offset = 0.0
         self._stall_ticks = 0
         self._level = 0  # degradation level chosen this tick
+
+    def _now(self) -> float:
+        return self.clock() + self._clock_offset
 
     # -- queue ----------------------------------------------------------
 
@@ -136,7 +161,7 @@ class Scheduler:
         when the bounded waiting queue is full.  Reject-newest: accepted
         requests keep their FCFS position."""
         e = Entry(req=req)
-        e.metrics.t_submit = self.clock()
+        e.metrics.t_submit = self._now()
         if (self.cfg.max_waiting is not None
                 and len(self.waiting) >= self.cfg.max_waiting):
             self.counters["shed"] += 1
@@ -193,7 +218,7 @@ class Scheduler:
             engine.release(e)
             e.evicted = False
         e.req.status = status
-        e.metrics.t_done = self.clock()
+        e.metrics.t_done = self._now()
         self.done.append(e)
 
     def _fail(self, e: Entry, engine, kind: str, finished: list) -> None:
@@ -205,7 +230,7 @@ class Scheduler:
         """Deadline sweep: TTFT deadlines apply until the first token
         (waiting or mid-prefill entries), end-to-end deadlines throughout.
         Running entries always hold a first token."""
-        now = self.clock()
+        now = self._now()
         progressed = False
         for e in list(self.waiting):
             r = e.req
@@ -291,7 +316,7 @@ class Scheduler:
         tok = engine.sample_one(logits_row)
         head.req.generated.append(tok)
         head.next_token = tok
-        head.metrics.t_first_token = self.clock()
+        head.metrics.t_first_token = self._now()
         if (len(head.req.generated) >= head.req.max_new_tokens
                 or (head.req.eos_id is not None and tok == head.req.eos_id)):
             head.req.done = True
@@ -302,22 +327,71 @@ class Scheduler:
         head.lane = engine.free_lane()
         self.running[head.lane] = head
 
-    def _whole_prompt(self, engine, head: Entry, budget: int, finished: list) -> int | None:
-        """Degraded admission: one whole-prompt DistrAttention forward in
-        place of ceil(n / chunk) exact chunks.  Returns the budget left, or
-        None when the head must wait for blocks."""
-        n = len(head.req.prompt)
-        if not engine.alloc(head, n):
-            return None
-        group = self.degrade.group_size
+    def _step_fault(self, engine, e: Entry, finished: list) -> bool:
+        """Bounded retry of a model step that raised: True when the entry
+        was failed (its budget spent), False when it should retry."""
+        e.step_tries += 1
+        self.counters["step_retries"] += 1
+        if e.step_tries > self.cfg.step_max_retries:
+            self._fail(e, engine, "failed_fault", finished)
+            return True
+        return False
+
+    def _restore(self, engine, head: Entry, finished: list) -> bool:
+        """Restore an evicted head from genuinely free blocks, never by
+        preempting.  True when the head waits, back in front (backing off,
+        or its blocks are not free yet); False when it moved (restored, or
+        failed with its retry budget spent)."""
+        if head.restore_next_tick > self._tick:
+            # Backing off after a failed restore: hold the FCFS head, so no
+            # younger entry jumps it; the decode lanes keep draining.
+            self.waiting.appendleft(head)
+            return True
+        try:
+            restored = engine.restore(head)
+        except InjectedFault:
+            # A raise is a fault and spends retry budget; a False return
+            # is a capacity wait and never does.
+            head.restore_tries += 1
+            self.counters["restore_retries"] += 1
+            if head.restore_tries > self.cfg.restore_max_retries:
+                self._fail(head, engine, "failed_fault", finished)
+                return False
+            head.restore_next_tick = self._tick + (
+                self.cfg.restore_backoff_ticks << (head.restore_tries - 1))
+            self.waiting.appendleft(head)
+            return True
+        if not restored:
+            self.waiting.appendleft(head)
+            return True
+        head.evicted = False
+        head.restore_tries = 0
+        if head.prompt_done == len(head.req.prompt):
+            head.req.status = lifecycle.RUNNING
+            head.lane = engine.free_lane()
+            self.running[head.lane] = head
+        else:  # preempted mid-prefill: resume its chunks next
+            head.req.status = lifecycle.PREFILL
+            self.waiting.appendleft(head)
+        return False
+
+    def _prefill_step(self, engine, head: Entry, run, arg: int, finished: list):
+        """One prefill step of ``head``, ``run(head, arg)`` (the engine's
+        ``prefill_chunk_run`` or ``prefill_full_run``) → the last live row's
+        logits.  A step that raised is retried later (the head goes back in
+        front) or, its budget spent, fails the head.  Returns the row, or
+        None after a fault."""
         head.req.status = lifecycle.PREFILL
-        row = engine.prefill_full_run(head, group)
-        head.prompt_done = n
-        head.length = n
-        head.req.degrade_group = group
-        self.counters["degraded_prefills"] += 1
-        self._finish_prompt(engine, head, row, finished)
-        return budget - n
+        try:
+            row = run(head, arg)
+        except InjectedFault:
+            # Engines raise before they write a block, so a retry re-runs
+            # against clean blocks.
+            if not self._step_fault(engine, head, finished):
+                self.waiting.appendleft(head)
+            return None
+        head.step_tries = 0
+        return row
 
     # -- the tick -------------------------------------------------------
 
@@ -327,6 +401,9 @@ class Scheduler:
         ``submit`` / ``cancel``)."""
         self._tick += 1
         finished: list = []
+        spec = self.faults.fires("slow_step")
+        if spec is not None:  # a straggling step ages every deadline first
+            self._clock_offset += spec.delay
         progressed = self._expire_pass(engine, finished)
 
         if self.degrade is not None:
@@ -341,20 +418,9 @@ class Scheduler:
         while budget > 0 and self.waiting and len(self.running) < self.cfg.max_batch:
             head = self.waiting.popleft()
             if head.evicted:
-                # Whole-request restore from genuinely free blocks, never by
-                # preempting; until then the head waits.
-                if not engine.restore(head):
-                    self.waiting.appendleft(head)
+                if self._restore(engine, head, finished):
                     break
-                head.evicted = False
                 progressed = True
-                if head.prompt_done == len(head.req.prompt):
-                    head.req.status = lifecycle.RUNNING
-                    head.lane = engine.free_lane()
-                    self.running[head.lane] = head
-                else:  # preempted mid-prefill: resume its chunks next
-                    head.req.status = lifecycle.PREFILL
-                    self.waiting.appendleft(head)
                 continue
             if head.prompt_done == 0 and not engine.can_admit(head):
                 # Admission watermark: start a prompt only when its whole
@@ -363,20 +429,35 @@ class Scheduler:
                 break
             if (self._level > 0 and head.prompt_done == 0
                     and hasattr(engine, "prefill_full_run")):
-                left = self._whole_prompt(engine, head, budget, finished)
-                if left is None:
+                # Degraded admission: one whole-prompt DistrAttention forward
+                # in place of ceil(n / chunk) exact chunks.
+                n = len(head.req.prompt)
+                if not engine.alloc(head, n):
                     self.waiting.appendleft(head)
                     break
-                budget = left
+                group = self.degrade.group_size
+                row = self._prefill_step(engine, head, engine.prefill_full_run, group, finished)
+                if row is None:
+                    progressed |= lifecycle.is_terminal(head.req.status)
+                    break
+                head.prompt_done = n
+                head.length = n
+                head.req.degrade_group = group
+                self.counters["degraded_prefills"] += 1
+                budget -= n
                 progressed = True
+                self._finish_prompt(engine, head, row, finished)
                 continue
             chunk = min(self.cfg.prefill_chunk, len(head.req.prompt) - head.prompt_done,
                         budget)
             if chunk <= 0 or not engine.alloc(head, head.prompt_done + chunk):
                 self.waiting.appendleft(head)
                 break
-            head.req.status = lifecycle.PREFILL
-            logits_last = engine.prefill_chunk_run(head, chunk)
+            logits_last = self._prefill_step(engine, head, engine.prefill_chunk_run, chunk,
+                                             finished)
+            if logits_last is None:
+                progressed |= lifecycle.is_terminal(head.req.status)
+                break
             head.prompt_done += chunk
             head.length = head.prompt_done
             budget -= chunk
@@ -402,27 +483,17 @@ class Scheduler:
                         "empty pool"
                     )
             if self.running:
-                toks, ok = engine.decode_tick(self.running)
-                for lane, e in list(self.running.items()):
-                    progressed = True
-                    if not ok[lane]:
-                        # Numeric quarantine: only the offending lane dies.
-                        self._fail(e, engine, "failed_numeric", finished)
-                        continue
-                    t = int(toks[lane])
-                    e.req.generated.append(t)
-                    e.next_token = t
-                    e.length += 1
-                    limit = len(e.req.generated) >= e.req.max_new_tokens
-                    hit_eos = e.req.eos_id is not None and t == e.req.eos_id
-                    # Window-decoding engines slide past the table bound;
-                    # others force-finish at capacity.
-                    full = (not getattr(engine, "window_decode", False)
-                            and e.length >= engine.capacity_tokens - 1)
-                    if limit or hit_eos or full:
-                        e.req.done = True
-                        self._finalize(e, engine, lifecycle.DONE)
-                        finished.append(e.req)
+                try:
+                    toks, ok = engine.decode_tick(self.running)
+                except InjectedFault as f:
+                    # The whole batched step is lost (engines raise before
+                    # they touch a pool), but only the culprit spends retry
+                    # budget; the others lose one tick.
+                    culprit = next((x for x in self.running.values() if x.uid == f.uid), None)
+                    if culprit is not None and self._step_fault(engine, culprit, finished):
+                        progressed = True
+                else:
+                    progressed |= self._decoded(engine, toks, ok, finished)
 
         # ---- global-stall watchdog -------------------------------------
         # Fires only when nothing moved anywhere, then fails the FCFS head;
@@ -439,3 +510,29 @@ class Scheduler:
                 self._fail(victim, engine, "watchdog_fails", finished)
                 self._stall_ticks = 0
         return finished
+
+    def _decoded(self, engine, toks, ok, finished: list) -> bool:
+        """Take one decode tick's tokens; True when any lane moved."""
+        progressed = False
+        for lane, e in list(self.running.items()):
+            progressed = True
+            if not ok[lane]:
+                # Numeric quarantine: only the offending lane dies.
+                self._fail(e, engine, "failed_numeric", finished)
+                continue
+            e.step_tries = 0
+            t = int(toks[lane])
+            e.req.generated.append(t)
+            e.next_token = t
+            e.length += 1
+            limit = len(e.req.generated) >= e.req.max_new_tokens
+            hit_eos = e.req.eos_id is not None and t == e.req.eos_id
+            # Window-decoding engines slide past the table bound; others
+            # force-finish at capacity.
+            full = (not getattr(engine, "window_decode", False)
+                    and e.length >= engine.capacity_tokens - 1)
+            if limit or hit_eos or full:
+                e.req.done = True
+                self._finalize(e, engine, lifecycle.DONE)
+                finished.append(e.req)
+        return progressed

@@ -1,8 +1,8 @@
 """Serving steps: prefill (build the cache from a full forward) and
-one-token decode for the dense (ring cache), ssm and hybrid families; for
-the dense family also the paged step (a decode tick or a chunked-prefill
-window over the block pool) and the whole-prompt paged prefill of the
-degradation dial.
+one-token decode for the dense (ring cache, raw K or fused K̂), ssm and
+hybrid families; for the dense family also the paged step (a decode tick
+or a chunked-prefill window over the block pool) and the whole-prompt
+paged prefill of the degradation dial.
 
 Steps update caches and pools in place.
 """
@@ -50,14 +50,24 @@ def _mamba_prefill_cache(cfg, parts, max_len: int, dtype: torch.dtype) -> dict:
     return cache
 
 
-def make_prefill(cfg, max_len: int):
+def make_prefill(cfg, max_len: int, backbone_cfg=None, perms: torch.Tensor | None = None):
     """→ prefill(params, tokens (B, N)) → (logits (B, 1, V) of the last
     position, cache ready for decode at position N).  For ssm / hybrid the
-    SSM state is the state after all N tokens, padding included."""
+    SSM state is the state after all N tokens, padding included.
+
+    ``backbone_cfg`` (default ``cfg``) runs the forward alone: the slot
+    engine's degradation dial passes ``cfg.attention.degraded(G*)`` there,
+    while the cache layout stays the engine's own.  Under
+    ``attention.distr_decode`` a dense cache also holds ``k_fused`` (f32),
+    K fused at the engine's own G* under its static ``perms`` (see
+    ``_resolve_perms``), whatever attention ``backbone_cfg`` ran."""
+    bcfg = cfg if backbone_cfg is None else backbone_cfg
+    perms = _resolve_perms(cfg, perms)
 
     @torch.no_grad()
     def prefill(params, tokens):
-        hidden, kvs = lm.backbone(params, cfg, tokens, collect_cache=True)
+        nonlocal perms
+        hidden, kvs = lm.backbone(params, bcfg, tokens, collect_cache=True)
         logits = lm.logits_fn(params, cfg, hidden[:, -1:])
         dtype = lm.compute_dtype(cfg)
         if cfg.family in ("ssm", "hybrid"):
@@ -72,6 +82,13 @@ def make_prefill(cfg, max_len: int):
             "length": torch.full((tokens.shape[0],), k.shape[3], dtype=torch.int32,
                                  device=tokens.device),
         }
+        if perms is not None:
+            if perms.device != tokens.device:
+                perms = perms.to(tokens.device)  # once, not a host copy every call
+            # Fused before the padding: K̂ of a zero row is a zero row.
+            k_fused = grouping.fuse_columns(  # perms (L, 1, Hkv, dh) over B and N
+                k.float(), perms[:, None], cfg.attention.distr.group_size)
+            cache["k_fused"] = _pad_seq_to(k_fused, max_len, 3)
         return logits, cache
 
     return prefill
@@ -119,19 +136,23 @@ def _mamba_decode_trunk(cfg, params: dict, x: torch.Tensor, cache: dict, pos) ->
     return x
 
 
-def make_decode_step(cfg):
+def make_decode_step(cfg, perms: torch.Tensor | None = None):
     """→ decode_step(params, tokens (B, 1), cache, pos (B,)) → (logits
     (B, 1, V), cache).  Dense: each slot writes its token at ``pos mod S``;
     the live length becomes ``min(max(length, pos + 1), S)``, and
-    ``length`` counts ``max(length, pos + 1)`` in place.  ssm / hybrid:
-    each Mamba layer steps its recurrence, and each shared block writes at
-    ``pos`` and attends over ``pos + 1`` positions.  Every cache tensor is
-    written in place, so a captured step reads and writes fixed addresses;
-    only a conv cache narrower than the compute dtype comes back as a new,
-    wider tensor (``_widen_conv``)."""
+    ``length`` counts ``max(length, pos + 1)`` in place.  Under
+    ``attention.distr_decode`` scores read the fused ``k_fused`` cache
+    under the static ``perms`` (``_resolve_perms``) and raw K is not
+    written.  ssm / hybrid: each Mamba layer steps its recurrence, and each
+    shared block writes at ``pos`` and attends over ``pos + 1`` positions.
+    Every cache tensor is written in place, so a captured step reads and
+    writes fixed addresses; only a conv cache narrower than the compute
+    dtype comes back as a new, wider tensor (``_widen_conv``)."""
+    perms = _resolve_perms(cfg, perms)
 
     @torch.no_grad()
     def decode_step(params, tokens, cache, pos):
+        nonlocal perms
         x = lm.embed(params, cfg, tokens)
         pos = pos.to(torch.int32)
         if cfg.family in ("ssm", "hybrid"):
@@ -139,13 +160,19 @@ def make_decode_step(cfg):
             x = _mamba_decode_trunk(cfg, params, x, cache, pos)
             x = transformer.norm_apply(params["final_norm"], x, cfg)
             return lm.logits_fn(params, cfg, x), cache
+        if perms is not None and perms.device != x.device:
+            # On the eager first call, before any capture: a host copy
+            # inside a captured step would fail.
+            perms = perms.to(x.device)
         max_len = cache["k"].shape[3]
         total = torch.maximum(cache["length"], pos + 1)
         length = torch.clamp(total, max=max_len)
         for i, lp in enumerate(params["blocks"]):
+            layer = ({"v": cache["v"][i], "k_fused": cache["k_fused"][i]} if perms is not None
+                     else {"k": cache["k"][i], "v": cache["v"][i]})
             x, _ = transformer.block_decode_apply(
-                lp, x, cfg, cache={"k": cache["k"][i], "v": cache["v"][i]},
-                cache_index=pos, length=length,
+                lp, x, cfg, cache=layer, cache_index=pos, length=length,
+                perm=perms[i] if perms is not None else None,
             )
         cache["length"].copy_(total)
         x = transformer.norm_apply(params["final_norm"], x, cfg)
@@ -155,10 +182,11 @@ def make_decode_step(cfg):
 
 
 def _resolve_perms(cfg, perms: torch.Tensor | None) -> torch.Tensor | None:
-    """The fused-K̂ pool's static perms (L, Hkv, dh), or None for a raw-K
-    pool.  ``perms`` passes given ones across (the tests hand over the
+    """The fused-K̂ cache's or pool's static perms (L, Hkv, dh), or None for
+    raw K (and for the ssm and hybrid families, which keep no fused cache).
+    ``perms`` passes given ones across (the tests hand over the
     reference's); None draws the port's own."""
-    if not cfg.attention.distr_decode:
+    if not cfg.attention.distr_decode or cfg.family != "dense":
         return None
     return perms if perms is not None else kv_cache.static_perms(cfg)
 

@@ -24,8 +24,9 @@ forward and backward, and the
 differentiable ops on the card against the same ops on the CPU; and the
 serving steps captured as CUDA graphs against the same step functions
 driven eagerly (greedy tokens and launch counts, the slot engine for each
-family and the paged engine over a raw-K and a fused-K̂ pool through
-preemption).  Marked
+family and over the fused-K̂ cache, and the paged engine over a raw-K and a
+fused-K̂ pool through preemption), and injected NaN rows and stuck steps
+under graph replay leaving the other requests' tokens as a clean run's.  Marked
 ``cuda``; skips without a GPU.  This file imports neither JAX nor the JAX package, so on a machine
 without JAX it runs alone:
 
@@ -660,12 +661,23 @@ def _graph_config(arch: str):
     return cfg if cfg.family == "ssm" else cfg.replace(head_dim=64)
 
 
-@pytest.mark.parametrize("arch", ["starcoder2-7b", "mamba2-130m", "zamba2-7b"])
-def test_slot_decode_graph_replay_matches_eager_steps(cuda, arch):
+@pytest.mark.parametrize("arch,fused", [
+    pytest.param("starcoder2-7b", False, id="starcoder2-7b"),
+    pytest.param("starcoder2-7b", True, id="starcoder2-7b-fused_k"),
+    pytest.param("mamba2-130m", False, id="mamba2-130m"),
+    pytest.param("zamba2-7b", False, id="zamba2-7b"),
+])
+def test_slot_decode_graph_replay_matches_eager_steps(cuda, arch, fused):
+    """The slot decode step as a graph, for each family and over the
+    fused-K̂ cache (G* = 2: the decode kernel at score width 32)."""
+    from dataclasses import replace
+
     from repro_torch.models import lm
     from repro_torch.serve.engine import ServeEngine
 
     cfg = _graph_config(arch)
+    if fused:  # the config's plain distr prefill; decode runs the kernel
+        cfg = cfg.replace(attention=replace(cfg.attention, distr_decode=True))
     params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     prompts = [[1, 2, 3], [4, 5, 6, 7, 8, 9, 10], [11, 12], [13] * 40]
     out = _served_both_ways(
@@ -677,6 +689,45 @@ def test_slot_decode_graph_replay_matches_eager_steps(cuda, arch):
     if cfg.family != "ssm":
         assert counts["decode"] > 0
     assert len(eng._decode._captured) == 1  # the decode step ran as a graph
+    assert ("k_fused" in eng.cache) == fused
+
+
+@pytest.mark.parametrize("kind", ["slot", "paged"])
+@pytest.mark.parametrize("point", ["nan_logits", "stuck_step"])
+def test_faults_under_graph_replay_leave_the_others_tokens(cuda, kind, point):
+    """A NaN row poisoned out of place after a replay, or a decode step
+    that raises before its replay: uid 1 fails alone, and the other
+    requests' tokens equal a fault-free run's."""
+    from dataclasses import replace
+
+    from repro_torch.faults import FaultInjector, FaultSpec
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import PagedServeEngine, ServeEngine
+
+    cfg = _graph_config("starcoder2-7b")
+    cfg = cfg.replace(attention=replace(cfg.attention, impl="pallas_flash"))
+    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    prompts = [[1, 2, 3], [4, 5, 6, 7, 8, 9, 10], [11, 12]]
+    runs = {}
+    for mode in ("clean", "fault"):
+        # uid 1's third hit is its second decode step on either engine.
+        specs = [FaultSpec(point, uid=1, after=2, times=-1)] if mode == "fault" else []
+        kw = dict(max_len=64, device="cuda", faults=FaultInjector(specs))
+        eng = (ServeEngine(cfg, params, max_slots=3, **kw) if kind == "slot" else
+               PagedServeEngine(cfg, params, max_batch=3, block_size=16, prefill_chunk=8,
+                                cache_dtype=torch.float32, **kw))
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=8)
+        done = eng.run_to_completion(max_steps=200)
+        runs[mode] = ({r.uid: (r.status, r.generated) for r in done}, eng)
+    (clean, _), (got, eng) = runs["clean"], runs["fault"]
+    assert got[1][0] == "failed" and 0 < len(got[1][1]) < 8
+    assert got[0] == clean[0] and got[2] == clean[2]
+    assert {s for s, _ in clean.values()} == {"done"}
+    counters = {k: v for k, v in eng.counters_snapshot().items() if v}
+    assert counters == ({"failed_numeric": 1} if point == "nan_logits"
+                        else {"failed_fault": 1, "step_retries": 3})
+    assert len(eng._decode._captured) == 1
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["raw_k", "fused_k"])

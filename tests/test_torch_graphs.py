@@ -5,6 +5,8 @@ their addresses; a capture's launch-count advance taken back and added
 once per replay) runs here through a seam that replaces the four device
 methods.  The engines keep every tensor a captured step reads at a fixed
 address.  The card's own capture is tested in ``test_torch_cuda.py``."""
+from dataclasses import replace
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -185,20 +187,34 @@ def _addresses(tree):
     return []
 
 
-@pytest.mark.parametrize("arch", ["starcoder2-7b", "zamba2-7b"])
-def test_slot_engine_keeps_what_a_captured_step_reads_in_place(arch):
+@pytest.mark.parametrize("arch,fused", [
+    pytest.param("starcoder2-7b", False, id="starcoder2-7b"),
+    pytest.param("starcoder2-7b", True, id="starcoder2-7b-fused_k"),
+    pytest.param("zamba2-7b", False, id="zamba2-7b"),
+])
+def test_slot_engine_keeps_what_a_captured_step_reads_in_place(arch, fused):
     """After the first step (which may widen a conv cache), the cache, pos
-    and tokens a captured decode step reads never move."""
+    and tokens a captured decode step reads never move; the fused-K̂ cache
+    is written in place at every step, and raw K then only at admission."""
     cfg = get_config(arch, reduced=True)
+    if fused:
+        cfg = cfg.replace(attention=replace(cfg.attention, distr_decode=True))
     eng = ServeEngine(cfg, lm.init_params(cfg, device="cpu"), max_slots=2, max_len=64,
                       device="cpu")
     for prompt in ([1, 2, 3], [4, 5, 6, 7, 8], [9, 9]):
         eng.add_request(prompt, max_new_tokens=4)
     eng.step()
     seen = (_addresses(eng.cache), eng.pos.data_ptr(), eng.tokens.data_ptr())
+    assert ("k_fused" in eng.cache) == fused
     while eng.active or eng.pending:
+        before = {k: t.clone() for k, t in eng.cache.items()}
+        admitting = bool(eng.pending) and len(eng.active) < eng.max_slots
         eng.step()
         assert (_addresses(eng.cache), eng.pos.data_ptr(), eng.tokens.data_ptr()) == seen
+        if fused and eng.active:
+            assert not torch.equal(eng.cache["k_fused"], before["k_fused"])
+            if not admitting:
+                assert torch.equal(eng.cache["k"], before["k"])
     assert [r.status for r in eng.finished] == ["done"] * 3
 
 

@@ -2,7 +2,11 @@
 4/2, f32) with the reference's lm.init_params(PRNGKey(0)) weights carried
 over by models.convert.from_jax_params.  Prefill logits and cache, one
 decode step, and the greedy tokens of a 2-slot engine serving 3 requests
-match the JAX reference under both kernel impls."""
+match the JAX reference under both kernel impls, and under
+``distr_decode`` over the fused-K̂ cache with the reference's static
+perms carried across (models.convert.convert_perms)."""
+from dataclasses import replace
+
 import numpy as np
 import pytest
 
@@ -18,6 +22,7 @@ from repro.models import attention as ref_attn  # noqa: E402
 from repro.models import layers as ref_layers  # noqa: E402
 from repro.models import lm as ref_lm  # noqa: E402
 from repro.models import transformer as ref_tf  # noqa: E402
+from repro.serve import kv_cache as ref_kvc  # noqa: E402
 from repro.serve.engine import ServeEngine as RefEngine  # noqa: E402
 from repro.serve.serve_step import make_decode_step as ref_decode  # noqa: E402
 from repro.serve.serve_step import make_prefill as ref_prefill  # noqa: E402
@@ -27,7 +32,7 @@ from repro_torch.models import attention as port_attn  # noqa: E402
 from repro_torch.models import layers as port_layers  # noqa: E402
 from repro_torch.models import lm as port_lm  # noqa: E402
 from repro_torch.models import transformer as port_tf  # noqa: E402
-from repro_torch.models.convert import from_jax_params  # noqa: E402
+from repro_torch.models.convert import convert_perms, from_jax_params  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.serve_step import make_decode_step, make_prefill  # noqa: E402
 
@@ -149,4 +154,66 @@ def test_engine_sliding_window_past_max_len_matches_reference(models, impl):
         assert all(r.status == "done" for r in done)
         outs.append({r.uid: r.generated for r in done})
     assert sorted(len(g) for g in outs[1].values()) == [40, 40]
+    assert outs[1] == outs[0]
+
+
+def _fused(rcfg, tcfg):
+    """Both configs under pallas_distr with the fused-K̂ decode cache."""
+    return tuple(c.replace(attention=replace(c.attention, impl="pallas_distr",
+                                             distr_decode=True)) for c in (rcfg, tcfg))
+
+
+def test_fused_prefill_and_decode_step_match_reference(models):
+    """The fused-K̂ slot cache: the prefill writes ``k_fused`` (d/G* wide)
+    beside k, v and length; one decode step reads it (raw K stays as the
+    prefill left it) and its logits and cache match the reference's."""
+    rcfg, rparams, tcfg, tparams = models
+    rcfg, tcfg = _fused(rcfg, tcfg)
+    perms = convert_perms(np.asarray(ref_kvc.static_perms(rcfg)), tcfg, "cpu")
+    toks = _tokens(1, 2, 40, rcfg.vocab)
+    r_logits, r_cache = ref_prefill(rcfg, MAX_LEN)(rparams, jnp.asarray(toks))
+    t_logits, t_cache = make_prefill(tcfg, MAX_LEN, perms=perms)(tparams, torch.from_numpy(toks))
+    assert set(t_cache) == set(r_cache) == {"k", "k_fused", "length", "v"}
+    assert t_cache["k_fused"].shape[-1] == tcfg.head_dim_ // tcfg.attention.distr.group_size
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(r_logits), atol=1e-4, rtol=1e-4)
+    for key in ("k", "k_fused", "v"):
+        assert t_cache[key].shape == r_cache[key].shape
+        np.testing.assert_allclose(t_cache[key].numpy(), np.asarray(r_cache[key]),
+                                   atol=1e-4, rtol=1e-4)
+    np.testing.assert_array_equal(t_cache["length"].numpy(), np.asarray(r_cache["length"]))
+
+    k_before = t_cache["k"].clone()
+    nxt = _tokens(2, 2, 1, rcfg.vocab)
+    pos = np.asarray([40, 40], np.int32)
+    r_logits, r_cache = ref_decode(rcfg)(rparams, jnp.asarray(nxt), r_cache, jnp.asarray(pos))
+    t_logits, t_cache = make_decode_step(tcfg, perms)(tparams, torch.from_numpy(nxt), t_cache,
+                                                      torch.from_numpy(pos))
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(r_logits), atol=1e-4, rtol=1e-4)
+    for key in ("k_fused", "v"):
+        np.testing.assert_allclose(t_cache[key].numpy(), np.asarray(r_cache[key]),
+                                   atol=1e-4, rtol=1e-4)
+    np.testing.assert_array_equal(t_cache["length"].numpy(), np.asarray(r_cache["length"]))
+    assert torch.equal(t_cache["k"], k_before)  # raw K is not written at decode
+
+
+@pytest.mark.parametrize("max_len", [MAX_LEN, 32], ids=["roomy", "sliding"])
+def test_fused_engine_greedy_tokens_match_reference(models, max_len):
+    """The 2-slot engines under ``distr_decode`` decode from the fused-K̂
+    cache: the same greedy tokens as the reference engine's, also with
+    the ring sliding past max_len."""
+    rcfg, rparams, tcfg, tparams = models
+    rcfg, tcfg = _fused(rcfg, tcfg)
+    perms = convert_perms(np.asarray(ref_kvc.static_perms(rcfg)), tcfg, "cpu")
+    prompts, new = (PROMPTS, 4) if max_len == MAX_LEN else (PROMPTS[:2], 30)
+    outs, engines = [], (RefEngine(rcfg, rparams, max_slots=2, max_len=max_len),
+                         ServeEngine(tcfg, tparams, max_slots=2, max_len=max_len, device="cpu",
+                                     perms=perms))
+    for eng in engines:
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=new)
+        done = eng.run_to_completion()
+        assert all(r.status == "done" for r in done)
+        outs.append({r.uid: r.generated for r in done})
+    assert engines[1].cache["k_fused"].shape[-1] == tcfg.head_dim_ // 2
+    assert sorted(len(g) for g in outs[1].values()) == [new] * len(prompts)
     assert outs[1] == outs[0]
