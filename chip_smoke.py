@@ -38,11 +38,19 @@ captured decode step); runs the chaos runs, 3 requests an engine on a
 tick clock with one injected fault each (``serve/faults.py``: NaN logits,
 a stuck step, a slow step against a deadline, a cancel, and on the paged
 engine an exhausted pool and a failing restore), each held to its
-terminal statuses, counters, pool and the other requests' tokens; then
-trains minicpm-2b at its published size with seeded random f32 params
+terminal statuses, counters, pool and the other requests' tokens; the
+trace runs: the serve workload again under a ``TraceRecorder`` on the slot
+engine and on ``PagedServeEngine`` (raw-K), each trace and metrics
+snapshot validated, one request span per request whose end args equal its
+metrics row, one ``decode`` span a decode step, the wall split by span;
+then trains minicpm-2b at its published size with seeded random f32 params
 through ``repro_torch.launch.train.run`` under both impls (4 steps of
 4 × 2048 tokens, full remat), and profiles one more step per impl for the
-attention kernels' share.  The hybrid slice: the SSD kernel against its
+attention kernels' share; then the training robustness run: minicpm-2b at
+full width cut to one layer through ``Trainer`` with verified checkpoints
+in a temporary workdir, a loss spike (one rollback), a NaN step (one
+skip) and a torn final save, and a second trainer that resumes past the
+torn checkpoint.  The hybrid slice: the SSD kernel against its
 plain version at zamba2-7b's shape (112 heads of 64, state 64, chunk 128;
 N = 2048 and the ragged 600, B = 1 and 2) and mamba2-130m's (24 heads,
 state 128), and ``ops.ssd`` (head flattening included) at the first; the
@@ -79,6 +87,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -130,6 +139,17 @@ PRESSURE_BLOCKS, PRESSURE_NEW = 17, 40
 CHAOS_PROMPTS = (96, 200, 517)
 CHAOS_PRESSURE_PROMPTS = (1000, 1000, 96)
 CHAOS_NEW, CHAOS_CANCEL_STEP, CHAOS_MAX_STEPS = 32, 10, 400
+# The training robustness phase: minicpm-2b at full width cut to one layer,
+# f32, 1 x 2048 tokens a step, ROBUST_STEPS steps; faults: a loss spike on
+# the 6th step's consult (rolled back to the step-0 baseline), a NaN on the
+# 4th (skipped, then trimmed by the rollback) and a torn final save at step
+# 8.  A checkpoint with AdamW's moments is 4.13 GB, and on the card a save
+# took 19-29 s and a verified load 16-23 s (PERF.md sections 5 and 6), so the run
+# keeps to the two saves the trainer makes anyway (the step-0 baseline and
+# the final save): no periodic save falls inside it.
+ROBUST_STEPS, ROBUST_CKPT_EVERY, ROBUST_SEQ = 8, 100, 2048
+ROBUST_FAULTS = (dict(point="loss_spike", after=5), dict(point="nan_grad", after=3),
+                 dict(point="ckpt_torn_write", uid=8))
 # The SSD kernel: (label, B, H, P, G, S, chunk, N).  zamba2-7b's Mamba-2
 # heads (the headline: B = 1, N = 2048), its ragged tail and B = 2, and
 # mamba2-130m's state width 128.
@@ -1207,6 +1227,127 @@ def chaos_phase(torch, params, base=None, device="cuda") -> dict:
     return {"launches": launches, "report": report}
 
 
+def trace_phase(torch, params, base=None, device="cuda") -> dict:
+    """starcoder2-7b at full width with the serve phase's weights and
+    prompts (SERVE_PROMPTS, drawn as ``launch.serve.run`` draws them),
+    pallas_distr, 32 new tokens, greedy, under a ``TraceRecorder`` on the
+    wall clock: once on the slot engine (4 slots, max_len 2048, the decode
+    step captured) and once on ``PagedServeEngine`` (raw-K pool, 8 lanes,
+    blocks of 128, chunks of 32).  Each run's trace and registry snapshot
+    (``obs.metrics.serving_registry``) go through a JSON file and the
+    validators.  Raises unless both validate, each request has one
+    ``request`` begin and one end whose args equal its ``metrics()`` row,
+    the ``decode`` spans number the engine's decode steps, every
+    ``lifecycle.COUNTER_KEYS`` key is in the snapshot once, every request
+    is done, and the decode (slot) or paged (paged) kernel launched.  Logs
+    the wall split by span name.  A span is host time: none synchronises
+    the card, so the slot engine's ``prefill`` and ``decode`` spans cover
+    the dispatch of their step, while the paged ``decode`` span also waits
+    for its tick, whose tokens and health mask it reads back."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode as dec
+    from repro_torch.kernels import distr_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.obs import TraceRecorder, serving_registry
+    from repro_torch.obs.validate import validate_chrome_trace, validate_metrics_snapshot
+    from repro_torch.serve.engine import PagedServeEngine, ServeEngine
+    from repro_torch.serve.lifecycle import COUNTER_KEYS
+
+    base = base or get_config("starcoder2-7b")
+    cfg = base.replace(attention=base.attention.with_impl("pallas_distr"))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, size=n).tolist() for n in SERVE_PROMPTS]
+    launches = {"distr": 0, "decode": 0, "paged": 0}
+    report = {}
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        for kind in ("slot", "paged"):
+            rec = TraceRecorder()
+            if kind == "slot":
+                eng = ServeEngine(cfg, params, max_slots=4, max_len=2048, device=device,
+                                  trace=rec)
+                attr = "_decode"
+            else:
+                eng = PagedServeEngine(cfg, params, max_batch=8, max_len=2048, block_size=128,
+                                       prefill_chunk=32, device=device, trace=rec)
+                attr = "decode_tick"
+            step_fn, steps = getattr(eng, attr), [0]
+
+            def counted(*args, step_fn=step_fn, steps=steps):
+                steps[0] += 1
+                return step_fn(*args)
+
+            setattr(eng, attr, counted)
+            fk.launches = dk.launches = dec.launches = pd.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for p in prompts:
+                eng.add_request(p, max_new_tokens=32)
+            done = eng.run_to_completion()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {"flash": fk.launches, "distr": dk.launches, "decode": dec.launches,
+                      "paged": pd.launches}
+            tpath, mpath = Path(out_dir, f"{kind}_trace.json"), Path(out_dir, f"{kind}_m.json")
+            rec.save(str(tpath))
+            mpath.write_text(json.dumps(serving_registry(eng).snapshot()))
+            doc, snap = json.loads(tpath.read_text()), json.loads(mpath.read_text())
+            problems = validate_chrome_trace(doc) + validate_metrics_snapshot(snap)
+            evs = doc["traceEvents"]
+            span_s, span_ms = {}, {}
+            for e in evs:
+                if e["ph"] == "X":
+                    span_s[e["name"]] = span_s.get(e["name"], 0.0) + e["dur"] / 1e6
+                    span_ms.setdefault(e["name"], []).append(round(e["dur"] / 1e3, 4))
+            # The first two decode steps are the graph's warm-up and capture.
+            replay_ms = statistics.median(span_ms["decode"][2:] or [0.0])
+            rows = {m["uid"]: json.loads(json.dumps(m)) for m in eng.metrics()}
+            begins = sorted(e["args"]["uid"] for e in evs
+                            if e["ph"] == "b" and e["name"] == "request")
+            ends = [e for e in evs if e["ph"] == "e" and e["name"] == "request"]
+            n_decode = sum(e["ph"] == "X" and e["name"] == "decode" for e in evs)
+            names = [n for n in snap["counters"] if n.startswith("serve_")]
+            log(f"[trace {kind}] {len(done)} requests in {wall:.3f}s; {len(evs)} events "
+                f"({tpath.stat().st_size} bytes), {rec.dropped} dropped; wall by span (host "
+                f"time: no span synchronises the card; the paged tick reads its tokens back "
+                f"inside its span, the slot step after its span): "
+                + ", ".join(f"{k} {v:.4f}s" for k, v in sorted(span_s.items()))
+                + f", the rest {wall - sum(span_s.values()):.4f}s; {n_decode} decode spans, "
+                f"{steps[0]} decode steps; decode span ms: the first two {span_ms['decode'][:2]}, "
+                f"median after {replay_ms}; prefill span ms {span_ms.get('prefill')}; "
+                f"launches {counts}; problems {problems}")
+            if problems:
+                raise AssertionError(f"trace {kind}: the validators found {problems}")
+            if begins != sorted(rows) or sorted(e["args"]["uid"] for e in ends) != sorted(rows):
+                raise AssertionError(f"trace {kind}: request spans {begins} / "
+                                     f"{len(ends)} ends for requests {sorted(rows)}")
+            bad = [e["args"]["uid"] for e in ends if e["args"] != rows[e["args"]["uid"]]]
+            if bad:
+                raise AssertionError(f"trace {kind}: end args differ from metrics() for {bad}")
+            if n_decode != steps[0] or steps[0] == 0:
+                raise AssertionError(f"trace {kind}: {n_decode} decode spans for "
+                                     f"{steps[0]} decode steps")
+            if sorted(names) != sorted(f"serve_{k}" for k in COUNTER_KEYS):
+                raise AssertionError(f"trace {kind}: counters in the snapshot {names}")
+            if len(done) != len(prompts) or any(
+                    r.status != "done" or len(r.generated) != 32 for r in done):
+                raise AssertionError(f"trace {kind}: requests not done")
+            if counts["decode" if kind == "slot" else "paged"] == 0:
+                raise AssertionError(f"trace {kind}: no decode launches: {counts}")
+            for key in launches:
+                launches[key] += counts[key]
+            report[kind] = {"wall_s": wall, "events": len(evs), "span_s": span_s,
+                            "span_ms": span_ms, "decode_steps": steps[0], "launches": counts}
+            del eng
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return {"launches": launches, "report": report}
+
+
 def paged_serve_phase(torch, params) -> dict:
     """starcoder2-7b at full width through ``PagedServeEngine`` with the slot
     phase's weights: 8 requests (prompts PAGED_PROMPTS, greedy), 8 lanes,
@@ -1398,6 +1539,154 @@ def train_phase(torch) -> dict:
         del params, res
         torch.cuda.empty_cache()
     return {"launches": launches, "report": report}
+
+
+def train_robustness_phase(torch, base=None, device="cuda", seq=ROBUST_SEQ) -> dict:
+    """minicpm-2b at full width cut to 1 layer (the embedding and one
+    layer, f32), pallas_distr, 1 x ``seq`` tokens a step, trained through
+    ``Trainer`` with a ``TraceRecorder`` and a checkpoint workdir in a fresh
+    temporary directory (removed at the end): ROBUST_STEPS steps, keep 2,
+    ``AnomalyConfig(warmup=3, z_threshold=6.0)`` and the faults
+    ROBUST_FAULTS.  Raises unless the trainer rolled back once and skipped
+    one NaN step, its history is steps 1..8 with finite losses, the trace
+    and the registry snapshot validate, and a second trainer in the same
+    workdir resumes from the newest verified checkpoint below the torn one
+    (the baseline, one torn fallback) with that checkpoint's data cursor
+    and takes a finite step; and unless the distr forward, delta and distr
+    backward kernels launched and the flash ones did not.  Logs each save's
+    and load's seconds, bytes and split (host copy, sha256, ``np.savez``,
+    fsync, verification, the copy into the card's tensors)."""
+    from repro_torch.configs import get_config
+    from repro_torch.faults import FaultInjector, FaultSpec
+    from repro_torch.kernels import backward as bwd
+    from repro_torch.kernels import distr_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.launch.train import init_train_params
+    from repro_torch.models import lm
+    from repro_torch.obs import TraceRecorder, train_registry
+    from repro_torch.obs.validate import validate_chrome_trace, validate_metrics_snapshot
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.anomaly import AnomalyConfig
+    from repro_torch.train.data import SyntheticLMData
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import Trainer
+
+    base = base or get_config("minicpm-2b")
+    cfg = base.replace(n_layers=1, attention=base.attention.with_impl("pallas_distr"))
+    opt = OptimizerConfig(peak_lr=1e-4, warmup_steps=1, total_steps=ROBUST_STEPS,
+                          schedule=cfg.schedule)
+    anomaly = AnomalyConfig(warmup=3, z_threshold=6.0)
+    io = []  # (what, name, seconds, bytes, split)
+    # The split: seconds inside these functions of train/checkpoint.py
+    # (verify_checkpoint also runs inside _gc, the save's keep-k check).
+    parts = ("_to_numpy", "_array_digest", "_write_npz", "_fsync_file", "_fsync_dir",
+             "_gc", "verify_checkpoint", "_load_dir")
+    spent = dict.fromkeys(parts, 0.0)
+    originals = {name: getattr(ckpt, name) for name in parts + ("save_checkpoint",
+                                                                 "load_checkpoint")}
+
+    def timed(name):
+        fn = originals[name]
+
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return wrapper
+
+    def split(before):
+        return {k: round(spent[k] - before[k], 4) for k in parts if spent[k] > before[k]}
+
+    def timed_save(ckpt_dir, step, *args, **kw):
+        before, t0 = dict(spent), time.perf_counter()
+        path = originals["save_checkpoint"](ckpt_dir, step, *args, **kw)
+        seconds = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in Path(path).iterdir())
+        io.append(("save", Path(path).name, seconds, size, split(before)))
+        log(f"[train robustness] save {Path(path).name}: {seconds:.3f}s, {size} bytes; "
+            f"split {io[-1][4]} (_write_npz holds the host copy, the hash and np.savez)")
+        return path
+
+    def timed_load(*args, **kw):
+        before, t0 = dict(spent), time.perf_counter()
+        out = originals["load_checkpoint"](*args, **kw)
+        seconds = time.perf_counter() - t0
+        io.append(("load", out[3]["_name"], seconds, None, split(before)))
+        log(f"[train robustness] load {out[3]['_name']} (verified, "
+            f"{out[3]['_fallback_skipped']} skipped): {seconds:.3f}s; split {io[-1][4]}")
+        return out
+
+    def trainer(params, trace, faults=None):
+        return Trainer(cfg, opt, SyntheticLMData(cfg.vocab, 1, seq, seed=0), params,
+                       workdir=workdir, ckpt_every=ROBUST_CKPT_EVERY, ckpt_keep=2,
+                       anomaly=anomaly, faults=faults, trace=trace)
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    for name in parts:
+        setattr(ckpt, name, timed(name))
+    ckpt.save_checkpoint, ckpt.load_checkpoint = timed_save, timed_load
+    try:
+        t0 = time.perf_counter()
+        params = init_train_params(cfg, seed=0, device=device)
+        n_params = sum(p.numel() for p in lm.trainable(params))
+        fk.launches = dk.launches = 0
+        for name in bwd.launches:
+            bwd.launches[name] = 0
+        rec = TraceRecorder()
+        tr = trainer(params, rec, FaultInjector([FaultSpec(**f) for f in ROBUST_FAULTS]))
+        hist = tr.run(ROBUST_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"flash": fk.launches, "distr": dk.launches, **bwd.launches}
+        counters = {k: v for k, v in tr.counters_snapshot().items() if v}
+        doc = json.loads(json.dumps(rec.to_chrome()))
+        snap = json.loads(json.dumps(train_registry(tr).snapshot()))
+        problems = validate_chrome_trace(doc) + validate_metrics_snapshot(snap)
+        instants = [(e["name"], e["args"]) for e in doc["traceEvents"] if e["ph"] == "i"]
+        log(f"[train robustness] minicpm-2b, 1 layer: {n_params} params (f32), {wall:.2f}s "
+            f"for {ROBUST_STEPS} steps with saves; losses {[r['loss'] for r in hist]}; "
+            f"step s {[r['sec'] for r in hist]}; counters {counters}; instants {instants}; "
+            f"launches {counts}; problems {problems}")
+        if counters.get("rollbacks") != 1 or counters.get("nan_skips") != 1:
+            raise AssertionError(f"train robustness: counters {counters}")
+        if [r["step"] for r in hist] != list(range(1, ROBUST_STEPS + 1)) or not all(
+                math.isfinite(r["loss"]) for r in hist):
+            raise AssertionError(f"train robustness: history {hist}")
+        if problems:
+            raise AssertionError(f"train robustness: the validators found {problems}")
+        names = ckpt.list_checkpoint_names(tr.ckpt_dir)
+        del tr, params
+        torch.cuda.empty_cache()
+
+        t1 = time.perf_counter()
+        tr2 = trainer(init_train_params(cfg, seed=1, device=device), TraceRecorder())
+        meta = json.loads(Path(tr2.ckpt_dir, "step_00000000", "meta.json").read_text())
+        resumed = (tr2.step, tr2.counters_snapshot()["torn_ckpt_fallbacks"],
+                   tr2.dataset.state(), meta["data_state"])
+        step = tr2.step_once()
+        torch.cuda.synchronize()
+        log(f"[train robustness] checkpoints {names}; resumed at step {resumed[0]} with "
+            f"{resumed[1]} torn fallback(s), data cursor {resumed[2]} (checkpoint's "
+            f"{resumed[3]}), next step loss {step['loss']} in {time.perf_counter() - t1:.2f}s")
+        if resumed[:2] != (0, 1) or resumed[2] != resumed[3] or not math.isfinite(step["loss"]):
+            raise AssertionError(f"train robustness: resume {resumed}, next step {step}")
+        path = ("distr", "delta", "distr_dq", "distr_dkv")
+        off = ("flash", "flash_dq", "flash_dkv")
+        if any(counts[n] == 0 for n in path) or any(counts[n] for n in off):
+            raise AssertionError(f"train robustness: launches off the path: {counts}")
+        counts = {"flash": fk.launches, "distr": dk.launches, **bwd.launches}
+        del tr2
+        torch.cuda.empty_cache()
+    finally:
+        for name, fn in originals.items():
+            setattr(ckpt, name, fn)
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {"launches": {n: counts[n] for n in path},
+            "report": {"params": n_params, "wall_s": wall, "losses": [r["loss"] for r in hist],
+                       "counters": counters, "checkpoints": names, "io": io,
+                       "launches": counts}}
 
 
 def distr_vs_flash_table(prefill_shapes: list, g4: dict, a112: dict, back: list) -> list:
@@ -1635,9 +1924,12 @@ def main() -> int:
         results["fused_slot"] = fused
         chaos = chaos_phase(torch, params)
         results["chaos"] = chaos["report"]
+        traced = trace_phase(torch, params)
+        results["trace"] = traced["report"]
         del params
         torch.cuda.empty_cache()
-        for name, count in (*fused["launches"].items(), *chaos["launches"].items()):
+        for name, count in (*fused["launches"].items(), *chaos["launches"].items(),
+                            *traced["launches"].items()):
             launches[name] += count
         hybrid = hybrid_serve_phase(torch)
         results["hybrid_serve"] = hybrid["report"]
@@ -1645,7 +1937,9 @@ def main() -> int:
             launches[name] += count
         train = train_phase(torch)
         results["train"] = train["report"]
-        for name, count in train["launches"].items():
+        robust = train_robustness_phase(torch)
+        results["train_robustness"] = robust["report"]
+        for name, count in (*train["launches"].items(), *robust["launches"].items()):
             launches[name] += count
 
     csrc = "src/repro_torch/kernels/csrc"

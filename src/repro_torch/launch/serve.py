@@ -6,12 +6,16 @@
 ``--arch`` takes every registered config: the dense starcoder2-7b and
 minicpm-2b, the attention-free mamba2-130m and the hybrid zamba2-7b.  Runs
 on the GPU unless ``--device cpu`` is given (then use ``--reduced``: the CPU
-runs the kernels' plain PyTorch versions).
+runs the kernels' plain PyTorch versions).  ``--trace PATH`` records each
+request's lifecycle span (admission → prefill → decode → terminal) and the
+step spans as a Chrome trace_event JSON; ``--metrics-out PATH`` writes the
+metrics snapshot (``obs.metrics.serving_registry``: the engine's frozen
+counters and TTFT / TPOT histograms).
 """
 from __future__ import annotations
 
 import argparse
-import time
+import json
 
 import numpy as np
 import torch
@@ -19,6 +23,7 @@ import torch
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core.api import IMPLS
 from repro_torch.models import lm
+from repro_torch.obs import TraceRecorder, perf_clock, serving_registry
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.utils.device import resolve_device
 
@@ -31,31 +36,33 @@ def _sync(device: torch.device) -> None:
 def run(cfg, params, *, requests: int = 8, max_new: int = 16, max_slots: int = 4,
         max_len: int = 256, temperature: float = 0.0,
         prompt_lens: list[int] | None = None, seed: int = 0,
-        device: str | torch.device = "cuda") -> dict:
+        device: str | torch.device = "cuda", trace=None) -> dict:
     """Serve ``requests`` random prompts to completion.  Prompt lengths are
     ``prompt_lens`` when given, else drawn in [4, 16] as the reference
-    launcher does.  Returns the finished requests, per-request metrics,
-    the token count, the wall time and tokens/s."""
+    launcher does; ``trace`` is the recorder the engine emits to (None: the
+    process-global one).  Returns the engine (for ``serving_registry``),
+    the finished requests, per-request metrics, the token count, the wall
+    time and tokens/s."""
     dev = resolve_device(device)
     eng = ServeEngine(cfg, params, max_slots=max_slots, max_len=max_len,
-                      temperature=temperature, seed=seed, device=dev)
+                      temperature=temperature, seed=seed, device=dev, trace=trace)
     rng = np.random.default_rng(seed)
     lens = prompt_lens if prompt_lens is not None else [
         int(rng.integers(4, 17)) for _ in range(requests)
     ]
     _sync(dev)
-    t0 = time.perf_counter()
+    t0 = perf_clock()
     for n in lens:
         eng.add_request(rng.integers(1, cfg.vocab, size=n).tolist(), max_new_tokens=max_new)
     done = eng.run_to_completion()
     _sync(dev)
-    dt = time.perf_counter() - t0
+    dt = perf_clock() - t0
     total = sum(len(r.generated) for r in done)
-    return {"done": done, "metrics": eng.metrics(), "tokens": total,
+    return {"engine": eng, "done": done, "metrics": eng.metrics(), "tokens": total,
             "seconds": dt, "tok_per_s": total / dt}
 
 
-def main() -> None:
+def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_NAMES, required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -72,7 +79,11 @@ def main() -> None:
     ap.add_argument("--profile", action="store_true",
                     help="after one warm-up run, profile a second run: device "
                          "time by kernel and the device's busy share")
-    args = ap.parse_args()
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a Chrome trace_event JSON of the run")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write a typed metrics snapshot of the run")
+    args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
@@ -84,15 +95,24 @@ def main() -> None:
     kw = dict(requests=args.requests, max_new=args.max_new, max_slots=args.max_slots,
               max_len=args.max_len, temperature=args.temperature, prompt_lens=lens,
               device=dev)
-    out = run(cfg, params, **kw)
+    rec = TraceRecorder() if args.trace else None
+    out = run(cfg, params, trace=rec, **kw)
     print(f"[serve] {len(out['done'])} requests, {out['tokens']} tokens in "
           f"{out['seconds']:.2f}s ({out['tok_per_s']:.1f} tok/s)")
     for m in out["metrics"]:
         print(f"  req {m['uid']}: ttft {m['ttft_s']:.4f}s tpot {m['tpot_s']:.4f}s")
     for r in out["done"][:4]:
         print(f"  req {r.uid}: {r.generated[:12]}")
+    if rec is not None:
+        rec.save(args.trace)
+        print(f"[serve] trace: {args.trace} ({len(rec.events)} events)")
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            json.dump(serving_registry(out["engine"]).snapshot(), f, indent=1)
+        print(f"[serve] metrics: {args.metrics_out}")
     if args.profile:
         _profile(cfg, params, kw, dev)
+    return out
 
 
 def device_busy_s(prof) -> float:

@@ -1,23 +1,34 @@
 """Training launcher: the trainer over a model with seeded random weights
-and the synthetic token stream.
+and the synthetic token stream (or binary token shards).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b \
       --impl pallas_distr --steps 4 --batch 4 --seq 2048
 
 Runs on the GPU unless ``--device cpu`` is given (then use ``--reduced``:
-the CPU runs the kernels' plain PyTorch versions).  Loading weights from
-disk is not ported yet.
+the CPU runs the kernels' plain PyTorch versions).  ``--workdir DIR``
+turns on verified checkpoints (a baseline at step 0, every
+``--ckpt-every`` steps, emergency and final saves), resume from the newest
+verified one and the anomaly guard (``--anomaly-z``, ``--max-rollbacks``);
+without it nothing is written.  ``--trace PATH`` writes a Chrome trace of
+the per-step spans and the checkpoint and rollback instants,
+``--metrics-out PATH`` the trainer's metrics snapshot
+(``obs.metrics.train_registry``).  Loading weights from disk, the
+supervisor (``--supervise``) and the tuner (``--tune``) are not ported yet.
 """
 from __future__ import annotations
 
 import argparse
+import glob
+import json
 
 import torch
 
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core.api import IMPLS
 from repro_torch.models import lm
-from repro_torch.train.data import SyntheticLMData
+from repro_torch.obs import TraceRecorder, set_recorder, train_registry
+from repro_torch.train.anomaly import AnomalyConfig
+from repro_torch.train.data import BinaryShardData, SyntheticLMData
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.trainer import Trainer
 from repro_torch.utils.device import resolve_device
@@ -32,24 +43,36 @@ def init_train_params(cfg, *, seed: int = 0, device: str | torch.device = "cuda"
 
 def run(cfg, params: dict, *, steps: int = 10, batch: int = 8, seq: int = 128,
         lr: float = 1e-3, grad_accum: int = 1, seed: int = 0,
-        device: str | torch.device = "cuda") -> dict:
+        device: str | torch.device = "cuda", workdir: str | None = None,
+        data: str | None = None, ckpt_every: int = 200, anomaly_z: float = 8.0,
+        max_rollbacks: int = 3, trace=None) -> dict:
     """Train ``params`` (on ``device``) for ``steps`` steps on
-    ``SyntheticLMData(cfg.vocab, batch, seq, seed)``, logging every step.
-    Returns the history, the step times, tokens/s over the steps after the
+    ``SyntheticLMData(cfg.vocab, batch, seq, seed)``, or on the ``.bin``
+    shards the glob ``data`` names, logging every step.  With ``workdir``
+    the trainer checkpoints there and resumes from it; ``trace`` is the
+    recorder it emits to (None: the process-global one).  Returns the
+    trainer, the history, the step times, tokens/s over the steps after the
     first (which pays for the kernel build and first-use setup), the count
     of skipped steps and, on CUDA, the peak of
     ``torch.cuda.max_memory_allocated`` in bytes (None on the CPU)."""
     dev = resolve_device(device)
     opt_cfg = OptimizerConfig(peak_lr=lr, warmup_steps=max(steps // 20, 1), total_steps=steps,
                               schedule=cfg.schedule, grad_accum=grad_accum)
-    data = SyntheticLMData(cfg.vocab, batch, seq, seed=seed)
+    if data:
+        dataset = BinaryShardData(sorted(glob.glob(data)), batch, seq)
+    else:
+        dataset = SyntheticLMData(cfg.vocab, batch, seq, seed=seed)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    trainer = Trainer(cfg, opt_cfg, data, params)
+    anomaly = AnomalyConfig(enabled=anomaly_z > 0, z_threshold=anomaly_z or 8.0,
+                            max_rollbacks=max_rollbacks)
+    trainer = Trainer(cfg, opt_cfg, dataset, params, workdir=workdir, ckpt_every=ckpt_every,
+                      anomaly=anomaly, trace=trace)
     hist = trainer.run(steps)
     times = [r["sec"] for r in hist]
     warm = times[1:] or times
     return {
+        "trainer": trainer,
         "history": hist,
         "step_times": times,
         "tok_per_s": batch * seq * len(warm) / sum(warm),
@@ -72,20 +95,51 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--workdir", default=None,
+                    help="checkpoint here and resume from it (default: no checkpoints)")
+    ap.add_argument("--data", default=None,
+                    help="glob of .bin token shards (default: synthetic)")
+    ap.add_argument("--ckpt-every", type=int, default=200)
+    ap.add_argument("--anomaly-z", type=float, default=8.0,
+                    help="z-score threshold of the loss/grad-norm spike detector (rolls "
+                         "back to the last verified checkpoint; 0 disables the guard)")
+    ap.add_argument("--max-rollbacks", type=int, default=3,
+                    help="consecutive no-progress anomaly rollbacks before the run halts")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a Chrome trace_event JSON of the run")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write a typed metrics snapshot of the run")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, reduced=args.reduced)
     if args.impl is not None:
         cfg = cfg.replace(attention=cfg.attention.with_impl(args.impl))
-    params = init_train_params(cfg, seed=args.seed, device=args.device)
-    out = run(cfg, params, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
-              grad_accum=args.grad_accum, seed=args.seed, device=args.device)
+    rec = None
+    if args.trace:
+        rec = TraceRecorder()
+        set_recorder(rec)
+    try:
+        params = init_train_params(cfg, seed=args.seed, device=args.device)
+        out = run(cfg, params, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
+                  grad_accum=args.grad_accum, seed=args.seed, device=args.device,
+                  workdir=args.workdir, data=args.data, ckpt_every=args.ckpt_every,
+                  anomaly_z=args.anomaly_z, max_rollbacks=args.max_rollbacks, trace=rec)
+    finally:
+        set_recorder(None)
     hist = out["history"]
-    print(f"[train] loss {hist[0]['loss']:.4f} → {hist[-1]['loss']:.4f} over {len(hist)} "
-          f"steps; {out['tok_per_s']:.1f} tok/s after the first step; "
-          f"{out['nan_skips']} skipped")
+    if hist:
+        print(f"[train] loss {hist[0]['loss']:.4f} → {hist[-1]['loss']:.4f} over {len(hist)} "
+              f"steps; {out['tok_per_s']:.1f} tok/s after the first step; "
+              f"{out['nan_skips']} skipped")
     if out["max_memory_allocated"] is not None:
         print(f"[train] peak memory allocated {out['max_memory_allocated'] / 2**30:.2f} GiB")
+    if rec is not None:
+        rec.save(args.trace)
+        print(f"[train] trace: {args.trace} ({len(rec.events)} events)")
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            json.dump(train_registry(out["trainer"]).snapshot(), f, indent=1)
+        print(f"[train] metrics: {args.metrics_out}")
     return out
 
 

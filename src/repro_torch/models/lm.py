@@ -96,23 +96,29 @@ def init_params(cfg, generator: torch.Generator | None = None,
     return params
 
 
-def trainable(params: dict) -> list[torch.Tensor]:
-    """The trained leaves of ``params`` in a fixed order: every tensor but
-    the LSH projection."""
-    leaves: list[torch.Tensor] = []
+def named_trainable(params: dict) -> list[tuple[str, torch.Tensor]]:
+    """``(key path, tensor)`` of the trained leaves of ``params`` in a fixed
+    order (dict keys sorted, lists by index, paths like
+    ``blocks/0/attn/wq/w``): every tensor but the LSH projection."""
+    leaves: list[tuple[str, torch.Tensor]] = []
 
-    def walk(tree):
+    def walk(tree, path: str):
         if isinstance(tree, dict):
             for key in sorted(tree):
-                walk(tree[key])
+                walk(tree[key], f"{path}/{key}" if path else str(key))
         elif isinstance(tree, list):
-            for item in tree:
-                walk(item)
+            for i, item in enumerate(tree):
+                walk(item, f"{path}/{i}")
         else:
-            leaves.append(tree)
+            leaves.append((path, tree))
 
-    walk({k: v for k, v in params.items() if k != "lsh_proj"})
+    walk({k: v for k, v in params.items() if k != "lsh_proj"}, "")
     return leaves
+
+
+def trainable(params: dict) -> list[torch.Tensor]:
+    """The trained leaves of ``params`` in ``named_trainable``'s order."""
+    return [t for _, t in named_trainable(params)]
 
 
 def embed(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:

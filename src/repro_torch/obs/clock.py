@@ -1,8 +1,12 @@
-"""The wall-clock source of the paged serving path.
+"""The single wall-clock source for serve and train time reads.
 
-The scheduler and the paged engine take an injectable ``clock`` (tests
-inject tick clocks so deadlines and TTFT are deterministic) and default to
-:data:`perf_clock` via :func:`resolve_clock`.
+Every serve and train component (the engines, the scheduler, the trainer,
+the trace recorder) takes an injectable ``clock`` (tests inject tick and
+step clocks, so deadlines, TTFT, step times and trace timestamps are
+deterministic) and defaults to :data:`perf_clock` via :func:`resolve_clock`.
+No other module under ``serve``, ``train`` or ``obs`` reads the time
+directly; ``tests/test_torch_obs.py`` enforces it with a source scan that
+whitelists only this module.
 """
 from __future__ import annotations
 

@@ -14,7 +14,16 @@ scores read.
 
 Both engines give every request one terminal status (serve.lifecycle)
 under deadlines, shedding, cancel, numeric quarantine and injected faults
-(serve.faults), and report the same ``counters_snapshot()`` keys.
+(serve.faults), and report the same ``counters_snapshot()`` keys.  Both
+emit the reference's trace events (obs.trace) to ``trace`` (None: the
+process-global recorder): a ``request`` async span per request whose end
+args are its ``metrics()`` row, ``prefill`` and ``decode`` spans, and the
+``shed``, ``first_token`` and ``degrade_level`` instants (the paged
+engine's come from its scheduler).  Every span sits around a step, never
+inside a captured graph, and none adds a synchronisation: on the card a
+span is the host's time in its step, the dispatch alone unless the step
+reads a result back (the paged decode tick returns its tokens and health
+mask, so its span includes the tick's device time).
 
 As in the reference engine, admission sets ``pos = n - 1`` and the next
 token to the prompt's last token, so the first decode step feeds that token
@@ -32,6 +41,7 @@ import torch
 
 from repro_torch.models.lm import check_family
 from repro_torch.obs.clock import resolve_clock
+from repro_torch.obs.trace import get_recorder
 from repro_torch.serve import kv_cache, lifecycle, paged
 from repro_torch.serve.degrade import DegradationController, DegradeConfig
 from repro_torch.serve.faults import NULL_INJECTOR
@@ -89,7 +99,8 @@ class ServeEngine:
     quarantine, and the ``faults`` hooks (serve.faults: ``stuck_step`` at
     admission and before a decode step, ``nan_logits`` on the prefill row
     and each decoded row, ``slow_step``).  Every request ends in one
-    terminal status (serve.lifecycle).
+    terminal status (serve.lifecycle).  ``trace`` takes the trace events
+    (see the module docstring).
 
     Under ``attention.distr_decode`` a dense model decodes from the fused
     K̂ cache under static ``perms`` (L, Hkv, dh) (None draws the port's
@@ -99,7 +110,8 @@ class ServeEngine:
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
                  seed: int = 0, clock=None, max_waiting: int | None = None,
                  degrade: DegradeConfig | DegradationController | None = None, faults=None,
-                 device: str | torch.device = "cuda", perms: torch.Tensor | None = None):
+                 device: str | torch.device = "cuda", perms: torch.Tensor | None = None,
+                 trace=None):
         check_family(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -115,6 +127,9 @@ class ServeEngine:
             degrade = DegradationController(degrade)
         self.degrade = degrade
         self.faults = faults or NULL_INJECTOR
+        self.trace = trace if trace is not None else get_recorder()
+        self._tns = self.trace.ns()  # the request spans' id namespace
+        self._last_degrade_level = 0
         self.counters: Counter = Counter()
         self._clock_offset = 0.0  # advanced only by the slow_step fault
         self._step_tries: dict[int, int] = {}  # uid → consecutive faulting steps
@@ -149,8 +164,11 @@ class ServeEngine:
         req = Request(next(self._uid), list(prompt), max_new_tokens, eos_id,
                       deadline_ttft=deadline_ttft, deadline_e2e=deadline_e2e)
         now = self._now()
+        self.trace.begin("request", f"{self._tns}:{req.uid}", uid=req.uid,
+                         prompt_len=len(req.prompt), max_new=max_new_tokens)
         if self.max_waiting is not None and len(self.pending) >= self.max_waiting:
             self.counters["shed"] += 1
+            self.trace.instant("shed", uid=req.uid)
             self._terminal(req, lifecycle.REJECTED, now, t_submit=now)
             return req.uid
         self.pending.append(req)
@@ -189,6 +207,8 @@ class ServeEngine:
             "status": status,
             "degrade_group": req.degrade_group,
         }
+        # The end event's args ARE the metrics row.
+        self.trace.end("request", f"{self._tns}:{req.uid}", **self._metric_records[req.uid])
         self.finished.append(req)
 
     def _release_slot(self, slot: int) -> None:
@@ -261,7 +281,11 @@ class ServeEngine:
         group = 1
         if self.degrade is not None:
             # The backlog is the pressure signal, read once a step.
-            group = self.degrade.cfg.group_for(self.degrade.observe(len(self.pending)))
+            level = self.degrade.observe(len(self.pending))
+            group = self.degrade.cfg.group_for(level)
+            if level != self._last_degrade_level:
+                self.trace.instant("degrade_level", level=level, group=group)
+                self._last_degrade_level = level
         for slot in self._free_slots():
             if not self.pending:
                 break
@@ -279,7 +303,8 @@ class ServeEngine:
             toks = torch.zeros((1, bucket), dtype=torch.int64)
             toks[0, :n] = torch.tensor(req.prompt)
             req.status = lifecycle.PREFILL
-            logits, cache1 = self._prefill_fn(group)(self.params, toks.to(self.device))
+            with self.trace.span("prefill", uid=req.uid, bucket=bucket, group=group):
+                logits, cache1 = self._prefill_fn(group)(self.params, toks.to(self.device))
             # Numeric health guard, before the cache touches the slot.
             if (self.faults.fires("nan_logits", req.uid) is not None
                     or not bool(torch.isfinite(logits[0, -1]).all())):
@@ -323,7 +348,8 @@ class ServeEngine:
         occupied[list(self.active)] = True
         # Idle slots stay pinned at 0 so their garbage decode walks one block.
         step_pos = torch.where(occupied.to(self.device), self.pos + 1, 0).to(torch.int32)
-        logits, cache = self._decode(self.params, self.tokens, self.cache, step_pos)
+        with self.trace.span("decode", n_active=len(self.active)):
+            logits, cache = self._decode(self.params, self.tokens, self.cache, step_pos)
         for key, t in cache.items():  # a conv cache the first step widened
             if t is not self.cache[key]:
                 self.cache[key] = t
@@ -358,6 +384,7 @@ class ServeEngine:
             req.generated.append(t)
             if len(req.generated) == 1:
                 self._t_first[req.uid] = now
+                self.trace.instant("first_token", uid=req.uid)
             if len(req.generated) >= req.max_new_tokens or (
                     req.eos_id is not None and t == req.eos_id) or slot in no_room:
                 req.done = True
@@ -418,6 +445,7 @@ class PagedServeEngine:
     ``faults`` (serve.faults) fires ``pool_exhausted`` in ``alloc``,
     ``restore_failure`` in ``restore`` and ``stuck_step`` and
     ``nan_logits`` in every model step; the scheduler contains them.
+    ``trace`` is handed to the scheduler, which emits the trace events.
 
     Dense family only; fused-K̂ pools under ``attention.distr_decode`` with
     static ``perms`` (L, Hkv, dh) (None draws the port's own).
@@ -435,7 +463,7 @@ class PagedServeEngine:
                  seed: int = 0, cache_dtype=torch.bfloat16, clock=None,
                  max_waiting: int | None = None, degrade: DegradeConfig | None = None,
                  faults=None, device: str | torch.device = "cuda",
-                 perms: torch.Tensor | None = None):
+                 perms: torch.Tensor | None = None, trace=None):
         if cfg.family != "dense":
             raise NotImplementedError(f"family {cfg.family!r}: the port pages dense models")
         self.device = resolve_device(device)
@@ -464,10 +492,11 @@ class PagedServeEngine:
                                         device=self.device)
         self.prefill_chunk = min(prefill_chunk, max_len)
         self.faults = faults or NULL_INJECTOR
+        self.trace = trace if trace is not None else get_recorder()
         self.scheduler = Scheduler(
             SchedulerConfig(max_batch=max_batch, prefill_chunk=self.prefill_chunk,
                             token_budget=token_budget, max_waiting=max_waiting),
-            clock=clock, degrade=degrade, faults=self.faults,
+            clock=clock, degrade=degrade, faults=self.faults, trace=self.trace,
         )
         self.perms = perms
         # The decode tick and the chunk window run as CUDA graphs on the

@@ -34,9 +34,15 @@ deciding every tick:
     attempts; the ``slow_step`` fault moves the clock the deadlines read.
   * **Per-request metrics**: TTFT, TPOT, preemptions, terminal status and
     degradation level, plus ``counters_snapshot()``.
+  * **Trace events** (obs.trace) to ``trace`` (None: the process-global
+    recorder): a ``request`` async span per request, ids
+    ``"<namespace>:<uid>"``, whose end args are its metrics row; the
+    ``decode`` span around each decode tick; the ``shed``, ``preempt``,
+    ``first_token``, ``degrade_level``, ``restore``, ``degraded_prefill``
+    and ``watchdog`` instants.
 
-The reference's trace spans and its mesh admission (``prefill_mesh_run``)
-are not ported yet.
+The reference's mesh admission (``prefill_mesh_run``, its ``mesh_prefill``
+instant) is not ported yet.
 
 The scheduler is pure policy: it talks to the engine through a small
 primitive surface (``free_lane``, ``alloc``, ``can_admit``,
@@ -53,6 +59,7 @@ from dataclasses import dataclass, field
 import torch
 
 from repro_torch.obs.clock import resolve_clock
+from repro_torch.obs.trace import get_recorder
 from repro_torch.serve import lifecycle
 from repro_torch.serve.degrade import DegradationController, DegradeConfig
 from repro_torch.serve.faults import NULL_INJECTOR, InjectedFault
@@ -133,13 +140,15 @@ class Scheduler:
 
     def __init__(self, cfg: SchedulerConfig, *, clock=None,
                  degrade: DegradeConfig | DegradationController | None = None,
-                 faults=NULL_INJECTOR):
+                 faults=NULL_INJECTOR, trace=None):
         self.cfg = cfg
         self.clock = resolve_clock(clock)
         if isinstance(degrade, DegradeConfig):
             degrade = DegradationController(degrade)
         self.degrade = degrade
         self.faults = faults
+        self.trace = trace if trace is not None else get_recorder()
+        self._tns = self.trace.ns()  # the request spans' id namespace
         self.waiting: deque[Entry] = deque()
         self.running: dict[int, Entry] = {}  # lane → entry
         self.done: list[Entry] = []
@@ -150,6 +159,7 @@ class Scheduler:
         self._clock_offset = 0.0
         self._stall_ticks = 0
         self._level = 0  # degradation level chosen this tick
+        self._last_level = 0  # the last level a degrade_level instant recorded
 
     def _now(self) -> float:
         return self.clock() + self._clock_offset
@@ -162,12 +172,16 @@ class Scheduler:
         requests keep their FCFS position."""
         e = Entry(req=req)
         e.metrics.t_submit = self._now()
+        self.trace.begin("request", f"{self._tns}:{e.uid}", uid=e.uid,
+                         prompt_len=len(req.prompt), max_new=req.max_new_tokens)
         if (self.cfg.max_waiting is not None
                 and len(self.waiting) >= self.cfg.max_waiting):
             self.counters["shed"] += 1
+            self.trace.instant("shed", uid=e.uid)
             e.metrics.t_done = e.metrics.t_submit
             req.status = lifecycle.REJECTED
             self.done.append(e)
+            self.trace.end("request", f"{self._tns}:{e.uid}", **self._metric_row(e))
             return None
         req.status = lifecycle.QUEUED
         self.waiting.append(e)
@@ -189,6 +203,7 @@ class Scheduler:
         return bool(self.waiting or self.running)
 
     def _metric_row(self, e: Entry) -> dict:
+        """The row ``metrics()`` lists and the request span's end args carry."""
         return {
             "uid": e.uid,
             "ttft_s": e.metrics.ttft,
@@ -220,6 +235,7 @@ class Scheduler:
         e.req.status = status
         e.metrics.t_done = self._now()
         self.done.append(e)
+        self.trace.end("request", f"{self._tns}:{e.uid}", **self._metric_row(e))
 
     def _fail(self, e: Entry, engine, kind: str, finished: list) -> None:
         self._finalize(e, engine, lifecycle.FAILED)
@@ -288,6 +304,7 @@ class Scheduler:
         victim.evicted = True
         victim.req.status = lifecycle.PREEMPTED
         victim.metrics.n_preemptions += 1
+        self.trace.instant("preempt", uid=victim.uid)
         if victim.lane is not None:
             del self.running[victim.lane]
             victim.lane = None
@@ -317,6 +334,7 @@ class Scheduler:
         head.req.generated.append(tok)
         head.next_token = tok
         head.metrics.t_first_token = self._now()
+        self.trace.instant("first_token", uid=head.uid)
         if (len(head.req.generated) >= head.req.max_new_tokens
                 or (head.req.eos_id is not None and tok == head.req.eos_id)):
             head.req.done = True
@@ -366,6 +384,7 @@ class Scheduler:
             return True
         head.evicted = False
         head.restore_tries = 0
+        self.trace.instant("restore", uid=head.uid)
         if head.prompt_done == len(head.req.prompt):
             head.req.status = lifecycle.RUNNING
             head.lane = engine.free_lane()
@@ -408,6 +427,9 @@ class Scheduler:
 
         if self.degrade is not None:
             self._level = self.degrade.observe(len(self.waiting), self._ttft_p50())
+            if self._level != self._last_level:
+                self.trace.instant("degrade_level", level=self._level)
+                self._last_level = self._level
 
         budget = self.cfg.budget() - len(self.running)  # decode reserved first
 
@@ -444,6 +466,7 @@ class Scheduler:
                 head.length = n
                 head.req.degrade_group = group
                 self.counters["degraded_prefills"] += 1
+                self.trace.instant("degraded_prefill", uid=head.uid, group=group)
                 budget -= n
                 progressed = True
                 self._finish_prompt(engine, head, row, finished)
@@ -484,7 +507,8 @@ class Scheduler:
                     )
             if self.running:
                 try:
-                    toks, ok = engine.decode_tick(self.running)
+                    with self.trace.span("decode", n_lanes=len(self.running)):
+                        toks, ok = engine.decode_tick(self.running)
                 except InjectedFault as f:
                     # The whole batched step is lost (engines raise before
                     # they touch a pool), but only the culprit spends retry
@@ -507,6 +531,7 @@ class Scheduler:
                     victim = self.waiting.popleft()
                 else:
                     victim = min(self.running.values(), key=lambda x: x.uid)
+                self.trace.instant("watchdog", uid=victim.uid)
                 self._fail(victim, engine, "watchdog_fails", finished)
                 self._stall_ticks = 0
         return finished

@@ -1,2 +1,4 @@
-"""Training: AdamW with LR schedules, synthetic data, the train step and
-the trainer loop (``repro.train``'s counterparts)."""
+"""Training: AdamW with LR schedules, the data streams, the train step, the
+trainer loop with its verified checkpoints, anomaly guard and the elastic
+counter schema (``repro.train``'s counterparts; the supervisor and gradient
+compression are not ported yet)."""

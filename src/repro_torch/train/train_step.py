@@ -9,14 +9,18 @@ from repro_torch.train import optimizer as opt_mod
 
 
 def make_train_step(cfg, opt_cfg: opt_mod.OptimizerConfig):
-    """→ train_step(params, opt_state, batch, step) → (params, opt_state,
-    metrics).  ``params`` is the model's dict (its ``lm.trainable`` leaves
-    are updated in place), ``opt_state`` comes from
+    """→ train_step(params, opt_state, batch, step, inject=0.0) → (params,
+    opt_state, metrics).  ``params`` is the model's dict (its
+    ``lm.trainable`` leaves are updated in place), ``opt_state`` comes from
     ``adamw_init(lm.trainable(params))``, ``batch`` holds int ``tokens`` and
     ``labels`` tensors on the params' device, ``step`` is the int step the
-    LR schedule reads.  Metrics are 0-dim tensors (``lr`` a float)."""
+    LR schedule reads.  ``inject`` is the ``nan_grad`` fault's hook: the
+    trainer passes NaN, which poisons the loss inside the step (``loss +
+    inject * 0.0``), so the fault takes the real NaN guard below.  Metrics
+    are 0-dim tensors (``lr`` a float)."""
 
-    def train_step(params: dict, opt_state: dict, batch: dict, step: int):
+    def train_step(params: dict, opt_state: dict, batch: dict, step: int,
+                   inject: float = 0.0):
         leaves = lm.trainable(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -39,6 +43,7 @@ def make_train_step(cfg, opt_cfg: opt_mod.OptimizerConfig):
             loss.backward()
             loss = loss.detach()
             metrics = {k: v.detach() for k, v in metrics.items()}
+        loss = loss + inject * 0.0
         grads = [p.grad for p in leaves]
         grads, gnorm = opt_mod.clip_by_global_norm(grads, opt_cfg.grad_clip)
         lr = opt_mod.schedule(opt_cfg, step)
