@@ -57,7 +57,20 @@ state 128), and ``ops.ssd`` (head flattening included) at the first; the
 flash, DistrAttention (G* = 2) and decode kernels at zamba2-7b's head dim
 112; and zamba2-7b served at full width (81 Mamba-2
 layers, 2 shared attention blocks applied 13 times) through the same
-launcher and slot engine under both impls.  The engines run their decode
+launcher and slot engine under both impls.  The dense qwen configs: the
+forward kernels at qwen1.5-4b's MHA prefill shape, the decode and paged
+kernels at qwen2.5-32b's 5 query rows a KV head (160 in a 32-token
+chunk); after the trace runs qwen1.5-4b at its published size and
+qwen2.5-32b at full width cut to 8 of its 64 layers, each serving the
+serve workload on the slot engine under both impls and on
+``PagedServeEngine`` (raw-K), every weight freed between models.  The
+error study: ``core.distr_scores`` at G* 2, 4 and 8 on Gaussian q, k and
+on qwen1.5-4b's layer 0, its error growing with G*, with the distr
+kernel's output beside flash's.  SSM training: ``ops.ssd``'s gradient
+(the kernel forward, the chunked backward) against autograd through the
+plain version at mamba2-130m's layer shape, and mamba2-130m trained at
+its published size (4 steps of 4 × 2048 tokens, the SSD kernel twice a
+layer and step under full remat).  The engines run their decode
 steps as CUDA graphs (``serve/graphs.py``), whose replays add the launches
 their capture counted; each kernel's launches are counted in the serve
 and train runs, and each training impl prints its ``model_flops_share``
@@ -79,6 +92,7 @@ the device's busy share, ``serve_load``) and prints a JSON summary last.
 from __future__ import annotations
 
 import argparse
+import gc
 import itertools
 import json
 import math
@@ -160,6 +174,24 @@ SSD_SHAPES = (("zamba2-7b", 1, 112, 64, 1, 64, 128, 2048),
 # SSD tolerances, element-wise atol = rtol: y is bf16 on both sides (set
 # from the readings, PERF.md); the state is f32 on both sides.
 SSD_TOL = {"y": 2e-2, "state": 1e-3}
+# ops.ssd's gradient (the kernel forward, the chunked backward) against
+# autograd through the plain version at mamba2-130m's layer shape for
+# training: (B, N, H, P, G, S, chunk).  f32 at 1e-4, bf16 at 2e-2, of the
+# element plus of the gradient's largest element (the gradients sum over the
+# sequence, so an element that cancels keeps the rounding of its sum).
+SSD_GRAD_SHAPE = (4, 2048, 24, 64, 1, 128, 128)
+SSD_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# The dense configs of the qwen phases: (arch, layers kept; None = all).
+# qwen2.5-32b at full width is 32.8 B params (65.5 GB in bf16): 8 of its 64
+# layers keep 5.46 B (10.9 GB).
+QWEN_SERVE = (("qwen1.5-4b", None), ("qwen2.5-32b", 8))
+# Their attention shapes for the kernel checks: (arch, query heads, KV heads).
+QWEN_KERNEL_SHAPES = (("qwen1.5-4b", 20, 20), ("qwen2.5-32b", 40, 8))
+# Card memory that free_card lets the cycle collector free (small tensors a
+# caught exception's frames may hold).
+CYCLE_SLACK = 64 * 2**20
+# The error study of Ŝ (distr_scores) at d = 128, N = 2048: these G*.
+SCORE_GROUPS = (2, 4, 8)
 # zamba2-7b's shared attention blocks: 32 heads (MHA) of 112, G* = 2.
 HYBRID_ATTN = (32, 32, 112, 2)
 # Kernel names (C++ templates) that count as attention in the profile.
@@ -227,6 +259,27 @@ def tc_smem_bytes(template: str, args: tuple) -> int:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def free_card(torch, what: str, gate: bool = True) -> None:
+    """After a phase has dropped its weights and engines: run the cycle
+    collector, log how much card memory it freed, and with ``gate`` raise
+    if that passes CYCLE_SLACK (the serving engines hold none in a
+    reference cycle, so ``del`` alone frees their weights and caches); then
+    return the cached blocks to the driver.  Training phases log without
+    the gate: in the first training step of a process, torch's lazy setup
+    under ``torch._disable_dynamo`` leaves that step's frames in a cycle
+    that only the collector frees."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    cyclic = held - torch.cuda.memory_allocated()
+    log(f"[memory] after {what}: {held / 2**30:.2f} GiB allocated, {cyclic} bytes of it "
+        "freed by the cycle collector")
+    if gate and cyclic > CYCLE_SLACK:
+        raise AssertionError(f"after {what}: reference cycles held {cyclic / 2**30:.2f} GiB "
+                             "of card memory")
+    torch.cuda.empty_cache()
 
 
 def gpu_name_and_power() -> str:
@@ -381,9 +434,12 @@ def check_close(torch, name, got, want, tol) -> float:
     return max_err(torch, got, want)
 
 
-def prefill_phase(torch, flush) -> dict:
+def prefill_phase(torch, flush, hq: int = 36, hkv: int = 4, ns=PREFILL_NS, label: str = "",
+                  train_shape: bool = True) -> dict:
     """Flash and DistrAttention kernels at the prefill shapes of
-    starcoder2-7b: B·Hq = 36, Hkv = 4, d = 128, G* = 2, causal, bf16."""
+    starcoder2-7b: B·Hq = 36, Hkv = 4, d = 128, G* = 2, causal, bf16 (or
+    ``hq`` over ``hkv`` at the lengths ``ns``, the model ``label`` names;
+    then without the training shape)."""
     import torch.nn.functional as F
 
     from repro_torch.core.distr_attention import DistrConfig
@@ -392,12 +448,13 @@ def prefill_phase(torch, flush) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels.ops import attention_cost, attention_work
 
-    hq, hkv, d, g = 36, 4, 128, 2
+    d, g = 128, 2
+    tag = f" {label}" if label else ""
     dcfg = DistrConfig(group_size=g, block_q=128)
     scale = d ** -0.5
     out = {"flash": {"max_abs_err": 0.0}, "distr": {"max_abs_err": 0.0}}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for n in PREFILL_NS:
+    for n in ns:
         q = torch.randn((1, hq, n, d), generator=gen, device="cuda").to(torch.bfloat16)
         k = torch.randn((1, hkv, n, d), generator=gen, device="cuda").to(torch.bfloat16)
         v = torch.randn((1, hkv, n, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -406,7 +463,7 @@ def prefill_phase(torch, flush) -> dict:
         got = fk.flash_attention_kernel_call(qf, kf, vf, **kw)
         want = fk.flash_attention_plain(qf, kf, vf, **kw)
         torch.cuda.synchronize()
-        err_f = check_close(torch, f"flash N={n}", got, want, TOL["flash"])
+        err_f = check_close(torch, f"flash{tag} N={n}", got, want, TOL["flash"])
 
         qp = ops.pad_to_multiple(q, dcfg.block_q, dim=2)
         q_hat, perms = ops.distr_stage1(dcfg, qp, scale, hkv=hkv)
@@ -417,7 +474,7 @@ def prefill_phase(torch, flush) -> dict:
         got_d = dk.distr_attention_kernel_call(q_hat, kf, vf, perm, **dkw)
         want_d = dk.distr_attention_plain(q_hat, kf, vf, perm, **dkw)
         torch.cuda.synchronize()
-        err_d = check_close(torch, f"distr N={n}", got_d, want_d, TOL["distr"])
+        err_d = check_close(torch, f"distr{tag} N={n}", got_d, want_d, TOL["distr"])
         out["flash"]["max_abs_err"] = max(out["flash"]["max_abs_err"], err_f)
         out["distr"]["max_abs_err"] = max(out["distr"]["max_abs_err"], err_d)
 
@@ -439,7 +496,7 @@ def prefill_phase(torch, flush) -> dict:
             "distr": roofline(attention_work(1, hq, hkv, n, n, d, causal=True, **dist)["fwd"],
                               t["distr_ms"], attention_cost(1, hq, n, n, d, causal=True, **dist)),
         }
-        log(f"[prefill N={n}] flash err {err_f:.3e} {t['flash_ms']:.3f} ms "
+        log(f"[prefill{tag} N={n}] flash err {err_f:.3e} {t['flash_ms']:.3f} ms "
             f"(plain {t['flash_plain_ms']:.3f}, sdpa {t['sdpa_ms']:.3f}, bound "
             f"{bounds['flash']['bound_ms']:.4f}, {bounds['flash']['utilization']:.1%} of it; "
             f"model {bounds['flash']['model_bound_ms']:.4f}) | distr err {err_d:.3e} "
@@ -449,12 +506,13 @@ def prefill_phase(torch, flush) -> dict:
         out.setdefault("shapes", []).append(
             {"n": n, **t, **{f"{k}_{c}": bounds[k][c] for k in bounds
                              for c in ("bound_ms", "model_bound_ms")}})
-        if n == max(PREFILL_NS):  # the headline shape of the JSON line
+        if n == max(ns):  # the headline shape of the JSON line
             out["flash"].update(ms=t["flash_ms"], plain_ms=t["flash_plain_ms"],
                                 library_ms=t["sdpa_ms"], **bounds["flash"])
             out["distr"].update(ms=t["distr_ms"], plain_ms=t["distr_plain_ms"],
                                 library_ms=None, **bounds["distr"])
-    out["shapes"].append(train_shape_forward(torch, flush, out))
+    if train_shape:
+        out["shapes"].append(train_shape_forward(torch, flush, out))
     return out
 
 
@@ -640,17 +698,19 @@ def backward_phase(torch, flush) -> dict:
     return out
 
 
-def decode_phase(torch, flush) -> dict:
+def decode_phase(torch, flush, hq: int = 36, hkv: int = 4, label: str = "") -> dict:
     """The split-K decode kernel at the decode shape of starcoder2-7b:
     B = 4 slots, Hq = 36 over Hkv = 4, S = 2048, lengths {1, 200, 1537,
-    2048}, q_len 1 and 2, score width 128 and 64 (fused K̂), bf16."""
+    2048}, q_len 1 and 2, score width 128 and 64 (fused K̂), bf16 (or
+    ``hq`` over ``hkv``, the model ``label`` names)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode as dec
     from repro_torch.kernels.ops import _pack_gqa_rows
     from repro_torch.roofline.analysis import decode_attention_cost, decode_attention_work
 
-    b, hq, hkv, s, d, bk = 4, 36, 4, 2048, 128, 128
+    b, s, d, bk = 4, 2048, 128, 128
+    tag = f" {label}" if label else ""
     lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
     out = {"max_abs_err": 0.0}
@@ -664,9 +724,10 @@ def decode_phase(torch, flush) -> dict:
             got = dec.merge_splits(*dec.decode_kernel_call(qp, k, v, lengths, **kw))
             want = dec.merge_splits(*dec.decode_plain(qp, k, v, lengths, **kw))
             torch.cuda.synchronize()
-            err = check_close(torch, f"decode q_len={q_len} d_score={ds}", got, want, TOL["decode"])
+            err = check_close(torch, f"decode{tag} q_len={q_len} d_score={ds}", got, want,
+                              TOL["decode"])
             out["max_abs_err"] = max(out["max_abs_err"], err)
-            log(f"[decode q_len={q_len} d_score={ds}] err {err:.3e}")
+            log(f"[decode{tag} q_len={q_len} d_score={ds}] err {err:.3e}")
             if q_len == 1 and ds == d:  # the serving path's shape
                 mask = (torch.arange(s, device="cuda")[None, :] < lengths[:, None])
                 mask = mask[:, None, None, :]
@@ -680,7 +741,7 @@ def decode_phase(torch, flush) -> dict:
                 out.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                            **roofline(decode_attention_work(DECODE_LENGTHS, hq, hkv, d, s),
                                       ms, cost))
-                log(f"[decode serve shape] {ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
+                log(f"[decode{tag} serve shape] {ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
                     f"{lib_ms:.4f}, bound {out['bound_ms']:.4f}, model "
                     f"{out['model_bound_ms']:.4f})")
     return out
@@ -718,8 +779,9 @@ def distr_g4_phase(torch, flush) -> dict:
     return {"n": n, "group_size": g, "ms": ms, "plain_ms": plain_ms, **b, "max_abs_err": err}
 
 
-def paged_kernel_phase(torch, flush) -> dict:
-    """The paged decode kernel at the serving shape: B = 8, Hq 36 over Hkv 4,
+def paged_kernel_phase(torch, flush, hq: int = 36, hkv: int = 4, label: str = "") -> dict:
+    """The paged decode kernel at the serving shape: B = 8, Hq 36 over Hkv 4
+    (or ``hq`` over ``hkv``, the model ``label`` names),
     d = 128, blocks of 128, 16 per table, a pool of 129 blocks whose physical
     ids are shuffled from a seed and whose garbage block 0 holds NaN,
     lengths PAGED_LENGTHS; q_len 1 (a decode tick) and 32 (a prefill chunk),
@@ -733,7 +795,8 @@ def paged_kernel_phase(torch, flush) -> dict:
     from repro_torch.kernels.ops import _pack_gqa_rows
     from repro_torch.roofline.analysis import decode_attention_work, paged_decode_attention_cost
 
-    b, hq, hkv, d, bs, mb = len(PAGED_LENGTHS), 36, 4, 128, 128, 16
+    b, d, bs, mb = len(PAGED_LENGTHS), 128, 128, 16
+    tag = f" {label}" if label else ""
     cap = bs * mb
     lengths = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -756,7 +819,7 @@ def paged_kernel_phase(torch, flush) -> dict:
             got = pd.paged_decode_kernel_call(qp, k_pool, v_pool, bt, lengths, **kw)
             want = pd.paged_decode_plain(qp, k_pool, v_pool, bt, lengths, **kw)
             torch.cuda.synchronize()
-            err = max(check_close(torch, f"paged q_len={q_len} d_score={ds} {name}", g_, w_,
+            err = max(check_close(torch, f"paged{tag} q_len={q_len} d_score={ds} {name}", g_, w_,
                                   TOL["decode"])
                       for name, g_, w_ in zip("oml", got, want))
             out["max_abs_err"] = max(out["max_abs_err"], err)
@@ -786,7 +849,7 @@ def paged_kernel_phase(torch, flush) -> dict:
                     q, kx, vx, attn_mask=mask), 20, flush)
                 del k_c, v_c, kx, vx
             out["shapes"].append(row)
-            log(f"[paged q_len={q_len} d_score={ds}] {ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
+            log(f"[paged{tag} q_len={q_len} d_score={ds}] {ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
                 f"{row['library_ms']}, bound {row['bound_ms']:.4f} by {row['bound_by']}, model "
                 f"{row['model_bound_ms']:.4f}) err {err:.3e}")
     head = out["shapes"][0]  # a decode tick over the raw-K pool
@@ -858,6 +921,72 @@ def ssd_phase(torch, flush) -> dict:
     head = out["shapes"][0]
     out.update(ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
                bound_by=head["bound_by"], library_ms=None)
+    return out
+
+
+def ssd_grad_phase(torch) -> dict:
+    """``ops.ssd`` with a gradient (the ``_SSD`` autograd Function: the SSD
+    kernel forward, the chunked ``models/mamba.py::ssd_chunked`` backward)
+    against autograd through the kernel's plain version ``ssd_plain`` on
+    the same inputs, at SSD_GRAD_SHAPE, in f32 and bf16 (x, b, c; the
+    log-decays a = −softplus(N(0, 1)) f32), with a seeded f32 cotangent of
+    y: dx, da, db and dc held element by element at SSD_GRAD_TOL.  The
+    forward must launch the kernel once and the backward never.  Forward
+    plus backward timed on both sides (host clock around a synchronised
+    call)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd as sk
+
+    bsz, n, h, p, g, s, chunk = SSD_GRAD_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    out = {"shape": SSD_GRAD_SHAPE}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        ins = [torch.randn(shape, generator=gen, device="cuda") for shape in
+               ((bsz, n, h, p), (bsz, n, h), (bsz, n, g, s), (bsz, n, g, s))]
+        ins = [ins[0].to(dtype), -torch.nn.functional.softplus(ins[1]), ins[2].to(dtype),
+               ins[3].to(dtype)]
+        wy = torch.randn((bsz, n, h, p), generator=gen, device="cuda")
+
+        def plain(x, a, b, c):
+            y = sk.ssd_plain(x.transpose(1, 2).reshape(bsz * h, n, p),
+                             a.transpose(1, 2).reshape(bsz * h, n),
+                             b.transpose(1, 2).reshape(bsz * g, n, s),
+                             c.transpose(1, 2).reshape(bsz * g, n, s),
+                             heads_per_group=h // g, chunk=chunk)
+            return y.reshape(bsz, h, n, p).transpose(1, 2)
+
+        grads, secs, launched = {}, {}, {}
+        for side, fn in (("op", lambda *t: ops.ssd(*t, chunk=chunk)), ("plain", plain)):
+            for rep in range(2):  # the first pass warms up
+                xs = [t.detach().clone().requires_grad_(True) for t in ins]
+                torch.cuda.synchronize()
+                before = sk.launches
+                t0 = time.perf_counter()
+                y = fn(*xs)
+                fwd = sk.launches - before
+                (y.float() * wy).sum().backward()
+                torch.cuda.synchronize()
+                secs[side] = time.perf_counter() - t0
+                launched[side] = (fwd, sk.launches - before)
+            grads[side] = [t.grad for t in xs]
+        if launched["op"] != (1, 1) or launched["plain"] != (0, 0):
+            raise AssertionError(f"ssd grad {name}: launches (forward, forward + backward) "
+                                 f"{launched}")
+        tol = SSD_GRAD_TOL[name]
+        errs = {}
+        for arg, got, want in zip("xabc", grads["op"], grads["plain"]):
+            got, want = got.float(), want.float()
+            scale = max(1.0, float(want.abs().max()))
+            torch.testing.assert_close(got, want, atol=tol * scale, rtol=tol,
+                                       msg=lambda m, arg=arg: f"ssd grad {name} d{arg}: {m}")
+            err = float((got - want).abs().max())
+            share = float(((got - want).abs() / (tol * scale + tol * want.abs())).max())
+            errs[f"d{arg}"] = {"max_abs_err": err, "largest": scale, "share": share}
+        log(f"[ssd grad {name}] B={bsz} N={n} H={h} P={p} S={s}: {errs}; fwd + bwd "
+            f"{secs['op'] * 1e3:.2f} ms (plain autograd {secs['plain'] * 1e3:.2f} ms)")
+        out[name] = {"errors": errs, "op_ms": secs["op"] * 1e3, "plain_ms": secs["plain"] * 1e3}
+        del ins, grads, wy
     return out
 
 
@@ -1038,6 +1167,173 @@ def serve_phase(torch):
         launches[kernel] += counts[kernel]
         launches["decode"] += counts["decode"]
     return launches, params, tokens
+
+
+def scores_phase(torch, q, k, v, label: str, proj=None, block_q: int = 128) -> dict:
+    """The error study of Ŝ (``core.distr_scores``, the paper's Tables 3-4)
+    on q, k (1, H, N, d): mean |Ŝ − S| / mean |S| for each G* of
+    SCORE_GROUPS, S = q·kᵀ in f32, Q blocks of ``block_q`` hashed with
+    ``proj``; and on q, k, v in bf16 the
+    DistrAttention forward kernel's output beside the flash kernel's, max
+    and mean |O_distr − O_flash| (causal).  Gates: every value finite, and
+    the Ŝ error growing with G*."""
+    from repro_torch.core import distr_scores
+    from repro_torch.core.distr_attention import DistrConfig
+    from repro_torch.kernels import ops
+
+    s_exact = q.float() @ k.float().transpose(-1, -2)
+    mean_s = float(s_exact.abs().mean())
+    o_flash = ops.flash_attention(q, k, v, causal=True).float()
+    rows = []
+    for g in SCORE_GROUPS:
+        cfg = DistrConfig(group_size=g, block_q=block_q)
+        s_hat = distr_scores(q, k, cfg, proj=proj)
+        rel = float((s_hat - s_exact).abs().mean()) / mean_s
+        o_distr = ops.distr_attention(q, k, v, cfg, causal=True, proj=proj).float()
+        diff = (o_distr - o_flash).abs()
+        row = {"group_size": g, "s_rel_err": rel, "o_max_abs_diff": float(diff.max()),
+               "o_mean_abs_diff": float(diff.mean()),
+               "finite": bool(torch.isfinite(s_hat).all() and torch.isfinite(o_distr).all())}
+        rows.append(row)
+        log(f"[scores {label}] G*={g}: mean |S^ - S| / mean |S| = {rel:.6f}; |O_distr - "
+            f"O_flash| max {row['o_max_abs_diff']:.6f} mean {row['o_mean_abs_diff']:.6f}")
+        del s_hat, o_distr, diff
+    rels = [r["s_rel_err"] for r in rows]
+    if not all(r["finite"] for r in rows) or not torch.isfinite(o_flash).all():
+        raise AssertionError(f"scores {label}: non-finite values: {rows}")
+    if any(b <= a for a, b in zip(rels, rels[1:])):
+        raise AssertionError(f"scores {label}: the S^ error does not grow with G*: {rels}")
+    return {"label": label, "shape": list(q.shape), "rows": rows}
+
+
+def layer0_qkv(torch, cfg, params, tokens):
+    """Layer 0's q, k, v (1, H, N, d) after the QKV bias and RoPE, as the
+    model's prefill computes them, for the prompt ``tokens`` (1, N)."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import layers, lm, transformer
+
+    p0 = params["blocks"][0]
+    h = transformer.norm_apply(p0["norm1"], lm.embed(params, cfg, tokens), cfg)
+    pos = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    q = attn._split_heads(layers.linear_apply(p0["attn"]["wq"], h), cfg.n_heads)
+    k = attn._split_heads(layers.linear_apply(p0["attn"]["wk"], h), cfg.n_kv_heads)
+    v = attn._split_heads(layers.linear_apply(p0["attn"]["wv"], h), cfg.n_kv_heads)
+    return (layers.apply_rope(q, pos, cfg.rope_theta), layers.apply_rope(k, pos, cfg.rope_theta),
+            v)
+
+
+def qwen_serve_phase(torch, arch: str, n_layers: int | None = None,
+                     scores: bool = False) -> dict:
+    """A dense qwen config at full width (``n_layers`` of its layers when
+    given), seeded random bf16 weights initialised on the card, serving
+    starcoder2-7b's workload (6 requests, prompts SERVE_PROMPTS, 32 new
+    tokens, greedy, max_len 2048): on the slot engine (4 slots) through the
+    launcher's run function under pallas_distr and pallas_flash, then on
+    ``PagedServeEngine`` (4 lanes, a raw-K pool of 128-token blocks, chunks
+    of 32) under pallas_flash.  Every request must end ``done`` with 32
+    tokens; each slot run must launch its impl's prefill kernel and the
+    decode kernel, the paged run the paged kernel and none of the others.
+    With ``scores`` it then runs ``scores_phase`` on layer 0's q, k, v for a
+    2048-token prompt drawn as the workload draws its prompts.  The weights
+    are freed before it returns."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode as dec
+    from repro_torch.kernels import distr_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.launch.serve import run
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import PagedServeEngine
+
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in lm.trainable(params))
+    kv_token = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim_ * 2
+    log(f"[{arch}] {cfg.n_layers} layers, {n_params} params (bf16) on the card in "
+        f"{time.perf_counter() - t0:.1f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated; KV cache {kv_token} bytes a token")
+    launches = {"flash": 0, "distr": 0, "decode": 0, "paged": 0}
+    report = {"n_layers": cfg.n_layers, "n_params": n_params, "kv_bytes_per_token": kv_token}
+
+    def gate(name, done, counts, path):
+        bad = [r.uid for r in done if r.status != "done" or len(r.generated) != 32]
+        if len(done) != len(SERVE_PROMPTS) or bad:
+            raise AssertionError(f"{arch} {name}: requests not done: {bad}")
+        off = [k for k in counts if k not in path and counts[k]]
+        if any(counts[k] == 0 for k in path) or off:
+            raise AssertionError(f"{arch} {name}: launches off the path: {counts}")
+        for k in path:
+            launches[k] += counts[k]
+
+    for impl, kernel in (("pallas_distr", "distr"), ("pallas_flash", "flash")):
+        cfg_i = cfg.replace(attention=cfg.attention.with_impl(impl))
+        fk.launches = dk.launches = dec.launches = pd.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        res = run(cfg_i, params, max_new=32, max_slots=4, max_len=2048,
+                  prompt_lens=list(SERVE_PROMPTS), device="cuda")
+        peak = torch.cuda.max_memory_allocated()
+        counts = {"flash": fk.launches, "distr": dk.launches, "decode": dec.launches,
+                  "paged": pd.launches}
+        log(f"[{arch} serve {impl}] {len(res['done'])} requests, {res['tokens']} tokens in "
+            f"{res['seconds']:.2f}s ({res['tok_per_s']:.1f} tok/s); peak allocated "
+            f"{peak / 2**30:.2f} GiB; launches {counts}")
+        for m in res["metrics"]:
+            log(f"  req {m['uid']}: status {m['status']} ttft {m['ttft_s']:.4f}s "
+                f"tpot {m['tpot_s']:.4f}s n={m['n_generated']}")
+        gate(f"serve {impl}", res["done"], counts, (kernel, "decode"))
+        report[impl] = {"seconds": res["seconds"], "tokens": res["tokens"],
+                        "tok_per_s": res["tok_per_s"], "peak_allocated": peak,
+                        "launches": counts, "metrics": res["metrics"]}
+
+    flash = cfg.replace(attention=cfg.attention.with_impl("pallas_flash"))
+    eng = PagedServeEngine(flash, params, max_batch=4, max_len=2048, block_size=128,
+                           prefill_chunk=32, device="cuda")
+    pool_gib = sum(t.numel() * t.element_size() for t in eng.cache.pools.values()) / 2**30
+    rng = np.random.default_rng(0)  # the prompts launch.serve.run draws
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.launches = dk.launches = dec.launches = pd.launches = 0
+    t0 = time.perf_counter()
+    for n in SERVE_PROMPTS:
+        eng.add_request(rng.integers(1, cfg.vocab, size=n).tolist(), max_new_tokens=32)
+    done = eng.run_to_completion()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = {"flash": fk.launches, "distr": dk.launches, "decode": dec.launches,
+              "paged": pd.launches}
+    n_tok = sum(len(r.generated) for r in done)
+    metrics = eng.metrics()
+    log(f"[{arch} paged raw-K] {len(done)} requests, {n_tok} tokens in {seconds:.2f}s "
+        f"({n_tok / seconds:.1f} tok/s); pool {pool_gib:.3f} GiB of "
+        f"{eng.cache.pool.num_blocks} blocks; peak allocated {peak / 2**30:.2f} GiB; "
+        f"launches {counts}")
+    for m in metrics:
+        log(f"  req {m['uid']}: status {m['status']} ttft {m['ttft_s']:.4f}s tpot "
+            f"{m['tpot_s']:.4f}s n={m['n_generated']}")
+    gate("paged raw-K", done, counts, ("paged",))
+    report["paged_raw_k"] = {"seconds": seconds, "tokens": n_tok, "tok_per_s": n_tok / seconds,
+                             "pool_gib": pool_gib, "peak_allocated": peak, "launches": counts,
+                             "metrics": metrics}
+    del eng
+    if scores:
+        toks = torch.from_numpy(np.random.default_rng(0).integers(
+            1, cfg.vocab, size=(1, max(PREFILL_NS)))).to("cuda")
+        with torch.no_grad():
+            q, k, v = layer0_qkv(torch, cfg, params, toks)
+        report["scores"] = scores_phase(torch, q, k, v, f"{arch} layer 0",
+                                        proj=params["lsh_proj"],
+                                        block_q=cfg.attention.distr.resolved().block_q)
+        del q, k, v
+    del params, res  # the last slot run's engine holds the weights and its cache
+    free_card(torch, arch)
+    return {"launches": launches, "report": report}
 
 
 def fused_slot_phase(torch, params, raw_tokens: dict, base=None, device="cuda") -> dict:
@@ -1269,18 +1565,17 @@ def trace_phase(torch, params, base=None, device="cuda") -> dict:
             if kind == "slot":
                 eng = ServeEngine(cfg, params, max_slots=4, max_len=2048, device=device,
                                   trace=rec)
-                attr = "_decode"
             else:
                 eng = PagedServeEngine(cfg, params, max_batch=8, max_len=2048, block_size=128,
                                        prefill_chunk=32, device=device, trace=rec)
-                attr = "decode_tick"
-            step_fn, steps = getattr(eng, attr), [0]
+            # Both engines call their decode graph once a decode step.
+            step_fn, steps = eng._decode, [0]
 
             def counted(*args, step_fn=step_fn, steps=steps):
                 steps[0] += 1
                 return step_fn(*args)
 
-            setattr(eng, attr, counted)
+            eng._decode = counted
             fk.launches = dk.launches = dec.launches = pd.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1539,6 +1834,54 @@ def train_phase(torch) -> dict:
         del params, res
         torch.cuda.empty_cache()
     return {"launches": launches, "report": report}
+
+
+def mamba_train_phase(torch) -> dict:
+    """mamba2-130m at its published size (24 layers, d_model 768, tied
+    embedding), seeded random f32 params, trained through the launcher's
+    run function: TRAIN_STEPS steps of TRAIN_BATCH × TRAIN_N tokens, full
+    remat, so each step runs the SSD kernel twice a layer (the forward and
+    its recompute) and the chunked backward of ``ops.ssd``.  Raises if a
+    loss or grad norm is not finite, a step was skipped, or the SSD kernel
+    did not launch twice a layer and step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd as sk
+    from repro_torch.launch.train import init_train_params, run
+    from repro_torch.models import lm
+
+    cfg = get_config("mamba2-130m")
+    t0 = time.perf_counter()
+    params = init_train_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in lm.trainable(params))
+    log(f"[train mamba2-130m] {n_params} params (f32) on the card in "
+        f"{time.perf_counter() - t0:.1f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    sk.launches = 0
+    res = run(cfg, params, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_N, lr=1e-3, seed=0,
+              device="cuda")
+    hist = res["history"]
+    steady = res["step_times"][1:]
+    step_s = sum(steady) / len(steady)
+    peak = res["max_memory_allocated"]
+    log(f"[train mamba2-130m] losses {[r['loss'] for r in hist]} grad norms "
+        f"{[r['grad_norm'] for r in hist]}")
+    log(f"[train mamba2-130m] step times {res['step_times']} s; mean steady step "
+        f"{step_s:.4f} s; {res['tok_per_s']:.1f} tok/s after the warm-up step; peak "
+        f"allocated {peak / 2**30:.2f} GiB; ssd launches {sk.launches}; {gpu_name_and_power()}")
+    bad = [r for r in hist if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]))]
+    if bad or res["nan_skips"]:
+        raise AssertionError(f"train mamba2-130m: non-finite or skipped steps: {bad}, "
+                             f"{res['nan_skips']} skipped")
+    if sk.launches != 2 * cfg.n_layers * TRAIN_STEPS:
+        raise AssertionError(f"train mamba2-130m: {sk.launches} SSD launches, want "
+                             f"{2 * cfg.n_layers * TRAIN_STEPS}")
+    report = {"n_params": n_params, "losses": [r["loss"] for r in hist],
+              "grad_norms": [r["grad_norm"] for r in hist], "step_times": res["step_times"],
+              "step_s": step_s, "tok_per_s": res["tok_per_s"], "max_memory_allocated": peak,
+              "launches": {"ssd": sk.launches}}
+    del params, res
+    free_card(torch, "mamba2-130m training", gate=False)
+    return {"launches": {"ssd": report["launches"]["ssd"]}, "report": report}
 
 
 def train_robustness_phase(torch, base=None, device="cuda", seq=ROBUST_SEQ) -> dict:
@@ -1904,13 +2247,35 @@ def main() -> int:
     for name in ("flash", "distr"):
         pre[name]["max_abs_err"] = max(pre[name]["max_abs_err"], a112[name]["max_abs_err"])
     dec["max_abs_err"] = max(dec["max_abs_err"], a112["decode"]["max_abs_err"])
-    del flush
+    # The dense qwen configs' shapes through the serving kernels' checks:
+    # qwen1.5-4b is MHA (B·H = 20; one row a KV head in a decode tick, 32 in
+    # a chunk), qwen2.5-32b GQA at 40 over 8 (5 rows a KV head; 160).
+    qwen = {}
+    for label, hq, hkv in QWEN_KERNEL_SHAPES:
+        qwen[label] = {
+            "prefill": prefill_phase(torch, flush, hq=hq, hkv=hkv, ns=(max(PREFILL_NS),),
+                                     label=label, train_shape=False),
+            "decode": decode_phase(torch, flush, hq=hq, hkv=hkv, label=label),
+            "paged": paged_kernel_phase(torch, flush, hq=hq, hkv=hkv, label=label)}
+        for name in ("flash", "distr"):
+            pre[name]["max_abs_err"] = max(pre[name]["max_abs_err"],
+                                           qwen[label]["prefill"][name]["max_abs_err"])
+        dec["max_abs_err"] = max(dec["max_abs_err"], qwen[label]["decode"]["max_abs_err"])
+        pdec["max_abs_err"] = max(pdec["max_abs_err"], qwen[label]["paged"]["max_abs_err"])
+    log(card)
+    ssd_grad = ssd_grad_phase(torch)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    q, k, v = (torch.randn((1, 20, max(PREFILL_NS), 128), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    gaussian_scores = scores_phase(torch, q, k, v, "gaussian")
+    del flush, q, k, v
     results = {"card": card, "tensor_cores": tensor_cores, "delta_sass": delta_sass,
                "distr_vs_flash": distr_vs_flash_table(pre["shapes"], g4, a112, back["shapes"]),
                "prefill_shapes": pre.pop("shapes"), "distr_g4": g4,
                "paged_shapes": pdec.pop("shapes"), "backward_shapes": back.pop("shapes"),
                "delta_shapes": back.pop("delta_shapes"),
-               "ssd_shapes": ssd.pop("shapes"), "head_dim_112": a112}
+               "ssd_shapes": ssd.pop("shapes"), "head_dim_112": a112, "qwen_kernels": qwen,
+               "ssd_grad": ssd_grad, "scores": {"gaussian": gaussian_scores}}
     launches = {"flash": 0, "distr": 0, "decode": 0, "paged": 0, "ssd": 0,
                 **dict.fromkeys(back, 0)}
     if args.only != "kernels":
@@ -1927,19 +2292,28 @@ def main() -> int:
         traced = trace_phase(torch, params)
         results["trace"] = traced["report"]
         del params
-        torch.cuda.empty_cache()
+        free_card(torch, "starcoder2-7b serving")
         for name, count in (*fused["launches"].items(), *chaos["launches"].items(),
                             *traced["launches"].items()):
             launches[name] += count
+        for arch, n_layers in QWEN_SERVE:
+            res = qwen_serve_phase(torch, arch, n_layers, scores=arch == "qwen1.5-4b")
+            results[f"{arch} serve"] = res["report"]
+            for name, count in res["launches"].items():
+                launches[name] += count
+        results["scores"]["qwen1.5-4b layer 0"] = results["qwen1.5-4b serve"].pop("scores")
         hybrid = hybrid_serve_phase(torch)
         results["hybrid_serve"] = hybrid["report"]
         for name, count in hybrid["launches"].items():
             launches[name] += count
         train = train_phase(torch)
         results["train"] = train["report"]
+        mamba = mamba_train_phase(torch)
+        results["train_mamba2_130m"] = mamba["report"]
         robust = train_robustness_phase(torch)
         results["train_robustness"] = robust["report"]
-        for name, count in (*train["launches"].items(), *robust["launches"].items()):
+        for name, count in (*train["launches"].items(), *mamba["launches"].items(),
+                            *robust["launches"].items()):
             launches[name] += count
 
     csrc = "src/repro_torch/kernels/csrc"

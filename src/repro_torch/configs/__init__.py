@@ -5,11 +5,15 @@ import importlib
 
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeSpec
 
+# In the reference's registry order (``repro/configs/__init__.py``), the
+# archs not yet ported left out.
 _ARCH_MODULES = {
-    "mamba2-130m": "repro_torch.configs.mamba2_130m",
     "minicpm-2b": "repro_torch.configs.minicpm_2b",
     "starcoder2-7b": "repro_torch.configs.starcoder2_7b",
+    "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
+    "qwen1.5-4b": "repro_torch.configs.qwen1_5_4b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "mamba2-130m": "repro_torch.configs.mamba2_130m",
 }
 
 ARCH_NAMES = tuple(_ARCH_MODULES)
@@ -22,4 +26,8 @@ def get_config(name: str, *, reduced: bool = False) -> ModelConfig:
     return mod.reduced() if reduced else mod.config()
 
 
-__all__ = ["ARCH_NAMES", "SHAPES", "ModelConfig", "ShapeSpec", "get_config"]
+def list_configs() -> list[ModelConfig]:
+    return [get_config(n) for n in ARCH_NAMES]
+
+
+__all__ = ["ARCH_NAMES", "SHAPES", "ModelConfig", "ShapeSpec", "get_config", "list_configs"]

@@ -142,3 +142,25 @@ def distr_attention(q, k, v, cfg: DistrConfig = DistrConfig(), *,
         o = torch.einsum("bgrln,bgnd->bgrld", p.to(q.dtype).float(), v.float())
         outs.append(o.reshape(b, hq, cfg.block_q, dv).to(q.dtype))
     return torch.cat(outs, dim=2)[:, :, :n]
+
+
+def distr_scores(q: torch.Tensor, k: torch.Tensor, cfg: DistrConfig = DistrConfig(), *,
+                 scale: float = 1.0, proj: torch.Tensor | None = None) -> torch.Tensor:
+    """The approximate score matrix Ŝ alone (the paper's error study,
+    Tables 3-4).  q: (B, H, N, d); k: (B, Hkv, Nk, d), its heads repeated
+    over the query heads when Hkv < H → (B, H, N, Nk) f32.  One fused K̂
+    per Q-block permutation; padded Q rows are cut off."""
+    cfg = cfg.resolved()
+    b, h, n, d = q.shape
+    if k.shape[1] != h:
+        k = k.repeat_interleave(h // k.shape[1], dim=1)
+    qp = pad_to_multiple(q, cfg.block_q, dim=2)
+    nq = qp.shape[2] // cfg.block_q
+    if proj is None:
+        proj = default_projection(cfg, q.device)
+    perms = compute_block_permutations(qp, cfg, proj)  # (b, h, nq, d)
+    q_hat, k_hat = grouping.reduce_qk(qp.reshape(b, h, nq, cfg.block_q, d),
+                                      k[:, :, None].float(), perms, cfg.group_size,
+                                      cfg.estimator)
+    s = torch.einsum("bhqld,bhqnd->bhqln", q_hat.float(), k_hat) * scale
+    return s.reshape(b, h, nq * cfg.block_q, k.shape[2])[:, :, :n]

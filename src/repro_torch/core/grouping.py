@@ -64,3 +64,21 @@ def mean_columns(x: torch.Tensor, perm: torch.Tensor,
                  group_size: int) -> torch.Tensor:
     """Beyond-paper Q estimator: group mean instead of a single sample."""
     return fuse_columns(x, perm, group_size) / group_size
+
+
+def reduce_qk(q: torch.Tensor, k: torch.Tensor, perm: torch.Tensor, group_size: int,
+              estimator: str = "sample") -> tuple[torch.Tensor, torch.Tensor]:
+    """The paper's reduction of a (Q block, K block) pair.
+
+    q: ``(..., l, d)``; k: ``(..., m, d)`` (not transposed); perm: ``(...,
+    d)``, the grouping permutation of the Q block; ``estimator`` "sample"
+    (paper) or "mean" (beyond-paper).  Returns ``(q_hat, k_hat)`` of
+    trailing dim ``d // group_size``, whose ``q_hat @ k_hat^T``
+    approximates ``q @ k^T`` (still scaled by 1/sqrt(d) downstream)."""
+    if estimator == "sample":
+        q_hat = sample_columns(q, perm, group_size)
+    elif estimator == "mean":
+        q_hat = mean_columns(q, perm, group_size)
+    else:
+        raise ValueError(f"unknown estimator {estimator!r}")
+    return q_hat, fuse_columns(k, perm, group_size)

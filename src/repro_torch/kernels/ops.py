@@ -320,16 +320,37 @@ def paged_decode_attention(q, k_pool, v_pool, *, block_tables: torch.Tensor,
     return out.reshape(b, hq, q_len, d).to(q.dtype)
 
 
-def ssd(x, a, b, c, *, chunk: int = 64, return_state: bool = False):
-    """Mamba-2 SSD.  x: (B, N, H, P); a: (B, N, H) log-decays; b, c: (B, N,
-    G, S) → y (B, N, H, P) in x's dtype, and with ``return_state`` also the
-    state at position N, (B, H, S, P) f32 (``ssd_xla(return_state=True)``).
+class _SSD(torch.autograd.Function):
+    """The SSD with a gradient: the kernel forward (its plain version on CPU
+    tensors); the backward recomputes the chunked SSD of the model's layout
+    (``models/mamba.py::ssd_chunked``, the reference's ``ssd_xla``) under
+    autograd and returns its vector-Jacobian product, the reference's own
+    route to a gradient (autodiff of ``ssd_xla``).  With ``return_state``
+    the state's gradient is carried into the product too."""
 
-    Flattens to (B·H, N, P) / (B·G, N, S) for the kernel, as the reference's
-    ``_ssd_jit`` does.  The kernel masks a ragged tail itself and has no
-    backward: a CUDA input that wants a gradient raises."""
-    if _wants_grad(x, a, b, c) and x.device.type != "cpu":
-        raise NotImplementedError("the SSD kernel has no backward")
+    @staticmethod
+    def forward(ctx, x, a, b, c, chunk: int, return_state: bool):
+        ctx.save_for_backward(x, a, b, c)
+        ctx.meta = (chunk, return_state)
+        return _ssd_fwd(x, a, b, c, chunk, return_state)
+
+    @staticmethod
+    def backward(ctx, dy, dstate=None):
+        # Imported here: the model module imports this one.
+        from repro_torch.models.mamba import ssd_chunked
+
+        chunk, return_state = ctx.meta
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = ssd_chunked(*inputs, chunk=chunk, return_state=return_state)
+            outs, cots = (out, (dy, dstate)) if return_state else ((out,), (dy,))
+            grads = iter(torch.autograd.grad(outs, wanted, cots))
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None, None)
+
+
+def _ssd_fwd(x, a, b, c, chunk: int, return_state: bool):
     bsz, n, h, p = x.shape
     g, s = b.shape[2], b.shape[3]
     res = ssd_kernel_call(
@@ -342,6 +363,20 @@ def ssd(x, a, b, c, *, chunk: int = 64, return_state: bool = False):
     y, state = res if return_state else (res, None)
     y = y.reshape(bsz, h, n, p).transpose(1, 2)
     return (y, state.reshape(bsz, h, s, p)) if return_state else y
+
+
+def ssd(x, a, b, c, *, chunk: int = 64, return_state: bool = False):
+    """Mamba-2 SSD.  x: (B, N, H, P); a: (B, N, H) log-decays; b, c: (B, N,
+    G, S) → y (B, N, H, P) in x's dtype, and with ``return_state`` also the
+    state at position N, (B, H, S, P) f32 (``ssd_xla(return_state=True)``).
+
+    Flattens to (B·H, N, P) / (B·G, N, S) for the kernel, as the reference's
+    ``_ssd_jit`` does; the kernel masks a ragged tail itself.  When an input
+    wants a gradient, on either device, ``_SSD`` runs the same forward and
+    gives it a backward."""
+    if _wants_grad(x, a, b, c):
+        return _SSD.apply(x, a, b, c, chunk, return_state)
+    return _ssd_fwd(x, a, b, c, chunk, return_state)
 
 
 # ---------------------------------------------------------------------------

@@ -59,8 +59,10 @@ def ssd_plain(x, a, b, c, *, heads_per_group: int, chunk: int,
     for i in range(nc):
         x_c, c_c, b_c = xs[:, i], cs[:, i], bs[:, i]
         a_cum = torch.cumsum(as_[:, i], dim=-1)  # (BH, Q) inclusive
-        # L[i, j] overflows for j > i under strong decays: select, never mask-multiply.
-        decay = torch.where(tril, torch.exp(a_cum[:, :, None] - a_cum[:, None, :]), 0.0)
+        # L[i, j] overflows for j > i under strong decays: select the
+        # exponent away before the exp, never mask-multiply, so neither the
+        # value nor an autograd gradient meets exp's overflow (0 · inf).
+        decay = torch.exp(torch.where(tril, a_cum[:, :, None] - a_cum[:, None, :], -torch.inf))
         scores = torch.einsum("bis,bjs->bij", c_c, b_c) * decay
         y = torch.einsum("bij,bjp->bip", scores, x_c)
         y = y + torch.exp(a_cum)[..., None] * torch.einsum("bis,bsp->bip", c_c, state)

@@ -3,10 +3,12 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \
       --impl pallas_distr --requests 6 --max-new 32 --max-len 2048
 
-``--arch`` takes every registered config: the dense starcoder2-7b and
-minicpm-2b, the attention-free mamba2-130m and the hybrid zamba2-7b.  Runs
-on the GPU unless ``--device cpu`` is given (then use ``--reduced``: the CPU
-runs the kernels' plain PyTorch versions).  ``--trace PATH`` records each
+``--arch`` takes every registered config: the dense starcoder2-7b,
+minicpm-2b, qwen1.5-4b and qwen2.5-32b (its 64 layers, ≈ 65.5 GB in bf16,
+leave little of one card for the cache), the attention-free mamba2-130m
+and the hybrid zamba2-7b.  Runs on the GPU unless ``--device cpu`` is
+given (then use ``--reduced``: the CPU runs the kernels' plain PyTorch
+versions).  ``--trace PATH`` records each
 request's lifecycle span (admission → prefill → decode → terminal) and the
 step spans as a Chrome trace_event JSON; ``--metrics-out PATH`` writes the
 metrics snapshot (``obs.metrics.serving_registry``: the engine's frozen

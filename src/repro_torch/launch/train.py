@@ -4,12 +4,18 @@ and the synthetic token stream (or binary token shards).
   PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b \
       --impl pallas_distr --steps 4 --batch 4 --seq 2048
 
+Every family trains: the dense configs, the attention-free mamba2-130m
+(``--arch mamba2-130m``) and the hybrid zamba2-7b, whose Mamba-2 layers
+take ``ops.ssd``'s gradient.
+
 Runs on the GPU unless ``--device cpu`` is given (then use ``--reduced``:
-the CPU runs the kernels' plain PyTorch versions).  ``--workdir DIR``
-turns on verified checkpoints (a baseline at step 0, every
-``--ckpt-every`` steps, emergency and final saves), resume from the newest
-verified one and the anomaly guard (``--anomaly-z``, ``--max-rollbacks``);
-without it nothing is written.  ``--trace PATH`` writes a Chrome trace of
+the CPU runs the kernels' plain PyTorch versions).  The run keeps
+verified checkpoints in ``--workdir`` (default ``default_workdir``: one
+directory a config under the temporary directory, as the reference's
+launcher defaults to its own): a baseline at step 0, every
+``--ckpt-every`` steps, emergency and final saves; it resumes from the
+newest verified one and keeps the anomaly guard on (``--anomaly-z``,
+``--max-rollbacks``).  ``--trace PATH`` writes a Chrome trace of
 the per-step spans and the checkpoint and rollback instants,
 ``--metrics-out PATH`` the trainer's metrics snapshot
 (``obs.metrics.train_registry``).  Loading weights from disk, the
@@ -20,6 +26,8 @@ from __future__ import annotations
 import argparse
 import glob
 import json
+import os
+import tempfile
 
 import torch
 
@@ -32,6 +40,16 @@ from repro_torch.train.data import BinaryShardData, SyntheticLMData
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.trainer import Trainer
 from repro_torch.utils.device import resolve_device
+
+
+
+def default_workdir(arch: str, reduced: bool = False) -> str:
+    """The launcher's checkpoint directory when ``--workdir`` is not given:
+    ``<tmp>/repro_torch_train/<arch>[-reduced]``, under
+    ``tempfile.gettempdir()`` (it follows ``TMPDIR``), one for each config,
+    so that a run never resumes another config's checkpoints."""
+    name = f"{arch}-reduced" if reduced else arch
+    return os.path.join(tempfile.gettempdir(), "repro_torch_train", name)
 
 
 def init_train_params(cfg, *, seed: int = 0, device: str | torch.device = "cuda") -> dict:
@@ -96,7 +114,8 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--workdir", default=None,
-                    help="checkpoint here and resume from it (default: no checkpoints)")
+                    help="checkpoint here and resume from the newest verified checkpoint "
+                         "(default: <tmp>/repro_torch_train/<arch>[-reduced])")
     ap.add_argument("--data", default=None,
                     help="glob of .bin token shards (default: synthetic)")
     ap.add_argument("--ckpt-every", type=int, default=200)
@@ -112,6 +131,8 @@ def main(argv: list[str] | None = None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, reduced=args.reduced)
+    workdir = args.workdir or default_workdir(args.arch, args.reduced)
+    print(f"[train] checkpoints in {workdir}")
     if args.impl is not None:
         cfg = cfg.replace(attention=cfg.attention.with_impl(args.impl))
     rec = None
@@ -122,7 +143,7 @@ def main(argv: list[str] | None = None) -> dict:
         params = init_train_params(cfg, seed=args.seed, device=args.device)
         out = run(cfg, params, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
                   grad_accum=args.grad_accum, seed=args.seed, device=args.device,
-                  workdir=args.workdir, data=args.data, ckpt_every=args.ckpt_every,
+                  workdir=workdir, data=args.data, ckpt_every=args.ckpt_every,
                   anomaly_z=args.anomaly_z, max_rollbacks=args.max_rollbacks, trace=rec)
     finally:
         set_recorder(None)

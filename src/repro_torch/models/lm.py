@@ -101,19 +101,22 @@ def named_trainable(params: dict) -> list[tuple[str, torch.Tensor]]:
     order (dict keys sorted, lists by index, paths like
     ``blocks/0/attn/wq/w``): every tensor but the LSH projection."""
     leaves: list[tuple[str, torch.Tensor]] = []
-
-    def walk(tree, path: str):
-        if isinstance(tree, dict):
-            for key in sorted(tree):
-                walk(tree[key], f"{path}/{key}" if path else str(key))
-        elif isinstance(tree, list):
-            for i, item in enumerate(tree):
-                walk(item, f"{path}/{i}")
-        else:
-            leaves.append((path, tree))
-
-    walk({k: v for k, v in params.items() if k != "lsh_proj"}, "")
+    _walk_leaves({k: v for k, v in params.items() if k != "lsh_proj"}, "", leaves)
     return leaves
+
+
+def _walk_leaves(tree, path: str, leaves: list) -> None:
+    # A module function, not a closure: a closure that calls itself is a
+    # reference cycle, which would keep the leaves (the weights, on the card)
+    # alive after the caller drops them, until the cycle collector runs.
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            _walk_leaves(tree[key], f"{path}/{key}" if path else str(key), leaves)
+    elif isinstance(tree, list):
+        for i, item in enumerate(tree):
+            _walk_leaves(item, f"{path}/{i}", leaves)
+    else:
+        leaves.append((path, tree))
 
 
 def trainable(params: dict) -> list[torch.Tensor]:
@@ -129,9 +132,21 @@ def _block_hidden(lp: dict, x: torch.Tensor, cfg, positions, proj) -> torch.Tens
     return transformer.block_apply(lp, x, cfg, positions=positions, proj=proj)[0]
 
 
+def _mamba_hidden(lp: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    return transformer.block_apply(lp, x, cfg, layer_type="mamba")[0]
+
+
+def _remat(cfg, collect_cache: bool) -> bool:
+    return cfg.remat == "full" and torch.is_grad_enabled() and not collect_cache
+
+
 def _mamba_layers(layer_params: list, x: torch.Tensor, cfg, collect_cache: bool):
+    remat = _remat(cfg, collect_cache)
     states = []
     for lp in layer_params:
+        if remat:
+            x = checkpoint(_mamba_hidden, lp, x, cfg, use_reentrant=False)
+            continue
         x, st = transformer.block_apply(lp, x, cfg, layer_type="mamba",
                                         collect_cache=collect_cache)
         states.append(st)
@@ -146,9 +161,10 @@ def backbone(params: dict, cfg, tokens: torch.Tensor, *, collect_cache: bool = F
     "shared_kv": [(k, v)] per group site, "tail": [(conv, ssm)]}``; the
     shared blocks read the embedded tokens ``x0`` through their concat skip.
 
-    Under autograd with ``cfg.remat == "full"`` each dense block is one
-    ``checkpoint``: only its input is kept, and the backward recomputes the
-    block (the reference's ``_remat``)."""
+    Under autograd with ``cfg.remat == "full"`` each dense block and each
+    Mamba layer is one ``checkpoint``: only its input is kept, and the
+    backward recomputes it (the reference's ``_remat``, which wraps the
+    hybrid's Mamba layers but not its shared attention blocks)."""
     x = embed(params, cfg, tokens)
     b, n = tokens.shape
     positions = torch.arange(n, device=tokens.device).expand(b, n)
@@ -171,7 +187,7 @@ def backbone(params: dict, cfg, tokens: torch.Tensor, *, collect_cache: bool = F
         x = transformer.norm_apply(params["final_norm"], x, cfg)
         parts = {"groups": groups, "shared_kv": shared_kv, "tail": tail}
         return x, (parts if collect_cache else None)
-    remat = cfg.remat == "full" and torch.is_grad_enabled() and not collect_cache
+    remat = _remat(cfg, collect_cache)
     kvs = []
     for lp in params["blocks"]:
         if remat:

@@ -5,9 +5,12 @@ backbone of the hybrid (zamba2-7b).
 hand-written kernel on the card, its plain version on the CPU.  (The
 reference's block calls ``ssd_xla``, which computes the same function as its
 Pallas kernel; both share the oracle ``kernels/ref.py::ssd_ref``.)
-``ssd_step`` is the O(1)-per-token decode recurrence, plain PyTorch as in
-the reference.  Dtypes follow the reference: ``dt`` and its softplus in f32,
-the SSD input in the compute dtype, the SSM state in f32.
+``ssd_chunked`` is the counterpart of ``ssd_xla``, plain PyTorch in the
+model's layout: the reference differentiates the block through it, and
+``ops.ssd``'s backward does the same.  ``ssd_step`` is the O(1)-per-token
+decode recurrence, plain PyTorch as in the reference.  Dtypes follow the
+reference: ``dt`` and its softplus in f32, the SSD input in the compute
+dtype, the SSM state in f32.
 """
 from __future__ import annotations
 
@@ -20,6 +23,57 @@ from repro_torch.models import layers
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
+                chunk: int = 128, return_state: bool = False):
+    """Chunked SSD (the reference's ``ssd_xla``).  x: (B, N, H, P); a: (B,
+    N, H) log-decays (≤ 0); b, c: (B, N, G, S) → y (B, N, H, P) in x's
+    dtype, and with ``return_state`` also the state at N, (B, H, S, P) f32.
+
+    Computes in f32.  A ragged tail is zero-padded (a = 0, b = c = x = 0),
+    so the state at N is the padded sequence's final state.  Inside a chunk
+    the decay exp(a_cum_i − a_cum_j) exists only for j ≤ i; above the
+    diagonal the exponent is selected away to −inf before the exp, so
+    neither the value nor its gradient meets an overflowed exp."""
+    bsz, n, h, p = x.shape
+    g, s = b.shape[2], b.shape[3]
+    r = h // g
+    pad = (-n) % chunk
+    nc = (n + pad) // chunk
+
+    def chunked(t, feat):  # (B, N, ...) f32, zero-padded → (B, nc, chunk, *feat)
+        t = t.float()
+        if pad:
+            t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape(bsz, nc, chunk, *feat)
+
+    xs = chunked(x, (g, r, p)).permute(0, 1, 3, 4, 2, 5)  # (B, nc, G, r, Q, P)
+    a_cum = torch.cumsum(chunked(a, (g, r)).permute(0, 1, 3, 4, 2), dim=-1)  # (B, nc, G, r, Q)
+    bs = chunked(b, (g, s)).transpose(2, 3)  # (B, nc, G, Q, S)
+    cs = chunked(c, (g, s)).transpose(2, 3)
+
+    idx = torch.arange(chunk, device=x.device)
+    tril = idx[None, :] <= idx[:, None]
+    seg = torch.where(tril, a_cum[..., :, None] - a_cum[..., None, :], float("-inf"))
+    cb = (cs @ bs.transpose(-1, -2))[:, :, :, None]  # (B, nc, G, 1, Q, Q)
+    y = (cb * torch.exp(seg)) @ xs  # intra-chunk
+
+    # Each chunk's own contribution to the state at its end, then the
+    # carry across chunks.
+    a_tot = a_cum[..., -1]  # (B, nc, G, r)
+    w = torch.exp(a_tot[..., None] - a_cum)  # (B, nc, G, r, Q)
+    own = (bs[:, :, :, None] * w[..., None]).transpose(-1, -2) @ xs  # (B, nc, G, r, S, P)
+    state = x.new_zeros((bsz, g, r, s, p), dtype=torch.float32)
+    carried = []
+    for i in range(nc):
+        carried.append(state)
+        state = torch.exp(a_tot[:, i])[..., None, None] * state + own[:, i]
+    h_in = torch.stack(carried, dim=1)  # (B, nc, G, r, S, P): the state entering each chunk
+    y = y + torch.exp(a_cum)[..., None] * (cs[:, :, :, None] @ h_in)  # inter-chunk
+
+    y = y.permute(0, 1, 4, 2, 3, 5).reshape(bsz, nc * chunk, h, p)[:, :n].to(x.dtype)
+    return (y, state.reshape(bsz, h, s, p)) if return_state else y
 
 
 def ssd_step(x_t: torch.Tensor, a_t: torch.Tensor, b_t: torch.Tensor, c_t: torch.Tensor,

@@ -21,7 +21,9 @@ ragged sequences, strong decays, grouped heads and state width 128, and
 for its bf16 tensor-core kernel each P-slice width, 8-byte copies, a
 padded chunk and state width and which kernel each dtype runs),
 forward and backward, and the
-differentiable ops on the card against the same ops on the CPU; and the
+differentiable ops on the card against the same ops on the CPU (the SSD op's
+gradient against autograd through its plain version, and one zamba2-7b
+training step, SSD and attention kernels together, against the CPU's); and the
 serving steps captured as CUDA graphs against the same step functions
 driven eagerly (greedy tokens and launch counts, the slot engine for each
 family and over the fused-K̂ cache, and the paged engine over a raw-K and a
@@ -621,6 +623,104 @@ def test_ssd_op_on_card_matches_cpu(cuda):
     y_c, state_c = ops.ssd(*(t.cpu() for t in ins), chunk=64, return_state=True)
     torch.testing.assert_close(y.cpu(), y_c, atol=1e-3, rtol=1e-3)
     torch.testing.assert_close(state.cpu(), state_c, atol=1e-3, rtol=1e-3)
+
+
+def _grads_close(got, want, tol):
+    """Element-wise within ``tol`` of the element plus ``tol`` of the
+    tensor's largest |element| (at least 1): the gradients sum over the
+    sequence, so an element that cancels keeps the rounding of its sum."""
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.isfinite(g.float()).all()
+        scale = max(1.0, float(w.float().abs().max()))
+        torch.testing.assert_close(g.float(), w.float(), atol=tol * scale, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_function_grads_on_card_match_plain_autograd(cuda, dtype):
+    """``ops.ssd`` with a gradient on the card: the kernel forward (one
+    launch, none in the backward) and the chunked backward, against
+    autograd through the plain version ``ssd_plain`` on the same card, with
+    the state's gradient, a ragged tail and two heads a group."""
+    bsz, n, h, p, g, s, chunk = 2, 150, 4, 32, 2, 16, 64
+    ins = [_randn(shape, dt, 90 + i) for i, (shape, dt) in enumerate(
+        [((bsz, n, h, p), dtype), ((bsz, n, h), torch.float32), ((bsz, n, g, s), dtype),
+         ((bsz, n, g, s), dtype)])]
+    ins[1] = -torch.nn.functional.softplus(ins[1])
+    wy, ws = _randn((bsz, n, h, p), torch.float32, 95), _randn((bsz, h, s, p), torch.float32, 96)
+
+    def plain(x, a, b, c):
+        y, state = ssd_kernels.ssd_plain(
+            x.transpose(1, 2).reshape(bsz * h, n, p), a.transpose(1, 2).reshape(bsz * h, n),
+            b.transpose(1, 2).reshape(bsz * g, n, s), c.transpose(1, 2).reshape(bsz * g, n, s),
+            heads_per_group=h // g, chunk=chunk, return_state=True)
+        return y.reshape(bsz, h, n, p).transpose(1, 2), state.reshape(bsz, h, s, p)
+
+    grads = {}
+    for name, fn in (("op", lambda *t: ops.ssd(*t, chunk=chunk, return_state=True)),
+                     ("plain", plain)):
+        xs = [t.detach().clone().requires_grad_(True) for t in ins]
+        before = ssd_kernels.launches
+        y, state = fn(*xs)
+        assert ssd_kernels.launches == before + (name == "op")
+        ((y.float() * wy).sum() + (state * ws).sum()).backward()
+        assert ssd_kernels.launches == before + (name == "op")
+        grads[name] = [t.grad for t in xs]
+    _grads_close(grads["op"], grads["plain"], TOL[dtype])
+
+
+def test_hybrid_train_step_on_card_matches_cpu(cuda):
+    """One train step of zamba2-7b ``reduced()`` at head dim 64 and Q
+    blocks of 64 (the kernels' range) under ``pallas_distr``, f32: the SSD
+    Function and the DistrAttention forward and backward kernels in one
+    step, its loss and grad norm against the same step on the CPU's plain
+    versions, and every parameter's gradient at ``BWD_TOL``.  (Not the
+    parameters after the update: AdamW's first step moves each by ±lr
+    with its gradient's sign, which rounding flips where a gradient is
+    near 0.)"""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config("zamba2-7b", reduced=True).replace(head_dim=64)
+    # The DistrAttention kernel takes Q blocks of a multiple of 64 rows.
+    cfg = cfg.replace(attention=replace(cfg.attention, impl="pallas_distr",
+                                        distr=replace(cfg.attention.distr, block_q=64)))
+    base = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu", dtype=torch.float32)
+    ocfg = opt.OptimizerConfig(peak_lr=1e-3, warmup_steps=1, total_steps=2)
+    toks = torch.randint(0, cfg.vocab, (2, 201), generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = {k: _tree_to(v, dev) for k, v in base.items()}
+        batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        leaves = [p.requires_grad_(True) for p in lm.trainable(params)]
+        grads = torch.autograd.grad(lm.loss_fn(params, cfg, batch)[0], leaves)
+        state = opt.adamw_init(leaves)
+        before = (ssd_kernels.launches, dk.launches, dict(bwd.launches))
+        _, _, metrics = make_train_step(cfg, ocfg)(params, state, batch, 1)
+        counts = (ssd_kernels.launches - before[0], dk.launches - before[1],
+                  {k: bwd.launches[k] - before[2][k] for k in bwd.launches})
+        out[dev] = ([g.cpu() for g in grads], metrics, counts)
+    (grads, metrics, counts), (grads_c, metrics_c, counts_c) = out["cuda"], out["cpu"]
+    n_groups, n_tail = lm.hybrid_layout(cfg)
+    # Full remat: each Mamba layer's forward runs again in the backward.
+    assert counts[0] == 2 * cfg.n_layers and counts[1] == n_groups
+    assert counts[2]["distr_dq"] == counts[2]["distr_dkv"] == n_groups
+    assert counts_c == (0, 0, dict.fromkeys(bwd.launches, 0))
+    assert float(metrics["skipped"]) == 0.0
+    for key in ("loss", "grad_norm"):
+        assert float(metrics[key]) == pytest.approx(float(metrics_c[key]), rel=1e-4, abs=1e-4)
+    _grads_close(grads, grads_c, BWD_TOL)
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev).clone()
 
 
 # ---------------------------------------------------------------------------

@@ -229,3 +229,49 @@ def test_paged_engine_fills_its_step_buffers_in_place():
     assert (_addresses(eng._tick_in), _addresses(eng._chunk_in),
             _addresses(eng.cache.pools)) == seen
     assert [r.status for r in eng.finished] == ["done"] * 3
+
+
+@pytest.mark.parametrize("kind", ["slot", "paged"])
+def test_engine_frees_its_weights_without_the_cycle_collector(kind, monkeypatch):
+    """An engine that served requests through captured steps holds its
+    weights, caches and graphs in no reference cycle: with the collector
+    off, dropping the engine and the caller's weights frees them (on the
+    card, their memory) at once."""
+    import gc
+    import weakref
+
+    from repro_torch.serve import graphs
+
+    def record(self, call):
+        return (self.fn, call, self.fn(*call)), self.fn(*call)
+
+    def replay(graph):
+        fn, call, outputs = graph
+        for dst, src in zip(graphs._tensors(outputs, []), graphs._tensors(fn(*call), [])):
+            dst.copy_(src)
+
+    monkeypatch.setattr(StepGraph, "_uses_graphs", staticmethod(lambda args: True))
+    monkeypatch.setattr(StepGraph, "_warm_up", lambda self, args: self.fn(*args))
+    monkeypatch.setattr(StepGraph, "_record", record)
+    monkeypatch.setattr(StepGraph, "_replay", staticmethod(replay))
+    cfg = get_config("starcoder2-7b", reduced=True)
+    gc.collect()
+    gc.disable()
+    try:
+        params = lm.init_params(cfg, device="cpu")
+        if kind == "slot":
+            eng = ServeEngine(cfg, params, max_slots=2, max_len=64, device="cpu")
+        else:
+            eng = PagedServeEngine(cfg, params, max_batch=2, max_len=64, block_size=16,
+                                   prefill_chunk=8, device="cpu")
+        for prompt in ([1, 2, 3], list(range(1, 20)), [7] * 9):
+            eng.add_request(prompt, max_new_tokens=6)
+        assert [r.status for r in eng.run_to_completion()] == ["done"] * 3
+        held = [weakref.ref(t) for t in (*lm.trainable(params), *graphs._tensors(
+            eng.cache.pools if kind == "paged" else eng.cache, []))]
+        engine = weakref.ref(eng)
+        del eng, params
+        assert engine() is None
+        assert all(ref() is None for ref in held)
+    finally:
+        gc.enable()

@@ -50,20 +50,10 @@ from repro_torch.serve.lifecycle import COUNTER_KEYS, METRIC_KEYS  # noqa: E402
 from repro_torch.train.elastic import COUNTER_KEYS as TRAIN_COUNTER_KEYS  # noqa: E402
 
 from test_torch_chaos import PORT, FakeEngine, FakeReq, TickClock, _drive  # noqa: E402
+from _torch_helpers import one_intra_op_thread  # noqa: E402,F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SRC = os.path.join(ROOT, "src")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op thread while this module runs: its many small steps
-    lose most of their time to thread hand-offs when test workers share
-    the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 class StepClock:

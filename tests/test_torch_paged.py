@@ -6,7 +6,9 @@ continuous-batching scheduler under a tick clock (a fake engine, no model),
 ``make_paged_step`` and the degraded whole-prompt prefill on starcoder2-7b
 ``reduced()`` (2 layers, GQA 4/2, f32) with the reference's weights, LSH
 projection and static perms carried across, and ``PagedServeEngine``'s greedy
-tokens with and without preemption and past capacity."""
+tokens with and without preemption and past capacity.  The paged step and
+the greedy tokens also run qwen1.5-4b (MHA 4/4) and qwen2.5-32b (GQA 4/2)
+``reduced()``, their QKV biases drawn from a seed in both packages."""
 from dataclasses import replace
 
 import numpy as np
@@ -17,15 +19,12 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from repro.configs import get_config as ref_get_config  # noqa: E402
-from repro.core import lsh as ref_lsh  # noqa: E402
 from repro.core.api import AttentionConfig as RefAttentionConfig  # noqa: E402
 from repro.core.api import attend_decode as ref_attend_decode  # noqa: E402
 from repro.core.distr_attention import compute_block_permutations as ref_block_perms  # noqa: E402,E501
 from repro.kernels import ops as ref_ops  # noqa: E402
 from repro.models import attention as ref_attn  # noqa: E402
 from repro.models import layers as ref_layers  # noqa: E402
-from repro.models import lm as ref_lm  # noqa: E402
 from repro.models import transformer as ref_tf  # noqa: E402
 from repro.serve import degrade as ref_degrade  # noqa: E402
 from repro.serve import kv_cache as ref_kvc  # noqa: E402
@@ -44,12 +43,13 @@ from repro_torch.models import attention as port_attn  # noqa: E402
 from repro_torch.models import layers as port_layers  # noqa: E402
 from repro_torch.models import lm as port_lm  # noqa: E402
 from repro_torch.models import transformer as port_tf  # noqa: E402
-from repro_torch.models.convert import convert_perms, from_jax_params  # noqa: E402
 from repro_torch.serve import degrade, kv_cache, lifecycle, paged, scheduler  # noqa: E402
 from repro_torch.serve.engine import PagedServeEngine  # noqa: E402
 from repro_torch.serve.serve_step import make_degraded_paged_prefill, make_paged_step  # noqa: E402,E501
+from _torch_helpers import load_reduced_models, one_intra_op_thread  # noqa: E402,F401
 
 ARCH = "starcoder2-7b"
+QWEN = ("qwen1.5-4b", "qwen2.5-32b")
 
 
 def _t(x):
@@ -403,15 +403,27 @@ def test_scheduler_requeue_preserves_arrival_order():
 
 @pytest.fixture(scope="module")
 def models():
-    rcfg = ref_get_config(ARCH, reduced=True)
-    tcfg = get_config(ARCH, reduced=True)
-    rparams = ref_lm.init_params(jax.random.PRNGKey(0), rcfg)
-    dcfg = rcfg.attention.distr
-    proj = np.array(ref_lsh.make_projection(jax.random.PRNGKey(dcfg.proj_seed), dcfg.block_q))
-    tparams = from_jax_params(jax.tree_util.tree_map(np.asarray, rparams), tcfg, proj=proj,
-                              device="cpu")
-    perms = convert_perms(np.asarray(ref_kvc.static_perms(rcfg)), tcfg, "cpu")
-    return rcfg, rparams, tcfg, tparams, perms
+    return load_reduced_models(ARCH, draw_qkv_bias=False, perms=True)
+
+
+@pytest.fixture(scope="module")
+def arch_models(models):
+    """arch → ``models``' tuple for that arch, built on first use."""
+    cache = {ARCH: models}
+
+    def get(arch):
+        if arch not in cache:
+            cache[arch] = load_reduced_models(arch, draw_qkv_bias=True, perms=True)
+        return cache[arch]
+
+    return get
+
+
+# (arch, fused); starcoder2-7b's cases keep their bare ids.
+FUSED_IDS = {False: "raw_k", True: "fused_k"}
+ARCH_FUSED = ([pytest.param(ARCH, f, id=FUSED_IDS[f]) for f in (False, True)]
+              + [pytest.param(a, f, id=f"{a}-{FUSED_IDS[f]}") for a in QWEN
+                 for f in (False, True)])
 
 
 def _configs(models, impl, fused):
@@ -433,10 +445,11 @@ def _assert_pools_equal(rcache, tcache):
                                    rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("fused", [False, True], ids=["raw_k", "fused_k"])
-def test_paged_step_matches_reference(models, fused):
+@pytest.mark.parametrize("arch,fused", ARCH_FUSED)
+def test_paged_step_matches_reference(arch_models, arch, fused):
     """Chunked prefill of two ragged prompts (12 and 5 tokens, chunks of 8),
     then 8 decode ticks over both lanes; the first request spans 3 blocks."""
+    models = arch_models(arch)
     _, rparams, _, tparams, perms = models
     rc, tc = _configs(models, "pallas_distr" if fused else "pallas_flash", fused)
     bs, mb, width = 8, 4, 8
@@ -542,10 +555,17 @@ def _engines(models, fused, impl="pallas_flash", **kw):
                              perms=perms, **kw))
 
 
-@pytest.mark.parametrize("fused", [False, True], ids=["raw_k", "fused_k"])
-def test_engine_greedy_tokens_match_reference(models, fused):
+# (arch, fused, impl); starcoder2-7b's cases keep their bare ids.
+ENGINE_CASES = ([pytest.param(ARCH, f, "pallas_flash", id=FUSED_IDS[f]) for f in (False, True)]
+                + [pytest.param(a, False, impl, id=f"{a}-raw_k-{impl}") for a in QWEN
+                   for impl in ("pallas_flash", "pallas_distr")])
+
+
+@pytest.mark.parametrize("arch,fused,impl", ENGINE_CASES)
+def test_engine_greedy_tokens_match_reference(arch_models, arch, fused, impl):
     """The six requests on three lanes in a pool with room for all."""
-    outs = [_serve(eng, PROMPTS, MAX_NEW) for eng in _engines(models, fused, **ENGINE)]
+    outs = [_serve(eng, PROMPTS, MAX_NEW)
+            for eng in _engines(arch_models(arch), fused, impl, **ENGINE)]
     assert sorted(len(g) for g in outs[1][0].values()) == [1, 8, 8, 8, 8, 8]
     assert outs[1] == outs[0] and not any(outs[1][1].values())
 

@@ -4,7 +4,11 @@ over by models.convert.from_jax_params.  Prefill logits and cache, one
 decode step, and the greedy tokens of a 2-slot engine serving 3 requests
 match the JAX reference under both kernel impls, and under
 ``distr_decode`` over the fused-K̂ cache with the reference's static
-perms carried across (models.convert.convert_perms)."""
+perms carried across (models.convert.convert_perms).  The prefill, decode
+and engine cases also run qwen1.5-4b (MHA 4/4) and qwen2.5-32b (GQA 4/2)
+reduced(), both with QKV bias, whose zero-initialised biases are drawn
+from a seed in both packages so that they enter before RoPE and the LSH
+hash."""
 from dataclasses import replace
 
 import numpy as np
@@ -15,18 +19,14 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.core.distr_attention import compute_block_permutations as ref_block_perms  # noqa: E402,E501
-from repro.core import lsh as ref_lsh  # noqa: E402
 from repro.models import attention as ref_attn  # noqa: E402
 from repro.models import layers as ref_layers  # noqa: E402
-from repro.models import lm as ref_lm  # noqa: E402
 from repro.models import transformer as ref_tf  # noqa: E402
 from repro.serve import kv_cache as ref_kvc  # noqa: E402
 from repro.serve.engine import ServeEngine as RefEngine  # noqa: E402
 from repro.serve.serve_step import make_decode_step as ref_decode  # noqa: E402
 from repro.serve.serve_step import make_prefill as ref_prefill  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.distr_attention import compute_block_permutations as port_block_perms  # noqa: E402,E501
 from repro_torch.models import attention as port_attn  # noqa: E402
 from repro_torch.models import layers as port_layers  # noqa: E402
@@ -35,23 +35,34 @@ from repro_torch.models import transformer as port_tf  # noqa: E402
 from repro_torch.models.convert import convert_perms, from_jax_params  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.serve_step import make_decode_step, make_prefill  # noqa: E402
+from _torch_helpers import load_reduced_models, one_intra_op_thread  # noqa: E402,F401
 
 ARCH = "starcoder2-7b"
+QWEN = ("qwen1.5-4b", "qwen2.5-32b")
 IMPLS = ["pallas_distr", "pallas_flash"]
+# (arch, impl); starcoder2-7b's cases keep their bare impl ids.
+ARCH_IMPLS = ([pytest.param(ARCH, impl, id=impl) for impl in IMPLS]
+              + [pytest.param(a, impl, id=f"{a}-{impl}") for a in QWEN for impl in IMPLS])
 MAX_LEN = 64
 PROMPTS = ([5, 6, 7], [9, 1, 4, 4, 2, 8, 3, 3, 1, 7, 7], list(range(1, 38)))
 
 
 @pytest.fixture(scope="module")
 def models():
-    rcfg = ref_get_config(ARCH, reduced=True)
-    tcfg = get_config(ARCH, reduced=True)
-    rparams = ref_lm.init_params(jax.random.PRNGKey(0), rcfg)
-    dcfg = rcfg.attention.distr
-    proj = np.array(ref_lsh.make_projection(jax.random.PRNGKey(dcfg.proj_seed), dcfg.block_q))
-    tparams = from_jax_params(jax.tree_util.tree_map(np.asarray, rparams), tcfg,
-                              proj=proj, device="cpu")
-    return rcfg, rparams, tcfg, tparams
+    return load_reduced_models(ARCH, draw_qkv_bias=False)
+
+
+@pytest.fixture(scope="module")
+def arch_models(models):
+    """arch → ``models``' tuple for that arch, built on first use."""
+    cache = {ARCH: models}
+
+    def get(arch):
+        if arch not in cache:
+            cache[arch] = load_reduced_models(arch, draw_qkv_bias=True)
+        return cache[arch]
+
+    return get
 
 
 def _with_impl(rcfg, tcfg, impl):
@@ -72,9 +83,9 @@ def test_converted_params_match_layout(models):
     assert tparams["lsh_proj"].shape == (16, tcfg.attention.distr.block_q)
 
 
-@pytest.mark.parametrize("impl", IMPLS)
-def test_prefill_and_decode_step_match_reference(models, impl):
-    rcfg, rparams, tcfg, tparams = models
+@pytest.mark.parametrize("arch,impl", ARCH_IMPLS)
+def test_prefill_and_decode_step_match_reference(arch_models, arch, impl):
+    rcfg, rparams, tcfg, tparams = arch_models(arch)
     rcfg, tcfg = _with_impl(rcfg, tcfg, impl)
     toks = _tokens(1, 2, 40, rcfg.vocab)
     r_logits, r_cache = ref_prefill(rcfg, MAX_LEN)(rparams, jnp.asarray(toks))
@@ -120,10 +131,10 @@ def test_prefill_permutation_match_rate(models):
     assert rate >= 0.99
 
 
-@pytest.mark.parametrize("impl", IMPLS)
-def test_engine_greedy_tokens_match_reference(models, impl):
+@pytest.mark.parametrize("arch,impl", ARCH_IMPLS)
+def test_engine_greedy_tokens_match_reference(arch_models, arch, impl):
     """Three requests on a 2-slot engine (more requests than slots)."""
-    rcfg, rparams, tcfg, tparams = models
+    rcfg, rparams, tcfg, tparams = arch_models(arch)
     rcfg, tcfg = _with_impl(rcfg, tcfg, impl)
     outs = []
     for eng in (RefEngine(rcfg, rparams, max_slots=2, max_len=MAX_LEN),

@@ -5,6 +5,9 @@ reference's ``lm.init_params(PRNGKey(0))`` weights, carried over by
 ``models.convert.from_jax_params``, against the reference
 ``make_train_step`` under both kernel impls: loss, grad norm and every
 parameter at 1e-4."""
+import os
+import tempfile
+
 import numpy as np
 import pytest
 
@@ -27,6 +30,7 @@ from repro_torch.train import optimizer as opt  # noqa: E402
 from repro_torch.train.data import SyntheticLMData  # noqa: E402
 from repro_torch.train.train_step import make_eval_step, make_train_step  # noqa: E402
 from repro_torch.train.trainer import Trainer  # noqa: E402
+from _torch_helpers import one_intra_op_thread  # noqa: E402,F401
 
 ARCH = "minicpm-2b"
 TOL = 1e-4
@@ -209,10 +213,57 @@ def test_trainer_loss_falls():
     assert all(np.isfinite(r["grad_norm"]) and r["sec"] > 0 for r in hist)
 
 
-def test_launch_train_runs_on_cpu(capsys):
+def test_launch_train_runs_on_cpu(capsys, tmp_path):
     out = launch_train.main(["--arch", ARCH, "--reduced", "--device", "cpu", "--impl",
-                             "pallas_distr", "--steps", "3", "--batch", "2", "--seq", "32"])
+                             "pallas_distr", "--steps", "3", "--batch", "2", "--seq", "32",
+                             "--workdir", str(tmp_path)])
     assert len(out["history"]) == 3 and len(out["step_times"]) == 3
     assert out["tok_per_s"] > 0 and out["nan_skips"] == 0
     assert out["max_memory_allocated"] is None
     assert "[train] loss" in capsys.readouterr().out
+
+
+def test_launch_train_defaults_checkpoint_resume_and_guard(tmp_path, monkeypatch):
+    """With its default arguments the launcher checkpoints into its default
+    workdir (a baseline at step 0 and a final save), resumes from it, and
+    runs with the anomaly guard on: a loss spike past the detector's warmup
+    is rolled back, as the reference's launcher does."""
+    from repro_torch.faults import FaultInjector, FaultSpec
+    from repro_torch.train import checkpoint as ckpt
+
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    workdir = launch_train.default_workdir(ARCH, reduced=True)
+    assert workdir.startswith(str(tmp_path))
+    argv = ["--arch", ARCH, "--reduced", "--device", "cpu", "--steps", "3", "--batch", "2",
+            "--seq", "16"]
+    out = launch_train.main(argv)
+    names = ckpt.list_checkpoint_names(os.path.join(workdir, "checkpoints"))
+    assert names[0] == "step_00000000" and names[-1] == "step_00000003-final"
+    trainer = out["trainer"]
+    assert trainer.workdir == workdir and trainer.anomaly.enabled
+
+    resumed = launch_train.main(argv)["trainer"]
+    assert [r["step"] for r in resumed.history] == [4, 5, 6]
+    warmup = resumed.anomaly.warmup
+    resumed.faults = FaultInjector([FaultSpec("loss_spike", after=warmup)])
+    resumed.run(warmup + 2)
+    snap = resumed.counters_snapshot()
+    assert snap["rollbacks"] == 1 and snap["anomaly_halts"] == 0 and snap["nan_skips"] == 0
+
+
+def test_launch_train_defaults_keep_one_workdir_a_config(tmp_path, monkeypatch):
+    """Two configs trained one after the other with the launcher's defaults
+    each start from their own baseline in their own directory, under the
+    temporary directory: the second never resumes the first's checkpoints."""
+    from repro_torch.train import checkpoint as ckpt
+
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    assert launch_train.default_workdir(ARCH) != launch_train.default_workdir(ARCH, reduced=True)
+    for arch in (ARCH, "mamba2-130m"):
+        out = launch_train.main(["--arch", arch, "--reduced", "--device", "cpu", "--steps", "2",
+                                 "--batch", "2", "--seq", "16"])
+        workdir = launch_train.default_workdir(arch, reduced=True)
+        assert out["trainer"].workdir == workdir and workdir.startswith(str(tmp_path))
+        assert [r["step"] for r in out["history"]] == [1, 2]
+        names = ckpt.list_checkpoint_names(os.path.join(workdir, "checkpoints"))
+        assert names[0] == "step_00000000" and names[-1] == "step_00000002-final"

@@ -48,19 +48,9 @@ from repro_torch.train.anomaly import AnomalyConfig, AnomalyDetector, AnomalyHal
 from repro_torch.train.data import SyntheticLMData  # noqa: E402
 from repro_torch.train.elastic import COUNTER_KEYS  # noqa: E402
 from repro_torch.train.trainer import Trainer  # noqa: E402
+from _torch_helpers import one_intra_op_thread  # noqa: E402,F401
 
 ARCH = "minicpm-2b"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op thread while this module runs: its many small steps
-    lose most of their time to thread hand-offs when test workers share
-    the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------
