@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--out PATH] [--only kernels]
+    python3 chip_smoke.py [--out PATH] [--only kernels|moe]
 
 In order: prints the card's name and power limit; builds the CUDA kernels
 from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a; counts the bf16
@@ -66,7 +66,16 @@ serve workload on the slot engine under both impls and on
 ``PagedServeEngine`` (raw-K), every weight freed between models.  The
 error study: ``core.distr_scores`` at G* 2, 4 and 8 on Gaussian q, k and
 on qwen1.5-4b's layer 0, its error growing with G*, with the distr
-kernel's output beside flash's.  SSM training: ``ops.ssd``'s gradient
+kernel's output beside flash's.  The MoE family: one MoE layer of
+llama4-scout-17b-a16e and of deepseek-v2-236b at full width (bf16) at
+T = 2048 and T = 4, the index dispatch of ``models/moe.py`` against the
+reference's one-hot dispatch (identical expert ids, y within MOE_TOL,
+dropped assignments counted); llama4-scout-17b-a16e at full width cut to
+8 of its 48 layers serving the serve workload on the slot engine under
+both impls and on ``PagedServeEngine``, and deepseek-v2-236b (MLA) cut to
+its dense layer and 5 MoE layers on the slot engine under pallas_distr
+and xla_flash, launching no attention kernel (MLA runs none, as in the
+reference).  SSM training: ``ops.ssd``'s gradient
 (the kernel forward, the chunked backward) against autograd through the
 plain version at mamba2-130m's layer shape, and mamba2-130m trained at
 its published size (4 steps of 4 × 2048 tokens, the SSD kernel twice a
@@ -84,6 +93,8 @@ the last is
 failure raises and exits non-zero; without CUDA, or outside a checkout, it
 exits non-zero before any result.
 
+``python3 chip_smoke.py --only moe`` builds the kernels and runs only the
+MoE phases, then prints their launches as a JSON line last.
 ``python3 chip_smoke.py --serve-load slot|hybrid|paged`` runs none of the
 above: it serves one serve workload as a closed-loop load under both
 impls, the slot workload also over the fused-K̂ cache (timed passes and
@@ -187,6 +198,17 @@ SSD_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 QWEN_SERVE = (("qwen1.5-4b", None), ("qwen2.5-32b", 8))
 # Their attention shapes for the kernel checks: (arch, query heads, KV heads).
 QWEN_KERNEL_SHAPES = (("qwen1.5-4b", 20, 20), ("qwen2.5-32b", 40, 8))
+# The MoE configs at full width: (arch, layers kept).  llama4-scout-17b-a16e
+# is 107.8 B params (215.5 GB in bf16): 8 of its 48 layers keep 19.69 B
+# (39.4 GB).  deepseek-v2-236b is 235.7 B (471.5 GB): its dense layer and 5
+# of its 59 MoE layers keep 21.25 B (42.5 GB).
+MOE_SERVE = (("llama4-scout-17b-a16e", 8), ("deepseek-v2-236b", 6))
+# deepseek's MLA runs no kernel under either impl, in the reference too.
+MLA_IMPLS = (("pallas_distr", None), ("xla_flash", None))
+# The MoE check: index dispatch against one-hot, element-wise atol = rtol.
+# Both compute the experts in f32 and round y to bf16, so they differ by at
+# most a bf16 rounding step of y; the flash kernels' bf16 tolerance.
+MOE_TOL, MOE_ITERS = 2e-2, 5
 # Card memory that free_card lets the cycle collector free (small tensors a
 # caught exception's frames may hold).
 CYCLE_SLACK = 64 * 2**20
@@ -1222,20 +1244,33 @@ def layer0_qkv(torch, cfg, params, tokens):
             v)
 
 
-def qwen_serve_phase(torch, arch: str, n_layers: int | None = None,
-                     scores: bool = False) -> dict:
-    """A dense qwen config at full width (``n_layers`` of its layers when
-    given), seeded random bf16 weights initialised on the card, serving
+def cache_bytes_per_token(cfg) -> int:
+    """Bytes of bf16 cache a token takes across the model's layers: K and V
+    for GQA, c_kv and k_rope for MLA."""
+    if cfg.use_mla:
+        return cfg.n_layers * (cfg.kv_lora_rank + cfg.qk_rope_dim) * 2
+    return 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim_ * 2
+
+
+SLOT_IMPLS = (("pallas_distr", "distr"), ("pallas_flash", "flash"))
+
+
+def model_serve_phase(torch, arch: str, n_layers: int | None = None, scores: bool = False,
+                      slot_impls=SLOT_IMPLS, paged: bool = True) -> dict:
+    """A config at full width (``n_layers`` of its layers when given),
+    seeded random bf16 weights initialised on the card, serving
     starcoder2-7b's workload (6 requests, prompts SERVE_PROMPTS, 32 new
     tokens, greedy, max_len 2048): on the slot engine (4 slots) through the
-    launcher's run function under pallas_distr and pallas_flash, then on
-    ``PagedServeEngine`` (4 lanes, a raw-K pool of 128-token blocks, chunks
-    of 32) under pallas_flash.  Every request must end ``done`` with 32
-    tokens; each slot run must launch its impl's prefill kernel and the
-    decode kernel, the paged run the paged kernel and none of the others.
-    With ``scores`` it then runs ``scores_phase`` on layer 0's q, k, v for a
-    2048-token prompt drawn as the workload draws its prompts.  The weights
-    are freed before it returns."""
+    launcher's run function under each impl of ``slot_impls`` (impl, the
+    prefill kernel it must launch, or None for none), then with ``paged``
+    on ``PagedServeEngine`` (4 lanes, a raw-K pool of 128-token blocks,
+    chunks of 32) under pallas_flash.  Every request must end ``done`` with
+    32 tokens; each slot run must launch its prefill kernel and, unless it
+    launches no kernel at all (MLA, whose attention is plain PyTorch), the
+    decode kernel; the paged run the paged kernel and none of the others.
+    With ``scores`` it then runs ``scores_phase`` on layer 0's q, k, v for
+    a 2048-token prompt drawn as the workload draws its prompts.  The
+    weights are freed before it returns."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1254,12 +1289,14 @@ def qwen_serve_phase(torch, arch: str, n_layers: int | None = None,
     params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in lm.trainable(params))
-    kv_token = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim_ * 2
+    kv_token = cache_bytes_per_token(cfg)
+    allocated = torch.cuda.memory_allocated()
     log(f"[{arch}] {cfg.n_layers} layers, {n_params} params (bf16) on the card in "
-        f"{time.perf_counter() - t0:.1f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
-        f"allocated; KV cache {kv_token} bytes a token")
+        f"{time.perf_counter() - t0:.1f}s, {allocated / 2**30:.2f} GiB "
+        f"allocated; {'MLA' if cfg.use_mla else 'KV'} cache {kv_token} bytes a token")
     launches = {"flash": 0, "distr": 0, "decode": 0, "paged": 0}
-    report = {"n_layers": cfg.n_layers, "n_params": n_params, "kv_bytes_per_token": kv_token}
+    report = {"n_layers": cfg.n_layers, "n_params": n_params, "allocated": allocated,
+              "cache_bytes_per_token": kv_token}
 
     def gate(name, done, counts, path):
         bad = [r.uid for r in done if r.status != "done" or len(r.generated) != 32]
@@ -1271,7 +1308,8 @@ def qwen_serve_phase(torch, arch: str, n_layers: int | None = None,
         for k in path:
             launches[k] += counts[k]
 
-    for impl, kernel in (("pallas_distr", "distr"), ("pallas_flash", "flash")):
+    res = None
+    for impl, kernel in slot_impls:
         cfg_i = cfg.replace(attention=cfg.attention.with_impl(impl))
         fk.launches = dk.launches = dec.launches = pd.launches = 0
         torch.cuda.reset_peak_memory_stats()
@@ -1286,42 +1324,45 @@ def qwen_serve_phase(torch, arch: str, n_layers: int | None = None,
         for m in res["metrics"]:
             log(f"  req {m['uid']}: status {m['status']} ttft {m['ttft_s']:.4f}s "
                 f"tpot {m['tpot_s']:.4f}s n={m['n_generated']}")
-        gate(f"serve {impl}", res["done"], counts, (kernel, "decode"))
+        gate(f"serve {impl}", res["done"], counts,
+             (kernel, "decode") if kernel is not None else ())
         report[impl] = {"seconds": res["seconds"], "tokens": res["tokens"],
                         "tok_per_s": res["tok_per_s"], "peak_allocated": peak,
                         "launches": counts, "metrics": res["metrics"]}
 
-    flash = cfg.replace(attention=cfg.attention.with_impl("pallas_flash"))
-    eng = PagedServeEngine(flash, params, max_batch=4, max_len=2048, block_size=128,
-                           prefill_chunk=32, device="cuda")
-    pool_gib = sum(t.numel() * t.element_size() for t in eng.cache.pools.values()) / 2**30
-    rng = np.random.default_rng(0)  # the prompts launch.serve.run draws
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fk.launches = dk.launches = dec.launches = pd.launches = 0
-    t0 = time.perf_counter()
-    for n in SERVE_PROMPTS:
-        eng.add_request(rng.integers(1, cfg.vocab, size=n).tolist(), max_new_tokens=32)
-    done = eng.run_to_completion()
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    counts = {"flash": fk.launches, "distr": dk.launches, "decode": dec.launches,
-              "paged": pd.launches}
-    n_tok = sum(len(r.generated) for r in done)
-    metrics = eng.metrics()
-    log(f"[{arch} paged raw-K] {len(done)} requests, {n_tok} tokens in {seconds:.2f}s "
-        f"({n_tok / seconds:.1f} tok/s); pool {pool_gib:.3f} GiB of "
-        f"{eng.cache.pool.num_blocks} blocks; peak allocated {peak / 2**30:.2f} GiB; "
-        f"launches {counts}")
-    for m in metrics:
-        log(f"  req {m['uid']}: status {m['status']} ttft {m['ttft_s']:.4f}s tpot "
-            f"{m['tpot_s']:.4f}s n={m['n_generated']}")
-    gate("paged raw-K", done, counts, ("paged",))
-    report["paged_raw_k"] = {"seconds": seconds, "tokens": n_tok, "tok_per_s": n_tok / seconds,
-                             "pool_gib": pool_gib, "peak_allocated": peak, "launches": counts,
-                             "metrics": metrics}
-    del eng
+    if paged:
+        flash = cfg.replace(attention=cfg.attention.with_impl("pallas_flash"))
+        eng = PagedServeEngine(flash, params, max_batch=4, max_len=2048, block_size=128,
+                               prefill_chunk=32, device="cuda")
+        pool_gib = sum(t.numel() * t.element_size() for t in eng.cache.pools.values()) / 2**30
+        rng = np.random.default_rng(0)  # the prompts launch.serve.run draws
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fk.launches = dk.launches = dec.launches = pd.launches = 0
+        t0 = time.perf_counter()
+        for n in SERVE_PROMPTS:
+            eng.add_request(rng.integers(1, cfg.vocab, size=n).tolist(), max_new_tokens=32)
+        done = eng.run_to_completion()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counts = {"flash": fk.launches, "distr": dk.launches, "decode": dec.launches,
+                  "paged": pd.launches}
+        n_tok = sum(len(r.generated) for r in done)
+        metrics = eng.metrics()
+        log(f"[{arch} paged raw-K] {len(done)} requests, {n_tok} tokens in {seconds:.2f}s "
+            f"({n_tok / seconds:.1f} tok/s); pool {pool_gib:.3f} GiB of "
+            f"{eng.cache.pool.num_blocks} blocks; peak allocated {peak / 2**30:.2f} GiB; "
+            f"launches {counts}")
+        for m in metrics:
+            log(f"  req {m['uid']}: status {m['status']} ttft {m['ttft_s']:.4f}s tpot "
+                f"{m['tpot_s']:.4f}s n={m['n_generated']}")
+        gate("paged raw-K", done, counts, ("paged",))
+        report["paged_raw_k"] = {"seconds": seconds, "tokens": n_tok,
+                                 "tok_per_s": n_tok / seconds, "pool_gib": pool_gib,
+                                 "peak_allocated": peak, "launches": counts,
+                                 "metrics": metrics}
+        del eng
     if scores:
         toks = torch.from_numpy(np.random.default_rng(0).integers(
             1, cfg.vocab, size=(1, max(PREFILL_NS)))).to("cuda")
@@ -1334,6 +1375,89 @@ def qwen_serve_phase(torch, arch: str, n_layers: int | None = None,
     del params, res  # the last slot run's engine holds the weights and its cache
     free_card(torch, arch)
     return {"launches": launches, "report": report}
+
+
+def moe_check_phase(torch) -> dict:
+    """One MoE layer of each MoE config at full width (seeded random bf16
+    weights on the card, the router f32), at its prefill call (T = 2048)
+    and a decode step's (T = 4): the index dispatch of ``moe_apply``
+    against the reference's one-hot dispatch (``moe_apply_onehot``) on the
+    same bf16 x.  Each call's routed expert ids must be identical, y must
+    agree element by element within MOE_TOL (``check_close``) and the aux
+    losses within 1e-6; the dropped assignments are counted.  Times both
+    forms (CUDA events, MOE_ITERS calls)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    rows = []
+    for arch, _ in MOE_SERVE:
+        cfg = get_config(arch)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        params = moe.moe_init(gen, cfg, torch.bfloat16)
+        weight_gib = sum(t.numel() * t.element_size()
+                         for t in params["experts"].values()) / 2**30
+        chunk = moe._expert_chunk(params["experts"])
+        for b, s in ((1, max(PREFILL_NS)), (4, 1)):
+            t = b * s
+            label = f"moe {arch} T={t}"
+            x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+            with torch.no_grad():
+                got, aux, ids = moe.moe_routed(params, x, cfg)
+                want, aux_plain, ids_plain = moe.moe_routed(params, x, cfg, onehot=True)
+                cap = moe.capacity(cfg, t)
+                dropped = int((moe.queue_ranks(ids, cfg.n_experts) >= cap).sum())
+                ms = time_moe(torch, lambda: moe.moe_apply(params, x, cfg))
+                plain_ms = time_moe(torch, lambda: moe.moe_apply_onehot(params, x, cfg))
+            if not torch.equal(ids, ids_plain):
+                raise AssertionError(f"{label}: the two dispatches routed different experts")
+            err = check_close(torch, label, got, want, MOE_TOL)
+            if abs(float(aux) - float(aux_plain)) > 1e-6:
+                raise AssertionError(f"{label}: aux {float(aux)} != {float(aux_plain)}")
+            row = {"arch": arch, "tokens": t, "capacity": cap, "dropped": dropped,
+                   "assignments": t * cfg.moe_top_k, "max_abs_err": err, "aux": float(aux),
+                   "ms": ms, "plain_ms": plain_ms, "expert_weights_gib": weight_gib,
+                   "experts_per_upcast_chunk": chunk}
+            log(f"[{label}] capacity {cap}, {dropped} of {t * cfg.moe_top_k} assignments "
+                f"dropped; expert ids identical; index vs one-hot max |dy| {err:.3e}; aux "
+                f"{float(aux):.6f}; {ms:.3f} ms vs one-hot {plain_ms:.3f} ms; experts "
+                f"{weight_gib:.2f} GiB bf16, {chunk} to an f32 upcast chunk")
+            rows.append(row)
+            del x, got, want, ids, ids_plain
+        del params
+        free_card(torch, f"moe check {arch}")
+    return {"rows": rows}
+
+
+def moe_phases(torch) -> dict:
+    """The MoE check, then each MoE config served at full width cut in depth
+    (MOE_SERVE): llama4-scout-17b-a16e on the slot engine under both kernel
+    impls and on ``PagedServeEngine``; deepseek-v2-236b (MLA) on the slot
+    engine under MLA_IMPLS, launching no attention kernel."""
+    from repro_torch.configs import get_config
+
+    results = {"moe_check": moe_check_phase(torch)}
+    launches: dict = {}
+    for arch, n_layers in MOE_SERVE:
+        mla = get_config(arch).use_mla
+        res = model_serve_phase(torch, arch, n_layers,
+                                slot_impls=MLA_IMPLS if mla else SLOT_IMPLS, paged=not mla)
+        results[f"{arch} serve"] = res["report"]
+        for name, count in res["launches"].items():
+            launches[name] = launches.get(name, 0) + count
+    return {"results": results, "launches": launches}
+
+
+def time_moe(torch, fn) -> float:
+    """Milliseconds a call of ``fn`` (CUDA events over MOE_ITERS calls after
+    one warm-up; the expert weights exceed the L2 cache, so no flush)."""
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(MOE_ITERS):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / MOE_ITERS
 
 
 def fused_slot_phase(torch, params, raw_tokens: dict, base=None, device="cuda") -> dict:
@@ -2187,8 +2311,9 @@ def serve_load(torch, workload: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="also write the results as JSON here")
-    ap.add_argument("--only", choices=("kernels",), default=None,
-                    help="stop after the kernel phases")
+    ap.add_argument("--only", choices=("kernels", "moe"), default=None,
+                    help="kernels: stop after the kernel phases; moe: run only the MoE "
+                         "check and the MoE configs' serving, print a JSON summary")
     ap.add_argument("--serve-load", choices=("slot", "paged", "hybrid"), default=None,
                     help="only serve this workload as a closed-loop load under both impls "
                          "(timed passes and the device's busy share), no checks")
@@ -2225,6 +2350,14 @@ def main() -> int:
                           "busy_share": res["busy"]["busy_share"]}
                    for impl, res in load.items()}
         print(json.dumps(summary), flush=True)
+        return 0
+    if args.only == "moe":
+        moe = moe_phases(torch)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps({"card": card, **moe["results"]}, indent=1))
+        log(card)
+        print(json.dumps({"launches": moe["launches"]}), flush=True)
         return 0
     for line in build.build_log().splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
@@ -2297,11 +2430,15 @@ def main() -> int:
                             *traced["launches"].items()):
             launches[name] += count
         for arch, n_layers in QWEN_SERVE:
-            res = qwen_serve_phase(torch, arch, n_layers, scores=arch == "qwen1.5-4b")
+            res = model_serve_phase(torch, arch, n_layers, scores=arch == "qwen1.5-4b")
             results[f"{arch} serve"] = res["report"]
             for name, count in res["launches"].items():
                 launches[name] += count
         results["scores"]["qwen1.5-4b layer 0"] = results["qwen1.5-4b serve"].pop("scores")
+        moe = moe_phases(torch)
+        results.update(moe["results"])
+        for name, count in moe["launches"].items():
+            launches[name] += count
         hybrid = hybrid_serve_phase(torch)
         results["hybrid_serve"] = hybrid["report"]
         for name, count in hybrid["launches"].items():

@@ -6,12 +6,14 @@ import importlib
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeSpec
 
 # In the reference's registry order (``repro/configs/__init__.py``), the
-# archs not yet ported left out.
+# archs not yet ported (whisper-small, internvl2-2b) left out.
 _ARCH_MODULES = {
     "minicpm-2b": "repro_torch.configs.minicpm_2b",
     "starcoder2-7b": "repro_torch.configs.starcoder2_7b",
     "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
     "qwen1.5-4b": "repro_torch.configs.qwen1_5_4b",
+    "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout_17b_a16e",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
 }

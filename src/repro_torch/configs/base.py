@@ -1,4 +1,4 @@
-"""Model configuration: the dense, SSM and hybrid subset of
+"""Model configuration: the dense, MoE (with MLA), SSM and hybrid subset of
 ``repro.configs.base``.
 
 One ``ModelConfig`` per architecture; ``configs/<arch>.py`` holds the
@@ -35,7 +35,7 @@ SHAPES: dict[str, ShapeSpec] = {
 class ModelConfig:
     # identity
     name: str
-    family: str  # dense | ssm (attention-free Mamba-2) | hybrid (Mamba-2 + shared attention)
+    family: str  # dense | moe | ssm (attention-free Mamba-2) | hybrid (Mamba-2 + shared attention)
     # transformer trunk
     n_layers: int
     d_model: int
@@ -56,6 +56,21 @@ class ModelConfig:
     param_dtype: str = "float32"  # master weights (AdamW moments are f32)
     remat: str = "full"  # full (recompute each block in the backward) | none
     schedule: str = "cosine"  # cosine | wsd
+    # MoE (single-device dispatch, models.moe)
+    n_experts: int = 0
+    moe_top_k: int = 0
+    n_shared_experts: int = 0
+    d_ff_expert: int = 0
+    first_dense_layers: int = 0  # leading layers with a dense FFN (``dense_blocks``)
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    # MLA (deepseek): low-rank Q, compressed KV cache, decoupled RoPE
+    use_mla: bool = False
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
     # SSM / hybrid (Mamba-2 blocks)
     ssm_state: int = 0
     ssm_expand: int = 2
@@ -74,6 +89,12 @@ class ModelConfig:
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def qk_head_dim(self) -> int:
+        if self.use_mla:
+            return self.qk_nope_dim + self.qk_rope_dim
+        return self.head_dim_
 
     @property
     def is_attention_free(self) -> bool:

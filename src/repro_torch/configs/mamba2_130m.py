@@ -28,7 +28,7 @@ def config() -> ModelConfig:
 
 def reduced() -> ModelConfig:
     return config().replace(
-        compute_dtype="float32",
+        compute_dtype="float32", capacity_factor=4.0,
         n_layers=2, d_model=128, vocab=512, ssm_state=16, ssm_head_dim=32,
         ssm_chunk=32,
     )

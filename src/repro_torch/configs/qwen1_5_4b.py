@@ -27,7 +27,7 @@ def config() -> ModelConfig:
 
 def reduced() -> ModelConfig:
     return config().replace(
-        compute_dtype="float32",
+        compute_dtype="float32", capacity_factor=4.0,
         n_layers=2, d_model=128, n_heads=4, n_kv_heads=4, head_dim=32,
         d_ff=256, vocab=512,
         attention=AttentionConfig(impl="distr", distr=DistrConfig(group_size=2, block_q=32)),

@@ -35,7 +35,7 @@ def config() -> ModelConfig:
 
 def reduced() -> ModelConfig:
     return config().replace(
-        compute_dtype="float32",
+        compute_dtype="float32", capacity_factor=4.0,
         n_layers=5, d_model=128, n_heads=4, n_kv_heads=4, head_dim=32,
         d_ff=256, vocab=512, ssm_state=16, ssm_head_dim=32, ssm_chunk=32,
         attn_every=2, n_shared_attn_blocks=2,

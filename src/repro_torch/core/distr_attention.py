@@ -107,10 +107,18 @@ def sample_q(q_blocks: torch.Tensor, perms: torch.Tensor,
 
 def distr_attention(q, k, v, cfg: DistrConfig = DistrConfig(), *,
                     causal: bool = False, scale: float | None = None,
-                    proj: torch.Tensor | None = None) -> torch.Tensor:
+                    proj: torch.Tensor | None = None,
+                    q_exact: torch.Tensor | None = None,
+                    k_exact: torch.Tensor | None = None) -> torch.Tensor:
     """Block-wise DistrAttention, GQA-aware.
 
-    q: (B, Hq, N, d); k, v: (B, Hkv, Nk, d) with Hq % Hkv == 0.
+    q: (B, Hq, N, d); k: (B, Hkv, Nk, d); v: (B, Hkv, Nk, d_v) with
+    Hq % Hkv == 0; d_v may differ from d (MLA).
+
+    ``q_exact`` (B, Hq, N, d_e) / ``k_exact`` (B, Hkv, Nk, d_e): an extra
+    feature slice whose scores are computed exactly, not grouped, and added
+    before the scale, the masks and the softmax: MLA's RoPE dimensions,
+    whose rotation pairs a fusion of columns would break.
     """
     cfg = cfg.resolved()
     b, hq, n, d = q.shape
@@ -127,6 +135,9 @@ def distr_attention(q, k, v, cfg: DistrConfig = DistrConfig(), *,
         proj = default_projection(cfg, q.device)
     perms = block_permutations(qp, cfg, proj, n_kv)  # (b, hq, nq, d)
     q_hat = sample_q(qp.reshape(b, hq, nq, cfg.block_q, d), perms, cfg)
+    if q_exact is not None:
+        de = q_exact.shape[-1]
+        qe = pad_to_multiple(q_exact, cfg.block_q, dim=2).reshape(b, hq, nq, cfg.block_q, de)
 
     kj = torch.arange(nk, device=q.device)[None, :]
     outs = []
@@ -134,7 +145,11 @@ def distr_attention(q, k, v, cfg: DistrConfig = DistrConfig(), *,
         perm_g = perms[:, :, iq].reshape(b, n_kv, r, d)
         k_hat = grouping.fuse_columns(k[:, :, None], perm_g, g)  # (b,hkv,r,nk,dg)
         qg = q_hat[:, :, iq].reshape(b, n_kv, r, cfg.block_q, dg)
-        s = torch.einsum("bgrld,bgrnd->bgrln", qg.float(), k_hat.float()) * scale
+        s = torch.einsum("bgrld,bgrnd->bgrln", qg.float(), k_hat.float())
+        if q_exact is not None:
+            qe_g = qe[:, :, iq].reshape(b, n_kv, r, cfg.block_q, de)
+            s = s + torch.einsum("bgrld,bgnd->bgrln", qe_g.float(), k_exact.float())
+        s = s * scale
         if causal:
             qi = iq * cfg.block_q + torch.arange(cfg.block_q, device=q.device)[:, None]
             s = torch.where(kj <= qi, s, NEG_INF)

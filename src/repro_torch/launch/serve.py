@@ -5,8 +5,9 @@
 
 ``--arch`` takes every registered config: the dense starcoder2-7b,
 minicpm-2b, qwen1.5-4b and qwen2.5-32b (its 64 layers, ≈ 65.5 GB in bf16,
-leave little of one card for the cache), the attention-free mamba2-130m
-and the hybrid zamba2-7b.  Runs on the GPU unless ``--device cpu`` is
+leave little of one card for the cache), the MoE llama4-scout-17b-a16e and
+deepseek-v2-236b (MLA; ≈ 215.5 and 471.5 GB in bf16: neither fits one card
+whole), the attention-free mamba2-130m and the hybrid zamba2-7b.  Runs on the GPU unless ``--device cpu`` is
 given (then use ``--reduced``: the CPU runs the kernels' plain PyTorch
 versions).  ``--trace PATH`` records each
 request's lifecycle span (admission → prefill → decode → terminal) and the

@@ -1,13 +1,19 @@
-"""GQA/MHA attention with a ring KV cache or a paged block pool.
+"""GQA/MHA attention with a ring KV cache or a paged block pool, and
+DeepSeek-style MLA with its compressed cache.
 
-Every score stage dispatches through ``repro_torch.core.api`` so
-DistrAttention drops in via config.  Caches and pools are updated in place.
+Every GQA score stage dispatches through ``repro_torch.core.api`` so
+DistrAttention drops in via config.  MLA runs no kernel: its prefill takes
+plain DistrAttention with the RoPE dimensions as an exact side channel, or
+``attend`` on the concatenated q/k, and its decode attends in the
+compressed c_kv space in plain PyTorch, as the reference does.  Caches and
+pools are updated in place.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.api import attend, attend_decode
+from repro_torch.core.distr_attention import distr_attention
 from repro_torch.kernels.paged_decode import GARBAGE_BLOCK
 from repro_torch.models import layers
 
@@ -208,3 +214,115 @@ def attention_decode_paged(params: dict, x: torch.Tensor, cfg, *,
                           block_tables=block_tables)
     out = layers.linear_apply(params["wo"], _merge_heads(o.to(x.dtype)))
     return out, (pool_k, pool_v, pool_k_fused)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): low-rank Q, compressed KV cache, decoupled RoPE
+# ---------------------------------------------------------------------------
+
+
+def mla_init(generator, cfg, dtype=torch.float32) -> dict:
+    h = cfg.n_heads
+    nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dev = generator.device
+    return {
+        "wq_a": layers.linear_init(generator, cfg.d_model, cfg.q_lora_rank, dtype=dtype),
+        "q_norm": layers.rmsnorm_init(cfg.q_lora_rank, dev),
+        "wq_b": layers.linear_init(generator, cfg.q_lora_rank, h * (nope + rope_d), dtype=dtype),
+        "wkv_a": layers.linear_init(generator, cfg.d_model, cfg.kv_lora_rank + rope_d,
+                                    dtype=dtype),
+        "kv_norm": layers.rmsnorm_init(cfg.kv_lora_rank, dev),
+        "wk_b": layers.linear_init(generator, cfg.kv_lora_rank, h * nope, dtype=dtype),
+        "wv_b": layers.linear_init(generator, cfg.kv_lora_rank, h * vd, dtype=dtype),
+        "wo": layers.linear_init(generator, h * vd, cfg.d_model, dtype=dtype),
+    }
+
+
+def _mla_qkv(params: dict, x: torch.Tensor, cfg, positions: torch.Tensor | None):
+    """The shared projections → q_nope, q_rope (B, H, N, ·), c_kv (B, N,
+    kv_lora) and k_rope (B, 1, N, rope_d), q_rope and k_rope rotated."""
+    b, n, _ = x.shape
+    nope = cfg.qk_nope_dim
+    q_l = layers.rmsnorm_apply(params["q_norm"], layers.linear_apply(params["wq_a"], x))
+    q = _split_heads(layers.linear_apply(params["wq_b"], q_l), cfg.n_heads)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    kv_a = layers.linear_apply(params["wkv_a"], x)
+    c_kv = layers.rmsnorm_apply(params["kv_norm"], kv_a[..., :cfg.kv_lora_rank])
+    k_rope = kv_a[..., cfg.kv_lora_rank:][:, None]  # (B, 1, N, rope_d)
+    if positions is None:
+        positions = torch.arange(n, device=x.device).expand(b, n)
+    return (q_nope, layers.apply_rope(q_rope, positions, cfg.rope_theta), c_kv,
+            layers.apply_rope(k_rope, positions, cfg.rope_theta))
+
+
+def mla_apply(params: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor | None = None,
+              causal: bool = True, proj: torch.Tensor | None = None):
+    """MLA for prefill and training, K and V up-projected from c_kv.
+
+    Under ``distr`` and ``pallas_distr`` the scores group the nope
+    dimensions (plain DistrAttention under the LSH projection ``proj``) and
+    take the RoPE dimensions exactly; the other impls attend over the
+    concatenated q/k.  ``pallas_flash`` raises: the flash kernel needs V as
+    wide as Q, and MLA's V is narrower.  Returns ``(out, (c_kv, k_rope))``,
+    the cache parts."""
+    b, n, _ = x.shape
+    h = cfg.n_heads
+    rope_d = cfg.qk_rope_dim
+    impl = cfg.attention.impl
+    if impl == "pallas_flash":
+        raise ValueError(
+            f"MLA under pallas_flash: the flash kernel needs V as wide as Q, and MLA's "
+            f"V has {cfg.v_head_dim} columns against {cfg.qk_head_dim}; "
+            "use distr, pallas_distr, xla_flash or reference")
+    scale = 1.0 / (cfg.qk_head_dim ** 0.5)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, cfg, positions)
+    k_nope = _split_heads(layers.linear_apply(params["wk_b"], c_kv), h)
+    v = _split_heads(layers.linear_apply(params["wv_b"], c_kv), h)
+    k_rope_h = k_rope.expand(b, h, n, rope_d)
+    if impl in ("distr", "pallas_distr"):
+        o = distr_attention(q_nope, k_nope, v, cfg.attention.distr, causal=causal,
+                            scale=scale, proj=proj, q_exact=q_rope, k_exact=k_rope_h)
+    else:
+        o = attend(torch.cat([q_nope, q_rope], dim=-1), torch.cat([k_nope, k_rope_h], dim=-1),
+                   v, cfg.attention, causal=causal, scale=scale)
+    out = layers.linear_apply(params["wo"], _merge_heads(o))
+    return out, (c_kv, k_rope)
+
+
+def mla_decode_apply(params: dict, x: torch.Tensor, cfg, *, cache_ckv: torch.Tensor,
+                     cache_krope: torch.Tensor, cache_index):
+    """Absorbed-matrix MLA decode, attending in the compressed c_kv space.
+
+    Scores are q_nope·W_ukᵀ·c_kv + q_rope·k_rope and the output (P·c_kv)·W_uv,
+    so the cache holds kv_lora + rope_d values a token and nothing is
+    up-projected.  Writes the new token's c_kv and k_rope at ``cache_index``
+    (B,) into ``cache_ckv`` (B, S, kv_lora) and ``cache_krope`` (B, S,
+    rope_d) in place; the slot attends over positions ≤ its index.  Cache
+    reads accumulate in f32.  Returns ``(out, (cache_ckv, cache_krope))``."""
+    b = x.shape[0]
+    h = cfg.n_heads
+    nope, vd, c = cfg.qk_nope_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    scale = 1.0 / (cfg.qk_head_dim ** 0.5)
+    pos = _as_pos_vector(cache_index, b, x.device)
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(params, x, cfg, pos[:, None])
+    s_len = cache_ckv.shape[1]
+    rows = torch.arange(b, device=x.device)
+    at = torch.clamp(pos.to(torch.int64), max=s_len - 1)  # as a dynamic_update_slice clamps
+    cache_ckv[rows, at] = c_kv_new[:, 0].to(cache_ckv.dtype)
+    cache_krope[rows, at] = k_rope_new[:, 0, 0].to(cache_krope.dtype)
+
+    w_uk = params["wk_b"]["w"].reshape(c, h, nope)
+    q_abs = torch.einsum("bhnd,chd->bhnc", q_nope.float(), w_uk.float())
+    ckv = cache_ckv.float()
+    s = torch.einsum("bhnc,bsc->bhns", q_abs.to(cache_ckv.dtype).float(), ckv)
+    s = s + torch.einsum("bhnr,bsr->bhns", q_rope.to(cache_krope.dtype).float(),
+                         cache_krope.float())
+    s = s * scale
+    live = torch.arange(s_len, device=x.device)[None, :] <= pos[:, None]
+    s = torch.where(live[:, None, None, :], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhns,bsc->bhnc", p.to(cache_ckv.dtype).float(), ckv)
+    w_uv = params["wv_b"]["w"].reshape(c, h, vd)
+    o = torch.einsum("bhnc,chd->bhnd", ctx, w_uv.float())
+    out = layers.linear_apply(params["wo"], _merge_heads(o.to(x.dtype)))
+    return out, (cache_ckv, cache_krope)

@@ -1,9 +1,11 @@
 """Build the port's parameters from the reference's parameter tree.
 
 The reference keeps per-layer parameters stacked on axis 0 under
-``blocks`` (the hybrid: on axes 0 and 1 under ``groups``, axis 0 under
+``blocks`` (moe: also ``dense_blocks``, the first ``first_dense_layers``
+layers; the hybrid: on axes 0 and 1 under ``groups``, axis 0 under
 ``tail``, and a list of unstacked ``shared`` blocks) and linear weights as
-``(d_in, d_out)``; the port keeps the same layout, one dict per layer.  A
+``(d_in, d_out)``; the port keeps the same layout, one dict per layer, a
+MoE layer's experts stacked (E, ·, ·) as in the reference.  A
 tied-embedding tree has no ``lm_head``.
 The reference draws two pieces of model state from ``jax.random`` that torch
 cannot regenerate: the LSH projection (``from_jax_params(proj=)``) and the
@@ -35,10 +37,17 @@ def _layer(stacked, i: int):
 F32_LEAVES = ("conv_w", "conv_b", "a_log", "dt_bias", "d_skip")
 
 
+# Subtrees held in f32 whatever the compute dtype: the MoE router
+# (``moe_init``).
+F32_SUBTREES = ("router",)
+
+
 def _leaf_dtype(path: tuple, cdtype: torch.dtype) -> torch.dtype:
-    """Norm parameters and the Mamba leaves of ``F32_LEAVES`` stay f32;
-    matmul weights, biases and tables take the compute dtype."""
-    if any("norm" in p for p in path) or path[-1] in F32_LEAVES:
+    """Norm parameters (MLA's ``q_norm`` and ``kv_norm`` among them), the
+    Mamba leaves of ``F32_LEAVES`` and the subtrees of ``F32_SUBTREES``
+    stay f32; matmul weights, biases and tables take the compute dtype."""
+    if (any("norm" in p for p in path) or path[-1] in F32_LEAVES
+            or any(p in F32_SUBTREES for p in path)):
         return torch.float32
     return cdtype
 
@@ -73,6 +82,11 @@ def from_jax_params(params_np: dict, cfg, *, proj: np.ndarray | None = None,
         if n_tail:
             params["tail"] = unstack(params_np["tail"], n_tail, "tail")
         params["shared"] = [_convert(sp, ("shared",), cdtype, dev) for sp in params_np["shared"]]
+    elif cfg.family == "moe":
+        fd = cfg.first_dense_layers
+        if fd:
+            params["dense_blocks"] = unstack(params_np["dense_blocks"], fd, "dense_blocks")
+        params["blocks"] = unstack(params_np["blocks"], cfg.n_layers - fd, "blocks")
     else:
         params["blocks"] = unstack(params_np["blocks"], cfg.n_layers, "blocks")
     params["final_norm"] = _convert(params_np["final_norm"], ("final_norm",), cdtype, dev)

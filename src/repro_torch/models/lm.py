@@ -1,11 +1,14 @@
-"""Decoder LMs of the dense, ssm and hybrid families: init, trunk, logits,
-loss.
+"""Decoder LMs of the dense, moe, ssm and hybrid families: init, trunk,
+logits, loss.
 
 Parameters are a dict: ``embed``, the family's layers, ``final_norm``,
 ``lm_head`` (absent under tied embeddings, where the LM head reads the
 embedding table) and ``lsh_proj`` — the fixed LSH projection of the
 DistrAttention impls, model state drawn once at init and never trained.
-The layers: ``blocks`` (one dict per layer) for dense and ssm; for hybrid
+The layers: ``blocks`` (one dict per layer) for dense and ssm; for moe
+``dense_blocks`` (the first ``first_dense_layers`` layers, dense FFN; absent
+when there are none) and ``blocks`` (the MoE layers), GQA or MLA attention
+in both; for hybrid
 ``groups`` (n_groups lists of ``attn_every`` Mamba layers), ``tail`` (the
 Mamba layers past the last group, when there are any) and ``shared`` (the
 ``n_shared_attn_blocks`` shared attention blocks; group ``gi`` is followed
@@ -23,7 +26,7 @@ from repro_torch.utils.device import resolve_device
 
 PAD_LOGIT = -1e30
 Z_LOSS_WEIGHT = 1e-4
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -79,6 +82,12 @@ def init_params(cfg, generator: torch.Generator | None = None,
     if cfg.family == "dense":
         params["blocks"] = [transformer.block_init(generator, cfg, dtype)
                             for _ in range(cfg.n_layers)]
+    elif cfg.family == "moe":
+        if cfg.first_dense_layers:
+            params["dense_blocks"] = [transformer.block_init(generator, cfg, dtype)
+                                      for _ in range(cfg.first_dense_layers)]
+        params["blocks"] = [transformer.block_init(generator, cfg, dtype, "moe")
+                            for _ in range(cfg.n_layers - cfg.first_dense_layers)]
     elif cfg.family == "ssm":
         params["blocks"] = mamba_layers(cfg.n_layers)
     else:
@@ -128,8 +137,19 @@ def embed(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
     return layers.embedding_apply(params["embed"], tokens).to(compute_dtype(cfg))
 
 
-def _block_hidden(lp: dict, x: torch.Tensor, cfg, positions, proj) -> torch.Tensor:
-    return transformer.block_apply(lp, x, cfg, positions=positions, proj=proj)[0]
+def decoder_layers(params: dict, cfg) -> list[tuple[str, dict]]:
+    """A dense or moe model's transformer layers in order, as (layer_type,
+    layer params): the moe family's ``dense_blocks`` first."""
+    if cfg.family == "moe":
+        return ([("dense", lp) for lp in params.get("dense_blocks", [])]
+                + [("moe", lp) for lp in params["blocks"]])
+    return [("dense", lp) for lp in params["blocks"]]
+
+
+def _block_hidden(lp: dict, x: torch.Tensor, cfg, positions, proj, layer_type: str):
+    x, aux, _ = transformer.block_apply_aux(lp, x, cfg, positions=positions, proj=proj,
+                                            layer_type=layer_type)
+    return x if aux is None else (x, aux)
 
 
 def _mamba_hidden(lp: dict, x: torch.Tensor, cfg) -> torch.Tensor:
@@ -155,24 +175,34 @@ def _mamba_layers(layer_params: list, x: torch.Tensor, cfg, collect_cache: bool)
 
 def backbone(params: dict, cfg, tokens: torch.Tensor, *, collect_cache: bool = False):
     """Trunk → (hidden (B, N, D) after the final norm, cache parts), the
-    parts None unless ``collect_cache``.  Dense: a list of per-layer (k, v)
-    (B, Hkv, N, dh).  ssm: a list of per-layer (conv_state, ssm_state).
-    hybrid: ``{"groups": [[(conv, ssm)] per Mamba layer] per group,
-    "shared_kv": [(k, v)] per group site, "tail": [(conv, ssm)]}``; the
-    shared blocks read the embedded tokens ``x0`` through their concat skip.
+    parts None unless ``collect_cache``.  Dense and moe: a list of
+    per-layer parts in layer order, (k, v) (B, Hkv, N, dh) for GQA and
+    (c_kv (B, N, kv_lora), k_rope (B, 1, N, rope_d)) for MLA.  ssm: a list
+    of per-layer (conv_state, ssm_state).  hybrid: ``{"groups": [[(conv,
+    ssm)] per Mamba layer] per group, "shared_kv": [(k, v)] per group site,
+    "tail": [(conv, ssm)]}``; the shared blocks read the embedded tokens
+    ``x0`` through their concat skip.
 
-    Under autograd with ``cfg.remat == "full"`` each dense block and each
-    Mamba layer is one ``checkpoint``: only its input is kept, and the
+    Under autograd with ``cfg.remat == "full"`` each transformer block and
+    each Mamba layer is one ``checkpoint``: only its input is kept, and the
     backward recomputes it (the reference's ``_remat``, which wraps the
     hybrid's Mamba layers but not its shared attention blocks)."""
+    x, _, parts = trunk(params, cfg, tokens, collect_cache=collect_cache)
+    return x, parts
+
+
+def trunk(params: dict, cfg, tokens: torch.Tensor, *, collect_cache: bool = False):
+    """``backbone`` with the MoE layers' summed aux loss: (hidden, aux (f32
+    scalar; 0 without MoE layers), cache parts)."""
     x = embed(params, cfg, tokens)
     b, n = tokens.shape
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     positions = torch.arange(n, device=tokens.device).expand(b, n)
     proj = params.get("lsh_proj")
     if cfg.family == "ssm":
         x, states = _mamba_layers(params["blocks"], x, cfg, collect_cache)
         x = transformer.norm_apply(params["final_norm"], x, cfg)
-        return x, (states if collect_cache else None)
+        return x, aux, (states if collect_cache else None)
     if cfg.family == "hybrid":
         x0 = x
         groups, shared_kv = [], []
@@ -186,18 +216,23 @@ def backbone(params: dict, cfg, tokens: torch.Tensor, *, collect_cache: bool = F
         x, tail = _mamba_layers(params.get("tail", []), x, cfg, collect_cache)
         x = transformer.norm_apply(params["final_norm"], x, cfg)
         parts = {"groups": groups, "shared_kv": shared_kv, "tail": tail}
-        return x, (parts if collect_cache else None)
+        return x, aux, (parts if collect_cache else None)
     remat = _remat(cfg, collect_cache)
     kvs = []
-    for lp in params["blocks"]:
+    for layer_type, lp in decoder_layers(params, cfg):
         if remat:
-            x = checkpoint(_block_hidden, lp, x, cfg, positions, proj, use_reentrant=False)
-            continue
-        x, kv = transformer.block_apply(lp, x, cfg, positions=positions, proj=proj)
-        if collect_cache:
-            kvs.append(kv)
+            out = checkpoint(_block_hidden, lp, x, cfg, positions, proj, layer_type,
+                             use_reentrant=False)
+            x, a = out if isinstance(out, tuple) else (out, None)
+        else:
+            x, a, kv = transformer.block_apply_aux(lp, x, cfg, positions=positions,
+                                                   proj=proj, layer_type=layer_type)
+            if collect_cache:
+                kvs.append(kv)
+        if a is not None:
+            aux = aux + a
     x = transformer.norm_apply(params["final_norm"], x, cfg)
-    return x, (kvs if collect_cache else None)
+    return x, aux, (kvs if collect_cache else None)
 
 
 def logits_fn(params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
@@ -218,10 +253,12 @@ def forward(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def loss_fn(params: dict, cfg, batch: dict):
-    """Next-token cross-entropy over f32 logits plus the 1e-4 z-loss →
-    (loss, metrics).  Labels below 0 are masked out.  The reference adds a
-    router aux term; a dense model has none, so ``aux`` is 0."""
-    logits = forward(params, cfg, batch["tokens"]).float()
+    """Next-token cross-entropy over f32 logits, plus ``router_aux_weight``
+    times the MoE layers' summed aux loss, plus the 1e-4 z-loss → (loss,
+    metrics).  Labels below 0 are masked out.  A model without MoE layers
+    has no aux loss, so its ``aux`` is 0."""
+    hidden, aux, _ = trunk(params, cfg, batch["tokens"])
+    logits = logits_fn(params, cfg, hidden).float()
     labels = batch["labels"].long()
     mask = (labels >= 0).float()
     lse = torch.logsumexp(logits, dim=-1)
@@ -229,5 +266,5 @@ def loss_fn(params: dict, cfg, batch: dict):
     denom = mask.sum().clamp(min=1.0)
     ce = (nll * mask).sum() / denom
     zloss = (lse.square() * mask).sum() / denom
-    aux = torch.zeros((), device=logits.device)
-    return ce + Z_LOSS_WEIGHT * zloss, {"ce": ce, "aux": aux, "zloss": zloss}
+    total = ce + cfg.router_aux_weight * aux + Z_LOSS_WEIGHT * zloss
+    return total, {"ce": ce, "aux": aux, "zloss": zloss}

@@ -1,15 +1,20 @@
-"""Pre-norm blocks: the dense transformer block (prefill, one-token decode,
-and windowed decode against the paged pool), the Mamba-2 block, and the
+"""Pre-norm blocks: the transformer block (prefill, one-token decode, and
+windowed decode against the paged pool), the Mamba-2 block, and the
 hybrid's shared attention block.
 
-``layer_type`` is ``"dense"`` or ``"mamba"``.  A dense block returns its
-(k, v); a Mamba block returns its (conv_state, ssm_state) when asked."""
+``layer_type`` is ``"dense"`` (a dense FFN), ``"moe"`` (the MoE FFN of
+``models.moe``) or ``"mamba"``.  A transformer block's attention is GQA, or
+MLA under ``cfg.use_mla``; it returns its cache parts: (k, v) for GQA,
+(c_kv, k_rope) for MLA.  A Mamba block returns its (conv_state, ssm_state)
+when asked.  ``block_apply_aux`` also returns the block's MoE aux loss
+(None for the other layer types), where the reference's ``block_apply``
+returns it."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import layers, mamba
+from repro_torch.models import layers, mamba, moe
 
 
 def norm_init(cfg, device=None) -> dict:
@@ -28,42 +33,63 @@ def block_init(generator, cfg, dtype=torch.float32, layer_type: str = "dense") -
     if layer_type == "mamba":
         return {"norm1": norm_init(cfg, generator.device),
                 "mixer": mamba.mamba_init(generator, cfg, dtype)}
+    attn_init = attn_mod.mla_init if cfg.use_mla else attn_mod.attention_init
     return {
         "norm1": norm_init(cfg, generator.device),
         "norm2": norm_init(cfg, generator.device),
-        "attn": attn_mod.attention_init(generator, cfg, dtype),
-        "ffn": layers.mlp_init(generator, cfg.d_model, cfg.d_ff, act=cfg.act, dtype=dtype),
+        "attn": attn_init(generator, cfg, dtype),
+        "ffn": (moe.moe_init(generator, cfg, dtype) if layer_type == "moe" else
+                layers.mlp_init(generator, cfg.d_model, cfg.d_ff, act=cfg.act, dtype=dtype)),
     }
+
+
+def ffn_apply(params: dict, h: torch.Tensor, cfg, layer_type: str):
+    """The block's FFN → (y, aux): the MoE's aux loss, or None."""
+    if layer_type == "moe":
+        return moe.moe_apply(params, h, cfg)
+    return layers.mlp_apply(params, h, act=cfg.act), None
+
+
+def block_apply_aux(params: dict, x: torch.Tensor, cfg, *, positions=None,
+                    causal: bool = True, proj: torch.Tensor | None = None,
+                    layer_type: str = "dense", collect_cache: bool = False):
+    """Full-sequence block → ``(x, aux, parts)``: ``aux`` the MoE aux loss
+    (None for a dense or Mamba block); ``parts`` (k, v) for GQA, (c_kv,
+    k_rope) for MLA, and for a Mamba block (conv_state, ssm_state) with
+    ``collect_cache`` (else None)."""
+    if layer_type == "mamba":
+        h = norm_apply(params["norm1"], x, cfg)
+        if collect_cache:
+            y, states = mamba.mamba_apply(params["mixer"], h, cfg, return_state=True)
+            return x + y, None, states
+        return x + mamba.mamba_apply(params["mixer"], h, cfg), None, None
+    h = norm_apply(params["norm1"], x, cfg)
+    attn = attn_mod.mla_apply if cfg.use_mla else attn_mod.attention_apply
+    o, kv = attn(params["attn"], h, cfg, positions=positions, causal=causal, proj=proj)
+    x = x + o
+    y, aux = ffn_apply(params["ffn"], norm_apply(params["norm2"], x, cfg), cfg, layer_type)
+    return x + y, aux, kv
 
 
 def block_apply(params: dict, x: torch.Tensor, cfg, *, positions=None,
                 causal: bool = True, proj: torch.Tensor | None = None,
                 layer_type: str = "dense", collect_cache: bool = False):
-    """Full-sequence block.  Returns ``(x, (k, v))`` for a dense block, and
-    ``(x, (conv_state, ssm_state))`` for a Mamba block with
-    ``collect_cache`` (else ``(x, None)``)."""
-    if layer_type == "mamba":
-        h = norm_apply(params["norm1"], x, cfg)
-        if collect_cache:
-            y, states = mamba.mamba_apply(params["mixer"], h, cfg, return_state=True)
-            return x + y, states
-        return x + mamba.mamba_apply(params["mixer"], h, cfg), None
-    h = norm_apply(params["norm1"], x, cfg)
-    o, kv = attn_mod.attention_apply(params["attn"], h, cfg, positions=positions,
-                                     causal=causal, proj=proj)
-    x = x + o
-    h2 = norm_apply(params["norm2"], x, cfg)
-    return x + layers.mlp_apply(params["ffn"], h2, act=cfg.act), kv
+    """``block_apply_aux`` without the aux: ``(x, parts)``."""
+    x, _, parts = block_apply_aux(params, x, cfg, positions=positions, causal=causal,
+                                  proj=proj, layer_type=layer_type,
+                                  collect_cache=collect_cache)
+    return x, parts
 
 
 def block_decode_apply(params: dict, x: torch.Tensor, cfg, *, cache: dict,
                        cache_index, length=None, layer_type: str = "dense",
                        perm: torch.Tensor | None = None):
-    """One-token decode.  A dense block's ``cache`` holds this layer's
+    """One-token decode.  A GQA block's ``cache`` holds this layer's
     ``k``/``v`` (B, Hkv, S, dh), updated in place; ``length`` is the
     per-slot live token count including the new token (None: pos + 1).
     With the layer's static ``perm`` the cache holds ``v`` and ``k_fused``
-    instead, and scores read K̂ (``attention_decode_fused``).  A Mamba
+    instead, and scores read K̂ (``attention_decode_fused``).  An MLA
+    block's holds ``ckv``/``krope`` (B, S, ·), updated in place.  A Mamba
     block's holds ``conv``/``ssm``, returned anew.  Returns ``(x, cache)``."""
     if layer_type == "mamba":
         y, (conv_s, ssm_s) = mamba.mamba_decode_apply(
@@ -72,7 +98,13 @@ def block_decode_apply(params: dict, x: torch.Tensor, cfg, *, cache: dict,
         )
         return x + y, {**cache, "conv": conv_s, "ssm": ssm_s}
     h = norm_apply(params["norm1"], x, cfg)
-    if perm is not None:
+    if cfg.use_mla:
+        o, (ckv, krope) = attn_mod.mla_decode_apply(
+            params["attn"], h, cfg, cache_ckv=cache["ckv"], cache_krope=cache["krope"],
+            cache_index=cache_index,
+        )
+        new = {"ckv": ckv, "krope": krope}
+    elif perm is not None:
         o, (cv, ckf) = attn_mod.attention_decode_fused(
             params["attn"], h, cfg, cache_v=cache["v"], cache_k_fused=cache["k_fused"],
             perm=perm, cache_index=cache_index, length=length,
@@ -85,23 +117,25 @@ def block_decode_apply(params: dict, x: torch.Tensor, cfg, *, cache: dict,
         )
         new = {"k": ck, "v": cv}
     x = x + o
-    h2 = norm_apply(params["norm2"], x, cfg)
-    return x + layers.mlp_apply(params["ffn"], h2, act=cfg.act), {**cache, **new}
+    y, _ = ffn_apply(params["ffn"], norm_apply(params["norm2"], x, cfg), cfg, layer_type)
+    return x + y, {**cache, **new}
 
 
 def block_paged_decode_apply(params: dict, x: torch.Tensor, cfg, *, pool_k, pool_v,
-                             block_tables, pos, count=None, pool_k_fused=None, perm=None):
-    """Windowed decode of one block against the paged pool (w = 1: a decode
-    tick; w = the chunk width: chunked prefill).  Pools are updated in
-    place.  Returns ``(x, (pool_k, pool_v, pool_k_fused))``."""
+                             block_tables, pos, count=None, pool_k_fused=None, perm=None,
+                             layer_type: str = "dense"):
+    """Windowed decode of one GQA block (dense or MoE FFN) against the
+    paged pool (w = 1: a decode tick; w = the chunk width: chunked
+    prefill).  Pools are updated in place.  Returns ``(x, (pool_k, pool_v,
+    pool_k_fused))``."""
     h = norm_apply(params["norm1"], x, cfg)
     o, pools = attn_mod.attention_decode_paged(
         params["attn"], h, cfg, pool_k=pool_k, pool_v=pool_v, block_tables=block_tables,
         cache_index=pos, count=count, pool_k_fused=pool_k_fused, perm=perm,
     )
     x = x + o
-    h2 = norm_apply(params["norm2"], x, cfg)
-    return x + layers.mlp_apply(params["ffn"], h2, act=cfg.act), pools
+    y, _ = ffn_apply(params["ffn"], norm_apply(params["norm2"], x, cfg), cfg, layer_type)
+    return x + y, pools
 
 
 # ---------------------------------------------------------------------------

@@ -6,11 +6,14 @@ The slot engine's decode cache holds ``max_slots`` sequences with a
 ``max_len`` slab each.  Requests are prefilled one at a time (prompts right-padded to a
 bucket) and their caches copied into free slots; every ``step()`` decodes
 one token for all active slots.  A finished sequence frees its slot at
-once.  A dense model's decoding continues past ``max_len`` by sliding the
-ring window; the ssm and hybrid caches have no ring, so their sequences
-finish at ``pos ≥ max_len − 2``.  Under ``attention.distr_decode`` the
-dense cache also holds the fused K̂ (``kv_cache``), from which decode
-scores read.
+once.  A GQA (dense or moe) model's decoding continues past ``max_len``
+by sliding the ring window; the MLA, ssm and hybrid caches have no ring, so
+their sequences finish at ``pos ≥ max_len − 2``.  Under
+``attention.distr_decode`` the dense cache also holds the fused K̂
+(``kv_cache``), from which decode scores read.  A MoE layer's capacity
+counts every token of the call, as in the reference: the prefill's bucket
+(the prompt, then its pad tokens) and a decode step's ``max_slots`` rows,
+idle slots included.
 
 Both engines give every request one terminal status (serve.lifecycle)
 under deadlines, shedding, cancel, numeric quarantine and injected faults
@@ -447,8 +450,9 @@ class PagedServeEngine:
     ``nan_logits`` in every model step; the scheduler contains them.
     ``trace`` is handed to the scheduler, which emits the trace events.
 
-    Dense family only; fused-K̂ pools under ``attention.distr_decode`` with
-    static ``perms`` (L, Hkv, dh) (None draws the port's own).
+    GQA dense and moe only (MLA keeps the slot engine); a dense model keeps
+    fused-K̂ pools under ``attention.distr_decode`` with static ``perms``
+    (L, Hkv, dh) (None draws the port's own).
     ``block_size=None`` resolves to 128, the reference's value without its
     tuner.  ``device`` defaults to CUDA and raises when it is absent.
     """
@@ -464,8 +468,7 @@ class PagedServeEngine:
                  max_waiting: int | None = None, degrade: DegradeConfig | None = None,
                  faults=None, device: str | torch.device = "cuda",
                  perms: torch.Tensor | None = None, trace=None):
-        if cfg.family != "dense":
-            raise NotImplementedError(f"family {cfg.family!r}: the port pages dense models")
+        paged.check_pageable(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params

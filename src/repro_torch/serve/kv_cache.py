@@ -2,18 +2,21 @@
 of the fused-K̂ decode cache.
 
 Layouts (L = layers, B = slots, S = max_len, G = hybrid groups):
-  dense:  ``k``, ``v`` (L, B, Hkv, S, dh) and ``length`` (B,) int32; under
-          ``attention.distr_decode`` also ``k_fused`` (L, B, Hkv, S, dh/G*)
+  dense, moe (GQA):  ``k``, ``v`` (L, B, Hkv, S, dh) and ``length`` (B,)
+          int32; for dense under ``attention.distr_decode`` also ``k_fused``
+          (L, B, Hkv, S, dh/G*) (a moe config decodes from raw K, so it
+          keeps none)
+  mla:    ``ckv`` (L, B, S, kv_lora), ``krope`` (L, B, S, rope_d)
   ssm:    ``conv`` (L, B, k−1, conv_dim), ``ssm`` (L, B, H, S_state, P) f32
   hybrid: ``groups_conv`` (G, attn_every, B, k−1, conv_dim), ``groups_ssm``
           (G, attn_every, B, H, S_state, P) f32, ``shared_k`` / ``shared_v``
           (G, B, Hkv, S, dh) for the shared block after each group, and
           ``tail_conv`` / ``tail_ssm`` for the Mamba layers past the last group
 
-The dense cache is a ring: writes land at ``pos mod S``; ``length`` counts
+The GQA cache is a ring: writes land at ``pos mod S``; ``length`` counts
 every token ever written, so the live window is the most recent
-``min(length, S)`` tokens and RoPE positions stay absolute.  The ssm and
-hybrid layouts have no ``length``: their sequences finish before the
+``min(length, S)`` tokens and RoPE positions stay absolute.  The MLA, ssm
+and hybrid layouts have no ``length``: their sequences finish before the
 window would wrap.
 
 The fused-K̂ decode cache holds K̂ = fuse(K, perm) under one static
@@ -40,6 +43,9 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
     if cfg.family == "ssm":
         return {"conv": zeros((cfg.n_layers, batch) + conv),
                 "ssm": zeros((cfg.n_layers, batch) + ssm, torch.float32)}
+    if cfg.use_mla:
+        return {"ckv": zeros((cfg.n_layers, batch, max_len, cfg.kv_lora_rank)),
+                "krope": zeros((cfg.n_layers, batch, max_len, cfg.qk_rope_dim))}
     kv = (cfg.n_kv_heads, max_len, cfg.head_dim_)
     if cfg.family == "hybrid":
         g, t = hybrid_layout(cfg)
@@ -58,7 +64,7 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
         "v": zeros((cfg.n_layers, batch) + kv),
         "length": zeros((batch,), torch.int32),
     }
-    if cfg.attention.distr_decode:
+    if cfg.attention.distr_decode and cfg.family == "dense":
         g = cfg.attention.distr.group_size
         cache["k_fused"] = zeros((cfg.n_layers, batch, cfg.n_kv_heads, max_len,
                                   cfg.head_dim_ // g))

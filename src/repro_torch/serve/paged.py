@@ -4,8 +4,8 @@ The slot engine reserves a contiguous ``max_len`` slab per slot.  The paged
 cache cuts KV into fixed-size blocks drawn from one shared pool:
 
   pools:        v (L, P, Hkv, bs, dh), and k (L, P, Hkv, bs, dh) — or,
-                under ``attention.distr_decode``, k_fused (·, dh/G*) and no
-                raw K at all
+                for dense under ``attention.distr_decode``, k_fused
+                (·, dh/G*) and no raw K at all (GQA dense and moe only)
   block table:  per request, logical block j → physical pool block ids[j]
   invariant:    block 0 is a reserved garbage block, never allocated: the
                 write target of padded rows and idle lanes
@@ -79,14 +79,24 @@ class BlockPool:
         return self._refs[block]
 
 
+def check_pageable(cfg) -> None:
+    """Raise unless the paged engine serves ``cfg``: GQA dense or moe."""
+    if cfg.family not in ("dense", "moe") or cfg.use_mla:
+        raise NotImplementedError(
+            "paged serving covers GQA dense/moe; use ServeEngine for "
+            f"family={cfg.family!r} use_mla={cfg.use_mla}")
+
+
 def pool_struct(cfg, num_blocks: int, block_size: int) -> dict:
-    """Shapes of the paged pools, by key.  The dense family only; the fused
-    pool replaces raw K, which the fused paged path never reads or writes."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r}: the port pages dense models")
+    """Shapes of the paged pools, by key.  GQA dense and moe only (MLA and
+    the ssm and hybrid families keep the slot engine).  The fused pool
+    replaces raw K, which the fused paged path never reads or writes; it
+    engages for dense only, so a moe config with ``distr_decode`` set pools
+    raw K, as its paged step reads it."""
+    check_pageable(cfg)
     l, hkv, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim_
     shapes = {"v": (l, num_blocks, hkv, block_size, dh)}
-    if cfg.attention.distr_decode:
+    if cfg.attention.distr_decode and cfg.family == "dense":
         g = cfg.attention.distr.group_size
         shapes["k_fused"] = (l, num_blocks, hkv, block_size, dh // g)
     else:

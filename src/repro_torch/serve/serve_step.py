@@ -1,8 +1,11 @@
 """Serving steps: prefill (build the cache from a full forward) and
-one-token decode for the dense (ring cache, raw K or fused K̂), ssm and
-hybrid families; for the dense family also the paged step (a decode tick
-or a chunked-prefill window over the block pool) and the whole-prompt
-paged prefill of the degradation dial.
+one-token decode for the dense (ring cache, raw K or fused K̂), moe (GQA
+ring cache of raw K, or MLA's compressed cache), ssm and hybrid families;
+for GQA dense and moe also the paged step (a decode tick or a
+chunked-prefill window over the block pool) and the whole-prompt paged
+prefill of the degradation dial.  A moe config decodes from raw K even with
+``attention.distr_decode`` set: the fused K̂ engages for dense only, as in
+the reference.
 
 Steps update caches and pools in place.
 """
@@ -14,6 +17,7 @@ from repro_torch.core import grouping
 from repro_torch.models import lm, transformer
 from repro_torch.models.attention import paged_insert
 from repro_torch.serve import kv_cache
+from repro_torch.serve.paged import check_pageable
 
 
 def _pad_seq_to(x: torch.Tensor, max_len: int, dim: int) -> torch.Tensor:
@@ -72,6 +76,11 @@ def make_prefill(cfg, max_len: int, backbone_cfg=None, perms: torch.Tensor | Non
         dtype = lm.compute_dtype(cfg)
         if cfg.family in ("ssm", "hybrid"):
             return logits, _mamba_prefill_cache(cfg, kvs, max_len, dtype)
+        if cfg.use_mla:
+            ckv = torch.stack([c for c, _ in kvs]).to(dtype)  # (L, B, N, kv_lora)
+            krope = torch.stack([r[:, 0] for _, r in kvs]).to(dtype)  # (L, B, N, rope_d)
+            return logits, {"ckv": _pad_seq_to(ckv, max_len, 2),
+                            "krope": _pad_seq_to(krope, max_len, 2)}
         k = torch.stack([kv[0] for kv in kvs]).to(dtype)  # (L, B, Hkv, N, dh)
         v = torch.stack([kv[1] for kv in kvs]).to(dtype)
         cache = {
@@ -141,10 +150,13 @@ def make_decode_step(cfg, perms: torch.Tensor | None = None):
     (B, 1, V), cache).  Dense: each slot writes its token at ``pos mod S``;
     the live length becomes ``min(max(length, pos + 1), S)``, and
     ``length`` counts ``max(length, pos + 1)`` in place.  Under
-    ``attention.distr_decode`` scores read the fused ``k_fused`` cache
-    under the static ``perms`` (``_resolve_perms``) and raw K is not
-    written.  ssm / hybrid: each Mamba layer steps its recurrence, and each
-    shared block writes at ``pos`` and attends over ``pos + 1`` positions.
+    ``attention.distr_decode`` a dense model's scores read the fused
+    ``k_fused`` cache under the static ``perms`` (``_resolve_perms``) and
+    raw K is not written.  A moe model runs its ``dense_blocks`` and then
+    its MoE blocks; under MLA each writes c_kv and k_rope at ``pos`` and
+    attends over ``pos + 1`` positions.  ssm / hybrid: each Mamba layer
+    steps its recurrence, and each shared block writes at ``pos`` and
+    attends over ``pos + 1`` positions.
     Every cache tensor is written in place, so a captured step reads and
     writes fixed addresses; only a conv cache narrower than the compute
     dtype comes back as a new, wider tensor (``_widen_conv``)."""
@@ -160,6 +172,14 @@ def make_decode_step(cfg, perms: torch.Tensor | None = None):
             x = _mamba_decode_trunk(cfg, params, x, cache, pos)
             x = transformer.norm_apply(params["final_norm"], x, cfg)
             return lm.logits_fn(params, cfg, x), cache
+        stack = lm.decoder_layers(params, cfg)
+        if cfg.use_mla:
+            for i, (layer_type, lp) in enumerate(stack):
+                x, _ = transformer.block_decode_apply(
+                    lp, x, cfg, cache={"ckv": cache["ckv"][i], "krope": cache["krope"][i]},
+                    cache_index=pos, layer_type=layer_type)
+            x = transformer.norm_apply(params["final_norm"], x, cfg)
+            return lm.logits_fn(params, cfg, x), cache
         if perms is not None and perms.device != x.device:
             # On the eager first call, before any capture: a host copy
             # inside a captured step would fail.
@@ -167,12 +187,12 @@ def make_decode_step(cfg, perms: torch.Tensor | None = None):
         max_len = cache["k"].shape[3]
         total = torch.maximum(cache["length"], pos + 1)
         length = torch.clamp(total, max=max_len)
-        for i, lp in enumerate(params["blocks"]):
+        for i, (layer_type, lp) in enumerate(stack):
             layer = ({"v": cache["v"][i], "k_fused": cache["k_fused"][i]} if perms is not None
                      else {"k": cache["k"][i], "v": cache["v"][i]})
             x, _ = transformer.block_decode_apply(
                 lp, x, cfg, cache=layer, cache_index=pos, length=length,
-                perm=perms[i] if perms is not None else None,
+                layer_type=layer_type, perm=perms[i] if perms is not None else None,
             )
         cache["length"].copy_(total)
         x = transformer.norm_apply(params["final_norm"], x, cfg)
@@ -183,7 +203,8 @@ def make_decode_step(cfg, perms: torch.Tensor | None = None):
 
 def _resolve_perms(cfg, perms: torch.Tensor | None) -> torch.Tensor | None:
     """The fused-K̂ cache's or pool's static perms (L, Hkv, dh), or None for
-    raw K (and for the ssm and hybrid families, which keep no fused cache).
+    raw K (and for the moe, ssm and hybrid families, which keep no fused
+    cache).
     ``perms`` passes given ones across (the tests hand over the
     reference's); None draws the port's own."""
     if not cfg.attention.distr_decode or cfg.family != "dense":
@@ -199,10 +220,10 @@ def make_paged_step(cfg, width: int, perms: torch.Tensor | None = None):
     chunked-prefill window: the same banded windowed decode, so chunked
     prefill runs on the paged decode kernel.  pos: (B,) start positions;
     count: (B,) live tokens per row (padding writes go to the garbage block;
-    the caller ignores padded logits).  Under ``attention.distr_decode`` the
-    pools hold fused K̂ under ``perms`` (see ``_resolve_perms``)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r}: the port pages dense models")
+    the caller ignores padded logits).  Under ``attention.distr_decode`` a
+    dense model's pools hold fused K̂ under ``perms`` (see
+    ``_resolve_perms``).  GQA dense and moe only."""
+    check_pageable(cfg)
     perms = _resolve_perms(cfg, perms)
 
     @torch.no_grad()
@@ -212,12 +233,12 @@ def make_paged_step(cfg, width: int, perms: torch.Tensor | None = None):
         if perms is not None and perms.device != x.device:
             perms = perms.to(x.device)  # once, not a host copy every step
         fused = perms
-        for i, lp in enumerate(params["blocks"]):
+        for i, (layer_type, lp) in enumerate(lm.decoder_layers(params, cfg)):
             x, _ = transformer.block_paged_decode_apply(
                 lp, x, cfg, pool_k=None if fused is not None else pools["k"][i],
                 pool_v=pools["v"][i], block_tables=block_tables, pos=pos, count=count,
                 pool_k_fused=pools["k_fused"][i] if fused is not None else None,
-                perm=fused[i] if fused is not None else None,
+                perm=fused[i] if fused is not None else None, layer_type=layer_type,
             )
         x = transformer.norm_apply(params["final_norm"], x, cfg)
         return lm.logits_fn(params, cfg, x), pools
@@ -232,8 +253,7 @@ def _make_paged_full_prefill(cfg, backbone_cfg, perms: torch.Tensor | None = Non
     block).  A fused K̂ is always written at the engine's own G* from its
     static perms, whatever attention ``backbone_cfg`` ran: the cache layout
     belongs to the engine, the forward to the caller."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r}: the port pages dense models")
+    check_pageable(cfg)
     perms = _resolve_perms(cfg, perms)
 
     @torch.no_grad()

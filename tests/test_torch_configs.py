@@ -12,7 +12,8 @@ pytest.importorskip("torch")
 from repro import configs as ref_configs  # noqa: E402
 from repro_torch import configs  # noqa: E402
 
-DERIVED = ("padded_vocab", "head_dim_", "is_attention_free", "d_inner", "ssm_heads")
+DERIVED = ("padded_vocab", "head_dim_", "qk_head_dim", "is_attention_free", "d_inner",
+           "ssm_heads")
 
 
 def _shared(port_obj, ref_obj) -> list[str]:
@@ -59,3 +60,50 @@ def test_qwen_published_shapes():
     assert qwen32.n_heads // qwen32.n_kv_heads == 5 and qwen32.rope_theta == 1e6
     assert qwen32.vocab == qwen32.padded_vocab == 152064
     assert configs.get_config("qwen1.5-4b", reduced=True).head_dim_ == 32
+
+
+# The published dimensions the reference's tests hold (tests/test_models_smoke.py):
+# (n_layers, d_model, n_heads, n_kv_heads, d_ff, vocab).
+MOE_DIMS = {"llama4-scout-17b-a16e": (48, 5120, 40, 8, 8192, 202048),
+            "deepseek-v2-236b": (60, 5120, 128, 128, 12288, 102400)}
+
+
+@pytest.mark.parametrize("arch", sorted(MOE_DIMS))
+def test_moe_published_shapes(arch):
+    cfg = configs.get_config(arch)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
+            cfg.vocab) == MOE_DIMS[arch]
+    assert cfg.family == "moe" and (cfg.capacity_factor, cfg.router_aux_weight) == (1.25, 0.01)
+    if arch == "deepseek-v2-236b":
+        assert (cfg.n_experts, cfg.moe_top_k, cfg.n_shared_experts, cfg.d_ff_expert) == (
+            160, 6, 2, 1536)
+        assert cfg.use_mla and cfg.first_dense_layers == 1
+        assert (cfg.q_lora_rank, cfg.kv_lora_rank, cfg.qk_head_dim, cfg.v_head_dim) == (
+            1536, 512, 192, 128)
+    else:
+        assert (cfg.n_experts, cfg.moe_top_k, cfg.n_shared_experts, cfg.d_ff_expert) == (
+            16, 1, 1, 8192)
+        assert not cfg.use_mla and cfg.qk_head_dim == cfg.head_dim_ == 128
+
+
+@pytest.mark.parametrize("arch", sorted(MOE_DIMS))
+def test_moe_active_params_match_reference(arch):
+    """``roofline.analysis.active_params`` counts routed experts × k/E: at
+    the published size over the reference's parameter shapes (no weights
+    made), and over the port's own ``reduced()`` parameters."""
+    import jax
+
+    from repro.models import lm as ref_lm
+    from repro.roofline import analysis as ref_analysis
+    from repro_torch.models import lm
+    from repro_torch.roofline import analysis
+
+    cfg, rcfg = configs.get_config(arch), ref_configs.get_config(arch)
+    shapes = jax.eval_shape(lambda k: ref_lm.init_params(k, rcfg), jax.random.PRNGKey(0))
+    total, active = analysis.active_params(cfg, shapes)
+    assert (total, active) == ref_analysis.active_params(rcfg, shapes)
+    assert {"llama4-scout-17b-a16e": (107_771_827_200, 16_139_392_000),
+            "deepseek-v2-236b": (235_741_434_880, 20_851_512_320)}[arch] == (total, active)
+    cfg, rcfg = configs.get_config(arch, reduced=True), ref_configs.get_config(arch, reduced=True)
+    got = analysis.active_params(cfg, lm.init_params(cfg, device="cpu"))
+    assert got == ref_analysis.active_params(rcfg, ref_lm.init_params(jax.random.PRNGKey(0), rcfg))

@@ -27,8 +27,11 @@ training step, SSD and attention kernels together, against the CPU's); and the
 serving steps captured as CUDA graphs against the same step functions
 driven eagerly (greedy tokens and launch counts, the slot engine for each
 family and over the fused-K̂ cache, and the paged engine over a raw-K and a
-fused-K̂ pool through preemption), and injected NaN rows and stuck steps
-under graph replay leaving the other requests' tokens as a clean run's.  Marked
+fused-K̂ pool through preemption; the MoE configs, llama4 on both engines
+and deepseek's MLA on the slot engine), the MoE layer's index dispatch
+against its one-hot plain version and the CPU's, and injected NaN rows and
+stuck steps under graph replay leaving the other requests' tokens as a
+clean run's.  Marked
 ``cuda``; skips without a GPU.  This file imports neither JAX nor the JAX package, so on a machine
 without JAX it runs alone:
 
@@ -856,3 +859,77 @@ def test_paged_steps_graph_replay_matches_eager_steps_through_preemption(cuda, f
     assert pre == [m["n_preemptions"] for m in eager_eng.metrics()] and sum(pre) > 0
     assert len(eng._decode._captured) == 1 and len(eng._chunk._captured) == 1
     assert eng.cache.pool.num_free == eng.cache.pool.num_blocks - 1
+
+
+# ---------------------------------------------------------------------------
+# The MoE family on the card: the dispatch, and its decode steps as graphs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "deepseek-v2-236b"])
+@pytest.mark.parametrize("b,s", [(2, 16), (4, 1)], ids=["prefill", "decode"])
+def test_moe_index_dispatch_on_card_matches_onehot_and_cpu(cuda, arch, b, s):
+    """``moe_apply`` on the card against its one-hot plain version there
+    and against itself on the CPU (reduced widths, f32, capacity factor 1,
+    which drops assignments at T = 32): the same expert ids, y within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config(arch, reduced=True).replace(capacity_factor=1.0)
+    params = moe.moe_init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    x = _randn((b, s, cfg.d_model), torch.float32, 1)
+    got, aux, ids = moe.moe_routed(params, x, cfg)
+    want, aux_plain, ids_plain = moe.moe_routed(params, x, cfg, onehot=True)
+    cpu, aux_cpu, ids_cpu = moe.moe_routed(_tree_to(params, "cpu"), x.cpu(), cfg)
+    assert torch.equal(ids, ids_plain) and torch.equal(ids.cpu(), ids_cpu)
+    _close(got, want, torch.float32)
+    _close(got.cpu(), cpu, torch.float32)
+    torch.testing.assert_close(aux, aux_plain, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(aux.cpu(), aux_cpu, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "deepseek-v2-236b"])
+def test_moe_slot_decode_graph_replay_matches_eager_steps(cuda, arch):
+    """The slot decode step of a MoE model as a graph (llama4: GQA, the
+    decode kernel; deepseek: MLA's plain decode and its dense first
+    layer): greedy tokens and launch counts equal the eager steps'."""
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = _graph_config(arch)
+    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    prompts = [[1, 2, 3], [4, 5, 6, 7, 8, 9, 10], [11, 12], [13] * 40]
+    out = _served_both_ways(
+        lambda: ServeEngine(cfg, params, max_slots=2, max_len=64, device="cuda"),
+        ("_decode",), prompts, 6)
+    (eager_tokens, eager_counts, _), (tokens, counts, eng) = out["eager"], out["graph"]
+    assert tokens == eager_tokens
+    assert counts == eager_counts
+    assert (counts["decode"] > 0) == (not cfg.use_mla)
+    assert len(eng._decode._captured) == 1
+
+
+def test_moe_paged_steps_graph_replay_matches_eager_steps(cuda):
+    """llama4's paged decode tick and chunk window as graphs, through
+    preemption: tokens, preemptions and launch counts equal the eager
+    steps'."""
+    from dataclasses import replace
+
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import PagedServeEngine
+
+    cfg = _graph_config("llama4-scout-17b-a16e")
+    cfg = cfg.replace(attention=replace(cfg.attention, impl="pallas_flash"))
+    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    prompts = [list(range(1 + i, 4 + 2 * i)) for i in range(5)] + [[9, 9, 9]]
+    out = _served_both_ways(
+        lambda: PagedServeEngine(cfg, params, max_batch=3, max_len=32, block_size=16,
+                                 prefill_chunk=8, num_blocks=3, cache_dtype=torch.float32,
+                                 device="cuda"),
+        ("_decode", "_chunk"), prompts, 16)
+    (eager_tokens, eager_counts, eager_eng), (tokens, counts, eng) = out["eager"], out["graph"]
+    assert tokens == eager_tokens
+    assert counts == eager_counts and counts["paged_decode"] > 0
+    pre = [m["n_preemptions"] for m in eng.metrics()]
+    assert pre == [m["n_preemptions"] for m in eager_eng.metrics()] and sum(pre) > 0
+    assert len(eng._decode._captured) == 1 and len(eng._chunk._captured) == 1

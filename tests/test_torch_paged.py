@@ -8,7 +8,11 @@ continuous-batching scheduler under a tick clock (a fake engine, no model),
 projection and static perms carried across, and ``PagedServeEngine``'s greedy
 tokens with and without preemption and past capacity.  The paged step and
 the greedy tokens also run qwen1.5-4b (MHA 4/4) and qwen2.5-32b (GQA 4/2)
-``reduced()``, their QKV biases drawn from a seed in both packages."""
+``reduced()``, their QKV biases drawn from a seed in both packages, and the
+MoE config llama4-scout-17b-a16e ``reduced()`` (its paged step, greedy
+tokens and preemptions; with ``distr_decode`` set it pools and reads raw K,
+as the reference does); both packages' paged engines refuse MLA
+(deepseek-v2-236b)."""
 from dataclasses import replace
 
 import numpy as np
@@ -50,6 +54,7 @@ from _torch_helpers import load_reduced_models, one_intra_op_thread  # noqa: E40
 
 ARCH = "starcoder2-7b"
 QWEN = ("qwen1.5-4b", "qwen2.5-32b")
+LLAMA4 = "llama4-scout-17b-a16e"
 
 
 def _t(x):
@@ -413,7 +418,7 @@ def arch_models(models):
 
     def get(arch):
         if arch not in cache:
-            cache[arch] = load_reduced_models(arch, draw_qkv_bias=True, perms=True)
+            cache[arch] = load_reduced_models(arch, draw_qkv_bias=arch in QWEN, perms=True)
         return cache[arch]
 
     return get
@@ -423,7 +428,10 @@ def arch_models(models):
 FUSED_IDS = {False: "raw_k", True: "fused_k"}
 ARCH_FUSED = ([pytest.param(ARCH, f, id=FUSED_IDS[f]) for f in (False, True)]
               + [pytest.param(a, f, id=f"{a}-{FUSED_IDS[f]}") for a in QWEN
-                 for f in (False, True)])
+                 for f in (False, True)]
+              + [pytest.param(LLAMA4, False, id=f"{LLAMA4}-raw_k"),
+                 # distr_decode set: the moe step still pools and reads raw K.
+                 pytest.param(LLAMA4, True, id=f"{LLAMA4}-distr_decode")])
 
 
 def _configs(models, impl, fused):
@@ -487,6 +495,7 @@ def test_paged_step_matches_reference(arch_models, arch, fused):
         run(1, streams[[0, 1], pos][:, None].copy(), pos, [1, 1], [0, 1])
     assert len(tcache.tables[0]) >= 3 and tcache.tables == rcache.tables
     _assert_pools_equal(rcache, tcache)
+    assert ("k" in tcache.pools) == (not fused or tc.family == "moe")
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["raw_k", "fused_k"])
@@ -557,7 +566,7 @@ def _engines(models, fused, impl="pallas_flash", **kw):
 
 # (arch, fused, impl); starcoder2-7b's cases keep their bare ids.
 ENGINE_CASES = ([pytest.param(ARCH, f, "pallas_flash", id=FUSED_IDS[f]) for f in (False, True)]
-                + [pytest.param(a, False, impl, id=f"{a}-raw_k-{impl}") for a in QWEN
+                + [pytest.param(a, False, impl, id=f"{a}-raw_k-{impl}") for a in (*QWEN, LLAMA4)
                    for impl in ("pallas_flash", "pallas_distr")])
 
 
@@ -590,3 +599,31 @@ def test_engine_preemption_and_window_decode_match_reference(models, impl, fused
     outs = [_serve(eng, [[3, 1, 4, 1, 5, 9]], [20]) for eng in engines]
     assert len(outs[1][0][0]) == 20 and outs[1] == outs[0]
     assert engines[1].cache.pool.num_free == engines[1].cache.pool.num_blocks - 1
+
+
+@pytest.mark.parametrize("impl", ["pallas_flash", "pallas_distr"])
+def test_moe_engine_preemption_matches_reference(arch_models, impl):
+    """llama4's six requests in a 5-block pool: identical tokens and
+    preemption counts to the reference's ``PagedServeEngine``; each chunk
+    window's MoE capacity counts its 8 tokens, each tick's its 3 lanes."""
+    (ref_tokens, ref_pre), (tokens, pre) = (
+        _serve(eng, PROMPTS, MAX_NEW)
+        for eng in _engines(arch_models(LLAMA4), False, impl, num_blocks=5, **ENGINE))
+    assert tokens == ref_tokens and pre == ref_pre and sum(pre.values()) > 0
+
+
+def test_mla_is_refused_by_both_paged_engines():
+    """MLA keeps the slot engine in both packages: the paged engines, the
+    pool layout and the paged step refuse deepseek-v2-236b."""
+    from repro.configs import get_config as ref_get_config
+
+    rcfg = ref_get_config("deepseek-v2-236b", reduced=True)
+    tcfg = get_config("deepseek-v2-236b", reduced=True)
+    with pytest.raises(NotImplementedError, match="use_mla=True"):
+        RefPagedEngine(rcfg, {}, max_batch=2, max_len=32)
+    with pytest.raises(NotImplementedError, match="use_mla=True"):
+        PagedServeEngine(tcfg, {}, max_batch=2, max_len=32, device="cpu")
+    for call in (lambda: paged.pool_struct(tcfg, 5, 8), lambda: make_paged_step(tcfg, 1),
+                 lambda: make_degraded_paged_prefill(tcfg, 32, 2)):
+        with pytest.raises(NotImplementedError, match="GQA dense/moe"):
+            call()

@@ -8,7 +8,10 @@ perms carried across (models.convert.convert_perms).  The prefill, decode
 and engine cases also run qwen1.5-4b (MHA 4/4) and qwen2.5-32b (GQA 4/2)
 reduced(), both with QKV bias, whose zero-initialised biases are drawn
 from a seed in both packages so that they enter before RoPE and the LSH
-hash."""
+hash, and the MoE configs' reduced(): llama4-scout-17b-a16e (GQA 4/2, 4
+experts top-1 and a shared expert) and deepseek-v2-236b (MLA's compressed
+cache, a dense first layer, 8 experts top-2), each MoE layer's capacity set
+by the call's tokens: the prefill's bucket, a decode step's slots."""
 from dataclasses import replace
 
 import numpy as np
@@ -41,8 +44,13 @@ ARCH = "starcoder2-7b"
 QWEN = ("qwen1.5-4b", "qwen2.5-32b")
 IMPLS = ["pallas_distr", "pallas_flash"]
 # (arch, impl); starcoder2-7b's cases keep their bare impl ids.
+# The MoE configs and their impls: MLA runs plain DistrAttention under
+# pallas_distr and refuses pallas_flash, so deepseek takes xla_flash.
+MOE_IMPLS = [("llama4-scout-17b-a16e", impl) for impl in IMPLS] + [
+    ("deepseek-v2-236b", impl) for impl in ("pallas_distr", "xla_flash")]
 ARCH_IMPLS = ([pytest.param(ARCH, impl, id=impl) for impl in IMPLS]
-              + [pytest.param(a, impl, id=f"{a}-{impl}") for a in QWEN for impl in IMPLS])
+              + [pytest.param(a, impl, id=f"{a}-{impl}") for a in QWEN for impl in IMPLS]
+              + [pytest.param(a, impl, id=f"{a}-{impl}") for a, impl in MOE_IMPLS])
 MAX_LEN = 64
 PROMPTS = ([5, 6, 7], [9, 1, 4, 4, 2, 8, 3, 3, 1, 7, 7], list(range(1, 38)))
 
@@ -59,7 +67,7 @@ def arch_models(models):
 
     def get(arch):
         if arch not in cache:
-            cache[arch] = load_reduced_models(arch, draw_qkv_bias=True)
+            cache[arch] = load_reduced_models(arch, draw_qkv_bias=arch in QWEN)
         return cache[arch]
 
     return get
@@ -91,11 +99,14 @@ def test_prefill_and_decode_step_match_reference(arch_models, arch, impl):
     r_logits, r_cache = ref_prefill(rcfg, MAX_LEN)(rparams, jnp.asarray(toks))
     t_logits, t_cache = make_prefill(tcfg, MAX_LEN)(tparams, torch.from_numpy(toks))
     np.testing.assert_allclose(t_logits.numpy(), np.asarray(r_logits), atol=1e-4, rtol=1e-4)
-    for key in ("k", "v"):
+    # GQA: k, v and length; MLA: ckv and krope.
+    assert set(t_cache) == set(r_cache)
+    for key in set(t_cache) - {"length"}:
         assert t_cache[key].shape == r_cache[key].shape
         np.testing.assert_allclose(t_cache[key].numpy(), np.asarray(r_cache[key]),
                                    atol=1e-4, rtol=1e-4)
-    np.testing.assert_array_equal(t_cache["length"].numpy(), np.asarray(r_cache["length"]))
+    if "length" in r_cache:
+        np.testing.assert_array_equal(t_cache["length"].numpy(), np.asarray(r_cache["length"]))
 
     nxt = _tokens(2, 2, 1, rcfg.vocab)
     pos = np.asarray([40, 40], np.int32)
@@ -103,8 +114,9 @@ def test_prefill_and_decode_step_match_reference(arch_models, arch, impl):
     t_logits, t_cache = make_decode_step(tcfg)(tparams, torch.from_numpy(nxt), t_cache,
                                                torch.from_numpy(pos))
     np.testing.assert_allclose(t_logits.numpy(), np.asarray(r_logits), atol=1e-4, rtol=1e-4)
-    np.testing.assert_allclose(t_cache["k"].numpy(), np.asarray(r_cache["k"]),
-                               atol=1e-4, rtol=1e-4)
+    for key in set(t_cache) - {"length"}:
+        np.testing.assert_allclose(t_cache[key].numpy(), np.asarray(r_cache[key]),
+                                   atol=1e-4, rtol=1e-4)
 
 
 def test_prefill_permutation_match_rate(models):
@@ -146,6 +158,39 @@ def test_engine_greedy_tokens_match_reference(arch_models, arch, impl):
         outs.append({r.uid: r.generated for r in done})
     assert len(outs[1]) == len(PROMPTS)
     assert outs[1] == outs[0]
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "deepseek-v2-236b"])
+def test_moe_engine_capacity_counts_the_bucket(arch_models, arch, monkeypatch):
+    """Capacity factor 1: a prefill of T = 32 or 64 bucket tokens drops
+    assignments, the pad tokens (id 0) queueing behind the prompt, and a
+    decode step's capacity counts both slots.  The greedy tokens equal the
+    reference engine's."""
+    from repro_torch.models import moe
+
+    rcfg, rparams, tcfg, tparams = arch_models(arch)
+    rcfg, tcfg = (c.replace(capacity_factor=1.0) for c in (rcfg, tcfg))
+    calls = []  # (tokens of the call, assignments dropped) of the port's MoE calls
+    dispatch = moe._dispatch_index
+
+    def counted(params, xf, weights, ids, cfg):
+        cap = moe.capacity(cfg, xf.shape[0])
+        calls.append((xf.shape[0], int((moe.queue_ranks(ids, cfg.n_experts) >= cap).sum())))
+        return dispatch(params, xf, weights, ids, cfg)
+
+    monkeypatch.setattr(moe, "_dispatch_index", counted)
+    outs = []
+    for eng in (RefEngine(rcfg, rparams, max_slots=2, max_len=MAX_LEN),
+                ServeEngine(tcfg, tparams, max_slots=2, max_len=MAX_LEN, device="cpu")):
+        for p in PROMPTS:
+            eng.add_request(p, max_new_tokens=6)
+        done = eng.run_to_completion()
+        assert all(r.status == "done" for r in done)
+        outs.append({r.uid: r.generated for r in done})
+    assert sorted(len(g) for g in outs[1].values()) == [6, 6, 6]
+    assert outs[1] == outs[0]
+    assert {t for t, _ in calls} == {32, 64, 2}  # two buckets, a step's two slots
+    assert sum(d for t, d in calls if t > 2) > 0 and sum(d for t, d in calls if t == 2) == 0
 
 
 @pytest.mark.parametrize("impl", ["reference", *IMPLS])
