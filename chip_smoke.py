@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--out PATH] [--only kernels|moe]
+    python3 chip_smoke.py [--out PATH] [--only kernels|moe|encdec]
 
 In order: prints the card's name and power limit; builds the CUDA kernels
 from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a; counts the bf16
@@ -93,8 +93,26 @@ the last is
 failure raises and exits non-zero; without CUDA, or outside a checkout, it
 exits non-zero before any result.
 
+The enc-dec and VLM slice: after the qwen kernel checks, flash and
+DistrAttention forward and backward non-causal at whisper-small's shapes
+(48 heads of 64, 448 and 1500 rows over 1500 keys, a ragged last key tile),
+and the decode kernel at whisper-small's self and 1500-position cross
+caches (d = 64) and internvl2-2b's 16 over 8 heads (d = 128), all held
+against their plain versions; after the MoE phases whisper-small (12
+encoder and 12 decoder layers, learned positions, cross-attention) served
+at its published size through ``serve_step`` over 1500 seeded frames a
+request (the reference's slot engine refuses enc-dec), and internvl2-2b
+served through ``serve_step`` with 256 seeded patch embeddings a request
+and on the slot engine over the serve workload's text prompts, both under
+both impls, each first decode step held against the same step under
+impl="reference", in bf16 and again with the step in f32; after mamba2-130m's training both trained at their
+published sizes in f32 through ``make_train_step`` (4 steps each under
+both impls: whisper 4 × 448 tokens over 1500 frames, internvl 2 × (256
+patches + 1792 tokens)), card memory back at each run's start after it.
+
 ``python3 chip_smoke.py --only moe`` builds the kernels and runs only the
-MoE phases, then prints their launches as a JSON line last.
+MoE phases, then prints their launches as a JSON line last;
+``--only encdec`` the same for the enc-dec and VLM slice's phases.
 ``python3 chip_smoke.py --serve-load slot|hybrid|paged`` runs none of the
 above: it serves one serve workload as a closed-loop load under both
 impls, the slot workload also over the fused-K̂ cache (timed passes and
@@ -212,6 +230,49 @@ MOE_TOL, MOE_ITERS = 2e-2, 5
 # Card memory that free_card lets the cycle collector free (small tensors a
 # caught exception's frames may hold).
 CYCLE_SLACK = 64 * 2**20
+# The enc-dec and VLM slice.  Non-causal kernels at whisper-small's
+# attention shapes: B·H = 4 × 12 (MHA), d = 64, G* = 2, Nk = 1500 encoder
+# frames (no tile divides it) against Nq = 448 decoder rows (cross-attention
+# in training) and 1500 (the encoder's self-attention).
+NONCAUSAL_SHAPE = (48, 64, 2, 1500)
+NONCAUSAL_NQ = (448, 1500)
+# whisper-small served through serve_step: 4 requests over 1500 seeded
+# frames each, decoder prompts of 4–64 tokens, ENCDEC_NEW greedy decode
+# steps; the decode step as a CUDA graph, as the slot engine runs it.
+WHISPER_PROMPTS = (4, 17, 40, 64)
+ENCDEC_NEW = 32
+WHISPER_MAX_LEN = 128
+# internvl2-2b through serve_step: 256 seeded patch embeddings before each of
+# these text prompts; then the slot engine on the serve workload's prompts.
+VLM_PROMPTS = (96, 200, 517, 1000)
+VLM_MAX_LEN = 2048
+# The decode kernel at the serving steps' shapes, before the models run it:
+# (label, Hq, Hkv, d, S, one live length a slot).  whisper-small's self
+# cache (the first step's lengths: prompt + 1) and its 1500-position cross
+# cache (12 splits of 128, the last 92 keys ragged; lengths cross_len and
+# two ragged ones), MHA at d = 64; internvl2-2b's 16 over 8 (2 rows a KV
+# head) at d = 128, the first step's lengths 256 patches + prompt + 1.
+ENCDEC_DECODE_SHAPES = (
+    ("whisper-small self", 12, 12, 64, WHISPER_MAX_LEN, tuple(n + 1 for n in WHISPER_PROMPTS)),
+    ("whisper-small cross", 12, 12, 64, 1500, (1500, 77, 1437, 1500)),
+    ("internvl2-2b", 16, 8, 128, VLM_MAX_LEN, tuple(256 + n + 1 for n in VLM_PROMPTS)))
+# A served model's first decode step against the same step under
+# impl="reference" (plain attention) on the same cache, over the vocab's
+# live columns: rtol, and atol this share of the largest |logit|.  Both are
+# bf16 models: every layer rounds its attention output to bf16 (the plain
+# version also its P), and the difference grows with depth and the logits'
+# scale (on an NVIDIA H100 at 700 W: whisper-small, 12 layers, 0.041;
+# internvl2-2b, 24, 0.137, on logits of random weights up to ≈ 4.7).  The
+# relative L2 error over the live logits is held to ENCDEC_LOGIT_REL_L2
+# (readings there: 0.0086 and 0.026), so that a kernel fault that moves
+# many logits a little still fails.  The same step with the params, the
+# cache and the compute in f32 on both sides is held to ENCDEC_F32_REL_L2:
+# the bf16 gap closes there if it is the models' rounding, not the kernel.
+ENCDEC_LOGIT_TOL, ENCDEC_LOGIT_REL_L2, ENCDEC_F32_REL_L2 = 5e-2, 5e-2, 1e-3
+# Training at the published sizes in f32 through make_train_step:
+# (arch, batch, text tokens, frames or patches a row, the frontend's key).
+ENCDEC_TRAIN = (("whisper-small", 4, 448, 1500, "frames"),
+                ("internvl2-2b", 2, 1792, 256, "patches"))
 # The error study of Ŝ (distr_scores) at d = 128, N = 2048: these G*.
 SCORE_GROUPS = (2, 4, 8)
 # zamba2-7b's shared attention blocks: 32 heads (MHA) of 112, G* = 2.
@@ -283,7 +344,7 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def free_card(torch, what: str, gate: bool = True) -> None:
+def free_card(torch, what: str, gate: bool = True, base: int | None = None) -> None:
     """After a phase has dropped its weights and engines: run the cycle
     collector, log how much card memory it freed, and with ``gate`` raise
     if that passes CYCLE_SLACK (the serving engines hold none in a
@@ -291,16 +352,27 @@ def free_card(torch, what: str, gate: bool = True) -> None:
     return the cached blocks to the driver.  Training phases log without
     the gate: in the first training step of a process, torch's lazy setup
     under ``torch._disable_dynamo`` leaves that step's frames in a cycle
-    that only the collector frees."""
+    that only the collector frees.  With ``base`` (the bytes allocated
+    before the phase) raise if more than CYCLE_SLACK above it is still
+    allocated after the collector, naming the tensors it finds alive."""
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     gc.collect()
-    cyclic = held - torch.cuda.memory_allocated()
+    left = torch.cuda.memory_allocated()
+    cyclic = held - left
     log(f"[memory] after {what}: {held / 2**30:.2f} GiB allocated, {cyclic} bytes of it "
-        "freed by the cycle collector")
+        "freed by the cycle collector" + ("" if base is None else
+                                          f"; {(left - base) / 2**20:.1f} MiB above the "
+                                          "phase's start"))
     if gate and cyclic > CYCLE_SLACK:
         raise AssertionError(f"after {what}: reference cycles held {cyclic / 2**30:.2f} GiB "
                              "of card memory")
+    if base is not None and left - base > CYCLE_SLACK:
+        alive = sorted(((t.numel() * t.element_size(), tuple(t.shape), str(t.dtype))
+                        for t in gc.get_objects()
+                        if isinstance(t, torch.Tensor) and t.is_cuda), reverse=True)
+        raise AssertionError(f"after {what}: {(left - base) / 2**30:.2f} GiB of card memory "
+                             f"still allocated; the largest tensors alive: {alive[:10]}")
     torch.cuda.empty_cache()
 
 
@@ -720,53 +792,73 @@ def backward_phase(torch, flush) -> dict:
     return out
 
 
-def decode_phase(torch, flush, hq: int = 36, hkv: int = 4, label: str = "") -> dict:
+def decode_phase(torch, flush, hq: int = 36, hkv: int = 4, label: str = "", *, d: int = 128,
+                 s: int = 2048, lengths=DECODE_LENGTHS, q_lens=(1, 2),
+                 score_widths=None) -> dict:
     """The split-K decode kernel at the decode shape of starcoder2-7b:
     B = 4 slots, Hq = 36 over Hkv = 4, S = 2048, lengths {1, 200, 1537,
     2048}, q_len 1 and 2, score width 128 and 64 (fused K̂), bf16 (or
-    ``hq`` over ``hkv``, the model ``label`` names)."""
+    ``hq`` over ``hkv``, value width ``d``, ``s`` cache positions, one slot
+    a length of ``lengths``, ``q_lens`` and ``score_widths`` (default d and
+    d/2) at the shape the model ``label`` names).  Timed at q_len 1 and
+    score width d, the serving path's shape."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode as dec
-    from repro_torch.kernels.ops import _pack_gqa_rows
+    from repro_torch.kernels.ops import DEFAULT_DECODE_BLOCK, _pack_gqa_rows
     from repro_torch.roofline.analysis import decode_attention_cost, decode_attention_work
 
-    b, s, d, bk = 4, 2048, 128, 128
+    b, bk = len(lengths), min(DEFAULT_DECODE_BLOCK, s)
     tag = f" {label}" if label else ""
-    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
     out = {"max_abs_err": 0.0}
-    for q_len in (1, 2):
-        for ds in (128, 64):
+    for q_len in q_lens:
+        for ds in score_widths or (d, d // 2):
             q = torch.randn((b, hq, q_len, ds), generator=gen, device="cuda").to(torch.bfloat16)
             k = torch.randn((b, hkv, s, ds), generator=gen, device="cuda").to(torch.bfloat16)
             v = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
             qp = _pack_gqa_rows(q, hkv)
             kw = dict(scale=d ** -0.5, block_k=bk, q_len=q_len)
-            got = dec.merge_splits(*dec.decode_kernel_call(qp, k, v, lengths, **kw))
-            want = dec.merge_splits(*dec.decode_plain(qp, k, v, lengths, **kw))
+            got = dec.merge_splits(*dec.decode_kernel_call(qp, k, v, lens, **kw))
+            want = dec.merge_splits(*dec.decode_plain(qp, k, v, lens, **kw))
             torch.cuda.synchronize()
             err = check_close(torch, f"decode{tag} q_len={q_len} d_score={ds}", got, want,
                               TOL["decode"])
             out["max_abs_err"] = max(out["max_abs_err"], err)
             log(f"[decode{tag} q_len={q_len} d_score={ds}] err {err:.3e}")
             if q_len == 1 and ds == d:  # the serving path's shape
-                mask = (torch.arange(s, device="cuda")[None, :] < lengths[:, None])
+                mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None])
                 mask = mask[:, None, None, :]
                 kx = k.repeat_interleave(hq // hkv, dim=1)
                 vx = v.repeat_interleave(hq // hkv, dim=1)
-                ms = time_ms(torch, lambda: dec.decode_kernel_call(qp, k, v, lengths, **kw), 20, flush)
-                plain_ms = time_ms(torch, lambda: dec.decode_plain(qp, k, v, lengths, **kw), 5, flush)
+                ms = time_ms(torch, lambda: dec.decode_kernel_call(qp, k, v, lens, **kw), 20, flush)
+                plain_ms = time_ms(torch, lambda: dec.decode_plain(qp, k, v, lens, **kw), 5, flush)
                 lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(q, kx, vx, attn_mask=mask), 20, flush)
                 cost = summed(decode_attention_cost(1, hq, hkv, n, s, d, block_k=bk)
-                              for n in DECODE_LENGTHS)
+                              for n in lengths)
                 out.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           **roofline(decode_attention_work(DECODE_LENGTHS, hq, hkv, d, s),
+                           **roofline(decode_attention_work(lengths, hq, hkv, d, s),
                                       ms, cost))
                 log(f"[decode{tag} serve shape] {ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
                     f"{lib_ms:.4f}, bound {out['bound_ms']:.4f}, model "
                     f"{out['model_bound_ms']:.4f})")
     return out
+
+
+def encdec_decode_phase(torch, flush) -> dict:
+    """The decode kernel at the shapes the enc-dec and VLM serving steps
+    give it (ENCDEC_DECODE_SHAPES), q_len 1 at score width d, each held
+    element by element against ``decode_plain`` at TOL["decode"] and timed
+    with its bound, before any model runs them."""
+    shapes, err = {}, 0.0
+    for label, hq, hkv, d, s, lengths in ENCDEC_DECODE_SHAPES:
+        res = decode_phase(torch, flush, hq=hq, hkv=hkv, label=label, d=d, s=s,
+                           lengths=lengths, q_lens=(1,), score_widths=(d,))
+        shapes[label] = {"hq": hq, "hkv": hkv, "d": d, "s": s, "lengths": list(lengths), **res}
+        err = max(err, res["max_abs_err"])
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "shapes": shapes}
 
 
 def distr_g4_phase(torch, flush) -> dict:
@@ -2156,6 +2248,539 @@ def train_robustness_phase(torch, base=None, device="cuda", seq=ROBUST_SEQ) -> d
                        "launches": counts}}
 
 
+def noncausal_phase(torch, flush) -> dict:
+    """Flash and DistrAttention, forward (with the LSE) and the five
+    backward kernels, non-causal at whisper-small's attention shapes
+    (NONCAUSAL_SHAPE: B·H = 48 MHA, d = 64, G* = 2, Nk = 1500 keys, whose
+    last 64-key tile is ragged) for Nq in NONCAUSAL_NQ (448 rows over 1500
+    keys: the cross-attention; 1500: the encoder), bf16: each held element
+    by element against its plain version, timed beside it and beside SDPA
+    (forward, and its backward split 3 : 4 for flash dq and dkv), with its
+    bound over ``attention_work``'s count, which is first checked to count
+    every (row, key) pair of a non-causal call once.  DistrAttention pads Q
+    (and dO) to its 128-row block, as ``ops.distr_attention`` does."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.distr_attention import DistrConfig
+    from repro_torch.kernels import backward as bwd
+    from repro_torch.kernels import distr_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ops import attention_work, delta_work
+
+    bh, d, g, nk = NONCAUSAL_SHAPE
+    ds = d // g
+    dcfg = DistrConfig(group_size=g, block_q=128)
+    scale = d ** -0.5
+    names = ("flash", "distr", "delta", "flash_dq", "flash_dkv", "distr_dq", "distr_dkv")
+    out = {name: {"max_abs_err": 0.0} for name in names}
+    shapes = []
+    for nq in NONCAUSAL_NQ:
+        flash_w = attention_work(1, bh, bh, nq, nk, d, lse=True)
+        distr_w = attention_work(1, bh, bh, nq, nk, d, lse=True, group_size=g,
+                                 block_q=dcfg.block_q)
+        for w, width in ((flash_w, d), (distr_w, ds)):
+            if w["fwd"]["tensor_flops"] != 2 * (width + d) * bh * nq * nk:
+                raise AssertionError(f"attention_work miscounts a non-causal {nq} x {nk} call")
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        q, do = (torch.randn((1, bh, nq, d), generator=gen, device="cuda").to(torch.bfloat16)
+                 for _ in range(2))
+        k, v = (torch.randn((1, bh, nk, d), generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        qf, kf, vf, dof = (x[0].contiguous() for x in (q, k, v, do))
+        fkw = dict(q_per_kv=1, scale=scale, causal=False, kv_len=nk)
+        label = f"non-causal Nq={nq} Nk={nk}"
+        o, lse = fk.flash_attention_kernel_call(qf, kf, vf, return_lse=True, **fkw)
+        o_p, lse_p = fk.flash_attention_plain(qf, kf, vf, return_lse=True, **fkw)
+        torch.cuda.synchronize()
+        errs = {"flash": check_close(torch, f"flash {label} O", o, o_p, TOL["flash"])}
+        check_close(torch, f"flash {label} LSE", lse, lse_p, TOL["lse"])
+        q_hat, perms = ops.distr_stage1(dcfg, ops.pad_to_multiple(q, dcfg.block_q, dim=2),
+                                        scale, hkv=bh)
+        q_hat, perm = q_hat[0].contiguous(), perms[0].to(torch.int32).contiguous()
+        dofp = ops.pad_to_multiple(do, dcfg.block_q, dim=2)[0].contiguous()
+        dkw = dict(q_per_kv=1, causal=False, group_size=g, block_q=dcfg.block_q, kv_len=nk)
+        od, lsed = dk.distr_attention_kernel_call(q_hat, kf, vf, perm, return_lse=True, **dkw)
+        od_p, lsed_p = dk.distr_attention_plain(q_hat, kf, vf, perm, return_lse=True, **dkw)
+        torch.cuda.synchronize()
+        errs["distr"] = check_close(torch, f"distr {label} O", od, od_p, TOL["distr"])
+        check_close(torch, f"distr {label} LSE", lsed, lsed_p, TOL["lse"])
+        del o_p, lse_p, od_p, lsed_p
+        delta, deltad = bwd.delta_plain(o, dof), bwd.delta_plain(od, dofp)
+        calls = {
+            "flash": (lambda: fk.flash_attention_kernel_call(qf, kf, vf, return_lse=True, **fkw),
+                      lambda: fk.flash_attention_plain(qf, kf, vf, return_lse=True, **fkw)),
+            "distr": (lambda: dk.distr_attention_kernel_call(q_hat, kf, vf, perm,
+                                                             return_lse=True, **dkw),
+                      lambda: dk.distr_attention_plain(q_hat, kf, vf, perm, return_lse=True,
+                                                       **dkw)),
+            "delta": (lambda: bwd.delta_kernel_call(o, dof), lambda: bwd.delta_plain(o, dof)),
+            "flash_dq": (lambda: bwd.flash_dq_kernel_call(qf, kf, vf, dof, lse, delta, **fkw),
+                         lambda: bwd.flash_dq_plain(qf, kf, vf, dof, lse, delta, **fkw)),
+            "flash_dkv": (lambda: bwd.flash_dkv_kernel_call(qf, kf, vf, dof, lse, delta, **fkw),
+                          lambda: bwd.flash_dkv_plain(qf, kf, vf, dof, lse, delta, **fkw)),
+            "distr_dq": (lambda: bwd.distr_dq_kernel_call(q_hat, kf, vf, perm, dofp, lsed,
+                                                          deltad, **dkw),
+                         lambda: bwd.distr_dq_plain(q_hat, kf, vf, perm, dofp, lsed, deltad,
+                                                    **dkw)),
+            "distr_dkv": (lambda: bwd.distr_dkv_kernel_call(q_hat, kf, vf, perm, dofp, lsed,
+                                                            deltad, **dkw),
+                          lambda: bwd.distr_dkv_plain(q_hat, kf, vf, perm, dofp, lsed, deltad,
+                                                      **dkw)),
+        }
+        work = {"flash": flash_w["fwd"], "distr": distr_w["fwd"],
+                "delta": delta_work(bh * nq, d, 2),
+                **{f"flash_{c}": flash_w[c] for c in ("dq", "dkv")},
+                **{f"distr_{c}": distr_w[c] for c in ("dq", "dkv")}}
+        row = {"nq": nq, "nk": nk, "bh": bh, "d": d, "group_size": g}
+        for name in names:
+            kern, plain = calls[name]
+            if name not in errs:
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                tol = TOL["delta"] if name == "delta" else TOL["bwd"]
+                errs[name] = max(check_close(torch, f"{name} {label} [{i}]", a, b, tol)
+                                 for i, (a, b) in enumerate(zip(got, want)))
+                del got, want
+            ms = time_ms(torch, kern, DELTA_ITERS if name == "delta" else 10, flush)
+            plain_ms = time_ms(torch, plain, 3, flush)
+            row[name] = {"ms": ms, "plain_ms": plain_ms, **roofline(work[name], ms),
+                         "max_abs_err": errs[name]}
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], errs[name])
+        row["flash"]["library_ms"] = time_ms(
+            torch, lambda: F.scaled_dot_product_attention(q, k, v), 10, flush)
+        row["distr"]["library_ms"] = None
+        row["delta"]["library_ms"] = time_ms(torch, lambda: torch.linalg.vecdot(o, dof),
+                                             DELTA_ITERS, flush)
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qg, kg, vg)
+        sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(
+            sdpa_out, (qg, kg, vg), do, retain_graph=True), 10, flush)
+        row["flash_dq"]["library_ms"] = sdpa_bwd * 3 / 7
+        row["flash_dkv"]["library_ms"] = sdpa_bwd * 4 / 7
+        row["distr_dq"]["library_ms"] = row["distr_dkv"]["library_ms"] = None
+        for name in names:
+            r = row[name]
+            lib = r["library_ms"]
+            log(f"[{label}] {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, bound "
+                f"{r['bound_ms']:.5f} by {r['bound_by']}, {r['utilization']:.1%} of it"
+                + (f"; library {lib:.4f}" if lib is not None else "")
+                + f") err {r['max_abs_err']:.3e}")
+        shapes.append(row)
+        del sdpa_out, qg, kg, vg, q, k, v, do, o, lse, od, lsed
+    out["shapes"] = shapes
+    torch.cuda.empty_cache()
+    return out
+
+
+def _frontend_rows(torch, cfg, n: int, rows: int, seed: int):
+    """``rows`` seeded Gaussian stub-frontend embeddings (rows, n, d_model)
+    in bf16 on the card, as the reference's tests feed the stubs."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((rows, n, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+
+
+def step_serve(torch, cfg, params, prompt_lens, *, frames=None, patches=None,
+               max_len: int, new: int = ENCDEC_NEW) -> dict:
+    """Serve one request a prompt length through ``serve_step``: each
+    prefilled alone (B = 1, with its row of ``frames`` or ``patches``,
+    prompts drawn as ``launch.serve.run`` draws them), the caches stacked
+    into one batch, then ``new`` greedy decode steps of the batch, each slot
+    at its own position (after a patch prefix: prompt + P), the step a CUDA
+    graph (``serve/graphs.py::StepGraph``) as the slot engine runs it.  The
+    first decode step's logits are held against the same step under
+    impl="reference" (plain attention) on a copy of the cache.  Returns the
+    prefill ms, decode seconds (warm-up and capture included), TPOT (the
+    mean replayed step), tok/s over the run, tokens, launches, the peak
+    allocated outside the f32 check (from the caller's reset) and the
+    reference check's errors, and the same check with the step in f32."""
+    import numpy as np
+
+    from repro_torch.serve.graphs import LaunchCounters, StepGraph
+    from repro_torch.serve.serve_step import make_decode_step, make_prefill
+
+    counters = LaunchCounters()
+    before = counters.read()
+    prefill = make_prefill(cfg, max_len)
+    rng = np.random.default_rng(0)
+    caches, first, prefill_ms = [], [], []
+    n_prefix = 0 if patches is None else patches.shape[1]
+    t_start = time.perf_counter()
+    for i, n in enumerate(prompt_lens):
+        toks = torch.from_numpy(rng.integers(1, cfg.vocab, size=(1, n))).to("cuda")
+        kw = ({"frames": frames[i:i + 1]} if frames is not None else
+              {"patches": patches[i:i + 1]} if patches is not None else {})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, toks, **kw)
+        first.append(logits[:, -1].argmax(-1))
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        caches.append(cache)
+    cache = {key: torch.cat([c[key] for c in caches], dim=0 if caches[0][key].ndim == 1 else 1)
+             for key in caches[0]}
+    del caches
+    tokens = torch.stack(first)  # (B, 1)
+    pos = torch.tensor([n + n_prefix for n in prompt_lens], dtype=torch.int32, device="cuda")
+    ref_cfg = cfg.replace(attention=cfg.attention.with_impl("reference"))
+    after_prefill = counters.read()
+    want = make_decode_step(ref_cfg)(params, tokens, {k: t.clone() for k, t in cache.items()},
+                                     pos)[0].clone()
+    if counters.read() != after_prefill:
+        raise AssertionError(f"{cfg.name}: the impl=reference decode step launched a kernel")
+    # The witness, kept out of the launches and the peak: the same first
+    # step with params, cache and compute in f32, under the impl and under
+    # reference; its time comes off the run's wall.
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    t_witness = time.perf_counter()
+    params32 = _float32(torch, params)
+    got32, want32 = (make_decode_step(c.replace(compute_dtype="float32"))(
+        params32, tokens, _float32(torch, cache), pos)[0] for c in (cfg, ref_cfg))
+    err32, rel32 = logits_close(torch, f"{cfg.name} first decode step in f32 vs impl=reference",
+                                got32, want32, cfg.vocab, rel_limit=ENCDEC_F32_REL_L2,
+                                element_tol=None)
+    del params32, got32, want32
+    witness = {k: n - after_prefill[k] for k, n in counters.read().items()}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t_witness = time.perf_counter() - t_witness
+    decode = StepGraph(make_decode_step(cfg), inputs=(1, 3))
+    generated = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(new):
+        if step == 2:  # after the eager warm-up and the capture
+            torch.cuda.synchronize()
+            t_replays = time.perf_counter()
+        logits, cache = decode(params, tokens, cache, pos)
+        if step == 0:
+            got = logits.clone()
+        tokens = logits[:, -1].argmax(-1)[:, None]
+        generated.append(tokens)
+        pos = pos + 1
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    decode_s = t_end - t0
+    tpot_s = (t_end - t_replays) / (new - 2)
+    wall = t_end - t_start - t_witness
+    after = counters.read()
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    launches = {k: after[k] - before[k] - witness[k] for k in after}
+    err, rel = logits_close(torch, f"{cfg.name} first decode step vs impl=reference", got,
+                            want, cfg.vocab)
+    gen_tokens = torch.cat(generated, dim=1).tolist()
+    n_tok = len(prompt_lens) * new
+    return {"prefill_ms": prefill_ms, "decode_s": decode_s, "tpot_s": tpot_s,
+            "tok_per_s": n_tok / wall, "decode_tok_per_s": n_tok / decode_s, "seconds": wall,
+            "tokens": n_tok, "generated": gen_tokens, "launches": launches,
+            "peak_allocated": peak, "max_abs_err_vs_reference": err, "rel_l2_vs_reference": rel,
+            "f32_max_abs_err_vs_reference": err32, "f32_rel_l2_vs_reference": rel32}
+
+
+def _float32(torch, tree):
+    """A copy of ``tree`` (dicts, lists and tuples of tensors) with every
+    floating tensor cast to f32 and every other tensor cloned."""
+    if isinstance(tree, dict):
+        return {k: _float32(torch, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_float32(torch, v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.float() if tree.is_floating_point() and tree.dtype != torch.float32 \
+            else tree.clone()
+    return tree
+
+
+def logits_close(torch, name: str, got, want, vocab: int, *,
+                 rel_limit: float = ENCDEC_LOGIT_REL_L2,
+                 element_tol: float | None = ENCDEC_LOGIT_TOL) -> tuple[float, float]:
+    """Logits (B, 1, padded vocab) over the ``vocab`` live columns: all
+    finite, the pad columns equal, the relative L2 error at most
+    ``rel_limit``, and with ``element_tol`` each element within it (rtol,
+    and atol that share of the largest |logit|).  Returns (the largest
+    |got - want| live, the relative L2 error)."""
+    live_got, live_want = got[..., :vocab].float(), want[..., :vocab].float()
+    if not (torch.isfinite(live_got).all() and torch.isfinite(live_want).all()):
+        raise AssertionError(f"{name}: non-finite logits")
+    if not torch.equal(got[..., vocab:].float(), want[..., vocab:].float()):
+        raise AssertionError(f"{name}: the pad logits differ")
+    scale = float(live_want.abs().max())
+    diff = (live_got - live_want).abs()
+    rel = float(diff.norm() / live_want.norm())
+    log(f"  {name}: largest error {float(diff.max()):.4g} (largest |logit| {scale:.4g}); "
+        f"relative L2 error {rel:.3g} (limit {rel_limit:g})")
+    if rel > rel_limit:
+        raise AssertionError(f"{name}: relative L2 error {rel:.3g} over {rel_limit:g}")
+    if element_tol is not None:
+        atol = element_tol * scale
+        torch.testing.assert_close(live_got, live_want, atol=atol, rtol=element_tol,
+                                   msg=lambda m: f"{name}: {m}")
+        share = float((diff / (atol + element_tol * live_want.abs())).max())
+        log(f"    its largest error is {share:.3g} of its element's allowance")
+    return float(diff.max()), rel
+
+
+def _served(arch: str, impl: str, res: dict, peak: int) -> None:
+    log(f"[{arch} serve_step {impl}] prefill ms {[round(x, 2) for x in res['prefill_ms']]}; "
+        f"{res['tokens']} tokens in {res['seconds']:.3f}s ({res['tok_per_s']:.1f} tok/s, "
+        f"decode {res['decode_tok_per_s']:.1f} tok/s); TPOT {res['tpot_s'] * 1e3:.3f} ms "
+        "(replays); "
+        f"peak allocated {peak / 2**30:.2f} GiB; first decode step vs reference max |dlogit| "
+        f"{res['max_abs_err_vs_reference']:.3e}, rel L2 {res['rel_l2_vs_reference']:.3g} "
+        f"(in f32: {res['f32_max_abs_err_vs_reference']:.3e}, "
+        f"{res['f32_rel_l2_vs_reference']:.3g}); launches {res['launches']}")
+
+
+def _gate_counts(name: str, counts: dict, want: dict) -> None:
+    """Each kernel's launches in ``counts`` (LaunchCounters' keys) must be
+    exactly ``want``'s, and every other kernel's 0."""
+    off = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+    if off:
+        raise AssertionError(f"{name}: launches off the path: {counts}, want {want}")
+
+
+def whisper_serve_phase(torch) -> dict:
+    """whisper-small at its published size (12 encoder and 12 decoder
+    layers, d_model 768, 12 heads of 64, learned positions), seeded random
+    bf16 weights made on the card, served through ``serve_step`` (the
+    reference's slot engine refuses enc-dec) under both kernel impls:
+    4 requests over 1500 seeded frames each (the audio stub's embeddings),
+    prompts WHISPER_PROMPTS, ENCDEC_NEW greedy decode steps.  A request's
+    prefill launches the impl's forward kernel 36 times (12 encoder, 12
+    decoder self- and 12 cross-attentions); a decode step the decode
+    kernel 24 times (self and cross over the 1500-position cross cache,
+    cross_len each)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = get_config("whisper-small")
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in lm.trainable(params))
+    cross_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.cross_len * cfg.head_dim_ * 2
+    log(f"[whisper-small] {n_params} params (bf16) on the card in "
+        f"{time.perf_counter() - t0:.1f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated; cross cache {cross_bytes} bytes a request")
+    frames = _frontend_rows(torch, cfg, cfg.cross_len, len(WHISPER_PROMPTS), 1)
+    report = {"n_params": n_params}
+    launches = {"flash": 0, "distr": 0, "decode": 0}
+    n_req, layers = len(WHISPER_PROMPTS), cfg.n_layers
+    for impl, kernel in SLOT_IMPLS:
+        cfg_i = cfg.replace(attention=cfg.attention.with_impl(impl))
+        torch.cuda.reset_peak_memory_stats()
+        res = step_serve(torch, cfg_i, params, WHISPER_PROMPTS, frames=frames,
+                         max_len=WHISPER_MAX_LEN)
+        peak = res["peak_allocated"]
+        _served("whisper-small", impl, res, peak)
+        counts = {"flash": res["launches"]["flash_attention"],
+                  "distr": res["launches"]["distr_attention"],
+                  "decode": res["launches"]["decode"]}
+        _gate_counts(f"whisper-small serve {impl}", res["launches"], {
+            f"{kernel}_attention": (lm.n_encoder_layers(cfg) + 2 * layers) * n_req,
+            "decode": 2 * layers * ENCDEC_NEW})
+        for name in (kernel, "decode"):
+            launches[name] += counts[name]
+        report[impl] = {**{k: res[k] for k in res if k != "generated"},
+                        "peak_allocated": peak}
+    del params, frames
+    free_card(torch, "whisper-small serving")
+    return {"launches": launches, "report": report}
+
+
+def vlm_serve_phase(torch) -> dict:
+    """internvl2-2b at its published size (24 layers, d_model 2048, 16 query
+    heads over 8 KV heads of 128), seeded random bf16 weights made on the
+    card, under both kernel impls: through ``serve_step`` with 256 seeded
+    patch embeddings (the InternViT stub's) before each of VLM_PROMPTS
+    (prefill launches the impl's forward kernel 24 times a request, decode
+    the decode kernel 24 times a step, at position prompt + 256), then on
+    the slot engine (``launch.serve.run``) over the serve workload's text
+    prompts, which the reference's engine serves without patches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode as dec
+    from repro_torch.kernels import distr_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.launch.serve import run
+    from repro_torch.models import lm
+
+    cfg = get_config("internvl2-2b")
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in lm.trainable(params))
+    log(f"[internvl2-2b] {n_params} params (bf16) on the card in "
+        f"{time.perf_counter() - t0:.1f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated; KV cache {cache_bytes_per_token(cfg)} bytes a token")
+    patches = _frontend_rows(torch, cfg, cfg.num_patch_tokens, len(VLM_PROMPTS), 2)
+    report = {"n_params": n_params}
+    launches = {"flash": 0, "distr": 0, "decode": 0}
+    for impl, kernel in SLOT_IMPLS:
+        cfg_i = cfg.replace(attention=cfg.attention.with_impl(impl))
+        torch.cuda.reset_peak_memory_stats()
+        res = step_serve(torch, cfg_i, params, VLM_PROMPTS, patches=patches,
+                         max_len=VLM_MAX_LEN)
+        peak = res["peak_allocated"]
+        _served("internvl2-2b", impl, res, peak)
+        _gate_counts(f"internvl2-2b serve_step {impl}", res["launches"], {
+            f"{kernel}_attention": cfg.n_layers * len(VLM_PROMPTS),
+            "decode": cfg.n_layers * ENCDEC_NEW})
+        launches[kernel] += res["launches"][f"{kernel}_attention"]
+        launches["decode"] += res["launches"]["decode"]
+        report[f"patches {impl}"] = {**{k: res[k] for k in res if k != "generated"},
+                                     "peak_allocated": peak}
+
+        fk.launches = dk.launches = dec.launches = pd.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        eng = run(cfg_i, params, max_new=32, max_slots=4, max_len=2048,
+                  prompt_lens=list(SERVE_PROMPTS), device="cuda")
+        peak = torch.cuda.max_memory_allocated()
+        counts = {"flash": fk.launches, "distr": dk.launches, "decode": dec.launches,
+                  "paged": pd.launches}
+        log(f"[internvl2-2b slot engine {impl}] {len(eng['done'])} requests, {eng['tokens']} "
+            f"tokens in {eng['seconds']:.2f}s ({eng['tok_per_s']:.1f} tok/s); peak allocated "
+            f"{peak / 2**30:.2f} GiB; launches {counts}")
+        for m in eng["metrics"]:
+            log(f"  req {m['uid']}: status {m['status']} ttft {m['ttft_s']:.4f}s "
+                f"tpot {m['tpot_s']:.4f}s n={m['n_generated']}")
+        bad = [r.uid for r in eng["done"] if r.status != "done" or len(r.generated) != 32]
+        other = "flash" if kernel == "distr" else "distr"
+        if len(eng["done"]) != len(SERVE_PROMPTS) or bad:
+            raise AssertionError(f"internvl2-2b slot engine {impl}: requests not done: {bad}")
+        if counts[kernel] == 0 or counts["decode"] == 0 or counts[other] or counts["paged"]:
+            raise AssertionError(f"internvl2-2b slot engine {impl}: launches off the path: "
+                                 f"{counts}")
+        launches[kernel] += counts[kernel]
+        launches["decode"] += counts["decode"]
+        report[f"slot {impl}"] = {"seconds": eng["seconds"], "tokens": eng["tokens"],
+                                  "tok_per_s": eng["tok_per_s"], "peak_allocated": peak,
+                                  "launches": counts, "metrics": eng["metrics"]}
+        del eng
+    del params, patches
+    free_card(torch, "internvl2-2b serving")
+    return {"launches": launches, "report": report}
+
+
+def encdec_train_phase(torch) -> dict:
+    """whisper-small and internvl2-2b at their published sizes, seeded
+    random f32 params, TRAIN_STEPS steps each through ``make_train_step``
+    (AdamW, full remat) under both kernel impls, on one seeded batch of
+    ENCDEC_TRAIN's shape: whisper 4 × 448 tokens over 1500 frames a row,
+    internvl 2 × (256 patches + 1792 tokens).  Raises if a loss or grad
+    norm is not finite, a step was skipped, card memory is not back at
+    the run's start once its params and state are dropped, or the launches
+    leave the
+    impl's path: each attention call (whisper 36 a step: encoder, decoder
+    self- and cross-attention; internvl 24) runs delta, dq and dkv once a
+    step, and the forward kernel at least once (again in the recompute).
+    One more step per run is profiled for its device time."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import init_train_params
+    from repro_torch.models import lm
+    from repro_torch.serve.graphs import LaunchCounters
+    from repro_torch.train.optimizer import OptimizerConfig, adamw_init
+    from repro_torch.train.train_step import make_train_step
+
+    counters = LaunchCounters()
+    launches = {"flash": 0, "distr": 0, "delta": 0, "flash_dq": 0, "flash_dkv": 0,
+                "distr_dq": 0, "distr_dkv": 0}
+    report = {}
+    for arch, batch, n_tok, n_in, key in ENCDEC_TRAIN:
+        cfg = get_config(arch)
+        calls = (lm.n_encoder_layers(cfg) + 2 * cfg.n_layers if cfg.family == "encdec"
+                 else cfg.n_layers)
+        for impl, mine, other in (("pallas_distr", "distr", "flash"),
+                                  ("pallas_flash", "flash", "distr")):
+            cfg_i = cfg.replace(attention=cfg.attention.with_impl(impl))
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            params = init_train_params(cfg_i, seed=0, device="cuda")
+            leaves = lm.trainable(params)
+            n_params = sum(t.numel() for t in leaves)
+            state = adamw_init(leaves)
+            step = make_train_step(cfg_i, OptimizerConfig(
+                peak_lr=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS, schedule=cfg.schedule))
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            toks = torch.randint(0, cfg.vocab, (batch, n_tok + 1), generator=gen, device="cuda")
+            data = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                    key: torch.randn((batch, n_in, cfg.d_model), generator=gen,
+                                     device="cuda").to(torch.bfloat16)}
+            torch.cuda.synchronize()
+            log(f"[train {arch} {impl}] {n_params} params (f32) and AdamW state on the card "
+                f"in {time.perf_counter() - t0:.1f}s, "
+                f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+            torch.cuda.reset_peak_memory_stats()
+            before = counters.read()
+            losses, norms, times = [], [], []
+            for i in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, data, i)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                if float(m["skipped"]):
+                    raise AssertionError(f"train {arch} {impl}: step {i} skipped")
+            after = counters.read()
+            counts = {k: after[k] - before[k] for k in after}
+            peak = torch.cuda.max_memory_allocated()
+            steady = times[1:]
+            step_s = sum(steady) / len(steady)
+            tok_s = batch * n_tok / step_s
+            log(f"[train {arch} {impl}] losses {losses} grad norms {norms}")
+            log(f"[train {arch} {impl}] step times {times} s; mean steady step {step_s:.4f} s; "
+                f"{tok_s:.1f} text tok/s ({batch} x ({n_in} {key} + {n_tok} tokens)); peak "
+                f"allocated {peak / 2**30:.2f} GiB; launches {counts}")
+            if not all(math.isfinite(x) for x in losses + norms):
+                raise AssertionError(f"train {arch} {impl}: non-finite loss or grad norm")
+            per_step = calls * TRAIN_STEPS
+            fwd = counts[f"{mine}_attention"]
+            bwd_counts = {f"backward.{n}": counts[f"backward.{n}"]
+                          for n in ("delta", f"{mine}_dq", f"{mine}_dkv")}
+            if (any(c != per_step for c in bwd_counts.values()) or fwd < per_step
+                    or counts[f"{other}_attention"] or counts[f"backward.{other}_dq"]
+                    or counts[f"backward.{other}_dkv"] or counts["decode"]
+                    or counts["paged_decode"] or counts["ssd"]):
+                raise AssertionError(f"train {arch} {impl}: launches off the path: {counts}")
+            launches[mine] += fwd
+            for name, c in bwd_counts.items():
+                launches[name.split(".", 1)[1]] += c
+            # One more step under the profiler (its launches not counted):
+            # the device's time beside the steady step's wall.
+            attn_ms, device_ms, _ = _attention_device_ms(
+                torch, lambda: step(params, state, data, TRAIN_STEPS))
+            log(f"[train {arch} {impl}] profiled step: {device_ms:.1f} ms of device time "
+                f"({device_ms / 1e3 / step_s:.1%} of the mean steady step), attention "
+                f"kernels {attn_ms:.1f} ms")
+            report[f"{arch} {impl}"] = {"n_params": n_params, "losses": losses,
+                                        "grad_norms": norms, "step_times": times,
+                                        "step_s": step_s, "tok_per_s": tok_s,
+                                        "max_memory_allocated": peak, "launches": counts,
+                                        "device_ms": device_ms, "attention_device_ms": attn_ms}
+            del params, leaves, state, step, data, toks, m
+            free_card(torch, f"{arch} training {impl}", gate=False, base=base)
+    return {"launches": launches, "report": report}
+
+
+def encdec_phases(torch) -> dict:
+    """The enc-dec and VLM slice's model phases: whisper-small and
+    internvl2-2b served, then trained, at their published sizes."""
+    results, launches = {}, {}
+    for name, phase in (("whisper-small serve", whisper_serve_phase),
+                        ("internvl2-2b serve", vlm_serve_phase),
+                        ("encdec train", encdec_train_phase)):
+        t0 = time.perf_counter()
+        res = phase(torch)
+        log(f"[{name}] phase took {time.perf_counter() - t0:.1f}s")
+        results[name] = res["report"]
+        for k, n in res["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    return {"results": results, "launches": launches}
+
+
 def distr_vs_flash_table(prefill_shapes: list, g4: dict, a112: dict, back: list) -> list:
     """The bf16 DistrAttention kernels beside the flash kernels at N = 2048,
     causal, from this run, ms: the forward at the serving shapes without the
@@ -2311,9 +2936,11 @@ def serve_load(torch, workload: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="also write the results as JSON here")
-    ap.add_argument("--only", choices=("kernels", "moe"), default=None,
+    ap.add_argument("--only", choices=("kernels", "moe", "encdec"), default=None,
                     help="kernels: stop after the kernel phases; moe: run only the MoE "
-                         "check and the MoE configs' serving, print a JSON summary")
+                         "check and the MoE configs' serving; encdec: run only the "
+                         "non-causal kernel checks and whisper-small's and internvl2-2b's "
+                         "serving and training; both print a JSON summary")
     ap.add_argument("--serve-load", choices=("slot", "paged", "hybrid"), default=None,
                     help="only serve this workload as a closed-loop load under both impls "
                          "(timed passes and the device's busy share), no checks")
@@ -2359,6 +2986,22 @@ def main() -> int:
         log(card)
         print(json.dumps({"launches": moe["launches"]}), flush=True)
         return 0
+    if args.only == "encdec":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+        nc = noncausal_phase(torch, flush)
+        enc_dec = encdec_decode_phase(torch, flush)
+        del flush
+        enc = encdec_phases(torch)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps({"card": card, "noncausal": nc["shapes"],
+                                                  "encdec_decode": enc_dec["shapes"],
+                                                  **enc["results"]}, indent=1))
+        log(card)
+        print(json.dumps({"launches": enc["launches"]}), flush=True)
+        return 0
     for line in build.build_log().splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
             log("  " + line.strip())
@@ -2395,6 +3038,16 @@ def main() -> int:
                                            qwen[label]["prefill"][name]["max_abs_err"])
         dec["max_abs_err"] = max(dec["max_abs_err"], qwen[label]["decode"]["max_abs_err"])
         pdec["max_abs_err"] = max(pdec["max_abs_err"], qwen[label]["paged"]["max_abs_err"])
+    # whisper-small's non-causal shapes (Nq = 448 and 1500 over 1500 keys),
+    # forward and backward, and the decode kernel at the enc-dec and VLM
+    # serving steps' shapes, before any model runs them.
+    nc = noncausal_phase(torch, flush)
+    enc_dec = encdec_decode_phase(torch, flush)
+    dec["max_abs_err"] = max(dec["max_abs_err"], enc_dec["max_abs_err"])
+    for name in ("flash", "distr"):
+        pre[name]["max_abs_err"] = max(pre[name]["max_abs_err"], nc[name]["max_abs_err"])
+    for name in ("delta", "flash_dq", "flash_dkv", "distr_dq", "distr_dkv"):
+        back[name]["max_abs_err"] = max(back[name]["max_abs_err"], nc[name]["max_abs_err"])
     log(card)
     ssd_grad = ssd_grad_phase(torch)
     gen = torch.Generator(device="cuda").manual_seed(10)
@@ -2408,7 +3061,8 @@ def main() -> int:
                "paged_shapes": pdec.pop("shapes"), "backward_shapes": back.pop("shapes"),
                "delta_shapes": back.pop("delta_shapes"),
                "ssd_shapes": ssd.pop("shapes"), "head_dim_112": a112, "qwen_kernels": qwen,
-               "ssd_grad": ssd_grad, "scores": {"gaussian": gaussian_scores}}
+               "ssd_grad": ssd_grad, "scores": {"gaussian": gaussian_scores},
+               "noncausal": nc["shapes"], "encdec_decode": enc_dec["shapes"]}
     launches = {"flash": 0, "distr": 0, "decode": 0, "paged": 0, "ssd": 0,
                 **dict.fromkeys(back, 0)}
     if args.only != "kernels":
@@ -2439,6 +3093,11 @@ def main() -> int:
         results.update(moe["results"])
         for name, count in moe["launches"].items():
             launches[name] += count
+        for phase in (whisper_serve_phase, vlm_serve_phase):
+            res = phase(torch)
+            results[phase.__name__] = res["report"]
+            for name, count in res["launches"].items():
+                launches[name] += count
         hybrid = hybrid_serve_phase(torch)
         results["hybrid_serve"] = hybrid["report"]
         for name, count in hybrid["launches"].items():
@@ -2447,9 +3106,12 @@ def main() -> int:
         results["train"] = train["report"]
         mamba = mamba_train_phase(torch)
         results["train_mamba2_130m"] = mamba["report"]
+        encdec_train = encdec_train_phase(torch)
+        results["train_encdec_vlm"] = encdec_train["report"]
         robust = train_robustness_phase(torch)
         results["train_robustness"] = robust["report"]
         for name, count in (*train["launches"].items(), *mamba["launches"].items(),
+                            *encdec_train["launches"].items(),
                             *robust["launches"].items()):
             launches[name] += count
 

@@ -1,16 +1,19 @@
-"""Model configuration: the dense, MoE (with MLA), SSM and hybrid subset of
-``repro.configs.base``.
+"""Model configuration: the dense, MoE (with MLA), SSM, hybrid and enc-dec
+subset of ``repro.configs.base``.
 
 One ``ModelConfig`` per architecture; ``configs/<arch>.py`` holds the
 published dimensions plus a ``reduced()`` variant for CPU tests.  Only the
 fields the port's serving and training paths read are carried over.
 ``SHAPES`` are the reference's named workload shapes, which
-``roofline.analysis.model_flops`` reads.
+``roofline.analysis.model_flops`` reads; ``input_specs`` gives a shape's
+model inputs, the stub frontends' embeddings among them.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+
+import torch
 
 from repro_torch.core.api import AttentionConfig
 
@@ -35,7 +38,9 @@ SHAPES: dict[str, ShapeSpec] = {
 class ModelConfig:
     # identity
     name: str
-    family: str  # dense | moe | ssm (attention-free Mamba-2) | hybrid (Mamba-2 + shared attention)
+    # dense | moe | ssm (attention-free Mamba-2) | hybrid (Mamba-2 + shared
+    # attention) | encdec (an encoder over frames, a decoder with cross-attention)
+    family: str
     # transformer trunk
     n_layers: int
     d_model: int
@@ -48,7 +53,8 @@ class ModelConfig:
     tie_embeddings: bool = False  # the LM head reads the embedding table
     act: str = "silu"  # silu (SwiGLU) | gelu (tanh approximation)
     norm: str = "rmsnorm"  # rmsnorm | layernorm
-    rope_theta: float = 10000.0  # RoPE on every layer
+    pos: str = "rope"  # rope (on every self-attention) | learned (``pos_embed``) | none
+    rope_theta: float = 10000.0
     norm_eps: float = 1e-6
     attention: AttentionConfig = field(default_factory=AttentionConfig)
     compute_dtype: str = "bfloat16"  # activations and caches; serving's weights
@@ -80,6 +86,14 @@ class ModelConfig:
     ssm_chunk: int = 128
     attn_every: int = 0  # hybrid: a shared attention block after every k Mamba layers
     n_shared_attn_blocks: int = 2
+    # Enc-dec and the stub frontends: precomputed frame (audio_stub, the
+    # encoder's input) or patch (patch_stub, a prefix of the decoder's input)
+    # embeddings of width d_model
+    n_encoder_layers: int = 0  # 0 → n_layers
+    frontend: str | None = None  # audio_stub | patch_stub
+    num_patch_tokens: int = 256  # patch_stub: image tokens a sample
+    cross_len: int = 1500  # the encoder output a decode step's cross cache holds
+    learned_pos_len: int = 32768  # rows of ``pos_embed`` when pos == "learned"
 
     @property
     def padded_vocab(self) -> int:
@@ -110,3 +124,38 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """The model inputs of ``shape`` as ``(shape, dtype)`` pairs, with the
+    reference's keys, shapes and dtypes (``repro.configs.base.input_specs``).
+
+    train → tokens and labels (+ the stub frontend's embeddings); prefill →
+    tokens (+ embeddings); decode → one token a row (the serve layer adds
+    the cache).  Enc-dec takes ``frames`` (B, S, d_model) beside S tokens; a
+    patch_stub config ``patches`` (B, P, d_model) with P = min(
+    num_patch_tokens, S // 2) and S − P tokens.  Tokens and labels are
+    int32, the embeddings bf16 (the reference names that dtype ``f32``)."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def tok(n):
+        return ((b, n), torch.int32)
+
+    def emb(n):
+        return ((b, n, cfg.d_model), torch.bfloat16)
+
+    if shape.kind == "decode":
+        return {"tokens": tok(1)}  # the serve layer adds the cache
+    if cfg.family == "encdec":
+        specs = {"frames": emb(s), "tokens": tok(s)}
+        n_text = s
+    elif cfg.frontend == "patch_stub":
+        n_patch = min(cfg.num_patch_tokens, s // 2)
+        specs = {"patches": emb(n_patch), "tokens": tok(s - n_patch)}
+        n_text = s - n_patch
+    else:
+        specs = {"tokens": tok(s)}
+        n_text = s
+    if shape.kind == "train":
+        specs["labels"] = tok(n_text)
+    return specs

@@ -1,5 +1,5 @@
-"""GQA/MHA attention with a ring KV cache or a paged block pool, and
-DeepSeek-style MLA with its compressed cache.
+"""GQA/MHA self- and cross-attention with a ring KV cache or a paged block
+pool, and DeepSeek-style MLA with its compressed cache.
 
 Every GQA score stage dispatches through ``repro_torch.core.api`` so
 DistrAttention drops in via config.  MLA runs no kernel: its prefill takes
@@ -43,17 +43,27 @@ def attention_init(generator, cfg, dtype=torch.float32) -> dict:
 
 def attention_apply(params: dict, x: torch.Tensor, cfg, *,
                     positions: torch.Tensor | None = None, causal: bool = True,
-                    proj: torch.Tensor | None = None):
-    """Self-attention for prefill.  Returns ``(out, (k, v))`` with the raw
-    per-head K/V (B, Hkv, N, dh) so the serve layer can build caches."""
+                    proj: torch.Tensor | None = None, x_kv: torch.Tensor | None = None,
+                    use_rope: bool | None = None):
+    """Self-attention for prefill and training, or cross-attention when
+    ``x_kv`` (B, Nk, D) is given: Q from ``x``, K and V projected from
+    ``x_kv``.  RoPE (``use_rope``, default ``cfg.pos == "rope"``) rotates Q
+    at ``positions`` and K at ``positions`` (self) or 0..Nk-1 (cross).
+    Returns ``(out, (k, v))`` with the raw per-head K/V (B, Hkv, Nk, dh) so
+    the serve layer can build caches."""
     b, n, _ = x.shape
+    use_rope = cfg.pos == "rope" if use_rope is None else use_rope
+    src = x if x_kv is None else x_kv
     q = _split_heads(layers.linear_apply(params["wq"], x), cfg.n_heads)
-    k = _split_heads(layers.linear_apply(params["wk"], x), cfg.n_kv_heads)
-    v = _split_heads(layers.linear_apply(params["wv"], x), cfg.n_kv_heads)
-    if positions is None:
-        positions = torch.arange(n, device=x.device).expand(b, n)
-    q = layers.apply_rope(q, positions, cfg.rope_theta)
-    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    k = _split_heads(layers.linear_apply(params["wk"], src), cfg.n_kv_heads)
+    v = _split_heads(layers.linear_apply(params["wv"], src), cfg.n_kv_heads)
+    if use_rope:
+        if positions is None:
+            positions = torch.arange(n, device=x.device).expand(b, n)
+        kv_positions = (positions if x_kv is None else
+                        torch.arange(src.shape[1], device=x.device).expand(b, src.shape[1]))
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, kv_positions, cfg.rope_theta)
     o = attend(q, k, v, cfg.attention, causal=causal, proj=proj)
     out = layers.linear_apply(params["wo"], _merge_heads(o))
     return out, (k, v)
@@ -84,25 +94,39 @@ def _live_lengths(length, pos: torch.Tensor, max_len: int) -> torch.Tensor:
 
 def _decode_qkv(params: dict, x: torch.Tensor, cfg, pos: torch.Tensor):
     """The new token's q, k and v split into heads, q and k rotated to its
-    absolute position ``pos`` (B,)."""
+    absolute position ``pos`` (B,) when ``cfg.pos == "rope"``."""
     q = _split_heads(layers.linear_apply(params["wq"], x), cfg.n_heads)
     k = _split_heads(layers.linear_apply(params["wk"], x), cfg.n_kv_heads)
     v = _split_heads(layers.linear_apply(params["wv"], x), cfg.n_kv_heads)
+    if cfg.pos != "rope":
+        return q, k, v
     return (layers.apply_rope(q, pos[:, None], cfg.rope_theta),
             layers.apply_rope(k, pos[:, None], cfg.rope_theta), v)
 
 
 def attention_decode_apply(params: dict, x: torch.Tensor, cfg, *,
                            cache_k: torch.Tensor, cache_v: torch.Tensor,
-                           cache_index, length: torch.Tensor | None = None):
+                           cache_index, length: torch.Tensor | None = None,
+                           is_cross: bool = False, cross_len: torch.Tensor | None = None):
     """One-token decode against a (B, Hkv, S, dh) ring cache: inserts the
     new K/V at ``cache_index`` (in place) and attends over the live window
-    through the split-K decode kernel.  Returns ``(out, (cache_k, cache_v))``."""
+    through the split-K decode kernel.  Cross-attention (``is_cross``)
+    reads the prefilled encoder cache and inserts nothing: each slot
+    attends over its first ``min(cross_len, S)`` positions (``cross_len``
+    (B,) is required).  Returns ``(out, (cache_k, cache_v))``."""
     pos = _as_pos_vector(cache_index, x.shape[0], x.device)
-    q, k, v = _decode_qkv(params, x, cfg, pos)
-    cache_insert(cache_k, k, pos)
-    cache_insert(cache_v, v, pos)
-    lengths = _live_lengths(length, pos, cache_k.shape[2])
+    if is_cross:
+        if cross_len is None:
+            raise ValueError("cross-attention decode needs the slots' cross_len")
+        q = _split_heads(layers.linear_apply(params["wq"], x), cfg.n_heads)
+        if cfg.pos == "rope":
+            q = layers.apply_rope(q, pos[:, None], cfg.rope_theta)
+        lengths = torch.clamp(cross_len.to(torch.int32), max=cache_k.shape[2])
+    else:
+        q, k, v = _decode_qkv(params, x, cfg, pos)
+        cache_insert(cache_k, k, pos)
+        cache_insert(cache_v, v, pos)
+        lengths = _live_lengths(length, pos, cache_k.shape[2])
     o = attend_decode(q, cache_k, cache_v, cfg.attention, lengths=lengths)
     out = layers.linear_apply(params["wo"], _merge_heads(o.to(x.dtype)))
     return out, (cache_k, cache_v)
@@ -191,8 +215,9 @@ def attention_decode_paged(params: dict, x: torch.Tensor, cfg, *,
     q = _split_heads(layers.linear_apply(params["wq"], x), cfg.n_heads)
     k = _split_heads(layers.linear_apply(params["wk"], x), cfg.n_kv_heads)
     v = _split_heads(layers.linear_apply(params["wv"], x), cfg.n_kv_heads)
-    q = layers.apply_rope(q, positions, cfg.rope_theta)
-    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.pos == "rope":
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, positions, cfg.rope_theta)
 
     capacity = block_tables.shape[1] * pool_v.shape[2]
     wpos = pos % capacity

@@ -3,7 +3,10 @@
 The reference keeps per-layer parameters stacked on axis 0 under
 ``blocks`` (moe: also ``dense_blocks``, the first ``first_dense_layers``
 layers; the hybrid: on axes 0 and 1 under ``groups``, axis 0 under
-``tail``, and a list of unstacked ``shared`` blocks) and linear weights as
+``tail``, and a list of unstacked ``shared`` blocks; encdec: also
+``enc_blocks``, beside ``enc_norm``, and decoder ``blocks`` with
+``norm_cross`` and ``cross_attn``), an optional learned position table
+``pos_embed``, and linear weights as
 ``(d_in, d_out)``; the port keeps the same layout, one dict per layer, a
 MoE layer's experts stacked (E, ·, ·) as in the reference.  A
 tied-embedding tree has no ``lm_head``.
@@ -17,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.lm import (
-    check_family, compute_dtype, hybrid_layout, init_lsh_projection,
+    check_family, compute_dtype, hybrid_layout, init_lsh_projection, n_encoder_layers,
 )
 from repro_torch.utils.device import resolve_device
 
@@ -75,6 +78,12 @@ def from_jax_params(params_np: dict, cfg, *, proj: np.ndarray | None = None,
         return [_convert(_layer(stacked, i), (name,), cdtype, dev) for i in range(n)]
 
     params = {"embed": _convert(params_np["embed"], ("embed",), cdtype, dev)}
+    if "pos_embed" in params_np:
+        params["pos_embed"] = _convert(params_np["pos_embed"], ("pos_embed",), cdtype, dev)
+    if cfg.family == "encdec":
+        params["enc_blocks"] = unstack(params_np["enc_blocks"], n_encoder_layers(cfg),
+                                       "enc_blocks")
+        params["enc_norm"] = _convert(params_np["enc_norm"], ("enc_norm",), cdtype, dev)
     if cfg.family == "hybrid":
         n_groups, n_tail = hybrid_layout(cfg)
         params["groups"] = [unstack(_layer(params_np["groups"], gi), cfg.attn_every, "groups")

@@ -1,7 +1,8 @@
-"""Decoder LMs of the dense, moe, ssm and hybrid families: init, trunk,
-logits, loss.
+"""Decoder LMs of the dense, moe, ssm and hybrid families and the enc-dec
+family: init, trunk, logits, loss.
 
-Parameters are a dict: ``embed``, the family's layers, ``final_norm``,
+Parameters are a dict: ``embed``, ``pos_embed`` (the learned position
+table, when ``cfg.pos == "learned"``), the family's layers, ``final_norm``,
 ``lm_head`` (absent under tied embeddings, where the LM head reads the
 embedding table) and ``lsh_proj`` — the fixed LSH projection of the
 DistrAttention impls, model state drawn once at init and never trained.
@@ -12,8 +13,15 @@ in both; for hybrid
 ``groups`` (n_groups lists of ``attn_every`` Mamba layers), ``tail`` (the
 Mamba layers past the last group, when there are any) and ``shared`` (the
 ``n_shared_attn_blocks`` shared attention blocks; group ``gi`` is followed
-by block ``gi % n_shared_attn_blocks``).  Per-layer Python loops stand in
-for the reference's ``lax.scan``.
+by block ``gi % n_shared_attn_blocks``); for encdec ``enc_blocks`` (the
+encoder's non-causal layers), ``enc_norm`` and ``blocks`` (decoder layers
+with cross-attention to the encoder output).  Per-layer Python loops stand
+in for the reference's ``lax.scan``.
+
+The stub frontends: an enc-dec model encodes ``frames`` (B, N_enc,
+d_model), precomputed frame embeddings; a ``patch_stub`` model prepends
+``patches`` (B, P, d_model) to the embedded tokens, positions running over
+prefix and text, and its logits drop the P prefix rows.
 """
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ from repro_torch.utils.device import resolve_device
 
 PAD_LOGIT = -1e30
 Z_LOSS_WEIGHT = 1e-4
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -55,6 +63,10 @@ def hybrid_layout(cfg) -> tuple[int, int]:
     return n_groups, cfg.n_layers - n_groups * cfg.attn_every
 
 
+def n_encoder_layers(cfg) -> int:
+    return cfg.n_encoder_layers or cfg.n_layers
+
+
 def check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
@@ -75,6 +87,9 @@ def init_params(cfg, generator: torch.Generator | None = None,
         generator = torch.Generator(device=dev).manual_seed(0)
     dtype = dtype or compute_dtype(cfg)
     params = {"embed": layers.embedding_init(generator, cfg.padded_vocab, cfg.d_model, dtype)}
+    if cfg.pos == "learned":
+        params["pos_embed"] = layers.embedding_init(generator, cfg.learned_pos_len,
+                                                    cfg.d_model, dtype)
 
     def mamba_layers(n: int) -> list:
         return [transformer.block_init(generator, cfg, dtype, "mamba") for _ in range(n)]
@@ -90,6 +105,12 @@ def init_params(cfg, generator: torch.Generator | None = None,
                             for _ in range(cfg.n_layers - cfg.first_dense_layers)]
     elif cfg.family == "ssm":
         params["blocks"] = mamba_layers(cfg.n_layers)
+    elif cfg.family == "encdec":
+        params["enc_blocks"] = [transformer.block_init(generator, cfg, dtype)
+                                for _ in range(n_encoder_layers(cfg))]
+        params["enc_norm"] = transformer.norm_init(cfg, dev)
+        params["blocks"] = [transformer.block_init(generator, cfg, dtype, cross=True)
+                            for _ in range(cfg.n_layers)]
     else:
         n_groups, n_tail = hybrid_layout(cfg)
         params["groups"] = [mamba_layers(cfg.attn_every) for _ in range(n_groups)]
@@ -137,6 +158,33 @@ def embed(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
     return layers.embedding_apply(params["embed"], tokens).to(compute_dtype(cfg))
 
 
+def embed_inputs(params: dict, cfg, tokens: torch.Tensor,
+                 patches: torch.Tensor | None = None):
+    """The decoder's input → (x (B, P + N, D), positions (B, P + N)): the
+    patch prefix (``patches`` (B, P, D), none for enc-dec, which encodes its
+    frames apart) before the embedded tokens, and under learned positions
+    ``pos_embed`` rows 0.. added to both."""
+    x = embed(params, cfg, tokens)
+    if patches is not None and cfg.family != "encdec":
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+    b, n = x.shape[:2]
+    positions = torch.arange(n, device=x.device).expand(b, n)
+    return add_learned_pos(params, cfg, x, positions), positions
+
+
+def add_learned_pos(params: dict, cfg, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """``x`` plus the ``pos_embed`` rows at ``positions`` under learned
+    positions; ``x`` itself otherwise."""
+    if cfg.pos != "learned":
+        return x
+    return x + layers.embedding_apply(params["pos_embed"], positions).to(x.dtype)
+
+
+def n_prefix(cfg, patches: torch.Tensor | None) -> int:
+    """Rows of the decoder's input that come before the tokens."""
+    return 0 if patches is None or cfg.family == "encdec" else patches.shape[1]
+
+
 def decoder_layers(params: dict, cfg) -> list[tuple[str, dict]]:
     """A dense or moe model's transformer layers in order, as (layer_type,
     layer params): the moe family's ``dense_blocks`` first."""
@@ -146,9 +194,11 @@ def decoder_layers(params: dict, cfg) -> list[tuple[str, dict]]:
     return [("dense", lp) for lp in params["blocks"]]
 
 
-def _block_hidden(lp: dict, x: torch.Tensor, cfg, positions, proj, layer_type: str):
+def _block_hidden(lp: dict, x: torch.Tensor, cfg, positions, proj, layer_type: str,
+                  causal: bool = True, enc_out: torch.Tensor | None = None):
     x, aux, _ = transformer.block_apply_aux(lp, x, cfg, positions=positions, proj=proj,
-                                            layer_type=layer_type)
+                                            layer_type=layer_type, causal=causal,
+                                            enc_out=enc_out)
     return x if aux is None else (x, aux)
 
 
@@ -173,7 +223,46 @@ def _mamba_layers(layer_params: list, x: torch.Tensor, cfg, collect_cache: bool)
     return x, states
 
 
-def backbone(params: dict, cfg, tokens: torch.Tensor, *, collect_cache: bool = False):
+def encode(params: dict, cfg, frames: torch.Tensor, proj: torch.Tensor | None = None):
+    """The enc-dec encoder over the stub frontend's frame embeddings (B,
+    N_enc, D): the rows 0..N_enc-1 of the learned position table added (the
+    decoder's own ``pos_embed``, as the reference's ``_encode`` does), then
+    the non-causal ``enc_blocks`` (remat as the decoder's) and ``enc_norm``."""
+    x = frames.to(compute_dtype(cfg))
+    b, n = x.shape[:2]
+    positions = torch.arange(n, device=x.device).expand(b, n)
+    x = add_learned_pos(params, cfg, x, positions)
+    x, _, _ = _transformer_layers([("dense", lp) for lp in params["enc_blocks"]], x, cfg,
+                                  positions, proj, False, causal=False)
+    return transformer.norm_apply(params["enc_norm"], x, cfg)
+
+
+def _transformer_layers(stack: list, x: torch.Tensor, cfg, positions, proj,
+                        collect_cache: bool, *, causal: bool = True,
+                        enc_out: torch.Tensor | None = None):
+    """Run ``stack`` ((layer_type, layer params) in order) → (x, the MoE
+    layers' summed aux loss or None, the per-layer cache parts when
+    ``collect_cache``); each block one ``checkpoint`` under full remat."""
+    remat = _remat(cfg, collect_cache)
+    aux, kvs = None, []
+    for layer_type, lp in stack:
+        if remat:
+            out = checkpoint(_block_hidden, lp, x, cfg, positions, proj, layer_type, causal,
+                             enc_out, use_reentrant=False)
+            x, a = out if isinstance(out, tuple) else (out, None)
+        else:
+            x, a, kv = transformer.block_apply_aux(lp, x, cfg, positions=positions,
+                                                   proj=proj, layer_type=layer_type,
+                                                   causal=causal, enc_out=enc_out)
+            if collect_cache:
+                kvs.append(kv)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux, kvs
+
+
+def backbone(params: dict, cfg, tokens: torch.Tensor, *, patches: torch.Tensor | None = None,
+             frames: torch.Tensor | None = None, collect_cache: bool = False):
     """Trunk → (hidden (B, N, D) after the final norm, cache parts), the
     parts None unless ``collect_cache``.  Dense and moe: a list of
     per-layer parts in layer order, (k, v) (B, Hkv, N, dh) for GQA and
@@ -181,23 +270,26 @@ def backbone(params: dict, cfg, tokens: torch.Tensor, *, collect_cache: bool = F
     of per-layer (conv_state, ssm_state).  hybrid: ``{"groups": [[(conv,
     ssm)] per Mamba layer] per group, "shared_kv": [(k, v)] per group site,
     "tail": [(conv, ssm)]}``; the shared blocks read the embedded tokens
-    ``x0`` through their concat skip.
+    ``x0`` through their concat skip.  encdec: ``{"kv": [(k, v)] per
+    decoder layer, "enc_out": the encoder output (B, N_enc, D)}``.  A
+    ``patch_stub`` model's hidden rows and parts include its P prefix rows
+    (N = P + tokens).
 
     Under autograd with ``cfg.remat == "full"`` each transformer block and
     each Mamba layer is one ``checkpoint``: only its input is kept, and the
     backward recomputes it (the reference's ``_remat``, which wraps the
     hybrid's Mamba layers but not its shared attention blocks)."""
-    x, _, parts = trunk(params, cfg, tokens, collect_cache=collect_cache)
+    x, _, parts = trunk(params, cfg, tokens, patches=patches, frames=frames,
+                        collect_cache=collect_cache)
     return x, parts
 
 
-def trunk(params: dict, cfg, tokens: torch.Tensor, *, collect_cache: bool = False):
+def trunk(params: dict, cfg, tokens: torch.Tensor, *, patches: torch.Tensor | None = None,
+          frames: torch.Tensor | None = None, collect_cache: bool = False):
     """``backbone`` with the MoE layers' summed aux loss: (hidden, aux (f32
     scalar; 0 without MoE layers), cache parts)."""
-    x = embed(params, cfg, tokens)
-    b, n = tokens.shape
+    x, positions = embed_inputs(params, cfg, tokens, patches)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    positions = torch.arange(n, device=tokens.device).expand(b, n)
     proj = params.get("lsh_proj")
     if cfg.family == "ssm":
         x, states = _mamba_layers(params["blocks"], x, cfg, collect_cache)
@@ -217,22 +309,19 @@ def trunk(params: dict, cfg, tokens: torch.Tensor, *, collect_cache: bool = Fals
         x = transformer.norm_apply(params["final_norm"], x, cfg)
         parts = {"groups": groups, "shared_kv": shared_kv, "tail": tail}
         return x, aux, (parts if collect_cache else None)
-    remat = _remat(cfg, collect_cache)
-    kvs = []
-    for layer_type, lp in decoder_layers(params, cfg):
-        if remat:
-            out = checkpoint(_block_hidden, lp, x, cfg, positions, proj, layer_type,
-                             use_reentrant=False)
-            x, a = out if isinstance(out, tuple) else (out, None)
-        else:
-            x, a, kv = transformer.block_apply_aux(lp, x, cfg, positions=positions,
-                                                   proj=proj, layer_type=layer_type)
-            if collect_cache:
-                kvs.append(kv)
-        if a is not None:
-            aux = aux + a
+    enc_out = None
+    if cfg.family == "encdec":
+        if frames is None:
+            raise ValueError("an enc-dec model needs its encoder input: frames=")
+        enc_out = encode(params, cfg, frames, proj)
+    x, moe_aux, kvs = _transformer_layers(decoder_layers(params, cfg), x, cfg, positions, proj,
+                                          collect_cache, enc_out=enc_out)
+    if moe_aux is not None:
+        aux = aux + moe_aux
     x = transformer.norm_apply(params["final_norm"], x, cfg)
-    return x, aux, (kvs if collect_cache else None)
+    if not collect_cache:
+        return x, aux, None
+    return x, aux, ({"kv": kvs, "enc_out": enc_out} if enc_out is not None else kvs)
 
 
 def logits_fn(params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
@@ -246,19 +335,24 @@ def logits_fn(params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def forward(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence logits (B, N, padded_vocab)."""
-    hidden, _ = backbone(params, cfg, tokens)
-    return logits_fn(params, cfg, hidden)
+def forward(params: dict, cfg, tokens: torch.Tensor, *, patches: torch.Tensor | None = None,
+            frames: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence logits (B, N, padded_vocab) of the N tokens (a patch
+    prefix's rows dropped before the head)."""
+    hidden, _ = backbone(params, cfg, tokens, patches=patches, frames=frames)
+    return logits_fn(params, cfg, hidden[:, n_prefix(cfg, patches):])
 
 
 def loss_fn(params: dict, cfg, batch: dict):
     """Next-token cross-entropy over f32 logits, plus ``router_aux_weight``
     times the MoE layers' summed aux loss, plus the 1e-4 z-loss → (loss,
     metrics).  Labels below 0 are masked out.  A model without MoE layers
-    has no aux loss, so its ``aux`` is 0."""
-    hidden, aux, _ = trunk(params, cfg, batch["tokens"])
-    logits = logits_fn(params, cfg, hidden).float()
+    has no aux loss, so its ``aux`` is 0.  ``batch`` holds ``tokens`` and
+    ``labels``, and ``patches`` or ``frames`` for the stub frontends."""
+    patches = batch.get("patches")
+    hidden, aux, _ = trunk(params, cfg, batch["tokens"], patches=patches,
+                           frames=batch.get("frames"))
+    logits = logits_fn(params, cfg, hidden[:, n_prefix(cfg, patches):]).float()
     labels = batch["labels"].long()
     mask = (labels >= 0).float()
     lse = torch.logsumexp(logits, dim=-1)

@@ -8,7 +8,9 @@ MLA under ``cfg.use_mla``; it returns its cache parts: (k, v) for GQA,
 (c_kv, k_rope) for MLA.  A Mamba block returns its (conv_state, ssm_state)
 when asked.  ``block_apply_aux`` also returns the block's MoE aux loss
 (None for the other layer types), where the reference's ``block_apply``
-returns it."""
+returns it.  An enc-dec decoder block (``block_init(cross=True)``) adds
+``norm_cross`` and ``cross_attn``: a non-causal cross-attention without
+RoPE over the encoder output, after the self-attention."""
 from __future__ import annotations
 
 import torch
@@ -29,18 +31,24 @@ def norm_apply(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     return layers.layernorm_apply(params, x, cfg.norm_eps)
 
 
-def block_init(generator, cfg, dtype=torch.float32, layer_type: str = "dense") -> dict:
+def block_init(generator, cfg, dtype=torch.float32, layer_type: str = "dense", *,
+               cross: bool = False) -> dict:
     if layer_type == "mamba":
         return {"norm1": norm_init(cfg, generator.device),
                 "mixer": mamba.mamba_init(generator, cfg, dtype)}
     attn_init = attn_mod.mla_init if cfg.use_mla else attn_mod.attention_init
-    return {
+    params = {
         "norm1": norm_init(cfg, generator.device),
         "norm2": norm_init(cfg, generator.device),
         "attn": attn_init(generator, cfg, dtype),
-        "ffn": (moe.moe_init(generator, cfg, dtype) if layer_type == "moe" else
-                layers.mlp_init(generator, cfg.d_model, cfg.d_ff, act=cfg.act, dtype=dtype)),
     }
+    if cross:
+        params["norm_cross"] = norm_init(cfg, generator.device)
+        params["cross_attn"] = attn_mod.attention_init(generator, cfg, dtype)
+    params["ffn"] = (moe.moe_init(generator, cfg, dtype) if layer_type == "moe" else
+                     layers.mlp_init(generator, cfg.d_model, cfg.d_ff, act=cfg.act,
+                                     dtype=dtype))
+    return params
 
 
 def ffn_apply(params: dict, h: torch.Tensor, cfg, layer_type: str):
@@ -52,11 +60,13 @@ def ffn_apply(params: dict, h: torch.Tensor, cfg, layer_type: str):
 
 def block_apply_aux(params: dict, x: torch.Tensor, cfg, *, positions=None,
                     causal: bool = True, proj: torch.Tensor | None = None,
-                    layer_type: str = "dense", collect_cache: bool = False):
+                    layer_type: str = "dense", collect_cache: bool = False,
+                    enc_out: torch.Tensor | None = None):
     """Full-sequence block → ``(x, aux, parts)``: ``aux`` the MoE aux loss
     (None for a dense or Mamba block); ``parts`` (k, v) for GQA, (c_kv,
     k_rope) for MLA, and for a Mamba block (conv_state, ssm_state) with
-    ``collect_cache`` (else None)."""
+    ``collect_cache`` (else None).  With ``enc_out`` (B, N_enc, D) an
+    enc-dec decoder block cross-attends to it after its self-attention."""
     if layer_type == "mamba":
         h = norm_apply(params["norm1"], x, cfg)
         if collect_cache:
@@ -67,30 +77,39 @@ def block_apply_aux(params: dict, x: torch.Tensor, cfg, *, positions=None,
     attn = attn_mod.mla_apply if cfg.use_mla else attn_mod.attention_apply
     o, kv = attn(params["attn"], h, cfg, positions=positions, causal=causal, proj=proj)
     x = x + o
+    if enc_out is not None:
+        hc = norm_apply(params["norm_cross"], x, cfg)
+        oc, _ = attn_mod.attention_apply(params["cross_attn"], hc, cfg, causal=False,
+                                         proj=proj, x_kv=enc_out, use_rope=False)
+        x = x + oc
     y, aux = ffn_apply(params["ffn"], norm_apply(params["norm2"], x, cfg), cfg, layer_type)
     return x + y, aux, kv
 
 
 def block_apply(params: dict, x: torch.Tensor, cfg, *, positions=None,
                 causal: bool = True, proj: torch.Tensor | None = None,
-                layer_type: str = "dense", collect_cache: bool = False):
+                layer_type: str = "dense", collect_cache: bool = False,
+                enc_out: torch.Tensor | None = None):
     """``block_apply_aux`` without the aux: ``(x, parts)``."""
     x, _, parts = block_apply_aux(params, x, cfg, positions=positions, causal=causal,
                                   proj=proj, layer_type=layer_type,
-                                  collect_cache=collect_cache)
+                                  collect_cache=collect_cache, enc_out=enc_out)
     return x, parts
 
 
 def block_decode_apply(params: dict, x: torch.Tensor, cfg, *, cache: dict,
                        cache_index, length=None, layer_type: str = "dense",
-                       perm: torch.Tensor | None = None):
+                       perm: torch.Tensor | None = None, cross_len=None):
     """One-token decode.  A GQA block's ``cache`` holds this layer's
     ``k``/``v`` (B, Hkv, S, dh), updated in place; ``length`` is the
     per-slot live token count including the new token (None: pos + 1).
     With the layer's static ``perm`` the cache holds ``v`` and ``k_fused``
     instead, and scores read K̂ (``attention_decode_fused``).  An MLA
     block's holds ``ckv``/``krope`` (B, S, ·), updated in place.  A Mamba
-    block's holds ``conv``/``ssm``, returned anew.  Returns ``(x, cache)``."""
+    block's holds ``conv``/``ssm``, returned anew.  An enc-dec decoder
+    block's also holds ``cross_k``/``cross_v`` (B, Hkv, S_enc, dh), which it
+    reads over ``min(cross_len, S_enc)`` positions a slot and never writes.
+    Returns ``(x, cache)``."""
     if layer_type == "mamba":
         y, (conv_s, ssm_s) = mamba.mamba_decode_apply(
             params["mixer"], norm_apply(params["norm1"], x, cfg), cfg,
@@ -117,6 +136,13 @@ def block_decode_apply(params: dict, x: torch.Tensor, cfg, *, cache: dict,
         )
         new = {"k": ck, "v": cv}
     x = x + o
+    if "cross_k" in cache:
+        hc = norm_apply(params["norm_cross"], x, cfg)
+        oc, _ = attn_mod.attention_decode_apply(
+            params["cross_attn"], hc, cfg, cache_k=cache["cross_k"], cache_v=cache["cross_v"],
+            cache_index=cache_index, is_cross=True, cross_len=cross_len,
+        )
+        x = x + oc
     y, _ = ffn_apply(params["ffn"], norm_apply(params["norm2"], x, cfg), cfg, layer_type)
     return x + y, {**cache, **new}
 

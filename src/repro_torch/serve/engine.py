@@ -116,6 +116,9 @@ class ServeEngine:
                  device: str | torch.device = "cuda", perms: torch.Tensor | None = None,
                  trace=None):
         check_family(cfg)
+        if cfg.family == "encdec":
+            raise NotImplementedError(
+                "engine drives decoder-only archs; use serve_step directly for enc-dec")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -469,6 +472,10 @@ class PagedServeEngine:
                  faults=None, device: str | torch.device = "cuda",
                  perms: torch.Tensor | None = None, trace=None):
         paged.check_pageable(cfg)
+        if cfg.frontend:
+            raise NotImplementedError(
+                "chunked prefill drives token prompts; patch/frame frontends keep the "
+                "slot engine")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params

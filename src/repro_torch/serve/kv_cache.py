@@ -12,12 +12,16 @@ Layouts (L = layers, B = slots, S = max_len, G = hybrid groups):
           (G, attn_every, B, H, S_state, P) f32, ``shared_k`` / ``shared_v``
           (G, B, Hkv, S, dh) for the shared block after each group, and
           ``tail_conv`` / ``tail_ssm`` for the Mamba layers past the last group
+  encdec: ``k``, ``v`` (L, B, Hkv, S, dh) of the decoder's self-attention,
+          ``cross_k`` / ``cross_v`` (L, B, Hkv, cross_len, dh), the encoder
+          output's keys and values a decoder layer, and ``cross_len`` (B,)
+          int32, the live encoder positions a slot
 
 The GQA cache is a ring: writes land at ``pos mod S``; ``length`` counts
 every token ever written, so the live window is the most recent
-``min(length, S)`` tokens and RoPE positions stay absolute.  The MLA, ssm
-and hybrid layouts have no ``length``: their sequences finish before the
-window would wrap.
+``min(length, S)`` tokens and RoPE positions stay absolute.  The MLA, ssm,
+hybrid and encdec layouts have no ``length``: their sequences finish before
+the window would wrap (encdec decodes over ``pos + 1`` positions).
 
 The fused-K̂ decode cache holds K̂ = fuse(K, perm) under one static
 permutation per (layer, KV head): decode scores read d/G* columns a token
@@ -47,6 +51,11 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
         return {"ckv": zeros((cfg.n_layers, batch, max_len, cfg.kv_lora_rank)),
                 "krope": zeros((cfg.n_layers, batch, max_len, cfg.qk_rope_dim))}
     kv = (cfg.n_kv_heads, max_len, cfg.head_dim_)
+    if cfg.family == "encdec":
+        cross = (cfg.n_layers, batch, cfg.n_kv_heads, cfg.cross_len, cfg.head_dim_)
+        return {"k": zeros((cfg.n_layers, batch) + kv), "v": zeros((cfg.n_layers, batch) + kv),
+                "cross_k": zeros(cross), "cross_v": zeros(cross),
+                "cross_len": zeros((batch,), torch.int32)}
     if cfg.family == "hybrid":
         g, t = hybrid_layout(cfg)
         cache = {

@@ -1,6 +1,8 @@
 """Serving steps: prefill (build the cache from a full forward) and
 one-token decode for the dense (ring cache, raw K or fused K̂), moe (GQA
-ring cache of raw K, or MLA's compressed cache), ssm and hybrid families;
+ring cache of raw K, or MLA's compressed cache), ssm, hybrid and encdec
+(self-attention ring cache and the encoder's cross cache) families, a
+``patch_stub`` model's prefill taking its patch prefix;
 for GQA dense and moe also the paged step (a decode tick or a
 chunked-prefill window over the block pool) and the whole-prompt paged
 prefill of the degradation dial.  A moe config decodes from raw K even with
@@ -14,8 +16,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import grouping
-from repro_torch.models import lm, transformer
-from repro_torch.models.attention import paged_insert
+from repro_torch.models import layers, lm, transformer
+from repro_torch.models.attention import _split_heads, paged_insert
 from repro_torch.serve import kv_cache
 from repro_torch.serve.paged import check_pageable
 
@@ -54,10 +56,32 @@ def _mamba_prefill_cache(cfg, parts, max_len: int, dtype: torch.dtype) -> dict:
     return cache
 
 
+def _cross_cache(cfg, params: dict, enc_out: torch.Tensor, dtype: torch.dtype) -> dict:
+    """The encoder output's keys and values a decoder layer, projected by its
+    ``cross_attn`` and zero-padded or cut to ``cross_len`` positions
+    (``cross_k`` / ``cross_v`` (L, B, Hkv, cross_len, dh)), and each slot's
+    live count ``cross_len`` (B,) = min(N_enc, cfg.cross_len)."""
+    def heads(w, x):
+        return _split_heads(layers.linear_apply(w, x), cfg.n_kv_heads).to(dtype)
+
+    n = cfg.cross_len
+    ck = torch.stack([heads(lp["cross_attn"]["wk"], enc_out) for lp in params["blocks"]])
+    cv = torch.stack([heads(lp["cross_attn"]["wv"], enc_out) for lp in params["blocks"]])
+    b, n_enc = enc_out.shape[:2]
+    return {"cross_k": _pad_seq_to(ck, n, 3)[:, :, :, :n],
+            "cross_v": _pad_seq_to(cv, n, 3)[:, :, :, :n],
+            "cross_len": torch.full((b,), min(n_enc, n), dtype=torch.int32,
+                                    device=enc_out.device)}
+
+
 def make_prefill(cfg, max_len: int, backbone_cfg=None, perms: torch.Tensor | None = None):
-    """→ prefill(params, tokens (B, N)) → (logits (B, 1, V) of the last
-    position, cache ready for decode at position N).  For ssm / hybrid the
-    SSM state is the state after all N tokens, padding included.
+    """→ prefill(params, tokens (B, N), patches=None, frames=None) →
+    (logits (B, 1, V) of the last position, cache ready for decode at
+    position N, or N + P after a patch prefix of P rows).  For ssm / hybrid
+    the SSM state is the state after all N tokens, padding included.  An
+    enc-dec model encodes ``frames`` and its cache adds the cross cache
+    (``_cross_cache``); it has no ``length``: its decode attends over
+    ``pos + 1`` positions.
 
     ``backbone_cfg`` (default ``cfg``) runs the forward alone: the slot
     engine's degradation dial passes ``cfg.attention.degraded(G*)`` there,
@@ -69,9 +93,10 @@ def make_prefill(cfg, max_len: int, backbone_cfg=None, perms: torch.Tensor | Non
     perms = _resolve_perms(cfg, perms)
 
     @torch.no_grad()
-    def prefill(params, tokens):
+    def prefill(params, tokens, patches=None, frames=None):
         nonlocal perms
-        hidden, kvs = lm.backbone(params, bcfg, tokens, collect_cache=True)
+        hidden, kvs = lm.backbone(params, bcfg, tokens, patches=patches, frames=frames,
+                                  collect_cache=True)
         logits = lm.logits_fn(params, cfg, hidden[:, -1:])
         dtype = lm.compute_dtype(cfg)
         if cfg.family in ("ssm", "hybrid"):
@@ -81,16 +106,19 @@ def make_prefill(cfg, max_len: int, backbone_cfg=None, perms: torch.Tensor | Non
             krope = torch.stack([r[:, 0] for _, r in kvs]).to(dtype)  # (L, B, N, rope_d)
             return logits, {"ckv": _pad_seq_to(ckv, max_len, 2),
                             "krope": _pad_seq_to(krope, max_len, 2)}
+        cross = None
+        if cfg.family == "encdec":
+            cross = _cross_cache(cfg, params, kvs["enc_out"], dtype)
+            kvs = kvs["kv"]
         k = torch.stack([kv[0] for kv in kvs]).to(dtype)  # (L, B, Hkv, N, dh)
         v = torch.stack([kv[1] for kv in kvs]).to(dtype)
-        cache = {
-            "k": _pad_seq_to(k, max_len, 3),
-            "v": _pad_seq_to(v, max_len, 3),
-            # The whole prompt is live; the engine overrides this for
-            # right-padded prompts.
-            "length": torch.full((tokens.shape[0],), k.shape[3], dtype=torch.int32,
-                                 device=tokens.device),
-        }
+        cache = {"k": _pad_seq_to(k, max_len, 3), "v": _pad_seq_to(v, max_len, 3)}
+        if cross is not None:
+            return logits, {**cache, **cross}
+        # The whole prompt is live; the engine overrides this for
+        # right-padded prompts.
+        cache["length"] = torch.full((tokens.shape[0],), k.shape[3], dtype=torch.int32,
+                                     device=tokens.device)
         if perms is not None:
             if perms.device != tokens.device:
                 perms = perms.to(tokens.device)  # once, not a host copy every call
@@ -156,7 +184,10 @@ def make_decode_step(cfg, perms: torch.Tensor | None = None):
     its MoE blocks; under MLA each writes c_kv and k_rope at ``pos`` and
     attends over ``pos + 1`` positions.  ssm / hybrid: each Mamba layer
     steps its recurrence, and each shared block writes at ``pos`` and
-    attends over ``pos + 1`` positions.
+    attends over ``pos + 1`` positions.  encdec: the token takes row ``pos``
+    of the learned position table; each decoder layer writes its K/V at
+    ``pos``, attends over ``pos + 1`` positions and then over the slot's
+    ``cross_len`` encoder positions.
     Every cache tensor is written in place, so a captured step reads and
     writes fixed addresses; only a conv cache narrower than the compute
     dtype comes back as a new, wider tensor (``_widen_conv``)."""
@@ -165,8 +196,16 @@ def make_decode_step(cfg, perms: torch.Tensor | None = None):
     @torch.no_grad()
     def decode_step(params, tokens, cache, pos):
         nonlocal perms
-        x = lm.embed(params, cfg, tokens)
         pos = pos.to(torch.int32)
+        x = lm.add_learned_pos(params, cfg, lm.embed(params, cfg, tokens), pos[:, None])
+        if cfg.family == "encdec":
+            for i, lp in enumerate(params["blocks"]):
+                x, _ = transformer.block_decode_apply(
+                    lp, x, cfg, cache={key: cache[key][i] for key in
+                                       ("k", "v", "cross_k", "cross_v")},
+                    cache_index=pos, cross_len=cache["cross_len"])
+            x = transformer.norm_apply(params["final_norm"], x, cfg)
+            return lm.logits_fn(params, cfg, x), cache
         if cfg.family in ("ssm", "hybrid"):
             cache = _widen_conv(cache, cfg)
             x = _mamba_decode_trunk(cfg, params, x, cache, pos)

@@ -1,13 +1,15 @@
 """Port parity of the architecture registry: every arch the port registers
 has the reference's published and ``reduced()`` dimensions on every field
 both packages carry (the attention and DistrAttention sub-configs
-included), the derived properties agree, and ``list_configs`` follows
-``ARCH_NAMES``, which keeps the reference's registry order."""
+included), the derived properties agree, ``ARCH_NAMES`` equals the
+reference's (its order too, which ``list_configs`` follows), and
+``input_specs`` gives every arch's inputs of every named shape as the
+reference's does."""
 import dataclasses
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from repro import configs as ref_configs  # noqa: E402
 from repro_torch import configs  # noqa: E402
@@ -45,11 +47,49 @@ def test_config_matches_reference(arch, reduced):
 
 def test_registry_order_and_list_configs():
     names = configs.ARCH_NAMES
-    assert set(names) <= set(ref_configs.ARCH_NAMES)
-    assert list(names) == [n for n in ref_configs.ARCH_NAMES if n in names]
+    assert names == ref_configs.ARCH_NAMES  # every arch the reference registers
     assert [c.name for c in configs.list_configs()] == list(names)
     with pytest.raises(KeyError):
-        configs.get_config("whisper-small")
+        configs.get_config("no-such-arch")
+
+
+@pytest.mark.parametrize("shape", sorted(configs.SHAPES))
+@pytest.mark.parametrize("arch", configs.ARCH_NAMES)
+def test_input_specs_match_reference(arch, shape):
+    """The same keys in the same order, shapes and dtypes as the reference's
+    ``ShapeDtypeStruct`` stand-ins (the port gives ``(shape, dtype)``
+    pairs), the stub frontends' embeddings among them."""
+    import jax.numpy as jnp
+
+    got = configs.input_specs(configs.get_config(arch), configs.SHAPES[shape])
+    want = ref_configs.input_specs(ref_configs.get_config(arch), ref_configs.SHAPES[shape])
+    assert list(got) == list(want)
+    dtypes = {torch.int32: jnp.int32, torch.bfloat16: jnp.bfloat16}
+    for key, (shp, dtype) in got.items():
+        assert shp == want[key].shape and dtypes[dtype] == want[key].dtype, key
+
+
+def test_encdec_and_vlm_published_shapes():
+    """The published dimensions the reference's tests hold
+    (tests/test_models_smoke.py), and the fields of the two families."""
+    whisper = configs.get_config("whisper-small")
+    assert (whisper.n_layers, whisper.d_model, whisper.n_heads, whisper.n_kv_heads,
+            whisper.d_ff, whisper.vocab) == (12, 768, 12, 12, 3072, 51865)
+    assert (whisper.family, whisper.n_encoder_layers, whisper.pos, whisper.frontend,
+            whisper.cross_len, whisper.learned_pos_len) == (
+        "encdec", 12, "learned", "audio_stub", 1500, 32768)
+    assert (whisper.act, whisper.norm, whisper.head_dim_, whisper.padded_vocab) == (
+        "gelu", "layernorm", 64, 51968)
+    vlm = configs.get_config("internvl2-2b")
+    assert (vlm.n_layers, vlm.d_model, vlm.n_heads, vlm.n_kv_heads, vlm.d_ff, vlm.vocab) == (
+        24, 2048, 16, 8, 8192, 92553)
+    assert (vlm.family, vlm.frontend, vlm.num_patch_tokens, vlm.pos, vlm.padded_vocab) == (
+        "dense", "patch_stub", 256, "rope", 92672)
+    # Every other config keeps RoPE and no frontend.
+    for name in configs.ARCH_NAMES:
+        cfg = configs.get_config(name)
+        if name not in ("whisper-small", "internvl2-2b"):
+            assert (cfg.pos, cfg.frontend, cfg.n_encoder_layers) == ("rope", None, 0)
 
 
 def test_qwen_published_shapes():

@@ -31,7 +31,12 @@ fused-K̂ pool through preemption; the MoE configs, llama4 on both engines
 and deepseek's MLA on the slot engine), the MoE layer's index dispatch
 against its one-hot plain version and the CPU's, and injected NaN rows and
 stuck steps under graph replay leaving the other requests' tokens as a
-clean run's.  Marked
+clean run's; for the enc-dec and VLM slice the forward and backward
+kernels non-causal over 1500 keys at 33, 448 and 1500 rows, the decode
+kernel over whisper-small's 1500-position cross cache and its self cache
+and at internvl2-2b's 2 rows a KV head, and a train
+step and prefill + decode of whisper-small and internvl2-2b (reduced() at
+head dim 64) against the CPU's.  Marked
 ``cuda``; skips without a GPU.  This file imports neither JAX nor the JAX package, so on a machine
 without JAX it runs alone:
 
@@ -727,6 +732,189 @@ def _tree_to(tree, dev):
 
 
 # ---------------------------------------------------------------------------
+# The enc-dec and VLM slice: non-causal kernels at Nq ≠ Nk, and whisper-small
+# and internvl2-2b on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nq", [33, 448, 1500])
+@pytest.mark.parametrize("impl,block_q", [("flash", None), ("distr", 128), ("distr", 64)])
+def test_noncausal_kernels_at_whisper_shapes_match_plain(cuda, dtype, impl, block_q, nq):
+    """The forward (O and LSE) and the three backward kernels non-causal
+    over 1500 keys (whisper-small's frames: the last 64-key tile ragged)
+    at d = 64 and 4 heads, MHA: rows fewer than keys (cross-attention:
+    33 and 448 decoder rows) and as many (the encoder).  DistrAttention
+    at G* = 2 over Q̂ padded to its block, as ``ops.distr_attention``
+    pads it; the pad rows' dO is 0."""
+    bh, nk, d, g = 4, 1500, 64, 2
+    k, v = _randn((bh, nk, d), dtype, 51), _randn((bh, nk, d), dtype, 52)
+    before = dict(bwd.launches)
+    if impl == "flash":
+        q, do = _randn((bh, nq, d), dtype, 50), _randn((bh, nq, d), dtype, 53)
+        kw = dict(q_per_kv=1, scale=d ** -0.5, causal=False, kv_len=nk)
+        o, lse = fk.flash_attention_kernel_call(q, k, v, return_lse=True, **kw)
+        o_p, lse_p = fk.flash_attention_plain(q, k, v, return_lse=True, **kw)
+        args = (q, k, v)
+        dq_call, dkv_call = bwd.flash_dq_kernel_call, bwd.flash_dkv_kernel_call
+        dq_plain, dkv_plain = bwd.flash_dq_plain, bwd.flash_dkv_plain
+    else:
+        n_pad = -(-nq // block_q) * block_q
+        q = torch.nn.functional.pad(_randn((bh, nq, d // g), dtype, 50), (0, 0, 0, n_pad - nq))
+        do = torch.nn.functional.pad(_randn((bh, nq, d), dtype, 53), (0, 0, 0, n_pad - nq))
+        kw = dict(q_per_kv=1, causal=False, group_size=g, block_q=block_q, kv_len=nk)
+        args = (q, k, v, _perms(bh, n_pad, block_q, d))
+        o, lse = dk.distr_attention_kernel_call(*args, return_lse=True, **kw)
+        o_p, lse_p = dk.distr_attention_plain(*args, return_lse=True, **kw)
+        dq_call, dkv_call = bwd.distr_dq_kernel_call, bwd.distr_dkv_kernel_call
+        dq_plain, dkv_plain = bwd.distr_dq_plain, bwd.distr_dkv_plain
+    _close(o, o_p, dtype)
+    torch.testing.assert_close(lse, lse_p, atol=1e-3, rtol=1e-3)
+    delta = bwd.delta_kernel_call(o, do)
+    _bwd_close(delta, bwd.delta_plain(o, do))
+    _bwd_close(dq_call(*args, do, lse, delta, **kw), dq_plain(*args, do, lse, delta, **kw))
+    got = dkv_call(*args, do, lse, delta, **kw)
+    for g_, w_ in zip(got, dkv_plain(*args, do, lse, delta, **kw)):
+        _bwd_close(g_, w_)
+    assert {k_: bwd.launches[k_] - before[k_] for k_ in ("delta", f"{impl}_dq", f"{impl}_dkv")} \
+        == {"delta": 1, f"{impl}_dq": 1, f"{impl}_dkv": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hkv,rows,d,s,lengths", [
+    pytest.param(12, 1, 64, 1500, (1500, 77, 1437, 1500), id="encdec-cross-1500"),
+    pytest.param(12, 1, 64, 128, (5, 18, 41, 65), id="encdec-self"),
+    pytest.param(8, 2, 128, 2048, (353, 457, 774, 1257), id="vlm-16-over-8"),
+])
+def test_encdec_vlm_decode_kernel_at_serving_shapes_matches_plain(cuda, dtype, hkv, rows, d,
+                                                                  s, lengths):
+    """The split-K decode kernel at the shapes the enc-dec and VLM decode
+    steps give it: whisper-small's 1500-position cross cache (12 splits of
+    128, the last 92 keys ragged; lengths cross_len and two ragged ones)
+    and its self cache, one row a KV head at d = 64, and internvl2-2b's 2
+    rows a KV head at d = 128.  NaN in every cache position at or past a
+    slot's length: the partials must equal the plain version's over a zero
+    tail."""
+    b = len(lengths)
+    q = _randn((b, hkv, rows, d), dtype, 57)
+    k, v = _randn((b, hkv, s, d), dtype, 58), _randn((b, hkv, s, d), dtype, 59)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    tail = (torch.arange(s, device="cuda")[None, :] >= lens[:, None])[:, None, :, None]
+    kw = dict(scale=d ** -0.5, block_k=min(128, s), q_len=1)
+    before = dec.launches
+    got = dec.decode_kernel_call(q, k.masked_fill(tail, float("nan")),
+                                 v.masked_fill(tail, float("nan")), lens, **kw)
+    want = dec.decode_plain(q, k.masked_fill(tail, 0), v.masked_fill(tail, 0), lens, **kw)
+    torch.cuda.synchronize()
+    assert dec.launches - before == 1
+    for g_, w_ in zip(got, want):
+        assert torch.isfinite(g_).all()
+        torch.testing.assert_close(g_, w_, atol=1e-4, rtol=1e-4)
+
+
+def _card_config(arch: str, impl: str):
+    """``arch``'s ``reduced()`` at head dim 64 (the kernels' range) and Q
+    blocks of 64 (the DistrAttention kernel's multiple), under ``impl``."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch, reduced=True).replace(head_dim=64)
+    return cfg.replace(attention=replace(cfg.attention, impl=impl,
+                                         distr=replace(cfg.attention.distr, block_q=64)))
+
+
+def _frontend(cfg, b: int, n: int):
+    """The stub frontend's batch entry: (key, (b, n, d_model) f32 on the CPU)."""
+    key = "frames" if cfg.family == "encdec" else "patches"
+    return key, torch.randn((b, n, cfg.d_model), generator=torch.Generator().manual_seed(2))
+
+
+ENCDEC_VLM = [pytest.param("whisper-small", id="encdec-whisper-small"),
+              pytest.param("internvl2-2b", id="vlm-internvl2-2b")]
+
+
+@pytest.mark.parametrize("impl", ["pallas_distr", "pallas_flash"])
+@pytest.mark.parametrize("arch", ENCDEC_VLM)
+def test_encdec_vlm_train_step_on_card_matches_cpu(cuda, arch, impl):
+    """One train step of whisper-small (100 frames: the encoder's and the
+    cross-attention's key tile ragged, 40 tokens) and internvl2-2b (16
+    patches before 40 tokens) ``reduced()`` at head dim 64, f32: the
+    forward and backward kernels of every attention (whisper: encoder,
+    decoder self- and cross-attention), the loss and grad norm against the
+    same step on the CPU's plain versions, every gradient at ``BWD_TOL``."""
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = _card_config(arch, impl)
+    base = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu", dtype=torch.float32)
+    ocfg = opt.OptimizerConfig(peak_lr=1e-3, warmup_steps=1, total_steps=2)
+    toks = torch.randint(0, cfg.vocab, (2, 41), generator=torch.Generator().manual_seed(1))
+    key, emb = _frontend(cfg, 2, 100 if cfg.family == "encdec" else cfg.num_patch_tokens)
+    kernel = impl.split("_")[1]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = {k: _tree_to(v, dev) for k, v in base.items()}
+        batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev),
+                 key: emb.to(dev)}
+        leaves = [p.requires_grad_(True) for p in lm.trainable(params)]
+        grads = torch.autograd.grad(lm.loss_fn(params, cfg, batch)[0], leaves)
+        before = dict(bwd.launches)
+        _, _, metrics = make_train_step(cfg, ocfg)(params, opt.adamw_init(leaves), batch, 1)
+        counts = {k: bwd.launches[k] - before[k] for k in bwd.launches}
+        out[dev] = ([g.cpu() for g in grads], metrics, counts)
+    (grads, metrics, counts), (grads_c, metrics_c, counts_c) = out["cuda"], out["cpu"]
+    calls = 3 * cfg.n_layers if cfg.family == "encdec" else cfg.n_layers
+    assert counts["delta"] == counts[f"{kernel}_dq"] == counts[f"{kernel}_dkv"] == calls
+    assert counts_c == dict.fromkeys(bwd.launches, 0)
+    assert float(metrics["skipped"]) == 0.0
+    for name in ("loss", "grad_norm"):
+        assert float(metrics[name]) == pytest.approx(float(metrics_c[name]), rel=1e-4, abs=1e-4)
+    _grads_close(grads, grads_c, BWD_TOL)
+
+
+@pytest.mark.parametrize("impl", ["pallas_distr", "pallas_flash"])
+@pytest.mark.parametrize("arch", ENCDEC_VLM)
+def test_encdec_vlm_prefill_and_decode_on_card_match_cpu(cuda, arch, impl):
+    """``make_prefill`` with frames (100: the cross cache cut to cross_len
+    64) or 16 patches, then 4 greedy ``make_decode_step`` steps, on the
+    card (forward kernels in the prefill, the decode kernel over the self
+    cache and, for whisper, the cross cache) against the CPU, f32: logits
+    at 1e-4 and the same tokens."""
+    from repro_torch.models import lm
+    from repro_torch.serve.serve_step import make_decode_step, make_prefill
+
+    cfg = _card_config(arch, impl).replace(compute_dtype="float32")
+    base = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu", dtype=torch.float32)
+    toks = torch.randint(0, cfg.vocab, (2, 24), generator=torch.Generator().manual_seed(3))
+    key, emb = _frontend(cfg, 2, 100 if cfg.family == "encdec" else cfg.num_patch_tokens)
+    start = 24 + (0 if cfg.family == "encdec" else cfg.num_patch_tokens)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = {k: _tree_to(v, dev) for k, v in base.items()}
+        before = (dec.launches, fk.launches + dk.launches)
+        logits, cache = make_prefill(cfg, 64)(params, toks.to(dev), **{key: emb.to(dev)})
+        seen = [logits[:, -1].cpu()]
+        nxt = logits[:, -1].argmax(-1)[:, None]
+        step = make_decode_step(cfg)
+        for i in range(4):
+            pos = torch.full((2,), start + i, dtype=torch.int32, device=dev)
+            logits, cache = step(params, nxt, cache, pos)
+            seen.append(logits[:, -1].cpu())
+            nxt = logits[:, -1].argmax(-1)[:, None]
+        runs[dev] = (seen, (dec.launches - before[0], fk.launches + dk.launches - before[1]))
+    (got, counts), (want, counts_c) = runs["cuda"], runs["cpu"]
+    per_layer = 2 if cfg.family == "encdec" else 1
+    assert counts == (4 * per_layer * cfg.n_layers,
+                      (3 if cfg.family == "encdec" else 1) * cfg.n_layers)
+    assert counts_c == (0, 0)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, atol=1e-4, rtol=1e-4)
+        assert torch.equal(g_.argmax(-1), w_.argmax(-1))
+
+
+# ---------------------------------------------------------------------------
 # Serving steps as CUDA graphs (serve/graphs.py) against eager steps
 # ---------------------------------------------------------------------------
 
@@ -769,6 +957,7 @@ def _graph_config(arch: str):
     pytest.param("starcoder2-7b", True, id="starcoder2-7b-fused_k"),
     pytest.param("mamba2-130m", False, id="mamba2-130m"),
     pytest.param("zamba2-7b", False, id="zamba2-7b"),
+    pytest.param("internvl2-2b", False, id="vlm-internvl2-2b"),
 ])
 def test_slot_decode_graph_replay_matches_eager_steps(cuda, arch, fused):
     """The slot decode step as a graph, for each family and over the

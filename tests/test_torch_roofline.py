@@ -57,10 +57,11 @@ def test_constants_are_the_h100s():
     assert (RA.PEAK_FLOPS, RA.HBM_BW) != (TA.PEAK_FLOPS, TA.HBM_BW)
 
 
-# (b, hq, n, nk, d): block_q 128 below, equal to and above nk, and a
-# ragged n.
+# (b, hq, n, nk, d): block_q 128 below, equal to and above nk, a ragged
+# n, and whisper-small's cross-attention (448 decoder rows over 1500
+# encoder keys, a key count no tile divides).
 ATTN_SHAPES = ((1, 4, 256, 256, 64), (2, 8, 128, 128, 128), (1, 2, 256, 64, 64),
-               (1, 36, 2048, 2048, 128), (3, 4, 200, 300, 112))
+               (1, 36, 2048, 2048, 128), (3, 4, 200, 300, 112), (4, 12, 448, 1500, 64))
 
 
 @pytest.mark.parametrize("shape", ATTN_SHAPES, ids=lambda s: "x".join(map(str, s)))
