@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--out PATH] [--only kernels|moe|encdec]
+    python3 chip_smoke.py [--out PATH] [--only kernels|moe|encdec|tune]
 
 In order: prints the card's name and power limit; builds the CUDA kernels
 from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a; counts the bf16
@@ -75,7 +75,19 @@ dropped assignments counted); llama4-scout-17b-a16e at full width cut to
 both impls and on ``PagedServeEngine``, and deepseek-v2-236b (MLA) cut to
 its dense layer and 5 MoE layers on the slot engine under pallas_distr
 and xla_flash, launching no attention kernel (MLA runs none, as in the
-reference).  SSM training: ``ops.ssd``'s gradient
+reference); then both trained 4 steps through
+``repro_torch.launch.train.run`` under pallas_distr with f32 params, grads
+and AdamW moments on the card: llama4-scout-17b-a16e at full width cut
+to one MoE layer (4.27 B params) on 1 × 2048 tokens a step, launching the
+DistrAttention forward and its backward kernels and nothing else, and
+deepseek-v2-236b at reduced() widths on 4 × 2048, launching none.  The
+block-size tuner: after the trace runs, under ``REPRO_TUNE=measure`` with
+a temporary cache, the slot and paged engines' warm-ups at
+starcoder2-7b's serving shapes sweep the decode split and the paged pool
+block (each table logged), the decode and paged kernels are held against
+their plain versions at the picks, a ``PagedServeEngine`` with
+``block_size=None`` serves the serve workload at the picked block, and a
+second construction reads the cache without a sweep.  SSM training: ``ops.ssd``'s gradient
 (the kernel forward, the chunked backward) against autograd through the
 plain version at mamba2-130m's layer shape, and mamba2-130m trained at
 its published size (4 steps of 4 × 2048 tokens, the SSD kernel twice a
@@ -111,8 +123,11 @@ both impls: whisper 4 × 448 tokens over 1500 frames, internvl 2 × (256
 patches + 1792 tokens)), card memory back at each run's start after it.
 
 ``python3 chip_smoke.py --only moe`` builds the kernels and runs only the
-MoE phases, then prints their launches as a JSON line last;
-``--only encdec`` the same for the enc-dec and VLM slice's phases.
+MoE phases (the check, serving and training), then prints their launches
+as a JSON line last;
+``--only encdec`` the same for the enc-dec and VLM slice's phases;
+``--only tune`` the same for the tuner's phase (starcoder2-7b's weights,
+then ``tune_phase``).
 ``python3 chip_smoke.py --serve-load slot|hybrid|paged`` runs none of the
 above: it serves one serve workload as a closed-loop load under both
 impls, the slot workload also over the fused-K̂ cache (timed passes and
@@ -223,6 +238,15 @@ QWEN_KERNEL_SHAPES = (("qwen1.5-4b", 20, 20), ("qwen2.5-32b", 40, 8))
 MOE_SERVE = (("llama4-scout-17b-a16e", 8), ("deepseek-v2-236b", 6))
 # deepseek's MLA runs no kernel under either impl, in the reference too.
 MLA_IMPLS = (("pallas_distr", None), ("xla_flash", None))
+# MoE and MLA training on the card, through launch/train.py::run (arch,
+# reduced widths, layers kept or None for the config's, batch, tokens a
+# row).  llama4-scout-17b-a16e keeps its full width cut to one MoE layer:
+# the layer is 2.20 B params and the untied embedding and head 2.07 B, so
+# f32 params, grads and AdamW moments take 63.7 GiB of the card's 79.1.
+# deepseek-v2-236b's one MoE layer alone is 63.5 GB of such state, so it
+# trains at reduced() widths.
+MOE_TRAIN = (("llama4-scout-17b-a16e", False, 1, 1, 2048),
+             ("deepseek-v2-236b", True, None, TRAIN_BATCH, TRAIN_N))
 # The MoE check: index dispatch against one-hot, element-wise atol = rtol.
 # Both compute the experts in f32 and round y to bf16, so they differ by at
 # most a bf16 rounding step of y; the flash kernels' bf16 tolerance.
@@ -1524,7 +1548,8 @@ def moe_phases(torch) -> dict:
     """The MoE check, then each MoE config served at full width cut in depth
     (MOE_SERVE): llama4-scout-17b-a16e on the slot engine under both kernel
     impls and on ``PagedServeEngine``; deepseek-v2-236b (MLA) on the slot
-    engine under MLA_IMPLS, launching no attention kernel."""
+    engine under MLA_IMPLS, launching no attention kernel; then both
+    trained (``moe_train_phase``)."""
     from repro_torch.configs import get_config
 
     results = {"moe_check": moe_check_phase(torch)}
@@ -1536,7 +1561,100 @@ def moe_phases(torch) -> dict:
         results[f"{arch} serve"] = res["report"]
         for name, count in res["launches"].items():
             launches[name] = launches.get(name, 0) + count
+    train = moe_train_phase(torch)
+    results["moe train"] = train["report"]
+    for name, count in train["launches"].items():
+        launches[name] = launches.get(name, 0) + count
     return {"results": results, "launches": launches}
+
+
+def moe_train_phase(torch, device="cuda", configs=MOE_TRAIN, steps=TRAIN_STEPS) -> dict:
+    """Each MOE_TRAIN config under pallas_distr, seeded random f32 params,
+    trained ``steps`` steps through the launcher's run function (AdamW,
+    full remat; every param, grad and moment on the card).  Raises if a
+    loss or grad norm is not finite, a step was skipped, card memory is not
+    back at the run's start once its params are dropped, or the launches
+    leave the path: llama4-scout-17b-a16e runs the DistrAttention forward
+    at least once a layer and step (again in the recompute) and delta, dq
+    and dkv once, and no other kernel; deepseek-v2-236b's MLA runs no
+    kernel at all, as in the reference.  Logs the step times, tok/s after
+    the warm-up step and the peak allocated memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import init_train_params, run
+    from repro_torch.models import lm
+    from repro_torch.serve.graphs import LaunchCounters
+
+    counters = LaunchCounters()
+    launches = {"distr": 0, "delta": 0, "distr_dq": 0, "distr_dkv": 0}
+    report = {}
+    for arch, reduced, n_layers, batch, seq in configs:
+        cfg = get_config(arch, reduced=reduced)
+        if n_layers is not None:
+            cfg = cfg.replace(n_layers=n_layers)
+        cfg = cfg.replace(attention=cfg.attention.with_impl("pallas_distr"))
+        name = f"{arch}{' reduced()' if reduced else ''} {cfg.n_layers} layer(s)"
+        base = torch.cuda.memory_allocated() if device == "cuda" else None
+        t0 = time.perf_counter()
+        params = init_train_params(cfg, seed=0, device=device)
+        n_params = sum(t.numel() for t in lm.trainable(params))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        log(f"[train {name}] {n_params} params (f32) on {device} in "
+            f"{time.perf_counter() - t0:.1f}s; f32 params, grads and AdamW moments "
+            f"{16 * n_params / 2**30:.2f} GiB")
+        before = counters.read()
+        res = run(cfg, params, steps=steps, batch=batch, seq=seq, lr=1e-3, seed=0,
+                  device=device)
+        after = counters.read()
+        counts = {k: after[k] - before[k] for k in after}
+        hist = res["history"]
+        peak = res["max_memory_allocated"]
+        steady = res["step_times"][1:]
+        step_s = sum(steady) / len(steady)
+        log(f"[train {name}] losses {[r['loss'] for r in hist]} grad norms "
+            f"{[r['grad_norm'] for r in hist]}")
+        log(f"[train {name}] {batch} x {seq} tokens a step; step times {res['step_times']} s; "
+            f"mean steady step {step_s:.4f} s; {res['tok_per_s']:.1f} tok/s after the warm-up "
+            f"step; peak allocated {(peak or 0) / 2**30:.2f} GiB; launches {counts}")
+        bad = [r for r in hist if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]))]
+        if bad or res["nan_skips"] or len(hist) != steps:
+            raise AssertionError(f"train {name}: non-finite or skipped steps: {bad}, "
+                                 f"{res['nan_skips']} skipped, {len(hist)} of {steps} steps")
+        if cfg.use_mla:
+            on, per_step = {}, 0
+        else:
+            per_step = cfg.n_layers * steps
+            on = {"backward.delta": per_step, "backward.distr_dq": per_step,
+                  "backward.distr_dkv": per_step}
+        fwd = counts["distr_attention"]
+        if (any(counts[k] != n for k, n in on.items()) or fwd < per_step
+                or (cfg.use_mla and fwd)
+                or any(counts[k] for k in counts if k not in on and k != "distr_attention")):
+            raise AssertionError(f"train {name}: launches off the path: {counts}")
+        launches["distr"] += fwd
+        for k in on:
+            launches[k.split(".", 1)[1]] += counts[k]
+        top = []
+        if device == "cuda":
+            # One more step of the same trainer under the profiler (its
+            # launches not counted): the device's time and its largest ops.
+            before = counters.read()
+            top, device_ms = _device_ms_by_op(torch, res["trainer"].step_once)
+            after = counters.read()
+            counters.add({k: before[k] - after[k] for k in after})
+            log(f"[train {name}] profiled step: {device_ms:.1f} ms of device time "
+                f"({device_ms / 1e3 / step_s:.1%} of the mean steady step); largest ops "
+                + ", ".join(f"{op} {ms:.1f} ms" for op, ms in top[:6]))
+        report[name] = {"n_params": n_params, "batch": batch, "seq": seq, "top_ops_ms": top[:10],
+                        "losses": [r["loss"] for r in hist],
+                        "grad_norms": [r["grad_norm"] for r in hist],
+                        "step_times": res["step_times"], "step_s": step_s,
+                        "tok_per_s": res["tok_per_s"], "max_memory_allocated": peak,
+                        "launches": counts}
+        del params, res
+        if device == "cuda":
+            free_card(torch, f"{name} training", gate=False, base=base)
+    return {"launches": launches, "report": report}
 
 
 def time_moe(torch, fn) -> float:
@@ -1859,6 +1977,156 @@ def trace_phase(torch, params, base=None, device="cuda") -> dict:
     return {"launches": launches, "report": report}
 
 
+def tune_phase(torch, params) -> dict:
+    """The block-size tuner under ``REPRO_TUNE=measure`` with a fresh cache
+    in a temporary directory (``REPRO_TUNE_CACHE``) at starcoder2-7b's
+    serving shapes: the slot engine's warm-up (``tune.warm_engine``: the
+    prefill buckets, whose flash tile is compiled and only recorded, and the
+    decode split at capacity 2048, swept over DECODE_LENGTHS' 4 slots of 36
+    over 4 heads of 128) and the paged engine's (the pool block size, swept
+    over PAGED_LENGTHS' 8 lanes), each sweep table logged with every
+    candidate's median, spread and the copies of K/V each run cycles
+    through (over twice the L2), and whether the pick left the static 128.  The decode and paged kernels are held
+    element-wise against their plain versions at the picked split and
+    block, at the serving shapes (TOL["decode"]).  A ``PagedServeEngine``
+    with ``block_size=None`` takes the picked block and serves the serve
+    workload (SERVE_PROMPTS, 32 new tokens, pallas_flash, raw K) to
+    completion; a second construction, by a fresh tuner, reads the JSON
+    cache and sweeps nothing.  Raises if a sweep skipped a candidate, a
+    check fails, a request is not done or the second construction swept."""
+    import os
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode as dec
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels.ops import _pack_gqa_rows
+    from repro_torch.obs.trace import TraceRecorder, set_recorder
+    from repro_torch.serve.engine import PagedServeEngine
+    from repro_torch.tune import (decode_candidates, paged_block_candidates, reset_autotuner,
+                                  warm_engine, warm_paged_engine)
+
+    base = get_config("starcoder2-7b")
+    cfg = base.replace(attention=base.attention.with_impl("pallas_flash"))
+    d, hq, hkv, s = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads, 2048
+    tmp = tempfile.mkdtemp(prefix="repro_torch_tune_")
+    saved = {k: os.environ.get(k) for k in ("REPRO_TUNE", "REPRO_TUNE_CACHE")}
+    os.environ.update(REPRO_TUNE="measure", REPRO_TUNE_CACHE=os.path.join(tmp, "tune.json"))
+    rec = TraceRecorder()
+    set_recorder(rec)
+    reset_autotuner(None)
+    report, launches = {}, {"paged": 0}
+    try:
+        t0 = time.perf_counter()
+        slot = warm_engine(cfg, s, device="cuda", lengths=DECODE_LENGTHS)
+        paged = warm_paged_engine(cfg, s, device="cuda", lengths=PAGED_LENGTHS)
+        warm_s = time.perf_counter() - t0
+        bk, bs = slot["decode"].decode(), paged["paged_decode"]
+        entries = json.loads(Path(os.environ["REPRO_TUNE_CACHE"]).read_text())
+        for key, entry in sorted(entries.items()):
+            log(f"[tune] {key}: best {entry['best']}"
+                + ("" if entry.get("compiled") else
+                   f" (static {entry['default']}, {entry['calls']} K/V copies a run)")
+                + "; " + ", ".join(
+                    f"{r['candidate']}: " + ("compiled" if r["seconds"] is None else
+                                             f"{r['seconds'] * 1e3:.5f} ± "
+                                             f"{r['spread'] * 1e3:.5f} ms")
+                    for r in entry["table"]))
+        sweeps = {e["kernel"]: e for e in entries.values() if not e.get("compiled")}
+        want = {"decode": decode_candidates(s), "paged_decode": paged_block_candidates(s)}
+        for kernel, cands in want.items():
+            timed = sorted(r["candidate"] for r in sweeps[kernel]["table"])
+            if timed != sorted(cands) or not all(
+                    math.isfinite(r["seconds"]) and r["seconds"] > 0
+                    for r in sweeps[kernel]["table"]):
+                raise AssertionError(f"tune {kernel}: timed {timed} of {cands}")
+        n_measure = sum(e["name"] == "tune/measure" for e in rec.events)
+        log(f"[tune] warm-ups {warm_s:.1f}s, {n_measure} sweeps; decode split {bk} "
+            f"({slot['decode'].num_splits} splits), paged block {bs}; {gpu_name_and_power()}")
+        if n_measure != 2:
+            raise AssertionError(f"tune: {n_measure} sweeps, want the decode and paged keys")
+
+        # The kernels at the picked values against their plain versions.
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        err = {"decode": 0.0, "paged": 0.0}
+        lens = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
+        q = torch.randn((len(DECODE_LENGTHS), hq, 1, d), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((len(DECODE_LENGTHS), hkv, s, d), generator=gen,
+                            device="cuda").to(torch.bfloat16) for _ in range(2))
+        kw = dict(scale=d ** -0.5, block_k=bk, q_len=1)
+        qp = _pack_gqa_rows(q, hkv)
+        got = dec.merge_splits(*dec.decode_kernel_call(qp, k, v, lens, **kw))
+        plain = dec.merge_splits(*dec.decode_plain(qp, k, v, lens, **kw))
+        err["decode"] = check_close(torch, f"tune decode block_k={bk}", got, plain, TOL["decode"])
+        b = len(PAGED_LENGTHS)
+        mb = -(-max(PAGED_LENGTHS) // bs)
+        k_pool, v_pool = (torch.randn((1 + b * mb, hkv, bs, d), generator=gen,
+                                      device="cuda").to(torch.bfloat16) for _ in range(2))
+        tables = (torch.randperm(b * mb, generator=gen, device="cuda") + 1).reshape(b, mb)
+        tables = tables.to(torch.int32)
+        plens = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device="cuda")
+        for q_len in (1, 32):
+            qc = torch.randn((b, hq, q_len, d), generator=gen, device="cuda").to(torch.bfloat16)
+            kw = dict(scale=d ** -0.5, q_len=q_len)
+            args = (_pack_gqa_rows(qc, hkv), k_pool, v_pool, tables, plens)
+            got = dec.merge_splits(*pd.paged_decode_kernel_call(*args, **kw))
+            plain = dec.merge_splits(*pd.paged_decode_plain(*args, **kw))
+            err["paged"] = max(err["paged"], check_close(
+                torch, f"tune paged block={bs} q_len={q_len}", got, plain, TOL["decode"]))
+        del q, k, v, k_pool, v_pool, got, plain
+
+        # The paged engine shaped by the tuner, serving the serve workload.
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(1, cfg.vocab, size=n).tolist() for n in SERVE_PROMPTS]
+        eng = PagedServeEngine(cfg, params, max_batch=4, max_len=s, block_size=None,
+                               prefill_chunk=32, device="cuda")
+        if eng.block_size != bs or eng.tuned_blocks != {"paged_decode": bs}:
+            raise AssertionError(f"tune: engine block {eng.block_size}, {eng.tuned_blocks}; "
+                                 f"picked {bs}")
+        pd.launches = 0
+        t0 = time.perf_counter()
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=32)
+        done = eng.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["paged"] = pd.launches
+        n_tok = sum(len(r.generated) for r in done)
+        log(f"[tune] PagedServeEngine at block {bs}: {len(done)} requests, {n_tok} tokens in "
+            f"{wall:.2f}s ({n_tok / wall:.1f} tok/s); paged launches {pd.launches}")
+        if len(done) != len(prompts) or any(
+                r.status != "done" or len(r.generated) != 32 for r in done) or not pd.launches:
+            raise AssertionError("tune: the paged engine's requests are not done")
+        del eng
+        reset_autotuner(None)  # a fresh tuner: the second construction reads the file
+        again = PagedServeEngine(cfg, params, max_batch=4, max_len=s, block_size=None,
+                                 prefill_chunk=32, device="cuda")
+        n_after = sum(e["name"] == "tune/measure" for e in rec.events)
+        if again.block_size != bs or n_after != n_measure:
+            raise AssertionError(f"tune: the second construction took block "
+                                 f"{again.block_size} with {n_after - n_measure} new sweeps")
+        log(f"[tune] a second PagedServeEngine read block {again.block_size} from the cache, "
+            "no sweep")
+        del again
+        report = {"decode_block_k": bk, "paged_block_size": bs, "warm_s": warm_s,
+                  "sweeps": {k: {f: e[f] for f in ("table", "default", "best", "calls")}
+                             for k, e in sweeps.items()}, "max_abs_err": err,
+                  "paged_serve_wall_s": wall, "paged_serve_tok_per_s": n_tok / wall}
+    finally:
+        for key, val in saved.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+        reset_autotuner(None)
+        set_recorder(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return {"launches": launches, "report": report}
+
+
 def paged_serve_phase(torch, params) -> dict:
     """starcoder2-7b at full width through ``PagedServeEngine`` with the slot
     phase's weights: 8 requests (prompts PAGED_PROMPTS, greedy), 8 lanes,
@@ -1971,6 +2239,22 @@ def _attention_device_ms(torch, run_one) -> tuple[float, float, dict]:
                 attn += us
                 by_name[name] = by_name.get(name, 0.0) + us / 1e3
     return attn / 1e3, total / 1e3, by_name
+
+
+def _device_ms_by_op(torch, run_one) -> tuple[list, float]:
+    """Profile ``run_one()`` → ([(op, device ms)] largest first, all device
+    ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_one()
+        torch.cuda.synchronize()
+    ops = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if us:
+            ops[e.key] = ops.get(e.key, 0.0) + us / 1e3
+    return sorted(ops.items(), key=lambda kv: -kv[1]), sum(ops.values())
 
 
 def train_phase(torch) -> dict:
@@ -2447,7 +2731,7 @@ def step_serve(torch, cfg, params, prompt_lens, *, frames=None, patches=None,
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t_witness = time.perf_counter() - t_witness
-    decode = StepGraph(make_decode_step(cfg), inputs=(1, 3))
+    decode = StepGraph(make_decode_step(cfg, max_len=max_len, device="cuda"), inputs=(1, 3))
     generated = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2936,11 +3220,12 @@ def serve_load(torch, workload: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="also write the results as JSON here")
-    ap.add_argument("--only", choices=("kernels", "moe", "encdec"), default=None,
+    ap.add_argument("--only", choices=("kernels", "moe", "encdec", "tune"), default=None,
                     help="kernels: stop after the kernel phases; moe: run only the MoE "
                          "check and the MoE configs' serving; encdec: run only the "
                          "non-causal kernel checks and whisper-small's and internvl2-2b's "
-                         "serving and training; both print a JSON summary")
+                         "serving and training; tune: run only the tuner's phase; "
+                         "each prints a JSON summary")
     ap.add_argument("--serve-load", choices=("slot", "paged", "hybrid"), default=None,
                     help="only serve this workload as a closed-loop load under both impls "
                          "(timed passes and the device's busy share), no checks")
@@ -2985,6 +3270,20 @@ def main() -> int:
             Path(args.out).write_text(json.dumps({"card": card, **moe["results"]}, indent=1))
         log(card)
         print(json.dumps({"launches": moe["launches"]}), flush=True)
+        return 0
+    if args.only == "tune":
+        from repro_torch.configs import get_config
+        from repro_torch.models import lm
+
+        params = lm.init_params(get_config("starcoder2-7b"),
+                                torch.Generator(device="cuda").manual_seed(0), "cuda")
+        tuned = tune_phase(torch, params)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps({"card": card, "tune": tuned["report"]},
+                                                 indent=1))
+        log(card)
+        print(json.dumps({"launches": tuned["launches"]}), flush=True)
         return 0
     if args.only == "encdec":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -3078,10 +3377,14 @@ def main() -> int:
         results["chaos"] = chaos["report"]
         traced = trace_phase(torch, params)
         results["trace"] = traced["report"]
+        tuned = tune_phase(torch, params)
+        results["tune"] = tuned["report"]
+        dec["max_abs_err"] = max(dec["max_abs_err"], tuned["report"]["max_abs_err"]["decode"])
+        pdec["max_abs_err"] = max(pdec["max_abs_err"], tuned["report"]["max_abs_err"]["paged"])
         del params
         free_card(torch, "starcoder2-7b serving")
         for name, count in (*fused["launches"].items(), *chaos["launches"].items(),
-                            *traced["launches"].items()):
+                            *traced["launches"].items(), *tuned["launches"].items()):
             launches[name] += count
         for arch, n_layers in QWEN_SERVE:
             res = model_serve_phase(torch, arch, n_layers, scores=arch == "qwen1.5-4b")

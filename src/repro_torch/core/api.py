@@ -10,9 +10,14 @@
   pallas_distr — hand-written DistrAttention CUDA kernel (plain version on
                  the CPU)
 
-Block sizes are static: ``None`` resolves to 128, and the decode split to
-``min(128, cache length)``.  The paged decode path splits once per pool
-block.
+Block sizes resolve through the tuner (``repro_torch.tune``) under
+``REPRO_TUNE=off|analytic|measure`` (``resolve_attention_blocks``): the
+decode split (``block_k_decode=None``), DistrAttention's ``block_q``
+(``DistrConfig.block_q=None``) and the paged pool's block size (chosen by
+``PagedServeEngine``; the paged decode path splits once per pool block).
+Unset (``off``) they are the static values: 128, and the decode split
+``min(128, cache length)``.  The flash kernel's tiles and the backward
+kernels' are compiled into the kernels, and ``xla_flash`` keeps 128.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch
 from repro_torch.core import grouping
 from repro_torch.core.distr_attention import DEFAULT_BLOCK, DistrConfig, distr_attention
 from repro_torch.core.flash_reference import blockwise_flash_reference, reference_attention
+from repro_torch.tune.block_sizes import BlockSizes
 
 IMPLS = ("reference", "xla_flash", "distr", "pallas_flash", "pallas_distr")
 
@@ -34,7 +40,8 @@ class AttentionConfig:
     # Tiles of the exact blockwise path; None → 128.
     block_q: int | None = None
     block_k: int | None = None
-    # Decode split-K length; None → min(128, cache length).
+    # Decode split-K length; None → the tuner's (REPRO_TUNE; off:
+    # min(128, cache length)).
     block_k_decode: int | None = None
     # Serve-side fused-K̂ decode cache under a static permutation
     # (serve.kv_cache): the paged pool keeps K̂ (d/G* wide) and no raw K.
@@ -53,6 +60,32 @@ class AttentionConfig:
             return self
         impl = "pallas_distr" if self.impl.startswith("pallas") else "distr"
         return replace(self, impl=impl, distr=replace(self.distr, group_size=group_size))
+
+
+def resolve_attention_blocks(cfg: AttentionConfig, *, d: int, n_q: int, n_k: int | None = None,
+                             dtype: str = "float32", causal: bool = False, bwd: bool = False,
+                             device="cuda") -> BlockSizes:
+    """The ``BlockSizes`` one dispatch site runs.
+
+    ``pallas_flash``: the kernels' compiled tiles (the config's ints do not
+    reach the kernel).  ``xla_flash``: the config's ints, a free one 128.
+    The distr impls: ``DistrConfig.block_q`` if set, else the tuner's
+    under (impl kind, backend, dtype, d, G*, seq-bucket, causal), with the
+    kernel's KV tile.  ``bwd=True`` (training's warm-up) also fills the
+    backward kernels' tiles.  Under ``REPRO_TUNE=measure`` a key not yet
+    cached is swept on ``device`` here.
+    """
+    from repro_torch.tune.autotune import resolve_block_sizes
+
+    n = max(n_q, n_k if n_k is not None else n_q)
+    kw = dict(d=d, n=n, dtype=dtype, causal=causal, bwd=bwd, device=device)
+    if cfg.impl in ("distr", "pallas_distr"):
+        return resolve_block_sizes("distr" if cfg.impl == "pallas_distr" else "xla_distr",
+                                   group_size=cfg.distr.group_size,
+                                   block_q=cfg.distr.block_q, **kw)
+    if cfg.impl == "pallas_flash":
+        return resolve_block_sizes("flash", **kw)
+    return BlockSizes.from_pair(cfg.block_q or DEFAULT_BLOCK, cfg.block_k or DEFAULT_BLOCK)
 
 
 def attend(q, k, v, cfg: AttentionConfig, *, causal: bool = False,

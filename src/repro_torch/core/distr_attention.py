@@ -27,8 +27,9 @@ class DistrConfig:
 
     group_size: the sampling rate G* (2, 4, 8, 16); d_eff = d / G*.
     block_q: the Q block of §3.3.1 and the LSH permutation granularity;
-      ``None`` takes the static default 128.  (The KV tile is the kernel's
-      own choice.)
+      ``None`` is resolved by the block-size tuner (``repro_torch.tune``,
+      ``REPRO_TUNE``) where the shape is known, and is 128 where it is
+      not.  (The KV tile is the kernel's own choice.)
     estimator: "sample" (paper) | "mean" (beyond-paper).
     shared_kv_perm: one permutation per KV group, hashed from the group's
       mean query block (beyond-paper).
@@ -46,9 +47,23 @@ class DistrConfig:
     def d_eff(self, d: int) -> int:
         return d // self.group_size
 
-    def resolved(self) -> "DistrConfig":
-        """Static block size: ``None`` becomes 128."""
-        return replace(self, block_q=self.block_q or DEFAULT_BLOCK)
+    def resolved(self, d: int | None = None, n: int | None = None, *,
+                 dtype: str = "float32", causal: bool = False, xla: bool = True,
+                 device="cuda") -> "DistrConfig":
+        """An explicit ``block_q`` passes through.  ``None`` becomes 128 with
+        no shape, and with one (head dim ``d``, sequence length ``n``) goes
+        through the tuner: kernel ``xla_distr`` for the plain impl (``xla``),
+        ``distr_fwd`` for the kernel, timed on ``device`` under
+        ``REPRO_TUNE=measure``."""
+        if self.block_q is not None:
+            return self
+        if d is None or n is None:
+            return replace(self, block_q=DEFAULT_BLOCK)
+        from repro_torch.tune.autotune import resolve_block_sizes
+
+        bs = resolve_block_sizes("xla_distr" if xla else "distr", d=d, n=n, dtype=dtype,
+                                 group_size=self.group_size, causal=causal, device=device)
+        return replace(self, block_q=bs.block_q)
 
 
 def default_projection(cfg: DistrConfig, device=None) -> torch.Tensor:
@@ -56,6 +71,25 @@ def default_projection(cfg: DistrConfig, device=None) -> torch.Tensor:
     gen = torch.Generator().manual_seed(cfg.proj_seed)
     proj = lsh.make_projection(gen, cfg.resolved().block_q)
     return proj.to(device) if device is not None else proj
+
+
+def resolve_at(cfg: DistrConfig, q: torch.Tensor, k: torch.Tensor, proj, *, causal: bool,
+               xla: bool):
+    """(cfg with ``block_q`` resolved at this call's shape, the projection
+    to hash with).  A tuned ``block_q`` redraws a given projection of
+    another length from ``proj_seed`` (the models hold the one drawn at
+    128); a pinned ``block_q`` must match the projection it is given."""
+    from repro_torch.tune.cache import dtype_str
+
+    tuned = cfg.block_q is None
+    cfg = cfg.resolved(q.shape[-1], max(q.shape[2], k.shape[2]), dtype=dtype_str(q),
+                       causal=causal, xla=xla, device=q.device)
+    if proj is not None and proj.shape[-1] != cfg.block_q:
+        if not tuned:
+            raise ValueError(f"LSH projection over {proj.shape[-1]} rows given for "
+                             f"block_q={cfg.block_q}")
+        proj = None
+    return cfg, proj
 
 
 def pad_to_multiple(x: torch.Tensor, block: int, dim: int) -> torch.Tensor:
@@ -120,7 +154,7 @@ def distr_attention(q, k, v, cfg: DistrConfig = DistrConfig(), *,
     before the scale, the masks and the softmax: MLA's RoPE dimensions,
     whose rotation pairs a fusion of columns would break.
     """
-    cfg = cfg.resolved()
+    cfg, proj = resolve_at(cfg, q, k, proj, causal=causal, xla=True)
     b, hq, n, d = q.shape
     dv = v.shape[-1]
     n_kv, nk = k.shape[1], k.shape[2]

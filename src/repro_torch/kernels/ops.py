@@ -21,7 +21,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.distr_attention import (
-    DistrConfig, block_permutations, default_projection, pad_to_multiple, sample_q,
+    DEFAULT_BLOCK, DistrConfig, block_permutations, default_projection, pad_to_multiple,
+    resolve_at, sample_q,
 )
 from repro_torch.core import grouping, lsh
 from repro_torch.kernels import backward as bwd
@@ -32,7 +33,7 @@ from repro_torch.kernels.flash_attention import flash_attention_kernel_call
 from repro_torch.kernels.paged_decode import paged_decode_kernel_call
 from repro_torch.kernels.ssd import ssd_kernel_call
 
-DEFAULT_DECODE_BLOCK = 128
+DEFAULT_DECODE_BLOCK = DEFAULT_BLOCK  # the split REPRO_TUNE=off resolves to
 
 __all__ = [
     "attention_cost", "decode_attention", "distr_attention", "distr_dq_from_dq_hat",
@@ -222,7 +223,7 @@ def distr_attention(q, k, v, cfg: DistrConfig = DistrConfig(), *,
     q: (B, Hq, N, d); k, v: (B, Hkv, Nk, d) → (B, Hq, N, d).  Q is zero-padded
     to block_q (the pad rows enter the last block's hash, as in the
     reference); K/V are not padded."""
-    cfg = cfg.resolved()
+    cfg, proj = resolve_at(cfg, q, k, proj, causal=causal, xla=False)
     scale = float(scale) if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
     if _wants_grad(q, k, v):
         return _DistrAttention.apply(q, k, v, cfg, causal, scale, proj)
@@ -248,7 +249,9 @@ def decode_attention(q, k, v, *, lengths: torch.Tensor | None = None,
     counts (None ⇒ all S live; clamped to S).  The fused-K̂ variant takes
     ``k_fused`` (B, Hkv, S, d/G*), the static ``perm`` (Hkv, d) and
     ``group_size``; ``k`` may then be None.  ``scale`` refers to the full
-    head dim.  Returns (B, Hq, q_len, d) in q's dtype.
+    head dim.  ``block_k`` is the split length; None takes the tuner's
+    (``REPRO_TUNE``; unset: DEFAULT_DECODE_BLOCK), capped at S.  Returns
+    (B, Hq, q_len, d) in q's dtype.
     """
     b, hq, q_len, _ = q.shape
     d = v.shape[-1]
@@ -261,7 +264,13 @@ def decode_attention(q, k, v, *, lengths: torch.Tensor | None = None,
     else:
         k_score, q_score = k, q
     hkv, s_len = k_score.shape[1], k_score.shape[2]
-    block_k = min(block_k or DEFAULT_DECODE_BLOCK, s_len)
+    if block_k is None:
+        from repro_torch.tune.autotune import resolve_decode_block
+        from repro_torch.tune.cache import dtype_str
+
+        block_k = resolve_decode_block(d=d, n=s_len, dtype=dtype_str(q), group_size=group_size,
+                                       device=q.device)
+    block_k = min(block_k, s_len)
     if lengths is None:
         lengths = torch.full((b,), s_len, dtype=torch.int32, device=q.device)
     lengths = torch.clamp(lengths.to(torch.int32), max=s_len)

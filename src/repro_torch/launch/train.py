@@ -18,8 +18,12 @@ newest verified one and keeps the anomaly guard on (``--anomaly-z``,
 ``--max-rollbacks``).  ``--trace PATH`` writes a Chrome trace of
 the per-step spans and the checkpoint and rollback instants,
 ``--metrics-out PATH`` the trainer's metrics snapshot
-(``obs.metrics.train_registry``).  Loading weights from disk, the
-supervisor (``--supervise``) and the tuner (``--tune``) are not ported yet.
+(``obs.metrics.train_registry``).  ``--tune off|analytic|measure`` sets
+``REPRO_TUNE`` (default: the environment's); the run then resolves the
+training shape's attention blocks, forward and backward, before its first
+step, so under ``measure`` a sweep runs there and never inside a step.
+Loading weights from disk and the supervisor (``--supervise``) are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -32,13 +36,14 @@ import tempfile
 import torch
 
 from repro_torch.configs import ARCH_NAMES, get_config
-from repro_torch.core.api import IMPLS
+from repro_torch.core.api import IMPLS, resolve_attention_blocks
 from repro_torch.models import lm
 from repro_torch.obs import TraceRecorder, set_recorder, train_registry
 from repro_torch.train.anomaly import AnomalyConfig
 from repro_torch.train.data import BinaryShardData, SyntheticLMData
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.trainer import Trainer
+from repro_torch.tune.autotune import tune_mode, tuned_attention
 from repro_torch.utils.device import resolve_device
 
 
@@ -57,6 +62,19 @@ def init_train_params(cfg, *, seed: int = 0, device: str | torch.device = "cuda"
     dev = resolve_device(device)
     return lm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev,
                           dtype=lm.param_dtype(cfg))
+
+
+def warm_train(cfg, seq: int, *, device: str | torch.device = "cuda"):
+    """Resolve (under ``REPRO_TUNE=measure``: sweep and persist) the
+    attention blocks of a ``seq``-token training step, forward and
+    backward → their ``BlockSizes``, or None for a model that runs no
+    attention kernel (the reference impl, MLA, the SSM family)."""
+    if not tuned_attention(cfg):
+        return None
+    return resolve_attention_blocks(
+        cfg.attention, d=cfg.head_dim_, n_q=seq,
+        dtype="bfloat16" if cfg.compute_dtype == "bfloat16" else "float32", causal=True,
+        bwd=True, device=resolve_device(device))
 
 
 def run(cfg, params: dict, *, steps: int = 10, batch: int = 8, seq: int = 128,
@@ -124,12 +142,17 @@ def main(argv: list[str] | None = None) -> dict:
                          "back to the last verified checkpoint; 0 disables the guard)")
     ap.add_argument("--max-rollbacks", type=int, default=3,
                     help="consecutive no-progress anomaly rollbacks before the run halts")
+    ap.add_argument("--tune", choices=("off", "analytic", "measure"), default=None,
+                    help="block-size autotuning mode (sets REPRO_TUNE; default: the "
+                         "environment's)")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write a Chrome trace_event JSON of the run")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write a typed metrics snapshot of the run")
     args = ap.parse_args(argv)
 
+    if args.tune:
+        os.environ["REPRO_TUNE"] = args.tune
     cfg = get_config(args.arch, reduced=args.reduced)
     workdir = args.workdir or default_workdir(args.arch, args.reduced)
     print(f"[train] checkpoints in {workdir}")
@@ -138,8 +161,11 @@ def main(argv: list[str] | None = None) -> dict:
     rec = None
     if args.trace:
         rec = TraceRecorder()
-        set_recorder(rec)
+        set_recorder(rec)  # the tuner's sweeps ride the global recorder
     try:
+        blocks = warm_train(cfg, args.seq, device=args.device)
+        if blocks is not None:
+            print(f"[train] attention blocks ({tune_mode()}): {blocks}")
         params = init_train_params(cfg, seed=args.seed, device=args.device)
         out = run(cfg, params, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
                   grad_accum=args.grad_accum, seed=args.seed, device=args.device,

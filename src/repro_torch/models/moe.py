@@ -19,9 +19,9 @@ hold the index form against.
 Every shape depends on T alone, and nothing is read back to the host, so a
 decode step that holds a MoE layer can be captured as a CUDA graph.  The
 experts run in f32, as in the reference (it casts the dispatched tokens to
-f32 and upcasts the bf16 expert weights inside its einsums); the weights are
-upcast a chunk of experts at a time, so the f32 copy never exceeds
-``EXPERT_CHUNK_BYTES``.  The shared expert, when the config has one, is a
+f32 and upcasts the bf16 expert weights inside its einsums); bf16 weights
+are upcast a chunk of experts at a time, so the f32 copy never exceeds
+``EXPERT_CHUNK_BYTES``, and f32 weights run in one product.  The shared expert, when the config has one, is a
 SwiGLU MLP over every token in x's dtype.
 """
 from __future__ import annotations
@@ -90,7 +90,13 @@ def queue_ranks(ids: torch.Tensor, n_experts: int) -> torch.Tensor:
 
 
 def _expert_chunk(w: dict) -> int:
-    """Experts a chunk of the f32 weight upcast holds."""
+    """Experts a chunk of the f32 weight upcast holds: all of them when the
+    weights are f32 already (training's master weights), since ``.float()``
+    then copies nothing, and slicing them would only make the backward
+    build a zero-filled gradient of the whole stack for every chunk."""
+    e = next(iter(w.values())).shape[0]
+    if all(t.dtype == torch.float32 for t in w.values()):
+        return e
     per_expert = sum(t[0].numel() for t in w.values()) * 4
     return max(1, EXPERT_CHUNK_BYTES // per_expert)
 

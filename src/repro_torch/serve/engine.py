@@ -52,6 +52,7 @@ from repro_torch.serve.graphs import StepGraph
 from repro_torch.serve.lifecycle import IncompleteRun
 from repro_torch.serve.sampler import sample
 from repro_torch.serve.scheduler import Scheduler, SchedulerConfig
+from repro_torch.tune.autotune import warm_engine, warm_paged_engine
 from repro_torch.serve.serve_step import (
     make_decode_step, make_degraded_paged_prefill, make_paged_step, make_prefill,
 )
@@ -107,7 +108,9 @@ class ServeEngine:
 
     Under ``attention.distr_decode`` a dense model decodes from the fused
     K̂ cache under static ``perms`` (L, Hkv, dh) (None draws the port's
-    own).  ``device`` defaults to CUDA and raises when it is absent."""
+    own).  Construction resolves the block-size keys the steps hit
+    (``tune.warm_engine``, ``REPRO_TUNE``) into ``tuned_blocks``.
+    ``device`` defaults to CUDA and raises when it is absent."""
 
     def __init__(self, cfg, params, *, max_slots: int = 8, max_len: int = 512,
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
@@ -142,6 +145,11 @@ class ServeEngine:
         self._uid = itertools.count()
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
 
+        # Every block-size key the steps hit (prefill buckets, the decode
+        # split), resolved before the first request: under
+        # REPRO_TUNE=measure the sweeps run and persist here, once, never
+        # inside a step or a captured decode graph.
+        self.tuned_blocks = warm_engine(cfg, max_len, device=self.device, batch=max_slots)
         self.cache = kv_cache.init_cache(cfg, max_slots, max_len, device=self.device)
         self.pos = torch.zeros((max_slots,), dtype=torch.int32, device=self.device)
         self.tokens = torch.zeros((max_slots, 1), dtype=torch.int64, device=self.device)
@@ -456,8 +464,9 @@ class PagedServeEngine:
     GQA dense and moe only (MLA keeps the slot engine); a dense model keeps
     fused-K̂ pools under ``attention.distr_decode`` with static ``perms``
     (L, Hkv, dh) (None draws the port's own).
-    ``block_size=None`` resolves to 128, the reference's value without its
-    tuner.  ``device`` defaults to CUDA and raises when it is absent.
+    ``block_size=None`` takes the tuner's pool block (``REPRO_TUNE``;
+    unset: 128), recorded in ``tuned_blocks``.  ``device`` defaults to CUDA
+    and raises when it is absent.
     """
 
     #: Decode slides past capacity by recycling head blocks.
@@ -487,7 +496,14 @@ class PagedServeEngine:
         self._uid = itertools.count()
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
 
-        self.block_size = min(block_size or 128, max_len)
+        # The pool block is also the allocator's granularity: resolve it
+        # (REPRO_TUNE) before the pools are shaped by it.  An explicit
+        # block_size skips the warm-up, whose sweep would be discarded.
+        self.tuned_blocks = ({} if block_size is not None else warm_paged_engine(
+            cfg, max_len, device=self.device, batch=max_batch, dtype=cache_dtype))
+        if block_size is None:
+            block_size = self.tuned_blocks.get("paged_decode", 128)
+        self.block_size = min(block_size, max_len)
         self.max_blocks = -(-max_len // self.block_size)
         self.capacity_tokens = self.max_blocks * self.block_size
         if num_blocks is None:  # every lane can hold max_len

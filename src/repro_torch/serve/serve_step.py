@@ -20,6 +20,7 @@ from repro_torch.models import layers, lm, transformer
 from repro_torch.models.attention import _split_heads, paged_insert
 from repro_torch.serve import kv_cache
 from repro_torch.serve.paged import check_pageable
+from repro_torch.tune.autotune import sweeps_refused, warm_decode
 
 
 def _pad_seq_to(x: torch.Tensor, max_len: int, dim: int) -> torch.Tensor:
@@ -173,7 +174,8 @@ def _mamba_decode_trunk(cfg, params: dict, x: torch.Tensor, cache: dict, pos) ->
     return x
 
 
-def make_decode_step(cfg, perms: torch.Tensor | None = None):
+def make_decode_step(cfg, perms: torch.Tensor | None = None, *, max_len: int | None = None,
+                     device: str | torch.device = "cuda"):
     """→ decode_step(params, tokens (B, 1), cache, pos (B,)) → (logits
     (B, 1, V), cache).  Dense: each slot writes its token at ``pos mod S``;
     the live length becomes ``min(max(length, pos + 1), S)``, and
@@ -190,11 +192,22 @@ def make_decode_step(cfg, perms: torch.Tensor | None = None):
     ``cross_len`` encoder positions.
     Every cache tensor is written in place, so a captured step reads and
     writes fixed addresses; only a conv cache narrower than the compute
-    dtype comes back as a new, wider tensor (``_widen_conv``)."""
+    dtype comes back as a new, wider tensor (``_widen_conv``).
+
+    ``max_len`` (the self cache's capacity) resolves the decode splits here,
+    on ``device`` (``tune.warm_decode``: under ``REPRO_TUNE=measure`` the
+    sweeps run now).  A step never sweeps: under ``measure`` a split that
+    is still unresolved raises (``tune.sweeps_refused``)."""
     perms = _resolve_perms(cfg, perms)
+    if max_len is not None:
+        warm_decode(cfg, max_len, device=device)
+
+    def decode_step(params, tokens, cache, pos):
+        with sweeps_refused("a decode step"):
+            return step(params, tokens, cache, pos)
 
     @torch.no_grad()
-    def decode_step(params, tokens, cache, pos):
+    def step(params, tokens, cache, pos):
         nonlocal perms
         pos = pos.to(torch.int32)
         x = lm.add_learned_pos(params, cfg, lm.embed(params, cfg, tokens), pos[:, None])

@@ -4,6 +4,9 @@ Parameters, gradients and both moments are flat lists of tensors in
 ``lm.trainable`` order; the moments are f32.  ``clip_by_global_norm`` and
 ``adamw_update`` work in place, so training holds one copy of the params,
 one of the grads and one of each moment on the card (16 bytes a parameter).
+Both walk a tensor larger than ``CHUNK_ELEMS`` in flat pieces, so their f32
+temporaries never exceed a piece: a 202048 × 5120 embedding would
+otherwise take several 4 GiB temporaries beside its state.
 """
 from __future__ import annotations
 
@@ -11,6 +14,9 @@ import math
 from dataclasses import dataclass
 
 import torch
+
+# Elements of one piece of the optimizer's elementwise work (256 MiB in f32).
+CHUNK_ELEMS = 2**26
 
 
 @dataclass(frozen=True)
@@ -56,11 +62,25 @@ def adamw_init(params: list[torch.Tensor]) -> dict:
     return {"m": zeros, "v": [torch.zeros_like(z) for z in zeros], "count": 0}
 
 
+def _pieces(*tensors: torch.Tensor):
+    """Matching flat views of at most ``CHUNK_ELEMS`` elements of
+    same-shaped contiguous tensors (in-place work on a view lands in its
+    tensor); a small or non-contiguous tensor comes whole."""
+    n = tensors[0].numel()
+    if n <= CHUNK_ELEMS or not all(t.is_contiguous() for t in tensors):
+        yield tensors
+        return
+    flat = [t.view(-1) for t in tensors]
+    for s in range(0, n, CHUNK_ELEMS):
+        yield tuple(f[s:s + CHUNK_ELEMS] for f in flat)
+
+
 @torch.no_grad()
 def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float):
     """Scale ``grads`` in place so their global norm is at most
     ``max_norm`` → (grads, their global f32 norm before clipping)."""
-    gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    gnorm = torch.sqrt(sum(piece.float().square().sum()
+                           for g in grads for (piece,) in _pieces(g)))
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     for g in grads:
         g.mul_(scale.to(g.dtype))
@@ -76,13 +96,14 @@ def adamw_update(params: list[torch.Tensor], grads: list[torch.Tensor], state: d
     b1, b2 = opt_cfg.b1, opt_cfg.b2
     c1 = 1.0 - b1 ** count
     c2 = 1.0 - b2 ** count
-    for p, g, m, v in zip(params, grads, state["m"], state["v"]):
-        g = g.float()
-        m.mul_(b1).add_(g, alpha=1 - b1)
-        v.mul_(b2).addcmul_(g, g, value=1 - b2)
-        step = (m / c1) / (torch.sqrt(v / c2) + opt_cfg.eps)
-        if opt_cfg.weight_decay:
-            step.add_(p.float(), alpha=opt_cfg.weight_decay)
-        p.copy_(p.float() - lr * step)
+    for tensors in zip(params, grads, state["m"], state["v"]):
+        for p, g, m, v in _pieces(*tensors):
+            g = g.float()
+            m.mul_(b1).add_(g, alpha=1 - b1)
+            v.mul_(b2).addcmul_(g, g, value=1 - b2)
+            step = (m / c1) / (torch.sqrt(v / c2) + opt_cfg.eps)
+            if opt_cfg.weight_decay:
+                step.add_(p.float(), alpha=opt_cfg.weight_decay)
+            p.copy_(p.float() - lr * step)
     state["count"] = count
     return params, state

@@ -36,7 +36,11 @@ kernels non-causal over 1500 keys at 33, 448 and 1500 rows, the decode
 kernel over whisper-small's 1500-position cross cache and its self cache
 and at internvl2-2b's 2 rows a KV head, and a train
 step and prefill + decode of whisper-small and internvl2-2b (reduced() at
-head dim 64) against the CPU's.  Marked
+head dim 64) against the CPU's; a train step of both MoE configs
+(reduced(), llama4 at head dim 64) against the CPU's, and the tuner's
+measure-mode sweeps of the decode, paged and DistrAttention keys at
+starcoder2-7b's serving shapes with the kernels at the picks against
+their plain versions.  Marked
 ``cuda``; skips without a GPU.  This file imports neither JAX nor the JAX package, so on a machine
 without JAX it runs alone:
 
@@ -721,6 +725,141 @@ def test_hybrid_train_step_on_card_matches_cpu(cuda):
     for key in ("loss", "grad_norm"):
         assert float(metrics[key]) == pytest.approx(float(metrics_c[key]), rel=1e-4, abs=1e-4)
     _grads_close(grads, grads_c, BWD_TOL)
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "deepseek-v2-236b"])
+def test_moe_train_step_on_card_matches_cpu(cuda, arch):
+    """One train step of each MoE config ``reduced()`` under
+    ``pallas_distr``, f32, against the same step on the CPU's plain
+    versions: its loss and grad norm, and every parameter's gradient at
+    ``BWD_TOL`` (as the hybrid's test).  llama4-scout-17b-a16e at head dim
+    64 and Q blocks of 64 (the kernels' range) runs the DistrAttention
+    forward twice a layer (the forward and its full-remat recompute) and
+    delta, dq and dkv once; deepseek-v2-236b's MLA runs no kernel at all,
+    as in the reference."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.graphs import LaunchCounters
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config(arch, reduced=True)
+    if not cfg.use_mla:
+        cfg = cfg.replace(head_dim=64)
+    cfg = cfg.replace(attention=replace(cfg.attention, impl="pallas_distr",
+                                        distr=replace(cfg.attention.distr, block_q=64)))
+    base = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu", dtype=torch.float32)
+    ocfg = opt.OptimizerConfig(peak_lr=1e-3, warmup_steps=1, total_steps=2)
+    toks = torch.randint(0, cfg.vocab, (2, 201), generator=torch.Generator().manual_seed(1))
+    counters = LaunchCounters()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = {k: _tree_to(v, dev) for k, v in base.items()}
+        batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        leaves = [p.requires_grad_(True) for p in lm.trainable(params)]
+        grads = torch.autograd.grad(lm.loss_fn(params, cfg, batch)[0], leaves)
+        state = opt.adamw_init(leaves)
+        before = counters.read()
+        _, _, metrics = make_train_step(cfg, ocfg)(params, state, batch, 1)
+        after = counters.read()
+        out[dev] = ([g.cpu() for g in grads], metrics,
+                    {k: after[k] - before[k] for k in after})
+    (grads, metrics, counts), (grads_c, metrics_c, counts_c) = out["cuda"], out["cpu"]
+    want = dict.fromkeys(counts, 0)
+    if not cfg.use_mla:
+        n = cfg.n_layers
+        want.update({"distr_attention": 2 * n, "backward.delta": n, "backward.distr_dq": n,
+                     "backward.distr_dkv": n})
+    assert counts == want
+    assert counts_c == dict.fromkeys(counts_c, 0)
+    assert float(metrics["skipped"]) == 0.0
+    for key in ("loss", "grad_norm"):
+        assert float(metrics[key]) == pytest.approx(float(metrics_c[key]), rel=1e-4, abs=1e-4)
+    _grads_close(grads, grads_c, BWD_TOL)
+
+
+def test_tuner_sweeps_the_decode_and_paged_keys_on_card(cuda, monkeypatch, tmp_path):
+    """``REPRO_TUNE=measure`` with a fresh cache at starcoder2-7b's serving
+    shapes (4 slots, 36 over 4 heads of 128, capacity 2048, bf16): the
+    decode split, the paged pool block and DistrAttention's block_q (N =
+    2048, G* = 2, causal) are swept with CUDA events, every candidate
+    timed with its spread beside the static 128, the decode and paged
+    sweeps over several K/V copies (their live bytes over twice the L2),
+    under an ``sm_`` backend key, one ``tune/measure`` span each; a
+    second tuner on the file resolves by lookup with no timing; the decode
+    and paged kernels at the picks match their plain versions (1e-4, as
+    the paged tests), and the DistrAttention op at its pick (f32, the FMA
+    tile) the plain DistrAttention on the same card (the same
+    permutations)."""
+    import json
+
+    from repro_torch.obs.trace import TraceRecorder, set_recorder
+    from repro_torch.tune import (Autotuner, TuneCache, decode_candidates,
+                                  paged_block_candidates)
+    from repro_torch.tune.autotune import distr_candidates
+
+    def no_timing(run_fn, cand):
+        raise AssertionError("a cached key must not be timed")
+
+    monkeypatch.setenv("REPRO_TUNE", "measure")
+    path = str(tmp_path / "tune.json")
+    kw = dict(d=128, n=2048, dtype="bfloat16", device=cuda, batch=4, heads=(36, 4))
+    dkw = dict(d=128, n=2048, dtype="bfloat16", group_size=2, causal=True, device=cuda)
+    rec = TraceRecorder()
+    set_recorder(rec)
+    try:
+        tuner = Autotuner(cache=TuneCache(path))
+        bk, bs = tuner.resolve_decode(**kw), tuner.resolve_paged_decode(**kw)
+        bq = tuner.resolve_distr(**dkw)
+        again = Autotuner(cache=TuneCache(path), timer=no_timing)
+        assert (again.resolve_decode(**kw), again.resolve_paged_decode(**kw),
+                again.resolve_distr(**dkw)) == (bk, bs, bq)
+    finally:
+        set_recorder(None)
+    assert sum(e["name"] == "tune/measure" for e in rec.events) == 3
+    entries = json.load(open(path))
+    assert all("|backend=sm_" in key for key in entries)
+    swept = {e["kernel"]: e for e in entries.values()}
+    for kernel, cands in (("decode", decode_candidates(2048)),
+                          ("paged_decode", paged_block_candidates(2048)),
+                          ("distr_fwd", distr_candidates(128, n=2048, group_size=2))):
+        table = swept[kernel]["table"]
+        assert sorted(r["candidate"] for r in table) == sorted(cands)
+        assert all(0 < r["seconds"] < 1 and 0 <= r["spread"] < 1 for r in table)
+        assert swept[kernel]["default"] == 128
+    assert swept["decode"]["calls"] > 1 and swept["paged_decode"]["calls"] > 1  # over L2
+
+    lengths = torch.tensor([1, 200, 1537, 2048], dtype=torch.int32, device="cuda")
+    q = _randn((4, 4, 9, 128), torch.bfloat16, 70)
+    k, v = _randn((4, 4, 2048, 128), torch.bfloat16, 71), _randn((4, 4, 2048, 128),
+                                                                  torch.bfloat16, 72)
+    dkw2 = dict(scale=128 ** -0.5, block_k=bk, q_len=1)
+    got = dec.merge_splits(*dec.decode_kernel_call(q, k, v, lengths, **dkw2))
+    want = dec.merge_splits(*dec.decode_plain(q, k, v, lengths, **dkw2))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    mb = 2048 // bs
+    k_pool, v_pool = (_randn((1 + 4 * mb, 4, bs, 128), torch.bfloat16, seed)
+                      for seed in (73, 74))
+    g = torch.Generator(device="cuda").manual_seed(75)
+    bt = (torch.randperm(4 * mb, generator=g, device="cuda") + 1).reshape(4, mb).to(torch.int32)
+    pkw = dict(scale=128 ** -0.5, q_len=1)
+    got = dec.merge_splits(*pd.paged_decode_kernel_call(q, k_pool, v_pool, bt, lengths, **pkw))
+    want = dec.merge_splits(*pd.paged_decode_plain(q, k_pool, v_pool, bt, lengths, **pkw))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    from repro_torch.core.distr_attention import distr_attention
+
+    qd, kd, vd = (_randn(shape, torch.float32, 76 + i)
+                  for i, shape in enumerate([(1, 8, 1000, 128), (1, 2, 1000, 128),
+                                             (1, 2, 1000, 128)]))
+    dcfg = DistrConfig(group_size=2, block_q=bq)
+    before = dk.launches
+    got = ops.distr_attention(qd, kd, vd, dcfg, causal=True)
+    assert dk.launches == before + 1
+    _close(got, distr_attention(qd, kd, vd, dcfg, causal=True), torch.float32)
 
 
 def _tree_to(tree, dev):

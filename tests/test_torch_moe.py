@@ -151,19 +151,23 @@ def test_index_dispatch_bf16_matches_onehot():
 
 @pytest.mark.parametrize("chunk_bytes", [1, 10**9], ids=["one_expert_a_chunk", "all_at_once"])
 def test_expert_chunks_do_not_change_the_result(monkeypatch, chunk_bytes):
-    """The f32 upcast a chunk of experts at a time gives the one-shot
-    einsum's result."""
+    """The f32 upcast of bf16 expert weights a chunk of experts at a time
+    gives the one-shot einsum's result; f32 weights (training's master
+    weights, which need no upcast) always run in one product."""
     _, tcfg = _configs("deepseek-v2-236b")
-    params = moe.moe_init(torch.Generator().manual_seed(0), tcfg)
+    params = moe.moe_init(torch.Generator().manual_seed(0), tcfg, torch.bfloat16)
     xe = torch.randn((tcfg.n_experts, 5, tcfg.d_model), generator=torch.Generator().manual_seed(1))
     w = params["experts"]
-    gate = torch.einsum("ecd,edf->ecf", xe, w["gate"])
-    up = torch.einsum("ecd,edf->ecf", xe, w["up"])
-    want = torch.einsum("ecf,efd->ecd", torch.nn.functional.silu(gate) * up, w["down"])
+    w32 = {k: t.float() for k, t in w.items()}
+    gate = torch.einsum("ecd,edf->ecf", xe, w32["gate"])
+    up = torch.einsum("ecd,edf->ecf", xe, w32["up"])
+    want = torch.einsum("ecf,efd->ecd", torch.nn.functional.silu(gate) * up, w32["down"])
     monkeypatch.setattr(moe, "EXPERT_CHUNK_BYTES", chunk_bytes)
     chunk = moe._expert_chunk(w)
     assert chunk == 1 if chunk_bytes == 1 else chunk >= tcfg.n_experts
+    assert moe._expert_chunk(w32) == tcfg.n_experts
     torch.testing.assert_close(moe.expert_ffn(w, xe), want, atol=TOL, rtol=TOL)
+    torch.testing.assert_close(moe.expert_ffn(w32, xe), want, atol=TOL, rtol=TOL)
 
 
 class _OpRecorder(TorchDispatchMode):

@@ -77,6 +77,19 @@ def test_schedule_matches_reference(name):
 
 
 def test_clip_and_adamw_match_reference():
+    _clip_and_adamw_against_reference()
+
+
+def test_clip_and_adamw_in_pieces_match_reference(monkeypatch):
+    """With pieces of 4 elements every tensor is walked piece by piece
+    (in place through flat views, as a 4 GiB embedding is on the card):
+    the same steps as the reference's, at the same tolerances."""
+    monkeypatch.setattr(opt, "CHUNK_ELEMS", 4)
+    assert len(list(opt._pieces(torch.zeros(3, 5)))) == 4
+    _clip_and_adamw_against_reference()
+
+
+def _clip_and_adamw_against_reference():
     rng = np.random.default_rng(0)
     shapes = [(3, 5), (7,), (2, 2, 4)]
     params = [rng.standard_normal(s).astype(np.float32) for s in shapes]
