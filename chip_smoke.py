@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--out PATH] [--only kernels|moe|encdec|tune]
+    python3 chip_smoke.py [--out PATH] [--only kernels|moe|encdec|tune|cluster]
 
 In order: prints the card's name and power limit; builds the CUDA kernels
 from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a; counts the bf16
@@ -122,12 +122,30 @@ published sizes in f32 through ``make_train_step`` (4 steps each under
 both impls: whisper 4 × 448 tokens over 1500 frames, internvl 2 × (256
 patches + 1792 tokens)), card memory back at each run's start after it.
 
+The cluster router and the training supervisor: after the tuner's phase,
+starcoder2-7b at full width with the serve phase's weights behind a
+``ClusterRouter`` of two slot engines and one ``PagedServeEngine``
+sharing those weights (``cluster_phase``: a healthy run, slot replica 1
+killed mid-flight, the paged replica drained with ``migrate=True`` and
+replaced, a replica that advertises a shorter ``max_prompt_len``, a
+wedged pool and a NaN storm, and the healthy run again under the
+profiler), each request's statuses, tokens and emitted prefix held to the
+healthy run's and the reference's real-engine cluster tests, the dead and
+replaced engines' card memory given back; after the robustness run
+``supervisor_phase``: the same one-layer minicpm-2b under a 4-worker
+``TrainSupervisor`` through a worker loss and a straggler's exclusion on
+one tick, one restore from the step-3 checkpoint, its losses held to an
+uninterrupted run's bit for bit (two identical steps agree bit for bit on
+the card), the step-3 checkpoint served through the ``--ckpt`` loader
+with the trainer's logits, and one step at grad_accum 2 against 1.
+
 ``python3 chip_smoke.py --only moe`` builds the kernels and runs only the
 MoE phases (the check, serving and training), then prints their launches
 as a JSON line last;
 ``--only encdec`` the same for the enc-dec and VLM slice's phases;
 ``--only tune`` the same for the tuner's phase (starcoder2-7b's weights,
-then ``tune_phase``).
+then ``tune_phase``); ``--only cluster`` the same for ``cluster_phase``
+(starcoder2-7b's weights) and ``supervisor_phase``.
 ``python3 chip_smoke.py --serve-load slot|hybrid|paged`` runs none of the
 above: it serves one serve workload as a closed-loop load under both
 impls, the slot workload also over the fused-K̂ cache (timed passes and
@@ -208,6 +226,43 @@ CHAOS_NEW, CHAOS_CANCEL_STEP, CHAOS_MAX_STEPS = 32, 10, 400
 ROBUST_STEPS, ROBUST_CKPT_EVERY, ROBUST_SEQ = 8, 100, 2048
 ROBUST_FAULTS = (dict(point="loss_spike", after=5), dict(point="nan_grad", after=3),
                  dict(point="ckpt_torn_write", uid=8))
+# The cluster phase: starcoder2-7b at full width with the serve phase's
+# weights, pallas_distr, greedy, a tick clock; three replicas sharing the
+# weights (two slot engines of 4 slots and max_len 2048, one
+# PagedServeEngine: raw K, 8 lanes, blocks of 128, chunks of 32) behind a
+# round-robin ClusterRouter; the serve workload, CLUSTER_NEW new tokens a
+# request.  The kill: slot replica 1 crashes at its 4th tick and is
+# declared dead two missed heartbeats later.  The drain: the paged replica
+# drained with migrate=True after CLUSTER_DRAIN_TICK ticks, then replaced.
+# The capability run's replica 0 takes prompts up to CLUSTER_SMALL_LEN
+# tokens (its max_len), so the 1536-token prompt must go elsewhere.  The
+# wedge run: persistent pool_exhausted on the paged replica's first
+# request, NaN logits on slot replica 0's first from its 2nd row on.
+CLUSTER_NEW, CLUSTER_MAX_TICKS, CLUSTER_DRAIN_TICK, CLUSTER_SMALL_LEN = 32, 600, 24, 1152
+CLUSTER_CRASH = dict(point="replica_crash", uid=1, after=3)
+CLUSTER_WEDGE = {0: dict(point="nan_logits", uid=0, after=1, times=-1),
+                 2: dict(point="pool_exhausted", uid=0, times=-1)}
+# The supervisor phase: train_robustness_phase's model, f32 state and
+# sequence under a TrainSupervisor of SUPERVISE_WORKERS simulated workers
+# (max_missed 2, stragglers flagged above 2x the median step time, excluded
+# after 2 flags) for SUPERVISE_STEPS steps, checkpoints every
+# SUPERVISE_CKPT_EVERY (so the saves are the step-0 baseline and step 3).
+# Worker 2 is lost at tick 5 and worker 1 turns slow at tick 4, so its
+# second flag excludes it at tick 5 too: one remesh to 2 workers and one
+# restore to step 3, then steps 4 and 5 again.  SUPERVISE_COUNTERS are the
+# counters the reference's supervisor gives for this schedule
+# (tests/test_torch_supervisor.py, case "card_schedule").  The losses after
+# recovery must equal an uninterrupted run's bit for bit where two
+# identical steps on the card agree bit for bit, else within
+# SUPERVISE_LOSS_RTOL.  Grad-accum: one step at grad_accum 2 against 1 on
+# the same 2 x seq batch, loss within GRAD_ACCUM_RTOL and every param
+# within GRAD_ACCUM_PARAM_TOL after the update (the reference's bounds).
+SUPERVISE_WORKERS, SUPERVISE_STEPS, SUPERVISE_CKPT_EVERY = 4, 5, 3
+SUPERVISE_FAULTS = (dict(point="worker_loss", uid=2, after=4, times=-1),
+                    dict(point="slow_worker", uid=1, after=3, times=-1, delay=9.0))
+SUPERVISE_COUNTERS = {"worker_deaths": 2, "remesh_events": 1, "straggler_flags": 2}
+SUPERVISE_LOSS_RTOL = 1e-5
+GRAD_ACCUM_RTOL, GRAD_ACCUM_PARAM_TOL = 1e-5, 2e-2
 # The SSD kernel: (label, B, H, P, G, S, chunk, N).  zamba2-7b's Mamba-2
 # heads (the headline: B = 1, N = 2048), its ragged tail and B = 2, and
 # mamba2-130m's state width 128.
@@ -3217,15 +3272,597 @@ def serve_load(torch, workload: str) -> dict:
     return out
 
 
+def cluster_phase(torch, params, base=None, device="cuda") -> dict:
+    """starcoder2-7b at full width with the serve phase's weights behind a
+    ``ClusterRouter`` (``serve/cluster.py``): two slot engines (4 slots,
+    max_len 2048) and one ``PagedServeEngine`` (raw K, 8 lanes, blocks of
+    128, chunks of 32) sharing the weights, pallas_distr, greedy, a tick
+    clock, round robin, the serve workload at CLUSTER_NEW new tokens.
+    Runs: healthy; slot replica 1 killed mid-flight (CLUSTER_CRASH) under a
+    ``TraceRecorder``; the paged replica drained with ``migrate=True``
+    mid-flight, then replaced by a fresh engine that serves three more
+    requests; a capability run whose replica 0 takes prompts of at most
+    CLUSTER_SMALL_LEN tokens; a wedge-and-NaN run (CLUSTER_WEDGE); and the
+    healthy run again under the profiler for the card's busy share.
+    Raises unless every request ends with the statuses the reference's
+    real-engine cluster tests expect and its full budget, the requests
+    that never touched a dead, drained or faulted replica emit the healthy
+    run's tokens exactly, each redelivered or migrated request keeps its
+    prefix ``emitted[:base]``, the survivors' pools are back at their free
+    counts, only the kill run records a replica death, the kill run's
+    ``router_registry`` snapshot and trace pass the validators, the long
+    prompt never lands on the small replica, the decode, paged decode and
+    DistrAttention forward kernels launched (flash none), and, once the
+    runs' routers are dropped, the card's memory is back within
+    CYCLE_SLACK of where it stood after the healthy run without the cycle
+    collector (the dead and the replaced engines gave theirs back).  Logs
+    each run's tokens/s, the router's harvest time a tick, each replay's
+    time from redelivery to its first new token, and the card memory a
+    replaced or dead engine gives back."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.faults import FaultInjector, FaultSpec
+    from repro_torch.kernels import decode as dec
+    from repro_torch.kernels import distr_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.launch.serve import device_busy_s
+    from repro_torch.obs import TraceRecorder, router_registry
+    from repro_torch.obs.validate import validate_chrome_trace, validate_metrics_snapshot
+    from repro_torch.serve import cluster
+    from repro_torch.serve.engine import PagedServeEngine, ServeEngine
+
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def allocated():
+        sync()
+        return torch.cuda.memory_allocated() if cuda else 0
+
+    class TimedRouter(cluster.ClusterRouter):
+        """The router with its harvest (the host reads of each replica's
+        new tokens) timed."""
+
+        harvest_s = 0.0
+
+        def _harvest(self, h, finished):
+            t0 = time.perf_counter()
+            try:
+                super()._harvest(h, finished)
+            finally:
+                self.harvest_s += time.perf_counter() - t0
+
+    base = base or get_config("starcoder2-7b")
+    cfg = base.replace(attention=base.attention.with_impl("pallas_distr"))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, size=n).tolist() for n in SERVE_PROMPTS]
+    t_phase = time.perf_counter()
+    start = allocated()
+
+    def slot(clock, faults=None, max_len=2048, trace=None):
+        return ServeEngine(cfg, params, max_slots=4, max_len=max_len, clock=clock,
+                           faults=faults, device=device, trace=trace)
+
+    def paged(clock, faults=None, trace=None):
+        return PagedServeEngine(cfg, params, max_batch=8, max_len=2048, block_size=128,
+                                prefill_chunk=32, clock=clock, faults=faults, device=device,
+                                trace=trace)
+
+    def engines(clock, faults=None, small=None, trace=None):
+        faults = faults or {}
+        return [slot(clock, faults.get(0), max_len=small or 2048, trace=trace),
+                slot(clock, faults.get(1), trace=trace), paged(clock, faults.get(2), trace=trace)]
+
+    def launches():
+        return {"flash": fk.launches, "distr": dk.launches, "decode": dec.launches,
+                "paged": pd.launches}
+
+    totals = dict.fromkeys(launches(), 0)
+    report = {}
+
+    def drive(name, router, clock, reps, *, submit=None, on_tick=None):
+        """Submit ``submit`` (default: the workload), tick to the end, count
+        launches → (uids, ticks, seconds)."""
+        fk.launches = dk.launches = dec.launches = pd.launches = 0
+        free0 = {i: e.cache.pool.num_free for i, e in enumerate(reps)
+                 if isinstance(e, PagedServeEngine)}
+        sync()
+        t0 = time.perf_counter()
+        uids = [router.add_request(p, max_new_tokens=CLUSTER_NEW)
+                for p in (submit if submit is not None else prompts)]
+        ticks = 0
+        while router.has_work():
+            if ticks == CLUSTER_MAX_TICKS:
+                raise AssertionError(f"cluster {name}: requests {sorted(router._inflight)} "
+                                     f"still in flight after {ticks} ticks")
+            router.tick()
+            clock.t += 1
+            ticks += 1
+            if on_tick is not None:
+                uids += on_tick(ticks) or []
+        sync()
+        seconds = time.perf_counter() - t0
+        counts = launches()
+        for k, n in counts.items():
+            totals[k] += n
+        reqs = {u: router.request(u) for u in uids}
+        n_tok = sum(len(c.emitted) for c in reqs.values())
+        counters = {k: v for k, v in router.counters_snapshot().items() if v}
+        states = router.replica_states()
+        pools = {i: (free0[i], reps[i].cache.pool.num_free) for i in free0
+                 if i < len(reps) and states[i] != cluster.DEAD}
+        log(f"[cluster {name}] {len(uids)} requests, {n_tok} tokens in {ticks} ticks, "
+            f"{seconds:.2f}s ({n_tok / seconds:.1f} tok/s); harvest "
+            f"{router.harvest_s / ticks * 1e3:.3f} ms a tick; rids "
+            f"{ {u: c.rid for u, c in reqs.items()} }; statuses "
+            f"{ {u: c.status for u, c in reqs.items()} }; redeliveries "
+            f"{ {u: (c.redeliveries, c.base) for u, c in reqs.items() if c.redeliveries} }; "
+            f"router counters {counters}; states {states}; paged pool free (start, end) "
+            f"{pools}; launches {counts}")
+        for i, (before, after) in pools.items():
+            if before != after:
+                raise AssertionError(f"cluster {name}: replica {i} leaked {before - after} "
+                                     "pool blocks")
+        if name != "kill" and counters.get("replica_deaths"):
+            raise AssertionError(f"cluster {name}: a replica died in a run without a kill: "
+                                 f"{counters}")
+        report[name] = {"requests": len(uids), "tokens": n_tok, "ticks": ticks,
+                        "seconds": seconds, "tok_per_s": n_tok / seconds,
+                        "harvest_ms_per_tick": router.harvest_s / ticks * 1e3,
+                        "counters": counters, "launches": counts,
+                        "rids": {u: c.rid for u, c in reqs.items()},
+                        "statuses": {u: c.status for u, c in reqs.items()}}
+        return uids, reqs
+
+    def done_with_budget(name, reqs, only=None):
+        bad = {u: (c.status, len(c.emitted)) for u, c in reqs.items()
+               if (only is None or u in only)
+               and (c.status != "done" or len(c.emitted) != CLUSTER_NEW)}
+        if bad:
+            raise AssertionError(f"cluster {name}: requests not done with their budget: {bad}")
+
+    def same_as_healthy(name, reqs, uids):
+        for u in uids:
+            got, want = reqs[u].emitted, healthy[u]
+            if got != want:
+                at = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+                raise AssertionError(f"cluster {name}: uid {u} (rid {reqs[u].rid}) diverged "
+                                     f"from the healthy run at token {at}: {got[at]} vs "
+                                     f"{want[at]}")
+
+    def prefix_kept(name, reqs, uids):
+        for u in uids:
+            k = reqs[u].base
+            if reqs[u].emitted[:k] != healthy[u][:k]:
+                raise AssertionError(f"cluster {name}: uid {u} lost or reordered its first "
+                                     f"{k} tokens")
+
+    # 1. healthy
+    clock = TickClock()
+    reps = engines(clock)
+    router = TimedRouter(reps, policy="round_robin", clock=clock)
+    uids, reqs = drive("healthy", router, clock, reps)
+    done_with_budget("healthy", reqs)
+    healthy = {u: list(c.emitted) for u, c in reqs.items()}
+    if [reqs[u].rid for u in uids] != [u % 3 for u in uids]:
+        raise AssertionError(f"cluster healthy: round robin routed {report['healthy']['rids']}")
+    del router, reps, reqs
+    # The mark later runs must come back to: the first engines' warm-ups
+    # also made the process's lasting cuBLAS workspaces (one a stream).
+    mark = allocated()
+
+    # 2. kill slot replica 1 mid-flight, traced on the wall clock
+    clock = TickClock()
+    rec = TraceRecorder()
+    reps = engines(clock, trace=rec)
+    router = TimedRouter(reps, policy="round_robin", clock=clock, trace=rec,
+                         faults=FaultInjector([FaultSpec(**CLUSTER_CRASH)]))
+    replays = {}  # uid → [tick redelivered, wall then, emitted then, ticks, seconds]
+
+    def watch_replays(tick):
+        now = time.perf_counter()
+        for c in router._all.values():
+            r = replays.get(c.uid)
+            if c.redeliveries and r is None:
+                replays[c.uid] = [tick, now, len(c.emitted), None, None, c.rid,
+                                  len(c.prompt) + len(c.emitted)]
+            elif r is not None and r[3] is None and len(c.emitted) > r[2]:
+                r[3], r[4] = tick - r[0], now - r[1]
+
+    uids, reqs = drive("kill", router, clock, reps, on_tick=watch_replays)
+    done_with_budget("kill", reqs)
+    snap = router.counters_snapshot()
+    moved = [u for u in uids if reqs[u].redeliveries]
+    if (snap["replica_deaths"], router.replica_states()[1]) != (1, cluster.DEAD) or not moved \
+            or snap["redelivered"] != len(moved):
+        raise AssertionError(f"cluster kill: counters {snap}, states "
+                             f"{router.replica_states()}, redelivered {moved}")
+    same_as_healthy("kill", reqs, [u for u in uids if u not in moved])
+    prefix_kept("kill", reqs, moved)
+    for u, (t, _, n, ticks, sec, rid, n_replay) in sorted(replays.items()):
+        log(f"  [cluster kill] uid {u}: redelivered at tick {t} with {n} tokens emitted to "
+            f"replica {rid} (replay prefill of {n_replay} tokens); first new token "
+            f"{ticks} tick(s), {sec:.4f}s later; its tail equals the healthy run's: "
+            f"{reqs[u].emitted == healthy[u]}")
+    report["kill"]["replays"] = {u: {"replica": r[5], "replay_tokens": r[6], "ticks": r[3],
+                                     "seconds": r[4]} for u, r in replays.items()}
+    reg = json.loads(json.dumps(router_registry(router).snapshot()))
+    doc = json.loads(json.dumps(rec.to_chrome()))
+    problems = validate_metrics_snapshot(reg) + validate_chrome_trace(doc)
+    names = [e["name"] for e in doc["traceEvents"]]
+    ends = {e["args"]["uid"]: e["args"] for e in doc["traceEvents"]
+            if e["ph"] == "e" and e["name"] == "crequest"}
+    rows = {m["uid"]: m for m in json.loads(json.dumps(router.metrics()))}
+    log(f"  [cluster kill] trace: {len(names)} events, replica_death {names.count('replica_death')}"
+        f", redeliver {names.count('redeliver')}; problems {problems}")
+    if problems or names.count("replica_death") != 1 or names.count("redeliver") != len(moved) \
+            or ends != rows:
+        raise AssertionError(f"cluster kill: trace or registry: problems {problems}, "
+                             f"crequest ends equal the metrics rows: {ends == rows}")
+    for key in ("router_replica_deaths", "router_redelivered"):
+        if reg["counters"][key] != snap[key.removeprefix("router_")]:
+            raise AssertionError(f"cluster kill: registry {key} {reg['counters'][key]}")
+    dead = reps[1]
+    del router, reps, reqs, rec
+
+    # The dead replica gives its memory back once the router that held it goes.
+    held = allocated()
+    del dead
+    log(f"  [cluster kill] the dead slot replica held "
+        f"{(held - allocated()) / 2**20:.1f} MiB of card memory until its router went")
+
+    # 3. drain the paged replica with migrate=True mid-flight, then replace it
+    clock = TickClock()
+    reps = engines(clock)
+    router = TimedRouter(reps, policy="round_robin", clock=clock)
+    drained = {}
+
+    def drain_then_replace(tick):
+        if tick == CLUSTER_DRAIN_TICK:
+            drained["moved"] = sorted(c.uid for c in router._by_rid[2].owned.values())
+            router.drain(2, migrate=True)
+        elif tick > CLUSTER_DRAIN_TICK and "late" not in drained \
+                and router.replica_states()[2] == cluster.DRAINED:
+            before = allocated()
+            old = reps[2]
+            reps[2] = paged(clock)
+            router.replace(2, reps[2])
+            new = allocated()
+            del old
+            freed = new - allocated()
+            drained["memory"] = (before, new, freed)
+            log(f"  [cluster drain] tick {tick}: replica 2 replaced; the fresh engine took "
+                f"{(new - before) / 2**20:.1f} MiB, the drained one gave back "
+                f"{freed / 2**20:.1f} MiB")
+            drained["late"] = [router.add_request(p, max_new_tokens=CLUSTER_NEW)
+                               for p in prompts[:3]]
+            return drained["late"]
+        return None
+
+    uids, reqs = drive("drain", router, clock, reps, on_tick=drain_then_replace)
+    done_with_budget("drain", reqs)
+    snap = router.counters_snapshot()
+    moved = drained["moved"]
+    if not moved or (snap["drains"], snap["migrated"], snap["redelivered"]) != (
+            1, len(moved), len(moved)) or router.replica_states()[2] != cluster.HEALTHY:
+        raise AssertionError(f"cluster drain: moved {moved}, counters {snap}, states "
+                             f"{router.replica_states()}")
+    if 2 not in {reqs[u].rid for u in drained["late"]}:
+        raise AssertionError("cluster drain: the replaced replica served no request")
+    first = [u for u in uids if u not in drained["late"]]
+    same_as_healthy("drain", reqs, [u for u in first if u not in moved])
+    prefix_kept("drain", reqs, moved)
+    before, new, freed = drained["memory"]
+    if cuda and freed < 0.5 * (new - before):
+        raise AssertionError(f"cluster drain: the replaced engine gave back {freed} bytes of "
+                             f"the {new - before} its replacement took")
+    report["drain"]["memory_mib"] = {"replacement": (new - before) / 2**20,
+                                     "freed_by_replace": freed / 2**20}
+    del router, reps, reqs
+
+    # 4. capability: replica 0 holds prompts of at most CLUSTER_SMALL_LEN
+    # tokens; longest prompt first, so round robin's first turn (replica 0)
+    # falls to the one prompt it cannot hold
+    clock = TickClock()
+    reps = engines(clock, small=CLUSTER_SMALL_LEN)
+    router = TimedRouter(reps, policy="round_robin", clock=clock)
+    caps = [cluster.ClusterRouter._capacity(h) for h in router.replicas]
+    longest_first = sorted(prompts, key=len, reverse=True)
+    uids, reqs = drive("capability", router, clock, reps, submit=longest_first)
+    done_with_budget("capability", reqs)
+    long = [u for u, p in zip(uids, longest_first) if len(p) > CLUSTER_SMALL_LEN]
+    if caps != [CLUSTER_SMALL_LEN, 2048, 2047] or not long \
+            or any(reqs[u].rid == 0 for u in long) \
+            or router.counters_snapshot()["capability_rejects"]:
+        raise AssertionError(f"cluster capability: capacities {caps}, long prompts {long} on "
+                             f"{[reqs[u].rid for u in long]}")
+    del router, reps, reqs
+
+    # 5. a wedged pool and a NaN storm: only their victims fail
+    clock = TickClock()
+    reps = engines(clock, faults={i: FaultInjector([FaultSpec(**spec)])
+                                  for i, spec in CLUSTER_WEDGE.items()})
+    router = TimedRouter(reps, policy="round_robin", clock=clock)
+    uids, reqs = drive("wedge", router, clock, reps)
+    victims = [uids[0], uids[2]]  # round robin: each replica's engine uid 0
+    statuses = {u: reqs[u].status for u in uids}
+    agg = router.cluster_counters()
+    health = router.health()
+    if [statuses[u] for u in victims] != ["failed", "failed"] \
+            or agg["failed_numeric"] < 1 or agg["watchdog_fails"] < 1 \
+            or health[1] < max(health[0], health[2]):
+        raise AssertionError(f"cluster wedge: statuses {statuses}, engine counters "
+                             f"{ {k: v for k, v in agg.items() if v} }, health {health}")
+    rest = [u for u in uids if u not in victims]
+    done_with_budget("wedge", reqs, only=rest)
+    same_as_healthy("wedge", reqs, rest)
+    report["wedge"]["health"] = health
+    del router, reps, reqs
+
+    # 6. the healthy run again under the profiler: the card's busy share
+    busy = None
+    if cuda:
+        from torch.profiler import ProfilerActivity, profile
+
+        clock = TickClock()
+        reps = engines(clock)
+        router = TimedRouter(reps, policy="round_robin", clock=clock)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            uids, reqs = drive("healthy profiled", router, clock, reps)
+        same_as_healthy("healthy profiled", reqs, uids)
+        busy = device_busy_s(prof) / report["healthy profiled"]["seconds"]
+        log(f"  [cluster healthy profiled] card busy {busy:.1%} of the run's wall")
+        report["healthy profiled"]["busy_share"] = busy
+        del router, reps, reqs, prof
+
+    log(f"[cluster] launches {totals}; {time.perf_counter() - t_phase:.1f}s for the phase; "
+        f"card memory {(allocated() - start) / 2**20:.1f} MiB above the phase's start, "
+        f"{(allocated() - mark) / 2**20:.1f} MiB above the mark after the healthy run")
+    if any(totals[k] == 0 for k in ("distr", "decode", "paged")) or totals["flash"]:
+        raise AssertionError(f"cluster: launches off the path: {totals}")
+    if cuda:
+        free_card(torch, "the cluster phase", base=mark)
+    report["phase_s"] = time.perf_counter() - t_phase
+    return {"launches": {k: totals[k] for k in ("distr", "decode", "paged")},
+            "report": report}
+
+
+def supervisor_phase(torch, base=None, device="cuda", seq=ROBUST_SEQ) -> dict:
+    """minicpm-2b at full width cut to 1 layer (train_robustness_phase's
+    model, f32 state, 1 x ``seq`` tokens a step), pallas_distr, trained
+    through ``launch.train.run(supervise=SUPERVISE_WORKERS)``'s pieces: a
+    ``TrainSupervisor`` (max_missed 2, the straggler policy of
+    SUPERVISE_COUNTERS' schedule) over a ``Trainer`` with a fresh temporary
+    workdir (checkpoints every SUPERVISE_CKPT_EVERY steps), the faults
+    SUPERVISE_FAULTS, SUPERVISE_STEPS steps.  Raises unless the supervisor
+    logged the worker's loss, the straggler's exclusion and one remesh to
+    the 2 survivors (their shard assignment every shard once) with a
+    restore from the step-3 checkpoint, its counters are
+    SUPERVISE_COUNTERS, the history is steps 1..5 with the losses of an
+    uninterrupted run of the same steps without checkpoints (bit for bit
+    when two identical steps on the card agree bit for bit, else within
+    SUPERVISE_LOSS_RTOL), the distr forward, delta and distr backward
+    kernels launched and the flash ones did not; unless the step-3
+    checkpoint, loaded by ``launch.serve.load_params`` (the ``--ckpt``
+    loader), holds exactly the params the trainer saved there and gives
+    the same prefill and first decode step logits; and unless one step at
+    grad_accum 2 matches grad_accum 1 on the same 2 x ``seq`` batch (loss
+    within GRAD_ACCUM_RTOL, params within GRAD_ACCUM_PARAM_TOL).  Logs each
+    save's and load's seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.faults import FaultInjector, FaultSpec
+    from repro_torch.kernels import backward as bwd
+    from repro_torch.kernels import distr_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.launch.serve import load_params
+    from repro_torch.launch.train import init_train_params
+    from repro_torch.models import lm
+    from repro_torch.obs import TraceRecorder, train_registry
+    from repro_torch.obs.validate import validate_chrome_trace, validate_metrics_snapshot
+    from repro_torch.serve.serve_step import make_decode_step, make_prefill
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.data import SyntheticLMData
+    from repro_torch.train.elastic import StragglerPolicy
+    from repro_torch.train.supervisor import TrainSupervisor
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.trainer import Trainer
+
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    base = base or get_config("minicpm-2b")
+    cfg = base.replace(n_layers=1, attention=base.attention.with_impl("pallas_distr"))
+    opt = opt_mod.OptimizerConfig(peak_lr=1e-4, warmup_steps=1, total_steps=SUPERVISE_STEPS,
+                                  schedule=cfg.schedule)
+    io, saved = [], {}
+    originals = {name: getattr(ckpt, name) for name in ("save_checkpoint", "load_checkpoint")}
+
+    def timed_save(ckpt_dir, step, params, *args, **kw):
+        if step == SUPERVISE_CKPT_EVERY:  # the params the serving check expects back
+            saved["params"] = _float32(torch, params)
+        t0 = time.perf_counter()
+        path = originals["save_checkpoint"](ckpt_dir, step, params, *args, **kw)
+        io.append(("save", Path(path).name, time.perf_counter() - t0))
+        log(f"[supervisor] save {io[-1][1]}: {io[-1][2]:.3f}s")
+        return path
+
+    def timed_load(*args, **kw):
+        t0 = time.perf_counter()
+        out = originals["load_checkpoint"](*args, **kw)
+        io.append(("load", out[3]["_name"], time.perf_counter() - t0))
+        what = "params and AdamW state" if len(args) > 2 else "params"
+        log(f"[supervisor] verified load of {io[-1][1]} ({what}): {io[-1][2]:.3f}s")
+        return out
+
+    def data(batch=1):
+        return SyntheticLMData(cfg.vocab, batch, seq, seed=0)
+
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_supervise_")
+    ckpt.save_checkpoint, ckpt.load_checkpoint = timed_save, timed_load
+    try:
+        # The supervised run.
+        fk.launches = dk.launches = 0
+        for name in bwd.launches:
+            bwd.launches[name] = 0
+        t0 = time.perf_counter()
+        rec = TraceRecorder()
+        tr = Trainer(cfg, opt, data(), init_train_params(cfg, seed=0, device=device),
+                     workdir=workdir, ckpt_every=SUPERVISE_CKPT_EVERY, trace=rec)
+        sup = TrainSupervisor(
+            tr, num_workers=SUPERVISE_WORKERS, max_missed=2, trace=rec,
+            straggler_policy=StragglerPolicy(threshold=2.0, patience=2),
+            faults=FaultInjector([FaultSpec(**f) for f in SUPERVISE_FAULTS]))
+        hist = [(r["step"], r["loss"]) for r in sup.run(SUPERVISE_STEPS)]
+        sync()
+        wall = time.perf_counter() - t0
+        counts = {"flash": fk.launches, "distr": dk.launches, **bwd.launches}
+        counters = {k: v for k, v in sup.counters_snapshot().items() if v}
+        events = sup.events
+        doc = json.loads(json.dumps(rec.to_chrome()))
+        snap = json.loads(json.dumps(train_registry(sup).snapshot()))
+        problems = validate_chrome_trace(doc) + validate_metrics_snapshot(snap)
+        instants = [(e["name"], e["args"]) for e in doc["traceEvents"]
+                    if e["ph"] == "i" and e["name"] in ("worker_loss", "straggler_excluded",
+                                                        "remesh")]
+        plan = (sup.alive, sup.mesh_plan, sup.shard_assignment, sup.ticks)
+        log(f"[supervisor] minicpm-2b, 1 layer, {SUPERVISE_WORKERS} workers: {wall:.2f}s for "
+            f"{sup.ticks} ticks; history {hist}; counters {counters}; events {events}; "
+            f"alive {plan[0]}, mesh {plan[1]}, shards {plan[2]}; trace instants {instants}; "
+            f"launches {counts}; problems {problems}")
+        kinds = [e["kind"] for e in events]
+        shards = sorted(s for v in sup.shard_assignment.values() for s in v)
+        if kinds != ["worker_loss", "straggler_excluded", "remesh"] \
+                or events[-1]["restored_step"] != SUPERVISE_CKPT_EVERY \
+                or events[-1]["dead"] != [1, 2] or plan[0] != [0, 3] \
+                or plan[1] != ((2, 1), ("data", "model")) \
+                or shards != list(range(sup.num_shards)) or set(sup.shard_assignment) != {0, 3}:
+            raise AssertionError(f"supervisor: events {events}, plan {plan}")
+        if counters != SUPERVISE_COUNTERS or [n for n, _ in instants] != kinds or problems:
+            raise AssertionError(f"supervisor: counters {counters} (want "
+                                 f"{SUPERVISE_COUNTERS}), instants {instants}, problems "
+                                 f"{problems}")
+        if [s for s, _ in hist] != list(range(1, SUPERVISE_STEPS + 1)):
+            raise AssertionError(f"supervisor: history {hist}")
+        path = ("distr", "delta", "distr_dq", "distr_dkv")
+        if any(counts[n] == 0 for n in path) or any(counts[n] for n in
+                                                    ("flash", "flash_dq", "flash_dkv")):
+            raise AssertionError(f"supervisor: launches off the path: {counts}")
+        del tr, sup, rec
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # Two identical steps: is the card's training step deterministic?
+        batch = {k: torch.as_tensor(v, dtype=torch.int64).to(device)
+                 for k, v in data(2).next_batch().items()}
+        init = init_train_params(cfg, seed=0, device=device)
+        after = []
+        for _ in range(2):
+            p = _float32(torch, init)
+            step = make_train_step(cfg, opt)
+            _, _, m = step(p, opt_mod.adamw_init(lm.trainable(p)),
+                           {k: v[:1] for k, v in batch.items()}, 0)
+            after.append((float(m["loss"]), dict(lm.named_trainable(p))))
+        differ = [n for n, t in after[0][1].items() if not torch.equal(t, after[1][1][n])]
+        deterministic = after[0][0] == after[1][0] and not differ
+        log(f"[supervisor] two identical steps on the card: losses {after[0][0]!r} and "
+            f"{after[1][0]!r}; params that differ after the update: {differ or 'none'}")
+        del after, p
+
+        # The uninterrupted run: the same steps, no checkpoints.
+        plain = Trainer(cfg, opt, data(), _float32(torch, init), workdir=None)
+        want = [(r["step"], r["loss"]) for r in (plain.step_once()
+                                                for _ in range(SUPERVISE_STEPS))]
+        del plain
+        gaps = [abs(a - b) / abs(b) for (_, a), (_, b) in zip(hist, want)]
+        log(f"[supervisor] uninterrupted losses {want}; relative gaps {gaps}")
+        if deterministic and hist != want:
+            raise AssertionError(f"supervisor: the recovered losses {hist} differ from the "
+                                 f"uninterrupted run's {want} on a deterministic card")
+        if max(gaps) > SUPERVISE_LOSS_RTOL:
+            raise AssertionError(f"supervisor: recovered losses off by {max(gaps):.3g}")
+
+        # Serve the step-3 checkpoint through the --ckpt loader.
+        ckpt_dir = str(Path(workdir, "checkpoints"))
+        name = ckpt.latest_verified_name(ckpt_dir)
+        loaded = load_params(cfg, ckpt_dir, device=device)
+        mismatch = [n for (n, a), (_, b) in zip(lm.named_trainable(loaded),
+                                                lm.named_trainable(saved["params"]))
+                    if a.dtype != b.dtype or not torch.equal(a, b)]
+        toks = batch["tokens"][:1, :seq // 4]
+        logits = []
+        for params in (loaded, saved["params"]):
+            lg, cache = make_prefill(cfg, seq)(params, toks)
+            nxt = lg[:, -1].argmax(-1)[:, None]
+            pos = torch.full((1,), toks.shape[1], dtype=torch.int32, device=device)
+            logits.append((lg, make_decode_step(cfg)(params, nxt, cache, pos)[0]))
+        same = [torch.equal(a, b) for a, b in zip(*logits)]
+        log(f"[supervisor] served {name}: params equal to the trainer's at its save: "
+            f"{not mismatch}; prefill and first decode step logits equal: {same}")
+        if name != f"step_{SUPERVISE_CKPT_EVERY:08d}" or mismatch or not all(same):
+            raise AssertionError(f"supervisor: serving {name}: params differ at {mismatch}, "
+                                 f"logits equal {same}")
+        del loaded, saved["params"], logits, cache
+
+        # Grad-accum: one step at 2 microbatches against the whole batch.
+        res = {}
+        for accum in (1, 2):
+            ocfg = opt_mod.OptimizerConfig(peak_lr=1e-2, warmup_steps=0, total_steps=10,
+                                           schedule="constant", grad_accum=accum)
+            p = _float32(torch, init)
+            before = dict(bwd.launches)
+            _, _, m = make_train_step(cfg, ocfg)(p, opt_mod.adamw_init(lm.trainable(p)),
+                                                 batch, 0)
+            sync()
+            res[accum] = (float(m["loss"]), p,
+                          {k: bwd.launches[k] - before[k] for k in bwd.launches})
+        rel = abs(res[2][0] - res[1][0]) / abs(res[1][0])
+        dparam = max(float((a - b).detach().abs().max()) for a, b in zip(lm.trainable(res[1][1]),
+                                                                lm.trainable(res[2][1])))
+        log(f"[supervisor] grad_accum 2 vs 1 on 2 x {seq}: losses {res[2][0]!r} vs "
+            f"{res[1][0]!r} (relative gap {rel:.3g}, limit {GRAD_ACCUM_RTOL:g}); largest "
+            f"param difference after the update {dparam:.3g} (limit {GRAD_ACCUM_PARAM_TOL:g}); "
+            f"backward launches {res[2][2]} vs {res[1][2]}")
+        if rel > GRAD_ACCUM_RTOL or dparam > GRAD_ACCUM_PARAM_TOL \
+                or res[2][2]["distr_dq"] != 2 * res[1][2]["distr_dq"] or res[1][2]["distr_dq"] == 0:
+            raise AssertionError(f"supervisor: grad_accum gap {rel:.3g}, params {dparam:.3g}, "
+                                 f"launches {res[2][2]} vs {res[1][2]}")
+        accum_report = {"loss_1": res[1][0], "loss_2": res[2][0], "rel_gap": rel,
+                        "max_param_diff": dparam}
+        del res, p, init, batch
+    finally:
+        for name_, fn in originals.items():
+            setattr(ckpt, name_, fn)
+        shutil.rmtree(workdir, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    log(f"[supervisor] {phase_s:.1f}s for the phase")
+    return {"launches": {n: counts[n] for n in path},
+            "report": {"phase_s": phase_s, "wall_s": wall, "history": hist, "uninterrupted": want,
+                       "rel_gaps": gaps, "deterministic": deterministic,
+                       "params_differing_between_identical_steps": differ,
+                       "counters": counters, "events": events, "io": io,
+                       "grad_accum": accum_report, "launches": counts}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="also write the results as JSON here")
-    ap.add_argument("--only", choices=("kernels", "moe", "encdec", "tune"), default=None,
+    ap.add_argument("--only", choices=("kernels", "moe", "encdec", "tune", "cluster"),
+                    default=None,
                     help="kernels: stop after the kernel phases; moe: run only the MoE "
                          "check and the MoE configs' serving; encdec: run only the "
                          "non-causal kernel checks and whisper-small's and internvl2-2b's "
-                         "serving and training; tune: run only the tuner's phase; "
-                         "each prints a JSON summary")
+                         "serving and training; tune: run only the tuner's phase; cluster: "
+                         "run only the cluster router's and the training supervisor's "
+                         "phases; each prints a JSON summary")
     ap.add_argument("--serve-load", choices=("slot", "paged", "hybrid"), default=None,
                     help="only serve this workload as a closed-loop load under both impls "
                          "(timed passes and the device's busy share), no checks")
@@ -3284,6 +3921,28 @@ def main() -> int:
                                                  indent=1))
         log(card)
         print(json.dumps({"launches": tuned["launches"]}), flush=True)
+        return 0
+    if args.only == "cluster":
+        from repro_torch.configs import get_config
+        from repro_torch.models import lm
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        params = lm.init_params(get_config("starcoder2-7b"),
+                                torch.Generator(device="cuda").manual_seed(0), "cuda")
+        clustered = cluster_phase(torch, params)
+        del params
+        free_card(torch, "starcoder2-7b serving")
+        supervised = supervisor_phase(torch)
+        free_card(torch, "the supervisor phase", gate=False)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps({"card": card, "cluster": clustered["report"],
+                                                  "supervisor": supervised["report"]},
+                                                 indent=1))
+        log(card)
+        print(json.dumps({"launches": {"cluster": clustered["launches"],
+                                       "supervisor": supervised["launches"]}}), flush=True)
         return 0
     if args.only == "encdec":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -3381,10 +4040,13 @@ def main() -> int:
         results["tune"] = tuned["report"]
         dec["max_abs_err"] = max(dec["max_abs_err"], tuned["report"]["max_abs_err"]["decode"])
         pdec["max_abs_err"] = max(pdec["max_abs_err"], tuned["report"]["max_abs_err"]["paged"])
+        clustered = cluster_phase(torch, params)
+        results["cluster"] = clustered["report"]
         del params
         free_card(torch, "starcoder2-7b serving")
         for name, count in (*fused["launches"].items(), *chaos["launches"].items(),
-                            *traced["launches"].items(), *tuned["launches"].items()):
+                            *traced["launches"].items(), *tuned["launches"].items(),
+                            *clustered["launches"].items()):
             launches[name] += count
         for arch, n_layers in QWEN_SERVE:
             res = model_serve_phase(torch, arch, n_layers, scores=arch == "qwen1.5-4b")
@@ -3413,9 +4075,12 @@ def main() -> int:
         results["train_encdec_vlm"] = encdec_train["report"]
         robust = train_robustness_phase(torch)
         results["train_robustness"] = robust["report"]
+        supervised = supervisor_phase(torch)
+        results["supervisor"] = supervised["report"]
+        free_card(torch, "the supervisor phase", gate=False)
         for name, count in (*train["launches"].items(), *mamba["launches"].items(),
                             *encdec_train["launches"].items(),
-                            *robust["launches"].items()):
+                            *robust["launches"].items(), *supervised["launches"].items()):
             launches[name] += count
 
     csrc = "src/repro_torch/kernels/csrc"

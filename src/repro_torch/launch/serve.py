@@ -13,7 +13,10 @@ versions).  ``--trace PATH`` records each
 request's lifecycle span (admission → prefill → decode → terminal) and the
 step spans as a Chrome trace_event JSON; ``--metrics-out PATH`` writes the
 metrics snapshot (``obs.metrics.serving_registry``: the engine's frozen
-counters and TTFT / TPOT histograms).
+counters and TTFT / TPOT histograms).  ``--ckpt DIR`` serves the weights of
+the newest verified checkpoint in ``DIR`` (the ``checkpoints`` directory of
+a training run's workdir, as ``train/checkpoint.py`` writes it) in place of
+random ones, on the same device.
 """
 from __future__ import annotations
 
@@ -28,12 +31,28 @@ from repro_torch.core.api import IMPLS
 from repro_torch.models import lm
 from repro_torch.obs import TraceRecorder, perf_clock, serving_registry
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.train import checkpoint as ckpt
 from repro_torch.utils.device import resolve_device
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def load_params(cfg, ckpt_dir: str, *, device: str | torch.device = "cuda") -> dict:
+    """The params of the newest checkpoint in ``ckpt_dir`` that verifies:
+    a template in the dtype training holds its weights in
+    (``lm.param_dtype``) on ``device``, filled in place by
+    ``checkpoint.load_checkpoint``, which checks each array's checksum
+    first.  Raises when no checkpoint there verifies."""
+    dev = resolve_device(device)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                            dtype=lm.param_dtype(cfg))
+    step, params, _, meta = ckpt.load_checkpoint(ckpt_dir, params)
+    print(f"[serve] weights from {meta['_name']} (step {step}, "
+          f"{meta['_fallback_skipped']} torn skipped)")
+    return params
 
 
 def run(cfg, params, *, requests: int = 8, max_new: int = 16, max_slots: int = 4,
@@ -71,6 +90,8 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--impl", choices=IMPLS, default=None,
                     help="attention impl (default: the config's)")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint dir to serve (the newest verified checkpoint in it)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-slots", type=int, default=4)
@@ -92,7 +113,10 @@ def main(argv: list[str] | None = None) -> dict:
     cfg = get_config(args.arch, reduced=args.reduced)
     if args.impl is not None:
         cfg = cfg.replace(attention=cfg.attention.with_impl(args.impl))
-    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    if args.ckpt:
+        params = load_params(cfg, args.ckpt, device=dev)
+    else:
+        params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     lens = ([int(x) for x in args.prompt_lens.split(",")] if args.prompt_lens
             else None)
     kw = dict(requests=args.requests, max_new=args.max_new, max_slots=args.max_slots,

@@ -22,8 +22,13 @@ the per-step spans and the checkpoint and rollback instants,
 ``REPRO_TUNE`` (default: the environment's); the run then resolves the
 training shape's attention blocks, forward and backward, before its first
 step, so under ``measure`` a sweep runs there and never inside a step.
-Loading weights from disk and the supervisor (``--supervise``) are not
-ported yet.
+``--supervise N`` runs the trainer under ``train.supervisor.TrainSupervisor``
+with N simulated workers (heartbeat failure detection, straggler
+exclusion, remesh and restore from the newest verified checkpoint on a
+worker's loss); ``--metrics-out`` then reads the supervisor, whose
+counters merge the trainer's.  The reference's ``--model-parallel`` and
+``--context-parallel`` are not ported: the supervisor plans one model
+shard a worker.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ from repro_torch.obs import TraceRecorder, set_recorder, train_registry
 from repro_torch.train.anomaly import AnomalyConfig
 from repro_torch.train.data import BinaryShardData, SyntheticLMData
 from repro_torch.train.optimizer import OptimizerConfig
+from repro_torch.train.supervisor import TrainSupervisor
 from repro_torch.train.trainer import Trainer
 from repro_torch.tune.autotune import tune_mode, tuned_attention
 from repro_torch.utils.device import resolve_device
@@ -81,15 +87,17 @@ def run(cfg, params: dict, *, steps: int = 10, batch: int = 8, seq: int = 128,
         lr: float = 1e-3, grad_accum: int = 1, seed: int = 0,
         device: str | torch.device = "cuda", workdir: str | None = None,
         data: str | None = None, ckpt_every: int = 200, anomaly_z: float = 8.0,
-        max_rollbacks: int = 3, trace=None) -> dict:
+        max_rollbacks: int = 3, supervise: int = 0, trace=None) -> dict:
     """Train ``params`` (on ``device``) for ``steps`` steps on
     ``SyntheticLMData(cfg.vocab, batch, seq, seed)``, or on the ``.bin``
     shards the glob ``data`` names, logging every step.  With ``workdir``
-    the trainer checkpoints there and resumes from it; ``trace`` is the
-    recorder it emits to (None: the process-global one).  Returns the
-    trainer, the history, the step times, tokens/s over the steps after the
-    first (which pays for the kernel build and first-use setup), the count
-    of skipped steps and, on CUDA, the peak of
+    the trainer checkpoints there and resumes from it; with ``supervise``
+    > 0 a ``TrainSupervisor`` of that many simulated workers drives it;
+    ``trace`` is the recorder both emit to (None: the process-global one).
+    Returns the trainer, the supervisor (None without one), the history,
+    the step times, tokens/s over the steps after the first (which pays for
+    the kernel build and first-use setup), the count of skipped steps and,
+    on CUDA, the peak of
     ``torch.cuda.max_memory_allocated`` in bytes (None on the CPU)."""
     dev = resolve_device(device)
     opt_cfg = OptimizerConfig(peak_lr=lr, warmup_steps=max(steps // 20, 1), total_steps=steps,
@@ -104,11 +112,18 @@ def run(cfg, params: dict, *, steps: int = 10, batch: int = 8, seq: int = 128,
                             max_rollbacks=max_rollbacks)
     trainer = Trainer(cfg, opt_cfg, dataset, params, workdir=workdir, ckpt_every=ckpt_every,
                       anomaly=anomaly, trace=trace)
-    hist = trainer.run(steps)
+    sup = None
+    if supervise > 0:
+        sup = TrainSupervisor(trainer, num_workers=supervise, trace=trace)
+        hist = sup.run(steps)
+        print(f"[train] supervisor counters: {sup.counters_snapshot()}")
+    else:
+        hist = trainer.run(steps)
     times = [r["sec"] for r in hist]
     warm = times[1:] or times
     return {
         "trainer": trainer,
+        "supervisor": sup,
         "history": hist,
         "step_times": times,
         "tok_per_s": batch * seq * len(warm) / sum(warm),
@@ -142,6 +157,10 @@ def main(argv: list[str] | None = None) -> dict:
                          "back to the last verified checkpoint; 0 disables the guard)")
     ap.add_argument("--max-rollbacks", type=int, default=3,
                     help="consecutive no-progress anomaly rollbacks before the run halts")
+    ap.add_argument("--supervise", type=int, default=0, metavar="N",
+                    help="run under TrainSupervisor with N simulated workers: heartbeat "
+                         "failure detection, straggler exclusion, remesh and verified-"
+                         "checkpoint restore on a worker's loss (0: the plain Trainer)")
     ap.add_argument("--tune", choices=("off", "analytic", "measure"), default=None,
                     help="block-size autotuning mode (sets REPRO_TUNE; default: the "
                          "environment's)")
@@ -170,7 +189,8 @@ def main(argv: list[str] | None = None) -> dict:
         out = run(cfg, params, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
                   grad_accum=args.grad_accum, seed=args.seed, device=args.device,
                   workdir=workdir, data=args.data, ckpt_every=args.ckpt_every,
-                  anomaly_z=args.anomaly_z, max_rollbacks=args.max_rollbacks, trace=rec)
+                  anomaly_z=args.anomaly_z, max_rollbacks=args.max_rollbacks,
+                  supervise=args.supervise, trace=rec)
     finally:
         set_recorder(None)
     hist = out["history"]
@@ -185,7 +205,8 @@ def main(argv: list[str] | None = None) -> dict:
         print(f"[train] trace: {args.trace} ({len(rec.events)} events)")
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:
-            json.dump(train_registry(out["trainer"]).snapshot(), f, indent=1)
+            json.dump(train_registry(out["supervisor"] or out["trainer"]).snapshot(), f,
+                      indent=1)
         print(f"[train] metrics: {args.metrics_out}")
     return out
 

@@ -28,6 +28,7 @@ from repro_torch.obs.metrics import (
     STEP_TIME_BUCKETS_S,
     TPOT_BUCKETS_S,
     TTFT_BUCKETS_S,
+    router_registry,
     serving_registry,
     train_registry,
 )
@@ -51,6 +52,7 @@ __all__ = [
     "TPOT_BUCKETS_S",
     "STEP_TIME_BUCKETS_S",
     "serving_registry",
+    "router_registry",
     "train_registry",
     "roofline_lower_bound_s",
     "achieved_fraction",

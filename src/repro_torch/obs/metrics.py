@@ -2,7 +2,8 @@
 port's copy of ``repro.obs.metrics``; stdlib only).
 
 The registry wraps the frozen counter schemas the engines and the trainer
-expose (``serve.lifecycle.COUNTER_KEYS``, ``train.elastic.COUNTER_KEYS``):
+expose (``serve.lifecycle.COUNTER_KEYS``, ``serve.cluster.ROUTER_COUNTER_KEYS``,
+``train.elastic.COUNTER_KEYS``):
 :meth:`MetricsRegistry.bind_counters` registers one pull-style source whose
 keys ARE the frozen schema (``counters_snapshot()`` zero-fills against it),
 and every bound name is claimed exactly once: binding the same schema
@@ -231,14 +232,31 @@ def serving_registry(engine, prefix: str = "serve") -> MetricsRegistry:
     return reg
 
 
+def router_registry(router) -> MetricsRegistry:
+    """Registry over a ClusterRouter: its own frozen ROUTER_COUNTER_KEYS
+    plus the live replicas' aggregated engine counters, and cluster-level
+    TTFT/TPOT histograms from the router's ledger metrics."""
+    reg = MetricsRegistry()
+    reg.bind_counters("router", router.counters_snapshot,
+                      help="router counter (frozen schema)")
+    reg.bind_counters("cluster", router.cluster_counters,
+                      help="engine counters summed over live replicas")
+    ttft = reg.histogram("cluster_ttft_s", "time to first emitted token",
+                         buckets=TTFT_BUCKETS_S)
+    tpot = reg.histogram("cluster_tpot_s", "mean inter-token time",
+                         buckets=TPOT_BUCKETS_S)
+    _observe_rows(ttft, tpot, router.metrics())
+    return reg
+
+
 def train_registry(trainer, prefix: str = "train") -> MetricsRegistry:
-    """Registry over a Trainer: the frozen
+    """Registry over a Trainer (or TrainSupervisor): the frozen
     ``train.elastic.COUNTER_KEYS`` bound pull-style, the current step as a
     gauge, and a step-time histogram from the history records."""
     reg = MetricsRegistry()
     reg.bind_counters(prefix, trainer.counters_snapshot,
                       help="train robustness counter (frozen schema)")
-    target = getattr(trainer, "trainer", trainer)  # a wrapper that holds one
+    target = getattr(trainer, "trainer", trainer)  # a supervisor wraps one
     reg.gauge(f"{prefix}_step", "current optimizer step",
               fn=lambda: target.step)
     hist = reg.histogram(f"{prefix}_step_time_s", "wall time per step",

@@ -38,6 +38,9 @@ from repro_torch.kernels import (
 _COUNTED = {"flash_attention": flash_attention, "distr_attention": distr_attention,
             "decode": decode, "paged_decode": paged_decode, "ssd": ssd}
 
+#: One side stream a device, shared by every StepGraph (see ``_side_stream``).
+_SIDE_STREAMS: dict = {}
+
 
 class LaunchCounters:
     """The kernel wrappers' ``launches`` counters read and advanced as one
@@ -90,7 +93,6 @@ class StepGraph:
         self.counters = counters or LaunchCounters()
         self._warm: set = set()
         self._captured: dict = {}
-        self._stream = None
 
     def __call__(self, *args):
         if not self._uses_graphs(args):
@@ -131,11 +133,18 @@ class StepGraph:
     def _uses_graphs(args) -> bool:
         return any(isinstance(a, torch.Tensor) and a.is_cuda for a in args)
 
-    def _side_stream(self, args):
-        if self._stream is None:
-            device = next(a.device for a in args if isinstance(a, torch.Tensor))
-            self._stream = torch.cuda.Stream(device)
-        return self._stream
+    @staticmethod
+    def _side_stream(args):
+        """The device's one side stream for warm-ups and captures.  A stream
+        on which a GEMM runs gets a cuBLAS workspace that the process keeps
+        to its end, so a stream for each graph would leave a workspace on
+        the card for every engine ever built (a router that replaces
+        replicas builds many)."""
+        device = next(a.device for a in args if isinstance(a, torch.Tensor))
+        stream = _SIDE_STREAMS.get(device)
+        if stream is None:
+            stream = _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+        return stream
 
     def _warm_up(self, args):
         stream = self._side_stream(args)

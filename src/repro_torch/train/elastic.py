@@ -4,8 +4,8 @@ logic (pure Python), the port's copy of ``repro.train.elastic``.
 When a host drops, a job controller (1) drains, (2) checkpoints from the
 surviving hosts, (3) replans the mesh for the surviving device count and
 (4) restarts from the latest step with a deterministic re-assignment of
-data shards.  These helpers are the deterministic pieces of that loop; the
-supervisor that drives them against a live Trainer is not ported yet.
+data shards.  These helpers are the deterministic pieces of that loop;
+``train.supervisor.TrainSupervisor`` drives them against a live Trainer.
 ``COUNTER_KEYS`` is the frozen schema ``Trainer.counters_snapshot`` and
 ``obs.metrics.train_registry`` read.
 """
@@ -14,8 +14,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 # -- frozen observability schema --------------------------------------------
-# The training analog of serve.lifecycle.COUNTER_KEYS: the Trainer (and
-# the reference's supervisor) snapshot against THIS key set (zero-filled);
+# The training analog of serve.lifecycle.COUNTER_KEYS: the Trainer and
+# the TrainSupervisor snapshot against THIS key set (zero-filled);
 # the reference's tests freeze it and the port's tests hold it equal.
 # Adding a counter means adding it here, on purpose.
 

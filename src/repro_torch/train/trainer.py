@@ -27,8 +27,8 @@ checkpoints, verified resume, fault injection and trace spans.
 
 Without a ``workdir`` no checkpoint is written or read, and the anomaly
 guard is off, because it has no verified rollback target; the NaN guard
-still skips updates.  The reference's supervisor and its mesh are not
-ported yet.
+still skips updates.  ``train.supervisor.TrainSupervisor`` drives this
+Trainer under simulated workers; the reference's mesh is not ported yet.
 """
 from __future__ import annotations
 

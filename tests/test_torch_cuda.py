@@ -1261,3 +1261,183 @@ def test_moe_paged_steps_graph_replay_matches_eager_steps(cuda):
     pre = [m["n_preemptions"] for m in eng.metrics()]
     assert pre == [m["n_preemptions"] for m in eager_eng.metrics()] and sum(pre) > 0
     assert len(eng._decode._captured) == 1 and len(eng._chunk._captured) == 1
+
+
+def _cluster_engines(cfg, params, clock, faults=None):
+    from repro_torch.serve.engine import PagedServeEngine, ServeEngine
+
+    faults = faults or {}
+    return [ServeEngine(cfg, params, max_slots=2, max_len=64, clock=clock, device="cuda",
+                        faults=faults.get(0)),
+            PagedServeEngine(cfg, params, max_batch=2, max_len=64, block_size=16,
+                             prefill_chunk=8, clock=clock, device="cuda", faults=faults.get(1))]
+
+
+def _cluster_run(cfg, params, specs, prompts):
+    """A slot and a paged replica behind a round-robin router on the card,
+    a tick clock, ``specs`` at the router's fault points → (router, the
+    requests by uid, launch-count advance, paged pool free at start and
+    end)."""
+    from repro_torch.faults import FaultInjector, FaultSpec
+    from repro_torch.serve.cluster import ClusterRouter
+    from repro_torch.serve.graphs import LaunchCounters
+
+    class Clock:
+        t = 0.0
+
+        def __call__(self):
+            return self.t
+
+    clock, counters = Clock(), LaunchCounters()
+    engines = _cluster_engines(cfg, params, clock)
+    router = ClusterRouter(engines, policy="round_robin", clock=clock,
+                           faults=FaultInjector([FaultSpec(**s) for s in specs]))
+    free0 = engines[1].cache.pool.num_free
+    before = counters.read()
+    uids = [router.add_request(p, max_new_tokens=8) for p in prompts]
+    for _ in range(300):
+        router.tick()
+        clock.t += 1
+        if not router.has_work():
+            break
+    torch.cuda.synchronize()
+    after = counters.read()
+    assert not router.has_work()
+    return (router, {u: router.request(u) for u in uids},
+            {k: after[k] - before[k] for k in after}, (free0, engines[1].cache.pool.num_free))
+
+
+@pytest.mark.parametrize("crash", [0, 1], ids=["slot_dies", "paged_dies"])
+def test_cluster_router_on_card_survives_a_replica_kill(cuda, crash):
+    """starcoder2-7b ``reduced()`` at head dim 64 under pallas_distr, a slot
+    and a paged replica on the card behind the router, replica ``crash``
+    killed after three ticks: every request done with its budget, the
+    survivor's own requests equal to a healthy run's token for token, the
+    redelivered ones keep their emitted prefix, the paged pool (when it
+    survives) back at its free count, and the DistrAttention forward,
+    decode and paged decode kernels launched; the healthy run records no
+    replica death."""
+    from repro_torch.models import lm
+
+    cfg = _card_config("starcoder2-7b", "pallas_distr")
+    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    prompts = [list(range(3, 11)), list(range(5, 17)), list(range(2, 8)), list(range(20, 29))]
+    healthy, want, counts, pool = _cluster_run(cfg, params, [], prompts)
+    assert healthy.counters_snapshot()["replica_deaths"] == 0
+    assert pool[0] == pool[1]
+    assert counts["distr_attention"] > 0 and counts["decode"] > 0 and counts["paged_decode"] > 0
+    router, got, _, pool = _cluster_run(
+        cfg, params, [dict(point="replica_crash", uid=crash, after=3)], prompts)
+    assert router.counters_snapshot()["replica_deaths"] == 1
+    moved = [u for u, c in got.items() if c.redeliveries]
+    assert moved
+    for u, c in got.items():
+        assert c.status == "done" and len(c.emitted) == 8
+        if u in moved:
+            assert c.emitted[:c.base] == want[u].emitted[:c.base]
+        else:
+            assert c.emitted == want[u].emitted
+    if crash == 0:
+        assert pool[0] == pool[1]
+
+
+def _card_trainer(workdir, cfg, params, seq=64):
+    from repro_torch.train.data import SyntheticLMData
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import Trainer
+
+    opt = OptimizerConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    return Trainer(cfg, opt, SyntheticLMData(cfg.vocab, 2, seq, seed=0), params,
+                   workdir=workdir, ckpt_every=3, log_every=1000)
+
+
+def test_supervisor_on_card_recovers_to_the_uninterrupted_losses(cuda, tmp_path):
+    """minicpm-2b ``reduced()`` at head dim 64 under pallas_distr, f32, on
+    the card: a ``TrainSupervisor`` of 4 workers loses worker 2 at tick 5,
+    remeshes to 3 and restores the step-3 checkpoint; the losses equal an
+    uninterrupted run's (to 1e-6 relative: the smoke checks bit identity)
+    and the DistrAttention forward, delta and distr backward kernels
+    launched."""
+    from repro_torch.faults import FaultInjector, FaultSpec
+    from repro_torch.launch.train import init_train_params
+    from repro_torch.train.supervisor import TrainSupervisor
+
+    cfg = _card_config("minicpm-2b", "pallas_distr")
+    before = dict(bwd.launches), dk.launches
+    tr = _card_trainer(str(tmp_path / "w"), cfg, init_train_params(cfg, seed=0, device="cuda"))
+    sup = TrainSupervisor(tr, num_workers=4, max_missed=2, faults=FaultInjector(
+        [FaultSpec("worker_loss", uid=2, after=4, times=-1)]))
+    hist = sup.run(6)
+    snap = sup.counters_snapshot()
+    assert snap["worker_deaths"] == snap["remesh_events"] == 1 and sup.alive == [0, 1, 3]
+    assert [e["restored_step"] for e in sup.events if e["kind"] == "remesh"] == [3]
+    plain = _card_trainer(None, cfg, init_train_params(cfg, seed=0, device="cuda"))
+    want = [plain.step_once() for _ in range(6)]
+    assert [r["step"] for r in hist] == [r["step"] for r in want] == list(range(1, 7))
+    for a, b in zip(hist, want):
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-6)
+    assert dk.launches > before[1]
+    for name in ("delta", "distr_dq", "distr_dkv"):
+        assert bwd.launches[name] > before[0][name]
+
+
+def test_grad_accum_on_card_matches_the_whole_batch(cuda):
+    """One train step of minicpm-2b ``reduced()`` at head dim 64 under
+    pallas_distr on the card at grad_accum 2 against grad_accum 1 on the
+    same 4 x 32 batch: the loss within the reference's rtol 1e-5, every
+    param within 2e-2 after the update, and the backward kernels launched
+    twice as often."""
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = _card_config("minicpm-2b", "pallas_distr")
+    base = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+                          dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (4, 32), generator=gen, device="cuda")
+             for k in ("tokens", "labels")}
+    out = {}
+    for accum in (1, 2):
+        params = {k: _tree_to(v, "cuda") for k, v in base.items()}
+        ocfg = opt.OptimizerConfig(peak_lr=1e-2, warmup_steps=0, total_steps=10,
+                                   schedule="constant", grad_accum=accum)
+        before = dict(bwd.launches)
+        _, _, metrics = make_train_step(cfg, ocfg)(
+            params, opt.adamw_init(lm.trainable(params)), batch, 0)
+        out[accum] = (float(metrics["loss"]), params,
+                      {k: bwd.launches[k] - before[k] for k in bwd.launches})
+    assert out[2][0] == pytest.approx(out[1][0], rel=1e-5)
+    for a, b in zip(lm.trainable(out[1][1]), lm.trainable(out[2][1])):
+        assert float((a - b).detach().abs().max()) < 2e-2
+    assert out[1][2]["distr_dq"] > 0
+    assert out[2][2] == {k: 2 * n for k, n in out[1][2].items()}
+
+
+def test_step_graphs_share_one_side_stream_and_leave_no_workspace_behind(cuda):
+    """Every StepGraph warms up and captures on the device's one side
+    stream, so building engine after engine adds no cuBLAS workspace: after
+    ten slot engines have each captured a decode step and been dropped,
+    the card's allocated memory is back within 64 MiB of where it was after
+    the first."""
+    import gc
+
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.graphs import StepGraph
+
+    x = torch.zeros(2, device="cuda")
+    assert StepGraph._side_stream((x,)) is StepGraph._side_stream((x, x))
+    cfg = _graph_config("starcoder2-7b")
+    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    marks = []
+    for _ in range(10):
+        eng = ServeEngine(cfg, params, max_slots=2, max_len=64, device="cuda")
+        eng.add_request([1, 2, 3], max_new_tokens=4)
+        eng.run_to_completion()
+        assert len(eng._decode._captured) == 1
+        del eng
+        gc.collect()
+        torch.cuda.synchronize()
+        marks.append(torch.cuda.memory_allocated())
+    assert marks[-1] - marks[0] <= 64 * 2**20, marks
