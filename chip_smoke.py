@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--out PATH] [--only kernels|moe|encdec|tune|cluster]
+    python3 chip_smoke.py [--out PATH] [--only kernels|moe|encdec|tune|cluster|ring]
 
 In order: prints the card's name and power limit; builds the CUDA kernels
 from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a; counts the bf16
@@ -139,13 +139,29 @@ uninterrupted run's bit for bit (two identical steps agree bit for bit on
 the card), the step-3 checkpoint served through the ``--ckpt`` loader
 with the trainer's logits, and one step at grad_accum 2 against 1.
 
+Ring context-parallel attention: after the supervisor phase,
+``ring_phase`` spawns 4 ranks as processes that share the card, in a gloo
+world over a ``FileStore`` (each hop's K and V staged through pinned host
+memory), and holds ring flash and ring DistrAttention, forward and
+gradients, at starcoder2-7b's and minicpm-2b's widths on 4 × 2048 tokens
+(causal, non-causal, f32, a ragged length causal and not, a dead shard)
+against the single-device kernels on the same card, each tensor also
+relative to its own scale, with the hop counts and one launch of each
+kernel a hop; then minicpm-2b (40 layers) under the 4-rank context mesh,
+every attention through ``core.api._ring_dispatch``: each layer's
+attention against the single-device one on the same layer input, and the
+whole forward (finite, its gap from the single-device forward reported).
+Four processes on one card check what the ring computes, not its speed
+across cards.
+
 ``python3 chip_smoke.py --only moe`` builds the kernels and runs only the
 MoE phases (the check, serving and training), then prints their launches
 as a JSON line last;
 ``--only encdec`` the same for the enc-dec and VLM slice's phases;
 ``--only tune`` the same for the tuner's phase (starcoder2-7b's weights,
 then ``tune_phase``); ``--only cluster`` the same for ``cluster_phase``
-(starcoder2-7b's weights) and ``supervisor_phase``.
+(starcoder2-7b's weights) and ``supervisor_phase``; ``--only ring`` the
+same for ``ring_phase``.
 ``python3 chip_smoke.py --serve-load slot|hybrid|paged`` runs none of the
 above: it serves one serve workload as a closed-loop load under both
 impls, the slot workload also over the fused-K̂ cache (timed passes and
@@ -395,6 +411,57 @@ DELTA_SHAPES = (("minicpm-2b train B=4", 4 * 36, 2048, 64, "bf16"),
                 ("ragged 36x601", 36, 601, 64, "bf16"),
                 ("minicpm-2b f32", 36, 2048, 64, "f32"))
 DELTA_ITERS = 50  # delta takes ~10 µs a call
+
+
+# The ring phase (context-parallel attention, ``distributed/ring_attention.py``):
+# RING_WORLD ranks as processes that share cuda:0 on the gloo backend (NCCL
+# puts no two ranks on one device), every hop's K and V staged through
+# pinned host buffers.  One card checks what the ring computes, not its
+# speed across cards.
+RING_WORLD = 4
+RING_N = 4 * 2048
+# Ragged: shards of 1920 rows, the last one 1432 rows live (causal and
+# non-causal: only the non-causal ring needs the kernels' kv_len mask on
+# the tail shard, the causal mask hides its padded keys anyway).
+RING_RAGGED_N = 4 * 2048 - 1000
+# (label, query heads, KV heads, head dim): starcoder2-7b's serving widths
+# and minicpm-2b's training widths.
+RING_WIDTHS = (("starcoder2-7b", 36, 4, 128), ("minicpm-2b", 36, 36, 64))
+RING_SMALL = ("small", 4, 2, 64)  # the f32 case, at N = 1024
+RING_SMALL_N = 1024
+# The reference ring test's tolerances (tests/test_distributed.py): the
+# largest |ring − single device| on O, and on the gradients of q, k and v.
+RING_TOL = {"bfloat16": (2e-2, 2e-1), "float32": (2e-5, 5e-5)}
+# They were set at N = 300.  At N = 8192 the bf16 values compared are about
+# as small as them (|O| ≈ 0.02 non-causal), so each tensor is also held to
+# its own scale: its largest error at most RING_REL[dtype][0] of the
+# single-device tensor's largest |value| (2^-5: at least four bf16 ulps of
+# it; the ring's errors are one ulp of some element), and its relative L2
+# error at most RING_REL[dtype][1] (a tail shard whose padded keys are not
+# masked shrinks O by ≈ 4%; a lost hop, or a dK / dV that does not come
+# home, moves a shard's rows by tens of percent).
+RING_REL = {"bfloat16": (2.0 ** -5, 1e-2), "float32": (1e-5, 1e-5)}
+RING_DEAD = (3,)
+# minicpm-2b under the context mesh, each impl: RING_LAYERS_CHECKED layers'
+# attention output, spread from the first layer to the last
+# (``models/attention.py::attention_apply`` through attend →
+# _ring_dispatch), on the single-device forward's input to that layer,
+# against the single-device attention on the same input, relative L2 at
+# most RING_LAYER_TOL.  Both see the same q, so DistrAttention groups alike
+# and only rounding differs; a lost hop moves a shard's rows by tens of
+# percent.  The whole 40-layer forward under the mesh is held to finite
+# hidden states and the ring's launches; its relative L2 from the
+# single-device forward and the last position's argmax are reported only:
+# over 40 layers bf16 roundings, and the LSH sign flips they cause under
+# DistrAttention, move it as far as a fault would (on one H100: 0.0173
+# flash, 0.0844 distr).
+RING_LAYER_TOL = 1e-2
+# On one H100 each of the 40 layers read 0.00265–0.00273 under both impls,
+# at ≈ 0.2 s of host staging a layer; 8 of them keep the phase near a minute.
+RING_LAYERS_CHECKED = 8
+RING_IMPLS = ("pallas_flash", "pallas_distr")
+RING_ITERS = 3
+RING_KERNELS = ("flash", "distr", "delta", "flash_dq", "flash_dkv", "distr_dq", "distr_dkv")
 
 
 def tc_smem_bytes(template: str, args: tuple) -> int:
@@ -3852,17 +3919,422 @@ def supervisor_phase(torch, base=None, device="cuda", seq=ROBUST_SEQ) -> dict:
                        "grad_accum": accum_report, "launches": counts}}
 
 
+def ring_rank(rank: int, world: int, device: str, small: bool) -> dict:
+    """One rank of ``ring_phase``, spawned by ``launch.mesh.run_world``; see
+    there.  Returns this rank's launches on the ring's calls and, on rank
+    0, the checks, hop counts and times."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.distr_attention import DistrConfig
+    from repro_torch.distributed import ring_attention as ra
+    from repro_torch.kernels import backward as bwd
+    from repro_torch.kernels import distr_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh, set_mesh
+    from repro_torch.models import lm, transformer
+    from repro_torch.models.attention import attention_apply
+
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)
+    mesh = make_host_mesh(context_parallel=world)
+    lead = rank == 0
+    dcfg = DistrConfig(group_size=2, block_q=128)
+    widths = (RING_SMALL,) if small else RING_WIDTHS
+    n_full = RING_SMALL_N if small else RING_N
+    n_ragged = RING_SMALL_N - 130 if small else RING_RAGGED_N
+    full_hops = {True: world * (world + 1) // 2, False: world * world}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    base = torch.cuda.memory_allocated() if cuda else 0
+
+    def zero():
+        fk.launches = dk.launches = 0
+        for name in bwd.launches:
+            bwd.launches[name] = 0
+
+    ring_launches = dict.fromkeys(RING_KERNELS, 0)
+
+    def ring_call(fn):
+        """Run one ring path with every count zeroed just before it and
+        read just after; returns its result and the launches summed over
+        the ring."""
+        sync()
+        zero()
+        out = fn()
+        sync()
+        mine = {"flash": fk.launches, "distr": dk.launches, **bwd.launches}
+        for name in RING_KERNELS:
+            ring_launches[name] += mine[name]
+        total = torch.tensor([mine[name] for name in RING_KERNELS], dtype=torch.int64)
+        dist.all_reduce(total)
+        return out, dict(zip(RING_KERNELS, (int(x) for x in total)))
+
+    def draw(hq, hkv, d, n, dtype, seed):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        shapes = ((1, hq, n, d), (1, hkv, n, d), (1, hkv, n, d))
+        q, k, v = (torch.randn(s, generator=gen, device=device).to(dtype) for s in shapes)
+        return q, k, v, torch.randn((1, hq, n, d), generator=gen, device=device)
+
+    def ring_fn(impl, q, k, v, causal, **kw):
+        if impl == "flash":
+            return ra.ring_flash_attention(q, k, v, mesh, causal=causal, **kw)
+        return ra.ring_distr_attention(q, k, v, dcfg, mesh, causal=causal, **kw)
+
+    def single_fn(impl, q, k, v, causal):
+        if impl == "flash":
+            return ops.flash_attention(q, k, v, causal=causal)
+        return ops.distr_attention(q, k, v, dcfg, causal=causal)
+
+    failures = []  # raised after the phase's last collective
+
+    def gate(label, share, text):
+        """Log a check's reading; a share of its tolerance over 1 (or NaN)
+        fails."""
+        log(f"  [ring] {label}: {text}; {share:.3g} of its tolerance")
+        if not share <= 1.0:
+            failures.append(f"ring {label}: {text}")
+        return share
+
+    def hold(label, pairs, dtype, *, grads=False):
+        """Each (got, want) pair within RING_TOL (the largest error, on O
+        or on the gradients) and RING_REL (the largest error as a share of
+        the want's largest |value|, and the relative L2 error); returns the
+        largest share of a tolerance over the pairs."""
+        key = str(dtype).split(".")[-1]
+        tol, (rel_max, rel_l2) = RING_TOL[key][int(grads)], RING_REL[key]
+        shares = []
+        for got, want, name in zip(*zip(*pairs), ("dq", "dk", "dv") if grads else ("",)):
+            g, w = got.float(), want.float()
+            err, scale = float((g - w).abs().max()), float(w.abs().max())
+            l2 = float((g - w).norm() / w.norm())
+            shares.append(gate(f"{label}{name}", max(err / tol, err / (rel_max * scale),
+                                                     l2 / rel_l2), (
+                f"largest error {err:.3g} (tolerance {tol}), {err / scale:.3g} of its largest "
+                f"|value| {scale:.3g} (tolerance {rel_max:.3g}), relative L2 {l2:.3g} "
+                f"(tolerance {rel_l2})")))
+        return max(shares) if all(x == x for x in shares) else math.nan
+
+    def launches_gate(label, got, impl, hops, backward):
+        if not cuda:  # CPU tensors take the plain versions, which launch nothing
+            return
+        want = dict.fromkeys(RING_KERNELS, 0)
+        want["flash" if impl == "flash" else "distr"] = hops
+        if backward:
+            want.update({f"{impl}_dq": hops, f"{impl}_dkv": hops, "delta": world})
+        if got != want:
+            raise AssertionError(f"ring {label}: launches {got}, want {want} (one launch "
+                                 "of each kernel a hop run)")
+
+    checks, hop_counts = [], {}
+
+    def case(label, impl, hq, hkv, d, n, causal, dtype, seed):
+        t0 = time.perf_counter()
+        q, k, v, w = draw(hq, hkv, d, n, dtype, seed)
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+
+        def fwd_bwd():
+            out, hops = ring_fn(impl, q, k, v, causal, return_hops=True)
+            return out, hops, torch.autograd.grad((out.float() * w).sum(), (q, k, v))
+
+        (out, hops, grads), got = ring_call(fwd_bwd)
+        name = f"{impl} {label} N={n} {'causal' if causal else 'non-causal'} {dtype}"
+        hop_counts[name] = hops
+        if hops != full_hops[causal]:
+            raise AssertionError(f"ring {name}: {hops} hops, want {full_hops[causal]}")
+        launches_gate(name, got, impl, hops, backward=True)
+        row = {"case": name, "hops": hops, "launches": got}
+        if lead:
+            ref = single_fn(impl, q, k, v, causal)
+            ref_grads = torch.autograd.grad((ref.float() * w).sum(), (q, k, v))
+            if not (torch.isfinite(out).all() and all(torch.isfinite(g).all() for g in grads)):
+                failures.append(f"ring {name}: a non-finite output or gradient")
+            row["o_share"] = hold(f"{name} O", [(out, ref)], dtype)
+            row["grad_share"] = hold(f"{name} ", list(zip(grads, ref_grads)), dtype,
+                                     grads=True)
+            row["s"] = time.perf_counter() - t0
+            log(f"  [ring] {name}: {row['s']:.2f} s")
+        checks.append(row)
+
+    t_cases = time.perf_counter()
+    seed = 0
+    for label, hq, hkv, d in widths:
+        for impl in ("flash", "distr"):
+            for causal in (True, False):
+                seed += 1
+                case(label, impl, hq, hkv, d, n_full, causal,
+                     torch.float32 if small else torch.bfloat16, seed)
+    label, hq, hkv, d = widths[0]
+    if not small:
+        for impl in ("flash", "distr"):
+            case(RING_SMALL[0], impl, *RING_SMALL[1:], RING_SMALL_N, True, torch.float32, 90)
+    for impl in ("flash", "distr"):  # a partly live tail shard
+        for causal in (True, False):
+            case(f"{label} ragged", impl, hq, hkv, d, n_ragged, causal,
+                 torch.float32 if small else torch.bfloat16, 91)
+    cases_s = time.perf_counter() - t_cases
+
+    def dead_case(dtype):
+        """A dead shard: its KV never arrives, hop 0 always runs.
+        Non-causal, so the dead source's hops to the other P − 1 ranks are
+        all skipped."""
+        t0 = time.perf_counter()
+        q, k, v, _ = draw(hq, hkv, d, n_full, dtype, 92)
+        with torch.no_grad(), ra.dead_shard_fault(RING_DEAD):
+            (out, hops), got = ring_call(lambda: ra.ring_flash_attention(
+                q, k, v, mesh, causal=False, return_hops=True))
+        want = world * world - (world - 1) * len(RING_DEAD)
+        name = f"flash {label} N={n_full} non-causal, dead shards {RING_DEAD}"
+        hop_counts[name] = hops
+        if hops != want or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"ring {name}: {hops} hops (want {want}), or a non-finite "
+                                 "output")
+        launches_gate(name, got, "flash", hops, backward=False)
+        row = {"case": name, "hops": hops, "launches": got}
+        if lead:
+            # Rows of the live shards see every key but the dead shard's;
+            # the dead shard's own rows see every key.
+            live = (world - len(RING_DEAD)) * (n_full // world)
+            with torch.no_grad():
+                ref_live = ops.flash_attention(q[:, :, :live], k[:, :, :live], v[:, :, :live])
+                ref_all = ops.flash_attention(q, k, v)
+            row["o_share"] = hold(f"{name} O (live rows)", [(out[:, :, :live], ref_live)],
+                                  dtype)
+            row["dead_o_share"] = hold(f"{name} O (the dead shard's rows)",
+                                       [(out[:, :, live:], ref_all[:, :, live:])], dtype)
+            row["s"] = time.perf_counter() - t0
+            log(f"  [ring] {name}: {row['s']:.2f} s")
+        checks.append(row)
+
+    def wall_times(dtype):
+        """The ring's wall time beside the single-device call (flash
+        forward, causal, the first widths): P processes sharing one card,
+        so this measures the hops' host staging, not ring speed across
+        cards."""
+        q, k, v, _ = draw(hq, hkv, d, n_full, dtype, 93)
+        times = {"shape": f"{label} N={n_full} causal", "ring_s": [], "single_s": []}
+        with torch.no_grad():
+            for _ in range(RING_ITERS):
+                dist.barrier()
+                sync()
+                t0 = time.perf_counter()
+                ring_call(lambda: ra.ring_flash_attention(q, k, v, mesh, causal=True))
+                times["ring_s"].append(time.perf_counter() - t0)
+            dist.barrier()
+            if lead:
+                for _ in range(RING_ITERS + 1):
+                    sync()
+                    t0 = time.perf_counter()
+                    ops.flash_attention(q, k, v, causal=True)
+                    sync()
+                    times["single_s"].append(time.perf_counter() - t0)
+                times["single_s"] = times["single_s"][1:]
+            dist.barrier()
+        return times
+
+    dtype = torch.float32 if small else torch.bfloat16
+    dead_case(dtype)
+    times = wall_times(dtype)
+
+    # minicpm-2b through attend → _ring_dispatch, per impl: the whole
+    # forward, then every layer's attention on the single-device input.
+    base_cfg = get_config("minicpm-2b", reduced=small)
+    params = lm.init_params(base_cfg, torch.Generator(device=device).manual_seed(0), device)
+    tokens = torch.randint(1, base_cfg.vocab, (1, n_full), device=device,
+                           generator=torch.Generator(device=device).manual_seed(1))
+    proj = params.get("lsh_proj")
+    model = {}
+
+    def rel_l2(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).norm() / b.norm())
+
+    def layer_pass(cfg) -> list:
+        """Layer by layer on the single-device forward's hidden states
+        (every rank runs it, so every rank holds the same layer input):
+        the checked layers' attention output under the mesh against the
+        single-device one; {layer: relative L2} on rank 0."""
+        x, positions = lm.embed_inputs(params, cfg, tokens)
+        stack = lm.decoder_layers(params, cfg)
+        k = min(RING_LAYERS_CHECKED, len(stack))
+        checked = {round(i * (len(stack) - 1) / max(k - 1, 1)) for i in range(k)}
+        errs = {}
+        for i, (layer_type, lp) in enumerate(stack):
+            if i in checked:
+                h = transformer.norm_apply(lp["norm1"], x, cfg)
+                with set_mesh(mesh):
+                    o_ring, _ = attention_apply(lp["attn"], h, cfg, positions=positions,
+                                                proj=proj)
+                if lead:
+                    o_one, _ = attention_apply(lp["attn"], h, cfg, positions=positions,
+                                               proj=proj)
+                    errs[i] = (rel_l2(o_ring, o_one) if bool(torch.isfinite(o_ring).all())
+                               else math.nan)
+            x, _, _ = transformer.block_apply_aux(lp, x, cfg, positions=positions, proj=proj,
+                                                  layer_type=layer_type)
+        return errs
+
+    with torch.no_grad():
+        for impl in RING_IMPLS:
+            cfg = base_cfg.replace(attention=replace(base_cfg.attention, impl=impl,
+                                                     context_axis="context"))
+            row = model[impl] = {}
+            dist.barrier()
+            t0 = time.perf_counter()
+            with set_mesh(mesh):
+                (hidden, _), got = ring_call(lambda: lm.backbone(params, cfg, tokens))
+            row["ring_s"] = time.perf_counter() - t0
+            want = dict.fromkeys(RING_KERNELS, 0)
+            want["flash" if impl == "pallas_flash" else "distr"] = cfg.n_layers * full_hops[True]
+            if cuda and got != want:
+                raise AssertionError(f"minicpm-2b {impl} under the ring: launches {got}, "
+                                     f"want {want}")
+            row["launches"] = got
+            if lead:
+                sync()
+                t0 = time.perf_counter()
+                ref, _ = lm.backbone(params, cfg, tokens)  # no active mesh: one device
+                sync()
+                row["single_s"] = time.perf_counter() - t0
+                if not bool(torch.isfinite(hidden).all()):
+                    failures.append(f"minicpm-2b {impl} under the ring: non-finite hidden "
+                                    "states")
+                row["hidden_rel_l2"] = rel_l2(hidden, ref)
+                logits = lm.logits_fn(params, cfg, hidden[:, -1:]).float()[..., :cfg.vocab]
+                ref_logits = lm.logits_fn(params, cfg, ref[:, -1:]).float()[..., :cfg.vocab]
+                row["last_logits_max_abs_err"] = max_err(torch, logits, ref_logits)
+                row["last_logits_scale"] = float(ref_logits.abs().max())
+                row["last_argmax_equal"] = bool(logits.argmax(-1).eq(ref_logits.argmax(-1)).all())
+                del ref, logits, ref_logits
+            del hidden
+            dist.barrier()
+            t0 = time.perf_counter()
+            layer_l2 = layer_pass(cfg)
+            sync()
+            row["layers_s"] = time.perf_counter() - t0
+            if lead:
+                row["layer_rel_l2"] = layer_l2
+                errs = list(layer_l2.values())
+                worst = max(errs) if all(e == e for e in errs) else math.nan
+                row["layer_share"] = gate(
+                    f"minicpm-2b {impl}, the attention output of layers {sorted(layer_l2)} on "
+                    f"the single-device layer input (N={n_full})", worst / RING_LAYER_TOL,
+                    f"largest relative L2 {worst:.3g} (median {statistics.median(errs):.3g}; "
+                    f"tolerance {RING_LAYER_TOL})")
+                log(f"  [ring] minicpm-2b {impl}: {json.dumps(row)}")
+            dist.barrier()
+    del params, tokens, proj
+    gc.collect()
+    sync()
+    left = (torch.cuda.memory_allocated() - base) if cuda else 0
+    if cuda:
+        torch.cuda.empty_cache()
+    if left > CYCLE_SLACK:
+        failures.append(f"rank {rank}: {left / 2**20:.1f} MiB still allocated after the ring "
+                        "phase")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"rank": rank, "launches": ring_launches, "left_bytes": left,
+            **({"checks": checks, "hops": hop_counts, "times": times, "model": model,
+                "cases_s": cases_s} if lead else {})}
+
+
+def ring_phase(torch, device="cuda", small: bool = False) -> dict:
+    """Ring context-parallel attention (``distributed/ring_attention.py``) on
+    RING_WORLD ranks spawned as processes that share the card, joined in a
+    gloo world over a ``FileStore`` (``launch.mesh.run_world``), each
+    holding the same seeded global tensors.  Rank by rank (``ring_rank``):
+    ring flash and ring DistrAttention (G* = 2, block_q 128), forward and
+    the gradients of q, k and v, at starcoder2-7b's serving widths (36 query
+    heads over 4, d = 128) and minicpm-2b's training widths (36 heads of
+    64), N = RING_N, causal and non-causal, bf16, a small f32 case, and a
+    ragged N whose last shard is partly live, causal and non-causal; each
+    held on rank 0 against the single-device op (``kernels.ops``) on the
+    same card within RING_TOL and, tensor by tensor, RING_REL of its own
+    scale, each hop count P(P+1)/2 causal or P² non-causal, and each
+    call's launches one of the forward kernel a hop (and of dq and dkv,
+    and of delta a rank).  A flash ring under ``dead_shard_fault(RING_DEAD)``:
+    P² − (P − 1) hops, finite, the live shards' rows equal to attention
+    over the live keys and the dead shard's rows to full attention.  The
+    ring flash forward's wall time beside the single-device call's.  Then
+    minicpm-2b at its published size (40 layers, seeded random bf16
+    weights, a kernel impl with ``context_axis="context"``) through
+    ``models/lm.py::backbone`` on an N-token prompt under the active mesh,
+    every attention through ``core.api._ring_dispatch`` (the launches: one
+    forward kernel a hop and layer), its final hidden states finite, their
+    gap from the single-device forward's and the last position's logits
+    reported; then layer by layer on the single-device forward's hidden
+    states, RING_LAYERS_CHECKED layers' attention output under the mesh
+    against the single-device one on the same input within RING_LAYER_TOL
+    (relative L2); under pallas_flash, then pallas_distr.  A rank collects its
+    failed checks and raises them after its last collective.  Raises on
+    any failure, when a ring kernel of RING_KERNELS never launched, when a
+    rank leaves more than CYCLE_SLACK allocated, and when the card's free
+    memory is not back within CYCLE_SLACK of the phase's start once the
+    ranks have exited."""
+    from repro_torch.launch.mesh import run_world
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    reports = run_world(ring_rank, RING_WORLD, device, small, timeout_s=900)
+    wall = time.perf_counter() - t0
+    gap = 0
+    if cuda:
+        for _ in range(20):  # the CUDA driver frees an exited process's memory
+            gap = free0 - torch.cuda.mem_get_info()[0]
+            if gap <= CYCLE_SLACK:
+                break
+            time.sleep(0.5)
+        log(f"[memory] after the ring phase: the card's free memory is {gap / 2**20:.1f} MiB "
+            "below its start")
+        if gap > CYCLE_SLACK:
+            raise AssertionError(f"the ring phase left {gap / 2**20:.1f} MiB of the card in use")
+    lead = reports[0]
+    launches = {name: sum(r["launches"][name] for r in reports) for name in RING_KERNELS}
+    missing = [name for name in RING_KERNELS if launches[name] == 0]
+    if cuda and missing:
+        raise AssertionError(f"the ring path never launched {missing}: {launches}")
+    for row in lead["checks"]:
+        log(f"[ring] {json.dumps({k: row[k] for k in row if k != 'launches'})}")
+    log(f"[ring] hops: {json.dumps(lead['hops'])}")
+    times = lead["times"]
+    model = lead["model"]
+    log(f"[ring] flash forward, {times['shape']}: ring "
+        f"{statistics.median(times['ring_s']) * 1e3:.1f} ms, single device "
+        f"{statistics.median(times['single_s']) * 1e3:.1f} ms (wall, median of {RING_ITERS}; "
+        f"{RING_WORLD} processes sharing one card: correctness, not ring speed)")
+    log(f"[ring] minicpm-2b forward: {json.dumps(model)}")
+    log(f"[ring] phase {wall:.1f} s, checks {lead['cases_s']:.1f} s; launches {launches}")
+    report = {"checks": lead["checks"], "hops": lead["hops"], "times": times, "model": model,
+              "wall_s": wall, "free_gap_bytes": gap, "launches": launches}
+    return {"report": report, "launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="also write the results as JSON here")
-    ap.add_argument("--only", choices=("kernels", "moe", "encdec", "tune", "cluster"),
+    ap.add_argument("--only", choices=("kernels", "moe", "encdec", "tune", "cluster", "ring"),
                     default=None,
                     help="kernels: stop after the kernel phases; moe: run only the MoE "
                          "check and the MoE configs' serving; encdec: run only the "
                          "non-causal kernel checks and whisper-small's and internvl2-2b's "
                          "serving and training; tune: run only the tuner's phase; cluster: "
                          "run only the cluster router's and the training supervisor's "
-                         "phases; each prints a JSON summary")
+                         "phases; ring: run only the ring context-parallel attention "
+                         "phase (4 ranks sharing the card); each prints a JSON summary")
     ap.add_argument("--serve-load", choices=("slot", "paged", "hybrid"), default=None,
                     help="only serve this workload as a closed-loop load under both impls "
                          "(timed passes and the device's busy share), no checks")
@@ -3943,6 +4415,15 @@ def main() -> int:
         log(card)
         print(json.dumps({"launches": {"cluster": clustered["launches"],
                                        "supervisor": supervised["launches"]}}), flush=True)
+        return 0
+    if args.only == "ring":
+        ringed = ring_phase(torch)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps({"card": card, "ring": ringed["report"]},
+                                                 indent=1))
+        log(card)
+        print(json.dumps({"launches": {"ring": ringed["launches"]}}), flush=True)
         return 0
     if args.only == "encdec":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -4078,9 +4559,12 @@ def main() -> int:
         supervised = supervisor_phase(torch)
         results["supervisor"] = supervised["report"]
         free_card(torch, "the supervisor phase", gate=False)
+        ringed = ring_phase(torch)
+        results["ring"] = ringed["report"]
         for name, count in (*train["launches"].items(), *mamba["launches"].items(),
                             *encdec_train["launches"].items(),
-                            *robust["launches"].items(), *supervised["launches"].items()):
+                            *robust["launches"].items(), *supervised["launches"].items(),
+                            *ringed["launches"].items()):
             launches[name] += count
 
     csrc = "src/repro_torch/kernels/csrc"

@@ -125,6 +125,21 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    # ---- shape applicability --------------------------------------------
+    def supports_shape(self, shape: ShapeSpec) -> bool:
+        if shape.name == "long_500k":
+            # needs sub-quadratic sequence handling
+            return self.family in ("ssm", "hybrid")
+        return True
+
+    def skip_reason(self, shape: ShapeSpec) -> str | None:
+        if self.supports_shape(shape):
+            return None
+        return (
+            "long_500k requires sub-quadratic attention; "
+            f"{self.name} is a pure softmax-attention arch (see DESIGN.md §4)"
+        )
+
 
 def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
     """The model inputs of ``shape`` as ``(shape, dtype)`` pairs, with the

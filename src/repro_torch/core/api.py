@@ -43,6 +43,13 @@ class AttentionConfig:
     # Decode split-K length; None → the tuner's (REPRO_TUNE; off:
     # min(128, cache length)).
     block_k_decode: int | None = None
+    # Context parallelism: the mesh axis the sequence is ring-sharded over.
+    # When set and the active mesh (``launch.mesh.set_mesh``) has that axis
+    # at size > 1, the kernel impls dispatch to distributed.ring_attention:
+    # Q/K/V shard on the sequence, KV rotates rank to rank, partial
+    # (O, LSE) merge online.  Sequences shorter than ring size × 128 stay on
+    # one device.
+    context_axis: str | None = None
     # Serve-side fused-K̂ decode cache under a static permutation
     # (serve.kv_cache): the paged pool keeps K̂ (d/G* wide) and no raw K.
     distr_decode: bool = False
@@ -62,6 +69,40 @@ class AttentionConfig:
         return replace(self, impl=impl, distr=replace(self.distr, group_size=group_size))
 
 
+def _active_context_mesh(context_axis: str | None):
+    """The active mesh when it carries ``context_axis`` at a size > 1, else
+    None (no mesh, no such axis, or one of size 1: the single-device paths
+    apply)."""
+    if not context_axis:
+        return None
+    from repro_torch.launch.mesh import active_mesh
+
+    mesh = active_mesh()
+    if mesh is None or context_axis not in mesh.axis_names:
+        return None
+    return mesh if int(mesh.shape[context_axis]) > 1 else None
+
+
+def _ring_dispatch(cfg: AttentionConfig, q, k, v, *, causal: bool, scale, proj):
+    """The ring's output when context parallelism applies (a kernel impl,
+    self-attention, an active context mesh, N ≥ ring size × 128), else None
+    to fall through to the single-device paths."""
+    if cfg.impl not in ("pallas_flash", "pallas_distr") or q.shape[2] != k.shape[2]:
+        return None
+    mesh = _active_context_mesh(cfg.context_axis)
+    if mesh is None:
+        return None
+    from repro_torch.distributed import ring_attention as ring
+
+    if q.shape[2] < int(mesh.shape[cfg.context_axis]) * ring.MIN_RING_SHARD:
+        return None
+    if cfg.impl == "pallas_flash":
+        return ring.ring_flash_attention(q, k, v, mesh, axis=cfg.context_axis, causal=causal,
+                                         scale=scale)
+    return ring.ring_distr_attention(q, k, v, cfg.distr, mesh, axis=cfg.context_axis,
+                                     causal=causal, scale=scale, proj=proj)
+
+
 def resolve_attention_blocks(cfg: AttentionConfig, *, d: int, n_q: int, n_k: int | None = None,
                              dtype: str = "float32", causal: bool = False, bwd: bool = False,
                              device="cuda") -> BlockSizes:
@@ -74,10 +115,24 @@ def resolve_attention_blocks(cfg: AttentionConfig, *, d: int, n_q: int, n_k: int
     kernel's KV tile.  ``bwd=True`` (training's warm-up) also fills the
     backward kernels' tiles.  Under ``REPRO_TUNE=measure`` a key not yet
     cached is swept on ``device`` here.
+
+    Under context parallelism (``cfg.context_axis`` naming an axis of the
+    active mesh, a kernel impl, self-attention long enough for the ring)
+    the sequence bucket is the length one rank streams,
+    ``context_shard_len(n, P)``, as ``distributed.ring_attention`` resolves
+    it at dispatch.
     """
     from repro_torch.tune.autotune import resolve_block_sizes
 
-    n = max(n_q, n_k if n_k is not None else n_q)
+    n_k = n_k if n_k is not None else n_q
+    n = max(n_q, n_k)
+    mesh = _active_context_mesh(cfg.context_axis)
+    if mesh is not None and cfg.impl.startswith("pallas") and n_q == n_k:
+        from repro_torch.distributed.ring_attention import MIN_RING_SHARD, context_shard_len
+
+        p = int(mesh.shape[cfg.context_axis])
+        if n_q >= p * MIN_RING_SHARD:
+            n = context_shard_len(n_q, p)
     kw = dict(d=d, n=n, dtype=dtype, causal=causal, bwd=bwd, device=device)
     if cfg.impl in ("distr", "pallas_distr"):
         return resolve_block_sizes("distr" if cfg.impl == "pallas_distr" else "xla_distr",
@@ -95,7 +150,14 @@ def attend(q, k, v, cfg: AttentionConfig, *, causal: bool = False,
 
     q: (B, Hq, N, d); k, v: (B, Hkv, Nk, d).  ``proj`` is the LSH projection
     of the distr impls (None draws it from ``cfg.distr.proj_seed``).
+
+    When ``cfg.context_axis`` names an axis of the active mesh, the kernel
+    impls run ring sequence-parallel (``distributed.ring_attention``): the
+    same kernels, one sequence shard a rank, KV rotating around the ring.
     """
+    ring_out = _ring_dispatch(cfg, q, k, v, causal=causal, scale=scale, proj=proj)
+    if ring_out is not None:
+        return ring_out
     if cfg.impl == "reference":
         return reference_attention(q, k, v, causal=causal, scale=scale)
     if cfg.impl == "xla_flash":

@@ -83,14 +83,14 @@ def warm_train(cfg, seq: int, *, device: str | torch.device = "cuda"):
         bwd=True, device=resolve_device(device))
 
 
-def run(cfg, params: dict, *, steps: int = 10, batch: int = 8, seq: int = 128,
+def run(cfg, params: dict, *, steps: int = 100, batch: int = 8, seq: int = 128,
         lr: float = 1e-3, grad_accum: int = 1, seed: int = 0,
         device: str | torch.device = "cuda", workdir: str | None = None,
         data: str | None = None, ckpt_every: int = 200, anomaly_z: float = 8.0,
         max_rollbacks: int = 3, supervise: int = 0, trace=None) -> dict:
     """Train ``params`` (on ``device``) for ``steps`` steps on
     ``SyntheticLMData(cfg.vocab, batch, seq, seed)``, or on the ``.bin``
-    shards the glob ``data`` names, logging every step.  With ``workdir``
+    shards the glob ``data`` names, logging every 10th step.  With ``workdir``
     the trainer checkpoints there and resumes from it; with ``supervise``
     > 0 a ``TrainSupervisor`` of that many simulated workers drives it;
     ``trace`` is the recorder both emit to (None: the process-global one).
@@ -139,7 +139,7 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--impl", choices=IMPLS, default=None,
                     help="attention impl (default: the config's)")
-    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=1e-3)

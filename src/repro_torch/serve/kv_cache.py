@@ -37,47 +37,55 @@ from repro_torch.models.lm import hybrid_layout
 from repro_torch.models.mamba import conv_dim
 
 
-def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
-               device: str | torch.device = "cuda") -> dict:
-    def zeros(shape, dt=dtype):
-        return torch.zeros(shape, dtype=dt, device=device)
+def cache_struct(cfg, batch: int, max_len: int, dtype=torch.bfloat16) -> dict:
+    """The cache tree's shapes and dtypes without an allocation: tensors on
+    the ``meta`` device (the reference's ``ShapeDtypeStruct`` tree)."""
+    def spec(shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device="meta")
 
     conv = (cfg.ssm_conv - 1, conv_dim(cfg))
     ssm = (cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim)
     if cfg.family == "ssm":
-        return {"conv": zeros((cfg.n_layers, batch) + conv),
-                "ssm": zeros((cfg.n_layers, batch) + ssm, torch.float32)}
+        return {"conv": spec((cfg.n_layers, batch) + conv),
+                "ssm": spec((cfg.n_layers, batch) + ssm, torch.float32)}
     if cfg.use_mla:
-        return {"ckv": zeros((cfg.n_layers, batch, max_len, cfg.kv_lora_rank)),
-                "krope": zeros((cfg.n_layers, batch, max_len, cfg.qk_rope_dim))}
+        return {"ckv": spec((cfg.n_layers, batch, max_len, cfg.kv_lora_rank)),
+                "krope": spec((cfg.n_layers, batch, max_len, cfg.qk_rope_dim))}
     kv = (cfg.n_kv_heads, max_len, cfg.head_dim_)
     if cfg.family == "encdec":
         cross = (cfg.n_layers, batch, cfg.n_kv_heads, cfg.cross_len, cfg.head_dim_)
-        return {"k": zeros((cfg.n_layers, batch) + kv), "v": zeros((cfg.n_layers, batch) + kv),
-                "cross_k": zeros(cross), "cross_v": zeros(cross),
-                "cross_len": zeros((batch,), torch.int32)}
+        return {"k": spec((cfg.n_layers, batch) + kv), "v": spec((cfg.n_layers, batch) + kv),
+                "cross_k": spec(cross), "cross_v": spec(cross),
+                "cross_len": spec((batch,), torch.int32)}
     if cfg.family == "hybrid":
         g, t = hybrid_layout(cfg)
         cache = {
-            "groups_conv": zeros((g, cfg.attn_every, batch) + conv),
-            "groups_ssm": zeros((g, cfg.attn_every, batch) + ssm, torch.float32),
-            "shared_k": zeros((g, batch) + kv),
-            "shared_v": zeros((g, batch) + kv),
+            "groups_conv": spec((g, cfg.attn_every, batch) + conv),
+            "groups_ssm": spec((g, cfg.attn_every, batch) + ssm, torch.float32),
+            "shared_k": spec((g, batch) + kv),
+            "shared_v": spec((g, batch) + kv),
         }
         if t:
-            cache["tail_conv"] = zeros((t, batch) + conv)
-            cache["tail_ssm"] = zeros((t, batch) + ssm, torch.float32)
+            cache["tail_conv"] = spec((t, batch) + conv)
+            cache["tail_ssm"] = spec((t, batch) + ssm, torch.float32)
         return cache
     cache = {
-        "k": zeros((cfg.n_layers, batch) + kv),
-        "v": zeros((cfg.n_layers, batch) + kv),
-        "length": zeros((batch,), torch.int32),
+        "k": spec((cfg.n_layers, batch) + kv),
+        "v": spec((cfg.n_layers, batch) + kv),
+        "length": spec((batch,), torch.int32),
     }
     if cfg.attention.distr_decode and cfg.family == "dense":
         g = cfg.attention.distr.group_size
-        cache["k_fused"] = zeros((cfg.n_layers, batch, cfg.n_kv_heads, max_len,
-                                  cfg.head_dim_ // g))
+        cache["k_fused"] = spec((cfg.n_layers, batch, cfg.n_kv_heads, max_len,
+                                 cfg.head_dim_ // g))
     return cache
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+               device: str | torch.device = "cuda") -> dict:
+    """``cache_struct``'s tree as zeros on ``device``."""
+    return {name: torch.zeros(t.shape, dtype=t.dtype, device=device)
+            for name, t in cache_struct(cfg, batch, max_len, dtype).items()}
 
 
 def static_perms(cfg) -> torch.Tensor:

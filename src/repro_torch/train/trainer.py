@@ -72,7 +72,7 @@ class Trainer:
         params: dict,
         *,
         workdir: str | None = None,
-        log_every: int = 1,
+        log_every: int = 10,
         ckpt_every: int = 200,
         ckpt_keep: int = 3,
         nan_policy: str = "skip",  # skip | halt
