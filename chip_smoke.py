@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--out PATH] [--only kernels|moe|encdec|tune|cluster|ring]
+    python3 chip_smoke.py [--out PATH] [--only kernels|moe|encdec|tune|cluster|ring|mesh]
 
 In order: prints the card's name and power limit; builds the CUDA kernels
 from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a; counts the bf16
@@ -152,7 +152,15 @@ every attention through ``core.api._ring_dispatch``: each layer's
 attention against the single-device one on the same layer input, and the
 whole forward (finite, its gap from the single-device forward reported).
 Four processes on one card check what the ring computes, not its speed
-across cards.
+across cards.  After the ring the mesh phase (``mesh_phase``): minicpm-2b
+at full width cut to 4 layers, trained 3 steps on a (data 2, model 2) mesh
+with FSDP and one step on a (data 1, context 2, model 2) mesh, under both
+kernel impls, each held to the single-device step from the same state
+(the reference's tolerances: loss 1e-3, every parameter 5e-3; and every
+leaf's clipped gradient at MESH_GRAD_TOL, which planted faults must
+fail), one f32 step in which the mesh draws its own LSH permutations, then
+``ring_allgather_matmul``, ``psum_scatter_matmul``, ``ef_pmean`` and
+``pipeline_apply`` at full width against their single-device products.
 
 ``python3 chip_smoke.py --only moe`` builds the kernels and runs only the
 MoE phases (the check, serving and training), then prints their launches
@@ -161,7 +169,7 @@ as a JSON line last;
 ``--only tune`` the same for the tuner's phase (starcoder2-7b's weights,
 then ``tune_phase``); ``--only cluster`` the same for ``cluster_phase``
 (starcoder2-7b's weights) and ``supervisor_phase``; ``--only ring`` the
-same for ``ring_phase``.
+same for ``ring_phase``; ``--only mesh`` the same for ``mesh_phase``.
 ``python3 chip_smoke.py --serve-load slot|hybrid|paged`` runs none of the
 above: it serves one serve workload as a closed-loop load under both
 impls, the slot workload also over the fused-K̂ cache (timed passes and
@@ -4323,10 +4331,617 @@ def ring_phase(torch, device="cuda", small: bool = False) -> dict:
     return {"report": report, "launches": launches}
 
 
+# The mesh phase (data, FSDP and tensor-parallel training,
+# ``train/train_step.py`` on ``distributed/sharding.py``,
+# ``distributed/collectives.py``, ``train/compression.py`` and
+# ``distributed/pipeline.py``): MESH_WORLD ranks sharing cuda:0 on gloo, as
+# the ring phase's.  One card checks what the mesh computes, not its speed.
+MESH_WORLD = RING_WORLD
+MESH_LAYERS = 4  # of minicpm-2b's 40, at full width
+MESH_BATCH, MESH_SEQ, MESH_STEPS, MESH_LR = 2, 2048, 3, 1e-3
+MESH_SMALL_SEQ = 256
+MESH_IMPLS = ("pallas_distr", "pallas_flash")
+# The reference's own tolerances for a sharded step against the single
+# device (tests/test_distributed.py): |loss| 1e-3, every parameter 5e-3.
+MESH_TOL = {"loss": 1e-3, "params": 5e-3}
+# The grad norm has no reference tolerance: 1e-2 of its value.
+MESH_GNORM_REL = 1e-2
+# Every step's clipped gradient, leaf by leaf, against the single device's
+# on the same params and batch: the largest error over the leaf's largest
+# |value| ("max") and the relative L2 ("l2").  AdamW's first updates move
+# each element by about ±lr whatever |g| is, so the parameter gate alone
+# cannot see a wrong gradient; these can (a planted fault must fail them).
+MESH_GRAD_TOL = {"max": 0.0625, "l2": 0.05}
+# The f32 step in which the mesh draws its own LSH permutations: the share
+# of them unequal to the single device's stage 1 on the mesh's own q
+# ("perms_restaged", which must be none), the share unequal to the
+# permutations the single device drew itself, the loss and the grad norm
+# (relative).
+MESH_F32_TOL = {"perms_restaged": 1e-3, "perms_unequal": 0.05, "loss": 1e-4,
+                "grad_norm": 1e-3}
+# The building blocks: ring_allgather_matmul / psum_scatter_matmul against
+# x @ W in f32 (the reference's 1e-4); ef_pmean within its int8 bound
+# (max |g| / 127 + 1e-5); the pipeline (one minicpm-2b block a stage, bf16)
+# against the blocks in sequence, relative L2.
+MESH_MATMUL_TOL = 1e-4
+MESH_PIPE_MICRO = 4
+MESH_PIPE_TOL = 1e-2
+
+
+def mesh_rank(rank: int, world: int, device: str, small: bool) -> dict:
+    """One rank of ``mesh_phase``, spawned by ``launch.mesh.run_world``; see
+    there.  Returns this rank's launches on the training runs and, on rank
+    0, every reading."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.kernels import backward as bwd
+    from repro_torch.kernels import distr_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.launch.train import init_train_params
+    from repro_torch.models import lm, transformer
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.compression import ef_pmean
+    from repro_torch.train.data import SyntheticLMData
+    from repro_torch.train.train_step import leaf_specs, make_train_step, mesh_specs
+
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)
+    lead = rank == 0
+    # The process's lasting cuBLAS workspaces (one a thread and stream: this
+    # one and autograd's) are made before the mark the leftover gate reads.
+    w = torch.ones((64, 64), device=device, requires_grad=True)
+    (w @ w).sum().backward()
+    del w
+    base = torch.cuda.memory_allocated() if cuda else 0
+    seq = MESH_SMALL_SEQ if small else MESH_SEQ
+    base_cfg = get_config("minicpm-2b", reduced=small).replace(n_layers=MESH_LAYERS)
+    ocfg = opt.OptimizerConfig(peak_lr=MESH_LR, warmup_steps=0, total_steps=10)
+    failures, readings = [], []
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def gate(label, value, tol, text=""):
+        share = value / tol if value == value else math.nan
+        readings.append({"check": label, "value": value, "tol": tol})
+        if lead:
+            log(f"  [mesh] {label}: {value:.4g} (tolerance {tol}){text}; {share:.3g} of it")
+        if not share <= 1.0:
+            failures.append(f"mesh {label}: {value} against {tol}")
+
+    def zero():
+        fk.launches = dk.launches = 0
+        for name in bwd.launches:
+            bwd.launches[name] = 0
+
+    def counts():
+        return {"flash": fk.launches, "distr": dk.launches, **bwd.launches}
+
+    mesh_launches = dict.fromkeys(RING_KERNELS, 0)
+    batches = SyntheticLMData(base_cfg.vocab, MESH_BATCH, seq, seed=7)
+    batches = [{k: torch.as_tensor(v, dtype=torch.int64, device=device)
+                for k, v in batches.next_batch().items()} for _ in range(MESH_STEPS)]
+
+    # DistrAttention's LSH permutations are a discontinuous function of q:
+    # the mesh's bf16 products (a column slice, a row-parallel sum of two
+    # rounded partials) move q by an ulp here and there, which reorders
+    # near-tied dims.  So the gated bf16 runs replay the single device's
+    # permutations (the slice this rank holds) and count how many of those
+    # the mesh would have drawn itself; the f32 step (``own_perms_step``)
+    # gates the mesh's own draw.  "record" keeps the single device's
+    # permutations and call arguments, "keep" a mesh rank's q and
+    # permutations.
+    real_perms = ops.block_permutations
+    tape = {"record": None, "args": None, "keep": None, "replay": None, "replay_on": True,
+            "at": 0, "same": 0, "total": 0, "rows": None, "heads": None}
+
+    def taped_perms(qp, dcfg, proj, hkv):
+        perms = real_perms(qp, dcfg, proj, hkv)
+        if tape["record"] is not None:
+            tape["record"].append(perms.cpu())
+            tape["args"].append((dcfg, None if proj is None else proj.cpu(), hkv))
+        if tape["keep"] is not None:
+            tape["keep"].append((qp.detach().cpu(), perms.cpu()))
+        if tape["replay"] is not None:
+            want = tape["replay"][tape["at"]]  # the single device's call in the same order
+            want = want[tape["rows"], tape["heads"]].to(perms.device)
+            tape["at"] += 1
+            eq = (perms == want).all(dim=-1)
+            tape["same"] += int(eq.sum())
+            tape["total"] += eq.numel()
+            if tape["replay_on"]:
+                return want
+        return perms
+
+    # Every step's clipped gradients, as AdamW receives them: the update
+    # records them into sink["to"] and then runs.
+    real_update = opt.adamw_update
+    sink = {"to": None}
+
+    def recording_update(leaves, grads, state, cfg_, lr):
+        if sink["to"] is not None:
+            sink["to"].extend(g.detach().clone() for g in grads)
+        return real_update(leaves, grads, state, cfg_, lr)
+
+    def mesh_counts(fn):
+        sync()
+        zero()
+        out = fn()
+        sync()
+        for k, v in counts().items():
+            if k in mesh_launches:
+                mesh_launches[k] += v
+        return out
+
+    def lead_full(t, mesh, spec):
+        """The full tensor of every rank's block ``t`` on rank 0's device
+        (None elsewhere)."""
+        full = sharding.gather_to(t, mesh, spec)
+        return None if full is None else full.to(device)
+
+    def leaf_errors(local, want, mesh, lspecs, names, scale=None):
+        """{leaf: (largest error over the leaf's largest |value|, relative
+        L2)} of the mesh's gathered ``local`` blocks against rank 0's
+        ``want`` (on rank 0; {} elsewhere).  ``scale`` {leaf: factor}
+        multiplies a gathered leaf first (the planted ×2 fault)."""
+        out = {}
+        for t, w, sp, name in zip(local, want or [None] * len(local), lspecs, names):
+            g = lead_full(t, mesh, sp)
+            if g is None:
+                continue
+            g = g.float() * (scale or {}).get(name, 1.0)
+            w = w.float()
+            diff = g - w
+            out[name] = (float(diff.abs().max() / w.abs().max().clamp_min(1e-30)),
+                         float(diff.norm() / w.norm().clamp_min(1e-30)))
+        return out
+
+    def gate_grads(label, errs, tol):
+        """Gate every leaf's (max, l2) reading against ``tol``; log the worst
+        of each → the largest share of its tolerance."""
+        share = 0.0
+        for name, (emax, el2) in errs.items():
+            readings.append({"check": f"{label} gradient {name}", "max": emax, "l2": el2,
+                             "tol": tol})
+            share = max(share, emax / tol["max"], el2 / tol["l2"])
+        if lead and errs:
+            for key, k in (("max", 0), ("l2", 1)):
+                name = max(errs, key=lambda n: errs[n][k])
+                log(f"  [mesh] {label} gradients ({len(errs)} leaves): largest {key} error "
+                    f"{errs[name][k]:.4g} at {name} (tolerance {tol[key]}); "
+                    f"{errs[name][k] / tol[key]:.3g} of it")
+        return share
+
+    def tape_slices(mesh):
+        """Which of the single device's permutations this rank's stage 1
+        draws: its batch rows and its "model" heads."""
+        dp_idx, dp_n = coll.axes_index(mesh, sharding.dp_axes(mesh))
+        rows = MESH_BATCH // dp_n
+        heads = base_cfg.n_heads // coll.axis_size(mesh, "model")
+        m_idx = int(mesh.coords["model"])
+        tape.update(rows=slice(dp_idx * rows, (dp_idx + 1) * rows),
+                    heads=slice(m_idx * heads, (m_idx + 1) * heads))
+
+    def shard_seed(cfg, mesh, specs):
+        params = sharding.shard_params(init_train_params(cfg, seed=0, device=device), mesh,
+                                       specs)
+        return params, opt.adamw_init(lm.trainable(params))
+
+    def mesh_train(cfg, mesh, steps, label, distr, plant=False):
+        """``steps`` steps on ``mesh`` from seed 0's weights, each held
+        against the single-device step rank 0 takes from the mesh's own
+        state (params and moments gathered) on the same batch: loss, grad
+        norm, every leaf's clipped gradient and every parameter after the
+        update.  ``plant``: after step 0, one more mesh step from the seed
+        weights with the model axis's gradient sum left out (``tp_enter``'s
+        backward), which the gradient gate must fail → {readings}."""
+        specs = mesh_specs(cfg, mesh)
+        lspecs = leaf_specs(lm.param_shapes(cfg), specs)
+        names = [n for n, _ in lm.named_trainable(lm.param_shapes(cfg))]
+        params, state = shard_seed(cfg, mesh, specs)
+        step = make_train_step(cfg, ocfg, mesh)
+        one = make_train_step(cfg, ocfg)
+        tape_slices(mesh)
+        full = moments = None
+        if lead:
+            full = init_train_params(cfg, seed=0, device=device)
+            moments = tuple([torch.zeros_like(t, dtype=torch.float32)
+                             for t in lm.trainable(full)] for _ in range(2))
+        out = {"loss": [], "loss_one": [], "grad_norm": [], "grad_norm_one": [],
+               "param_err": [], "grad_share": [], "seconds": 0.0}
+        ops.block_permutations = taped_perms
+        opt.adamw_update = recording_update
+        try:
+            for i in range(steps):
+                recorded = want_g = None
+                if lead:
+                    # The single device's step from the mesh's state (the
+                    # initial weights at step 0), in place.
+                    one_opt = {"m": moments[0], "v": moments[1], "count": i}
+                    tape["record"], tape["args"] = ([], []) if distr else (None, None)
+                    sink["to"] = want_g = []
+                    full, one_opt, m1 = one(full, one_opt, batches[i], i)
+                    sync()
+                    recorded, tape["record"] = tape["record"], None
+                    want = [t.detach().clone() for t in lm.trainable(full)]
+                    out["loss_one"].append(float(m1["loss"]))
+                    out["grad_norm_one"].append(float(m1["grad_norm"]))
+                    del one_opt, m1, moments
+                if distr:
+                    box = [recorded]
+                    dist.broadcast_object_list(box, src=0)
+                    recorded = box[0]
+                tape.update(replay=recorded, replay_on=True, at=0, same=0, total=0)
+                sink["to"] = mine = []
+                t0 = time.perf_counter()
+                params, state, m = mesh_counts(lambda: step(params, state, batches[i], i))
+                out["seconds"] += time.perf_counter() - t0
+                sink["to"] = None
+                if distr:
+                    out.setdefault("replayed_perms_match", []).append(
+                        tape["same"] / max(tape["total"], 1))
+                    if tape["at"] != len(recorded):
+                        failures.append(f"mesh {label} step {i}: {tape['at']} stage-1 calls "
+                                        f"against the single device's {len(recorded)}")
+                tape["replay"] = None
+                out["loss"].append(float(m["loss"]))
+                out["grad_norm"].append(float(m["grad_norm"]))
+                errs = leaf_errors(mine, want_g, mesh, lspecs, names)
+                if plant and i == 0:
+                    out["planted"] = planted_fault(cfg, mesh, specs, lspecs, names, want_g,
+                                                   mine, label)
+                del mine
+                got = [lead_full(t, mesh, sp) for t, sp in zip(lm.trainable(params), lspecs)]
+                if i + 1 < steps:
+                    moments = tuple([lead_full(t, mesh, sp) for t, sp in zip(state[n], lspecs)]
+                                    for n in ("m", "v"))
+                if not lead:
+                    continue
+                err, where = max((float((g.float() - w.float()).abs().max()), n)
+                                 for n, g, w in zip(names, got, want))
+                out["param_err"].append(err)
+                gate(f"{label} step {i} loss", abs(out["loss"][-1] - out["loss_one"][-1]),
+                     MESH_TOL["loss"], f" ({out['loss'][-1]:.6f} against "
+                     f"{out['loss_one'][-1]:.6f})")
+                gate(f"{label} step {i} grad norm", abs(
+                    out["grad_norm"][-1] - out["grad_norm_one"][-1]) / out["grad_norm_one"][-1],
+                    MESH_GNORM_REL, f" relative ({out['grad_norm'][-1]:.6f} against "
+                    f"{out['grad_norm_one'][-1]:.6f})")
+                out["grad_share"].append(gate_grads(f"{label} step {i}", errs, MESH_GRAD_TOL))
+                if out["grad_share"][-1] > 1.0:
+                    failures.append(f"mesh {label} step {i}: a gradient past MESH_GRAD_TOL "
+                                    f"({out['grad_share'][-1]:.3g} of it)")
+                gate(f"{label} step {i} parameters", err, MESH_TOL["params"],
+                     f", largest at {where}")
+                with torch.no_grad():  # the single device goes on from the mesh's state
+                    for t, g in zip(lm.trainable(full), got):
+                        t.copy_(g)
+                del want, want_g, got
+            if lead:
+                del full
+        finally:
+            ops.block_permutations = real_perms
+            opt.adamw_update = real_update
+            sink["to"] = None
+            tape.update(replay=None, record=None)
+        if distr and lead:
+            log(f"  [mesh] {label}: share of the replayed permutations the mesh would have drawn "
+                f"itself, by step: {out['replayed_perms_match']}")
+        if lead:
+            log(f"  [mesh] {label}: {steps} steps in {out['seconds']:.2f} s")
+        del params, state, step
+        gc.collect()
+        return out
+
+    def planted_fault(cfg, mesh, specs, lspecs, names, want_g, sound, label):
+        """Two planted faults the gradient gate must fail: one mesh step from
+        the seed weights with ``tp_enter``'s backward all-reduce left out
+        (each model rank keeps its partial cotangent), and step 0's sound
+        gradients ``sound`` with one leaf doubled → their largest shares of
+        MESH_GRAD_TOL."""
+        params, state = shard_seed(cfg, mesh, specs)
+        step = make_train_step(cfg, ocfg, mesh)
+        enter = coll._Enter.backward
+        coll._Enter.backward = staticmethod(lambda ctx, g: (g, None, None))
+        sink["to"] = mine = []
+        try:
+            step(params, state, batches[0], 0)
+            sync()
+        finally:
+            coll._Enter.backward = enter
+            sink["to"] = None
+        res = {"model_sum_left_out": leaf_errors(mine, want_g, mesh, lspecs, names)}
+        del params, state, step, mine
+        doubled = names[len(names) // 2]
+        errs = leaf_errors(sound, want_g, mesh, lspecs, names, scale={doubled: 2.0})
+        res["one_leaf_doubled"] = {doubled: errs[doubled]} if errs else {}
+        shares = {}
+        if lead:
+            for fault, errs in res.items():
+                shares[fault] = max(max(e[0] / MESH_GRAD_TOL["max"], e[1] / MESH_GRAD_TOL["l2"])
+                                    for e in errs.values())
+                bad = sorted(n for n, e in errs.items() if e[0] > MESH_GRAD_TOL["max"]
+                             or e[1] > MESH_GRAD_TOL["l2"])
+                log(f"  [mesh] {label}, planted fault ({fault.replace('_', ' ')}): largest "
+                    f"share of the gradient tolerance {shares[fault]:.3g}; {len(bad)} of "
+                    f"{len(errs)} leaves fail it, {bad[:4]}")
+                readings.append({"check": f"{label} planted fault {fault}",
+                                 "share": shares[fault], "failing_leaves": len(bad)})
+                if not shares[fault] > 1.0:
+                    failures.append(f"mesh {label}: the planted fault {fault} passed the "
+                                    f"gradient gate ({shares[fault]:.3g} of MESH_GRAD_TOL)")
+        gc.collect()
+        return shares
+
+    def own_perms_step(cfg, mesh, label):
+        """One f32 step on ``mesh`` from seed 0's weights in which the mesh
+        draws its own LSH permutations (stage 1 on its rows and local
+        heads).  Gated at MESH_F32_TOL: each permutation the mesh drew
+        against the single device's stage 1 run on the mesh's own q,
+        gathered (they must be equal: this is the witness that the mesh's
+        stage 1 is right), the share unequal to the permutations the single
+        device drew from its own q (near ties its q resolves otherwise), the
+        loss and the grad norm against rank 0's f32 single-device step.
+        Every leaf's gradient is reported: a permutation drawn otherwise
+        regroups q's dims, which moves the q and k weights' gradients by more
+        than rounding → {readings}."""
+        cfg = cfg.replace(compute_dtype="float32")
+        specs = mesh_specs(cfg, mesh)
+        lspecs = leaf_specs(lm.param_shapes(cfg), specs)
+        names = [n for n, _ in lm.named_trainable(lm.param_shapes(cfg))]
+        recorded = want_g = args = None
+        out = {}
+        tape_slices(mesh)
+        ops.block_permutations = taped_perms
+        opt.adamw_update = recording_update
+        try:
+            if lead:
+                full = init_train_params(cfg, seed=0, device=device)
+                tape["record"], tape["args"], sink["to"] = [], [], []
+                want_g = sink["to"]
+                _, _, m1 = make_train_step(cfg, ocfg)(full, opt.adamw_init(lm.trainable(full)),
+                                                      batches[0], 0)
+                sync()
+                recorded, args = tape["record"], tape["args"]
+                tape["record"] = tape["args"] = sink["to"] = None
+                out["loss_one"], out["grad_norm_one"] = float(m1["loss"]), float(m1["grad_norm"])
+                del full, m1
+            box = [recorded]
+            dist.broadcast_object_list(box, src=0)
+            recorded = box[0]
+            params, state = shard_seed(cfg, mesh, specs)
+            tape.update(replay=recorded, replay_on=False, at=0, same=0, total=0, keep=[])
+            sink["to"] = mine = []
+            _, _, m = mesh_counts(lambda: make_train_step(cfg, ocfg, mesh)(params, state,
+                                                                         batches[0], 0))
+            kept, tape["keep"], sink["to"] = tape["keep"], None, None
+            if tape["at"] != len(recorded):
+                failures.append(f"mesh {label}: {tape['at']} stage-1 calls against the single "
+                                f"device's {len(recorded)}")
+            out["perms_match"] = tape["same"] / max(tape["total"], 1)
+            out["loss"], out["grad_norm"] = float(m["loss"]), float(m["grad_norm"])
+            errs = leaf_errors(mine, want_g, mesh, lspecs, names)
+            del params, state, mine, m
+            # The single device's stage 1 on the mesh's q, gathered.
+            spec = sharding.P(sharding.dp_axes(mesh), "model", None, None)
+            same = total = 0
+            for (qp, perms), call in zip(kept, args or [None] * len(kept)):
+                q_full = sharding.gather_to(qp, mesh, spec)
+                p_full = sharding.gather_to(perms, mesh, spec)
+                if lead:
+                    dcfg, proj, hkv = call
+                    again = real_perms(q_full.to(device), dcfg,
+                                       None if proj is None else proj.to(device), hkv).cpu()
+                    eq = (again == p_full).all(dim=-1)
+                    same, total = same + int(eq.sum()), total + eq.numel()
+            out["restaged_match"] = same / max(total, 1)
+            del kept
+        finally:
+            ops.block_permutations = real_perms
+            opt.adamw_update = real_update
+            sink["to"] = None
+            tape.update(replay=None, record=None, args=None, keep=None)
+        if lead:
+            gate(f"{label} share of its own permutations unequal to the single device's stage 1 "
+                 "on the mesh's q", 1.0 - out["restaged_match"], MESH_F32_TOL["perms_restaged"])
+            gate(f"{label} share of its own permutations unequal to the single device's",
+                 1.0 - out["perms_match"], MESH_F32_TOL["perms_unequal"])
+            gate(f"{label} loss", abs(out["loss"] - out["loss_one"]), MESH_F32_TOL["loss"],
+                 f" ({out['loss']:.7f} against {out['loss_one']:.7f})")
+            gate(f"{label} grad norm", abs(out["grad_norm"] - out["grad_norm_one"])
+                 / out["grad_norm_one"], MESH_F32_TOL["grad_norm"], " relative")
+            for name, (emax, el2) in errs.items():
+                readings.append({"check": f"{label} gradient {name} (reported)", "max": emax,
+                                 "l2": el2})
+            for key, k in (("max", 0), ("l2", 1)):
+                name = max(errs, key=lambda n: errs[n][k])
+                log(f"  [mesh] {label} gradients ({len(errs)} leaves, reported): largest {key} "
+                    f"error {errs[name][k]:.4g} at {name}")
+        gc.collect()
+        return out
+
+    report: dict = {"runs": {}}
+    mesh_dm = make_host_mesh(model_parallel=2)
+    mesh_cm = make_host_mesh(model_parallel=2, context_parallel=2)
+    for impl in MESH_IMPLS:
+        cfg = base_cfg.replace(attention=replace(base_cfg.attention, impl=impl))
+        cfg_ctx = cfg.replace(attention=replace(cfg.attention, context_axis="context"))
+        row = report["runs"][impl] = {}
+        distr = impl == "pallas_distr"
+        for name, c, mesh, steps in (("data 2 × model 2, FSDP", cfg, mesh_dm, MESH_STEPS),
+                                     ("data 1 × context 2 × model 2", cfg_ctx, mesh_cm, 1)):
+            row[name] = mesh_train(c, mesh, steps, f"{impl} {name}", distr,
+                                   plant=not distr and steps > 1)
+        if distr:
+            row["f32, own permutations"] = own_perms_step(
+                cfg, mesh_dm, f"{impl} data 2 × model 2, FSDP, f32, own permutations")
+        dist.barrier()
+
+    # (c) The building blocks at full width, each against its
+    # single-device product on every rank.
+    gen = torch.Generator(device=device).manual_seed(11)
+    d = base_cfg.d_model
+    mesh_m = make_mesh((world,), ("model",))
+    blocks = {}
+    for label, k_dim in (("wo", base_cfg.n_heads * base_cfg.head_dim_), ("down", base_cfg.d_ff)):
+        x = torch.randn((seq, k_dim), generator=gen, device=device)
+        w = torch.randn((k_dim, d), generator=gen, device=device) * k_dim ** -0.5
+        want = x @ w
+        w_local = sharding.local_slice(w, mesh_m, sharding.P("model", None))
+        t0 = time.perf_counter()
+        y = coll.ring_allgather_matmul(x, w_local, mesh_m)
+        sync()
+        t1 = time.perf_counter()
+        y2 = coll.psum_scatter_matmul(x, w_local, mesh_m)
+        sync()
+        t2 = time.perf_counter()
+        err = float((y - want).abs().max())
+        err2 = float((y2 - sharding.local_slice(want, mesh_m, sharding.P(None, "model")))
+                     .abs().max())
+        gate(f"ring_allgather_matmul at {label}'s shape {tuple(w.shape)}", err, MESH_MATMUL_TOL)
+        gate(f"psum_scatter_matmul at {label}'s shape {tuple(w.shape)}", err2, MESH_MATMUL_TOL)
+        blocks[label] = {"allgather_err": err, "scatter_err": err2,
+                         "allgather_s": t1 - t0, "scatter_s": t2 - t1}
+        del x, w, want, w_local, y, y2
+    mesh_d = make_mesh((world,), ("data",))
+    shape = (base_cfg.d_ff, d)
+    grads = [torch.randn(shape, generator=gen, device=device) * 1e-3 for _ in range(world)]
+    mine = grads[int(mesh_d.coords["data"])]
+    mean, res = ef_pmean({"g": mine}, {"g": torch.zeros_like(mine)}, mesh_d, "data")
+    exact = torch.stack(grads).mean(0)
+    bound = max(float(g.abs().max()) for g in grads) / 127 + 1e-5
+    err = float((mean["g"] - exact).abs().max())
+    gate(f"ef_pmean on a {shape} gradient over {world} ranks", err, bound)
+    blocks["ef_pmean"] = {"err": err, "bound": bound}
+    del grads, mine, mean, res, exact
+    # The pipeline: stage s runs block s of the model (bf16 compute).
+    mesh_p = make_mesh((world,), ("pod",))
+    cfg = base_cfg.replace(attention=replace(base_cfg.attention, impl="pallas_flash"))
+    params = init_train_params(cfg, seed=0, device=device)
+    cdt = lm.compute_dtype(cfg)
+    xs = (torch.randn((MESH_PIPE_MICRO, 1, seq, d), generator=gen, device=device) * 0.5).to(cdt)
+
+    def stage_fn(lp, x):
+        return transformer.block_apply(lp, x, cfg)[0]
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        got = pipeline_apply(stage_fn, params["blocks"][int(mesh_p.coords["pod"])], xs, mesh_p)
+        sync()
+        pipe_s = time.perf_counter() - t0
+        want = xs
+        for i in range(world):
+            want = torch.stack([stage_fn(params["blocks"][i], mb) for mb in want])
+    l2 = float((got.float() - want.float()).norm() / want.float().norm())
+    gate(f"pipeline_apply over {world} stages, {MESH_PIPE_MICRO} microbatches, relative L2",
+         l2, MESH_PIPE_TOL)
+    blocks["pipeline"] = {"rel_l2": l2, "seconds": pipe_s}
+    del params, xs, got, want
+    report["blocks"] = blocks
+    del batches
+
+    gc.collect()
+    sync()
+    left = (torch.cuda.memory_allocated() - base) if cuda else 0
+    if cuda:
+        torch.cuda.empty_cache()
+    if left > CYCLE_SLACK:
+        alive = sorted(((t.numel() * t.element_size(), tuple(t.shape), str(t.dtype))
+                        for t in gc.get_objects() if isinstance(t, torch.Tensor) and t.is_cuda),
+                       reverse=True)
+        failures.append(f"rank {rank}: {left / 2**20:.1f} MiB still allocated after the mesh "
+                        f"phase; the largest tensors alive: {alive[:8]}")
+    dist.barrier()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"rank": rank, "launches": mesh_launches, "left_bytes": left,
+            **({"report": report, "readings": readings} if lead else {})}
+
+
+def mesh_phase(torch, device="cuda", small: bool = False) -> dict:
+    """Training on a mesh of MESH_WORLD ranks spawned as processes that share
+    the card, joined in a gloo world (``launch.mesh.run_world``), as the
+    ring phase's.  Rank by rank (``mesh_rank``): minicpm-2b at full width
+    (d_model 2304, 36 heads of 64, d_ff 5760, the tied 122,880 × 2304
+    embedding) cut to MESH_LAYERS layers, f32 params and AdamW moments,
+    computed in bf16, trained MESH_STEPS steps of MESH_BATCH × MESH_SEQ
+    tokens at MESH_LR through ``train.train_step.make_train_step(mesh=)`` on
+    a (data 2, model 2) mesh with FSDP (params and moments as local shards,
+    a block's "data" shards gathered on use), and one step on a (data 1,
+    context 2, model 2) mesh with the ring through ``_ring_dispatch``;
+    under pallas_distr, then pallas_flash.  Rank 0 runs the single-device
+    step from the mesh's state (params and moments gathered; the seed
+    weights at step 0) on the same batch and holds each step's loss, grad
+    norm and every gathered parameter to MESH_TOL and MESH_GNORM_REL, and
+    every leaf's clipped gradient to MESH_GRAD_TOL (the bf16 runs replay
+    the single device's LSH permutations and log the share the mesh would
+    have drawn itself).  Two planted faults must fail the gradient gate:
+    one step with the model axis's gradient sum left out, and a leaf's
+    gradient doubled.  Under pallas_distr one f32 step draws its own
+    permutations, gated at MESH_F32_TOL against the single device's stage 1
+    on the mesh's gathered q and against the single device's step.  Every
+    reading is logged (the per-leaf ones in the JSON).  Then the building
+    blocks at full width:
+    ``ring_allgather_matmul`` and ``psum_scatter_matmul`` at ``wo``'s and
+    ``down``'s shapes over a 4-rank "model" axis, ``ef_pmean`` on a
+    full-width gradient over a 4-rank "data" axis, and ``pipeline_apply``
+    with one block a stage over a 4-rank "pod" axis.  Raises on any failed
+    reading, when a kernel of RING_KERNELS never launched on some rank,
+    when a rank leaves more than CYCLE_SLACK allocated, and when the card's
+    free memory is not back within CYCLE_SLACK once the ranks have
+    exited."""
+    from repro_torch.launch.mesh import run_world
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    reports = run_world(mesh_rank, MESH_WORLD, device, small, timeout_s=900)
+    wall = time.perf_counter() - t0
+    gap = 0
+    if cuda:
+        for _ in range(20):  # the CUDA driver frees an exited process's memory
+            gap = free0 - torch.cuda.mem_get_info()[0]
+            if gap <= CYCLE_SLACK:
+                break
+            time.sleep(0.5)
+        log(f"[memory] after the mesh phase: the card's free memory is {gap / 2**20:.1f} MiB "
+            "below its start")
+        if gap > CYCLE_SLACK:
+            raise AssertionError(f"the mesh phase left {gap / 2**20:.1f} MiB of the card in use")
+    silent = {r["rank"]: [k for k in RING_KERNELS if r["launches"][k] == 0] for r in reports}
+    if cuda and any(silent.values()):
+        raise AssertionError(f"the mesh path never launched these kernels on these ranks: "
+                             f"{silent}")
+    launches = {name: sum(r["launches"][name] for r in reports) for name in RING_KERNELS}
+    lead = reports[0]
+    report = {**lead["report"], "readings": lead["readings"], "wall_s": wall,
+              "free_gap_bytes": gap, "launches": launches,
+              "launches_by_rank": [r["launches"] for r in reports]}
+    log(f"[mesh] {json.dumps({k: v for k, v in report.items() if k != 'readings'})}")
+    log(f"[mesh] phase {wall:.1f} s; launches {launches}")
+    return {"report": report, "launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="also write the results as JSON here")
-    ap.add_argument("--only", choices=("kernels", "moe", "encdec", "tune", "cluster", "ring"),
+    ap.add_argument("--only", choices=("kernels", "moe", "encdec", "tune", "cluster", "ring",
+                                       "mesh"),
                     default=None,
                     help="kernels: stop after the kernel phases; moe: run only the MoE "
                          "check and the MoE configs' serving; encdec: run only the "
@@ -4334,7 +4949,9 @@ def main() -> int:
                          "serving and training; tune: run only the tuner's phase; cluster: "
                          "run only the cluster router's and the training supervisor's "
                          "phases; ring: run only the ring context-parallel attention "
-                         "phase (4 ranks sharing the card); each prints a JSON summary")
+                         "phase (4 ranks sharing the card); mesh: run only the mesh "
+                         "training phase (data, FSDP and tensor parallel, 4 ranks sharing "
+                         "the card); each prints a JSON summary")
     ap.add_argument("--serve-load", choices=("slot", "paged", "hybrid"), default=None,
                     help="only serve this workload as a closed-loop load under both impls "
                          "(timed passes and the device's busy share), no checks")
@@ -4424,6 +5041,15 @@ def main() -> int:
                                                  indent=1))
         log(card)
         print(json.dumps({"launches": {"ring": ringed["launches"]}}), flush=True)
+        return 0
+    if args.only == "mesh":
+        meshed = mesh_phase(torch)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps({"card": card, "mesh": meshed["report"]},
+                                                 indent=1))
+        log(card)
+        print(json.dumps({"launches": {"mesh": meshed["launches"]}}), flush=True)
         return 0
     if args.only == "encdec":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -4561,10 +5187,12 @@ def main() -> int:
         free_card(torch, "the supervisor phase", gate=False)
         ringed = ring_phase(torch)
         results["ring"] = ringed["report"]
+        meshed = mesh_phase(torch)
+        results["mesh"] = meshed["report"]
         for name, count in (*train["launches"].items(), *mamba["launches"].items(),
                             *encdec_train["launches"].items(),
                             *robust["launches"].items(), *supervised["launches"].items(),
-                            *ringed["launches"].items()):
+                            *ringed["launches"].items(), *meshed["launches"].items()):
             launches[name] += count
 
     csrc = "src/repro_torch/kernels/csrc"

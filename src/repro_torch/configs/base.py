@@ -58,6 +58,11 @@ class ModelConfig:
     norm_eps: float = 1e-6
     attention: AttentionConfig = field(default_factory=AttentionConfig)
     compute_dtype: str = "bfloat16"  # activations and caches; serving's weights
+    # distribution (distributed.sharding): "seq" asks the reference's GSPMD to
+    # shard attention's sequence over "model" when the heads do not divide it;
+    # the port's tensor parallelism runs attention on local heads either way
+    attn_shard: str = "heads"  # heads | seq
+    fsdp: bool = True  # shard params and AdamW moments over the data axis too
     # training
     param_dtype: str = "float32"  # master weights (AdamW moments are f32)
     remat: str = "full"  # full (recompute each block in the backward) | none

@@ -14,6 +14,7 @@ def config() -> ModelConfig:
     return ModelConfig(
         name="deepseek-v2-236b",
         family="moe",
+        attn_shard="heads",
         n_layers=60,
         d_model=5120,
         n_heads=128,

@@ -12,6 +12,7 @@ def config() -> ModelConfig:
     return ModelConfig(
         name="internvl2-2b",
         family="dense",
+        attn_shard="seq",
         n_layers=24,
         d_model=2048,
         n_heads=16,

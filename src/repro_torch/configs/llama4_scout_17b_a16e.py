@@ -12,6 +12,7 @@ def config() -> ModelConfig:
     return ModelConfig(
         name="llama4-scout-17b-a16e",
         family="moe",
+        attn_shard="seq",
         n_layers=48,
         d_model=5120,
         n_heads=40,

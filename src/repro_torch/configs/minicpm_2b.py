@@ -10,6 +10,7 @@ def config() -> ModelConfig:
     return ModelConfig(
         name="minicpm-2b",
         family="dense",
+        attn_shard="seq",
         n_layers=40,
         d_model=2304,
         n_heads=36,

@@ -10,6 +10,7 @@ def config() -> ModelConfig:
     return ModelConfig(
         name="qwen1.5-4b",
         family="dense",
+        attn_shard="seq",
         n_layers=40,
         d_model=2560,
         n_heads=20,

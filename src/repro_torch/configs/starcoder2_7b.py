@@ -10,6 +10,7 @@ def config() -> ModelConfig:
     return ModelConfig(
         name="starcoder2-7b",
         family="dense",
+        attn_shard="seq",
         n_layers=32,
         d_model=4608,
         n_heads=36,

@@ -11,6 +11,7 @@ def config() -> ModelConfig:
     return ModelConfig(
         name="whisper-small",
         family="encdec",
+        attn_shard="seq",
         n_layers=12,
         n_encoder_layers=12,
         d_model=768,

@@ -12,6 +12,7 @@ def config() -> ModelConfig:
     return ModelConfig(
         name="zamba2-7b",
         family="hybrid",
+        attn_shard="heads",
         n_layers=81,
         d_model=3584,
         n_heads=32,

@@ -1,5 +1,6 @@
-"""Distributed runtime: ring sequence-parallel (context-parallel)
-attention over ``torch.distributed``."""
-from repro_torch.distributed import ring_attention
+"""Distributed runtime over ``torch.distributed``: the sharding rules,
+explicit collectives, the GPipe pipeline, and ring sequence-parallel
+(context-parallel) attention."""
+from repro_torch.distributed import collectives, pipeline, ring_attention, sharding
 
-__all__ = ["ring_attention"]
+__all__ = ["collectives", "pipeline", "ring_attention", "sharding"]

@@ -37,15 +37,20 @@ locally while (K, V, dK, dV) rotate together; after P rotations dK and dV
 are back on their owner.  The merged LSE and the local D = rowsum(dO ∘ O)
 are row statistics of the local Q shard, so no statistic crosses the ring.
 
-The calling contract is the reference's: global (B, H, N, d) tensors go in
-on every rank and the global output comes out, unpadded to N, on every
-rank; the gradients of the global q, k and v are equal on every rank.  The
-context group must be a ``gloo`` group, which moves host tensors only
+The calling contract is the reference's over the context axis: (B, H, N,
+d) tensors with the global N go in on every rank of the context group and
+the output comes out, unpadded to N, on every one of them; the gradients of
+q, k and v are equal on every rank of the group.  Beside the ring the batch
+rows and heads are this rank's: on a mesh with data-parallel axes and
+"model" (the reference's ``_ring_specs``: batch over the data-parallel
+axes, heads over "model") the caller passes its own rows and heads (the
+trainer splits the batch, tensor-parallel attention its heads), and the
+ring runs on the context group of this rank's (data, model) coordinate.
+The context group must be a ``gloo`` group, which moves host tensors only
 (and is the backend that can put several ranks on one card): CUDA tensors
-are staged through pinned host buffers.  Other backends (NCCL across
-cards) are refused.  On CPU tensors the kernel calls take their plain
-versions.  Meshes with a data or model axis larger than 1 (batch or heads
-sharded beside the ring) are refused.
+are staged through pinned host buffers by the wire layer of
+``distributed.collectives``.  Other backends (NCCL across cards) are
+refused.  On CPU tensors the kernel calls take their plain versions.
 """
 from __future__ import annotations
 
@@ -54,10 +59,11 @@ from dataclasses import dataclass, field
 from math import lcm
 
 import torch
-import torch.distributed as dist
+import torch.distributed as dist  # noqa: F401  (the wire layer reads its backends)
 
 from repro_torch.core.distr_attention import DistrConfig, pad_to_multiple
 from repro_torch.core.flash_reference import NEG_INF
+from repro_torch.distributed import collectives as coll
 from repro_torch.kernels import backward as bwd
 from repro_torch.kernels import ops
 from repro_torch.kernels.distr_attention import distr_attention_kernel_call
@@ -95,40 +101,20 @@ class _Ring:
     before."""
 
     def __init__(self, mesh, axis: str):
+        self.mesh, self.axis = mesh, axis
         self.size = int(mesh.shape[axis])
         self.idx = int(mesh.coords[axis])
         self.group = mesh.groups[axis]
         ranks = mesh.ranks[axis]
         self.next = ranks[(self.idx + 1) % self.size]
         self.prev = ranks[(self.idx - 1) % self.size]
-        backend = dist.get_backend(self.group)
-        if backend != "gloo":
-            raise NotImplementedError(
-                f"the ring runs on a gloo context group only (it stages CUDA tensors "
-                f"through host memory); this group's backend is {backend!r}")
-
-    @staticmethod
-    def _to_wire(x: torch.Tensor) -> torch.Tensor:
-        """x on the host (gloo moves host tensors only), pinned when staged
-        from the card."""
-        if not x.is_cuda:
-            return x
-        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-        host.copy_(x, non_blocking=True)
-        torch.cuda.current_stream(x.device).synchronize()
-        return host
+        coll.require_gloo(self.group, "the ring")
 
     def rotate(self, tensors):
         """Every rank sends ``tensors`` to the next ring position; returns
         the ones received from the previous position (same shapes)."""
         flat = torch.cat([t.contiguous().view(-1).view(torch.uint8) for t in tensors])
-        send = self._to_wire(flat)
-        recv = torch.empty(send.shape, dtype=send.dtype, pin_memory=send.is_pinned())
-        reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, self.next, self.group),
-                                       dist.P2POp(dist.irecv, recv, self.prev, self.group)])
-        for req in reqs:
-            req.wait()
-        recv = recv.to(flat.device, non_blocking=True)
+        recv = coll.send_recv(flat, self.group, self.next, self.prev)
         out, at = [], 0
         for t in tensors:
             nbytes = t.numel() * t.element_size()
@@ -139,12 +125,7 @@ class _Ring:
     def gather_seq(self, x: torch.Tensor) -> torch.Tensor:
         """The ring's shards of x (B, H, n_shard, ·) concatenated in ring
         order on the sequence axis, on every rank."""
-        wire = self._to_wire(x.contiguous())
-        parts = torch.empty((self.size, *wire.shape), dtype=wire.dtype,
-                            pin_memory=wire.is_pinned())
-        dist.all_gather(list(parts.unbind(0)), wire, group=self.group)
-        b, h, n, d = x.shape
-        return parts.to(x.device).permute(1, 2, 0, 3, 4).reshape(b, h, self.size * n, d)
+        return coll.all_gather(x, self.mesh, self.axis, 2)
 
 
 @dataclass(frozen=True)
@@ -487,16 +468,7 @@ def _ring_size(q, k, mesh, axis: str) -> int:
     if q.shape[2] != k.shape[2]:
         raise ValueError(f"ring attention is self-attention only: N_q={q.shape[2]} != "
                          f"N_k={k.shape[2]}")
-    p = int(mesh.shape[axis]) if axis in mesh.axis_names else 1
-    if p > 1:
-        wide = {a: int(mesh.shape[a]) for a in mesh.axis_names
-                if a != axis and int(mesh.shape[a]) > 1}
-        if wide:
-            raise NotImplementedError(
-                f"the ring shards the sequence over {axis!r} only; this mesh also has "
-                f"{wide} (batch over data axes and heads over 'model' beside the ring "
-                "are not ported)")
-    return p
+    return int(mesh.shape[axis]) if axis in mesh.axis_names else 1
 
 
 def ring_flash_attention(q, k, v, mesh, *, axis: str = "context", causal: bool = False,

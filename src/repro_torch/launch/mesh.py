@@ -5,12 +5,14 @@ A :class:`HostMesh` names the world's axes with their sizes, this rank's
 coordinate on each axis, and a process group for each axis (the ranks that
 differ from this one on that axis alone).  Ranks lie on the mesh in
 row-major order, as devices lie on a JAX mesh.  ``set_mesh`` makes a mesh
-active for ``core.api.attend`` (the counterpart of ``jax_compat.set_mesh``
-/ ``get_abstract_mesh``), and ``run_world`` spawns a world of processes on
-one host over a ``FileStore``.
+active (the counterpart of ``jax_compat.set_mesh`` / ``get_abstract_mesh``)
+for what reads it: ``core.api.attend``'s ring dispatch, the tensor-parallel
+layers and the loss (``models``), and the train step
+(``train.train_step``), which sets it around its forward and backward.
+``run_world`` spawns a world of processes on one host over a ``FileStore``.
 
-The production meshes (``make_production_mesh``, ``compat_make_mesh``) come
-with the dry run.
+The production meshes (``make_production_mesh``, ``compat_make_mesh``) are
+still to be ported with the dry run (ROADMAP Queue 1 items 2b and 3).
 """
 from __future__ import annotations
 

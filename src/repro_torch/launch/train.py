@@ -26,9 +26,20 @@ step, so under ``measure`` a sweep runs there and never inside a step.
 with N simulated workers (heartbeat failure detection, straggler
 exclusion, remesh and restore from the newest verified checkpoint on a
 worker's loss); ``--metrics-out`` then reads the supervisor, whose
-counters merge the trainer's.  The reference's ``--model-parallel`` and
-``--context-parallel`` are not ported: the supervisor plans one model
-shard a worker.
+counters merge the trainer's.
+
+On a mesh: started by ``torchrun`` (``WORLD_SIZE`` > 1) the launcher joins
+the world from its environment on a gloo group (the wire layer of
+``distributed.collectives``) and trains on ``make_host_mesh(--model-parallel,
+--context-parallel)`` (defaults 1 and 1, as the reference's):
+data-parallel and FSDP over the ranks left, tensor parallel over "model",
+the ring over "context" (``--context-parallel`` > 1 sets the config's
+``context_axis``).  ``--device cuda`` becomes ``cuda:{LOCAL_RANK %
+device_count}``.  Every rank draws the same seeded params and data; rank 0
+writes the checkpoints.
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch minicpm-2b \
+      --reduced --device cpu --model-parallel 2
 """
 from __future__ import annotations
 
@@ -37,11 +48,14 @@ import glob
 import json
 import os
 import tempfile
+from dataclasses import replace
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core.api import IMPLS, resolve_attention_blocks
+from repro_torch.launch.mesh import make_host_mesh, set_mesh
 from repro_torch.models import lm
 from repro_torch.obs import TraceRecorder, set_recorder, train_registry
 from repro_torch.train.anomaly import AnomalyConfig
@@ -83,17 +97,48 @@ def warm_train(cfg, seq: int, *, device: str | torch.device = "cuda"):
         bwd=True, device=resolve_device(device))
 
 
+def join_world() -> None:
+    """Join the process group ``torchrun``'s environment names (gloo, the
+    backend the mesh's wire layer takes), unless there is none to join or
+    this process has joined one already."""
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized():
+        dist.init_process_group("gloo", init_method="env://")
+
+
+def rank_device(device: str) -> str:
+    """``cuda`` as this rank's card, ``cuda:{LOCAL_RANK % device_count}``;
+    any other device as given."""
+    if device != "cuda" or not torch.cuda.is_available():
+        return device
+    return f"cuda:{int(os.environ.get('LOCAL_RANK', '0')) % torch.cuda.device_count()}"
+
+
+def train_mesh(cfg, model_parallel: int = 1, context_parallel: int = 1):
+    """(cfg, the mesh) the run trains on: a host mesh over the process world
+    when it has more than one rank or ``context_parallel`` > 1 (which also
+    sets the config's ``context_axis``), else (cfg, None)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world == 1 and context_parallel == 1 and model_parallel == 1:
+        return cfg, None
+    if context_parallel > 1:
+        cfg = cfg.replace(attention=replace(cfg.attention, context_axis="context"))
+    return cfg, make_host_mesh(model_parallel, context_parallel)
+
+
 def run(cfg, params: dict, *, steps: int = 100, batch: int = 8, seq: int = 128,
         lr: float = 1e-3, grad_accum: int = 1, seed: int = 0,
         device: str | torch.device = "cuda", workdir: str | None = None,
         data: str | None = None, ckpt_every: int = 200, anomaly_z: float = 8.0,
-        max_rollbacks: int = 3, supervise: int = 0, trace=None) -> dict:
+        max_rollbacks: int = 3, supervise: int = 0, model_parallel: int = 1,
+        context_parallel: int = 1, trace=None) -> dict:
     """Train ``params`` (on ``device``) for ``steps`` steps on
     ``SyntheticLMData(cfg.vocab, batch, seq, seed)``, or on the ``.bin``
     shards the glob ``data`` names, logging every 10th step.  With ``workdir``
     the trainer checkpoints there and resumes from it; with ``supervise``
     > 0 a ``TrainSupervisor`` of that many simulated workers drives it;
     ``trace`` is the recorder both emit to (None: the process-global one).
+    In a world of several ranks (or with ``context_parallel`` > 1) it trains
+    on ``train_mesh``'s mesh, ``params`` the full params on every rank.
     Returns the trainer, the supervisor (None without one), the history,
     the step times, tokens/s over the steps after the first (which pays for
     the kernel build and first-use setup), the count of skipped steps and,
@@ -110,11 +155,13 @@ def run(cfg, params: dict, *, steps: int = 100, batch: int = 8, seq: int = 128,
         torch.cuda.reset_peak_memory_stats(dev)
     anomaly = AnomalyConfig(enabled=anomaly_z > 0, z_threshold=anomaly_z or 8.0,
                             max_rollbacks=max_rollbacks)
-    trainer = Trainer(cfg, opt_cfg, dataset, params, workdir=workdir, ckpt_every=ckpt_every,
-                      anomaly=anomaly, trace=trace)
+    cfg, mesh = train_mesh(cfg, model_parallel, context_parallel)
+    trainer = Trainer(cfg, opt_cfg, dataset, params, workdir=workdir, mesh=mesh,
+                      ckpt_every=ckpt_every, anomaly=anomaly, trace=trace)
     sup = None
     if supervise > 0:
-        sup = TrainSupervisor(trainer, num_workers=supervise, trace=trace)
+        sup = TrainSupervisor(trainer, num_workers=supervise, model_parallel=model_parallel,
+                              trace=trace)
         hist = sup.run(steps)
         print(f"[train] supervisor counters: {sup.counters_snapshot()}")
     else:
@@ -124,6 +171,7 @@ def run(cfg, params: dict, *, steps: int = 100, batch: int = 8, seq: int = 128,
     return {
         "trainer": trainer,
         "supervisor": sup,
+        "mesh": mesh,
         "history": hist,
         "step_times": times,
         "tok_per_s": batch * seq * len(warm) / sum(warm),
@@ -144,6 +192,12 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="tensor-parallel degree: the 'model' axis of the mesh over the "
+                         "process world")
+    ap.add_argument("--context-parallel", type=int, default=1,
+                    help="ring sequence-parallel attention degree: shards the sequence over "
+                         "a 'context' mesh axis (distributed.ring_attention)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--workdir", default=None,
@@ -172,6 +226,11 @@ def main(argv: list[str] | None = None) -> dict:
 
     if args.tune:
         os.environ["REPRO_TUNE"] = args.tune
+    join_world()
+    device = rank_device(args.device)
+    print(f"[train] device {device}"
+          + (f", rank {dist.get_rank()} of {dist.get_world_size()}" if dist.is_initialized()
+             else ""))
     cfg = get_config(args.arch, reduced=args.reduced)
     workdir = args.workdir or default_workdir(args.arch, args.reduced)
     print(f"[train] checkpoints in {workdir}")
@@ -182,15 +241,20 @@ def main(argv: list[str] | None = None) -> dict:
         rec = TraceRecorder()
         set_recorder(rec)  # the tuner's sweeps ride the global recorder
     try:
-        blocks = warm_train(cfg, args.seq, device=args.device)
+        mesh_cfg, mesh = train_mesh(cfg, args.model_parallel, args.context_parallel)
+        if mesh is not None:
+            print(f"[train] mesh: {dict(mesh.shape)}")
+        with set_mesh(mesh):  # a ring's tuner key is one rank's shard
+            blocks = warm_train(mesh_cfg, args.seq, device=device)
         if blocks is not None:
             print(f"[train] attention blocks ({tune_mode()}): {blocks}")
-        params = init_train_params(cfg, seed=args.seed, device=args.device)
+        params = init_train_params(cfg, seed=args.seed, device=device)
         out = run(cfg, params, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
-                  grad_accum=args.grad_accum, seed=args.seed, device=args.device,
+                  grad_accum=args.grad_accum, seed=args.seed, device=device,
                   workdir=workdir, data=args.data, ckpt_every=args.ckpt_every,
                   anomaly_z=args.anomaly_z, max_rollbacks=args.max_rollbacks,
-                  supervise=args.supervise, trace=rec)
+                  supervise=args.supervise, model_parallel=args.model_parallel,
+                  context_parallel=args.context_parallel, trace=rec)
     finally:
         set_recorder(None)
     hist = out["history"]

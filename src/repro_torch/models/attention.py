@@ -7,6 +7,13 @@ plain DistrAttention with the RoPE dimensions as an exact side channel, or
 ``attend`` on the concatenated q/k, and its decode attends in the
 compressed c_kv space in plain PyTorch, as the reference does.  Caches and
 pools are updated in place.
+
+Tensor parallelism: when ``wq`` holds a slice of the heads over "model"
+(``distributed.sharding``: column-parallel Q, K and V, row-parallel ``wo``),
+``attention_apply`` runs its local heads through the same ``attend`` (the
+kernels, or the ring over "context" beside it) and sums ``wo``'s partial
+products over "model".  ``wq`` and ``wk`` must both be sliced or both be
+whole.
 """
 from __future__ import annotations
 
@@ -14,6 +21,7 @@ import torch
 
 from repro_torch.core.api import attend, attend_decode
 from repro_torch.core.distr_attention import distr_attention
+from repro_torch.distributed import collectives as coll
 from repro_torch.kernels.paged_decode import GARBAGE_BLOCK
 from repro_torch.models import layers
 
@@ -26,6 +34,13 @@ def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     b, h, n, d = x.shape
     return x.transpose(1, 2).reshape(b, n, h * d)
+
+
+def _constrain_bhnd(x: torch.Tensor, attn_shard: str) -> torch.Tensor:
+    """The reference's layout hint for (B, H, N, d) (``layers.constrain``)."""
+    if attn_shard == "seq":
+        return layers.constrain(x, "data", None, "model", None)
+    return layers.constrain(x, "data", "model", "seq", None)
 
 
 def attention_init(generator, cfg, dtype=torch.float32) -> dict:
@@ -41,6 +56,31 @@ def attention_init(generator, cfg, dtype=torch.float32) -> dict:
     }
 
 
+def attention_axes(cfg) -> dict:
+    return {
+        "wq": layers.linear_axes(None, "heads", bias=cfg.qkv_bias),
+        "wk": layers.linear_axes(None, "kv_heads", bias=cfg.qkv_bias),
+        "wv": layers.linear_axes(None, "kv_heads", bias=cfg.qkv_bias),
+        "wo": layers.linear_axes("heads", None),
+    }
+
+
+def local_heads(params: dict, cfg) -> tuple[int, int, object]:
+    """(query heads, KV heads, the tensor-parallel mesh or None) that
+    ``params`` holds: the config's, or their slices over "model".  A slice
+    of one without the other raises."""
+    dh = cfg.head_dim_
+    hq, hkv = params["wq"]["w"].shape[1] // dh, params["wk"]["w"].shape[1] // dh
+    mesh_q = layers.tp_mesh(hq, cfg.n_heads)
+    mesh_kv = layers.tp_mesh(hkv, cfg.n_kv_heads)
+    if (mesh_q is None) != (mesh_kv is None):
+        raise NotImplementedError(
+            f"attention with {hq} of {cfg.n_heads} query heads and {hkv} of "
+            f"{cfg.n_kv_heads} KV heads: a tensor-parallel split must slice both (the "
+            "kernels map query heads onto KV heads by q_per_kv)")
+    return hq, hkv, mesh_q
+
+
 def attention_apply(params: dict, x: torch.Tensor, cfg, *,
                     positions: torch.Tensor | None = None, causal: bool = True,
                     proj: torch.Tensor | None = None, x_kv: torch.Tensor | None = None,
@@ -53,10 +93,16 @@ def attention_apply(params: dict, x: torch.Tensor, cfg, *,
     the serve layer can build caches."""
     b, n, _ = x.shape
     use_rope = cfg.pos == "rope" if use_rope is None else use_rope
+    hq, hkv, mesh = local_heads(params, cfg)
+    if mesh is not None:
+        if x_kv is not None:
+            raise NotImplementedError("tensor-parallel cross-attention is not ported (the "
+                                      "enc-dec family trains on data-parallel meshes)")
+        x = coll.tp_enter(x, mesh)
     src = x if x_kv is None else x_kv
-    q = _split_heads(layers.linear_apply(params["wq"], x), cfg.n_heads)
-    k = _split_heads(layers.linear_apply(params["wk"], src), cfg.n_kv_heads)
-    v = _split_heads(layers.linear_apply(params["wv"], src), cfg.n_kv_heads)
+    q = _split_heads(layers.linear_apply(params["wq"], x), hq)
+    k = _split_heads(layers.linear_apply(params["wk"], src), hkv)
+    v = _split_heads(layers.linear_apply(params["wv"], src), hkv)
     if use_rope:
         if positions is None:
             positions = torch.arange(n, device=x.device).expand(b, n)
@@ -64,9 +110,11 @@ def attention_apply(params: dict, x: torch.Tensor, cfg, *,
                         torch.arange(src.shape[1], device=x.device).expand(b, src.shape[1]))
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, kv_positions, cfg.rope_theta)
-    o = attend(q, k, v, cfg.attention, causal=causal, proj=proj)
+    q, k, v = (_constrain_bhnd(t, cfg.attn_shard) for t in (q, k, v))
+    o = _constrain_bhnd(attend(q, k, v, cfg.attention, causal=causal, proj=proj),
+                        cfg.attn_shard)
     out = layers.linear_apply(params["wo"], _merge_heads(o))
-    return out, (k, v)
+    return (out if mesh is None else coll.tp_reduce(out, mesh)), (k, v)
 
 
 def _as_pos_vector(cache_index, b: int, device) -> torch.Tensor:
@@ -260,6 +308,19 @@ def mla_init(generator, cfg, dtype=torch.float32) -> dict:
         "wk_b": layers.linear_init(generator, cfg.kv_lora_rank, h * nope, dtype=dtype),
         "wv_b": layers.linear_init(generator, cfg.kv_lora_rank, h * vd, dtype=dtype),
         "wo": layers.linear_init(generator, h * vd, cfg.d_model, dtype=dtype),
+    }
+
+
+def mla_axes(cfg) -> dict:
+    return {
+        "wq_a": layers.linear_axes(None, None),
+        "q_norm": layers.rmsnorm_axes(),
+        "wq_b": layers.linear_axes(None, "heads"),
+        "wkv_a": layers.linear_axes(None, None),
+        "kv_norm": layers.rmsnorm_axes(),
+        "wk_b": layers.linear_axes(None, "heads"),
+        "wv_b": layers.linear_axes(None, "heads"),
+        "wo": layers.linear_axes("heads", None),
     }
 
 

@@ -16,7 +16,18 @@ Mamba layers past the last group, when there are any) and ``shared`` (the
 by block ``gi % n_shared_attn_blocks``); for encdec ``enc_blocks`` (the
 encoder's non-causal layers), ``enc_norm`` and ``blocks`` (decoder layers
 with cross-attention to the encoder output).  Per-layer Python loops stand
-in for the reference's ``lax.scan``.
+in for the reference's ``lax.scan``, and ``param_axes`` gives the logical
+axes of every trained leaf at its path (a layer list's entries each get
+their layer's axes, where the reference prepends a stack dim).
+
+On a mesh (``launch.mesh.set_mesh``, ``train.train_step``): under FSDP a
+block's ``"data"``-sharded parameters are gathered on use, inside its remat
+checkpoint (``distributed.sharding.gather_on_use``), and the other
+parameters once a step; the dense family runs tensor parallel over "model"
+(``models.layers``, ``models.attention``), its embedding vocab-parallel and
+its loss a vocab-parallel cross-entropy; ``loss_fn`` normalises by the
+labels of the whole batch the data-parallel ranks split, so the ranks'
+losses sum to the single device's.
 
 The stub frontends: an enc-dec model encodes ``frames`` (B, N_enc,
 d_model), precomputed frame embeddings; a ``patch_stub`` model prepends
@@ -29,12 +40,17 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import lsh
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding
 from repro_torch.models import layers, transformer
 from repro_torch.utils.device import resolve_device
 
 PAD_LOGIT = -1e30
 Z_LOSS_WEIGHT = 1e-4
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
+# The parameter subtrees that are lists of layers (the reference's stacked
+# ``STACKED_KEYS``); ``groups`` is a list of lists.
+LAYER_KEYS = ("blocks", "dense_blocks", "enc_blocks", "groups", "tail")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -84,7 +100,8 @@ def init_params(cfg, generator: torch.Generator | None = None,
     check_family(cfg)
     dev = resolve_device(device)
     if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
+        generator = (_MetaGenerator() if dev.type == "meta" else
+                     torch.Generator(device=dev).manual_seed(0))
     dtype = dtype or compute_dtype(cfg)
     params = {"embed": layers.embedding_init(generator, cfg.padded_vocab, cfg.d_model, dtype)}
     if cfg.pos == "learned":
@@ -126,6 +143,55 @@ def init_params(cfg, generator: torch.Generator | None = None,
     return params
 
 
+class _MetaGenerator:
+    """Stands in for a generator when parameters are drawn on the meta
+    device (shapes only)."""
+
+    device = torch.device("meta")
+
+
+def param_shapes(cfg, dtype: torch.dtype | None = None) -> dict:
+    """``init_params``'s tree on the meta device: every shape, no storage."""
+    return init_params(cfg, _MetaGenerator(), "meta", dtype=dtype)
+
+
+def param_axes(cfg) -> dict:
+    """The logical axes of every trained leaf, at ``init_params``'s paths
+    (no ``lsh_proj``: it is replicated model state)."""
+    check_family(cfg)
+    norm = transformer.norm_axes(cfg)
+    axes: dict = {"embed": layers.embedding_axes()}
+    if cfg.pos == "learned":
+        axes["pos_embed"] = layers.embedding_axes()
+
+    def stack(n: int, layer_type: str = "dense", **kw) -> list:
+        return [transformer.block_axes(cfg, layer_type, **kw) for _ in range(n)]
+
+    if cfg.family == "dense":
+        axes["blocks"] = stack(cfg.n_layers)
+    elif cfg.family == "moe":
+        if cfg.first_dense_layers:
+            axes["dense_blocks"] = stack(cfg.first_dense_layers)
+        axes["blocks"] = stack(cfg.n_layers - cfg.first_dense_layers, "moe")
+    elif cfg.family == "ssm":
+        axes["blocks"] = stack(cfg.n_layers, "mamba")
+    elif cfg.family == "hybrid":
+        n_groups, n_tail = hybrid_layout(cfg)
+        axes["groups"] = [stack(cfg.attn_every, "mamba") for _ in range(n_groups)]
+        if n_tail:
+            axes["tail"] = stack(n_tail, "mamba")
+        axes["shared"] = [transformer.shared_block_axes(cfg)
+                          for _ in range(cfg.n_shared_attn_blocks)]
+    else:
+        axes["enc_blocks"] = stack(n_encoder_layers(cfg))
+        axes["enc_norm"] = norm
+        axes["blocks"] = stack(cfg.n_layers, cross=True)
+    axes["final_norm"] = norm
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = layers.linear_axes(None, "vocab")
+    return axes
+
+
 def named_trainable(params: dict) -> list[tuple[str, torch.Tensor]]:
     """``(key path, tensor)`` of the trained leaves of ``params`` in a fixed
     order (dict keys sorted, lists by index, paths like
@@ -155,7 +221,8 @@ def trainable(params: dict) -> list[torch.Tensor]:
 
 
 def embed(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    return layers.embedding_apply(params["embed"], tokens).to(compute_dtype(cfg))
+    return layers.embedding_apply(params["embed"], tokens,
+                                  cfg.padded_vocab).to(compute_dtype(cfg))
 
 
 def embed_inputs(params: dict, cfg, tokens: torch.Tensor,
@@ -169,7 +236,8 @@ def embed_inputs(params: dict, cfg, tokens: torch.Tensor,
         x = torch.cat([patches.to(x.dtype), x], dim=1)
     b, n = x.shape[:2]
     positions = torch.arange(n, device=x.device).expand(b, n)
-    return add_learned_pos(params, cfg, x, positions), positions
+    x = layers.constrain(add_learned_pos(params, cfg, x, positions), "data", None, None)
+    return x, positions
 
 
 def add_learned_pos(params: dict, cfg, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -177,7 +245,8 @@ def add_learned_pos(params: dict, cfg, x: torch.Tensor, positions: torch.Tensor)
     positions; ``x`` itself otherwise."""
     if cfg.pos != "learned":
         return x
-    return x + layers.embedding_apply(params["pos_embed"], positions).to(x.dtype)
+    return x + layers.embedding_apply(params["pos_embed"], positions,
+                                      cfg.learned_pos_len).to(x.dtype)
 
 
 def n_prefix(cfg, patches: torch.Tensor | None) -> int:
@@ -196,6 +265,7 @@ def decoder_layers(params: dict, cfg) -> list[tuple[str, dict]]:
 
 def _block_hidden(lp: dict, x: torch.Tensor, cfg, positions, proj, layer_type: str,
                   causal: bool = True, enc_out: torch.Tensor | None = None):
+    lp = sharding.gather_on_use(lp)
     x, aux, _ = transformer.block_apply_aux(lp, x, cfg, positions=positions, proj=proj,
                                             layer_type=layer_type, causal=causal,
                                             enc_out=enc_out)
@@ -203,7 +273,7 @@ def _block_hidden(lp: dict, x: torch.Tensor, cfg, positions, proj, layer_type: s
 
 
 def _mamba_hidden(lp: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    return transformer.block_apply(lp, x, cfg, layer_type="mamba")[0]
+    return transformer.block_apply(sharding.gather_on_use(lp), x, cfg, layer_type="mamba")[0]
 
 
 def _remat(cfg, collect_cache: bool) -> bool:
@@ -217,8 +287,8 @@ def _mamba_layers(layer_params: list, x: torch.Tensor, cfg, collect_cache: bool)
         if remat:
             x = checkpoint(_mamba_hidden, lp, x, cfg, use_reentrant=False)
             continue
-        x, st = transformer.block_apply(lp, x, cfg, layer_type="mamba",
-                                        collect_cache=collect_cache)
+        x, st = transformer.block_apply(sharding.gather_on_use(lp), x, cfg,
+                                        layer_type="mamba", collect_cache=collect_cache)
         states.append(st)
     return x, states
 
@@ -251,7 +321,8 @@ def _transformer_layers(stack: list, x: torch.Tensor, cfg, positions, proj,
                              enc_out, use_reentrant=False)
             x, a = out if isinstance(out, tuple) else (out, None)
         else:
-            x, a, kv = transformer.block_apply_aux(lp, x, cfg, positions=positions,
+            x, a, kv = transformer.block_apply_aux(sharding.gather_on_use(lp), x, cfg,
+                                                   positions=positions,
                                                    proj=proj, layer_type=layer_type,
                                                    causal=causal, enc_out=enc_out)
             if collect_cache:
@@ -288,6 +359,8 @@ def trunk(params: dict, cfg, tokens: torch.Tensor, *, patches: torch.Tensor | No
           frames: torch.Tensor | None = None, collect_cache: bool = False):
     """``backbone`` with the MoE layers' summed aux loss: (hidden, aux (f32
     scalar; 0 without MoE layers), cache parts)."""
+    params = {**params, **sharding.gather_on_use(
+        {k: v for k, v in params.items() if k not in LAYER_KEYS + ("lm_head",)})}
     x, positions = embed_inputs(params, cfg, tokens, patches)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     proj = params.get("lsh_proj")
@@ -324,15 +397,49 @@ def trunk(params: dict, cfg, tokens: torch.Tensor, *, patches: torch.Tensor | No
     return x, aux, ({"kv": kvs, "enc_out": enc_out} if enc_out is not None else kvs)
 
 
-def logits_fn(params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
+def _head(params: dict, cfg) -> tuple[dict, int]:
+    """(the LM head's params, gathered on use; the vocab columns it holds)."""
     if cfg.tie_embeddings:
-        logits = layers.embedding_logits(params["embed"], hidden)
+        head = sharding.gather_on_use(params["embed"])
+        return head, head["table"].shape[0]
+    head = sharding.gather_on_use(params["lm_head"])
+    return head, head["w"].shape[1]
+
+
+def logits_fn(params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
+    """Logits (B, N, padded_vocab), the pad columns at ``PAD_LOGIT``; a head
+    that holds a slice of the vocab over "model" gives this rank's columns
+    (column-parallel)."""
+    head, cols = _head(params, cfg)
+    mesh = layers.tp_mesh(cols, cfg.padded_vocab)
+    if mesh is not None:
+        hidden = coll.tp_enter(hidden, mesh)
+    if cfg.tie_embeddings:
+        logits = layers.embedding_logits(head, hidden)
     else:
-        logits = layers.linear_apply(params["lm_head"], hidden)
+        logits = layers.linear_apply(head, hidden)
     if cfg.padded_vocab != cfg.vocab:
-        pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab
+        first = 0 if mesh is None else int(mesh.coords["model"]) * cols
+        pad = torch.arange(first, first + cols, device=logits.device) >= cfg.vocab
         logits = logits.masked_fill(pad, PAD_LOGIT)
-    return logits
+    return layers.constrain(logits, "data", None, "model")
+
+
+def _lse_and_label_logit(logits: torch.Tensor, labels: torch.Tensor, cfg):
+    """(logsumexp over the vocab, the label's logit) of f32 logits; over the
+    ranks' vocab slices when the logits hold one (the max, the sum of
+    exponentials and the label's logit each summed over "model")."""
+    cols = logits.shape[-1]
+    mesh = layers.tp_mesh(cols, cfg.padded_vocab)
+    if mesh is None:
+        return (torch.logsumexp(logits, dim=-1),
+                logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0])
+    top = coll.all_reduce(logits.detach().amax(dim=-1), mesh, "model", op="max")
+    sum_exp = coll.tp_reduce((logits - top[..., None]).exp().sum(dim=-1), mesh)
+    local = labels - int(mesh.coords["model"]) * cols
+    inside = (local >= 0) & (local < cols)
+    picked = logits.gather(-1, local.clamp(0, cols - 1)[..., None])[..., 0]
+    return top + torch.log(sum_exp), coll.tp_reduce(picked * inside, mesh)
 
 
 def forward(params: dict, cfg, tokens: torch.Tensor, *, patches: torch.Tensor | None = None,
@@ -350,14 +457,24 @@ def loss_fn(params: dict, cfg, batch: dict):
     has no aux loss, so its ``aux`` is 0.  ``batch`` holds ``tokens`` and
     ``labels``, and ``patches`` or ``frames`` for the stub frontends."""
     patches = batch.get("patches")
+    # Gathered once for the trunk and the head (a tied table serves both).
+    params = {**params, **sharding.gather_on_use(
+        {k: v for k, v in params.items() if k not in LAYER_KEYS})}
     hidden, aux, _ = trunk(params, cfg, batch["tokens"], patches=patches,
                            frames=batch.get("frames"))
     logits = logits_fn(params, cfg, hidden[:, n_prefix(cfg, patches):]).float()
     labels = batch["labels"].long()
     mask = (labels >= 0).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    nll = lse - logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
-    denom = mask.sum().clamp(min=1.0)
+    lse, label_logit = _lse_and_label_logit(logits, labels, cfg)
+    nll = lse - label_logit
+    denom = mask.sum()
+    dp = sharding.active_dp()
+    if dp is not None:
+        # This rank's share of the whole batch's mean: the ranks' losses sum
+        # to it, and the aux loss (already the whole batch's) is split evenly.
+        denom = coll.all_reduce(denom, *dp)
+        aux = aux / sharding.dp_size(dp[0])
+    denom = denom.clamp(min=1.0)
     ce = (nll * mask).sum() / denom
     zloss = (lse.square() * mask).sum() / denom
     total = ce + cfg.router_aux_weight * aux + Z_LOSS_WEIGHT * zloss

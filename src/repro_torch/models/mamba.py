@@ -116,6 +116,19 @@ def mamba_init(generator, cfg, dtype=torch.float32) -> dict:
     }
 
 
+def mamba_axes(cfg) -> dict:
+    return {
+        "in_proj": layers.linear_axes(None, "mlp"),
+        "conv_w": (None, "mlp"),
+        "conv_b": ("mlp",),
+        "a_log": (None,),
+        "dt_bias": (None,),
+        "d_skip": (None,),
+        "out_norm": layers.rmsnorm_axes(),
+        "out_proj": layers.linear_axes("mlp", None),
+    }
+
+
 def _split_proj(proj: torch.Tensor, cfg):
     d_in = cfg.d_inner
     gs = cfg.ssm_groups * cfg.ssm_state
@@ -142,6 +155,7 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg, *, return_state: bool = Fals
 
     proj = layers.linear_apply(params["in_proj"], x)
     z, xbc_raw, dt = _split_proj(proj, cfg)
+    xbc_raw = layers.constrain(xbc_raw, "data", None, "model")
     xbc = _causal_conv(xbc_raw, params["conv_w"], params["conv_b"])
     xs = xbc[..., :cfg.d_inner]
     b = xbc[..., cfg.d_inner:cfg.d_inner + g * s].reshape(bsz, n, g, s)

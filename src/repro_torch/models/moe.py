@@ -29,6 +29,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding
 from repro_torch.models import layers
 
 # Bound on the f32 copy of the expert weights that one chunk of experts takes.
@@ -54,6 +56,17 @@ def moe_init(generator, cfg, dtype=torch.float32) -> dict:
     return params
 
 
+def moe_axes(cfg) -> dict:
+    axes = {
+        "router": {"w": (None, None)},
+        "experts": {"gate": ("experts", None, None), "up": ("experts", None, None),
+                    "down": ("experts", None, None)},
+    }
+    if cfg.n_shared_experts:
+        axes["shared"] = layers.mlp_axes(act="silu")
+    return axes
+
+
 def capacity(cfg, t: int) -> int:
     """Assignments an expert takes in a call of ``t`` tokens.  The floor of
     min(t, 8) keeps small decode batches drop-free."""
@@ -73,11 +86,20 @@ def route(router_w: torch.Tensor, x_flat: torch.Tensor, cfg):
     weights, ids = torch.topk(probs, cfg.moe_top_k, dim=-1)
     weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
     e = cfg.n_experts
-    me = probs.mean(dim=0)  # mean router probability an expert
     ce = _one_hot(ids.reshape(-1), e).sum(dim=0).float()
+    lse_sq = torch.logsumexp(logits, dim=-1) ** 2
+    dp = sharding.active_dp()
+    if dp is None:
+        me, z = probs.mean(dim=0), torch.mean(lse_sq)  # me: mean router probability an expert
+    else:
+        # The statistics of the whole batch, which the data-parallel ranks
+        # split: the aux loss is the single device's.
+        n_tok = coll.all_reduce(torch.full((), float(probs.shape[0]), device=probs.device), *dp)
+        me = coll.sum_dp(probs.sum(dim=0), *dp) / n_tok
+        z = coll.sum_dp(lse_sq.sum(), *dp) / n_tok
+        ce = coll.all_reduce(ce, *dp)
     ce = ce / torch.clamp(ce.sum(), min=1.0)
     aux = e * torch.sum(me * ce)
-    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     return weights, ids, aux + 1e-3 * z
 
 

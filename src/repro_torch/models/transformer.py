@@ -25,6 +25,10 @@ def norm_init(cfg, device=None) -> dict:
     return layers.layernorm_init(cfg.d_model, device)
 
 
+def norm_axes(cfg) -> dict:
+    return layers.rmsnorm_axes() if cfg.norm == "rmsnorm" else layers.layernorm_axes()
+
+
 def norm_apply(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.norm == "rmsnorm":
         return layers.rmsnorm_apply(params, x, cfg.norm_eps)
@@ -51,11 +55,24 @@ def block_init(generator, cfg, dtype=torch.float32, layer_type: str = "dense", *
     return params
 
 
+def block_axes(cfg, layer_type: str = "dense", *, cross: bool = False) -> dict:
+    if layer_type == "mamba":
+        return {"norm1": norm_axes(cfg), "mixer": mamba.mamba_axes(cfg)}
+    axes = {"norm1": norm_axes(cfg), "norm2": norm_axes(cfg),
+            "attn": (attn_mod.mla_axes if cfg.use_mla else attn_mod.attention_axes)(cfg)}
+    if cross:
+        axes["norm_cross"] = norm_axes(cfg)
+        axes["cross_attn"] = attn_mod.attention_axes(cfg)
+    axes["ffn"] = (moe.moe_axes(cfg) if layer_type == "moe" else
+                   layers.mlp_axes(act=cfg.act))
+    return axes
+
+
 def ffn_apply(params: dict, h: torch.Tensor, cfg, layer_type: str):
     """The block's FFN → (y, aux): the MoE's aux loss, or None."""
     if layer_type == "moe":
         return moe.moe_apply(params, h, cfg)
-    return layers.mlp_apply(params, h, act=cfg.act), None
+    return layers.mlp_apply(params, h, act=cfg.act, d_ff=cfg.d_ff), None
 
 
 def block_apply_aux(params: dict, x: torch.Tensor, cfg, *, positions=None,
@@ -83,7 +100,9 @@ def block_apply_aux(params: dict, x: torch.Tensor, cfg, *, positions=None,
                                          proj=proj, x_kv=enc_out, use_rope=False)
         x = x + oc
     y, aux = ffn_apply(params["ffn"], norm_apply(params["norm2"], x, cfg), cfg, layer_type)
-    return x + y, aux, kv
+    x = x + y
+    # The reference's sequence-parallel residual stream hint (a no-op here).
+    return layers.constrain(x, "data", "model" if x.shape[1] > 1 else None, None), aux, kv
 
 
 def block_apply(params: dict, x: torch.Tensor, cfg, *, positions=None,
@@ -174,6 +193,10 @@ def shared_block_init(generator, cfg, dtype=torch.float32) -> dict:
         "fuse": layers.linear_init(generator, 2 * cfg.d_model, cfg.d_model, dtype=dtype),
         "block": block_init(generator, cfg, dtype),
     }
+
+
+def shared_block_axes(cfg) -> dict:
+    return {"fuse": layers.linear_axes(None, None), "block": block_axes(cfg)}
 
 
 def shared_block_apply(params: dict, x: torch.Tensor, x0: torch.Tensor, cfg, *,

@@ -76,11 +76,13 @@ def _pieces(*tensors: torch.Tensor):
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float):
+def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float, *, total_sq=None):
     """Scale ``grads`` in place so their global norm is at most
-    ``max_norm`` → (grads, their global f32 norm before clipping)."""
-    gnorm = torch.sqrt(sum(piece.float().square().sum()
-                           for g in grads for (piece,) in _pieces(g)))
+    ``max_norm`` → (grads, their global f32 norm before clipping).
+    ``total_sq`` maps the list of each gradient's sum of squares to the
+    global sum (default: their sum; on a mesh, over unique shards)."""
+    sq = [sum(piece.float().square().sum() for (piece,) in _pieces(g)) for g in grads]
+    gnorm = torch.sqrt(total_sq(sq) if total_sq is not None else sum(sq))
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     for g in grads:
         g.mul_(scale.to(g.dtype))

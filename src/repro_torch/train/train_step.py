@@ -1,14 +1,140 @@
 """The train step: loss → grads → clip → AdamW, with optional microbatch
-gradient accumulation and the NaN guard (``repro.train.train_step``)."""
+gradient accumulation and the NaN guard (``repro.train.train_step``).
+
+On a mesh (``make_train_step(mesh=)``, a ``launch.mesh.HostMesh``) the
+reference jits the same function with shardings and lets GSPMD place the
+collectives; here they are explicit.  The params and AdamW moments are this
+rank's shards under ``mesh_specs`` (``distributed.sharding``), the batch is
+the global batch, of which the step takes this rank's rows (the batch
+shards over the data-parallel axes), and:
+
+* under FSDP a block's ``"data"``-sharded leaves are gathered on use inside
+  its remat checkpoint, and their gradients reduce-scattered back;
+* the dense family runs tensor parallel over "model" and the ring over
+  "context" where the config names it;
+* ``lm.loss_fn`` normalises by the whole batch's labels, so the ranks'
+  losses sum to the single device's mean; the gradients are summed over the
+  data-parallel axes (reduce-scattered where FSDP shards them), which is
+  the gradient of that mean;
+* the global grad norm sums squares over unique shards: a leaf's squares
+  are summed over the axes its spec shards it over, never over the ranks
+  that hold replicas of it;
+* the loss, the norm and so the NaN guard's skip are the same on every rank.
+"""
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding
+from repro_torch.launch.mesh import set_mesh
 from repro_torch.models import lm
 from repro_torch.train import optimizer as opt_mod
 
 
-def make_train_step(cfg, opt_cfg: opt_mod.OptimizerConfig):
+def mesh_specs(cfg, mesh):
+    """The param specs of ``cfg`` on ``mesh``: ``sharding.param_pspecs`` over
+    ``lm.param_axes`` and the shapes on the meta device."""
+    return sharding.param_pspecs(lm.param_axes(cfg), lm.param_shapes(cfg), mesh,
+                                 fsdp=cfg.fsdp)
+
+
+def check_mesh(cfg, mesh) -> None:
+    """Raise for what the port does not train on ``mesh``: tensor
+    parallelism outside the dense family."""
+    if coll.axis_size(mesh, "model") > 1 and cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism over 'model' is ported for the dense family "
+            f"only, not {cfg.family!r} (ROADMAP Queue 1 item 2b: MoE expert parallelism, then "
+            "the ssm, hybrid and encdec families); a data-only mesh trains every family")
+
+
+def local_batch(batch: dict, mesh) -> dict:
+    """This rank's rows of a global batch: dim 0 split over the
+    data-parallel axes, which must divide it."""
+    axes = sharding.dp_axes(mesh)
+    idx, n = coll.axes_index(mesh, axes)
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % n:
+            raise ValueError(f"a batch of {v.shape[0]} rows does not split over the {n} "
+                             f"data-parallel ranks of {dict(mesh.shape)}")
+        rows = v.shape[0] // n
+        out[k] = v[idx * rows:(idx + 1) * rows]
+    return out
+
+
+def _walk_specs(tree, spec, out: list) -> None:
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            _walk_specs(tree[key], (spec or {}).get(key), out)
+    elif isinstance(tree, list):
+        for i, item in enumerate(tree):
+            _walk_specs(item, spec[i] if spec else None, out)
+    else:
+        out.append(spec)
+
+
+def leaf_specs(params: dict, specs) -> list:
+    """The spec of each ``lm.trainable`` leaf of ``params``, in its order
+    (which is also the AdamW moments' order)."""
+    out: list = []
+    _walk_specs({k: v for k, v in params.items() if k != "lsh_proj"}, specs, out)
+    return out
+
+
+class _MeshStep:
+    """The collectives of one step on a mesh, for the leaves in
+    ``lm.trainable`` order."""
+
+    def __init__(self, mesh, leaf_specs: list):
+        self.mesh = mesh
+        live = {a for a in mesh.axis_names if coll.axis_size(mesh, a) > 1}
+        self.dp = tuple(a for a in sharding.dp_axes(mesh) if a in live)
+        # The data-parallel axes each leaf's gradient still sums over (FSDP's
+        # gather already reduce-scattered "data"), and the axes its squares
+        # sum over in the global norm (those its spec shards it over).
+        self.reduce_axes = [tuple(a for a in self.dp if a not in sharding.spec_axes(s))
+                            for s in leaf_specs]
+        self.norm_axes = [tuple(a for a in mesh.axis_names
+                                if a in live and a in sharding.spec_axes(s))
+                          for s in leaf_specs]
+
+    def reduce_grads(self, grads: list) -> None:
+        """Sum each gradient over its data-parallel axes, in place: one
+        flat f32 buffer a set of axes."""
+        buckets: dict = {}
+        for i, axes in enumerate(self.reduce_axes):
+            if axes:
+                buckets.setdefault(axes, []).append(i)
+        for axes, idx in buckets.items():
+            flat = torch.cat([grads[i].float().reshape(-1) for i in idx])
+            flat = coll.all_reduce(flat, self.mesh, axes)
+            at = 0
+            for i in idx:
+                n = grads[i].numel()
+                grads[i].copy_(flat[at:at + n].view(grads[i].shape))
+                at += n
+
+    def total_sq(self, sq: list) -> torch.Tensor:
+        """The global sum of squares from each leaf's local one."""
+        groups: dict = {}
+        for s, axes in zip(sq, self.norm_axes):
+            groups[axes] = groups.get(axes, 0) + s
+        return sum(coll.all_reduce(v.reshape(1), self.mesh, axes)[0]
+                   for axes, v in groups.items())
+
+    def sum_dp(self, x: torch.Tensor) -> torch.Tensor:
+        return coll.all_reduce(x, self.mesh, self.dp)
+
+    def all_ok(self, ok: bool) -> bool:
+        bad = torch.tensor([0.0 if ok else 1.0])
+        return not bool(coll.all_reduce(bad, self.mesh, self.mesh.axis_names, op="max")[0])
+
+
+def make_train_step(cfg, opt_cfg: opt_mod.OptimizerConfig, mesh=None):
     """→ train_step(params, opt_state, batch, step, inject=0.0) → (params,
     opt_state, metrics).  ``params`` is the model's dict (its
     ``lm.trainable`` leaves are updated in place), ``opt_state`` comes from
@@ -17,41 +143,72 @@ def make_train_step(cfg, opt_cfg: opt_mod.OptimizerConfig):
     LR schedule reads.  ``inject`` is the ``nan_grad`` fault's hook: the
     trainer passes NaN, which poisons the loss inside the step (``loss +
     inject * 0.0``), so the fault takes the real NaN guard below.  Metrics
-    are 0-dim tensors (``lr`` a float)."""
+    are 0-dim tensors (``lr`` a float).
+
+    With ``mesh``: ``params`` and ``opt_state`` hold this rank's shards
+    under ``mesh_specs(cfg, mesh)`` (``sharding.shard_params``), ``batch``
+    is the global batch, and the metrics are the global ones, equal on
+    every rank."""
+    plan = None
+    if mesh is not None:
+        check_mesh(cfg, mesh)
+        specs = mesh_specs(cfg, mesh)
+
+    def scope(params):
+        if mesh is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(set_mesh(mesh))
+        stack.enter_context(sharding.fsdp_gathering(mesh, params, specs))
+        return stack
 
     def train_step(params: dict, opt_state: dict, batch: dict, step: int,
                    inject: float = 0.0):
+        nonlocal plan
         leaves = lm.trainable(params)
+        if mesh is not None:
+            batch = local_batch(batch, mesh)
+            if plan is None:
+                plan = _MeshStep(mesh, leaf_specs(params, specs))
         for p in leaves:
             p.requires_grad_(True)
             p.grad = None
-        if opt_cfg.grad_accum > 1:
-            # Split the leading batch dim into microbatches; backward() sums
-            # their grads into .grad.
-            micro = {k: v.chunk(opt_cfg.grad_accum) for k, v in batch.items()}
-            loss = torch.zeros((), device=leaves[0].device)
-            for i in range(opt_cfg.grad_accum):
-                mb_loss, _ = lm.loss_fn(params, cfg, {k: v[i] for k, v in micro.items()})
-                mb_loss.backward()
-                loss = loss + mb_loss.detach()
-            loss = loss / opt_cfg.grad_accum
-            metrics = {}
-            for p in leaves:
-                p.grad.div_(opt_cfg.grad_accum)
-        else:
-            loss, metrics = lm.loss_fn(params, cfg, batch)
-            loss.backward()
-            loss = loss.detach()
-            metrics = {k: v.detach() for k, v in metrics.items()}
+        with scope(params):
+            if opt_cfg.grad_accum > 1:
+                # Split the leading batch dim into microbatches; backward()
+                # sums their grads into .grad.
+                micro = {k: v.chunk(opt_cfg.grad_accum) for k, v in batch.items()}
+                loss = torch.zeros((), device=leaves[0].device)
+                for i in range(opt_cfg.grad_accum):
+                    mb_loss, _ = lm.loss_fn(params, cfg, {k: v[i] for k, v in micro.items()})
+                    mb_loss.backward()
+                    loss = loss + mb_loss.detach()
+                loss = loss / opt_cfg.grad_accum
+                metrics = {}
+                for p in leaves:
+                    p.grad.div_(opt_cfg.grad_accum)
+            else:
+                loss, metrics = lm.loss_fn(params, cfg, batch)
+                loss.backward()
+                loss = loss.detach()
+                metrics = {k: v.detach() for k, v in metrics.items()}
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
+        total_sq = None
+        if plan is not None:
+            plan.reduce_grads(grads)
+            loss = plan.sum_dp(loss)
+            metrics = {k: plan.sum_dp(v) for k, v in metrics.items()}
+            total_sq = plan.total_sq
         loss = loss + inject * 0.0
-        grads = [p.grad for p in leaves]
-        grads, gnorm = opt_mod.clip_by_global_norm(grads, opt_cfg.grad_clip)
+        grads, gnorm = opt_mod.clip_by_global_norm(grads, opt_cfg.grad_clip, total_sq=total_sq)
         lr = opt_mod.schedule(opt_cfg, step)
         # NaN guard: a non-finite loss or grad norm skips the update.  The
         # reference computes the update and selects where(ok, new, old)
         # inside jit; skipping it gives the same params and state without a
         # second copy of the params on the card.
         ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
+        if plan is not None:
+            ok = plan.all_ok(ok)
         if ok:
             opt_mod.adamw_update(leaves, grads, opt_state, opt_cfg, lr)
         for p in leaves:

@@ -1,6 +1,6 @@
-"""Training loop with the reference's guards (``repro.train.trainer``, minus
-the mesh): the NaN guard, anomaly rollback, periodic and emergency
-checkpoints, verified resume, fault injection and trace spans.
+"""Training loop with the reference's guards (``repro.train.trainer``): the
+NaN guard, anomaly rollback, periodic and emergency checkpoints, verified
+resume, fault injection and trace spans, on one device or a mesh.
 
 * **NaN guard** (train_step): a non-finite loss or grad norm skips the
   update inside the step; the Trainer counts the skip and either continues
@@ -25,10 +25,18 @@ checkpoints, verified resume, fault injection and trace spans.
   ``emergency_save`` instants; the step time is read from the injectable
   ``clock`` at the reference's two points.
 
+* **Mesh** (``mesh=``, a ``launch.mesh.HostMesh`` over the process world):
+  every rank builds the Trainer with the same full params and keeps its
+  shards of them and of the AdamW moments (``train_step.mesh_specs``); the
+  step is ``make_train_step(mesh=)``'s.  Checkpoints stay mesh-agnostic, as
+  the reference's: full tensors by key path, gathered leaf by leaf onto
+  rank 0's host and written there, and sliced on load, so a run saved on a mesh resumes on one device and
+  the other way round.
+
 Without a ``workdir`` no checkpoint is written or read, and the anomaly
 guard is off, because it has no verified rollback target; the NaN guard
 still skips updates.  ``train.supervisor.TrainSupervisor`` drives this
-Trainer under simulated workers; the reference's mesh is not ported yet.
+Trainer under simulated workers.
 """
 from __future__ import annotations
 
@@ -37,7 +45,9 @@ from collections import Counter
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed import sharding
 from repro_torch.faults import NULL_INJECTOR
 from repro_torch.models import lm
 from repro_torch.obs.clock import resolve_clock
@@ -46,7 +56,7 @@ from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.anomaly import AnomalyConfig, AnomalyDetector, AnomalyHalt
 from repro_torch.train.elastic import counters_view
-from repro_torch.train.train_step import make_train_step
+from repro_torch.train.train_step import leaf_specs, make_train_step, mesh_specs
 
 #: Loss / grad-norm multiplier of an injected ``loss_spike`` whose spec
 #: leaves ``scale`` unset.
@@ -72,6 +82,7 @@ class Trainer:
         params: dict,
         *,
         workdir: str | None = None,
+        mesh=None,
         log_every: int = 10,
         ckpt_every: int = 200,
         ckpt_keep: int = 3,
@@ -83,10 +94,17 @@ class Trainer:
     ):
         """``params`` is the model's dict on the device training runs on,
         its trainable leaves in ``cfg.param_dtype``; a resume or a rollback
-        copies into these tensors in place."""
+        copies into these tensors in place.  With ``mesh`` they are the full
+        params, the same on every rank, and the trainer keeps this rank's
+        shards of them (``self.params``)."""
         self.cfg = cfg
         self.opt_cfg = opt_cfg
         self.dataset = dataset
+        self.mesh = mesh
+        if mesh is not None:
+            self.specs = mesh_specs(cfg, mesh)
+            params = sharding.shard_params(params, mesh, self.specs)
+            self._leaf_specs = leaf_specs(params, self.specs)
         self.params = params
         self.device = lm.trainable(params)[0].device
         self.workdir = workdir
@@ -107,15 +125,17 @@ class Trainer:
         self._rollback_streak = 0
         self._rollback_ckpt_mark = -1
         self.opt_state = opt_mod.adamw_init(lm.trainable(params))
-        self._step_fn = make_train_step(cfg, opt_cfg)
+        self._step_fn = make_train_step(cfg, opt_cfg, mesh)
 
         self.step = 0
         self.history: list[dict] = []
         if self.ckpt_dir is None:
             return
         os.makedirs(self.ckpt_dir, exist_ok=True)
-        if ckpt.latest_step(self.ckpt_dir) is not None:
-            step, _, _, meta = ckpt.load_checkpoint(self.ckpt_dir, self.params, self.opt_state)
+        resume = ckpt.latest_step(self.ckpt_dir) is not None
+        self._barrier()  # every rank has looked before rank 0 writes a baseline
+        if resume:
+            step, meta = self._load()
             self.counters["torn_ckpt_fallbacks"] += meta.get("_fallback_skipped", 0)
             self.step = step
             if meta.get("data_state"):
@@ -125,14 +145,63 @@ class Trainer:
             self._checkpoint()  # the baseline: a rollback target from step 0
 
     # ------------------------------------------------------------------
+    def _barrier(self) -> None:
+        if self.mesh is not None and dist.is_initialized():
+            dist.barrier()
+
+    def _full_state(self) -> tuple[dict | None, dict | None]:
+        """The full params and AdamW moments on rank 0's host, gathered
+        leaf by leaf from every rank's shards (``sharding.gather_to``);
+        (None, None) on the other ranks.  Every rank calls it; no rank holds
+        a full leaf on its device."""
+        mesh = self.mesh
+        params = sharding._zip_map(self.params, self.specs,
+                                   lambda t, s: sharding.gather_to(t, mesh, s))
+        opt = {name: [sharding.gather_to(t, mesh, spec)
+                      for t, spec in zip(self.opt_state[name], self._leaf_specs)]
+               for name in ("m", "v")}
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return None, None
+        return params, {**opt, "count": self.opt_state["count"]}
+
+    def _load(self, **kw) -> tuple[int, dict]:
+        """``ckpt.load_checkpoint`` into the live tensors, in place → (step,
+        meta); on a mesh every rank reads the full tensors on the host and
+        keeps its slices."""
+        if self.mesh is None:
+            step, _, _, meta = ckpt.load_checkpoint(self.ckpt_dir, self.params, self.opt_state,
+                                                    **kw)
+            return step, meta
+        full = sharding._zip_map(self.params, self.specs, lambda t, s: torch.empty(
+            sharding.full_shape(t.shape, self.mesh, s), dtype=t.dtype))
+        opt = {name: [torch.empty(sharding.full_shape(t.shape, self.mesh, spec), dtype=t.dtype)
+                      for t, spec in zip(self.opt_state[name], self._leaf_specs)]
+               for name in ("m", "v")}
+        opt["count"] = 0
+        step, _, _, meta = ckpt.load_checkpoint(self.ckpt_dir, full, opt, **kw)
+        with torch.no_grad():
+            pairs = list(zip(lm.trainable(self.params), lm.trainable(full)))
+            pairs += list(zip(self.opt_state["m"] + self.opt_state["v"], opt["m"] + opt["v"]))
+            specs = self._leaf_specs * 3
+            for (local, whole), spec in zip(pairs, specs):
+                local.copy_(sharding.local_slice(whole, self.mesh, spec))
+        self.opt_state["count"] = opt["count"]
+        return step, meta
+
     def _checkpoint(self, tag: str = "") -> None:
         if self.ckpt_dir is None:
             return
-        ckpt.save_checkpoint(
-            self.ckpt_dir, self.step, self.params, self.opt_state, self.dataset.state(),
-            extra_meta={"arch": self.cfg.name}, keep=self.ckpt_keep, tag=tag,
-            faults=self.faults,
-        )
+        params, opt_state = self.params, self.opt_state
+        if self.mesh is not None:
+            params, opt_state = self._full_state()
+        if self.mesh is None or not dist.is_initialized() or dist.get_rank() == 0:
+            ckpt.save_checkpoint(
+                self.ckpt_dir, self.step, params, opt_state, self.dataset.state(),
+                extra_meta={"arch": self.cfg.name}, keep=self.ckpt_keep, tag=tag,
+                faults=self.faults,
+            )
+        del params, opt_state
+        self._barrier()
         self._ckpts_written += 1
         self.trace.instant("ckpt", step=self.step, tag=tag)
 
@@ -147,7 +216,7 @@ class Trainer:
         ``restore_data=False``, the rollback mode) in place from the newest
         verified checkpoint; rewinds ``step`` and trims the history.
         Returns the restored step."""
-        step, _, _, meta = ckpt.load_checkpoint(self.ckpt_dir, self.params, self.opt_state)
+        step, meta = self._load()
         self.counters["torn_ckpt_fallbacks"] += meta.get("_fallback_skipped", 0)
         self.step = step
         if restore_data and meta.get("data_state"):
@@ -246,7 +315,9 @@ class Trainer:
         except (AnomalyHalt, FloatingPointError):
             raise  # already saved under their own tag
         except Exception:
-            if self.ckpt_dir is not None:
+            # On a mesh the save would gather from ranks that may not be
+            # there to answer: a mesh run keeps its periodic checkpoints.
+            if self.ckpt_dir is not None and self.mesh is None:
                 # Best effort: the tag keeps it from clobbering a periodic
                 # checkpoint at the same step; a failed save is logged and
                 # counted, never swallowed.

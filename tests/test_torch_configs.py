@@ -45,6 +45,16 @@ def test_config_matches_reference(arch, reduced):
                           "head_dim", "qkv_bias", "rope_theta", "tie_embeddings"}
 
 
+@pytest.mark.parametrize("reduced", [False, True], ids=["published", "reduced"])
+@pytest.mark.parametrize("arch", configs.ARCH_NAMES)
+def test_distribution_fields_match_reference(arch, reduced):
+    """``fsdp`` and ``attn_shard``, which the sharding rules read, are the
+    reference's on every config."""
+    got = configs.get_config(arch, reduced=reduced)
+    want = ref_configs.get_config(arch, reduced=reduced)
+    assert (got.fsdp, got.attn_shard) == (want.fsdp, want.attn_shard)
+
+
 def test_registry_order_and_list_configs():
     names = configs.ARCH_NAMES
     assert names == ref_configs.ARCH_NAMES  # every arch the reference registers

@@ -1441,3 +1441,72 @@ def test_step_graphs_share_one_side_stream_and_leave_no_workspace_behind(cuda):
         torch.cuda.synchronize()
         marks.append(torch.cuda.memory_allocated())
     assert marks[-1] - marks[0] <= 64 * 2**20, marks
+
+
+def _mesh_save_rank(rank, world, workdir):
+    """One rank of the mesh-checkpoint test: minicpm-2b at full width cut to
+    one layer, a ``Trainer`` on (data 2, model 2), whose construction writes
+    the baseline checkpoint → (the card memory the save added above the
+    trainer's own, the largest local leaf's bytes, the largest full leaf's
+    bytes, the save's seconds)."""
+    import time
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import init_train_params
+    from repro_torch.models import lm
+    from repro_torch.train.data import SyntheticLMData
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import Trainer
+
+    torch.cuda.set_device(0)
+    cfg = get_config("minicpm-2b").replace(n_layers=1)
+    mesh = make_host_mesh(model_parallel=2)
+    params = init_train_params(cfg, seed=0, device="cuda")
+    full_leaf = max(t.numel() * t.element_size() for t in lm.trainable(params))
+    saves = []
+    real = Trainer._checkpoint
+
+    def timed(self, tag=""):
+        torch.cuda.synchronize()
+        held, t0 = torch.cuda.memory_allocated(), time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        real(self, tag)
+        saves.append((torch.cuda.max_memory_allocated() - held, time.perf_counter() - t0))
+
+    Trainer._checkpoint = timed
+    try:
+        trainer = Trainer(cfg, OptimizerConfig(peak_lr=1e-3, warmup_steps=0, total_steps=10),
+                          SyntheticLMData(cfg.vocab, 2, 64, seed=0), params, workdir=workdir,
+                          mesh=mesh, log_every=1000)
+    finally:
+        Trainer._checkpoint = real
+    local_leaf = max(t.numel() * t.element_size() for t in lm.trainable(trainer.params))
+    (added, seconds), = saves
+    return added, local_leaf, full_leaf, seconds
+
+
+def test_mesh_checkpoint_holds_no_full_leaf_on_the_card(cuda, tmp_path):
+    """A checkpoint written under (data 2, model 2) by four ranks sharing
+    the card, minicpm-2b at full width (the 122,880 × 2304 tied embedding,
+    one layer), f32 params and AdamW moments: each leaf is gathered onto
+    rank 0's host, so the save adds less card memory on any rank than one
+    local leaf (it adds none: the blocks are staged through pinned host
+    memory), where an all-gather of the params and both moments would add
+    three full copies; the checkpoint verifies and holds the full shapes.
+    The peaks and the save's time are printed (``-s``)."""
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.train import checkpoint as ckpt
+
+    workdir = str(tmp_path / "mesh")
+    results = run_world(_mesh_save_rank, 4, workdir, timeout_s=600)
+    for rank, (added, local_leaf, full_leaf, seconds) in enumerate(results):
+        print(f"rank {rank}: the save added {added} bytes on the card (largest local leaf "
+              f"{local_leaf}, largest full leaf {full_leaf}); {seconds:.1f} s")
+        assert added < local_leaf < full_leaf
+    path = ckpt.latest_verified_name(str(tmp_path / "mesh" / "checkpoints"))
+    assert path is not None
+    import numpy as np
+
+    with np.load(tmp_path / "mesh" / "checkpoints" / path / "params.npz") as npz:
+        assert npz["embed/table"].shape == (122880, 2304)

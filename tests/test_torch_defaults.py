@@ -14,9 +14,8 @@ torch = pytest.importorskip("torch")
 # (launch.train.default_workdir), and Trainer(workdir=None) trains without
 # checkpoints for tests and the smoke run.
 KEPT = {"workdir"}
-# The reference's mesh flags and Trainer argument, ported with the data,
-# model and context-parallel training slice.
-NOT_YET_PORTED = {"model_parallel", "context_parallel", "mesh"}
+# Every mesh flag and the Trainer's mesh argument are ported: none is left.
+NOT_YET_PORTED: set = set()
 # The port's own: entry points run on the card unless asked for the CPU;
 # the serve launcher's prompt mix, profile and attention override.
 PORT_ONLY_FLAGS = {"train": {"device"}, "serve": {"device", "prompt_lens", "profile", "impl"}}

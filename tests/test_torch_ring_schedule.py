@@ -231,11 +231,13 @@ def test_set_mesh_nests_and_the_context_mesh_needs_the_axis():
 @pytest.mark.parametrize("wide", [dict(data=2, context=2, model=1),
                                   dict(data=1, context=2, model=2)])
 def test_ring_refuses_data_and_model_axes(wide):
-    """Batch over data axes and heads over "model" beside the ring are not
-    ported: such a mesh raises instead of computing."""
+    """Data and model axes beside the ring are no longer refused: the caller
+    holds its own batch rows and heads, and the ring shards the sequence
+    over the context axis alone (the 4-rank runs are in
+    ``tests/test_torch_mesh_train.py``).  What the ring still refuses is a
+    cross-attention call."""
     q, k, v = (torch.from_numpy(x) for x in _inputs(np.random.default_rng(1), n=512))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ra.ring_flash_attention(q, k, v, _fake_mesh(**wide), causal=True)
+    assert ra._ring_size(q, k, _fake_mesh(**wide), "context") == wide["context"]
     with pytest.raises(ValueError, match="self-attention only"):
         ra.ring_flash_attention(q, k[:, :, :256], v[:, :, :256], _fake_mesh(context=2))
 
