@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--out PATH] [--only kernels|moe|encdec|tune|cluster|ring|mesh]
+    python3 chip_smoke.py [--out PATH]
+        [--only kernels|moe|encdec|tune|cluster|ring|mesh|mesh_serve|moe_ep]
 
 In order: prints the card's name and power limit; builds the CUDA kernels
 from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a; counts the bf16
@@ -153,7 +154,7 @@ attention against the single-device one on the same layer input, and the
 whole forward (finite, its gap from the single-device forward reported).
 Four processes on one card check what the ring computes, not its speed
 across cards.  After the ring the mesh phase (``mesh_phase``): minicpm-2b
-at full width cut to 4 layers, trained 3 steps on a (data 2, model 2) mesh
+at full width cut to 4 layers, trained 2 steps on a (data 2, model 2) mesh
 with FSDP and one step on a (data 1, context 2, model 2) mesh, under both
 kernel impls, each held to the single-device step from the same state
 (the reference's tolerances: loss 1e-3, every parameter 5e-3; and every
@@ -161,6 +162,16 @@ leaf's clipped gradient at MESH_GRAD_TOL, which planted faults must
 fail), one f32 step in which the mesh draws its own LSH permutations, then
 ``ring_allgather_matmul``, ``psum_scatter_matmul``, ``ef_pmean`` and
 ``pipeline_apply`` at full width against their single-device products.
+After the mesh phase the mesh serving phase (``mesh_serve_phase``: 2
+ranks, qwen1.5-4b whole on ``PagedServeEngine(mesh=)``, each long
+prompt's whole prefill over the ring in one tick, its pool blocks against
+one device's prefill, TTFT beside the chunked path; then in f32 at 4
+layers both mesh engines' greedy tokens against the engines with no mesh)
+and the expert-parallel phase (``moe_ep_phase``: 2 ranks on (data 1,
+model 2), llama4-scout's MoE layer at full width under ``ep_a2a`` and
+``ep_psum`` against one device's, and a training step at full width cut
+to 1 layer, with a planted all-to-all fault that must fail its gradient
+gate).
 
 ``python3 chip_smoke.py --only moe`` builds the kernels and runs only the
 MoE phases (the check, serving and training), then prints their launches
@@ -169,7 +180,11 @@ as a JSON line last;
 ``--only tune`` the same for the tuner's phase (starcoder2-7b's weights,
 then ``tune_phase``); ``--only cluster`` the same for ``cluster_phase``
 (starcoder2-7b's weights) and ``supervisor_phase``; ``--only ring`` the
-same for ``ring_phase``; ``--only mesh`` the same for ``mesh_phase``.
+same for ``ring_phase``; ``--only mesh`` the same for ``mesh_phase``;
+``--only mesh_serve`` checks the forward, decode and paged kernels at
+qwen1.5-4b's shapes and runs ``mesh_serve_phase``; ``--only moe_ep``
+checks the forward kernels at llama4-scout's attention on one rank of
+"model" 2 and runs ``moe_ep_phase``.
 ``python3 chip_smoke.py --serve-load slot|hybrid|paged`` runs none of the
 above: it serves one serve workload as a closed-loop load under both
 impls, the slot workload also over the fused-K̂ cache (timed passes and
@@ -4338,7 +4353,9 @@ def ring_phase(torch, device="cuda", small: bool = False) -> dict:
 # the ring phase's.  One card checks what the mesh computes, not its speed.
 MESH_WORLD = RING_WORLD
 MESH_LAYERS = 4  # of minicpm-2b's 40, at full width
-MESH_BATCH, MESH_SEQ, MESH_STEPS, MESH_LR = 2, 2048, 3, 1e-3
+# Two steps a run keep the whole script, mesh serving and expert
+# parallelism included, well inside its 1200 s limit.
+MESH_BATCH, MESH_SEQ, MESH_STEPS, MESH_LR = 2, 2048, 2, 1e-3
 MESH_SMALL_SEQ = 256
 MESH_IMPLS = ("pallas_distr", "pallas_flash")
 # The reference's own tolerances for a sharded step against the single
@@ -4937,11 +4954,796 @@ def mesh_phase(torch, device="cuda", small: bool = False) -> dict:
     return {"report": report, "launches": launches}
 
 
+# The mesh serving phase (``ServeEngine(mesh=)``, ``PagedServeEngine(mesh=)``
+# and the scheduler's mesh admission over a context group,
+# ``serve/mesh_prefill.py``): MESH_SERVE_WORLD ranks sharing cuda:0 on gloo,
+# as the ring phase's; rank 0 leads (the engines), rank 1 follows.  Every
+# hop crosses the host, so the TTFTs it reports are not cross-card figures.
+MESH_SERVE_WORLD = 2
+MESH_SERVE_ARCH = "qwen1.5-4b"
+MESH_SERVE_LONG = (300, 1537, 3000)  # buckets 512, 2048 and 4096: the ring takes each
+MESH_SERVE_SHORT = (17, 29)  # one chunk each: chunked prefill
+MESH_SERVE_MAX_LEN, MESH_SERVE_BLOCK, MESH_SERVE_CHUNK = 4096, 128, 32
+MESH_SERVE_NEW = 16
+MESH_SERVE_F32_LAYERS = 4  # of qwen1.5-4b's 40, at full width, for the decode gate
+MESH_SERVE_IMPLS = ("pallas_flash", "pallas_distr")
+MESH_SERVE_FOLLOW_S = 300.0
+# The handoff: the first layer's K/V in the pool must equal, bit for bit,
+# what the same whole-prompt prefill writes on one device with no mesh
+# (they do not depend on attention).  Every later layer's K and V, tensor by
+# tensor, within these limits of the single-device prefill's: the largest
+# error over the tensor's largest |value| and the relative L2 (bf16, 40
+# layers: the ring's rounding of each layer's attention carries on down;
+# under distr it also flips LSH near-ties).  Set from the first sound run
+# on an NVIDIA H100 80GB HBM3 at 700 W: worst flash 0.0253 / 0.0118, distr
+# 0.225 / 0.0815, each at about twice.
+MESH_SERVE_HANDOFF_TOL = {"pallas_flash": {"max": 0.0625, "l2": 0.025},
+                          "pallas_distr": {"max": 0.5, "l2": 0.15}}
+# The f32 decode gate's prefill rows (the last live row's logits of each
+# long prompt over the live vocab, mesh against the same prefill on one
+# device), relative L2.  On an NVIDIA H100 80GB HBM3 at 700 W flash read
+# ≤ 3.5e-6; distr read ≤ 2.8e-6 but 1.39e-3 on the 3000-token prompt, where
+# the ring's f32 rounding of a layer's input flips an LSH near-tie (its
+# K/V there 3.6e-3 relative L2).  A lost hop moves them by tens of percent.
+MESH_SERVE_LOGITS_TOL = {"pallas_flash": 1e-4, "pallas_distr": 1e-2}
+
+# The expert-parallel phase (``models/moe.py``'s ``ep_a2a`` / ``ep_psum`` and
+# the moe family's training on a "model" axis): MOE_EP_WORLD ranks sharing
+# cuda:0 on gloo, a (data 1, model 2) mesh.
+MOE_EP_WORLD = 2
+MOE_EP_ARCH = "llama4-scout-17b-a16e"
+# (impl, batch, sequence) of the layer check: a prefill call and a decode step's.
+MOE_EP_CALLS = (("ep_a2a", 1, 2048), ("ep_psum", 4, 1))
+# Where nothing can drop: ep_a2a's first cap, max(int(cf · t · k / ep), 8), is
+# 4 · 1024 / 2 = 2048 ≥ the 1024 tokens of a shard and its second,
+# cf · ep · cap / (E / ep) = 2048, ≥ every token of the call; the single
+# device's, 4 · 2048 / 16 = 512 an expert, is counted.
+MOE_EP_NODROP_CF = 4.0
+# The layer (bf16 weights, as served) against the single device's
+# moe_apply, each tensor: the largest error over its largest |value| and
+# the relative L2.
+MOE_EP_TOL = {"max": 2.0 ** -5, "l2": 1e-2}
+MOE_EP_SEQ = 2048
+
+
+def mesh_serve_rank(rank: int, world: int, device: str, small: bool) -> dict:
+    """One rank of ``mesh_serve_phase``, spawned by ``launch.mesh.run_world``;
+    see there.  Rank 0 runs the engines and returns its readings, rank 1
+    follows each mesh engine; both return their launches on the main path."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.serve import paged
+    from repro_torch.serve.engine import PagedServeEngine, ServeEngine, _bucket
+    from repro_torch.serve.graphs import LaunchCounters
+    from repro_torch.serve.mesh_prefill import follow
+    from repro_torch.serve.serve_step import make_mesh_paged_prefill
+
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)
+    mesh = make_mesh((world,), ("context",))
+    lead = rank == 0
+    counters = LaunchCounters()
+    longs = (300,) if small else MESH_SERVE_LONG
+    shorts = (17,) if small else MESH_SERVE_SHORT
+    max_len = 512 if small else MESH_SERVE_MAX_LEN
+    geometry = dict(max_len=max_len, block_size=MESH_SERVE_BLOCK,
+                    prefill_chunk=MESH_SERVE_CHUNK)
+    failures, readings, report = [], [], {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def gate(label, value, tol):
+        readings.append({"check": label, "value": value, "tol": tol})
+        ok = value <= tol
+        log(f"  [mesh serve] {label}: {value:.4g} (limit {tol}); {value / tol:.3g} of it")
+        if not ok:
+            failures.append(f"{label}: {value} against {tol}")
+
+    def mesh_cfg(cfg, impl, axis="context"):
+        return cfg.replace(attention=replace(cfg.attention, impl=impl, context_axis=axis))
+
+    def prompts(vocab):
+        rng = np.random.default_rng(0)
+        return [rng.integers(1, vocab, size=n).tolist() for n in (*longs, *shorts)]
+
+    def job(cfg, params, make, run):
+        """Rank 0 builds an engine with ``make()`` and returns ``run(eng)``;
+        rank 1 follows it → (that, or the follower's stats; this rank's
+        launches in between)."""
+        sync()
+        before = counters.read()
+        if lead:
+            with make() as eng:
+                out = run(eng)
+        else:
+            out = follow(cfg, params, mesh, max_len=max_len, device=device,
+                         timeout_s=MESH_SERVE_FOLLOW_S)
+        sync()
+        after = counters.read()
+        return out, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+    def serve(eng, toks):
+        free0 = eng.cache.pool.num_free if hasattr(eng, "cache") and hasattr(
+            eng.cache, "pool") else None
+        for p in toks:
+            eng.add_request(p, max_new_tokens=MESH_SERVE_NEW)
+        t0 = time.perf_counter()
+        done = sorted(eng.run_to_completion(), key=lambda r: r.uid)
+        sync()
+        bad = [(r.uid, r.status, len(r.generated)) for r in done
+               if r.status != "done" or len(r.generated) != MESH_SERVE_NEW]
+        if len(done) != len(toks) or bad:
+            failures.append(f"{type(eng).__name__}: requests not done: {bad}")
+        out = {"tokens": [r.generated for r in done], "seconds": time.perf_counter() - t0,
+               "counters": eng.counters_snapshot(),
+               "ttft_s": {m["uid"]: m["ttft_s"] for m in eng.metrics()}}
+        if free0 is not None:
+            out["leaked_blocks"] = free0 - eng.cache.pool.num_free
+        return out
+
+    def alone(eng, toks):
+        """Each long prompt served alone to its first token → {n: TTFT s}."""
+        out = {}
+        for p in toks[:len(longs)]:
+            uid = eng.add_request(p, max_new_tokens=1)
+            eng.run_to_completion()
+            sync()
+            out[len(p)] = next(m["ttft_s"] for m in eng.metrics() if m["uid"] == uid)
+        return out
+
+    def handoff(eng, label, tol, rows):
+        """Wrap ``eng.prefill_mesh_run``: after each mesh prefill, the same
+        prefill on this rank with no mesh into a scratch pool (its launches
+        taken back off the counters), and the request's blocks held
+        against it layer by layer; the last live rows' logits into
+        ``rows``."""
+        real = eng.prefill_mesh_run
+
+        def wrapped(entry):
+            row = real(entry)
+            n = len(entry.req.prompt)
+            bucket = min(_bucket(n), eng.max_len)
+            before = counters.read()
+            one = paged.PagedKVCache(eng.cfg, eng.cache.blocks_for(n) + 1, eng.block_size,
+                                     dtype=next(iter(eng.cache.pools.values())).dtype,
+                                     device=device)
+            one.allocate_to(entry.uid, n)
+            toks = torch.tensor([list(entry.req.prompt) + [0] * (bucket - n)], device=device)
+            want_row, _ = make_mesh_paged_prefill(eng.cfg, bucket)(
+                eng.params, toks, n, one.pools, one.table_array([entry.uid], eng.max_blocks))
+            sync()
+            after = counters.read()
+            counters.add({k: before[k] - after[k] for k in after})
+            worst = {"max": 0.0, "l2": 0.0}
+            first_equal = True
+            for key in eng.cache.pools:
+                got = torch.cat([eng.cache.pools[key][:, b] for b in eng.cache.tables[entry.uid]],
+                                dim=2)[:, :, :n]
+                want = torch.cat([one.pools[key][:, b] for b in one.tables[entry.uid]],
+                                 dim=2)[:, :, :n]
+                first_equal &= bool(torch.equal(got[0], want[0]))
+                for layer in range(1, got.shape[0]):
+                    g, w = got[layer].float(), want[layer].float()
+                    diff = g - w
+                    worst["max"] = max(worst["max"], float(diff.abs().max() / w.abs().max()))
+                    worst["l2"] = max(worst["l2"], float(diff.norm() / w.norm()))
+                del got, want
+            # The live vocab only: the pad columns hold -1e30.
+            live_row, live_want = row[:eng.cfg.vocab].float(), want_row[:eng.cfg.vocab].float()
+            rel = float((live_row - live_want).norm() / live_want.norm())
+            rows.append({"n": n, "first_layer_equal": first_equal, **worst,
+                         "logits_rel_l2": rel,
+                         "argmax_equal": int(row.argmax()) == int(want_row.argmax())})
+            log(f"  [mesh serve] {label} handoff n={n}: first layer bit-equal {first_equal}; "
+                f"later layers largest max error {worst['max']:.4g}, relative L2 "
+                f"{worst['l2']:.4g}; last-row logits relative L2 {rel:.3g}")
+            if not first_equal:
+                failures.append(f"{label} n={n}: the first layer's K/V differ from one device's")
+            if tol is not None:
+                for k in ("max", "l2"):
+                    gate(f"{label} handoff n={n} {k}", worst[k], tol[k])
+            del one, toks, want_row
+            return row
+
+        eng.prefill_mesh_run = wrapped
+
+    launches = {"flash": 0, "distr": 0, "paged": 0, "decode": 0}
+
+    def add(counts):
+        for key, name in (("flash_attention", "flash"), ("distr_attention", "distr"),
+                          ("paged_decode", "paged"), ("decode", "decode")):
+            launches[name] += counts.get(key, 0)
+
+    # -- qwen1.5-4b whole (40 layers), bf16: the handoff, the main path, TTFT --
+    cfg = get_config(MESH_SERVE_ARCH, reduced=small)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    sync()
+    n_params = sum(t.numel() for t in lm.trainable(params))
+    if lead:
+        log(f"[mesh serve] {MESH_SERVE_ARCH}: {cfg.n_layers} layers, {n_params} params (bf16) "
+            f"a rank in {time.perf_counter() - t0:.1f}s; "
+            f"{torch.cuda.memory_allocated() / 2**30 if cuda else 0:.2f} GiB allocated by "
+            "this rank")
+    toks = prompts(cfg.vocab)
+    n_long = len(longs)
+    for impl in MESH_SERVE_IMPLS:
+        mcfg = mesh_cfg(cfg, impl)
+        rows: list = []
+
+        def run(eng, impl=impl, rows=rows):
+            """The workload, each mesh prefill's blocks held against one
+            device's, then each long prompt alone (unwatched) for its TTFT."""
+            handoff(eng, f"bf16 {impl}", MESH_SERVE_HANDOFF_TOL[impl], rows)
+            out = serve(eng, toks)
+            del eng.prefill_mesh_run  # the class's method again
+            return {**out, "alone": alone(eng, toks)}
+
+        # The main path, counted (handoff's comparison launches taken back).
+        main, counts = job(mcfg, params, lambda: PagedServeEngine(
+            mcfg, params, max_batch=4, mesh=mesh, device=device, **geometry), run)
+        add(counts)
+        on = ("flash_attention" if impl == "pallas_flash" else "distr_attention",)
+        if lead:
+            on += ("paged_decode",)
+        if cuda and any(counts.get(k, 0) == 0 for k in on):
+            failures.append(f"bf16 {impl} rank {rank}: the mesh path never launched {on}: "
+                            f"{counts}")
+        if not lead:
+            report[impl] = {"launches": counts, "follower": main}
+            if main["prefills"] != 2 * n_long:
+                failures.append(f"bf16 {impl}: the follower ran {main['prefills']} prefills, "
+                                f"not {2 * n_long}")
+            continue
+        # serve() read the counters before the lone prompts.
+        if main["counters"]["mesh_prefills"] != n_long or main["leaked_blocks"]:
+            failures.append(f"bf16 {impl}: mesh_prefills {main['counters']['mesh_prefills']} "
+                            f"(want {n_long}), {main['leaked_blocks']} blocks leaked")
+        chunked = PagedServeEngine(mesh_cfg(cfg, impl, None), params, max_batch=4,
+                                   device=device, **geometry)
+        ref_alone = alone(chunked, toks)
+        del chunked
+        ttft = {n: {"mesh": main["alone"][n], "chunked": ref_alone[n]} for n in longs}
+        log(f"[mesh serve] bf16 {impl}: TTFT of each long prompt alone, mesh admission against "
+            f"the chunked path (s): {json.dumps(ttft)}; launches on the leader {counts}")
+        report[impl] = {"handoff": rows, "ttft_s": ttft, "launches": counts,
+                        "counters": main["counters"], "seconds": main["seconds"]}
+    del params
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # -- f32 at full width, 4 of 40 layers, f32 cache: the decode gate --------
+    cfg32 = cfg.replace(n_layers=min(MESH_SERVE_F32_LAYERS, cfg.n_layers),
+                        compute_dtype="float32")
+    params = lm.init_params(cfg32, torch.Generator(device=device).manual_seed(0), device)
+    for impl in MESH_SERVE_IMPLS:
+        mcfg = mesh_cfg(cfg32, impl)
+        rows = []
+
+        def paged_rows(eng, impl=impl, rows=rows):
+            handoff(eng, f"f32 {impl}", None, rows)
+            return serve(eng, toks)
+
+        slot, counts_s = job(mcfg, params, lambda: ServeEngine(
+            mcfg, params, max_slots=4, max_len=max_len, mesh=mesh, device=device),
+            lambda eng: serve(eng, toks))
+        pg, _ = job(mcfg, params, lambda: PagedServeEngine(
+            mcfg, params, max_batch=4, cache_dtype=torch.float32, mesh=mesh, device=device,
+            **geometry), paged_rows)
+        add(counts_s)
+        if cuda and lead and counts_s.get("decode", 0) == 0:
+            failures.append(f"f32 {impl}: the slot mesh engine never launched the decode "
+                            f"kernel: {counts_s}")
+        if not lead:
+            continue
+        # Each engine against its mesh-less self: the slot engine prefills
+        # whole on one device, the paged one in chunks.  (The slot engine
+        # feeds the prompt's last token again at position n, as the
+        # reference's does, so the two engines' tokens differ by design.)
+        flat = mesh_cfg(cfg32, impl, None)
+        refs = {"slot": serve(ServeEngine(flat, params, max_slots=4, max_len=max_len,
+                                          device=device), toks),
+                "paged": serve(PagedServeEngine(flat, params, max_batch=4,
+                                                cache_dtype=torch.float32, device=device,
+                                                **geometry), toks)}
+        runs = {"slot": slot, "paged": pg}
+        share = {name: sum(a == b for r, w in zip(runs[name]["tokens"], refs[name]["tokens"])
+                           for a, b in zip(r, w)) / (len(toks) * MESH_SERVE_NEW)
+                 for name in runs}
+        worst = max(r["logits_rel_l2"] for r in rows)
+        log(f"[mesh serve] f32 {impl}: share of greedy tokens equal to the mesh-less engine's "
+            f"(slot: whole prefill on one device; paged: chunked): {share}; last-row logits "
+            f"relative L2 (mesh against one device) "
+            f"{[round(r['logits_rel_l2'], 9) for r in rows]}")
+        if impl == "pallas_flash":
+            for name, run in runs.items():
+                if run["tokens"] != refs[name]["tokens"]:
+                    failures.append(f"f32 flash {name} mesh engine: tokens differ from the "
+                                    f"mesh-less engine's: {run['tokens']} vs "
+                                    f"{refs[name]['tokens']}")
+        gate(f"f32 {impl} last-row logits relative L2", worst, MESH_SERVE_LOGITS_TOL[impl])
+        report[f"f32 {impl}"] = {"share_equal": share, "rows": rows,
+                                 "counters": {"slot": slot["counters"],
+                                              "paged": pg["counters"]},
+                                 "launches_slot": counts_s}
+    del params
+    sync()
+    dist.barrier()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"rank": rank, "launches": launches,
+            "peak_allocated": torch.cuda.max_memory_allocated() if cuda else 0,
+            **({"report": report, "readings": readings} if lead else {"report": report})}
+
+
+def mesh_serve_phase(torch, device="cuda", small: bool = False) -> dict:
+    """Serving over a context mesh of MESH_SERVE_WORLD ranks spawned as
+    processes that share the card, joined in a gloo world
+    (``launch.mesh.run_world``); rank 0 leads, rank 1 runs
+    ``serve.mesh_prefill.follow``.  Rank by rank (``mesh_serve_rank``):
+    qwen1.5-4b at its published size (40 layers, seeded random bf16 weights
+    on each rank), prompts MESH_SERVE_LONG (buckets 512, 2048 and 4096: the
+    ring takes each) and MESH_SERVE_SHORT (chunked), MESH_SERVE_NEW new
+    tokens, max_len 4096, blocks of 128, chunks of 32, under pallas_flash
+    then pallas_distr on ``PagedServeEngine(mesh=)``: each long prompt's
+    whole prefill in one tick (``mesh_prefills``), its pool blocks held
+    against the same prefill on one device with no mesh (the first layer
+    bit for bit, every later one within MESH_SERVE_HANDOFF_TOL), every
+    request done, no block leaked, the launches counted (the ring's forward
+    kernel on both ranks, the paged kernel on the leader; the comparison's
+    taken back); then each long prompt alone on the mesh engine and on a
+    mesh-less one (chunked prefill), their TTFTs beside each other
+    (reported: two processes on one card, every hop through the host).  Then at full
+    width cut to MESH_SERVE_F32_LAYERS layers in f32 with an f32 cache, on
+    ``ServeEngine(mesh=)`` and ``PagedServeEngine(mesh=)``: under
+    pallas_flash both engines' greedy tokens equal the same engine's with
+    no mesh (the paged one's a chunked run); under pallas_distr the share of
+    equal tokens is reported; under
+    both the long prompts' last-row logits against one device's within
+    MESH_SERVE_LOGITS_TOL.  Raises on any failure, when a kernel of the
+    path never launched, and when the card's free memory is not back within
+    CYCLE_SLACK of the phase's start once the ranks have exited."""
+    from repro_torch.launch.mesh import run_world
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    reports = run_world(mesh_serve_rank, MESH_SERVE_WORLD, device, small, timeout_s=900)
+    wall = time.perf_counter() - t0
+    gap = _free_gap(torch, free0, "the mesh serving phase") if cuda else 0
+    launches = {name: sum(r["launches"][name] for r in reports)
+                for name in ("flash", "distr", "paged", "decode")}
+    if cuda and any(v == 0 for v in launches.values()):
+        raise AssertionError(f"the mesh serving path never launched some kernels: {launches}")
+    lead = reports[0]
+    report = {**lead["report"], "readings": lead["readings"], "wall_s": wall,
+              "free_gap_bytes": gap, "launches": launches,
+              "launches_by_rank": [r["launches"] for r in reports],
+              "peak_allocated_by_rank": [r["peak_allocated"] for r in reports],
+              "follower": reports[1]["report"]}
+    log(f"[mesh serve] phase {wall:.1f} s; launches {launches} (by rank "
+        f"{report['launches_by_rank']}); peak allocated by rank "
+        f"{[round(r['peak_allocated'] / 2**30, 2) for r in reports]} GiB")
+    return {"report": report, "launches": launches}
+
+
+def _free_gap(torch, free0: int, what: str) -> int:
+    """Wait for the CUDA driver to free the exited ranks' memory → the bytes
+    the card's free memory is still below ``free0``; raises past
+    CYCLE_SLACK."""
+    gap = 0
+    for _ in range(20):
+        gap = free0 - torch.cuda.mem_get_info()[0]
+        if gap <= CYCLE_SLACK:
+            break
+        time.sleep(0.5)
+    log(f"[memory] after {what}: the card's free memory is {gap / 2**20:.1f} MiB below its "
+        "start")
+    if gap > CYCLE_SLACK:
+        raise AssertionError(f"{what} left {gap / 2**20:.1f} MiB of the card in use")
+    return gap
+
+
+def moe_ep_rank(rank: int, world: int, device: str, small: bool) -> dict:
+    """One rank of ``moe_ep_phase``, spawned by ``launch.mesh.run_world``;
+    see there.  Returns this rank's launches on the mesh training step and,
+    on rank 0, every reading."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_host_mesh, set_mesh
+    from repro_torch.launch.train import init_train_params
+    from repro_torch.models import lm, moe
+    from repro_torch.serve.graphs import LaunchCounters
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.data import SyntheticLMData
+    from repro_torch.train.train_step import leaf_specs, make_train_step, mesh_specs
+
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)
+    lead = rank == 0
+    mesh = make_host_mesh(model_parallel=world)
+    counters = LaunchCounters()
+    failures, readings = [], []
+    base = get_config(MOE_EP_ARCH, reduced=small)
+    seq = 64 if small else MOE_EP_SEQ
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def errors(got, want):
+        diff = got.float() - want.float()
+        return (float(diff.abs().max() / want.float().abs().max().clamp_min(1e-30)),
+                float(diff.norm() / want.float().norm().clamp_min(1e-30)))
+
+    def gate(label, pair, tol, *, must_fail=False):
+        emax, el2 = pair
+        share = max(emax / tol["max"], el2 / tol["l2"])
+        readings.append({"check": label, "max": emax, "l2": el2, "tol": tol,
+                         "share": share, "planted": must_fail})
+        if lead:
+            log(f"  [moe ep] {label}: max {emax:.4g}, L2 {el2:.4g} (limits {tol}); "
+                f"{share:.3g} of them" + (" (planted: must exceed 1)" if must_fail else ""))
+        if must_fail != (share > 1.0):
+            failures.append(f"{label}: {share:.3g} of its limits" +
+                            (", a planted fault passed" if must_fail else ""))
+        return share
+
+    def lead_full(t, spec):
+        full = sharding.gather_to(t, mesh, spec)
+        return None if full is None else full.to(device)
+
+    # -- one MoE layer at full width (bf16 weights, as served) ----------------
+    gen = torch.Generator(device=device).manual_seed(3)
+    full = moe.moe_init(gen, base, torch.bfloat16)
+    specs = sharding.param_pspecs(moe.moe_axes(base), full, mesh, fsdp=False)
+    local = sharding.shard_params(full, mesh, specs)
+    layer = []
+    # reduced() sets a capacity factor of 4, where nothing drops: its
+    # rehearsal takes 1.
+    for cf in (1.0 if small else base.capacity_factor, MOE_EP_NODROP_CF):
+        for impl, b, s in MOE_EP_CALLS:
+            if small:
+                s = min(s, seq)
+            cfg = base.replace(capacity_factor=cf, moe_impl=impl)
+            x = torch.randn((b, s, base.d_model), generator=gen, device=device).to(torch.bfloat16)
+            c = torch.randn((b, s, base.d_model), generator=gen, device=device)
+            shards = sharding.shard_params(local, mesh, None)  # fresh leaves for the grads
+            for t in lm.trainable(shards):
+                t.requires_grad_(True)
+            xm = x.clone().requires_grad_(True)
+            # ep_a2a's aux loss is its own (the shards' mean, not the whole
+            # batch's), so its gradients are of sum(y · c) alone; ep_psum's
+            # sees every token on every rank, so its aux is the single
+            # device's and counts.  Top-1 renormalises one weight to 1, so
+            # the router's gradient is the aux loss's alone.
+            with_aux = impl == "ep_psum"
+            with set_mesh(mesh):
+                y, aux = moe.moe_apply(shards, xm, cfg)
+                ((y.float() * c).sum() + (aux if with_aux else 0.0)).backward()
+                with torch.no_grad():
+                    routed = moe.EP_IMPLS[impl](shards, x, cfg, mesh)[0]
+            dropped = int((routed.float().abs().amax(dim=-1) == 0).sum())
+            got = {"y": y.detach(), "x": xm.grad}
+            got.update({n: lead_full(t.grad, sp) for (n, t), sp in zip(
+                lm.named_trainable(shards), leaf_specs(shards, specs))})
+            row = {"impl": impl, "tokens": b * s, "capacity_factor": cf, "ep_dropped": dropped,
+                   "ep_aux": float(aux.detach())}
+            if lead:
+                ref = sharding.shard_params(full, mesh, None)
+                for t in lm.trainable(ref):
+                    t.requires_grad_(True)
+                x1 = x.clone().requires_grad_(True)
+                y1, aux1, ids = moe.moe_routed(ref, x1, cfg.replace(moe_impl="dense_onehot"))
+                ((y1.float() * c).sum() + (aux1 if with_aux else 0.0)).backward()
+                one_dropped = int((moe.queue_ranks(ids, cfg.n_experts)
+                                   >= moe.capacity(cfg, b * s)).sum())
+                want = {"y": y1.detach(), "x": x1.grad,
+                        **{n: t.grad for n, t in lm.named_trainable(ref)}}
+                row.update(one_dropped=one_dropped, one_aux=float(aux1.detach()))
+                label = f"{impl} T={b * s} cf={cf}"
+                if one_dropped == 0 and dropped == 0:
+                    for name in want:
+                        if name == "router/w" and not with_aux:
+                            log(f"  [moe ep] {label} router/w: no gradient but rounding "
+                                f"(norms {float(got[name].norm()):.3g} mesh, "
+                                f"{float(want[name].norm()):.3g} one device)")
+                            continue
+                        row[name] = gate(f"{label} {name}", errors(got[name], want[name]),
+                                         MOE_EP_TOL)
+                    if impl == "ep_psum":
+                        gate(f"{label} aux", (abs(float(aux.detach()) - float(aux1.detach())),) * 2,
+                             {"max": 1e-6, "l2": 1e-6})
+                elif cf == MOE_EP_NODROP_CF:
+                    failures.append(f"{label}: assignments dropped at the no-drop capacity: "
+                                    f"{dropped} on the mesh, {one_dropped} on one device")
+                else:
+                    # Each drops its own pattern: y held on the tokens both kept.
+                    kept = ((routed.float().abs().amax(dim=-1) > 0)
+                            & (moe.queue_ranks(ids, cfg.n_experts) < moe.capacity(
+                                cfg, b * s)).view(b, s, -1).all(dim=-1))
+                    row["kept_by_both"] = int(kept.sum())
+                    row["y"] = gate(f"{label} y on the {int(kept.sum())} tokens both kept",
+                                    errors(y.detach()[kept], y1.detach()[kept]), MOE_EP_TOL)
+                log(f"[moe ep] {label}: dropped {dropped} on the mesh, {one_dropped} on one "
+                    f"device, of {b * s * cfg.moe_top_k}; aux {float(aux.detach()):.6f} (mesh) vs "
+                    f"{float(aux1.detach()):.6f} (one device)")
+                del ref, x1, y1, want
+            layer.append(row)
+            del shards, xm, y, got, routed
+    del full, local
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # -- a whole training step at full width, 1 layer, on (data 1, model 2) ---
+    # pallas_flash: under bf16 tensor parallelism an ulp of q reorders
+    # DistrAttention's near-tied dims (see the mesh phase).  The router is
+    # as discontinuous: an ulp of the MoE's input, which tensor-parallel
+    # attention moves, sends a near-tied token to another expert.  So the
+    # mesh steps replay the single device's expert ids (the share the mesh
+    # would have chosen itself is counted), as the mesh phase's replay the
+    # permutations.
+    cfg = base.replace(n_layers=1, capacity_factor=MOE_EP_NODROP_CF, router_aux_weight=0.0,
+                       attention=base.attention.with_impl("pallas_flash"))
+    ocfg = opt.OptimizerConfig(peak_lr=1e-3, warmup_steps=0, total_steps=10)
+    batch = {k: torch.as_tensor(v, dtype=torch.int64, device=device) for k, v in
+             SyntheticLMData(cfg.vocab, 1, seq, seed=7).next_batch().items()}
+    real_update = opt.adamw_update
+    real_route = moe.route
+    real_routed = moe.moe_routed
+    real_exchange = coll.exchange
+    sink = {}
+    tape = {"ids": [], "replay": None, "at": 0, "same": 0, "total": 0, "dropped": 0}
+
+    def record(leaves, grads, state, cfg_, lr):  # keeps the clipped gradients, no update
+        sink["grads"] = grads
+        return leaves, state
+
+    def taped_route(router_w, x_flat, cfg_, **kw):
+        weights, ids, aux = real_route(router_w, x_flat, cfg_, **kw)
+        if tape["replay"] is None:
+            tape["ids"].append(ids.detach().cpu())
+            return weights, ids, aux
+        # This rank's tokens are its slice of the sequence (data 1: the batch's one row).
+        t = x_flat.shape[0]
+        want = tape["replay"][tape["at"]][rank * t:(rank + 1) * t].to(ids.device)
+        tape["at"] += 1
+        tape["same"] += int((want == ids).all(dim=-1).sum())
+        tape["total"] += t
+        probs = torch.softmax(x_flat.float() @ router_w.float(), dim=-1)
+        weights = probs.gather(-1, want)
+        return weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9), want, aux
+
+    def counted_routed(p, x, c, **kw):
+        out = real_routed(p, x, c, **kw)
+        tape["dropped"] += int((moe.queue_ranks(out[2], c.n_experts)
+                                >= moe.capacity(c, out[2].shape[0])).sum())
+        return out
+
+    calls = {"n": 0}
+
+    def offset_exchange(x, mesh_, axis):
+        """The planted fault: every second exchange (the outputs' way back)
+        lands one shard off."""
+        out = real_exchange(x, mesh_, axis)
+        calls["n"] += 1
+        if calls["n"] % 2 == 0:
+            out = torch.roll(out, shifts=out.shape[0] // coll.axis_size(mesh_, axis), dims=0)
+        return out
+
+    opt.adamw_update = record
+    moe.route = taped_route
+    step_report = {}
+    try:
+        specs = mesh_specs(cfg, mesh)
+        lspecs = leaf_specs(lm.param_shapes(cfg), specs)
+        names = [n for n, _ in lm.named_trainable(lm.param_shapes(cfg))]
+        # Each rank in turn takes the single-device step from the seed (one at
+        # a time: two would not fit beside each other) and keeps its slices
+        # of the clipped gradients on its host.
+        m1, want = None, None
+        for turn in range(world):
+            if turn == rank:
+                moe.moe_routed = counted_routed
+                try:
+                    one = init_train_params(cfg, seed=0, device=device)
+                    sync()
+                    t0 = time.perf_counter()
+                    _, _, m1 = make_train_step(cfg, ocfg)(one, {"count": 0}, batch, 0)
+                    sync()
+                    step_report["one_step_s"] = time.perf_counter() - t0
+                finally:
+                    moe.moe_routed = real_routed
+                want = [sharding.local_slice(w, mesh, sp).cpu()
+                        for w, sp in zip(sink.pop("grads"), lspecs)]
+                del one
+                sync()
+                if cuda:
+                    torch.cuda.empty_cache()
+            dist.barrier()
+        params = sharding.shard_params(init_train_params(cfg, seed=0, device=device), mesh,
+                                       specs)
+        step = make_train_step(cfg, ocfg, mesh)
+        # Per leaf and run: largest |diff|, Σ diff², largest |want|, Σ want²
+        # over this rank's slice (a replicated leaf counted on rank 0 only).
+        stats = torch.zeros((2, len(names), 4), dtype=torch.float64)
+        mesh_runs = {}
+        for planted in (False, True):
+            coll.exchange = offset_exchange if planted else real_exchange
+            tape.update(replay=tape["ids"], at=0, same=0, total=0)
+            sync()
+            before = counters.read()
+            t0 = time.perf_counter()
+            _, _, m = step(params, {"count": 0}, batch, 0)
+            sync()
+            step_s = time.perf_counter() - t0
+            after = counters.read()
+            counts = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            coll.exchange = real_exchange
+            for i, (g, sp) in enumerate(zip(sink.pop("grads"), lspecs)):
+                w = want[i].to(device).float()
+                d = g.float() - w
+                own = bool(sharding.spec_axes(sp)) or lead
+                stats[int(planted), i] = torch.tensor(
+                    [float(d.abs().max()), float(d.square().sum()) if own else 0.0,
+                     float(w.abs().max()), float(w.square().sum()) if own else 0.0],
+                    dtype=torch.float64)
+                del d, w
+            mesh_runs[planted] = (float(m["loss"]), float(m["grad_norm"]))
+            if lead:
+                log(f"[moe ep] mesh step{' (planted)' if planted else ''}: loss "
+                    f"{float(m['loss'])!r}, grad norm {float(m['grad_norm'])!r}; {step_s:.2f} s; "
+                    f"{tape['same']} of {tape['total']} of rank 0's tokens routed as the single "
+                    f"device routes them; launches on rank 0 {counts}")
+            if not planted:
+                step_report.update(mesh_step_s=step_s, launches=counts,
+                                   routed_alike=[tape["same"], tape["total"]])
+        del params, step, want
+        top = stats[..., [0, 2]].clone()
+        dist.all_reduce(top, op=dist.ReduceOp.MAX)
+        dist.all_reduce(stats)
+        stats[..., [0, 2]] = top
+        drops = torch.tensor([tape["dropped"]])
+        dist.all_reduce(drops)
+        if lead:
+            loss, gnorm = mesh_runs[False]
+            gate("step loss", (abs(loss - float(m1["loss"])),) * 2,
+                 {"max": MESH_TOL["loss"], "l2": MESH_TOL["loss"]})
+            gate("step grad norm", (abs(gnorm - float(m1["grad_norm"])) / float(m1["grad_norm"]),)
+                 * 2, {"max": MESH_GNORM_REL, "l2": MESH_GNORM_REL})
+            if int(drops):
+                failures.append(f"the single device dropped {int(drops)} assignments at the "
+                                "no-drop capacity")
+            shares = {}
+            for planted in (False, True):
+                worst, at = 0.0, None
+                for i, name in enumerate(names):
+                    dmax, dsq, wmax, wsq = (float(v) for v in stats[int(planted), i])
+                    if "router" in name:
+                        # Top-1 with router_aux_weight 0: no gradient but
+                        # rounding, held to 1e-6 of the grad norm.
+                        share = dmax / (1e-6 * float(m1["grad_norm"]))
+                        readings.append({"check": f"step gradient {name}", "planted": planted,
+                                         "abs": dmax, "norm": wsq ** 0.5})
+                    else:
+                        emax, el2 = dmax / max(wmax, 1e-30), (dsq / max(wsq, 1e-60)) ** 0.5
+                        share = max(emax / MESH_GRAD_TOL["max"], el2 / MESH_GRAD_TOL["l2"])
+                        readings.append({"check": f"step gradient {name}", "planted": planted,
+                                         "max": emax, "l2": el2})
+                        if not planted:
+                            log(f"  [moe ep] step gradient {name}: max {emax:.4g}, L2 {el2:.4g}")
+                    if share > worst:
+                        worst, at = share, name
+                shares[planted] = (worst, at)
+                log(f"  [moe ep] step gradients{' (planted)' if planted else ''} over "
+                    f"{len(names)} leaves: the worst, {at}, at {worst:.3g} of MESH_GRAD_TOL "
+                    f"{MESH_GRAD_TOL}")
+            if shares[False][0] > 1.0:
+                failures.append(f"step gradient {shares[False][1]}: {shares[False][0]:.3g} of "
+                                "its limits")
+            if shares[True][0] <= 1.0:
+                failures.append("the planted all-to-all fault passed the gradient gate")
+            step_report.update(loss=loss, one_loss=float(m1["loss"]), grad_norm=gnorm,
+                               one_grad_norm=float(m1["grad_norm"]),
+                               grad_share=shares[False][0], planted_share=shares[True][0],
+                               planted_loss=mesh_runs[True][0], one_dropped=int(drops))
+            log(f"[moe ep] step: loss {loss!r} (mesh) vs {float(m1['loss'])!r} (one device), "
+                f"grad norm {gnorm!r} vs {float(m1['grad_norm'])!r}; the planted fault fails "
+                f"the gradient gate {shares[True][0]:.3g}× over")
+    finally:
+        opt.adamw_update = real_update
+        moe.route = real_route
+        moe.moe_routed = real_routed
+        coll.exchange = real_exchange
+    sync()
+    dist.barrier()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    launches = step_report.get("launches") or {}
+    return {"rank": rank, "launches": launches,
+            "peak_allocated": torch.cuda.max_memory_allocated() if cuda else 0,
+            **({"report": {"layer": layer, "step": step_report}, "readings": readings}
+               if lead else {})}
+
+
+def moe_ep_phase(torch, device="cuda", small: bool = False) -> dict:
+    """MoE expert parallelism on MOE_EP_WORLD ranks spawned as processes that
+    share the card, a (data 1, model 2) mesh over gloo.  Rank by rank
+    (``moe_ep_rank``): one MoE layer of llama4-scout-17b-a16e at full width
+    (16 experts, d_model 5120, d_ff_expert 8192, seeded bf16 weights, the
+    experts and the shared expert sharded over "model"), ``moe_apply``
+    under the mesh at MOE_EP_CALLS (``ep_a2a`` at T = 2048, ``ep_psum`` at
+    T = 4), forward and the backward of sum(y · c), against the single
+    device's ``moe_apply`` from the same state: at the config's capacity
+    factor the dropped assignments counted in both and y held on the tokens
+    both kept; at MOE_EP_NODROP_CF, where neither drops, y and every
+    gradient (x, the router, the experts, the shared expert, gathered)
+    within MOE_EP_TOL.  Then a whole training step of llama4-scout at full
+    width cut to 1 layer (f32 params, pallas_distr, 1 × MOE_EP_SEQ tokens,
+    MOE_EP_NODROP_CF, ``router_aux_weight`` 0: the mesh's aux loss is the
+    shards' own) on the mesh, held to rank 0's single-device step from the
+    same seed: loss within MESH_TOL, grad norm within MESH_GNORM_REL, every
+    gathered leaf's clipped gradient within MESH_GRAD_TOL (AdamW swapped
+    for a recorder, so no moments are allocated and the mesh's and the one
+    device's steps run one after the other); and one planted fault, the
+    outputs' all-to-all landing one shard off, which must fail that gate.
+    Raises on any failure, when the step launched none of the
+    DistrAttention forward and backward kernels on some rank, and when the
+    card's memory is not back."""
+    from repro_torch.launch.mesh import run_world
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    reports = run_world(moe_ep_rank, MOE_EP_WORLD, device, small, timeout_s=900)
+    wall = time.perf_counter() - t0
+    gap = _free_gap(torch, free0, "the expert-parallel phase") if cuda else 0
+    keys = {"flash_attention": "flash", "backward.delta": "delta",
+            "backward.flash_dq": "flash_dq", "backward.flash_dkv": "flash_dkv"}
+    silent = {r["rank"]: [k for k in keys if not r["launches"].get(k)] for r in reports}
+    if cuda and any(silent.values()):
+        raise AssertionError(f"the expert-parallel step never launched these kernels: {silent}")
+    launches = {name: sum(r["launches"].get(k, 0) for r in reports) for k, name in keys.items()}
+    report = {**reports[0]["report"], "readings": reports[0]["readings"], "wall_s": wall,
+              "free_gap_bytes": gap, "launches": launches,
+              "peak_allocated_by_rank": [r["peak_allocated"] for r in reports]}
+    log(f"[moe ep] phase {wall:.1f} s; launches {launches}; peak allocated by rank "
+        f"{[round(r['peak_allocated'] / 2**30, 2) for r in reports]} GiB")
+    return {"report": report, "launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="also write the results as JSON here")
     ap.add_argument("--only", choices=("kernels", "moe", "encdec", "tune", "cluster", "ring",
-                                       "mesh"),
+                                       "mesh", "mesh_serve", "moe_ep"),
                     default=None,
                     help="kernels: stop after the kernel phases; moe: run only the MoE "
                          "check and the MoE configs' serving; encdec: run only the "
@@ -4951,7 +5753,10 @@ def main() -> int:
                          "phases; ring: run only the ring context-parallel attention "
                          "phase (4 ranks sharing the card); mesh: run only the mesh "
                          "training phase (data, FSDP and tensor parallel, 4 ranks sharing "
-                         "the card); each prints a JSON summary")
+                         "the card); mesh_serve: the qwen1.5-4b kernel checks, then serving "
+                         "over a context mesh (2 ranks sharing the card); moe_ep: the "
+                         "llama4-scout forward kernel check, then MoE expert parallelism "
+                         "(2 ranks sharing the card); each prints a JSON summary")
     ap.add_argument("--serve-load", choices=("slot", "paged", "hybrid"), default=None,
                     help="only serve this workload as a closed-loop load under both impls "
                          "(timed passes and the device's busy share), no checks")
@@ -5050,6 +5855,34 @@ def main() -> int:
                                                  indent=1))
         log(card)
         print(json.dumps({"launches": {"mesh": meshed["launches"]}}), flush=True)
+        return 0
+    if args.only in ("mesh_serve", "moe_ep"):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+        if args.only == "mesh_serve":
+            # The kernels the path launches, at qwen1.5-4b's shapes (the
+            # ring's longest shard is 2048 rows).
+            checks = {"prefill": prefill_phase(torch, flush, hq=20, hkv=20, ns=(2048,),
+                                               label="qwen1.5-4b", train_shape=False),
+                      "decode": decode_phase(torch, flush, hq=20, hkv=20, label="qwen1.5-4b"),
+                      "paged": paged_kernel_phase(torch, flush, hq=20, hkv=20,
+                                                  label="qwen1.5-4b")}
+        else:
+            # llama4-scout's attention on one rank of "model" 2: 20 heads over 4.
+            checks = {"prefill": prefill_phase(torch, flush, hq=20, hkv=4, ns=(2048,),
+                                               label="llama4-scout model 2",
+                                               train_shape=False)}
+        del flush
+        phase = mesh_serve_phase if args.only == "mesh_serve" else moe_ep_phase
+        res = phase(torch)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps({"card": card, args.only: res["report"],
+                                                  "kernel_checks": checks}, indent=1,
+                                                 default=str))
+        log(card)
+        print(json.dumps({"launches": {args.only: res["launches"]}}), flush=True)
         return 0
     if args.only == "encdec":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -5189,10 +6022,15 @@ def main() -> int:
         results["ring"] = ringed["report"]
         meshed = mesh_phase(torch)
         results["mesh"] = meshed["report"]
+        mesh_served = mesh_serve_phase(torch)
+        results["mesh_serve"] = mesh_served["report"]
+        moe_ep = moe_ep_phase(torch)
+        results["moe_ep"] = moe_ep["report"]
         for name, count in (*train["launches"].items(), *mamba["launches"].items(),
                             *encdec_train["launches"].items(),
                             *robust["launches"].items(), *supervised["launches"].items(),
-                            *ringed["launches"].items(), *meshed["launches"].items()):
+                            *ringed["launches"].items(), *meshed["launches"].items(),
+                            *mesh_served["launches"].items(), *moe_ep["launches"].items()):
             launches[name] += count
 
     csrc = "src/repro_torch/kernels/csrc"

@@ -67,7 +67,7 @@ class ModelConfig:
     param_dtype: str = "float32"  # master weights (AdamW moments are f32)
     remat: str = "full"  # full (recompute each block in the backward) | none
     schedule: str = "cosine"  # cosine | wsd
-    # MoE (single-device dispatch, models.moe)
+    # MoE (models.moe)
     n_experts: int = 0
     moe_top_k: int = 0
     n_shared_experts: int = 0
@@ -75,6 +75,7 @@ class ModelConfig:
     first_dense_layers: int = 0  # leading layers with a dense FFN (``dense_blocks``)
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
+    moe_impl: str = "auto"  # auto | dense_onehot | ep_a2a | ep_psum
     # MLA (deepseek): low-rank Q, compressed KV cache, decoupled RoPE
     use_mla: bool = False
     q_lora_rank: int = 0

@@ -83,19 +83,31 @@ def _active_context_mesh(context_axis: str | None):
     return mesh if int(mesh.shape[context_axis]) > 1 else None
 
 
-def _ring_dispatch(cfg: AttentionConfig, q, k, v, *, causal: bool, scale, proj):
-    """The ring's output when context parallelism applies (a kernel impl,
-    self-attention, an active context mesh, N ≥ ring size × 128), else None
-    to fall through to the single-device paths."""
-    if cfg.impl not in ("pallas_flash", "pallas_distr") or q.shape[2] != k.shape[2]:
+def ring_mesh(cfg: AttentionConfig, n: int):
+    """The active context mesh when self-attention over ``n`` positions takes
+    the ring (a kernel impl, an active context mesh, N ≥ ring size ×
+    128), else None."""
+    if cfg.impl not in ("pallas_flash", "pallas_distr"):
         return None
     mesh = _active_context_mesh(cfg.context_axis)
     if mesh is None:
         return None
+    from repro_torch.distributed.ring_attention import MIN_RING_SHARD
+
+    return mesh if n >= int(mesh.shape[cfg.context_axis]) * MIN_RING_SHARD else None
+
+
+def _ring_dispatch(cfg: AttentionConfig, q, k, v, *, causal: bool, scale, proj):
+    """The ring's output when context parallelism applies (``ring_mesh``
+    over self-attention), else None to fall through to the single-device
+    paths."""
+    if q.shape[2] != k.shape[2]:
+        return None
+    mesh = ring_mesh(cfg, q.shape[2])
+    if mesh is None:
+        return None
     from repro_torch.distributed import ring_attention as ring
 
-    if q.shape[2] < int(mesh.shape[cfg.context_axis]) * ring.MIN_RING_SHARD:
-        return None
     if cfg.impl == "pallas_flash":
         return ring.ring_flash_attention(q, k, v, mesh, axis=cfg.context_axis, causal=causal,
                                          scale=scale)
@@ -126,13 +138,11 @@ def resolve_attention_blocks(cfg: AttentionConfig, *, d: int, n_q: int, n_k: int
 
     n_k = n_k if n_k is not None else n_q
     n = max(n_q, n_k)
-    mesh = _active_context_mesh(cfg.context_axis)
-    if mesh is not None and cfg.impl.startswith("pallas") and n_q == n_k:
-        from repro_torch.distributed.ring_attention import MIN_RING_SHARD, context_shard_len
+    mesh = ring_mesh(cfg, n_q) if n_q == n_k else None
+    if mesh is not None:
+        from repro_torch.distributed.ring_attention import context_shard_len
 
-        p = int(mesh.shape[cfg.context_axis])
-        if n_q >= p * MIN_RING_SHARD:
-            n = context_shard_len(n_q, p)
+        n = context_shard_len(n_q, int(mesh.shape[cfg.context_axis]))
     kw = dict(d=d, n=n, dtype=dtype, causal=causal, bwd=bwd, device=device)
     if cfg.impl in ("distr", "pallas_distr"):
         return resolve_block_sizes("distr" if cfg.impl == "pallas_distr" else "xla_distr",

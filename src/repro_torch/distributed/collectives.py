@@ -1,8 +1,8 @@
 """Explicit collectives over the axes of a host mesh
 (``repro/distributed/collectives.py``).
 
-**The wire layer.**  ``all_reduce``, ``all_gather``, ``reduce_scatter`` and
-``permute`` move a tensor among the ranks of one mesh axis (the ranks that
+**The wire layer.**  ``all_reduce``, ``all_gather``, ``reduce_scatter``,
+``all_to_all`` and ``permute`` move a tensor among the ranks of one mesh axis (the ranks that
 differ from this one on that axis alone: ``HostMesh.groups[axis]``), or of
 several axes in turn.  An axis of size 1 moves nothing.  The group must be a
 ``gloo`` group, which moves host tensors only and is the backend that can
@@ -18,7 +18,11 @@ tensor is summed in f32 (one rounding, whatever the axis size).  The ring
 that brackets a tensor-parallel region over "model"; ``gather_dim`` is the
 FSDP gather (all-gather forward, reduce-scatter backward); ``sum_dp`` sums a
 statistic over the data-parallel axes with the sum's own transpose;
-``shift`` permutes along an axis and sends the cotangent back the other way.
+``shift`` permutes along an axis and sends the cotangent back the other way;
+``exchange`` is the all-to-all, its own transpose; ``take_slice`` (this
+rank's slice of a replicated tensor) and ``gather_slices`` (the slices put
+back together, replicated) are each other's transpose, as expert
+parallelism (``models.moe``) brackets its sequence-sharded region with them.
 The convention: a replicated value carries the same cotangent on every rank
 of its axis, so a replicated parameter gets one gradient, never a sum over
 the ranks that replicate it.
@@ -150,6 +154,21 @@ def reduce_scatter(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     return out if out is not x else x.clone()
 
 
+def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Chunk j of ``x``'s dim 0 (cut in equal chunks, one a rank of
+    ``axis``) goes to rank j; returns the chunks received, chunk i from rank
+    i, in ``x``'s shape, on its device."""
+    g = _group(mesh, axis)
+    if g is None:
+        return x.clone()
+    if x.shape[0] % g[1]:
+        raise ValueError(f"dim 0 of {x.shape[0]} rows does not split over {g[1]} ranks")
+    send = to_wire(x.contiguous())
+    recv = _host_empty(send.shape, send)
+    dist.all_to_all_single(recv, send, group=g[0])
+    return recv.to(x.device)
+
+
 def send_recv(flat: torch.Tensor, group, dst: int, src: int) -> torch.Tensor:
     """Send ``flat`` to global rank ``dst`` while receiving a tensor of its
     shape and dtype from ``src``, on ``flat``'s device."""
@@ -233,6 +252,50 @@ class _Shift(torch.autograd.Function):
         return permute(g, ctx.mesh, ctx.axis, -ctx.by), None, None, None
 
 
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_to_all(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        # Chunk j of rank i went to rank j's chunk i: the same exchange sends
+        # each cotangent chunk back where its value came from.
+        return all_to_all(g, ctx.mesh, ctx.axis), None, None
+
+
+def _own_slice(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    n = axis_size(mesh, axis)
+    step = x.shape[dim] // n
+    return x.narrow(dim, int(mesh.coords[axis]) * step, step)
+
+
+class _TakeSlice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _own_slice(x, mesh, axis, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        # x is replicated, so its cotangent is too: every rank's slice of it.
+        return all_gather(g.contiguous(), ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+class _GatherSlices(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        # The replicated result's cotangent is the same on every rank: each
+        # takes its own slice of it.
+        return _own_slice(g, ctx.mesh, ctx.axis, ctx.dim).contiguous(), None, None, None
+
+
 def tp_enter(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
     """Enter a tensor-parallel region: identity forward; the backward
     all-reduces the cotangent (each rank holds a partial one)."""
@@ -268,6 +331,35 @@ def shift(x: torch.Tensor, mesh, axis: str, by: int = 1) -> torch.Tensor:
     if axis_size(mesh, axis) == 1:
         return x
     return _Shift.apply(x, mesh, axis, by)
+
+
+def exchange(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``all_to_all``, differentiable: the backward is the same exchange of
+    the cotangent."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _Exchange.apply(x, mesh, axis)
+
+
+def take_slice(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """This rank's slice along ``dim`` of ``x``, replicated over ``axis``
+    (which must divide it); the backward all-gathers the slices'
+    cotangents into the replicated one."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {x.shape[dim]} does not split over the {n} ranks of "
+                         f"{axis!r}")
+    return _TakeSlice.apply(x, mesh, axis, dim)
+
+
+def gather_slices(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """Every rank's slice ``x`` of ``axis`` put back together along ``dim``,
+    replicated; the backward takes this rank's slice of the cotangent."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _GatherSlices.apply(x, mesh, axis, dim)
 
 
 # ---------------------------------------------------------------------------

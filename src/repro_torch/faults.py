@@ -25,9 +25,11 @@ Serve points:
   mesh_prefill      the whole-prompt ring prefill of a mesh replica raises.
   replica_crash     a whole replica dies (``uid`` is the replica id).
 
-The last three belong to the mesh and the cluster router, which the port
-has not built yet; they stay in the catalog so the two packages validate
-the same specs.
+The last three belong to the ring (``distributed.ring_attention.
+dead_shard_fault``, which a mesh engine's ``prefill_mesh_run`` enters and
+sends to its followers), the paged engine's mesh prefill
+(``PagedServeEngine.prefill_mesh_run``) and the cluster router
+(``serve.cluster``).
 
 Train points: ``ckpt_torn_write`` (a checkpoint publishes corrupt bytes;
 ``uid`` is the step), ``nan_grad`` (the loss goes non-finite in the step),

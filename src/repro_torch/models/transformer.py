@@ -68,10 +68,12 @@ def block_axes(cfg, layer_type: str = "dense", *, cross: bool = False) -> dict:
     return axes
 
 
-def ffn_apply(params: dict, h: torch.Tensor, cfg, layer_type: str):
-    """The block's FFN → (y, aux): the MoE's aux loss, or None."""
+def ffn_apply(params: dict, h: torch.Tensor, cfg, layer_type: str, *, decode: bool = False):
+    """The block's FFN → (y, aux): the MoE's aux loss, or None.  ``decode``
+    tells the MoE a decode step is calling (its dispatch under expert
+    parallelism)."""
     if layer_type == "moe":
-        return moe.moe_apply(params, h, cfg)
+        return moe.moe_apply(params, h, cfg, decode=decode)
     return layers.mlp_apply(params, h, act=cfg.act, d_ff=cfg.d_ff), None
 
 
@@ -162,7 +164,8 @@ def block_decode_apply(params: dict, x: torch.Tensor, cfg, *, cache: dict,
             cache_index=cache_index, is_cross=True, cross_len=cross_len,
         )
         x = x + oc
-    y, _ = ffn_apply(params["ffn"], norm_apply(params["norm2"], x, cfg), cfg, layer_type)
+    y, _ = ffn_apply(params["ffn"], norm_apply(params["norm2"], x, cfg), cfg, layer_type,
+                     decode=True)
     return x + y, {**cache, **new}
 
 
@@ -179,7 +182,8 @@ def block_paged_decode_apply(params: dict, x: torch.Tensor, cfg, *, pool_k, pool
         cache_index=pos, count=count, pool_k_fused=pool_k_fused, perm=perm,
     )
     x = x + o
-    y, _ = ffn_apply(params["ffn"], norm_apply(params["norm2"], x, cfg), cfg, layer_type)
+    y, _ = ffn_apply(params["ffn"], norm_apply(params["norm2"], x, cfg), cfg, layer_type,
+                     decode=True)
     return x + y, pools
 
 

@@ -28,6 +28,13 @@ span is the host's time in its step, the dispatch alone unless the step
 reads a result back (the paged decode tick returns its tokens and health
 mask, so its span includes the tick's device time).
 
+Both take a ``mesh``, a context group of ranks (``launch.mesh``) named by
+``attention.context_axis``: the slot engine runs each prefill under it and
+the paged engine prefills a prompt longer than one chunk whole, in one
+scheduler tick, so a bucket of at least ring size × 128 rides ring
+context-parallel attention; decode stays on this rank.  The engine runs on
+the group's leader and the other ranks follow (``serve.mesh_prefill``).
+
 As in the reference engine, admission sets ``pos = n - 1`` and the next
 token to the prompt's last token, so the first decode step feeds that token
 again at position ``n``; the prefill logits only guard numeric health.
@@ -36,12 +43,15 @@ after the whole bucket, the pad tokens (id 0) included.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 from collections import Counter
 from dataclasses import dataclass, field
 
 import torch
 
+from repro_torch.core.api import ring_mesh
+from repro_torch.launch.mesh import set_mesh
 from repro_torch.models.lm import check_family
 from repro_torch.obs.clock import resolve_clock
 from repro_torch.obs.trace import get_recorder
@@ -50,15 +60,17 @@ from repro_torch.serve.degrade import DegradationController, DegradeConfig
 from repro_torch.serve.faults import NULL_INJECTOR
 from repro_torch.serve.graphs import StepGraph
 from repro_torch.serve.lifecycle import IncompleteRun
+from repro_torch.serve.mesh_prefill import leader_link
 from repro_torch.serve.sampler import sample
 from repro_torch.serve.scheduler import Scheduler, SchedulerConfig
-from repro_torch.tune.autotune import warm_engine, warm_paged_engine
+from repro_torch.tune.autotune import PREFILL_BUCKETS, warm_engine, warm_paged_engine
 from repro_torch.serve.serve_step import (
-    make_decode_step, make_degraded_paged_prefill, make_paged_step, make_prefill,
+    make_decode_step, make_degraded_paged_prefill, make_mesh_paged_prefill, make_paged_step,
+    make_prefill,
 )
 from repro_torch.utils.device import resolve_device
 
-BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
+BUCKETS = PREFILL_BUCKETS
 
 
 def _validate_request(prompt, limit: int, max_new_tokens: int,
@@ -69,6 +81,37 @@ def _validate_request(prompt, limit: int, max_new_tokens: int,
         raise ValueError("prompt must hold at least one token")
     if max_new_tokens <= 0:
         raise ValueError(f"max_new_tokens must be ≥ 1, got {max_new_tokens}")
+
+
+def _mesh_scope(mesh):
+    """``mesh`` active inside the context; no change without one."""
+    return set_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+
+
+class _MeshLeader:
+    """An engine's end of its context group (serve.mesh_prefill): the
+    prefill announcements, and ``close()`` and the ``with`` block, which
+    send the followers the stop header (also when the block ends in an
+    exception)."""
+
+    _link = None
+
+    def _announce(self, attention, bucket: int, tokens: list, **kw) -> None:
+        """Tell the followers to run this prefill, when it takes the ring
+        (``core.api.ring_mesh`` under the active mesh)."""
+        if self._link is not None and ring_mesh(attention, bucket) is not None:
+            self._link.prefill(bucket, tokens, **kw)
+
+    def close(self) -> None:
+        """Stop the context group's followers (nothing without a mesh)."""
+        if self._link is not None:
+            self._link.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 def _bucket(n: int) -> int:
@@ -94,7 +137,7 @@ class Request:
     degrade_group: int = 1
 
 
-class ServeEngine:
+class ServeEngine(_MeshLeader):
     """The slot engine (see the module docstring) with the request
     lifecycle: deadlines against an injectable ``clock`` (tests pass tick
     clocks), shedding of the newest request past ``max_waiting`` waiting,
@@ -110,14 +153,22 @@ class ServeEngine:
     K̂ cache under static ``perms`` (L, Hkv, dh) (None draws the port's
     own).  Construction resolves the block-size keys the steps hit
     (``tune.warm_engine``, ``REPRO_TUNE``) into ``tuned_blocks``.
-    ``device`` defaults to CUDA and raises when it is absent."""
+    ``device`` defaults to CUDA and raises when it is absent.
+
+    ``mesh`` (a ``launch.mesh.HostMesh`` whose ``cfg.attention.context_axis``
+    is a context group): each prefill runs under it, so a bucket of at least
+    ring size × 128 takes ring context-parallel attention
+    (``distributed.ring_attention``) and the prompt length scales with the
+    ring; decode stays on this rank.  The engine runs on the group's leader
+    and the other ranks run ``serve.mesh_prefill.follow`` (see there);
+    ``close()`` or the end of a ``with`` block stops them."""
 
     def __init__(self, cfg, params, *, max_slots: int = 8, max_len: int = 512,
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
                  seed: int = 0, clock=None, max_waiting: int | None = None,
                  degrade: DegradeConfig | DegradationController | None = None, faults=None,
                  device: str | torch.device = "cuda", perms: torch.Tensor | None = None,
-                 trace=None):
+                 trace=None, mesh=None):
         check_family(cfg)
         if cfg.family == "encdec":
             raise NotImplementedError(
@@ -144,12 +195,16 @@ class ServeEngine:
         self._step_tries: dict[int, int] = {}  # uid → consecutive faulting steps
         self._uid = itertools.count()
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.mesh = mesh
+        self._link = leader_link(cfg, mesh, max_len)
 
         # Every block-size key the steps hit (prefill buckets, the decode
         # split), resolved before the first request: under
         # REPRO_TUNE=measure the sweeps run and persist here, once, never
-        # inside a step or a captured decode graph.
-        self.tuned_blocks = warm_engine(cfg, max_len, device=self.device, batch=max_slots)
+        # inside a step or a captured decode graph.  Under a mesh a bucket
+        # the ring takes is keyed by the shard one rank streams.
+        with _mesh_scope(mesh):
+            self.tuned_blocks = warm_engine(cfg, max_len, device=self.device, batch=max_slots)
         self.cache = kv_cache.init_cache(cfg, max_slots, max_len, device=self.device)
         self.pos = torch.zeros((max_slots,), dtype=torch.int32, device=self.device)
         self.tokens = torch.zeros((max_slots, 1), dtype=torch.int64, device=self.device)
@@ -317,7 +372,12 @@ class ServeEngine:
             toks = torch.zeros((1, bucket), dtype=torch.int64)
             toks[0, :n] = torch.tensor(req.prompt)
             req.status = lifecycle.PREFILL
-            with self.trace.span("prefill", uid=req.uid, bucket=bucket, group=group):
+            # A long bucket rides the ring when the engine has a mesh: the
+            # followers run the same forward for their part of every hop.
+            with self.trace.span("prefill", uid=req.uid, bucket=bucket, group=group), \
+                    _mesh_scope(self.mesh):
+                self._announce(self.cfg.attention.degraded(group), bucket, toks[0].tolist(),
+                               n=n, group=group)
                 logits, cache1 = self._prefill_fn(group)(self.params, toks.to(self.device))
             # Numeric health guard, before the cache touches the slot.
             if (self.faults.fires("nan_logits", req.uid) is not None
@@ -445,7 +505,7 @@ class ServeEngine:
         return self.max_len
 
 
-class PagedServeEngine:
+class PagedServeEngine(_MeshLeader):
     """Serving engine over the paged KV cache (serve.paged, serve.scheduler,
     kernels/paged_decode.py).
 
@@ -467,6 +527,16 @@ class PagedServeEngine:
     ``block_size=None`` takes the tuner's pool block (``REPRO_TUNE``;
     unset: 128), recorded in ``tuned_blocks``.  ``device`` defaults to CUDA
     and raises when it is absent.
+
+    ``mesh`` (a context group, as the slot engine's): a prompt longer than
+    one chunk prefills whole in one scheduler tick (``prefill_mesh_run``,
+    the scheduler's mesh admission): one exact forward under the mesh, whose
+    attention takes the ring when the bucket spans ring size × 128, writes
+    every layer's K/V into this rank's pool.  Prefill compute scales with
+    the ring; the KV stays paged here.  Construction then also resolves the
+    ring prefill's attention keys, per ring shard.  The engine runs on the
+    group's leader, the other ranks run ``serve.mesh_prefill.follow``, and
+    ``close()`` or the end of a ``with`` block stops them.
     """
 
     #: Decode slides past capacity by recycling head blocks.
@@ -479,7 +549,7 @@ class PagedServeEngine:
                  seed: int = 0, cache_dtype=torch.bfloat16, clock=None,
                  max_waiting: int | None = None, degrade: DegradeConfig | None = None,
                  faults=None, device: str | torch.device = "cuda",
-                 perms: torch.Tensor | None = None, trace=None):
+                 perms: torch.Tensor | None = None, trace=None, mesh=None):
         paged.check_pageable(cfg)
         if cfg.frontend:
             raise NotImplementedError(
@@ -495,12 +565,19 @@ class PagedServeEngine:
         self.top_p = top_p
         self._uid = itertools.count()
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.mesh = mesh
+        self._link = leader_link(cfg, mesh, max_len)
 
         # The pool block is also the allocator's granularity: resolve it
         # (REPRO_TUNE) before the pools are shaped by it.  An explicit
-        # block_size skips the warm-up, whose sweep would be discarded.
-        self.tuned_blocks = ({} if block_size is not None else warm_paged_engine(
-            cfg, max_len, device=self.device, batch=max_batch, dtype=cache_dtype))
+        # block_size skips the decode warm-up, whose sweep would be
+        # discarded; a mesh engine also resolves its ring prefill's keys.
+        self.tuned_blocks = {}
+        if block_size is None or mesh is not None:
+            with _mesh_scope(mesh):
+                self.tuned_blocks = warm_paged_engine(
+                    cfg, max_len, device=self.device, batch=max_batch, dtype=cache_dtype,
+                    decode=block_size is None, mesh_prefill_buckets=mesh is not None)
         if block_size is None:
             block_size = self.tuned_blocks.get("paged_decode", 128)
         self.block_size = min(block_size, max_len)
@@ -533,6 +610,8 @@ class PagedServeEngine:
         self._tick_in = self._step_buffers(max_batch, 1)
         self._chunk_in = self._step_buffers(1, self.prefill_chunk)
         self._degraded: dict[int, object] = {}
+        self._mesh_prefill = (make_mesh_paged_prefill(cfg, max_len, perms)
+                              if mesh is not None else None)
         self.finished: list[Request] = []
 
     # -- public API -------------------------------------------------------
@@ -701,6 +780,33 @@ class PagedServeEngine:
         bt = self.cache.table_array([entry.uid], self.max_blocks)
         row, _ = self._degraded[group](self.params, self._ints([toks]), n,
                                        self.cache.pools, bt)
+        return self._poisoned(entry, row)
+
+    def mesh_prefill_ready(self, n: int) -> bool:
+        """Whether the scheduler admits an ``n``-token prompt as one whole
+        prefill across the mesh: a mesh is set and the prompt is longer
+        than one chunk (a one-chunk prompt admits in one tick already)."""
+        return self.mesh is not None and n > self.prefill_chunk
+
+    def prefill_mesh_run(self, entry) -> torch.Tensor:
+        """Whole-prompt exact prefill under the engine's mesh
+        (``serve_step.make_mesh_paged_prefill``): one forward writes the
+        prompt's K/V into the already-allocated blocks of this rank's pool;
+        returns the last live row's logits.  The injected faults raise before
+        any pool write or header, and a ``dead_ring_shard`` set travels to
+        the followers in the header."""
+        self.faults.raise_if("stuck_step", entry.uid)
+        self.faults.raise_if("mesh_prefill", entry.uid)
+        from repro_torch.distributed.ring_attention import dead_shard_fault
+
+        n = len(entry.req.prompt)
+        bucket = min(_bucket(n), self.max_len)
+        toks = list(entry.req.prompt) + [0] * (bucket - n)
+        dead = self.faults.dead_shards()
+        bt = self.cache.table_array([entry.uid], self.max_blocks)
+        with set_mesh(self.mesh), dead_shard_fault(dead):
+            self._announce(self.cfg.attention, bucket, toks, n=n, dead=dead)
+            row, _ = self._mesh_prefill(self.params, self._ints([toks]), n, self.cache.pools, bt)
         return self._poisoned(entry, row)
 
     def decode_tick(self, running: dict):

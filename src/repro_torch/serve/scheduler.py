@@ -23,6 +23,12 @@ deciding every tick:
     and numeric quarantine of exactly the offending request (``failed``).
     A global-stall watchdog fails the queue head when nothing progressed
     for ``watchdog_ticks`` ticks with work present.
+  * **Mesh one-tick admission.**  An engine over a context mesh
+    (``PagedServeEngine(mesh=)``) offers ``mesh_prefill_ready`` and
+    ``prefill_mesh_run``: a prompt longer than one chunk prefills whole, in
+    one exact forward across the mesh's ring, and its K/V lands in the pool
+    in the same tick, in place of ceil(n / chunk) chunk ticks.  Shorter
+    prompts keep chunked prefill.
   * **Graceful degradation** (serve.degrade).  Under sustained overload new
     prompts switch from exact chunked prefill to one whole-prompt
     DistrAttention forward (``engine.prefill_full_run``) at a per-level G*.
@@ -38,15 +44,13 @@ deciding every tick:
     recorder): a ``request`` async span per request, ids
     ``"<namespace>:<uid>"``, whose end args are its metrics row; the
     ``decode`` span around each decode tick; the ``shed``, ``preempt``,
-    ``first_token``, ``degrade_level``, ``restore``, ``degraded_prefill``
-    and ``watchdog`` instants.
-
-The reference's mesh admission (``prefill_mesh_run``, its ``mesh_prefill``
-instant) is not ported yet.
+    ``first_token``, ``degrade_level``, ``restore``, ``degraded_prefill``,
+    ``mesh_prefill`` and ``watchdog`` instants.
 
 The scheduler is pure policy: it talks to the engine through a small
 primitive surface (``free_lane``, ``alloc``, ``can_admit``,
-``prefill_chunk_run``, ``prefill_full_run``, ``decode_tick``, ``evict`` /
+``prefill_chunk_run``, ``prefill_full_run``, ``mesh_prefill_ready`` /
+``prefill_mesh_run``, ``decode_tick``, ``evict`` /
 ``restore`` / ``release``, ``holds_blocks``, ``sample_one``), so tests drive
 it with a fake engine and no model.
 """
@@ -396,10 +400,10 @@ class Scheduler:
 
     def _prefill_step(self, engine, head: Entry, run, arg: int, finished: list):
         """One prefill step of ``head``, ``run(head, arg)`` (the engine's
-        ``prefill_chunk_run`` or ``prefill_full_run``) → the last live row's
-        logits.  A step that raised is retried later (the head goes back in
-        front) or, its budget spent, fails the head.  Returns the row, or
-        None after a fault."""
+        ``prefill_chunk_run``, ``prefill_full_run`` or, ``arg`` unused,
+        ``prefill_mesh_run``) → the last live row's logits.  A step that
+        raised is retried later (the head goes back in front) or, its budget
+        spent, fails the head.  Returns the row, or None after a fault."""
         head.req.status = lifecycle.PREFILL
         try:
             row = run(head, arg)
@@ -449,6 +453,29 @@ class Scheduler:
                 # prefill plus one decode token fits in free memory now.
                 self.waiting.appendleft(head)
                 break
+            if (head.prompt_done == 0 and hasattr(engine, "prefill_mesh_run")
+                    and engine.mesh_prefill_ready(len(head.req.prompt))):
+                # Mesh admission: one whole-prompt exact prefill across the
+                # engine's ring in place of ceil(n / chunk) chunks (the
+                # degraded branch below stays the overload valve).
+                n = len(head.req.prompt)
+                if not engine.alloc(head, n):
+                    self.waiting.appendleft(head)
+                    break
+                # mesh_prefill and stuck_step raise before any pool write.
+                row = self._prefill_step(engine, head, lambda e, _: engine.prefill_mesh_run(e),
+                                         n, finished)
+                if row is None:
+                    progressed |= lifecycle.is_terminal(head.req.status)
+                    break
+                head.prompt_done = n
+                head.length = n
+                self.counters["mesh_prefills"] += 1
+                self.trace.instant("mesh_prefill", uid=head.uid, n=n)
+                budget -= n
+                progressed = True
+                self._finish_prompt(engine, head, row, finished)
+                continue
             if (self._level > 0 and head.prompt_done == 0
                     and hasattr(engine, "prefill_full_run")):
                 # Degraded admission: one whole-prompt DistrAttention forward

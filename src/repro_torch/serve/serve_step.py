@@ -5,7 +5,7 @@ ring cache of raw K, or MLA's compressed cache), ssm, hybrid and encdec
 ``patch_stub`` model's prefill taking its patch prefix;
 for GQA dense and moe also the paged step (a decode tick or a
 chunked-prefill window over the block pool) and the whole-prompt paged
-prefill of the degradation dial.  A moe config decodes from raw K even with
+prefills of the degradation dial and of a mesh engine.  A moe config decodes from raw K even with
 ``attention.distr_decode`` set: the fused K̂ engages for dense only, as in
 the reference.
 
@@ -328,6 +328,23 @@ def _make_paged_full_prefill(cfg, backbone_cfg, perms: torch.Tensor | None = Non
         return logits, pools
 
     return prefill
+
+
+def make_mesh_paged_prefill(cfg, bucket: int, perms: torch.Tensor | None = None):
+    """→ prefill(params, tokens (1, bucket), n, pools, block_tables) → (last
+    live row's logits (V,), pools).
+
+    The mesh engine's whole-prompt prefill (``PagedServeEngine(mesh=)``):
+    the engine calls it under its context mesh (``launch.mesh.set_mesh``),
+    so each attention takes the ring through ``core.api.attend`` when the
+    bucket spans at least ring size × ``MIN_RING_SHARD`` positions.  It runs
+    the engine's own exact attention; under the ring's contract every rank
+    of the context group ends with every layer's global K/V, so the leader
+    writes them into its own pool with no gather, the fused K̂ at the
+    engine's own G*, and decode continues on the paged kernel.  ``bucket``
+    is the padded prompt length, which the tokens carry."""
+    del bucket
+    return _make_paged_full_prefill(cfg, cfg, perms)
 
 
 def make_degraded_paged_prefill(cfg, bucket: int, group_size: int,

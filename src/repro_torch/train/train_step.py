@@ -10,8 +10,9 @@ shards over the data-parallel axes), and:
 
 * under FSDP a block's ``"data"``-sharded leaves are gathered on use inside
   its remat checkpoint, and their gradients reduce-scattered back;
-* the dense family runs tensor parallel over "model" and the ring over
-  "context" where the config names it;
+* the dense family runs tensor parallel over "model", the moe family's
+  GQA configs too with their MoE expert parallel (``models.moe``), and the
+  ring over "context" where the config names it;
 * ``lm.loss_fn`` normalises by the whole batch's labels, so the ranks'
   losses sum to the single device's mean; the gradients are summed over the
   data-parallel axes (reduce-scattered where FSDP shards them), which is
@@ -42,13 +43,21 @@ def mesh_specs(cfg, mesh):
 
 
 def check_mesh(cfg, mesh) -> None:
-    """Raise for what the port does not train on ``mesh``: tensor
-    parallelism outside the dense family."""
-    if coll.axis_size(mesh, "model") > 1 and cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism over 'model' is ported for the dense family "
-            f"only, not {cfg.family!r} (ROADMAP Queue 1 item 2b: MoE expert parallelism, then "
-            "the ssm, hybrid and encdec families); a data-only mesh trains every family")
+    """Raise for what the port does not train on ``mesh``: a "model" axis
+    beyond the dense family and the moe family's GQA configs (tensor
+    parallel attention, expert parallel MoE)."""
+    if coll.axis_size(mesh, "model") == 1:
+        return
+    if cfg.family == "moe" and cfg.use_mla:
+        what = "MLA attention (the moe family's MLA configs)"
+    elif cfg.family not in ("dense", "moe"):
+        what = f"the {cfg.family!r} family"
+    else:
+        return
+    raise NotImplementedError(
+        f"{cfg.name}: a 'model' axis over {what} is not ported (ROADMAP Queue 1 item 2b.2); "
+        "it is ported for the dense family and the moe family's GQA configs, and a data-only "
+        "mesh trains every family")
 
 
 def local_batch(batch: dict, mesh) -> dict:

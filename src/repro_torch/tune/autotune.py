@@ -600,21 +600,43 @@ def _decode_group(cfg) -> int:
             if cfg.attention.distr_decode and cfg.family == "dense" else 1)
 
 
+# The padded prompt lengths the engines prefill at (``serve.engine._bucket``).
+PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
+
+
+def _prefill_buckets(max_len: int, buckets) -> list[int]:
+    """The padded lengths a prefill of at most ``max_len`` tokens runs at."""
+    return sorted({b for b in buckets if b <= max_len} | {max_len})
+
+
 def warm_paged_engine(cfg, max_len: int, *, device: str | torch.device = "cuda",
-                      batch: int = 1, dtype=torch.bfloat16, lengths=None) -> dict:
-    """Resolve the key a ``PagedServeEngine`` hits before it is built: the
-    paged decode pool block (pools of ``dtype``), which shapes the pools.
-    Measure-mode sweeps run here, once (at ``batch`` requests of the
-    config's heads, or ``lengths``).  Returns {site: resolved} for
+                      batch: int = 1, dtype=torch.bfloat16, lengths=None, decode: bool = True,
+                      mesh_prefill_buckets: bool = False) -> dict:
+    """Resolve the keys a ``PagedServeEngine`` hits before it is built: with
+    ``decode``, the paged decode pool block (pools of ``dtype``), which
+    shapes the pools (measure-mode sweeps at ``batch`` requests of the
+    config's heads, or ``lengths``); with ``mesh_prefill_buckets``, the
+    whole-prompt ring prefill's attention at each bucket ≤ max_len (the
+    mesh engine's ``prefill_mesh_run``).  Call the latter with the engine's
+    mesh active (``launch.mesh.set_mesh``): ``api.resolve_attention_blocks``
+    then keys a bucket the ring takes by the shard one rank streams.
+    Measure-mode sweeps run here, once.  Returns {site: resolved} for
     logging."""
+    from repro_torch.core import api
     from repro_torch.tune.cache import dtype_str
 
     out: dict = {}
     if not tuned_attention(cfg):
         return out
-    out["paged_decode"] = get_autotuner().resolve_paged_decode(
-        d=cfg.head_dim_, n=max_len, dtype=dtype_str(dtype), group_size=_decode_group(cfg),
-        device=device, batch=batch, heads=(cfg.n_heads, cfg.n_kv_heads), lengths=lengths)
+    if decode:
+        out["paged_decode"] = get_autotuner().resolve_paged_decode(
+            d=cfg.head_dim_, n=max_len, dtype=dtype_str(dtype), group_size=_decode_group(cfg),
+            device=device, batch=batch, heads=(cfg.n_heads, cfg.n_kv_heads), lengths=lengths)
+    if mesh_prefill_buckets:
+        for b in _prefill_buckets(max_len, PREFILL_BUCKETS):
+            out[f"mesh_prefill/{b}"] = api.resolve_attention_blocks(
+                cfg.attention, d=cfg.head_dim_, n_q=b, n_k=b, dtype=_compute_dtype(cfg),
+                causal=True, device=device)
     return out
 
 
@@ -640,7 +662,7 @@ def warm_decode(cfg, max_len: int, *, device: str | torch.device = "cuda", batch
 
 
 def warm_engine(cfg, max_len: int, *, device: str | torch.device = "cuda", batch: int = 1,
-                lengths=None, buckets=(32, 64, 128, 256, 512, 1024, 2048, 4096)) -> dict:
+                lengths=None, buckets=PREFILL_BUCKETS) -> dict:
     """Resolve every block-size key a ``ServeEngine`` hits: the prefill
     attention at each bucket ≤ max_len and the decode split at the cache
     capacity (``warm_decode``), so under ``measure`` the sweeps run and
@@ -651,7 +673,7 @@ def warm_engine(cfg, max_len: int, *, device: str | torch.device = "cuda", batch
     out: dict = {}
     if not tuned_attention(cfg):
         return out
-    for b in sorted({min(b, max_len) for b in buckets if b <= max_len} | {max_len}):
+    for b in _prefill_buckets(max_len, buckets):
         out[f"prefill/{b}"] = api.resolve_attention_blocks(
             cfg.attention, d=cfg.head_dim_, n_q=b, n_k=b, dtype=_compute_dtype(cfg),
             causal=True, device=device)

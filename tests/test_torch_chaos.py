@@ -30,16 +30,18 @@ from repro.serve import engine as ref_engine  # noqa: E402
 from repro.serve import lifecycle as ref_lifecycle  # noqa: E402
 from repro.serve import paged as ref_paged  # noqa: E402
 from repro.serve import scheduler as ref_scheduler  # noqa: E402
+from repro.obs import trace as ref_trace  # noqa: E402
 from repro_torch import faults  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.obs import trace as port_trace  # noqa: E402
 from repro_torch.models.convert import from_jax_params  # noqa: E402
 from repro_torch.serve import degrade, engine, lifecycle, paged, scheduler  # noqa: E402
 from repro_torch.serve import faults as serve_faults  # noqa: E402
 
 REF = SimpleNamespace(name="ref", faults=ref_faults, paged=ref_paged, scheduler=ref_scheduler,
-                      degrade=ref_degrade, lifecycle=ref_lifecycle)
+                      degrade=ref_degrade, lifecycle=ref_lifecycle, trace=ref_trace)
 PORT = SimpleNamespace(name="port", faults=faults, paged=paged, scheduler=scheduler,
-                       degrade=degrade, lifecycle=lifecycle)
+                       degrade=degrade, lifecycle=lifecycle, trace=port_trace)
 
 FaultInjector, FaultSpec, InjectedFault = faults.FaultInjector, faults.FaultSpec, faults.InjectedFault
 
@@ -243,6 +245,29 @@ class DegradedFakeEngine(FakeEngine):
         return float(entry.uid)
 
 
+class MeshFakeEngine(FakeEngine):
+    """The fake engine with the mesh admission surface: a prompt longer than
+    ``threshold`` prefills whole in one tick, consulting ``stuck_step`` and
+    ``mesh_prefill`` before any pool write, as ``PagedServeEngine.
+    prefill_mesh_run`` does."""
+
+    def __init__(self, pkg, specs=(), threshold=8, **kw):
+        super().__init__(pkg, specs, **kw)
+        self.threshold = threshold
+        self.mesh_prompts: list[int] = []
+
+    def mesh_prefill_ready(self, n):
+        return n > self.threshold
+
+    def prefill_mesh_run(self, entry):
+        self.faults.raise_if("stuck_step", entry.uid)
+        self.faults.raise_if("mesh_prefill", entry.uid)
+        self.mesh_prompts.append(entry.uid)
+        if self.faults.fires("nan_logits", entry.uid) is not None:
+            return float("nan")
+        return float(entry.uid)
+
+
 class TickClock:
     """Deadlines, TTFT and TPOT in ticks."""
 
@@ -253,11 +278,12 @@ class TickClock:
         return self.t
 
 
-def _sched(pkg, eng, *, max_batch=4, chunk=8, clock=None, degrade_cfg=None, **cfg_kw):
+def _sched(pkg, eng, *, max_batch=4, chunk=8, clock=None, degrade_cfg=None, trace=None,
+           **cfg_kw):
     s = pkg.scheduler.Scheduler(
         pkg.scheduler.SchedulerConfig(max_batch=max_batch, prefill_chunk=chunk, **cfg_kw),
         clock=clock or (lambda: 0.0), faults=eng.faults,
-        degrade=pkg.degrade.DegradeConfig(**degrade_cfg) if degrade_cfg else None)
+        degrade=pkg.degrade.DegradeConfig(**degrade_cfg) if degrade_cfg else None, trace=trace)
     eng.scheduler = s
     return s
 
@@ -507,6 +533,75 @@ def test_scheduler_degrades_under_pressure_and_recovers():
     assert got["status"][5] == "failed" and got["status"].count("done") == 12
     assert got["counters"]["degraded_prefills"] == len(got["degraded"])
     assert got["counters"]["failed_fault"] == 1 and got["counters"]["step_retries"] == 3
+
+
+def _mesh_run(specs=(), threshold=8, n=3, req_kw=None, **sched_kw):
+    """``tests/test_chaos.py``'s mesh-admission scenarios: ``n`` FakeReqs
+    through a ``MeshFakeEngine``, on both packages, with the trace events
+    in the outcome (a recorder on the scheduler's constant clock)."""
+    def run(pkg):
+        eng = MeshFakeEngine(pkg, specs, threshold=threshold)
+        rec = pkg.trace.TraceRecorder(clock=lambda: 0.0)
+        sched = _sched(pkg, eng, trace=rec, **sched_kw)
+        reqs = [FakeReq(uid, **(req_kw or {})) for uid in range(n)]
+        for r in reqs:
+            sched.submit(r)
+        _drive(sched, eng)
+        return _outcome(pkg, sched, eng, reqs, mesh=eng.mesh_prompts,
+                        events=rec.to_chrome()["traceEvents"])
+    return _both(run)
+
+
+def test_mesh_prefill_one_tick_admission():
+    """A prompt past the threshold admits whole in one tick, a shorter one
+    keeps the chunked path; both drain clean."""
+    def run(pkg):
+        eng = MeshFakeEngine(pkg, threshold=8)
+        rec = pkg.trace.TraceRecorder(clock=lambda: 0.0)
+        sched = _sched(pkg, eng, chunk=4, trace=rec)
+        reqs = [FakeReq(0, n_prompt=16, max_new=3), FakeReq(1, n_prompt=16, max_new=3),
+                FakeReq(2, n_prompt=6, max_new=3)]
+        for r in reqs:
+            sched.submit(r)
+        _drive(sched, eng)
+        return _outcome(pkg, sched, eng, reqs, mesh=eng.mesh_prompts,
+                        events=rec.to_chrome()["traceEvents"])
+    got = _both(run)
+    assert got["status"] == ["done"] * 3
+    assert got["mesh"] == [0, 1]
+    assert got["counters"]["mesh_prefills"] == 2
+    instants = [e for e in got["events"] if e["name"] == "mesh_prefill"]
+    assert [(e["args"]["uid"], e["args"]["n"]) for e in instants] == [(0, 16), (1, 16)]
+
+
+def test_mesh_prefill_transient_fault_recovers():
+    """A ``mesh_prefill`` fault within the retry budget costs ticks, not the
+    request: it raises before any pool write."""
+    got = _mesh_run([dict(point="mesh_prefill", uid=1, times=2)], req_kw=dict(n_prompt=16,
+                                                                             max_new=3))
+    assert got["status"] == ["done"] * 3
+    assert got["counters"]["step_retries"] == 2
+    assert got["counters"]["mesh_prefills"] == 3
+
+
+def test_mesh_prefill_persistent_fault_fails_culprit_only():
+    got = _mesh_run([dict(point="mesh_prefill", uid=1, times=-1)], req_kw=dict(n_prompt=16,
+                                                                              max_new=3))
+    assert got["status"] == ["done", "failed", "done"]
+    assert got["counters"]["failed_fault"] == 1
+    assert 1 not in got["mesh"], "the faulted prefill reached the pool"
+
+
+@pytest.mark.parametrize("point,kw", [
+    ("mesh_prefill", dict(uid=1, times=-1)),
+    ("nan_logits", dict(uid=1, times=-1)),
+    ("stuck_step", dict(uid=1, times=-1)),
+    ("pool_exhausted", dict(uid=1, times=-1)),
+])
+def test_every_fault_reaches_terminal_under_mesh_admission(point, kw):
+    """Every prompt (8 > 4) admits through the mesh path."""
+    got = _mesh_run([dict(point=point, **kw)], threshold=4, n=4, watchdog_ticks=6)
+    assert got["counters"]["mesh_prefills"] >= 1
 
 
 def test_metrics_rows_carry_status_and_degrade_group():
