@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--out PATH]
-        [--only kernels|moe|encdec|tune|cluster|ring|mesh|mesh_serve|moe_ep]
+        [--only kernels|moe|encdec|tune|cluster|ring|mesh|mesh_serve|moe_ep|mesh_tp]
+        [--sass-against DIR]
 
 In order: prints the card's name and power limit; builds the CUDA kernels
 from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a; counts the bf16
@@ -72,9 +73,9 @@ llama4-scout-17b-a16e and of deepseek-v2-236b at full width (bf16) at
 T = 2048 and T = 4, the index dispatch of ``models/moe.py`` against the
 reference's one-hot dispatch (identical expert ids, y within MOE_TOL,
 dropped assignments counted); llama4-scout-17b-a16e at full width cut to
-8 of its 48 layers serving the serve workload on the slot engine under
+4 of its 48 layers serving the serve workload on the slot engine under
 both impls and on ``PagedServeEngine``, and deepseek-v2-236b (MLA) cut to
-its dense layer and 5 MoE layers on the slot engine under pallas_distr
+its dense layer and 2 MoE layers on the slot engine under pallas_distr
 and xla_flash, launching no attention kernel (MLA runs none, as in the
 reference); then both trained 4 steps through
 ``repro_torch.launch.train.run`` under pallas_distr with f32 params, grads
@@ -154,7 +155,7 @@ attention against the single-device one on the same layer input, and the
 whole forward (finite, its gap from the single-device forward reported).
 Four processes on one card check what the ring computes, not its speed
 across cards.  After the ring the mesh phase (``mesh_phase``): minicpm-2b
-at full width cut to 4 layers, trained 2 steps on a (data 2, model 2) mesh
+at full width cut to 4 layers, trained 1 step on a (data 2, model 2) mesh
 with FSDP and one step on a (data 1, context 2, model 2) mesh, under both
 kernel impls, each held to the single-device step from the same state
 (the reference's tolerances: loss 1e-3, every parameter 5e-3; and every
@@ -171,7 +172,16 @@ and the expert-parallel phase (``moe_ep_phase``: 2 ranks on (data 1,
 model 2), llama4-scout's MoE layer at full width under ``ep_a2a`` and
 ``ep_psum`` against one device's, and a training step at full width cut
 to 1 layer, with a planted all-to-all fault that must fail its gradient
-gate).
+gate).  Then the tensor-parallel phase (``mesh_tp_phase``: 2 ranks on
+(data 1, model 2), one training step each of mamba2-130m, zamba2-7b at
+head dim 112 cut to 12 layers, whisper-small and deepseek-v2-236b cut to 2
+layers at full width, in f32 against one device's step at the mesh phase's
+gates with one planted fault a family) and zamba2-7b's 12-layer step at
+head dim 112 on the kernels against the plain versions, in f32 and in
+bf16 (``hybrid112_train_phase``).  The backward
+kernels are checked and timed at zamba2-7b's shared-block shape too (32
+heads of 112, G* = 2), and the SASS check covers their d = 112
+instantiations.
 
 ``python3 chip_smoke.py --only moe`` builds the kernels and runs only the
 MoE phases (the check, serving and training), then prints their launches
@@ -184,7 +194,11 @@ same for ``ring_phase``; ``--only mesh`` the same for ``mesh_phase``;
 ``--only mesh_serve`` checks the forward, decode and paged kernels at
 qwen1.5-4b's shapes and runs ``mesh_serve_phase``; ``--only moe_ep``
 checks the forward kernels at llama4-scout's attention on one rank of
-"model" 2 and runs ``moe_ep_phase``.
+"model" 2 and runs ``moe_ep_phase``; ``--only mesh_tp`` runs
+``mesh_tp_phase`` and ``hybrid112_train_phase``.
+``python3 chip_smoke.py --sass-against DIR`` builds this tree's kernels and
+those of the checkout at DIR and compares the SASS of every function both
+libraries hold, instruction by instruction.
 ``python3 chip_smoke.py --serve-load slot|hybrid|paged`` runs none of the
 above: it serves one serve workload as a closed-loop load under both
 impls, the slot workload also over the fused-K̂ cache (timed passes and
@@ -197,6 +211,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import statistics
 import re
 import shutil
@@ -326,10 +341,11 @@ QWEN_SERVE = (("qwen1.5-4b", None), ("qwen2.5-32b", 8))
 # Their attention shapes for the kernel checks: (arch, query heads, KV heads).
 QWEN_KERNEL_SHAPES = (("qwen1.5-4b", 20, 20), ("qwen2.5-32b", 40, 8))
 # The MoE configs at full width: (arch, layers kept).  llama4-scout-17b-a16e
-# is 107.8 B params (215.5 GB in bf16): 8 of its 48 layers keep 19.69 B
-# (39.4 GB).  deepseek-v2-236b is 235.7 B (471.5 GB): its dense layer and 5
-# of its 59 MoE layers keep 21.25 B (42.5 GB).
-MOE_SERVE = (("llama4-scout-17b-a16e", 8), ("deepseek-v2-236b", 6))
+# is 107.8 B params (215.5 GB in bf16): 4 of its 48 layers keep ≈ 10.4 B.
+# deepseek-v2-236b is 235.7 B (471.5 GB): its dense layer and 2 of its 59
+# MoE layers keep ≈ 9.7 B.  (8 and 6 layers until the whole script neared
+# its time limit: the paged llama4 run alone took 30.6 s.)
+MOE_SERVE = (("llama4-scout-17b-a16e", 4), ("deepseek-v2-236b", 3))
 # deepseek's MLA runs no kernel under either impl, in the reference too.
 MLA_IMPLS = (("pallas_distr", None), ("xla_flash", None))
 # MoE and MLA training on the card, through launch/train.py::run (arch,
@@ -413,10 +429,10 @@ ATTN_KERNEL_NAMES = ("attn_fwd_mma_kernel", "attn_fwd_kernel", "distr_fwd_exact_
 # (LDSM) and cp.async (LDGSTS).
 TC_KERNELS = {"attn_fwd_mma_kernel": ((64,), (112,), (128,)),
               "distr_fwd_exact_kernel": ((64,), (112,), (128,)),
-              "attn_bwd_dq_mma_kernel": ((64,), (128,)),
-              "attn_bwd_dkv_mma_kernel": ((64,), (128,)),
-              "distr_bwd_dq_mma_kernel": ((64,), (128,)),
-              "distr_bwd_dkv_mma_kernel": ((64,), (128,)),
+              "attn_bwd_dq_mma_kernel": ((64,), (112,), (128,)),
+              "attn_bwd_dkv_mma_kernel": ((64,), (112,), (128,)),
+              "distr_bwd_dq_mma_kernel": ((64,), (112,), (128,)),
+              "distr_bwd_dkv_mma_kernel": ((64,), (112,), (128,)),
               "decode_mma_kernel": tuple((d, kw) for d in (64, 112, 128) for kw in (4, 2)),
               "paged_mma_kernel": tuple((d, kw) for d in (64, 112, 128) for kw in (4, 2, 1)),
               "ssd_mma_kernel": ((16, 4), (16, 8), (32, 4), (32, 8))}
@@ -580,6 +596,51 @@ def kernel_sass(build, templates, ops: dict) -> dict:
         elif fn in found and "Used" in line and "registers" in line:
             found[fn]["registers"] = int(line.split("Used")[1].split()[0])
     return found
+
+
+def sass_functions(lib) -> dict:
+    """{function name: its SASS instructions} of a built library
+    (``cuobjdump -sass``), each instruction's text without its address and
+    encoding comments; a name's anonymous-namespace hash (which nvcc draws
+    from the source's path) dropped."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], check=True, capture_output=True,
+                          text=True, timeout=300).stdout
+    out, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = re.sub(r"_GLOBAL__N__\w+?_\d+_", "_GLOBAL__N__",
+                        line.split("Function :")[1].strip())
+            out[fn] = []
+        elif fn is not None and "/*" in line:
+            text = re.sub(r"/\*[^*]*\*/", "", line).strip()
+            if text:
+                out[fn].append(text)
+    return out
+
+
+def sass_against(build, parent: Path) -> dict:
+    """Build the kernels of the checkout at ``parent`` (its own
+    ``build/kernels``) beside this tree's and compare the SASS of every
+    function the two libraries share, instruction by instruction → {"same":
+    [...], "differ": {name: (instructions here, there, positions that
+    differ)}, "only_here": [...], "only_parent": [...]}."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from repro_torch.kernels import build; print(build.build())")
+    res = subprocess.run([sys.executable, "-c", code, str(parent / "src")], check=True,
+                         capture_output=True, text=True, timeout=1200)
+    theirs = sass_functions(Path(res.stdout.strip().splitlines()[-1]))
+    ours = sass_functions(build.build())
+    out = {"same": [], "differ": {}, "only_here": sorted(set(ours) - set(theirs)),
+           "only_parent": sorted(set(theirs) - set(ours))}
+    for fn in sorted(set(ours) & set(theirs)):
+        a, b = ours[fn], theirs[fn]
+        if a == b:
+            out["same"].append(fn)
+        else:
+            out["differ"][fn] = (len(a), len(b), sum(x != y for x, y in zip(a, b))
+                                 + abs(len(a) - len(b)))
+    return out
 
 
 def tensor_core_check(build) -> dict:
@@ -838,8 +899,9 @@ def train_shape_forward(torch, flush, out: dict) -> dict:
 
 
 def backward_phase(torch, flush) -> dict:
-    """The five backward kernels at the training shape (minicpm-2b) and at
-    a GQA shape (starcoder2-7b), N = 2048, causal, bf16: each held element
+    """The five backward kernels at the training shape (minicpm-2b), at a
+    GQA shape (starcoder2-7b) and at zamba2-7b's shared-block shape (32
+    heads of 112, G* = 2), N = 2048, causal, bf16: each held element
     by element against its plain version on the same inputs (the forward
     kernels' O and LSE), timed beside it, with its bound.  The yardstick
     for flash dq and dkv is one backward of SDPA (dQ, dK, dV together),
@@ -859,7 +921,8 @@ def backward_phase(torch, flush) -> dict:
     out = {name: {"max_abs_err": 0.0} for name in names}
     shapes = []
     n = TRAIN_N
-    for label, (hq, hkv, d, g) in (("minicpm-2b", TRAIN_SHAPE), ("starcoder2-7b", GQA_SHAPE)):
+    for label, (hq, hkv, d, g) in (("minicpm-2b", TRAIN_SHAPE), ("starcoder2-7b", GQA_SHAPE),
+                                   ("zamba2-7b d=112", HYBRID_ATTN)):
         gen = torch.Generator(device="cuda").manual_seed(3)
         q, k, v, do = (torch.randn((1, h, n, d), generator=gen, device="cuda").to(torch.bfloat16)
                        for h in (hq, hkv, hkv, hq))
@@ -4353,9 +4416,10 @@ def ring_phase(torch, device="cuda", small: bool = False) -> dict:
 # the ring phase's.  One card checks what the mesh computes, not its speed.
 MESH_WORLD = RING_WORLD
 MESH_LAYERS = 4  # of minicpm-2b's 40, at full width
-# Two steps a run keep the whole script, mesh serving and expert
-# parallelism included, well inside its 1200 s limit.
-MESH_BATCH, MESH_SEQ, MESH_STEPS, MESH_LR = 2, 2048, 2, 1e-3
+# One step a run keeps the whole script, mesh serving, expert and tensor
+# parallelism included, inside its 1200 s limit (two took it to 1220 s on
+# one H100, tensor parallelism's phase 134 s of it).
+MESH_BATCH, MESH_SEQ, MESH_STEPS, MESH_LR = 2, 2048, 1, 1e-3
 MESH_SMALL_SEQ = 256
 MESH_IMPLS = ("pallas_distr", "pallas_flash")
 # The reference's own tolerances for a sharded step against the single
@@ -4799,7 +4863,7 @@ def mesh_rank(rank: int, world: int, device: str, small: bool) -> dict:
         for name, c, mesh, steps in (("data 2 × model 2, FSDP", cfg, mesh_dm, MESH_STEPS),
                                      ("data 1 × context 2 × model 2", cfg_ctx, mesh_cm, 1)):
             row[name] = mesh_train(c, mesh, steps, f"{impl} {name}", distr,
-                                   plant=not distr and steps > 1)
+                                   plant=not distr and mesh is mesh_dm)
         if distr:
             row["f32, own permutations"] = own_perms_step(
                 cfg, mesh_dm, f"{impl} data 2 × model 2, FSDP, f32, own permutations")
@@ -5739,11 +5803,570 @@ def moe_ep_phase(torch, device="cuda", small: bool = False) -> dict:
     return {"report": report, "launches": launches}
 
 
+# The tensor-parallel phase: the ssm, hybrid and enc-dec families and MLA on
+# a "model" axis (``models/mamba.py``'s Mamba-2 on its own SSM heads,
+# ``models/attention.py``'s cross-attention and MLA, ``train/train_step.py``):
+# MESH_TP_WORLD ranks sharing cuda:0 on gloo, a (data 1, model 2) mesh.  Each
+# run is (arch, layers kept or None for all, tokens, encoder frames or 0):
+# mamba2-130m whole (24 layers), zamba2-7b cut to 12 of 81 layers (its two
+# groups of 6 Mamba layers, each followed by one of the two shared attention
+# blocks; ≈ 1.6 B params), whisper-small whole (12 + 12 layers, 448 tokens
+# over 1500 frames) and deepseek-v2-236b cut to 2 layers (the dense one and
+# one MoE layer, expert parallel at MESH_TP_NODROP_CF; ≈ 5.4 B params, 20
+# GiB in f32) on 1024 tokens: at 2048 its mesh step, 10.4 GB of params and
+# as much of gradients a rank beside the plain MLA's score blocks, ran the
+# two ranks out of the card.  One row a step, in f32 compute (see
+# MESH_TP_DTYPES).  Attention runs pallas_distr (deepseek's MLA then runs
+# plain DistrAttention, no kernel, as in the reference).
+MESH_TP_WORLD = 2
+MESH_TP_RUNS = (("mamba2-130m", None, 2048, 0), ("zamba2-7b", 12, 2048, 0),
+                ("whisper-small", None, 448, 1500), ("deepseek-v2-236b", 2, 1024, 0))
+MESH_TP_SMALL_SEQ = 64
+# Under the seed weights the busiest of deepseek-v2's 160 experts takes
+# 173 (f32) and 178 (bf16) of 1024 tokens' 6144 assignments (one H100):
+# one device's capacity at MOE_EP_NODROP_CF (4) is 153, at 6 it is 230.
+# The mesh's second capacity is larger, so a drop on one device alone
+# would move the experts' gradients; the phase fails if one device drops.
+MESH_TP_NODROP_CF = 6.0
+# Seeded random weights amplify rounding at depth: on one device (CPU,
+# mamba2-130m at full width, 256 tokens) the bf16 step's gradients lie a
+# median 0.61 relative L2 from the f32 step's at 24 layers and 0.059 at 4;
+# on one H100 the tensor-parallel bf16 step lay 0.40 (mamba2-130m), 0.28
+# (zamba2-7b) and 0.011 (whisper-small) from one device's bf16 step, each
+# inside one device's own bf16-from-f32 distance (0.64, 0.63, 0.048),
+# while in f32 the two agree within 1e-4.  So the tensor-parallel steps
+# run in f32, held to MESH_TOL, MESH_GNORM_REL and MESH_GRAD_TOL; and
+# ``hybrid112_train_phase`` runs zamba2-7b's d = 112 step in both: in f32
+# at those gates, in bf16 (the tensor-core kernels) to its rounding floor,
+# the whole gradient's relative L2 from the plain step at most that of the
+# plain bf16 step from the plain f32 step.
+MESH_TP_DTYPES = ("float32", "bfloat16")
+# One fault a family, planted in one more mesh step, which the gradient
+# gate must fail: the "model" sum of out_norm's squares left out (mamba2);
+# the per-head Mamba parameters taken without take_slice's gather (zamba2);
+# the encoder output entering the cross-attention without tp_enter
+# (whisper); MLA's latent q, c_kv and rope key entering the region without
+# tp_enter (deepseek).
+MESH_TP_FAULTS = {"mamba2-130m": "out_norm squares not summed over model",
+                  "zamba2-7b": "per-head parameters without take_slice",
+                  "whisper-small": "cross-attention K/V source without tp_enter",
+                  "deepseek-v2-236b": "MLA latents without tp_enter"}
+# The kernels the mesh steps must launch on every rank, by family.
+MESH_TP_KERNELS = {"ssm": ("ssd",), "hybrid": ("ssd", "distr", "delta", "distr_dq", "distr_dkv"),
+                   "encdec": ("distr", "delta", "distr_dq", "distr_dkv"), "moe": ()}
+COUNTER_NAMES = {"flash_attention": "flash", "distr_attention": "distr", "ssd": "ssd",
+                 **{f"backward.{k}": k for k in ("delta", "flash_dq", "flash_dkv", "distr_dq",
+                                                 "distr_dkv")}}
+
+
+def mesh_tp_config(arch: str, n_layers, small: bool, dtype: str = "bfloat16"):
+    """The config a MESH_TP_RUNS entry trains: full width (``reduced()``
+    when ``small``) cut to ``n_layers``, computed in ``dtype``, attention
+    under pallas_distr, a MoE config at MESH_TP_NODROP_CF with
+    ``router_aux_weight`` 0 (the mesh's expert-parallel aux loss is the
+    shards' own)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch, reduced=small).replace(compute_dtype=dtype)
+    if n_layers and not small:
+        cfg = cfg.replace(n_layers=n_layers)
+    if cfg.family != "ssm":
+        cfg = cfg.replace(attention=cfg.attention.with_impl("pallas_distr"))
+    if cfg.n_experts:
+        cfg = cfg.replace(capacity_factor=MESH_TP_NODROP_CF, router_aux_weight=0.0)
+    return cfg
+
+
+def mesh_tp_rank(rank: int, world: int, device: str, small: bool) -> dict:
+    """One rank of ``mesh_tp_phase``, spawned by ``launch.mesh.run_world``;
+    see there.  Returns this rank's launches on the sound mesh steps, its
+    peak allocation and, on rank 0, every reading."""
+    import contextlib
+    import importlib
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import init_train_params
+    from repro_torch.models import attention, lm, moe
+    from repro_torch.serve.graphs import LaunchCounters
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import leaf_specs, make_train_step, mesh_specs
+
+    core_distr = importlib.import_module("repro_torch.core.distr_attention")
+    cuda = device == "cuda"
+    # Two ranks near the card's size: blocks that grow in place, so
+    # fragments do not strand gigabytes (read at the allocator's first use).
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    if cuda:
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)
+    lead = rank == 0
+    mesh = make_host_mesh(model_parallel=world)
+    m_idx = int(mesh.coords["model"])
+    counters = LaunchCounters()
+    ocfg = opt.OptimizerConfig(peak_lr=MESH_LR, warmup_steps=0, total_steps=10)
+    failures, readings = [], []
+    sink = {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def free():
+        gc.collect()
+        sync()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # The single device's LSH permutations (both stage-1 entry points: the
+    # kernels' ``ops.distr_stage1`` and MLA's plain DistrAttention) and
+    # expert ids, recorded, then replayed in the mesh step: both are
+    # discontinuous functions of their inputs, which the mesh's bf16
+    # products (column slices, row-parallel sums) move by an ulp here and
+    # there.  A replayed permutation is this rank's heads of the recorded
+    # one; replayed ids are this rank's tokens (data 1: expert parallelism
+    # splits the one row's sequence over "model").
+    tape = {"perms": [], "ids": [], "replay": False, "at_p": 0, "at_i": 0, "same": 0,
+            "total": 0}
+    real_perms, real_route = core_distr.block_permutations, moe.route
+
+    def taped_perms(qp, dcfg, proj, hkv):
+        perms = real_perms(qp, dcfg, proj, hkv)
+        if not tape["replay"]:
+            tape["perms"].append(perms.cpu())
+            return perms
+        want = tape["perms"][tape["at_p"]]
+        tape["at_p"] += 1
+        h = perms.shape[1]
+        want = want[:, m_idx * h:(m_idx + 1) * h] if want.shape[1] != h else want
+        want = want.to(perms.device)
+        eq = (perms == want).all(dim=-1)
+        tape["same"] += int(eq.sum())
+        tape["total"] += eq.numel()
+        return want
+
+    def taped_route(router_w, x_flat, cfg_, **kw):
+        weights, ids, aux = real_route(router_w, x_flat, cfg_, **kw)
+        if not tape["replay"]:
+            tape["ids"].append(ids.detach().cpu())
+            return weights, ids, aux
+        t = x_flat.shape[0]
+        want = tape["ids"][tape["at_i"]][m_idx * t:(m_idx + 1) * t].to(ids.device)
+        tape["at_i"] += 1
+        probs = torch.softmax(x_flat.float() @ router_w.float(), dim=-1)
+        weights = probs.gather(-1, want)
+        return weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9), want, aux
+
+    def record(leaves, grads, state, cfg_, lr):  # keeps the clipped gradients, no update
+        sink["grads"] = grads
+        return leaves, state
+
+    @contextlib.contextmanager
+    def swapped(obj, name, value):
+        real = getattr(obj, name)
+        setattr(obj, name, value)
+        try:
+            yield
+        finally:
+            setattr(obj, name, real)
+
+    def planted(arch):
+        """The context that plants ``arch``'s MESH_TP_FAULTS entry."""
+        if arch == "mamba2-130m":
+            return swapped(coll, "sum_dp", lambda x, mesh_, axes: x)
+        if arch == "zamba2-7b":
+            return swapped(coll, "take_slice",
+                           lambda x, mesh_, axis, dim: coll._own_slice(x, mesh_, axis, dim))
+        if arch == "whisper-small":
+            enc, real_encode, real_enter = {}, lm.encode, coll.tp_enter
+
+            def encode(*a, **k):
+                enc["out"] = real_encode(*a, **k)
+                return enc["out"]
+
+            def enter(x, mesh_, axis="model"):
+                return x if x is enc.get("out") else real_enter(x, mesh_, axis)
+
+            stack = contextlib.ExitStack()
+            stack.enter_context(swapped(lm, "encode", encode))
+            stack.enter_context(swapped(coll, "tp_enter", enter))
+            return stack
+        real_qkv = attention._mla_qkv
+        return swapped(attention, "_mla_qkv", lambda p, x, c, pos, h=None, mesh_=None:
+                       real_qkv(p, x, c, pos, h, None))
+
+    def steps(cfg, batch, mesh_specs_, lspecs, arch):
+        """The single device's step (each rank in turn draws the seed
+        weights, takes it and keeps its slices of the clipped gradients on
+        its host, then keeps its own shards: the two ranks never hold the
+        whole model at once), then the mesh step, sound and with ``arch``'s
+        fault planted → (one device's metrics, its gradient slices, [(the
+        mesh's metrics, its gradients, seconds, launches)] sound first)."""
+        tape.update(perms=[], ids=[], replay=False)
+        m1 = want = params = None
+        for turn in range(world):
+            if turn == rank:
+                full = init_train_params(cfg, seed=0, device=device)
+                _, _, m1 = make_train_step(cfg, ocfg)(full, {"count": 0}, batch, 0)
+                want = [sharding.local_slice(g, mesh, sp).cpu()
+                        for g, sp in zip(sink.pop("grads"), lspecs)]
+                with torch.no_grad():  # the step made the full leaves require grad
+                    params = sharding.shard_params(full, mesh, mesh_specs_)
+                del full
+                free()
+            dist.barrier()
+        step = make_train_step(cfg, ocfg, mesh)
+        runs = []
+        for fault in (False, True):
+            tape.update(replay=True, at_p=0, at_i=0, same=0, total=0)
+            sync()
+            before = counters.read()
+            t0 = time.perf_counter()
+            with planted(arch) if fault else contextlib.nullcontext():
+                _, _, m = step(params, {"count": 0}, batch, 0)
+            sync()
+            step_s = time.perf_counter() - t0
+            after = counters.read()
+            if tape["at_p"] != len(tape["perms"]) or tape["at_i"] != len(tape["ids"]):
+                failures.append(f"{cfg.name} {cfg.compute_dtype}: the mesh step drew "
+                                f"{tape['at_p']} permutations and {tape['at_i']} routings "
+                                f"against the single device's {len(tape['perms'])} and "
+                                f"{len(tape['ids'])}")
+            runs.append(({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                          "perms_alike": [tape["same"], tape["total"]]},
+                         sink.pop("grads"), step_s,
+                         {COUNTER_NAMES[k]: after[k] - before[k]
+                          for k in COUNTER_NAMES if after[k] != before[k]}))
+        del params, step
+        return {"loss": float(m1["loss"]), "grad_norm": float(m1["grad_norm"])}, want, runs
+
+    def leaf_stats(got, want, lspecs, scale=None):
+        """Per leaf: largest |got − want|, Σ (got − want)², largest |want|,
+        Σ want², over this rank's slices (a replicated leaf counted on rank
+        0 only), summed or maxed over the ranks."""
+        out = torch.zeros((len(lspecs), 4), dtype=torch.float64)
+        for i, (g, w, sp) in enumerate(zip(got, want, lspecs)):
+            w = w.to(device).float()
+            d = g.to(device).float() - w
+            own = bool(sharding.spec_axes(sp)) or lead
+            out[i] = torch.tensor([float(d.abs().max()), float(d.square().sum()) if own else 0.0,
+                                   float(w.abs().max()), float(w.square().sum()) if own else 0.0],
+                                  dtype=torch.float64)
+            del d, w
+        top = out[:, [0, 2]].clone()
+        dist.all_reduce(top, op=dist.ReduceOp.MAX)
+        dist.all_reduce(out)
+        out[:, [0, 2]] = top
+        return out
+
+    def grad_share(arch, label, stats, names):
+        """The worst leaf's share of MESH_GRAD_TOL → (share, leaf)."""
+        worst, at = 0.0, None
+        for i, name in enumerate(names):
+            dmax, dsq, wmax, wsq = (float(v) for v in stats[i])
+            emax, el2 = dmax / max(wmax, 1e-30), (dsq / max(wsq, 1e-60)) ** 0.5
+            share = max(emax / MESH_GRAD_TOL["max"], el2 / MESH_GRAD_TOL["l2"])
+            readings.append({"check": f"{arch} {label} gradient {name}", "max": emax, "l2": el2})
+            if share > worst:
+                worst, at = share, name
+        log(f"  [mesh tp] {arch} {label} gradients over {len(names)} leaves: the worst, {at}, "
+            f"at {worst:.3g} of MESH_GRAD_TOL {MESH_GRAD_TOL}")
+        return worst, at
+
+    def run(arch, n_layers, seq, frames):
+        t_arch = time.perf_counter()
+        cfg = mesh_tp_config(arch, n_layers, small, "float32")
+        if small:
+            seq = MESH_TP_SMALL_SEQ
+            frames = cfg.cross_len if frames else 0
+        gen = torch.Generator(device=device).manual_seed(7)
+        toks = torch.randint(0, cfg.vocab, (1, seq + 1), generator=gen, device=device)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if frames:
+            batch["frames"] = torch.randn((1, frames, cfg.d_model), generator=gen, device=device)
+        specs = mesh_specs(cfg, mesh)
+        shapes = lm.param_shapes(cfg)
+        lspecs = leaf_specs(shapes, specs)
+        names = [n for n, _ in lm.named_trainable(shapes)]
+        one, want, runs = steps(cfg, batch, specs, lspecs, arch)
+        (m, got, step_s, counts), planted_run = runs
+        out = {"n_params": sum(t.numel() for t in lm.trainable(shapes)), "layers": cfg.n_layers,
+               "tokens": seq, "frames": frames, "one": one, "mesh": m, "mesh_step_s": step_s,
+               "launches": counts, "planted_loss": planted_run[0]["loss"]}
+        if cfg.n_experts:
+            # The single device's expert loads against its capacity (the
+            # mesh's second capacity is larger): a drop on one side only
+            # would move the experts' gradients.
+            load = max(int(torch.bincount(ids.reshape(-1), minlength=cfg.n_experts).max())
+                       for ids in tape["ids"])
+            out["expert_load"] = [load, moe.capacity(cfg, seq)]
+            if lead:
+                log(f"  [mesh tp] {arch}: the busiest expert takes {load} of {seq} tokens' "
+                    f"assignments; one device's capacity {moe.capacity(cfg, seq)}")
+            if load > moe.capacity(cfg, seq):
+                failures.append(f"{arch}: one device drops assignments (an expert takes {load}, "
+                                f"capacity {moe.capacity(cfg, seq)})")
+        stats = leaf_stats(got, want, lspecs)
+        planted_stats = leaf_stats(planted_run[1], want, lspecs)
+        del runs, got, planted_run, want
+        free()
+        if lead:
+            loss_err = abs(m["loss"] - one["loss"])
+            gnorm_err = abs(m["grad_norm"] - one["grad_norm"]) / one["grad_norm"]
+            for label, value, tol in (("loss", loss_err, MESH_TOL["loss"]),
+                                      ("grad norm", gnorm_err, MESH_GNORM_REL)):
+                readings.append({"check": f"{arch} step {label}", "value": value, "tol": tol})
+                log(f"  [mesh tp] {arch} step {label}: {value:.4g} (tolerance {tol}); "
+                    f"{value / tol:.3g} of it")
+                if not value <= tol:
+                    failures.append(f"{arch} step {label}: {value} against {tol}")
+            share, at = grad_share(arch, "step", stats, names)
+            p_share, p_at = grad_share(arch, f"step, planted ({MESH_TP_FAULTS[arch]})",
+                                       planted_stats, names)
+            if not share <= 1.0:
+                failures.append(f"{arch} step gradient {at}: {share:.3g} of MESH_GRAD_TOL")
+            if not p_share > 1.0:
+                failures.append(f"{arch}: the planted fault ({MESH_TP_FAULTS[arch]}) passed the "
+                                f"gradient gate ({p_share:.3g} of MESH_GRAD_TOL)")
+            out.update(loss_err=loss_err, grad_norm_rel_err=gnorm_err, grad_share=share,
+                       worst_leaf=at, planted=MESH_TP_FAULTS[arch], planted_share=p_share,
+                       planted_worst_leaf=p_at)
+            log(f"[mesh tp] {arch} ({out['n_params']} params, {cfg.n_layers} layers): loss "
+                f"{m['loss']!r} (mesh) vs {one['loss']!r} (one device), grad norm "
+                f"{m['grad_norm']!r} vs {one['grad_norm']!r}; the mesh step {step_s:.2f} s; "
+                f"{m['perms_alike'][0]} of {m['perms_alike'][1]} replayed permutations the mesh "
+                f"drew alike; launches on rank 0 {counts}; the planted fault fails the gradient "
+                f"gate {p_share:.3g}× over")
+        out["seconds"] = time.perf_counter() - t_arch
+        if lead:
+            log(f"[mesh tp] {arch}: {out['seconds']:.1f} s")
+        return out
+
+    report, launches = {}, {}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with swapped(ops, "block_permutations", taped_perms), \
+            swapped(core_distr, "block_permutations", taped_perms), \
+            swapped(moe, "route", taped_route), swapped(opt, "adamw_update", record):
+        for arch, n_layers, seq, frames in MESH_TP_RUNS:
+            report[arch] = run(arch, n_layers, seq, frames)
+            launches[arch] = report[arch].pop("launches")
+            family = mesh_tp_config(arch, n_layers, small).family
+            silent = [k for k in MESH_TP_KERNELS[family] if not launches[arch].get(k)]
+            if cuda and silent:
+                failures.append(f"rank {rank}: {arch}'s mesh step never launched {silent}")
+            dist.barrier()
+    sync()
+    dist.barrier()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"rank": rank, "launches": launches,
+            "peak_allocated": torch.cuda.max_memory_allocated() if cuda else 0,
+            **({"report": report, "readings": readings} if lead else {})}
+
+
+def mesh_tp_phase(torch, device="cuda", small: bool = False) -> dict:
+    """Tensor parallelism over "model" for the ssm, hybrid and enc-dec
+    families and MLA, on MESH_TP_WORLD ranks spawned as processes that share
+    the card, a (data 1, model 2) mesh over gloo.  For each of MESH_TP_RUNS
+    (``mesh_tp_rank``): a training step at full width (f32 params and
+    compute, full remat, one row; ``reduced()`` configs and
+    MESH_TP_SMALL_SEQ tokens when ``small``) through
+    ``train.train_step.make_train_step(mesh=)`` from this rank's shards of
+    the seed weights, held to the single device's step from the same seed
+    and batch (each rank takes it in turn and keeps its slices of the
+    clipped gradients on its host; AdamW swapped for a recorder, so no
+    moments are allocated; one device's LSH permutations and expert ids
+    replayed): loss within MESH_TOL, grad norm within MESH_GNORM_REL, every
+    gathered leaf's clipped gradient within MESH_GRAD_TOL; then one more
+    mesh step with the family's MESH_TP_FAULTS entry planted, which must
+    fail that gradient gate.  Raises on any failure, when one device drops
+    an expert assignment, when a mesh step did not launch its family's
+    MESH_TP_KERNELS on some rank, and when the card's memory is not back."""
+    from repro_torch.launch.mesh import run_world
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    reports = run_world(mesh_tp_rank, MESH_TP_WORLD, device, small, timeout_s=900)
+    wall = time.perf_counter() - t0
+    gap = _free_gap(torch, free0, "the tensor-parallel phase") if cuda else 0
+    launches = dict.fromkeys(COUNTER_NAMES.values(), 0)
+    for r in reports:
+        for counts in r["launches"].values():
+            for name, n in counts.items():
+                launches[name] += n
+    report = {"runs": reports[0]["report"], "readings": reports[0]["readings"], "wall_s": wall,
+              "free_gap_bytes": gap, "launches": launches,
+              "launches_by_rank": [r["launches"] for r in reports],
+              "peak_allocated_by_rank": [r["peak_allocated"] for r in reports]}
+    log(f"[mesh tp] phase {wall:.1f} s; launches {launches}; peak allocated by rank "
+        f"{[round(r['peak_allocated'] / 2**30, 2) for r in reports]} GiB")
+    return {"report": report, "launches": launches}
+
+
+def hybrid112_train_phase(torch, device="cuda", small: bool = False) -> dict:
+    """zamba2-7b at its own widths (head dim 112) cut to 12 layers, as
+    MESH_TP_RUNS has it, one training step on one device under
+    pallas_distr (f32 params, full remat, 1 × 2048 tokens; ``reduced()``
+    and MESH_TP_SMALL_SEQ when ``small``) on the kernels, then the same step
+    with every kernel wrapper it reaches swapped for its plain version (the
+    kernel step's LSH permutations replayed), in each of MESH_TP_DTYPES.
+    The f32 steps (the FMA kernels) are held to each other at MESH_TOL,
+    MESH_GNORM_REL and MESH_GRAD_TOL; the bf16 steps (the tensor-core
+    kernels) to their rounding floor, as in MESH_TP_DTYPES' note: the whole
+    gradient's relative L2 between them at most that of the plain bf16
+    step from the plain f32 step.  Raises on a failure, or when a kernel
+    step did not launch the DistrAttention forward and backward kernels and
+    the SSD kernel, or a plain step launched any."""
+    from repro_torch.kernels import backward as bwd
+    from repro_torch.kernels import distr_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd as sk
+    from repro_torch.launch.train import init_train_params
+    from repro_torch.models import lm
+    from repro_torch.serve.graphs import LaunchCounters
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+
+    seq = MESH_TP_SMALL_SEQ if small else 2048
+    gen = torch.Generator(device=device).manual_seed(9)
+    ocfg = opt.OptimizerConfig(peak_lr=MESH_LR, warmup_steps=0, total_steps=10)
+    counters = LaunchCounters()
+    real_perms, real_update = ops.block_permutations, opt.adamw_update
+    tape = {"perms": [], "at": None}
+    sink = {}
+
+    def taped_perms(qp, dcfg, proj, hkv):
+        if tape["at"] is None:
+            tape["perms"].append(real_perms(qp, dcfg, proj, hkv))
+            return tape["perms"][-1]
+        tape["at"] += 1
+        return tape["perms"][tape["at"] - 1]
+
+    def record(leaves, grads, state, cfg_, lr):  # kept on the card: compared there
+        sink["grads"] = [g.detach().clone() for g in grads]
+        return leaves, state
+
+    plain = {(ops, "flash_attention_kernel_call"): fk.flash_attention_plain,
+             (ops, "distr_attention_kernel_call"): dk.distr_attention_plain,
+             (ops, "ssd_kernel_call"): sk.ssd_plain,
+             **{(bwd, f"{name}_kernel_call"): getattr(bwd, f"{name}_plain")
+                for name in ("delta", "flash_dq", "flash_dkv", "distr_dq", "distr_dkv")}}
+    real = {key: getattr(*key) for key in plain}
+    runs = {}
+    ops.block_permutations = taped_perms
+    opt.adamw_update = record
+    toks = torch.randint(0, mesh_tp_config("zamba2-7b", 12, small).vocab, (1, seq + 1),
+                         generator=gen, device=device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    try:
+        for dtype in MESH_TP_DTYPES:
+            cfg = mesh_tp_config("zamba2-7b", 12, small, dtype)
+            tape.update(perms=[], at=None)
+            for route in ("kernels", "plain"):
+                if route == "plain":
+                    tape["at"] = 0
+                for (mod, name), fn in (plain if route == "plain" else real).items():
+                    setattr(mod, name, fn)
+                params = init_train_params(cfg, seed=0, device=device)
+                before = counters.read()
+                t0 = time.perf_counter()
+                _, _, m = make_train_step(cfg, ocfg)(params, {"count": 0}, batch, 0)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                after = counters.read()
+                runs[route, dtype] = {
+                    "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                    "grads": sink.pop("grads"), "seconds": time.perf_counter() - t0,
+                    "launches": {COUNTER_NAMES[k]: after[k] - before[k]
+                                 for k in COUNTER_NAMES if after[k] != before[k]}}
+                if route == "plain" and tape["at"] != len(tape["perms"]):
+                    raise AssertionError(f"zamba2-7b d=112 {dtype}: the plain step drew "
+                                         f"{tape['at']} permutations against the kernel "
+                                         f"step's {len(tape['perms'])}")
+                del params, m
+                gc.collect()
+                if device == "cuda":
+                    torch.cuda.empty_cache()
+    finally:
+        ops.block_permutations, opt.adamw_update = real_perms, real_update
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+    names = [n for n, _ in lm.named_trainable(lm.param_shapes(cfg))]
+
+    def compare(got, want):
+        """(worst share of MESH_GRAD_TOL, its leaf, the whole gradient's
+        relative L2)."""
+        worst, at, dsq, wsq = 0.0, None, 0.0, 0.0
+        for name, g, w in zip(names, got, want):
+            d = g.float() - w.float()
+            emax = float(d.abs().max() / w.float().abs().max().clamp_min(1e-30))
+            el2 = float(d.norm() / w.float().norm().clamp_min(1e-30))
+            dsq, wsq = dsq + float(d.square().sum()), wsq + float(w.float().square().sum())
+            share = max(emax / MESH_GRAD_TOL["max"], el2 / MESH_GRAD_TOL["l2"])
+            if share > worst:
+                worst, at = share, name
+        return worst, at, (dsq / max(wsq, 1e-60)) ** 0.5
+
+    failures, report = [], {"head_dim": cfg.head_dim_, "layers": cfg.n_layers, "tokens": seq}
+    for dtype in MESH_TP_DTYPES:
+        got, want = runs["kernels", dtype], runs["plain", dtype]
+        share, at, l2 = compare(got["grads"], want["grads"])
+        row = report[dtype] = {
+            "loss": got["loss"], "plain_loss": want["loss"], "grad_norm": got["grad_norm"],
+            "plain_grad_norm": want["grad_norm"], "loss_err": abs(got["loss"] - want["loss"]),
+            "grad_norm_rel_err": abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"],
+            "grad_share": share, "worst_leaf": at, "whole_l2": l2, "seconds": got["seconds"],
+            "plain_seconds": want["seconds"], "launches": got["launches"]}
+        if dtype == "float32":
+            for label, value, tol in (("loss", row["loss_err"], MESH_TOL["loss"]),
+                                      ("grad norm", row["grad_norm_rel_err"], MESH_GNORM_REL),
+                                      ("gradients", share, 1.0)):
+                if not value <= tol:
+                    failures.append(f"zamba2-7b d=112 f32 kernels vs plain {label}: {value} "
+                                    f"against {tol}")
+        else:
+            row["floor_l2"] = compare(want["grads"], runs["plain", "float32"]["grads"])[2]
+            if not l2 <= row["floor_l2"]:
+                failures.append(f"zamba2-7b d=112 bf16 kernels vs plain: the whole gradient "
+                                f"{l2} relative L2, past its floor {row['floor_l2']}")
+        if device == "cuda":
+            silent = [k for k in MESH_TP_KERNELS["hybrid"] if not got["launches"].get(k)]
+            if silent or any(want["launches"].values()):
+                failures.append(f"zamba2-7b d=112 {dtype}: the kernel step never launched "
+                                f"{silent}, or the plain step launched {want['launches']}")
+        log(f"[hybrid d=112] zamba2-7b {dtype}, {cfg.n_layers} layers, head dim {cfg.head_dim_}: "
+            f"loss {got['loss']!r} (kernels) vs {want['loss']!r} (plain), grad norm "
+            f"{got['grad_norm']!r} vs {want['grad_norm']!r}; the worst leaf {at} at "
+            f"{share:.3g} of MESH_GRAD_TOL; the whole gradient {l2:.4g} relative L2"
+            + (f" (floor {row['floor_l2']:.4g})" if "floor_l2" in row else "")
+            + f"; steps {got['seconds']:.2f} s and {want['seconds']:.2f} s; launches "
+            f"{got['launches']}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    launches: dict = {}
+    for dtype in MESH_TP_DTYPES:
+        for name, n in runs["kernels", dtype]["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    return {"report": report, "launches": launches}
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="also write the results as JSON here")
     ap.add_argument("--only", choices=("kernels", "moe", "encdec", "tune", "cluster", "ring",
-                                       "mesh", "mesh_serve", "moe_ep"),
+                                       "mesh", "mesh_serve", "moe_ep", "mesh_tp"),
                     default=None,
                     help="kernels: stop after the kernel phases; moe: run only the MoE "
                          "check and the MoE configs' serving; encdec: run only the "
@@ -5756,7 +6379,14 @@ def main() -> int:
                          "the card); mesh_serve: the qwen1.5-4b kernel checks, then serving "
                          "over a context mesh (2 ranks sharing the card); moe_ep: the "
                          "llama4-scout forward kernel check, then MoE expert parallelism "
-                         "(2 ranks sharing the card); each prints a JSON summary")
+                         "(2 ranks sharing the card); mesh_tp: tensor parallelism for the "
+                         "ssm, hybrid and enc-dec families and MLA (2 ranks sharing the "
+                         "card), then zamba2-7b's step at head dim 112 on the kernels "
+                         "against the plain versions; each prints a JSON summary")
+    ap.add_argument("--sass-against", default=None, metavar="DIR",
+                    help="only build this tree's kernels and those of the checkout at DIR "
+                         "(a parent commit, say) and compare the SASS of every function "
+                         "both libraries hold, instruction by instruction")
     ap.add_argument("--serve-load", choices=("slot", "paged", "hybrid"), default=None,
                     help="only serve this workload as a closed-loop load under both impls "
                          "(timed passes and the device's busy share), no checks")
@@ -5772,6 +6402,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
 
+    t_start = time.perf_counter()
+
+    def stamp(what: str) -> None:
+        # Where the script's time goes: its 1200 s limit binds.
+        log(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s")
+
     card = gpu_name_and_power()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
@@ -5781,6 +6417,19 @@ def main() -> int:
     t0 = time.perf_counter()
     build.lib()
     log(f"[build] kernels ready in {time.perf_counter() - t0:.1f}s")
+    if args.sass_against:
+        diff = sass_against(build, Path(args.sass_against).resolve())
+        for fn in diff["same"]:
+            log(f"[sass] same: {fn}")
+        for fn, (here, there, changed) in diff["differ"].items():
+            log(f"[sass] differs: {fn}: {here} instructions here, {there} there, "
+                f"{changed} positions differ")
+        log(f"[sass] only here: {diff['only_here']}")
+        log(f"[sass] only in {args.sass_against}: {diff['only_parent']}")
+        log(card)
+        print(json.dumps({"same": len(diff["same"]), "differ": sorted(diff["differ"]),
+                          "only_here": diff["only_here"]}), flush=True)
+        return 0
     if args.serve_load:
         load = serve_load(torch, args.serve_load)
         if args.out:
@@ -5855,6 +6504,20 @@ def main() -> int:
                                                  indent=1))
         log(card)
         print(json.dumps({"launches": {"mesh": meshed["launches"]}}), flush=True)
+        return 0
+    if args.only == "mesh_tp":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        tp = mesh_tp_phase(torch)
+        h112 = hybrid112_train_phase(torch)
+        free_card(torch, "zamba2-7b's step at head dim 112", gate=False)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps({"card": card, "mesh_tp": tp["report"],
+                                                  "hybrid_d112": h112["report"]}, indent=1))
+        log(card)
+        print(json.dumps({"launches": {"mesh_tp": tp["launches"],
+                                       "hybrid_d112": h112["launches"]}}), flush=True)
         return 0
     if args.only in ("mesh_serve", "moe_ep"):
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -5963,24 +6626,30 @@ def main() -> int:
                "noncausal": nc["shapes"], "encdec_decode": enc_dec["shapes"]}
     launches = {"flash": 0, "distr": 0, "decode": 0, "paged": 0, "ssd": 0,
                 **dict.fromkeys(back, 0)}
+    stamp("kernel checks")
     if args.only != "kernels":
         serve_launches, params, serve_tokens = serve_phase(torch)
+        stamp("serve")
         launches.update(serve_launches)
         paged = paged_serve_phase(torch, params)
+        stamp("paged serve")
         results["paged_serve"] = paged["report"]
         for name, count in paged["launches"].items():
             launches[name] += count
         fused = fused_slot_phase(torch, params, serve_tokens["pallas_distr"])
         results["fused_slot"] = fused
         chaos = chaos_phase(torch, params)
+        stamp("chaos")
         results["chaos"] = chaos["report"]
         traced = trace_phase(torch, params)
         results["trace"] = traced["report"]
         tuned = tune_phase(torch, params)
+        stamp("tune")
         results["tune"] = tuned["report"]
         dec["max_abs_err"] = max(dec["max_abs_err"], tuned["report"]["max_abs_err"]["decode"])
         pdec["max_abs_err"] = max(pdec["max_abs_err"], tuned["report"]["max_abs_err"]["paged"])
         clustered = cluster_phase(torch, params)
+        stamp("cluster")
         results["cluster"] = clustered["report"]
         del params
         free_card(torch, "starcoder2-7b serving")
@@ -5995,6 +6664,7 @@ def main() -> int:
                 launches[name] += count
         results["scores"]["qwen1.5-4b layer 0"] = results["qwen1.5-4b serve"].pop("scores")
         moe = moe_phases(torch)
+        stamp("moe")
         results.update(moe["results"])
         for name, count in moe["launches"].items():
             launches[name] += count
@@ -6004,6 +6674,7 @@ def main() -> int:
             for name, count in res["launches"].items():
                 launches[name] += count
         hybrid = hybrid_serve_phase(torch)
+        stamp("hybrid serve")
         results["hybrid_serve"] = hybrid["report"]
         for name, count in hybrid["launches"].items():
             launches[name] += count
@@ -6012,25 +6683,40 @@ def main() -> int:
         mamba = mamba_train_phase(torch)
         results["train_mamba2_130m"] = mamba["report"]
         encdec_train = encdec_train_phase(torch)
+        stamp("training")
         results["train_encdec_vlm"] = encdec_train["report"]
         robust = train_robustness_phase(torch)
+        stamp("robustness")
         results["train_robustness"] = robust["report"]
         supervised = supervisor_phase(torch)
+        stamp("supervisor")
         results["supervisor"] = supervised["report"]
         free_card(torch, "the supervisor phase", gate=False)
         ringed = ring_phase(torch)
+        stamp("ring")
         results["ring"] = ringed["report"]
         meshed = mesh_phase(torch)
+        stamp("mesh")
         results["mesh"] = meshed["report"]
         mesh_served = mesh_serve_phase(torch)
+        stamp("mesh serve")
         results["mesh_serve"] = mesh_served["report"]
         moe_ep = moe_ep_phase(torch)
+        stamp("moe ep")
         results["moe_ep"] = moe_ep["report"]
+        mesh_tp = mesh_tp_phase(torch)
+        stamp("mesh tp")
+        results["mesh_tp"] = mesh_tp["report"]
+        h112 = hybrid112_train_phase(torch)
+        stamp("hybrid d=112 step")
+        results["hybrid_d112"] = h112["report"]
+        free_card(torch, "zamba2-7b's step at head dim 112", gate=False)
         for name, count in (*train["launches"].items(), *mamba["launches"].items(),
                             *encdec_train["launches"].items(),
                             *robust["launches"].items(), *supervised["launches"].items(),
                             *ringed["launches"].items(), *meshed["launches"].items(),
-                            *mesh_served["launches"].items(), *moe_ep["launches"].items()):
+                            *mesh_served["launches"].items(), *moe_ep["launches"].items(),
+                            *mesh_tp["launches"].items(), *h112["launches"].items()):
             launches[name] += count
 
     csrc = "src/repro_torch/kernels/csrc"

@@ -123,7 +123,7 @@ def _check_flash(q, k, v, do, lse, delta, q_per_kv, kv_len):
     build.require_cuda(q, k, v, do, lse, delta)
     bhq, n, d = q.shape
     bhkv, nk, dv = v.shape
-    if (bhq != bhkv * q_per_kv or k.shape != v.shape or dv != d or d not in (64, 128)
+    if (bhq != bhkv * q_per_kv or k.shape != v.shape or dv != d or d not in (64, 112, 128)
             or do.shape != q.shape or lse.shape != (bhq, n) or delta.shape != (bhq, n)):
         raise ValueError(f"flash backward shapes q={tuple(q.shape)} k={tuple(k.shape)} "
                          f"do={tuple(do.shape)} lse={tuple(lse.shape)}")
@@ -237,7 +237,7 @@ def _check_distr(q_hat, k, v, perm, do, lse, delta, q_per_kv, group_size, block_
     bhq, n, dg = q_hat.shape
     bhkv, nk, d = k.shape
     if (bhq != bhkv * q_per_kv or k.shape != v.shape or dg * group_size != d or dg % 4
-            or group_size < 2 or d not in (64, 128) or n % block_q or block_q % ROW_TILE
+            or group_size < 2 or d not in (64, 112, 128) or n % block_q or block_q % ROW_TILE
             or perm.shape != (bhq, n // block_q, d) or do.shape != (bhq, n, d)
             or lse.shape != (bhq, n) or delta.shape != (bhq, n)):
         raise ValueError(

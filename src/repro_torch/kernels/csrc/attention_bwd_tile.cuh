@@ -274,7 +274,7 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dkv_kernel(BwdArgs a) {
   extern __shared__ __align__(16) float smem[];
   constexpr int DSMAX = DISTR ? DV / 2 : DV;  // distr: G* >= 2 (the wrapper checks)
   constexpr int OJS = (DSMAX + 31) / 32;  // float4 chunks of a dK (dK̂) row per thread
-  constexpr int OJV = DV / 32;            // float4 chunks of a dV row per thread
+  constexpr int OJV = (DV + 31) / 32;     // float4 chunks of a dV row per thread
   const int ds = a.ds;
   float* sKt = smem;                      // [ds][PAD64]  K or K̂, transposed
   float* sVt = sKt + ds * PAD64;          // [DV][PAD64]
@@ -426,6 +426,9 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dkv_kernel(BwdArgs a) {
       const float4 dsv = ld4(sdS + i * PAD64 + r * 4);
 #pragma unroll
       for (int jj = 0; jj < OJV; ++jj) {
+        if constexpr (DV % 32 != 0) {  // d = 112: the last chunk is half of the threads'
+          if (jj * 32 + c * 4 >= DV) continue;
+        }
         const float4 ob = ld4(sdO + i * DV + jj * 32 + c * 4);
 #pragma unroll
         for (int jk = 0; jk < 4; ++jk) {
@@ -480,6 +483,9 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dkv_kernel(BwdArgs a) {
     float* dvrow = a.dv + ((size_t)bh * a.nk + key) * DV;
 #pragma unroll
     for (int jj = 0; jj < OJV; ++jj) {
+      if constexpr (DV % 32 != 0) {
+        if (jj * 32 + c * 4 >= DV) continue;
+      }
       *reinterpret_cast<float4*>(dvrow + jj * 32 + c * 4) = make_float4(
           accv[jk][jj * 4], accv[jk][jj * 4 + 1], accv[jk][jj * 4 + 2], accv[jk][jj * 4 + 3]);
     }
@@ -487,6 +493,9 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dkv_kernel(BwdArgs a) {
       float* dkrow = a.dk + ((size_t)bh * a.nk + key) * DV;
 #pragma unroll
       for (int jj = 0; jj < OJS; ++jj) {
+        if constexpr (DV % 32 != 0) {
+          if (jj * 32 + c * 4 >= DV) continue;
+        }
         *reinterpret_cast<float4*>(dkrow + jj * 32 + c * 4) =
             make_float4(acck[jk][jj * 4] * a.scale, acck[jk][jj * 4 + 1] * a.scale,
                         acck[jk][jj * 4 + 2] * a.scale, acck[jk][jj * 4 + 3] * a.scale);

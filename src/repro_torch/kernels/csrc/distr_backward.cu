@@ -28,6 +28,7 @@ static int distr_bwd(const rt::BwdArgs& a, void* q_tilde, int dtype, int d, int 
   if (dtype == rt::DTYPE_BF16) return rt::tc::dispatch_distr_bwd_mma<DKV>(a, q_tilde, d, bhq, s);
   if (dtype != rt::DTYPE_F32) return (int)cudaErrorInvalidValue;
   if (d == 128) return rt::launch_attn_bwd<128, true, DKV>(a, bhq, s);
+  if (d == 112) return rt::launch_attn_bwd<112, true, DKV>(a, bhq, s);
   if (d == 64) return rt::launch_attn_bwd<64, true, DKV>(a, bhq, s);
   return (int)cudaErrorInvalidValue;
 }

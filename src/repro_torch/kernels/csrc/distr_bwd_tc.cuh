@@ -100,12 +100,20 @@ struct DistrDqStore {
         *reinterpret_cast<float2*>(row + j * 8) = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
     }
     __syncthreads();
-    // ds = d/G* divides d ∈ {64, 128}, so it is a power of 2 that divides
-    // the 128 threads: thread t sums column t % ds of rows t / ds + k · (128
-    // / ds), so consecutive threads write consecutive floats.
+    // Thread t sums column t % ds of rows t / ds + k · (128 / ds), so
+    // consecutive threads write consecutive floats.  At d ∈ {64, 128}, ds =
+    // d/G* is a power of 2 that divides the 128 threads; at d = 112 it need
+    // not (56 at G* = 2), and the threads past the last whole multiple of ds
+    // sit out.
     const int ds = a.ds;
     const int g = a.group_size;
-    const int col = tid & (ds - 1);
+    int col;
+    if constexpr ((D & (D - 1)) == 0) {
+      col = tid & (ds - 1);
+    } else {
+      if (tid >= BWD_THREADS / ds * ds) return;
+      col = tid % ds;
+    }
     const int* pg = sperm + col * g;
     float* out = a.dq + ((size_t)bh * a.n_rows + q0) * ds + col;
     const int rows = min(DQ_ROWS, a.n_rows - q0);
@@ -147,6 +155,7 @@ template <bool DKV>
 int dispatch_distr_bwd_mma(const BwdArgs& a, void* q_t, int d, int bhq, cudaStream_t stream) {
   bf16* qt = static_cast<bf16*>(q_t);
   if (d == 128) return launch_distr_bwd_mma<128, DKV>(a, qt, bhq, stream);
+  if (d == 112) return launch_distr_bwd_mma<112, DKV>(a, qt, bhq, stream);
   if (d == 64) return launch_distr_bwd_mma<64, DKV>(a, qt, bhq, stream);
   return (int)cudaErrorInvalidValue;
 }

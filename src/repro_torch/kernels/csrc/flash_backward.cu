@@ -29,6 +29,7 @@ static int flash_bwd(const rt::BwdArgs& a, int dtype, int d, int bhq, void* stre
   if (dtype == rt::DTYPE_BF16) return rt::tc::dispatch_attn_bwd_mma<DKV>(a, d, bhq, s);
   if (dtype != rt::DTYPE_F32) return (int)cudaErrorInvalidValue;
   if (d == 128) return rt::launch_attn_bwd<128, false, DKV>(a, bhq, s);
+  if (d == 112) return rt::launch_attn_bwd<112, false, DKV>(a, bhq, s);
   if (d == 64) return rt::launch_attn_bwd<64, false, DKV>(a, bhq, s);
   return (int)cudaErrorInvalidValue;
 }

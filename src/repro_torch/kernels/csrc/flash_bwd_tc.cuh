@@ -34,9 +34,9 @@
 //     through the ring; the last row block starts first (it has the most
 //     key tiles).
 // dkv: one CTA of 4 warps owns 64 keys of one query head, 16 keys a warp,
-//     and walks the Q tiles (64 rows at d = 64, 32 at d = 128, so that dK,
-//     dV and two score tiles fit the registers) from the first one that can
-//     see its keys.  It computes the transposed scores, so nothing goes
+//     and walks the Q tiles (64 rows at d = 64, 32 at d = 112 and 128, so
+//     that dK, dV and two score tiles fit the registers) from the first one
+//     that can see its keys.  It computes the transposed scores, so nothing goes
 //     through shared memory: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ take A from K / V and
 //     B from the row-major Q / dO tile; dV += Pᵀ·dO and dK += dSᵀ·Q take the
 //     packed accumulators as A and dO's / Q's B operand from ldmatrix.trans.
@@ -61,9 +61,15 @@
 //
 // Shared memory, bf16 rows padded by 8 elements as in the forward: dq holds
 // Q and dO (64 × (d + 8) each) and 2 stages of K and V (64 × (d + 8) each):
-// 104,448 bytes at d = 128, 55,296 at d = 64.  dkv holds K and V and 2
-// stages of Q, dO (rows × (d + 8) each), LSE and D (f32): 70,144 bytes at
-// d = 128, 56,320 at d = 64.
+// 104,448 bytes at d = 128, 92,160 at d = 112, 55,296 at d = 64.  dkv holds
+// K and V and 2 stages of Q, dO (rows × (d + 8) each), LSE and D (f32):
+// 70,144 bytes at d = 128, 61,952 at d = 112, 56,320 at d = 64.
+//
+// d = 112 (zamba2-7b's heads) is 7 mma depths and 14 chunks of 16 bytes a
+// row: every tile but dkv's Q tile (32 rows × 14 chunks = 3.5 rounds of the
+// 128 threads) loads in whole rounds, and that one's last round is partial.
+// The guard that skips its idle threads is compiled at d = 112 only
+// (``if constexpr``), so d = 64 and 128 keep their SASS.
 #pragma once
 
 #include "attention_bwd_tile.cuh"
@@ -290,9 +296,8 @@ template <int D>
 __device__ __forceinline__ void bwd_dkv_mma_walk(const BwdArgs a) {
   constexpr int R = dkv_rows<D>();  // query rows per Q tile
   static_assert(D % 16 == 0 && R % 16 == 0, "head dim and Q tile must be multiples of 16");
-  static_assert(DKV_KEYS * (D / 8) % BWD_THREADS == 0 && R * (D / 8) % BWD_THREADS == 0 &&
-                    R <= BWD_THREADS,
-                "every thread loads the same number of 16-byte chunks");
+  static_assert(DKV_KEYS * (D / 8) % BWD_THREADS == 0 && R <= BWD_THREADS,
+                "every thread loads the same number of the K / V tile's 16-byte chunks");
   constexpr int LD = D + 8;       // shared-memory row stride, elements
   constexpr int CHUNKS = D / 8;   // 16-byte chunks a row
   constexpr int KSTEPS = D / 16;  // k-steps of K·Qᵀ and V·dOᵀ
@@ -323,13 +328,19 @@ __device__ __forceinline__ void bwd_dkv_mma_walk(const BwdArgs a) {
   const int t_start = a.causal ? k0 / R : 0;  // earlier rows see none of these keys
   const int t_end = k0 < a.kv_len ? (a.n_rows + R - 1) / R : 0;  // all keys masked: none
 
-  // Rows at or past N land as zeros, with LSE = LSE_PAD and D = 0.
+  // Rows at or past N land as zeros, with LSE = LSE_PAD and D = 0.  The
+  // tile's R · CHUNKS chunks take whole rounds of the threads except at
+  // d = 112, whose last round is half of them.
+  constexpr int Q_CHUNKS = R * CHUNKS;
   auto load_q = [&](int t, int stage) {
     bf16* dq_ = sQ + stage * R * LD;
     bf16* ddo = sdO + stage * R * LD;
 #pragma unroll
-    for (int it = 0; it < R * CHUNKS / BWD_THREADS; ++it) {
+    for (int it = 0; it < (Q_CHUNKS + BWD_THREADS - 1) / BWD_THREADS; ++it) {
       const int i = tid + it * BWD_THREADS;
+      if constexpr (Q_CHUNKS % BWD_THREADS != 0) {
+        if (i >= Q_CHUNKS) break;
+      }
       const int row = i / CHUNKS;
       const int col = (i - row * CHUNKS) * 8;
       const int r = t * R + row;
@@ -500,6 +511,9 @@ int dispatch_attn_bwd_mma(const BwdArgs& a, int d, int bhq, cudaStream_t stream)
   if (d == 128)
     return launch_bwd_walk<128, DKV>(
         DKV ? attn_bwd_dkv_mma_kernel<128> : attn_bwd_dq_mma_kernel<128>, a, bhq, stream);
+  if (d == 112)
+    return launch_bwd_walk<112, DKV>(
+        DKV ? attn_bwd_dkv_mma_kernel<112> : attn_bwd_dq_mma_kernel<112>, a, bhq, stream);
   if (d == 64)
     return launch_bwd_walk<64, DKV>(
         DKV ? attn_bwd_dkv_mma_kernel<64> : attn_bwd_dq_mma_kernel<64>, a, bhq, stream);

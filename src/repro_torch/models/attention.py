@@ -13,7 +13,13 @@ Tensor parallelism: when ``wq`` holds a slice of the heads over "model"
 ``attention_apply`` runs its local heads through the same ``attend`` (the
 kernels, or the ring over "context" beside it) and sums ``wo``'s partial
 products over "model".  ``wq`` and ``wk`` must both be sliced or both be
-whole.
+whole.  Cross-attention runs the same way: Q from the decoder's input and K,
+V from the encoder output, each entering the region through ``tp_enter``, so
+the encoder output's gradient sums over "model".  MLA's ``wq_b``, ``wk_b``
+and ``wv_b`` are sliced by heads and ``wo`` row-parallel; its
+down-projections and norms are replicated, so the region starts at their
+outputs (the latent q, c_kv and the shared rope key), where each rank's
+cotangent is partial.
 """
 from __future__ import annotations
 
@@ -95,10 +101,9 @@ def attention_apply(params: dict, x: torch.Tensor, cfg, *,
     use_rope = cfg.pos == "rope" if use_rope is None else use_rope
     hq, hkv, mesh = local_heads(params, cfg)
     if mesh is not None:
-        if x_kv is not None:
-            raise NotImplementedError("tensor-parallel cross-attention is not ported (the "
-                                      "enc-dec family trains on data-parallel meshes)")
         x = coll.tp_enter(x, mesh)
+        if x_kv is not None:
+            x_kv = coll.tp_enter(x_kv, mesh)
     src = x if x_kv is None else x_kv
     q = _split_heads(layers.linear_apply(params["wq"], x), hq)
     k = _split_heads(layers.linear_apply(params["wk"], src), hkv)
@@ -324,17 +329,36 @@ def mla_axes(cfg) -> dict:
     }
 
 
-def _mla_qkv(params: dict, x: torch.Tensor, cfg, positions: torch.Tensor | None):
-    """The shared projections → q_nope, q_rope (B, H, N, ·), c_kv (B, N,
-    kv_lora) and k_rope (B, 1, N, rope_d), q_rope and k_rope rotated."""
+def mla_local_heads(params: dict, cfg):
+    """(the heads ``params`` holds, the tensor-parallel mesh or None): all
+    of them, or their slice over "model" in ``wq_b``, ``wk_b`` and ``wv_b``
+    alike (a slice of one without the others raises)."""
+    h = params["wq_b"]["w"].shape[1] // (cfg.qk_nope_dim + cfg.qk_rope_dim)
+    mesh = layers.tp_mesh(h, cfg.n_heads)
+    if (params["wk_b"]["w"].shape[1] != h * cfg.qk_nope_dim
+            or params["wv_b"]["w"].shape[1] != h * cfg.v_head_dim):
+        raise NotImplementedError(
+            f"MLA with {h} of {cfg.n_heads} heads in wq_b and wk_b / wv_b of other widths: "
+            "a tensor-parallel split must slice all three by heads")
+    return h, mesh
+
+
+def _mla_qkv(params: dict, x: torch.Tensor, cfg, positions: torch.Tensor | None,
+             h: int | None = None, mesh=None):
+    """The shared projections → q_nope, q_rope (B, h, N, ·), c_kv (B, N,
+    kv_lora) and k_rope (B, 1, N, rope_d), q_rope and k_rope rotated; h
+    heads (default all).  With a tensor-parallel ``mesh`` the latent q,
+    c_kv and k_rope enter the region (``tp_enter``)."""
     b, n, _ = x.shape
     nope = cfg.qk_nope_dim
     q_l = layers.rmsnorm_apply(params["q_norm"], layers.linear_apply(params["wq_a"], x))
-    q = _split_heads(layers.linear_apply(params["wq_b"], q_l), cfg.n_heads)
-    q_nope, q_rope = q[..., :nope], q[..., nope:]
     kv_a = layers.linear_apply(params["wkv_a"], x)
     c_kv = layers.rmsnorm_apply(params["kv_norm"], kv_a[..., :cfg.kv_lora_rank])
     k_rope = kv_a[..., cfg.kv_lora_rank:][:, None]  # (B, 1, N, rope_d)
+    if mesh is not None:
+        q_l, c_kv, k_rope = (coll.tp_enter(t, mesh) for t in (q_l, c_kv, k_rope))
+    q = _split_heads(layers.linear_apply(params["wq_b"], q_l), h or cfg.n_heads)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
     if positions is None:
         positions = torch.arange(n, device=x.device).expand(b, n)
     return (q_nope, layers.apply_rope(q_rope, positions, cfg.rope_theta), c_kv,
@@ -350,9 +374,10 @@ def mla_apply(params: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor | N
     take the RoPE dimensions exactly; the other impls attend over the
     concatenated q/k.  ``pallas_flash`` raises: the flash kernel needs V as
     wide as Q, and MLA's V is narrower.  Returns ``(out, (c_kv, k_rope))``,
-    the cache parts."""
+    the cache parts.  ``wq_b``, ``wk_b`` and ``wv_b`` sliced by heads over
+    "model" run this rank's heads and sum ``wo``'s partial products."""
     b, n, _ = x.shape
-    h = cfg.n_heads
+    h, mesh = mla_local_heads(params, cfg)
     rope_d = cfg.qk_rope_dim
     impl = cfg.attention.impl
     if impl == "pallas_flash":
@@ -361,7 +386,7 @@ def mla_apply(params: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor | N
             f"V has {cfg.v_head_dim} columns against {cfg.qk_head_dim}; "
             "use distr, pallas_distr, xla_flash or reference")
     scale = 1.0 / (cfg.qk_head_dim ** 0.5)
-    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, cfg, positions)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, cfg, positions, h, mesh)
     k_nope = _split_heads(layers.linear_apply(params["wk_b"], c_kv), h)
     v = _split_heads(layers.linear_apply(params["wv_b"], c_kv), h)
     k_rope_h = k_rope.expand(b, h, n, rope_d)
@@ -372,7 +397,7 @@ def mla_apply(params: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor | N
         o = attend(torch.cat([q_nope, q_rope], dim=-1), torch.cat([k_nope, k_rope_h], dim=-1),
                    v, cfg.attention, causal=causal, scale=scale)
     out = layers.linear_apply(params["wo"], _merge_heads(o))
-    return out, (c_kv, k_rope)
+    return (out if mesh is None else coll.tp_reduce(out, mesh)), (c_kv, k_rope)
 
 
 def mla_decode_apply(params: dict, x: torch.Tensor, cfg, *, cache_ckv: torch.Tensor,

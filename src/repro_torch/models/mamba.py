@@ -11,12 +11,35 @@ model's layout: the reference differentiates the block through it, and
 decode recurrence, plain PyTorch as in the reference.  Dtypes follow the
 reference: ``dt`` and its softplus in f32, the SSD input in the compute
 dtype, the SSM state in f32.
+
+Tensor parallelism.  The sharding rules slice ``in_proj``'s columns, the
+conv's channels and ``out_proj``'s rows over "model" in contiguous blocks
+(``mamba_axes``: "mlp"), as the reference's do; the checkpoints keep that
+layout.  ``in_proj``'s columns are ``[z | x | B | C | dt]``, so its blocks
+do not fall on SSM heads, and every head reads the whole B and C of its
+group.  When all three are sliced and the heads divide "model", each rank
+runs its own heads (``_mamba_apply_tp``): the in_proj output and the conv
+parameters are all-gathered over "model" (``collectives.gather_dim``, whose
+backward sums the ranks' cotangents and scatters each rank its block), the
+rank takes its heads' z, x and dt and its groups' B and C, runs the conv and
+the SSD kernel on them, slices the per-head parameters and ``out_norm``'s
+scale with ``collectives.take_slice`` (so every rank ends with their whole
+gradient), sums ``out_norm``'s squares over "model" forward and backward
+(``collectives.sum_dp``) and applies ``out_proj`` row-parallel.  Per layer
+that moves the in_proj output, B·N·(2·d_inner + 2·G·S + H) values, once
+gathered and once reduce-scattered, two B·N sums of squares, and the
+B·N·d_model output reduced (and its cotangent, through ``tp_enter``).
+Otherwise (heads that do not divide "model", rules that dropped some of the
+three and not others, or a prefill that returns its state) the sliced leaves
+are gathered on use (``collectives.gather_slices``) and every rank runs the
+whole layer.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 
@@ -94,6 +117,11 @@ def conv_dim(cfg) -> int:
     return cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
 
 
+def proj_dim(cfg) -> int:
+    """``in_proj``'s output width: z, x, B, C and dt."""
+    return 2 * cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state + cfg.ssm_heads
+
+
 def mamba_init(generator, cfg, dtype=torch.float32) -> dict:
     """The reference's distributions: ``in_proj`` / ``out_proj`` linear,
     ``conv_w`` normal · k^-0.5, ``a_log`` 0 (A = −1), ``dt_bias`` 0.5,
@@ -101,10 +129,8 @@ def mamba_init(generator, cfg, dtype=torch.float32) -> dict:
     per-head SSM parameters and the norm stay f32."""
     dev = generator.device
     d_in, h = cfg.d_inner, cfg.ssm_heads
-    gs = cfg.ssm_groups * cfg.ssm_state
-    proj_out = 2 * d_in + 2 * gs + h  # z, x, B, C, dt
     return {
-        "in_proj": layers.linear_init(generator, cfg.d_model, proj_out, dtype=dtype),
+        "in_proj": layers.linear_init(generator, cfg.d_model, proj_dim(cfg), dtype=dtype),
         "conv_w": layers._normal(generator, (cfg.ssm_conv, conv_dim(cfg)),
                                  cfg.ssm_conv ** -0.5, torch.float32),
         "conv_b": torch.zeros((conv_dim(cfg),), dtype=torch.float32, device=dev),
@@ -145,10 +171,121 @@ def _causal_conv(xbc: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor) 
     return F.silu(y + conv_b.to(xbc.dtype))
 
 
+# The leaves the rules slice over "model": (path, the sliced dim, its full
+# size).
+def _model_leaves(cfg) -> tuple:
+    return ((("in_proj", "w"), 1, proj_dim(cfg)), (("conv_w",), 1, conv_dim(cfg)),
+            (("conv_b",), 0, conv_dim(cfg)), (("out_proj", "w"), 0, cfg.d_inner))
+
+
+def _leaf(params: dict, path: tuple) -> torch.Tensor:
+    for key in path:
+        params = params[key]
+    return params
+
+
+def _tp_meshes(params: dict, cfg) -> list:
+    """For each of ``_model_leaves``, the "model" mesh it is sliced over,
+    or None when ``params`` holds it whole."""
+    return [layers.tp_mesh(_leaf(params, path).shape[dim], full)
+            for path, dim, full in _model_leaves(cfg)]
+
+
+def _head_groups(cfg, mesh) -> tuple[int, int] | None:
+    """(first group, groups) of B and C that this rank's heads read when
+    each rank of "model" runs its own heads, or None when the heads do not
+    split so (they do not divide "model", or a rank's heads straddle
+    groups unevenly)."""
+    m = coll.axis_size(mesh, "model")
+    h, g = cfg.ssm_heads, cfg.ssm_groups
+    if h % m:
+        return None
+    h_loc, per_group = h // m, h // g
+    h0 = int(mesh.coords["model"]) * h_loc
+    if h_loc % per_group == 0:
+        return h0 // per_group, h_loc // per_group
+    if per_group % h_loc == 0:
+        return h0 // per_group, 1
+    return None
+
+
+def _gathered(params: dict, cfg, meshes: list) -> dict:
+    """``params`` with every sliced leaf put back together over "model"
+    (the backward takes this rank's slice of the replicated cotangent):
+    every rank then runs the whole layer."""
+    out = {**params, "in_proj": dict(params["in_proj"]), "out_proj": dict(params["out_proj"])}
+    for (path, dim, _), mesh in zip(_model_leaves(cfg), meshes):
+        if mesh is not None:
+            parent = out if len(path) == 1 else out[path[0]]
+            parent[path[-1]] = coll.gather_slices(_leaf(params, path), mesh, "model", dim)
+    return out
+
+
+def _mamba_apply_tp(params: dict, x: torch.Tensor, cfg, mesh, groups: tuple[int, int]):
+    """``mamba_apply`` on this rank's heads of "model" (see the module
+    docstring); x replicated over "model" → this rank's partial output,
+    summed over "model"."""
+    bsz, n, _ = x.shape
+    m = coll.axis_size(mesh, "model")
+    p, s = cfg.ssm_head_dim, cfg.ssm_state
+    h_loc = cfg.ssm_heads // m
+    h0 = int(mesh.coords["model"]) * h_loc
+    d_in, gs = cfg.d_inner, cfg.ssm_groups * s
+    g0, g_loc = groups
+
+    x = coll.tp_enter(x, mesh)
+    proj = layers.linear_apply(params["in_proj"], x)
+    proj = coll.gather_dim(proj, mesh, "model", proj.ndim - 1)
+    z = proj[..., h0 * p:(h0 + h_loc) * p]
+    dt = proj[..., 2 * d_in + 2 * gs + h0:2 * d_in + 2 * gs + h0 + h_loc]
+
+    def channels(t: torch.Tensor, dim: int) -> torch.Tensor:
+        # This rank's conv channels of t (the x, B, C block at ``off``):
+        # its heads' x, its groups' B and C.
+        off = d_in if t is proj else 0
+        spans = ((off + h0 * p, h_loc * p), (off + d_in + g0 * s, g_loc * s),
+                 (off + d_in + gs + g0 * s, g_loc * s))
+        return torch.cat([t.narrow(dim, a, w) for a, w in spans], dim=dim)
+
+    conv_w = coll.gather_dim(params["conv_w"], mesh, "model", 1)
+    conv_b = coll.gather_dim(params["conv_b"], mesh, "model", 0)
+    xbc = _causal_conv(channels(proj, proj.ndim - 1), channels(conv_w, 1), channels(conv_b, 0))
+    xs = xbc[..., :h_loc * p]
+    b = xbc[..., h_loc * p:h_loc * p + g_loc * s].reshape(bsz, n, g_loc, s)
+    c = xbc[..., h_loc * p + g_loc * s:].reshape(bsz, n, g_loc, s)
+
+    def own(t: torch.Tensor) -> torch.Tensor:
+        return coll.take_slice(t, mesh, "model", 0)
+
+    dt = _softplus(dt.float() + own(params["dt_bias"]))
+    a_t = dt * -torch.exp(own(params["a_log"]))
+    x_heads = xs.reshape(bsz, n, h_loc, p)
+    x_in = x_heads * dt[..., None].to(x_heads.dtype)
+    y = ops.ssd(x_in, a_t, b, c, chunk=cfg.ssm_chunk)
+    y = y + x_heads * own(params["d_skip"])[None, None, :, None].to(x_heads.dtype)
+    y = y.reshape(bsz, n, h_loc * p) * F.silu(z)
+    # out_norm: one RMSNorm over all of d_inner, its squares summed over
+    # the ranks' heads (and their cotangents summed back in the backward).
+    yf = y.float()
+    sq = coll.sum_dp(yf.square().sum(dim=-1, keepdim=True), mesh, "model")
+    yf = yf * torch.rsqrt(sq / d_in + cfg.norm_eps)
+    y = (yf * own(params["out_norm"]["scale"]).float()).to(y.dtype)
+    return coll.tp_reduce(layers.linear_apply(params["out_proj"], y), mesh)
+
+
 def mamba_apply(params: dict, x: torch.Tensor, cfg, *, return_state: bool = False):
     """Full-sequence Mamba-2 block.  x: (B, N, D) → (B, N, D).  With
     ``return_state`` also returns (conv_state (B, k−1, conv_dim) in x's
-    dtype, ssm_state (B, H, S, P) f32) at position N, for decode."""
+    dtype, ssm_state (B, H, S, P) f32) at position N, for decode.  Leaves
+    held as their slices over "model" run tensor parallel (the module
+    docstring)."""
+    meshes = _tp_meshes(params, cfg)
+    mesh = next((mm for mm in meshes if mm is not None), None)
+    if mesh is not None:
+        groups = _head_groups(cfg, mesh)
+        if groups is not None and not return_state and all(mm is not None for mm in meshes):
+            return _mamba_apply_tp(params, x, cfg, mesh, groups)
+        params = _gathered(params, cfg, meshes)
     bsz, n, _ = x.shape
     h, p = cfg.ssm_heads, cfg.ssm_head_dim
     g, s = cfg.ssm_groups, cfg.ssm_state

@@ -10,9 +10,10 @@ shards over the data-parallel axes), and:
 
 * under FSDP a block's ``"data"``-sharded leaves are gathered on use inside
   its remat checkpoint, and their gradients reduce-scattered back;
-* the dense family runs tensor parallel over "model", the moe family's
-  GQA configs too with their MoE expert parallel (``models.moe``), and the
-  ring over "context" where the config names it;
+* every family runs tensor parallel over "model": attention (GQA, MLA and
+  the enc-dec cross-attention) by heads, the MLP and the vocab Megatron
+  style, Mamba-2 by SSM heads (``models.mamba``), the MoE expert parallel
+  (``models.moe``); and the ring over "context" where the config names it;
 * ``lm.loss_fn`` normalises by the whole batch's labels, so the ranks'
   losses sum to the single device's mean; the gradients are summed over the
   data-parallel axes (reduce-scattered where FSDP shards them), which is
@@ -42,22 +43,38 @@ def mesh_specs(cfg, mesh):
                                  fsdp=cfg.fsdp)
 
 
+def _attention_heads(cfg) -> tuple:
+    """(heads, columns) of each attention weight the rules slice by heads
+    over "model" (none for the attention-free ssm family)."""
+    if cfg.family == "ssm":
+        return ()
+    h = cfg.n_heads
+    if cfg.use_mla:
+        return ((h, h * (cfg.qk_nope_dim + cfg.qk_rope_dim)), (h, h * cfg.qk_nope_dim),
+                (h, h * cfg.v_head_dim))
+    dh = cfg.head_dim_
+    return ((h, h * dh), (cfg.n_kv_heads, cfg.n_kv_heads * dh))
+
+
 def check_mesh(cfg, mesh) -> None:
     """Raise for what the port does not train on ``mesh``: a "model" axis
-    beyond the dense family and the moe family's GQA configs (tensor
-    parallel attention, expert parallel MoE)."""
-    if coll.axis_size(mesh, "model") == 1:
+    that the rules would cut through an attention head, or that would slice
+    some of a layer's head-split weights and leave others whole (the rules
+    drop an assignment that does not divide its dim).  The port's attention
+    runs whole heads on a rank, and the kernels map query heads onto KV heads
+    by q_per_kv; every family trains on any other mesh."""
+    m = coll.axis_size(mesh, "model")
+    if m == 1:
         return
-    if cfg.family == "moe" and cfg.use_mla:
-        what = "MLA attention (the moe family's MLA configs)"
-    elif cfg.family not in ("dense", "moe"):
-        what = f"the {cfg.family!r} family"
-    else:
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: a 'model' axis over {what} is not ported (ROADMAP Queue 1 item 2b.2); "
-        "it is ported for the dense family and the moe family's GQA configs, and a data-only "
-        "mesh trains every family")
+    weights = _attention_heads(cfg)
+    sliced = [cols % m == 0 for _, cols in weights]
+    if any(sliced) and not (all(sliced) and all(h % m == 0 for h, _ in weights)):
+        raise NotImplementedError(
+            f"{cfg.name}: a 'model' axis of {m} over attention weights of "
+            f"{[h for h, _ in weights]} heads ({[c for _, c in weights]} columns) would cut "
+            "a head or slice one weight beside another held whole; the port's tensor "
+            "parallelism runs whole heads on a rank (a 'model' axis that divides every head "
+            "count trains, and one that divides none of the columns runs attention whole)")
 
 
 def local_batch(batch: dict, mesh) -> dict:

@@ -286,6 +286,11 @@ def test_delta_kernel_range(cuda):
     (2, 3, 65, 65, 0, 128, True),       # kv_len = 0 at d = 128
     (4, 9, 130, 130, 130, 128, True),   # GQA 36 over 4 (starcoder2-7b)
     (4, 1, 100, 100, 100, 64, True),    # MHA (minicpm-2b)
+    # d = 112 (zamba2-7b): 7 k-steps of 16, and dkv's 32-row Q tile loads in
+    # 3.5 rounds of the 128 threads.
+    (2, 3, 100, 100, 100, 112, True),
+    (2, 3, 65, 200, 130, 112, False),   # ragged rows, kv_len below the buffer
+    (2, 3, 33, 33, 0, 112, True),       # kv_len = 0 at d = 112
 ])
 def test_flash_backward_kernels_match_plain(cuda, dtype, hkv, q_per_kv, n, nk, kv_len, d, causal):
     bhq = hkv * q_per_kv
@@ -318,6 +323,13 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, hkv, q_per_kv, n, nk, k
     (128, 16, 64, True, 64),
     (192, 16, 64, False, 128),
     (256, 8, 128, True, 128),  # one block_q spans four 32-row dkv Q tiles; kv_len ragged
+    # d = 112 (zamba2-7b): d/G* = 56 and 28 do not divide the dq store's 128
+    # threads; 16, 8 and 4 (G* = 7, 14, 28) do.
+    (128, 2, 64, True, 112),
+    (256, 4, 128, False, 112),
+    (128, 7, 64, True, 112),
+    (192, 14, 64, False, 112),
+    (256, 28, 128, True, 112),
 ])
 def test_distr_backward_kernels_match_plain(cuda, dtype, n, g, block_q, causal, d):
     q_hat = _randn((4, n, d // g), dtype, 14)
@@ -359,6 +371,52 @@ def test_distr_backward_launches_its_dtype_route(cuda, dtype):
     assert all(name in names for name in want), names
     assert not any(name in names for name in never), names
     assert "attn_bwd_dq_mma_kernel" not in names and "attn_bwd_dkv_mma_kernel" not in names
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_kernels_at_zamba2_shared_block_shape(cuda, dtype):
+    """The four attention backward kernels at zamba2-7b's shared-block
+    shape: 32 heads (MHA) of 112, DistrAttention at G* = 2 and block_q 128,
+    N = 1024, causal, each against its plain version on the forward
+    kernels' O and LSE; the bf16 calls launch the tensor-core walks."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.distr_attention import DistrConfig
+    from repro_torch.kernels import ops
+
+    h, n, d, g = 32, 1024, 112, 2
+    q, k, v, do = (_randn((h, n, d), dtype, 50 + i) for i in range(4))
+    kw = dict(q_per_kv=1, scale=d ** -0.5, causal=True, kv_len=n)
+    o, lse = fk.flash_attention_kernel_call(q, k, v, return_lse=True, **kw)
+    dcfg = DistrConfig(group_size=g, block_q=128)
+    q_hat, perms = ops.distr_stage1(dcfg, q[None], d ** -0.5, hkv=h)
+    q_hat, perm = q_hat[0].contiguous(), perms[0].to(torch.int32).contiguous()
+    dkw = dict(q_per_kv=1, causal=True, group_size=g, block_q=128, kv_len=n)
+    od, lsed = dk.distr_attention_kernel_call(q_hat, k, v, perm, return_lse=True, **dkw)
+    delta, deltad = bwd.delta_kernel_call(o, do), bwd.delta_kernel_call(od, do)
+    before = dict(bwd.launches)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = {"flash_dq": (bwd.flash_dq_kernel_call(q, k, v, do, lse, delta, **kw),),
+               "flash_dkv": bwd.flash_dkv_kernel_call(q, k, v, do, lse, delta, **kw),
+               "distr_dq": (bwd.distr_dq_kernel_call(q_hat, k, v, perm, do, lsed, deltad,
+                                                     **dkw),),
+               "distr_dkv": bwd.distr_dkv_kernel_call(q_hat, k, v, perm, do, lsed, deltad,
+                                                      **dkw)}
+        torch.cuda.synchronize()
+    want = {"flash_dq": (bwd.flash_dq_plain(q, k, v, do, lse, delta, **kw),),
+            "flash_dkv": bwd.flash_dkv_plain(q, k, v, do, lse, delta, **kw),
+            "distr_dq": (bwd.distr_dq_plain(q_hat, k, v, perm, do, lsed, deltad, **dkw),),
+            "distr_dkv": bwd.distr_dkv_plain(q_hat, k, v, perm, do, lsed, deltad, **dkw)}
+    for name in got:
+        for g_, w_ in zip(got[name], want[name]):
+            _bwd_close(g_, w_)
+    assert {k_: bwd.launches[k_] - before[k_] for k_ in before} == {
+        "delta": 0, "flash_dq": 1, "flash_dkv": 1, "distr_dq": 1, "distr_dkv": 1}
+    names = " ".join(e.key for e in prof.key_averages())
+    if dtype == torch.bfloat16:
+        for name in ("attn_bwd_dq_mma_kernel", "attn_bwd_dkv_mma_kernel",
+                     "distr_bwd_dq_mma_kernel", "distr_bwd_dkv_mma_kernel"):
+            assert name in names, names
 
 
 @pytest.mark.parametrize("call", [bwd.distr_dq_kernel_call, bwd.distr_dkv_kernel_call])
@@ -680,9 +738,11 @@ def test_ssd_function_grads_on_card_match_plain_autograd(cuda, dtype):
     _grads_close(grads["op"], grads["plain"], TOL[dtype])
 
 
-def test_hybrid_train_step_on_card_matches_cpu(cuda):
-    """One train step of zamba2-7b ``reduced()`` at head dim 64 and Q
-    blocks of 64 (the kernels' range) under ``pallas_distr``, f32: the SSD
+@pytest.mark.parametrize("head_dim", [64, 112])
+def test_hybrid_train_step_on_card_matches_cpu(cuda, head_dim):
+    """One train step of zamba2-7b ``reduced()`` at head dim 64 and at its
+    own 112, Q blocks of 64 (the kernels take a multiple of 64) under
+    ``pallas_distr``, f32: the SSD
     Function and the DistrAttention forward and backward kernels in one
     step, its loss and grad norm against the same step on the CPU's plain
     versions, and every parameter's gradient at ``BWD_TOL``.  (Not the
@@ -696,7 +756,7 @@ def test_hybrid_train_step_on_card_matches_cpu(cuda):
     from repro_torch.train import optimizer as opt
     from repro_torch.train.train_step import make_train_step
 
-    cfg = get_config("zamba2-7b", reduced=True).replace(head_dim=64)
+    cfg = get_config("zamba2-7b", reduced=True).replace(head_dim=head_dim)
     # The DistrAttention kernel takes Q blocks of a multiple of 64 rows.
     cfg = cfg.replace(attention=replace(cfg.attention, impl="pallas_distr",
                                         distr=replace(cfg.attention.distr, block_q=64)))

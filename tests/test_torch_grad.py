@@ -166,7 +166,7 @@ def _gather_sum(dq_tilde, perm, group_size, block_q):
 
 
 @pytest.mark.parametrize("g", [2, 4, 8, 16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 112, 128])
 def test_q_tilde_backward_is_the_fused_k_backward(d, g):
     """What the bf16 backward kernels compute through Q̃ (Q̂ expanded by
     ``scatter_q_hat``): the gather-sum of dS·K equals dS·K̂ with K̂ from the
@@ -229,6 +229,7 @@ def _distr_bwd_tc_emulation(q_hat, k, v, perm, do, lse, delta, *, q_per_kv, caus
 
 @pytest.mark.parametrize("d,g,causal,kv_len", [
     (64, 2, True, 128), (128, 4, True, 121), (64, 16, False, 100), (128, 8, True, 128),
+    (112, 2, True, 128), (112, 4, False, 121),  # zamba2-7b's head dim: d/G* = 56, 28
 ])
 def test_distr_backward_tc_emulation_holds_1e4(d, g, causal, kv_len):
     """The bf16 kernels' arithmetic (``_distr_bwd_tc_emulation``) against the
@@ -305,6 +306,8 @@ FLASH_CASES = [
     (1, 4, 2, 50, 32, "f32", True),    # ragged N
     (1, 4, 2, 50, 32, "f32", False),
     (2, 4, 2, 64, 32, "bf16", True),
+    (1, 2, 2, 64, 112, "f32", True),   # zamba2-7b's head dim
+    (1, 2, 2, 50, 112, "bf16", False),
 ]
 
 
@@ -327,6 +330,8 @@ DISTR_CASES = [
     (1, 4, 2, 50, 32, "f32", False, {"estimator": "mean"}),
     (2, 4, 2, 64, 32, "f32", True, {"shared_kv_perm": True}),
     (2, 4, 2, 64, 32, "bf16", True, {}),
+    (1, 2, 2, 64, 112, "f32", True, {}),                      # zamba2-7b's head dim
+    (1, 2, 2, 50, 112, "bf16", False, {}),
 ]
 
 

@@ -24,8 +24,10 @@ rank 0's results against the reference and the port on one device.
   configs (llama4-scout-17b-a16e, deepseek-v2-236b with MLA), mamba2-130m,
   zamba2-7b, whisper-small (frames) and internvl2-2b (patches), loss and
   gradient against the port's single-device step within 1e-5;
-* the refusals: "model" > 1 over MLA (deepseek-v2-236b), a ``wq`` sliced
-  over "model" beside a whole ``wk``;
+* the refusals that stand: MLA under ``pallas_flash`` on (data 2, model 2)
+  (deepseek-v2-236b: the flash kernel needs V as wide as Q; MLA itself
+  trains on "model", ``tests/test_torch_mesh_tp.py``), a ``wq`` sliced over
+  "model" beside a whole ``wk``;
 * a checkpoint written on one device resumed on the mesh and the mesh's
   resumed on one device, bit for bit;
 * ``launch.train.main`` with ``--model-parallel 2`` inside the world.
@@ -117,7 +119,6 @@ def _world_cases(rank, world, arrays):
     from repro_torch.models import attention
     from repro_torch.train.data import SyntheticLMData
     from repro_torch.train.trainer import Trainer
-    from repro_torch.train.train_step import make_train_step
 
     out = {}
     dm = hm.make_host_mesh(model_parallel=2)
@@ -142,13 +143,14 @@ def _world_cases(rank, world, arrays):
         cfg, params = port_params(arch)
         out[arch, True] = one_step(cfg, params, _batch(arrays, arch), mesh=d4, sgd=True)
 
-    # The refusals (llama4-scout's GQA MoE trains on "model"; MLA does not).
+    # The refusals that stand (every family trains on "model").
     cfg, params = port_params("deepseek-v2-236b")
+    cfg = cfg.replace(attention=replace(cfg.attention, impl="pallas_flash"))
     try:
-        make_train_step(cfg, _ocfg(), dm)
-        out["moe_refused"] = None
-    except NotImplementedError as e:
-        out["moe_refused"] = str(e)
+        one_step(cfg, params, _batch(arrays, "deepseek-v2-236b"), mesh=dm, sgd=True)
+        out["mla_flash_refused"] = None
+    except ValueError as e:
+        out["mla_flash_refused"] = str(e)
     cfg, params = port_params("minicpm-2b")
     lp = dict(params["blocks"][0]["attn"])
     lp["wq"] = {"w": lp["wq"]["w"][:, :lp["wq"]["w"].shape[1] // 2]}
@@ -327,8 +329,7 @@ def test_data_parallel_step_of_every_family(world, arch):
 
 def test_refusals(world):
     _, results, _ = world
-    assert "dense family" in results[0]["moe_refused"]
-    assert "item 2b.2" in results[0]["moe_refused"]
+    assert "MLA under pallas_flash" in results[0]["mla_flash_refused"]
     assert "slice both" in results[0]["heads_refused"]
 
 

@@ -27,8 +27,8 @@ swapped for ``p -= g``: loss, grad norm and every clipped gradient within
 ``router_aux_weight`` 0: the expert-parallel aux loss is the shards' own,
 meaned (the reference's), not the single device's whole-batch loss, and
 its value is held to the reference above.  ``launch.train --model-parallel
-2`` trains llama4 in the world; ``check_mesh`` refuses MLA, ssm, hybrid and
-encdec under "model" > 1.
+2`` trains llama4 in the world; ``check_mesh`` accepts every family under
+"model" > 1 and refuses a "model" axis that would cut an attention head.
 """
 import os
 import subprocess
@@ -327,18 +327,20 @@ def test_launcher_trains_llama4_on_the_mesh_inside_a_world(world):
     assert len(runs[0]["losses"]) == 2 and all(np.isfinite(runs[0]["losses"]))
 
 
-@pytest.mark.parametrize("arch,ok", [
-    ("llama4-scout-17b-a16e", True), ("qwen1.5-4b", True), ("deepseek-v2-236b", False),
-    ("mamba2-130m", False), ("zamba2-7b", False), ("whisper-small", False)])
-def test_check_mesh_under_model_parallelism(arch, ok):
+@pytest.mark.parametrize("arch,model,ok", [
+    ("llama4-scout-17b-a16e", 2, True), ("qwen1.5-4b", 2, True), ("deepseek-v2-236b", 2, True),
+    ("mamba2-130m", 2, True), ("zamba2-7b", 2, True), ("whisper-small", 2, True),
+    # 4 heads over 8 ranks: each rank's columns would be half a head.
+    ("qwen1.5-4b", 8, False), ("deepseek-v2-236b", 8, False), ("mamba2-130m", 8, True)])
+def test_check_mesh_under_model_parallelism(arch, model, ok):
     from repro_torch.configs import get_config
     from repro_torch.train.train_step import check_mesh
 
     cfg = get_config(arch, reduced=True)
-    mesh = SimpleNamespace(axis_names=("data", "model"), shape={"data": 2, "model": 2})
+    mesh = SimpleNamespace(axis_names=("data", "model"), shape={"data": 2, "model": model})
     if ok:
         check_mesh(cfg, mesh)
     else:
-        with pytest.raises(NotImplementedError, match=r"item 2b\.2"):
+        with pytest.raises(NotImplementedError, match="would cut"):
             check_mesh(cfg, mesh)
     check_mesh(cfg, SimpleNamespace(axis_names=("data",), shape={"data": 4}))
