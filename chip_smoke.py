@@ -23,7 +23,7 @@ f32 — and times
 kernel, plain version and, as a yardstick only, one PyTorch library call,
 each kernel against its bound, the package's count of the function's
 least work (``kernels/ops.py::attention_work``, ``delta_work``,
-``ssd_work``, ``roofline/analysis.py::decode_attention_work``) through
+``ssd_work``, ``decode_attention_work``) through
 ``obs/utilization.py::kernel_bound``, with the bound of the package's cost
 model of the mechanism (``attention_cost``, ``ssd_cost``,
 ``decode_attention_cost``, ``paged_decode_attention_cost``) logged beside;
@@ -176,9 +176,15 @@ gate).  Then the tensor-parallel phase (``mesh_tp_phase``: 2 ranks on
 (data 1, model 2), one training step each of mamba2-130m, zamba2-7b at
 head dim 112 cut to 12 layers, whisper-small and deepseek-v2-236b cut to 2
 layers at full width, in f32 against one device's step at the mesh phase's
-gates with one planted fault a family) and zamba2-7b's 12-layer step at
-head dim 112 on the kernels against the plain versions, in f32 and in
-bf16 (``hybrid112_train_phase``).  The backward
+gates with one planted fault a family; first, tensor-parallel serving of
+starcoder2-7b cut to 4 layers under both cache layouts and both kernel
+impls against one device, ``tp_serve_checks``, and the dry run's count of
+each mesh call and of mamba2-130m's step held to the card's,
+``dry_compare``, while the host prices DRY_CELLS on (data 16, model 16)
+with ``launch.dryrun``) and zamba2-7b's 12-layer step at head dim 112 on
+the kernels against the plain versions, in f32 and in bf16
+(``hybrid112_train_phase``).  A whole run spawns the three 2-rank phases
+as one world (``paired_phases``).  The backward
 kernels are checked and timed at zamba2-7b's shared-block shape too (32
 heads of 112, G* = 2), and the SASS check covers their d = 112
 instantiations.
@@ -218,6 +224,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -5352,7 +5359,7 @@ def mesh_serve_rank(rank: int, world: int, device: str, small: bool) -> dict:
             **({"report": report, "readings": readings} if lead else {"report": report})}
 
 
-def mesh_serve_phase(torch, device="cuda", small: bool = False) -> dict:
+def mesh_serve_phase(torch, reports: list, device: str = "cuda") -> dict:
     """Serving over a context mesh of MESH_SERVE_WORLD ranks spawned as
     processes that share the card, joined in a gloo world
     (``launch.mesh.run_world``); rank 0 leads, rank 1 runs
@@ -5378,7 +5385,58 @@ def mesh_serve_phase(torch, device="cuda", small: bool = False) -> dict:
     both the long prompts' last-row logits against one device's within
     MESH_SERVE_LOGITS_TOL.  Raises on any failure, when a kernel of the
     path never launched, and when the card's free memory is not back within
-    CYCLE_SLACK of the phase's start once the ranks have exited."""
+    CYCLE_SLACK of the phase's start once the ranks have exited
+    (``paired_phases``, whose world gives the ranks' ``reports``)."""
+    cuda = torch.device(device).type == "cuda"
+    wall = reports[0]["seconds"]
+    launches = {name: sum(r["launches"][name] for r in reports)
+                for name in ("flash", "distr", "paged", "decode")}
+    if cuda and any(v == 0 for v in launches.values()):
+        raise AssertionError(f"the mesh serving path never launched some kernels: {launches}")
+    lead = reports[0]
+    report = {**lead["report"], "readings": lead["readings"], "wall_s": wall,
+              "launches": launches, "launches_by_rank": [r["launches"] for r in reports],
+              "peak_allocated_by_rank": [r["peak_allocated"] for r in reports],
+              "follower": reports[1]["report"]}
+    log(f"[mesh serve] phase {wall:.1f} s; launches {launches} (by rank "
+        f"{report['launches_by_rank']}); peak allocated by rank "
+        f"{[round(r['peak_allocated'] / 2**30, 2) for r in reports]} GiB")
+    return {"report": report, "launches": launches}
+
+
+# The 2-rank phases share one world (one spawn, not three); ``--only`` runs
+# one of them in it.
+PAIRED = ("mesh_serve", "moe_ep", "mesh_tp")
+
+
+def paired_rank(rank: int, world: int, device: str, small: bool, phases: tuple) -> dict:
+    """One rank of ``paired_phases``: the rank functions of ``phases`` (of
+    PAIRED) in turn → {phase: its report, with its seconds}."""
+    import torch
+
+    # mesh_tp_rank's allocator setting, before any phase touches the card.
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    fns = {"mesh_serve": mesh_serve_rank, "moe_ep": moe_ep_rank, "mesh_tp": mesh_tp_rank}
+    out = {}
+    for name in phases:
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out[name] = fns[name](rank, world, device, small)
+        out[name]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def paired_phases(torch, device="cuda", small: bool = False, phases: tuple = PAIRED) -> dict:
+    """``phases`` of ``mesh_serve_phase``, ``moe_ep_phase`` and
+    ``mesh_tp_phase`` on one world of 2 ranks (``paired_rank``), with
+    DRY_CELLS priced on the host beside it when ``mesh_tp`` is among them
+    (a thread: the ranks are other processes, the dry run is host work on
+    meta); the card's memory must be back once the ranks exit → {phase:
+    its result, "wall_s": the world's seconds}."""
     from repro_torch.launch.mesh import run_world
 
     cuda = torch.device(device).type == "cuda"
@@ -5387,24 +5445,24 @@ def mesh_serve_phase(torch, device="cuda", small: bool = False) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         free0 = torch.cuda.mem_get_info()[0]
+    cells: dict = {}
+    pricing = threading.Thread(target=dry_cells, args=(cells,), daemon=True)
+    if "mesh_tp" in phases:
+        pricing.start()
     t0 = time.perf_counter()
-    reports = run_world(mesh_serve_rank, MESH_SERVE_WORLD, device, small, timeout_s=900)
+    reports = run_world(paired_rank, MESH_TP_WORLD, device, small, tuple(phases),
+                        timeout_s=1800)
     wall = time.perf_counter() - t0
-    gap = _free_gap(torch, free0, "the mesh serving phase") if cuda else 0
-    launches = {name: sum(r["launches"][name] for r in reports)
-                for name in ("flash", "distr", "paged", "decode")}
-    if cuda and any(v == 0 for v in launches.values()):
-        raise AssertionError(f"the mesh serving path never launched some kernels: {launches}")
-    lead = reports[0]
-    report = {**lead["report"], "readings": lead["readings"], "wall_s": wall,
-              "free_gap_bytes": gap, "launches": launches,
-              "launches_by_rank": [r["launches"] for r in reports],
-              "peak_allocated_by_rank": [r["peak_allocated"] for r in reports],
-              "follower": reports[1]["report"]}
-    log(f"[mesh serve] phase {wall:.1f} s; launches {launches} (by rank "
-        f"{report['launches_by_rank']}); peak allocated by rank "
-        f"{[round(r['peak_allocated'] / 2**30, 2) for r in reports]} GiB")
-    return {"report": report, "launches": launches}
+    if pricing.is_alive():
+        pricing.join()
+    gap = _free_gap(torch, free0, "the 2-rank phases") if cuda else 0
+    log(f"[paired] the 2-rank world {wall:.1f} s: " + ", ".join(
+        f"{n} {reports[0][n]['seconds']:.1f} s" for n in phases) + f"; {gap} bytes left")
+    per = {n: [r[n] for r in reports] for n in phases}
+    summarise = {"mesh_serve": lambda r: mesh_serve_phase(torch, r, device),
+                 "moe_ep": lambda r: moe_ep_phase(torch, r, device),
+                 "mesh_tp": lambda r: mesh_tp_phase(torch, r, cells, device)}
+    return {**{n: summarise[n](per[n]) for n in phases}, "wall_s": wall, "free_gap_bytes": gap}
 
 
 def _free_gap(torch, free0: int, what: str) -> int:
@@ -5753,7 +5811,7 @@ def moe_ep_rank(rank: int, world: int, device: str, small: bool) -> dict:
                if lead else {})}
 
 
-def moe_ep_phase(torch, device="cuda", small: bool = False) -> dict:
+def moe_ep_phase(torch, reports: list, device: str = "cuda") -> dict:
     """MoE expert parallelism on MOE_EP_WORLD ranks spawned as processes that
     share the card, a (data 1, model 2) mesh over gloo.  Rank by rank
     (``moe_ep_rank``): one MoE layer of llama4-scout-17b-a16e at full width
@@ -5776,19 +5834,10 @@ def moe_ep_phase(torch, device="cuda", small: bool = False) -> dict:
     outputs' all-to-all landing one shard off, which must fail that gate.
     Raises on any failure, when the step launched none of the
     DistrAttention forward and backward kernels on some rank, and when the
-    card's memory is not back."""
-    from repro_torch.launch.mesh import run_world
-
+    card's memory is not back (``paired_phases``, whose world gives the
+    ranks' ``reports``)."""
     cuda = torch.device(device).type == "cuda"
-    if cuda:
-        torch.cuda.synchronize()
-        gc.collect()
-        torch.cuda.empty_cache()
-        free0 = torch.cuda.mem_get_info()[0]
-    t0 = time.perf_counter()
-    reports = run_world(moe_ep_rank, MOE_EP_WORLD, device, small, timeout_s=900)
-    wall = time.perf_counter() - t0
-    gap = _free_gap(torch, free0, "the expert-parallel phase") if cuda else 0
+    wall = reports[0]["seconds"]
     keys = {"flash_attention": "flash", "backward.delta": "delta",
             "backward.flash_dq": "flash_dq", "backward.flash_dkv": "flash_dkv"}
     silent = {r["rank"]: [k for k in keys if not r["launches"].get(k)] for r in reports}
@@ -5796,7 +5845,7 @@ def moe_ep_phase(torch, device="cuda", small: bool = False) -> dict:
         raise AssertionError(f"the expert-parallel step never launched these kernels: {silent}")
     launches = {name: sum(r["launches"].get(k, 0) for r in reports) for k, name in keys.items()}
     report = {**reports[0]["report"], "readings": reports[0]["readings"], "wall_s": wall,
-              "free_gap_bytes": gap, "launches": launches,
+              "launches": launches,
               "peak_allocated_by_rank": [r["peak_allocated"] for r in reports]}
     log(f"[moe ep] phase {wall:.1f} s; launches {launches}; peak allocated by rank "
         f"{[round(r['peak_allocated'] / 2**30, 2) for r in reports]} GiB")
@@ -5822,6 +5871,8 @@ MESH_TP_WORLD = 2
 MESH_TP_RUNS = (("mamba2-130m", None, 2048, 0), ("zamba2-7b", 12, 2048, 0),
                 ("whisper-small", None, 448, 1500), ("deepseek-v2-236b", 2, 1024, 0))
 MESH_TP_SMALL_SEQ = 64
+# The training run whose step the dry run's count is held to.
+DRY_TRAIN_ARCH = "mamba2-130m"
 # Under the seed weights the busiest of deepseek-v2's 160 experts takes
 # 173 (f32) and 178 (bf16) of 1024 tokens' 6144 assignments (one H100):
 # one device's capacity at MOE_EP_NODROP_CF (4) is 153, at 6 it is 230.
@@ -5859,6 +5910,251 @@ COUNTER_NAMES = {"flash_attention": "flash", "distr_attention": "distr", "ssd": 
                                                  "distr_dkv")}}
 
 
+# Tensor-parallel serving in the same world: starcoder2-7b at full width cut
+# to TP_SERVE_LAYERS of its 32 layers on (data 1, model 2), under both cache
+# layouts and both kernel impls, each in f32 (gated) and bf16 (reported
+# only).  TP_SERVE_PROMPTS are prefilled one at a time into a
+# TP_SERVE_MAX_LEN-position cache, their caches joined into one batch, then
+# TP_SERVE_STEPS decode steps fed one device's greedy tokens.  Every step's
+# logits must lie within TP_SERVE_TOL (atol and rtol, as
+# tests/test_torch_serve.py holds decode parity) of one device's steps
+# from the same weights, the greedy tokens be equal under f32 flash, and
+# each rank's cache be its ``cache_pspecs`` block of one device's cache.
+TP_SERVE_ARCH, TP_SERVE_LAYERS = "starcoder2-7b", 4
+TP_SERVE_PROMPTS, TP_SERVE_MAX_LEN, TP_SERVE_STEPS = (96, 700, 1537, 2048), 2048, 16
+TP_SERVE_SMALL = ((8, 20, 33, 64), 64, 4)
+TP_SERVE_TOL = 1e-4
+TP_SERVE_RUNS = tuple((layout, impl, dtype) for dtype in ("float32", "bfloat16")
+                      for layout in ("seq", "heads") for impl in ("pallas_flash", "pallas_distr"))
+# The dry run's peak of the storages a step allocates over the card's
+# ``max_memory_allocated`` rise in the same step must lie in this range.
+DRY_PEAK_RATIO = (0.5, 2.0)
+# The production-mesh cells the phase prices on the host (``launch.dryrun``).
+DRY_CELLS = (("qwen2.5-32b", "train_4k"), ("starcoder2-7b", "decode_32k"),
+             ("zamba2-7b", "long_500k"))
+
+
+def dry_compare(what: str, got, dry, args_card: int, args_dry: int,
+                rise: int | None = None) -> dict:
+    """The card's count of a step (``roofline.analysis.CostCounter``) beside
+    the dry run's of the same step on meta → a reading with the failures
+    (FLOPs, collective bytes by kind and argument bytes must be equal; the
+    traced peak over the card's allocation rise within DRY_PEAK_RATIO when
+    ``rise`` is given)."""
+    out = {"check": what, "flops": [got.flops, dry.flops], "coll": [dict(got.coll), dict(dry.coll)],
+           "argument_bytes": [args_card, args_dry], "failures": []}
+    if got.flops != dry.flops:
+        out["failures"].append(f"{what}: FLOPs {got.flops!r} on the card, {dry.flops!r} dry")
+    if dict(got.coll) != dict(dry.coll):
+        out["failures"].append(f"{what}: collective bytes {dict(got.coll)} on the card, "
+                               f"{dict(dry.coll)} dry")
+    if args_card != args_dry:
+        out["failures"].append(f"{what}: argument bytes {args_card} on the card, {args_dry} dry")
+    if rise is not None:
+        ratio = dry.peak_bytes / max(rise, 1)
+        out["peak"] = [dry.peak_bytes, rise, ratio]
+        if not DRY_PEAK_RATIO[0] <= ratio <= DRY_PEAK_RATIO[1]:
+            out["failures"].append(f"{what}: traced peak {dry.peak_bytes} over the card's rise "
+                                   f"{rise} is {ratio:.3g}, outside {DRY_PEAK_RATIO}")
+    return out
+
+
+def tp_serve_checks(rank: int, world: int, device: str, small: bool, mesh) -> dict:
+    """One rank's tensor-parallel serving checks (see TP_SERVE_RUNS): for
+    each run one device's prefills and decode steps, then the mesh's from
+    this rank's shards of the same seed weights, and under f32 the dry run
+    of each mesh call (``launch.dryrun.run_step`` on meta over a dry mesh
+    at this rank's coordinates) held to what the card counted.  Returns
+    {"readings", "failures", "launches" (the decode kernel's on the mesh's
+    steps), "rows"}."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import distr_attention as core_distr
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import decode as dk
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import dry_mesh
+    from repro_torch.models import lm
+    from repro_torch.roofline.analysis import CostCounter
+    from repro_torch.serve import kv_cache
+    from repro_torch.serve.serve_step import make_decode_step, make_prefill
+    from repro_torch.train.train_step import mesh_specs
+
+    cuda = device == "cuda"
+    prompts, max_len, n_steps = TP_SERVE_SMALL if small else (TP_SERVE_PROMPTS, TP_SERVE_MAX_LEN,
+                                                               TP_SERVE_STEPS)
+    dmesh = dry_mesh(tuple(mesh.shape[a] for a in mesh.axis_names), mesh.axis_names, rank)
+    readings, failures, rows = [], [], []
+    launches = 0
+    real_perms = ops.block_permutations
+    tape = {"perms": [], "at": None, "m": int(mesh.coords["model"])}
+
+    def taped(qp, dcfg, proj, hkv):
+        perms = real_perms(qp, dcfg, proj, hkv)
+        if tape["at"] is None:
+            tape["perms"].append(perms.cpu())
+            return perms
+        want = tape["perms"][tape["at"]]
+        tape["at"] += 1
+        h = perms.shape[1]
+        if want.shape[1] != h:
+            want = want[:, tape["m"] * h:(tape["m"] + 1) * h]
+        return want.to(perms.device)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def counted(fn, *args):
+        """fn(*args) under a CostCounter → (out, counter, the card's
+        allocation rise)."""
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        with CostCounter() as c:
+            out = fn(*args)
+        sync()
+        rise = torch.cuda.max_memory_allocated() - base if cuda else None
+        return out, c, rise
+
+    def serve(cfg, params, toks, feed=None, mesh_=None, count=False):
+        """Prefill each prompt, join the caches, decode n_steps → (logits
+        per step on the host, the final cache on the host, the counts)."""
+        pf = make_prefill(cfg, max_len, mesh=mesh_)
+        parts, first, counts = [], [], []
+        for t in toks:
+            if count:
+                (lg, c), ctr, rise = counted(pf, params, t)
+                counts.append(("prefill", t, ctr, rise))
+            else:
+                lg, c = pf(params, t)
+            parts.append(c)
+            first.append(lg)
+        cache = {k: torch.cat([c[k] for c in parts], dim=0 if k == "length" else 1)
+                 for k in parts[0]}
+        del parts
+        step = make_decode_step(cfg, max_len=max_len, device=device, mesh=mesh_)
+        pos = torch.tensor([t.shape[1] for t in toks], dtype=torch.int32, device=device)
+        tok = torch.cat(first).argmax(-1).to(torch.int32) if feed is None else feed[0]
+        logits = [torch.cat(first).float().cpu()]
+        for i in range(n_steps):
+            if count and i == 0:
+                (lg, cache), ctr, rise = counted(step, params, tok, cache, pos)
+                counts.append(("decode", tok, ctr, rise))
+                dec_args = (tok, cache, pos)
+            else:
+                lg, cache = step(params, tok, cache, pos)
+            logits.append(lg.float().cpu())
+            tok = lg.argmax(-1).to(torch.int32) if feed is None else feed[i + 1]
+            pos = pos + 1
+        host = {k: v.cpu() for k, v in cache.items()}
+        return logits, host, counts, (dec_args if count else None)
+
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    for layout, impl, dtype in TP_SERVE_RUNS:
+        t0 = time.perf_counter()
+        cfg = get_config(TP_SERVE_ARCH, reduced=small).replace(compute_dtype=dtype,
+                                                               attn_shard=layout)
+        if not small:
+            cfg = cfg.replace(n_layers=TP_SERVE_LAYERS)
+        cfg = cfg.replace(attention=cfg.attention.with_impl(impl))
+        label = f"{cfg.name} {layout} {impl} {dtype}"
+        full = lm.init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+        toks = [torch.randint(0, cfg.vocab, (1, n), generator=gen).to(torch.int32).to(device)
+                for n in prompts]
+        tape.update(perms=[], at=None)
+        ops.block_permutations = core_distr.block_permutations = taped
+        try:
+            one_logits, one_cache, _, _ = serve(cfg, full, toks)
+            feed = [torch.stack([lg[b, 0] for b in range(len(prompts))]).argmax(-1)
+                    .to(torch.int32)[:, None].to(device) for lg in one_logits]
+            local = sharding.shard_params(full, mesh, mesh_specs(cfg, mesh))
+            del full
+            if cuda:
+                torch.cuda.empty_cache()
+            tape["at"] = 0
+            before = dk.launches
+            f32 = dtype == "float32"
+            got_logits, got_cache, counts, dec_args = serve(cfg, local, toks, feed, mesh,
+                                                            count=f32)
+            launches += dk.launches - before
+        finally:
+            ops.block_permutations = core_distr.block_permutations = real_perms
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(got_logits, one_logits)):
+            a, b = a[..., :cfg.vocab], b[..., :cfg.vocab]
+            if not torch.isfinite(a).all():
+                failures.append(f"{label}: non-finite logits at step {i}")
+            excess = float(((a - b).abs() - TP_SERVE_TOL * b.abs()).max())
+            worst = max(worst, float((a - b).abs().max()))
+            if f32 and excess > TP_SERVE_TOL:
+                failures.append(f"{label}: step {i}'s logits off by {float((a - b).abs().max())} "
+                                f"(atol = rtol = {TP_SERVE_TOL})")
+        greedy_same = all(bool((a[..., :cfg.vocab].argmax(-1) == b[..., :cfg.vocab].argmax(-1))
+                               .all()) for a, b in zip(got_logits, one_logits))
+        if f32 and impl == "pallas_flash" and not greedy_same:
+            failures.append(f"{label}: the mesh's greedy tokens differ from one device's")
+        want = kv_cache.local_cache(one_cache, cfg, mesh, batch=len(prompts), max_len=max_len)
+        cache_err = max(float((want[k].float() - got_cache[k].float()).abs().max())
+                        for k in got_cache)
+        shapes_ok = all(tuple(want[k].shape) == tuple(got_cache[k].shape) for k in got_cache)
+        if not shapes_ok or (f32 and cache_err > TP_SERVE_TOL):
+            failures.append(f"{label}: rank {rank}'s cache is not its cache_pspecs block of one "
+                            f"device's (shapes {shapes_ok}, largest difference {cache_err})")
+        row = {"run": label, "max_abs_logit_err": worst, "greedy_equal": greedy_same,
+               "cache_err": cache_err, "seconds": time.perf_counter() - t0}
+        if f32:
+            # The dry run of each counted mesh call, on meta at this rank's
+            # coordinates, against the card's count.
+            mparams = dryrun.rank_params(cfg, dmesh, lm.compute_dtype(cfg))
+            for kind, t, ctr, rise in counts:
+                if kind == "prefill":
+                    batch = {"tokens": torch.empty(t.shape, dtype=t.dtype, device="meta")}
+                    _, dry, _ = dryrun.run_step(cfg, "prefill", dmesh, mparams, batch=batch,
+                                                max_len=max_len)
+                    card_args = dryrun.argument_bytes(local, {"tokens": t})
+                    dry_args = dryrun.argument_bytes(mparams, batch)
+                    what = f"{label} prefill of {t.shape[1]}"
+                    gate_peak = t.shape[1] == max(prompts)
+                else:
+                    tok_, cache_, pos_ = dec_args
+                    mcache = dryrun.rank_cache(cfg, dmesh, len(prompts), max_len,
+                                               lm.compute_dtype(cfg))
+                    mt = torch.empty(tok_.shape, dtype=tok_.dtype, device="meta")
+                    mp = torch.empty(pos_.shape, dtype=pos_.dtype, device="meta")
+                    _, dry, _ = dryrun.run_step(cfg, "decode", dmesh, mparams, cache=mcache,
+                                                tokens=mt, pos=mp, max_len=max_len)
+                    card_args = dryrun.argument_bytes(local, cache_, tok_, pos_)
+                    dry_args = dryrun.argument_bytes(mparams, mcache, mt, mp)
+                    what = f"{label} decode step"
+                    gate_peak = True
+                r = dry_compare(what, ctr, dry, card_args, dry_args,
+                                rise if (cuda and gate_peak) else None)
+                if not gate_peak and cuda:
+                    r["peak"] = [dry.peak_bytes, rise, dry.peak_bytes / max(rise, 1)]
+                failures.extend(r.pop("failures"))
+                readings.append(r)
+        rows.append(row)
+        if rank == 0:
+            log(f"  [tp serve] {label}: logits within {worst:.3g} of one device's over "
+                f"{n_steps + 1} steps, greedy tokens equal {greedy_same}, cache block within "
+                f"{cache_err:.3g}; {row['seconds']:.1f} s")
+        del local
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    if rank == 0:
+        for r in readings:
+            log(f"  [dry vs card] {r['check']}: FLOPs {r['flops'][0]!r} / {r['flops'][1]!r}, "
+                f"collective bytes {r['coll'][0]}, argument bytes {r['argument_bytes']}"
+                + (f", traced peak {r['peak'][0]} over the card's rise {r['peak'][1]} = "
+                   f"{r['peak'][2]:.3f}" if "peak" in r else ""))
+    return {"readings": readings, "failures": failures, "launches": launches, "rows": rows}
+
+
 def mesh_tp_config(arch: str, n_layers, small: bool, dtype: str = "bfloat16"):
     """The config a MESH_TP_RUNS entry trains: full width (``reduced()``
     when ``small``) cut to ``n_layers``, computed in ``dtype``, attention
@@ -5894,6 +6190,9 @@ def mesh_tp_rank(rank: int, world: int, device: str, small: bool) -> dict:
     from repro_torch.launch.train import init_train_params
     from repro_torch.models import attention, lm, moe
     from repro_torch.serve.graphs import LaunchCounters
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import dry_mesh
+    from repro_torch.roofline.analysis import CostCounter
     from repro_torch.train import optimizer as opt
     from repro_torch.train.train_step import leaf_specs, make_train_step, mesh_specs
 
@@ -5908,8 +6207,10 @@ def mesh_tp_rank(rank: int, world: int, device: str, small: bool) -> dict:
     torch.set_num_threads(1)
     lead = rank == 0
     mesh = make_host_mesh(model_parallel=world)
+    dmesh = dry_mesh(tuple(mesh.shape[a] for a in mesh.axis_names), mesh.axis_names, rank)
     m_idx = int(mesh.coords["model"])
     counters = LaunchCounters()
+    dry_readings = []
     ocfg = opt.OptimizerConfig(peak_lr=MESH_LR, warmup_steps=0, total_steps=10)
     failures, readings = [], []
     sink = {}
@@ -6026,12 +6327,22 @@ def mesh_tp_rank(rank: int, world: int, device: str, small: bool) -> dict:
         for fault in (False, True):
             tape.update(replay=True, at_p=0, at_i=0, same=0, total=0)
             sync()
+            # The sound step of DRY_TRAIN_ARCH under the cost counter, held
+            # to the dry run's count of the same step below.
+            count = arch == DRY_TRAIN_ARCH and not fault
+            if count and cuda:
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
             before = counters.read()
             t0 = time.perf_counter()
-            with planted(arch) if fault else contextlib.nullcontext():
+            with (planted(arch) if fault else contextlib.nullcontext()), \
+                    (CostCounter() if count else contextlib.nullcontext()) as ctr:
                 _, _, m = step(params, {"count": 0}, batch, 0)
             sync()
             step_s = time.perf_counter() - t0
+            if count:
+                sink["count"] = (ctr, torch.cuda.max_memory_allocated() - base if cuda else None,
+                                 dryrun.argument_bytes(params, {"count": 0}, batch))
             after = counters.read()
             if tape["at_p"] != len(tape["perms"]) or tape["at_i"] != len(tape["ids"]):
                 failures.append(f"{cfg.name} {cfg.compute_dtype}: the mesh step drew "
@@ -6096,6 +6407,18 @@ def mesh_tp_rank(rank: int, world: int, device: str, small: bool) -> dict:
         names = [n for n, _ in lm.named_trainable(shapes)]
         one, want, runs = steps(cfg, batch, specs, lspecs, arch)
         (m, got, step_s, counts), planted_run = runs
+        if arch == DRY_TRAIN_ARCH:
+            ctr, rise, card_args = sink.pop("count")
+            mparams = dryrun.rank_params(cfg, dmesh, lm.param_dtype(cfg))
+            mbatch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                      for k, v in batch.items()}
+            _, dry, _ = dryrun.run_step(cfg, "train", dmesh, mparams, batch=mbatch,
+                                        opt_cfg=ocfg, opt_state={"count": 0}, step_fn=None)
+            r = dry_compare(f"{arch} f32 train step", ctr, dry, card_args,
+                            dryrun.argument_bytes(mparams, {"count": 0}, mbatch), rise)
+            sink.pop("grads", None)
+            failures.extend(r.pop("failures"))
+            dry_readings.append(r)
         out = {"n_params": sum(t.numel() for t in lm.trainable(shapes)), "layers": cfg.n_layers,
                "tokens": seq, "frames": frames, "one": one, "mesh": m, "mesh_step_s": step_s,
                "launches": counts, "planted_loss": planted_run[0]["loss"]}
@@ -6148,6 +6471,11 @@ def mesh_tp_rank(rank: int, world: int, device: str, small: bool) -> dict:
             log(f"[mesh tp] {arch}: {out['seconds']:.1f} s")
         return out
 
+    # Tensor-parallel serving first (its own permutation tape), then the
+    # training runs.
+    serving = tp_serve_checks(rank, world, device, small, mesh)
+    failures.extend(serving["failures"])
+    dist.barrier()
     report, launches = {}, {}
     if cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -6164,14 +6492,22 @@ def mesh_tp_rank(rank: int, world: int, device: str, small: bool) -> dict:
             dist.barrier()
     sync()
     dist.barrier()
+    if lead:
+        for r in dry_readings:
+            log(f"  [dry vs card] {r['check']}: FLOPs {r['flops'][0]!r} / {r['flops'][1]!r}, "
+                f"collective bytes {r['coll'][0]}, argument bytes {r['argument_bytes']}, traced "
+                f"peak {r['peak'][0]} over the card's rise {r['peak'][1]} = {r['peak'][2]:.3f}"
+                if "peak" in r and r["peak"][1] is not None else f"  [dry vs card] {r}")
     if failures:
         raise AssertionError("; ".join(failures))
-    return {"rank": rank, "launches": launches,
+    return {"rank": rank, "launches": launches, "serve_decode_launches": serving["launches"],
             "peak_allocated": torch.cuda.max_memory_allocated() if cuda else 0,
-            **({"report": report, "readings": readings} if lead else {})}
+            "dry_readings": serving["readings"] + dry_readings,
+            **({"report": report, "readings": readings, "serving": serving["rows"]}
+               if lead else {})}
 
 
-def mesh_tp_phase(torch, device="cuda", small: bool = False) -> dict:
+def mesh_tp_phase(torch, reports: list, cells: dict, device: str = "cuda") -> dict:
     """Tensor parallelism over "model" for the ssm, hybrid and enc-dec
     families and MLA, on MESH_TP_WORLD ranks spawned as processes that share
     the card, a (data 1, model 2) mesh over gloo.  For each of MESH_TP_RUNS
@@ -6188,31 +6524,55 @@ def mesh_tp_phase(torch, device="cuda", small: bool = False) -> dict:
     mesh step with the family's MESH_TP_FAULTS entry planted, which must
     fail that gradient gate.  Raises on any failure, when one device drops
     an expert assignment, when a mesh step did not launch its family's
-    MESH_TP_KERNELS on some rank, and when the card's memory is not back."""
-    from repro_torch.launch.mesh import run_world
-
+    MESH_TP_KERNELS on some rank, and when the card's memory is not back.
+    The same world holds the tensor-parallel serving checks
+    (``tp_serve_checks``) and the dry run's accounting against the card
+    (``dry_compare``), and the host prices DRY_CELLS (``dry_cells``) into
+    ``cells`` beside it (``paired_phases``, whose world gives the ranks'
+    ``reports``)."""
     cuda = torch.device(device).type == "cuda"
-    if cuda:
-        torch.cuda.synchronize()
-        gc.collect()
-        torch.cuda.empty_cache()
-        free0 = torch.cuda.mem_get_info()[0]
-    t0 = time.perf_counter()
-    reports = run_world(mesh_tp_rank, MESH_TP_WORLD, device, small, timeout_s=900)
-    wall = time.perf_counter() - t0
-    gap = _free_gap(torch, free0, "the tensor-parallel phase") if cuda else 0
+    wall = reports[0]["seconds"]
     launches = dict.fromkeys(COUNTER_NAMES.values(), 0)
     for r in reports:
         for counts in r["launches"].values():
             for name, n in counts.items():
                 launches[name] += n
+    serve_decode = [r["serve_decode_launches"] for r in reports]
+    if cuda and not all(serve_decode):
+        raise AssertionError(f"a rank's tensor-parallel decode steps never launched the decode "
+                             f"kernel: {serve_decode}")
+    failed = [f"{a} × {sh}: {rec.get('status')} {rec.get('reason', rec.get('error', ''))}"
+              for (a, sh), rec in cells.items() if rec.get("status") != "ok"]
+    if failed or len(cells) != len(DRY_CELLS):
+        raise AssertionError(f"production-mesh dry-run cells not ok: {failed or cells}")
     report = {"runs": reports[0]["report"], "readings": reports[0]["readings"], "wall_s": wall,
-              "free_gap_bytes": gap, "launches": launches,
+              "launches": launches,
               "launches_by_rank": [r["launches"] for r in reports],
-              "peak_allocated_by_rank": [r["peak_allocated"] for r in reports]}
-    log(f"[mesh tp] phase {wall:.1f} s; launches {launches}; peak allocated by rank "
+              "peak_allocated_by_rank": [r["peak_allocated"] for r in reports],
+              "serving": reports[0]["serving"], "serve_decode_launches_by_rank": serve_decode,
+              "dry_vs_card_by_rank": [r["dry_readings"] for r in reports],
+              "dry_cells": {f"{a} {sh}": {k: rec.get(k) for k in
+                                          ("status", "trace_s", "memory", "memory_estimate",
+                                           "roofline", "useful_flops_ratio")}
+                            for (a, sh), rec in cells.items()}}
+    log(f"[mesh tp] phase {wall:.1f} s; launches {launches}; the decode kernel's launches on "
+        f"the serving steps by rank {serve_decode}; peak allocated by rank "
         f"{[round(r['peak_allocated'] / 2**30, 2) for r in reports]} GiB")
-    return {"report": report, "launches": launches}
+    return {"report": report, "launches": {**launches, "decode": sum(serve_decode)}}
+
+
+def dry_cells(out: dict) -> None:
+    """``launch.dryrun.run_cell`` of each DRY_CELLS entry on (data 16, model
+    16), records into ``out`` (a failure's record carries its error)."""
+    from repro_torch.launch import dryrun
+
+    with tempfile.TemporaryDirectory(prefix="repro_torch_dryrun_") as tmp:
+        for arch, shape in DRY_CELLS:
+            try:
+                out[(arch, shape)] = dryrun.run_cell(arch, shape, multi_pod=False,
+                                                     results_dir=tmp)
+            except Exception as e:  # noqa: BLE001 — reported by the phase
+                out[(arch, shape)] = {"status": "failed", "error": repr(e)}
 
 
 def hybrid112_train_phase(torch, device="cuda", small: bool = False) -> dict:
@@ -6508,7 +6868,7 @@ def main() -> int:
     if args.only == "mesh_tp":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        tp = mesh_tp_phase(torch)
+        tp = paired_phases(torch, phases=("mesh_tp",))["mesh_tp"]
         h112 = hybrid112_train_phase(torch)
         free_card(torch, "zamba2-7b's step at head dim 112", gate=False)
         if args.out:
@@ -6537,8 +6897,7 @@ def main() -> int:
                                                label="llama4-scout model 2",
                                                train_shape=False)}
         del flush
-        phase = mesh_serve_phase if args.only == "mesh_serve" else moe_ep_phase
-        res = phase(torch)
+        res = paired_phases(torch, phases=(args.only,))[args.only]
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps({"card": card, args.only: res["report"],
@@ -6698,15 +7057,10 @@ def main() -> int:
         meshed = mesh_phase(torch)
         stamp("mesh")
         results["mesh"] = meshed["report"]
-        mesh_served = mesh_serve_phase(torch)
-        stamp("mesh serve")
-        results["mesh_serve"] = mesh_served["report"]
-        moe_ep = moe_ep_phase(torch)
-        stamp("moe ep")
-        results["moe_ep"] = moe_ep["report"]
-        mesh_tp = mesh_tp_phase(torch)
-        stamp("mesh tp")
-        results["mesh_tp"] = mesh_tp["report"]
+        paired = paired_phases(torch)
+        stamp("mesh serve, moe ep, mesh tp (one 2-rank world)")
+        mesh_served, moe_ep, mesh_tp = (paired[n] for n in PAIRED)
+        results.update({n: paired[n]["report"] for n in PAIRED})
         h112 = hybrid112_train_phase(torch)
         stamp("hybrid d=112 step")
         results["hybrid_d112"] = h112["report"]

@@ -192,7 +192,7 @@ def attend_decode(q, k, v, cfg: AttentionConfig, *,
                   k_fused: torch.Tensor | None = None,
                   perm: torch.Tensor | None = None, group_size: int = 1,
                   scale: float | None = None,
-                  block_tables: torch.Tensor | None = None) -> torch.Tensor:
+                  block_tables: torch.Tensor | None = None, return_stats: bool = False):
     """Decode-path attention with per-slot live ``lengths``: every impl
     except ``reference`` runs a split-K decode kernel.
 
@@ -206,7 +206,9 @@ def attend_decode(q, k, v, cfg: AttentionConfig, *,
     q: (B, Hq, q_len, d).  The fused-K̂ variant takes ``k_fused`` (the
     d/G*-wide cache or pool) + ``perm`` (Hkv, d) + ``group_size``; ``k``
     may then be None.  ``scale`` refers to the full head dim (default 1/√d
-    from V).
+    from V).  ``return_stats`` (contiguous caches) returns the unnormalised
+    (o, m, l) of ``ops.decode_attention(return_stats=True)`` for a merge
+    across ranks that hold other positions (``kernels.decode.merge_splits``).
     """
     if cfg.impl not in IMPLS:
         raise ValueError(f"unknown attention impl {cfg.impl!r}; choose from {IMPLS}")
@@ -215,6 +217,8 @@ def attend_decode(q, k, v, cfg: AttentionConfig, *,
         return _attend_decode_paged(q, k, v, cfg, lengths=lengths, k_fused=k_fused,
                                     perm=perm, group_size=group_size, scale=scale,
                                     block_tables=block_tables)
+    if cfg.impl == "reference" and return_stats:
+        return _decode_stats_plain(q, k, v, lengths, k_fused, perm, group_size, scale)
     if cfg.impl == "reference":
         nk = (k_fused if k_fused is not None else k).shape[2]
         kv_mask = (
@@ -232,7 +236,26 @@ def attend_decode(q, k, v, cfg: AttentionConfig, *,
     return ops.decode_attention(
         q, k, v, lengths=lengths, k_fused=k_fused, perm=perm,
         group_size=group_size, scale=scale, block_k=cfg.block_k_decode,
+        return_stats=return_stats,
     )
+
+
+def _decode_stats_plain(q, k, v, lengths, k_fused, perm, group_size, scale):
+    """The reference impl's (o, m, l) over a contiguous cache: the decode
+    kernel's plain version with the whole cache one split
+    (``kernels.decode.decode_plain``, then ``reduce_splits``)."""
+    from repro_torch.kernels import decode as decode_kernels
+    from repro_torch.kernels.ops import _pack_gqa_rows
+
+    if k_fused is not None:
+        q, k = grouping.sample_q_heads(q, perm, group_size), k_fused
+    b, hq, q_len, _ = q.shape
+    nk, d = k.shape[2], v.shape[-1]
+    if lengths is None:
+        lengths = torch.full((b,), nk, dtype=torch.int32, device=q.device)
+    o, m, l = decode_kernels.reduce_splits(*decode_kernels.decode_plain(
+        _pack_gqa_rows(q, k.shape[1]), k, v, lengths, scale=scale, block_k=nk, q_len=q_len))
+    return o.reshape(b, hq, q_len, d), m.reshape(b, hq, q_len), l.reshape(b, hq, q_len)
 
 
 def _attend_decode_paged(q, k, v, cfg, *, lengths, k_fused, perm, group_size, scale,

@@ -13,6 +13,16 @@ sends each rank its slice (all-to-all) and sums what it receives; a bf16
 tensor is summed in f32 (one rounding, whatever the axis size).  The ring
 (``distributed/ring_attention.py``) hops on ``send_recv``.
 
+**The dry path.**  On a dry mesh (``launch.mesh.DryMesh``: the dry run's
+production mesh, axis names, sizes and this rank's coordinates with no
+process group) each collective returns what it would on a live world, in
+shape and dtype, without moving anything: its own operand for every peer's.
+The test is by the mesh's type, and the operand must be a meta tensor (a
+tensor with values raises rather than come back wrong); a live mesh whose
+group is absent raises as before.  Under ``roofline.analysis.CostCounter`` each of the five wire
+sites (``all_reduce``, ``all_gather``, ``reduce_scatter``, ``all_to_all``,
+``send_recv``) charges the bytes it hands the wire, live or dry alike.
+
 **Autograd.**  ``tp_enter`` (identity forward, all-reduce backward) and
 ``tp_reduce`` (all-reduce forward, identity backward) are the conjugate pair
 that brackets a tensor-parallel region over "model"; ``gather_dim`` is the
@@ -40,7 +50,12 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch.launch.mesh import DryMesh
+from repro_torch.utils.counting import charge_collective, on_wire
 from repro_torch.utils.tree import tree_map
+
+# The group a dry mesh's axis stands for: nothing is sent.
+DRY = "dry"
 
 # ---------------------------------------------------------------------------
 # The wire layer
@@ -65,12 +80,25 @@ def require_gloo(group, what: str) -> None:
             f"memory); this group's backend is {backend!r}")
 
 
-def _group(mesh, axis: str):
+def _require_meta(x: torch.Tensor, what: str) -> None:
+    """Raise unless ``x`` is a meta tensor: a dry mesh moves nothing, so a
+    tensor with values on it would come back as its own peers'."""
+    if x.device.type != "meta":
+        raise RuntimeError(
+            f"{what} on a dry mesh takes meta tensors, not {x.device.type} ones: a dry mesh "
+            "has no process group (a live one comes from init_process_group and make_mesh)")
+
+
+def _group(mesh, axis: str, x: torch.Tensor):
     """(group, size, this rank's index, the group's global ranks) of ``axis``,
-    or None for an axis of size 1 (or absent)."""
+    or None for an axis of size 1 (or absent).  On a dry mesh ``x``, the
+    operand, must be a meta tensor."""
     size = axis_size(mesh, axis)
     if size == 1:
         return None
+    if isinstance(mesh, DryMesh):
+        _require_meta(x, f"a collective over {axis!r}")
+        return DRY, size, int(mesh.coords[axis]), mesh.ranks[axis]
     group = mesh.groups[axis]
     require_gloo(group, f"a collective over {axis!r}")
     return group, size, int(mesh.coords[axis]), mesh.ranks[axis]
@@ -91,15 +119,20 @@ def _host_empty(shape, like: torch.Tensor) -> torch.Tensor:
     return torch.empty(shape, dtype=like.dtype, pin_memory=like.is_pinned())
 
 
+@on_wire
 def all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
     """A new tensor: ``x`` reduced (``sum`` or ``max``) over every rank of
     ``axes`` (one axis or several), on ``x``'s device and in its dtype."""
     out = x
     for axis in _axes(axes):
-        g = _group(mesh, axis)
+        g = _group(mesh, axis, out)
         if g is None:
             continue
         src = out.float() if out.dtype in (torch.bfloat16, torch.float16) else out
+        charge_collective("all-reduce", src)
+        if g[0] is DRY:
+            out = src.to(dtype=x.dtype, copy=True)
+            continue
         wire = to_wire(src)
         if wire is x:
             wire = wire.clone()  # never reduce into the caller's tensor
@@ -109,15 +142,20 @@ def all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
     return out if out is not x else x.clone()
 
 
+@on_wire
 def all_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     """Every rank's ``x`` of ``axes`` concatenated along ``dim`` in mesh
     order (row-major over several axes: the last axis varies fastest)."""
     out = x
     for axis in reversed(_axes(axes)):
-        g = _group(mesh, axis)
+        g = _group(mesh, axis, out)
         if g is None:
             continue
         group, size = g[0], g[1]
+        charge_collective("all-gather", out)
+        if group is DRY:
+            out = torch.cat([out] * size, dim=dim)
+            continue
         wire = to_wire(out.contiguous())
         parts = _host_empty((size, *wire.shape), wire)
         dist.all_gather(list(parts.unbind(0)), wire, group=group)
@@ -135,18 +173,23 @@ def axes_index(mesh, axes) -> tuple[int, int]:
     return idx, n
 
 
+@on_wire
 def reduce_scatter(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     """This rank's slice along ``dim`` (mesh order, as ``all_gather``
     concatenates) of ``x`` summed over ``axes``: an all-to-all of the
     slices, then a local sum (in f32 for bf16)."""
     out = x
     for axis in _axes(axes):
-        g = _group(mesh, axis)
+        g = _group(mesh, axis, out)
         if g is None:
             continue
         group, size = g[0], g[1]
         src = out.float() if out.dtype in (torch.bfloat16, torch.float16) else out
         parts = torch.stack(src.chunk(size, dim=dim))  # (size, ...): slice i to rank i
+        charge_collective("reduce-scatter", parts)
+        if group is DRY:
+            out = parts[0].to(dtype=x.dtype, copy=True)
+            continue
         send = to_wire(parts)
         recv = _host_empty(send.shape, send)
         dist.all_to_all_single(recv, send, group=group)
@@ -154,24 +197,34 @@ def reduce_scatter(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     return out if out is not x else x.clone()
 
 
+@on_wire
 def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """Chunk j of ``x``'s dim 0 (cut in equal chunks, one a rank of
     ``axis``) goes to rank j; returns the chunks received, chunk i from rank
     i, in ``x``'s shape, on its device."""
-    g = _group(mesh, axis)
+    g = _group(mesh, axis, x)
     if g is None:
         return x.clone()
     if x.shape[0] % g[1]:
         raise ValueError(f"dim 0 of {x.shape[0]} rows does not split over {g[1]} ranks")
+    charge_collective("all-to-all", x)
+    if g[0] is DRY:
+        return x.clone()
     send = to_wire(x.contiguous())
     recv = _host_empty(send.shape, send)
     dist.all_to_all_single(recv, send, group=g[0])
     return recv.to(x.device)
 
 
+@on_wire
 def send_recv(flat: torch.Tensor, group, dst: int, src: int) -> torch.Tensor:
     """Send ``flat`` to global rank ``dst`` while receiving a tensor of its
-    shape and dtype from ``src``, on ``flat``'s device."""
+    shape and dtype from ``src``, on ``flat``'s device (a dry group:
+    ``flat`` itself, copied)."""
+    charge_collective("collective-permute", flat)
+    if group is DRY:
+        _require_meta(flat, "a send and receive")
+        return flat.clone()
     send = to_wire(flat)
     recv = _host_empty(send.shape, send)
     reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, dst, group),
@@ -184,7 +237,7 @@ def send_recv(flat: torch.Tensor, group, dst: int, src: int) -> torch.Tensor:
 def permute(x: torch.Tensor, mesh, axis: str, by: int) -> torch.Tensor:
     """Every rank of ``axis`` sends ``x`` ``by`` positions on (cyclically)
     and returns what it received from ``by`` positions back."""
-    g = _group(mesh, axis)
+    g = _group(mesh, axis, x)
     if g is None:
         return x.clone()
     group, size, idx, ranks = g

@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.distr_attention import ROW_TILE, fuse_k_columns
+from repro_torch.utils.counting import charged
 
 # LSE of a padded query row: exp(s − LSE_PAD) ≡ 0, so the row adds nothing
 # to dK / dV.  The kernels load it for rows at or past N.
@@ -63,10 +64,40 @@ def delta_plain(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (o.float() * do.float()).sum(dim=-1)
 
 
+def _delta_work(o, do) -> dict:
+    from repro_torch.kernels.ops import delta_work
+
+    return delta_work(o.shape[0] * o.shape[1], o.shape[2], o.element_size())
+
+
+def _flash_work(part: str):
+    def work(q, k, v, do, lse, delta, *, q_per_kv: int, scale: float, causal: bool,
+             kv_len: int) -> dict:
+        from repro_torch.kernels.ops import attention_work
+
+        bhq, n, d = q.shape
+        return attention_work(1, bhq, k.shape[0], n, kv_len, d, causal=causal)[part]
+    return work
+
+
+def _distr_work(part: str):
+    def work(q_hat, k, v, perm, do, lse, delta, *, q_per_kv: int, causal: bool,
+             group_size: int, block_q: int, kv_len: int) -> dict:
+        from repro_torch.kernels.ops import attention_work
+
+        bhq, n, _ = q_hat.shape
+        return attention_work(1, bhq, k.shape[0], n, kv_len, k.shape[2], causal=causal,
+                              group_size=group_size, block_q=block_q)[part]
+    return work
+
+
+@charged("delta", _delta_work)
 def delta_kernel_call(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """D = rowsum(dO ∘ O): o, do (BHq, N, d) of one dtype → (BHq, N) f32."""
     if o.device.type == "cpu":
         return delta_plain(o, do)
+    if o.device.type == "meta":  # the dry run: shapes, no launch
+        return o.new_empty(o.shape[:2], dtype=torch.float32)
     build.require_cuda(o, do)
     if o.shape != do.shape or o.dtype != do.dtype or o.shape[-1] % 8:
         raise ValueError(f"delta kernel shapes o={tuple(o.shape)} do={tuple(do.shape)} "
@@ -134,12 +165,15 @@ def _check_flash(q, k, v, do, lse, delta, q_per_kv, kv_len):
         raise ValueError(f"kv_len={kv_len} outside [0, {nk}]")
 
 
+@charged("flash_dq", _flash_work("dq"))
 def flash_dq_kernel_call(q, k, v, do, lse, delta, *, q_per_kv: int, scale: float,
                          causal: bool, kv_len: int) -> torch.Tensor:
     """Launch the flash dq kernel; shapes as for the plain version."""
     if q.device.type == "cpu":
         return flash_dq_plain(q, k, v, do, lse, delta, q_per_kv=q_per_kv, scale=scale,
                               causal=causal, kv_len=kv_len)
+    if q.device.type == "meta":  # the dry run: shapes, no launch
+        return q.new_empty(q.shape, dtype=torch.float32)
     _check_flash(q, k, v, do, lse, delta, q_per_kv, kv_len)
     bhq, n, d = q.shape
     dq = torch.empty((bhq, n, d), device=q.device, dtype=torch.float32)
@@ -154,12 +188,16 @@ def flash_dq_kernel_call(q, k, v, do, lse, delta, *, q_per_kv: int, scale: float
     return dq
 
 
+@charged("flash_dkv", _flash_work("dkv"))
 def flash_dkv_kernel_call(q, k, v, do, lse, delta, *, q_per_kv: int, scale: float,
                           causal: bool, kv_len: int):
     """Launch the flash dkv kernel → (dK, dV) per query head, f32."""
     if q.device.type == "cpu":
         return flash_dkv_plain(q, k, v, do, lse, delta, q_per_kv=q_per_kv, scale=scale,
                                causal=causal, kv_len=kv_len)
+    if q.device.type == "meta":  # the dry run: shapes, no launch
+        dk = q.new_empty((q.shape[0], k.shape[1], q.shape[2]), dtype=torch.float32)
+        return dk, torch.empty_like(dk)
     _check_flash(q, k, v, do, lse, delta, q_per_kv, kv_len)
     bhq, n, d = q.shape
     nk = k.shape[1]
@@ -260,6 +298,7 @@ def _q_tilde_scratch(q_hat: torch.Tensor, d: int) -> torch.Tensor:
     return torch.empty(shape, device=q_hat.device, dtype=q_hat.dtype)
 
 
+@charged("distr_dq", _distr_work("dq"))
 def distr_dq_kernel_call(q_hat, k, v, perm, do, lse, delta, *, q_per_kv: int, causal: bool,
                          group_size: int, block_q: int, kv_len: int) -> torch.Tensor:
     """Launch the distr dq kernel; shapes as for the plain version."""
@@ -267,6 +306,8 @@ def distr_dq_kernel_call(q_hat, k, v, perm, do, lse, delta, *, q_per_kv: int, ca
         return distr_dq_plain(q_hat, k, v, perm, do, lse, delta, q_per_kv=q_per_kv,
                               causal=causal, group_size=group_size, block_q=block_q,
                               kv_len=kv_len)
+    if q_hat.device.type == "meta":  # the dry run: shapes, no launch
+        return q_hat.new_empty(q_hat.shape, dtype=torch.float32)
     perm = perm.to(torch.int32).contiguous()
     _check_distr(q_hat, k, v, perm, do, lse, delta, q_per_kv, group_size, block_q, kv_len)
     bhq, n, dg = q_hat.shape
@@ -285,6 +326,7 @@ def distr_dq_kernel_call(q_hat, k, v, perm, do, lse, delta, *, q_per_kv: int, ca
     return dq_hat
 
 
+@charged("distr_dkv", _distr_work("dkv"))
 def distr_dkv_kernel_call(q_hat, k, v, perm, do, lse, delta, *, q_per_kv: int, causal: bool,
                           group_size: int, block_q: int, kv_len: int):
     """Launch the distr dkv kernel → (dK, dV) per query head, f32.  The
@@ -294,6 +336,9 @@ def distr_dkv_kernel_call(q_hat, k, v, perm, do, lse, delta, *, q_per_kv: int, c
         return distr_dkv_plain(q_hat, k, v, perm, do, lse, delta, q_per_kv=q_per_kv,
                                causal=causal, group_size=group_size, block_q=block_q,
                                kv_len=kv_len)
+    if q_hat.device.type == "meta":  # the dry run: shapes, no launch
+        dk = q_hat.new_empty((q_hat.shape[0],) + tuple(k.shape[1:]), dtype=torch.float32)
+        return dk, torch.empty_like(dk)
     perm = perm.to(torch.int32).contiguous()
     _check_distr(q_hat, k, v, perm, do, lse, delta, q_per_kv, group_size, block_q, kv_len)
     bhq, n, _ = q_hat.shape

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core.flash_reference import NEG_INF
 from repro_torch.kernels import build
+from repro_torch.utils.counting import charged
 
 launches = 0
 MAX_ROWS = 32  # packed query rows (q_per_kv · q_len) one CUDA block holds
@@ -54,6 +55,18 @@ def decode_plain(q, k, v, lengths, *, scale: float, block_k: int, q_len: int):
     return o, m, l
 
 
+def _work(q, k, v, lengths, *, scale: float, block_k: int, q_len: int) -> dict:
+    """The call's least work with every cache position live: the counter
+    prices static shapes (the dry run cannot read the lengths)."""
+    from repro_torch.kernels.ops import decode_attention_work
+
+    b, hkv, rows, ds = q.shape
+    s_len, d = k.shape[2], v.shape[3]
+    return decode_attention_work([s_len] * b, hkv * rows // q_len, hkv, d, s_len,
+                                 group_size=d // ds, q_len=q_len)
+
+
+@charged("decode", _work)
 def decode_kernel_call(q, k, v, lengths, *, scale: float, block_k: int, q_len: int):
     """Launch the split-K decode kernel; shapes as for ``decode_plain``.
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
@@ -61,6 +74,11 @@ def decode_kernel_call(q, k, v, lengths, *, scale: float, block_k: int, q_len: i
     global launches
     if q.device.type == "cpu":
         return decode_plain(q, k, v, lengths, scale=scale, block_k=block_k, q_len=q_len)
+    if q.device.type == "meta":  # the dry run: shapes, no launch
+        b, hkv, rows, _ = q.shape
+        splits = -(-k.shape[2] // block_k)
+        m = torch.empty((b, hkv, splits, rows), device=q.device, dtype=torch.float32)
+        return m.new_empty((b, hkv, splits, rows, v.shape[3])), m, torch.empty_like(m)
     lengths = lengths.to(torch.int32).contiguous()
     build.require_cuda(q, k, v, lengths)
     b, hkv, rows, ds = q.shape
@@ -85,6 +103,16 @@ def decode_kernel_call(q, k, v, lengths, *, scale: float, block_k: int, q_len: i
     build.check(err, "repro_decode_fwd")
     launches += 1
     return o, m, l
+
+
+def reduce_splits(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor):
+    """The splits' partials folded into one, still unnormalised: (o (...,
+    rows, d), m, l (..., rows)), the split dim gone.  Every split dead
+    gives the identity (0, -1e30, 0), never NaN; ``merge_splits`` of such
+    folds (a split dim stacked back) merges across ranks as across splits."""
+    m_star = m.amax(dim=-2)
+    alpha = torch.exp(m - m_star[..., None, :])
+    return (o * alpha[..., None]).sum(dim=-3), m_star, (l * alpha).sum(dim=-2)
 
 
 def merge_splits(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.core.flash_reference import NEG_INF
 from repro_torch.kernels import build
+from repro_torch.utils.counting import charged
 
 launches = 0
 ROW_TILE = 64  # query rows per CUDA block; must divide block_q
@@ -79,6 +80,16 @@ def distr_attention_plain(q_hat, k, v, perm, *, q_per_kv: int, causal: bool,
     return o, lse.reshape(bhq, n)
 
 
+def _fwd_work(q_hat, k, v, perm, *, q_per_kv: int, causal: bool, group_size: int,
+              block_q: int, kv_len: int, return_lse: bool = False) -> dict:
+    from repro_torch.kernels.ops import attention_work
+
+    bhq, n, _ = q_hat.shape
+    return attention_work(1, bhq, k.shape[0], n, kv_len, k.shape[-1], causal=causal,
+                          group_size=group_size, block_q=block_q, lse=return_lse)["fwd"]
+
+
+@charged("distr_fwd", _fwd_work)
 def distr_attention_kernel_call(q_hat, k, v, perm, *, q_per_kv: int,
                                 causal: bool, group_size: int, block_q: int,
                                 kv_len: int, return_lse: bool = False):
@@ -93,6 +104,11 @@ def distr_attention_kernel_call(q_hat, k, v, perm, *, q_per_kv: int,
             group_size=group_size, block_q=block_q, kv_len=kv_len,
             return_lse=return_lse,
         )
+    if q_hat.device.type == "meta":  # the dry run: shapes, no launch
+        bhq, n, _ = q_hat.shape
+        o = torch.empty((bhq, n, k.shape[-1]), device=q_hat.device, dtype=q_hat.dtype)
+        lse = torch.empty((bhq, n), device=q_hat.device, dtype=torch.float32)
+        return (o, lse) if return_lse else o
     perm = perm.to(torch.int32).contiguous()
     build.require_cuda(q_hat, k, v, perm)
     bhq, n, dg = q_hat.shape

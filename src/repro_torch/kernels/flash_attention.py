@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.core.flash_reference import NEG_INF
 from repro_torch.kernels import build
+from repro_torch.utils.counting import charged
 
 launches = 0
 
@@ -41,6 +42,16 @@ def flash_attention_plain(q, k, v, *, q_per_kv: int, scale: float, causal: bool,
     return o, lse.reshape(bhq, n)
 
 
+def _fwd_work(q, k, v, *, q_per_kv: int, scale: float, causal: bool, kv_len: int,
+              return_lse: bool = False) -> dict:
+    from repro_torch.kernels.ops import attention_work
+
+    bhq, n, d = q.shape
+    return attention_work(1, bhq, k.shape[0], n, kv_len, d, causal=causal,
+                          lse=return_lse)["fwd"]
+
+
+@charged("flash_fwd", _fwd_work)
 def flash_attention_kernel_call(q, k, v, *, q_per_kv: int, scale: float,
                                 causal: bool, kv_len: int,
                                 return_lse: bool = False):
@@ -53,6 +64,10 @@ def flash_attention_kernel_call(q, k, v, *, q_per_kv: int, scale: float,
         return flash_attention_plain(q, k, v, q_per_kv=q_per_kv, scale=scale,
                                      causal=causal, kv_len=kv_len,
                                      return_lse=return_lse)
+    if q.device.type == "meta":  # the dry run: shapes, no launch
+        o = torch.empty_like(q)
+        lse = torch.empty((q.shape[0], q.shape[1]), device=q.device, dtype=torch.float32)
+        return (o, lse) if return_lse else o
     build.require_cuda(q, k, v)
     bhq, n, d = q.shape
     bhkv, nk, dv = v.shape

@@ -242,7 +242,7 @@ def decode_attention(q, k, v, *, lengths: torch.Tensor | None = None,
                      k_fused: torch.Tensor | None = None,
                      perm: torch.Tensor | None = None, group_size: int = 1,
                      scale: float | None = None,
-                     block_k: int | None = None) -> torch.Tensor:
+                     block_k: int | None = None, return_stats: bool = False):
     """Split-K flash-decoding over a KV cache.
 
     q: (B, Hq, q_len, d); k, v: (B, Hkv, S, d); ``lengths`` (B,) live token
@@ -251,7 +251,9 @@ def decode_attention(q, k, v, *, lengths: torch.Tensor | None = None,
     ``group_size``; ``k`` may then be None.  ``scale`` refers to the full
     head dim.  ``block_k`` is the split length; None takes the tuner's
     (``REPRO_TUNE``; unset: DEFAULT_DECODE_BLOCK), capped at S.  Returns
-    (B, Hq, q_len, d) in q's dtype.
+    (B, Hq, q_len, d) in q's dtype; with ``return_stats`` the splits folded
+    unnormalised instead (``decode.reduce_splits``): o (B, Hq, q_len, d), m
+    and l (B, Hq, q_len), f32, for a merge with other ranks' positions.
     """
     b, hq, q_len, _ = q.shape
     d = v.shape[-1]
@@ -281,6 +283,10 @@ def decode_attention(q, k, v, *, lengths: torch.Tensor | None = None,
         v.to(q.dtype).contiguous(), lengths,
         scale=scale, block_k=block_k, q_len=q_len,
     )
+    if return_stats:
+        o, m, l = decode_kernels.reduce_splits(o, m, l)  # (B, Hkv, rows, ·)
+        return (o.reshape(b, hq, q_len, d), m.reshape(b, hq, q_len),
+                l.reshape(b, hq, q_len))
     out = merge_splits(o, m, l)  # (B, Hkv, rows, d) f32
     return out.reshape(b, hq, q_len, d).to(q.dtype)
 
@@ -545,6 +551,46 @@ def delta_work(rows: int, d: int, itemsize: int) -> dict:
     once in f32, a multiply and an add an element."""
     return {"tensor_flops": 0, "f32_flops": 2 * rows * d,
             "hbm_bytes": 2 * itemsize * rows * d + 4 * rows}
+
+
+def decode_attention_work(
+    lengths,
+    hq: int,
+    hkv: int,
+    d: int,
+    capacity: int,
+    *,
+    group_size: int = 1,
+    q_len: int = 1,
+    table_entries: int = 0,
+) -> dict:
+    """The least work of one decode kernel call over a batch of requests
+    with live ``lengths`` (contiguous or paged): the roofline bound of a
+    kernel row (``obs.utilization.kernel_bound``).
+
+    Unlike ``decode_attention_cost`` and ``paged_decode_attention_cost``
+    (the reference's models, which round live keys up to whole splits or
+    blocks, give every query row every live key and price the f32 split
+    partials written and read for every split), this counts what the
+    function needs: each request's live keys, at most ``capacity``, read
+    once for K (or K̂, ``d/G*`` wide) and V at their ``hkv`` heads; the
+    ``q_len`` query rows of a request see the causal band (row i of
+    ``q_len`` the keys before ``length − (q_len − 1 − i)``); q, the
+    lengths and ``table_entries`` block-table entries a request (int32)
+    read once; one merged f32 o, m and l a row written once.
+    """
+    d_score = d // group_size
+    live = sum(min(max(n, 0), capacity) for n in lengths)
+    pairs = hq * sum(max(0, min(n - (q_len - 1 - i), capacity))
+                     for n in lengths for i in range(q_len))
+    b = len(lengths)
+    rows = b * hq * q_len
+    return {
+        "tensor_flops": 2 * (d_score + d) * pairs,
+        "f32_flops": 4 * pairs,
+        "hbm_bytes": 2 * hkv * live * (d_score + d) + 2 * rows * d_score
+        + 4 * b * (1 + table_entries) + 4 * rows * (d + 2),
+    }
 
 
 def ssd_cost(b: int, n: int, h: int, p: int, s: int, *, chunk: int = 64) -> dict:

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.decode import decode_plain
+from repro_torch.utils.counting import charged
 
 GARBAGE_BLOCK = 0  # pool block 0 is never allocated: dead-lane writes land here
 
@@ -55,6 +56,20 @@ def paged_decode_plain(q, k_pool, v_pool, block_tables, lengths, *, scale: float
     return decode_plain(q, k, v, lengths, scale=scale, block_k=bs, q_len=q_len)
 
 
+def _work(q, k_pool, v_pool, block_tables, lengths, *, scale: float, q_len: int) -> dict:
+    """The call's least work with the whole table live (static shapes, as
+    ``decode``'s)."""
+    from repro_torch.kernels.ops import decode_attention_work
+
+    b, hkv, rows, ds = q.shape
+    d = v_pool.shape[3]
+    capacity = block_tables.shape[1] * v_pool.shape[2]
+    return decode_attention_work([capacity] * b, hkv * rows // q_len, hkv, d, capacity,
+                                 group_size=d // ds, q_len=q_len,
+                                 table_entries=block_tables.shape[1])
+
+
+@charged("paged_decode", _work)
 def paged_decode_kernel_call(q, k_pool, v_pool, block_tables, lengths, *, scale: float,
                              q_len: int):
     """Launch the paged decode kernel; shapes as for ``paged_decode_plain``.
@@ -64,6 +79,11 @@ def paged_decode_kernel_call(q, k_pool, v_pool, block_tables, lengths, *, scale:
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pool, v_pool, block_tables, lengths, scale=scale,
                                   q_len=q_len)
+    if q.device.type == "meta":  # the dry run: shapes, no launch
+        b, hkv, rows, _ = q.shape
+        m = torch.empty((b, hkv, block_tables.shape[1], rows), device=q.device,
+                        dtype=torch.float32)
+        return m.new_empty(m.shape + (v_pool.shape[3],)), m, torch.empty_like(m)
     block_tables = block_tables.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     build.require_cuda(q, k_pool, v_pool, block_tables, lengths)

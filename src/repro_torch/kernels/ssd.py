@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.utils.counting import charged
 
 launches = 0
 MAX_CHUNK = 128  # the kernel's shared-memory tiles hold at most 128 steps
@@ -75,6 +76,14 @@ def ssd_plain(x, a, b, c, *, heads_per_group: int, chunk: int,
     return (y, state) if return_state else y
 
 
+def _work(x, a, b, c, *, heads_per_group: int, chunk: int, return_state: bool = False) -> dict:
+    from repro_torch.kernels.ops import ssd_work
+
+    bh, n, p = x.shape
+    return ssd_work(1, n, bh, p, b.shape[0], b.shape[2], chunk=chunk)
+
+
+@charged("ssd", _work)
 def ssd_kernel_call(x, a, b, c, *, heads_per_group: int, chunk: int,
                     return_state: bool = False):
     """Launch the SSD kernel; shapes as for ``ssd_plain`` (x, b, c of one
@@ -85,6 +94,9 @@ def ssd_kernel_call(x, a, b, c, *, heads_per_group: int, chunk: int,
     if x.device.type == "cpu":
         return ssd_plain(x, a, b, c, heads_per_group=heads_per_group, chunk=chunk,
                          return_state=return_state)
+    if x.device.type == "meta":  # the dry run: shapes, no launch
+        state = x.new_empty((x.shape[0], b.shape[2], x.shape[2]), dtype=torch.float32)
+        return (torch.empty_like(x), state) if return_state else torch.empty_like(x)
     a = a.to(torch.float32).contiguous()
     build.require_cuda(x, a, b, c)
     bh, n, p = x.shape

@@ -11,8 +11,14 @@ layers and the loss (``models``), and the train step
 (``train.train_step``), which sets it around its forward and backward.
 ``run_world`` spawns a world of processes on one host over a ``FileStore``.
 
-The production meshes (``make_production_mesh``, ``compat_make_mesh``) are
-still to be ported with the dry run (ROADMAP Queue 1 items 2b and 3).
+The production meshes: ``make_production_mesh`` gives the reference's
+(data 16, model 16), or (pod 2, data 16, model 16), as a ``DryMesh``: axis
+names, sizes and one rank's coordinates with no process group, on which
+the collectives return shapes and move nothing (``launch.dryrun`` traces a
+rank's step on it).  ``compat_make_mesh`` is the reference's name for "a
+mesh of this shape": ``make_mesh`` over the live world; a world that is
+not running is never taken for a dry one (a dry mesh comes from
+``make_production_mesh`` or ``dry_mesh``).
 """
 from __future__ import annotations
 
@@ -42,6 +48,46 @@ class HostMesh:
     coords: dict
     ranks: dict
     groups: dict = field(default_factory=dict, compare=False)
+
+
+@dataclass(frozen=True)
+class DryMesh(HostMesh):
+    """A mesh with no process group: the collectives
+    (``distributed.collectives``) return the shapes a live world would give
+    and move nothing."""
+
+
+def dry_mesh(shape: tuple[int, ...], axes: tuple[str, ...], rank: int = 0) -> DryMesh:
+    """The mesh ``make_mesh`` would build over a world of ``prod(shape)``
+    ranks, seen from global ``rank``, without a process group."""
+    world = int(torch.tensor(shape).prod())
+    if len(shape) != len(axes) or not 0 <= rank < world:
+        raise ValueError(f"rank {rank} of mesh {dict(zip(axes, shape))}")
+    grid = torch.arange(world).reshape(shape)
+    coord = [int(c) for c in torch.nonzero(grid == rank)[0]]
+    coords, ranks = {}, {}
+    for i, a in enumerate(axes):
+        coords[a] = coord[i]
+        idx = list(coord)
+        idx[i] = slice(None)
+        ranks[a] = tuple(int(r) for r in grid[tuple(idx)])
+    return DryMesh(tuple(axes), dict(zip(axes, shape)), coords, ranks,
+                   {a: None for a in axes})
+
+
+def compat_make_mesh(shape: tuple[int, ...], axes: tuple[str, ...]) -> HostMesh:
+    """A mesh of ``shape`` over ``axes``: ``make_mesh`` over the live world
+    (every rank must call it; a shape the world does not cover raises)."""
+    return make_mesh(tuple(shape), tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0) -> DryMesh:
+    """Single pod: (data 16, model 16), 256 cards.  Multi-pod: (pod 2,
+    data 16, model 16), 512; "pod" is pure data parallelism.  A dry mesh
+    seen from global ``rank``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return dry_mesh(shape, axes, rank)
 
 
 def _world() -> tuple[int, int]:

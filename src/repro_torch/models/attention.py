@@ -12,14 +12,32 @@ Tensor parallelism: when ``wq`` holds a slice of the heads over "model"
 (``distributed.sharding``: column-parallel Q, K and V, row-parallel ``wo``),
 ``attention_apply`` runs its local heads through the same ``attend`` (the
 kernels, or the ring over "context" beside it) and sums ``wo``'s partial
-products over "model".  ``wq`` and ``wk`` must both be sliced or both be
-whole.  Cross-attention runs the same way: Q from the decoder's input and K,
+products over "model".  When "model" does not divide the heads the rules
+still slice every weight whose columns it divides, cutting heads: those
+slices are gathered on use (``collectives.gather_slices``) and every rank
+runs the whole layer (``tp_layout``: "gather"); a decode step gathers the
+new token's projected columns instead.  A weight held whole although
+"model" divides its columns is not a layout the rules give, and raises.
+Cross-attention runs the same way: Q from the decoder's input and K,
 V from the encoder output, each entering the region through ``tp_enter``, so
 the encoder output's gradient sums over "model".  MLA's ``wq_b``, ``wk_b``
 and ``wv_b`` are sliced by heads and ``wo`` row-parallel; its
 down-projections and norms are replicated, so the region starts at their
 outputs (the latent q, c_kv and the shared rope key), where each rank's
 cotangent is partial.
+
+Serving on a mesh: the decode step's cache lies over "model" as
+``serve.kv_cache.cache_pspecs`` says (``cache_layout``).  "heads": the rank
+decodes its own KV heads.  "seq": the rank holds every KV head for its
+S/model positions.  The columns of the new token's q, k and v that the
+rank projects are all-gathered over "model" wherever the weights are
+sliced (by heads or through them), so every rank holds every head; the
+rank that owns ``pos mod S`` writes the token, every rank runs the decode
+kernel over its positions (lengths shifted by its offset) and the ranks'
+unnormalised (o, m, l) are all-gathered and merged
+(``kernels.decode.merge_splits``): flash decoding across ranks.  ``wo``
+then takes the rank's columns of the output and sums over "model".
+"whole": the cache is replicated and every rank attends over all of it.
 """
 from __future__ import annotations
 
@@ -28,6 +46,7 @@ import torch
 from repro_torch.core.api import attend, attend_decode
 from repro_torch.core.distr_attention import distr_attention
 from repro_torch.distributed import collectives as coll
+from repro_torch.kernels import decode as decode_kernels
 from repro_torch.kernels.paged_decode import GARBAGE_BLOCK
 from repro_torch.models import layers
 
@@ -71,20 +90,79 @@ def attention_axes(cfg) -> dict:
     }
 
 
+# (weight, its dim the rules slice over "model", whose heads it holds)
+_ATTN_WEIGHTS = (("wq", 1, "q"), ("wk", 1, "kv"), ("wv", 1, "kv"), ("wo", 0, "q"))
+
+
+def tp_layout(params: dict, cfg) -> tuple[str, object]:
+    """How ``params`` lie over "model" → (layout, the active mesh or None):
+    "whole" (every weight whole), "heads" (every weight sliced by whole
+    heads: the rank runs its heads) or "gather" (weights sliced through
+    heads, "model" not dividing the head counts: gathered on use, the layer
+    runs whole).  Raises for a tree the sharding rules do not give: a slice
+    that is not one over the active "model" axis, or a weight held whole
+    beside a sliced one although "model" divides its columns."""
+    from repro_torch.launch.mesh import active_mesh
+
+    dh = cfg.head_dim_
+    full = {"q": cfg.n_heads * dh, "kv": cfg.n_kv_heads * dh}
+    held = {name: params[name]["w"].shape[dim] for name, dim, _ in _ATTN_WEIGHTS}
+    sliced = {name: held[name] != full[kind] for name, _, kind in _ATTN_WEIGHTS}
+    if not any(sliced.values()):
+        return "whole", None
+    mesh = active_mesh()
+    m = coll.axis_size(mesh, "model") if mesh is not None else 1
+    for name, _, kind in _ATTN_WEIGHTS:
+        if sliced[name] and held[name] * m != full[kind]:
+            raise ValueError(f"attention's {name} holds {held[name]} of {full[kind]} columns, "
+                             f"which is not its slice over a 'model' axis of {m}")
+        if not sliced[name] and full[kind] % m == 0:
+            raise NotImplementedError(
+                f"attention with {held['wq'] // dh} of {cfg.n_heads} query heads' columns and "
+                f"{held['wk'] // dh} of {cfg.n_kv_heads} KV heads': a tensor-parallel split must "
+                "slice both (the rules slice every weight whose columns 'model' divides)")
+    if cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0:
+        return "heads", mesh
+    return "gather", mesh
+
+
+def gathered(params: dict, cfg, mesh) -> dict:
+    """``params`` with every weight sliced over "model" put back together
+    (``collectives.gather_slices``: the backward takes this rank's slice of
+    the replicated cotangent), so every rank runs the whole layer."""
+    out = dict(params)
+    for name, dim, kind in _ATTN_WEIGHTS:
+        full = (cfg.n_heads if kind == "q" else cfg.n_kv_heads) * cfg.head_dim_
+        if params[name]["w"].shape[dim] != full:
+            out[name] = {key: coll.gather_slices(t, mesh, "model", t.ndim - 1 if key == "b"
+                                                 else dim)
+                         for key, t in params[name].items()}
+    return out
+
+
 def local_heads(params: dict, cfg) -> tuple[int, int, object]:
     """(query heads, KV heads, the tensor-parallel mesh or None) that
-    ``params`` holds: the config's, or their slices over "model".  A slice
-    of one without the other raises."""
-    dh = cfg.head_dim_
-    hq, hkv = params["wq"]["w"].shape[1] // dh, params["wk"]["w"].shape[1] // dh
-    mesh_q = layers.tp_mesh(hq, cfg.n_heads)
-    mesh_kv = layers.tp_mesh(hkv, cfg.n_kv_heads)
-    if (mesh_q is None) != (mesh_kv is None):
-        raise NotImplementedError(
-            f"attention with {hq} of {cfg.n_heads} query heads and {hkv} of "
-            f"{cfg.n_kv_heads} KV heads: a tensor-parallel split must slice both (the "
-            "kernels map query heads onto KV heads by q_per_kv)")
-    return hq, hkv, mesh_q
+    ``params`` run: their slices over "model" under ``tp_layout`` "heads",
+    else the config's (a "gather" layout's weights are gathered first)."""
+    layout, mesh = tp_layout(params, cfg)
+    if layout != "heads":
+        return cfg.n_heads, cfg.n_kv_heads, None
+    m = coll.axis_size(mesh, "model")
+    return cfg.n_heads // m, cfg.n_kv_heads // m, mesh
+
+
+def cache_layout(cfg, mesh, key: str = "k", max_len: int | None = None) -> str:
+    """How a decode cache of ``key`` lies over "model" under
+    ``serve.kv_cache.cache_pspecs``: "seq", "heads" or "whole" (no mesh, a
+    "model" of 1, or heads or a ``max_len`` that "model" does not divide).
+    The hybrid's ``shared_k`` lies by heads whatever ``cfg.attn_shard``
+    says; MLA's ``ckv`` by positions."""
+    m = coll.axis_size(mesh, "model") if mesh is not None else 1
+    if m == 1:
+        return "whole"
+    if key == "ckv" or (cfg.attn_shard == "seq" and key != "shared_k"):
+        return "seq" if not max_len or max_len % m == 0 else "whole"
+    return "heads" if cfg.n_kv_heads % m == 0 else "whole"
 
 
 def attention_apply(params: dict, x: torch.Tensor, cfg, *,
@@ -99,7 +177,7 @@ def attention_apply(params: dict, x: torch.Tensor, cfg, *,
     the serve layer can build caches."""
     b, n, _ = x.shape
     use_rope = cfg.pos == "rope" if use_rope is None else use_rope
-    hq, hkv, mesh = local_heads(params, cfg)
+    params, hq, hkv, mesh = heads_to_run(params, cfg)
     if mesh is not None:
         x = coll.tp_enter(x, mesh)
         if x_kv is not None:
@@ -145,68 +223,184 @@ def _live_lengths(length, pos: torch.Tensor, max_len: int) -> torch.Tensor:
                        max=max_len)
 
 
-def _decode_qkv(params: dict, x: torch.Tensor, cfg, pos: torch.Tensor):
-    """The new token's q, k and v split into heads, q and k rotated to its
-    absolute position ``pos`` (B,) when ``cfg.pos == "rope"``."""
-    q = _split_heads(layers.linear_apply(params["wq"], x), cfg.n_heads)
-    k = _split_heads(layers.linear_apply(params["wk"], x), cfg.n_kv_heads)
-    v = _split_heads(layers.linear_apply(params["wv"], x), cfg.n_kv_heads)
-    if cfg.pos != "rope":
-        return q, k, v
-    return (layers.apply_rope(q, pos[:, None], cfg.rope_theta),
-            layers.apply_rope(k, pos[:, None], cfg.rope_theta), v)
+def _heads_of(params: dict, name: str, x: torch.Tensor, cfg, mesh=None) -> torch.Tensor:
+    """``x`` through ``params[name]`` (``wq``, ``wk`` or ``wv``) split into
+    heads: this rank's heads where the weight is sliced over "model", or,
+    given the ``mesh``, every head, the rank's columns all-gathered over
+    "model" (B × N × C: a slice that cuts a head is whole again)."""
+    t = layers.linear_apply(params[name], x)
+    heads = cfg.n_heads if name == "wq" else cfg.n_kv_heads
+    if mesh is not None and t.shape[-1] != heads * cfg.head_dim_:
+        t = coll.all_gather(t, mesh, "model", t.ndim - 1)
+    return _split_heads(t, t.shape[-1] // cfg.head_dim_)
+
+
+def _rope_at(t: torch.Tensor, pos: torch.Tensor, cfg) -> torch.Tensor:
+    """``t`` (B, H, 1, dh) rotated to the token's absolute position ``pos``
+    (B,) when ``cfg.pos == "rope"``."""
+    return layers.apply_rope(t, pos[:, None], cfg.rope_theta) if cfg.pos == "rope" else t
+
+
+def _decode_mesh(params: dict, cfg, layout: str):
+    """The mesh the decode's weights are sliced over (``tp_layout``), or
+    None.  A cache sliced by heads (``layout`` "heads") needs weights
+    sliced by heads."""
+    tp, mesh = tp_layout(params, cfg)
+    if layout == "heads" and tp != "heads":
+        raise NotImplementedError(f"{cfg.name}: a cache sliced by heads needs weights sliced "
+                                  "by heads")
+    return mesh
+
+
+def _seq_insert(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor, mesh) -> None:
+    """Write the new token into a cache whose positions lie over "model"
+    (this rank's S_loc of S = S_loc · model), in place: only on the rank that
+    owns ``pos mod S``; the others write back what they hold."""
+    b, _, s_loc, _ = cache.shape
+    m = coll.axis_size(mesh, "model")
+    local = pos.to(torch.int64) % (s_loc * m) - int(mesh.coords["model"]) * s_loc
+    mine = (local >= 0) & (local < s_loc)
+    rows = torch.arange(b, device=cache.device)
+    at = local.clamp(0, s_loc - 1)
+    cache[rows, :, at] = torch.where(mine[:, None, None], new[:, :, 0].to(cache.dtype),
+                                     cache[rows, :, at])
+
+
+def _attend_seq(q, cache_k, cache_v, cfg, lengths: torch.Tensor, mesh, **kw) -> torch.Tensor:
+    """Decode over every rank's positions of a sequence-sharded cache: the
+    rank's (o, m, l) over its positions (``lengths`` the global live
+    counts, shifted by its offset; a rank with none gives the identity),
+    all-gathered over "model" and merged.  → (B, Hq, q_len, d) f32."""
+    s_loc = cache_v.shape[2]
+    off = int(mesh.coords["model"]) * s_loc
+    local = torch.clamp(lengths.to(torch.int32) - off, min=0, max=s_loc)
+    o, m, l = attend_decode(q, cache_k, cache_v, cfg.attention, lengths=local,
+                            return_stats=True, **kw)
+    o, m, l = (coll.all_gather(t.unsqueeze(2), mesh, "model", 2) for t in (o, m, l))
+    return decode_kernels.merge_splits(o, m, l)
+
+
+def _decode_self(params: dict, x: torch.Tensor, cfg, *, pos: torch.Tensor, cache_v,
+                 cache_k=None, cache_k_fused=None, perm=None, length=None,
+                 layout: str = "whole") -> torch.Tensor:
+    """One-token self-attention against a ring cache lying over "model" as
+    ``layout`` says (``cache_layout``; see the module docstring), raw K or
+    the fused K̂ under the layer's static ``perm`` (Hkv, dh).  Writes the
+    token's K (or K̂) and V in place; returns the block's attention output."""
+    from repro_torch.launch.mesh import active_mesh
+    from repro_torch.serve import kv_cache as kvc
+
+    mesh = _decode_mesh(params, cfg, layout)
+    every = mesh if layout != "heads" else None
+    q, k, v = (_heads_of(params, name, x, cfg, every) for name in ("wq", "wk", "wv"))
+    q, k = _rope_at(q, pos, cfg), _rope_at(k, pos, cfg)
+    fused = cache_k_fused is not None
+    cache_s = cache_k_fused if fused else cache_k
+    if fused and layout == "heads":
+        r, hkv = int(mesh.coords["model"]), k.shape[1]
+        perm = perm[r * hkv:(r + 1) * hkv]
+    kw = {}
+    if fused:
+        g = cfg.attention.distr.group_size
+        k = kvc.fuse_new_k(k, perm, g)
+        kw = dict(k_fused=cache_k_fused, perm=perm, group_size=g,
+                  scale=1.0 / (cfg.head_dim_ ** 0.5))
+    k_in = None if fused else cache_k
+    if layout == "seq":
+        kv_mesh = active_mesh()
+        _seq_insert(cache_v, v, pos, kv_mesh)
+        _seq_insert(cache_s, k, pos, kv_mesh)
+        capacity = cache_v.shape[2] * coll.axis_size(kv_mesh, "model")
+        o = _attend_seq(q, k_in, cache_v, cfg, _live_lengths(length, pos, capacity), kv_mesh,
+                        **kw)
+    else:
+        cache_insert(cache_v, v, pos)
+        cache_insert(cache_s, k, pos)
+        o = attend_decode(q, k_in, cache_v, cfg.attention,
+                          lengths=_live_lengths(length, pos, cache_v.shape[2]), **kw)
+    return _decode_out(params, o, x, cfg, mesh)
+
+
+def heads_to_run(params: dict, cfg):
+    """(params to run — a "gather" layout's weights gathered —, their query
+    heads, KV heads, the heads-parallel mesh or None)."""
+    tp, mesh = tp_layout(params, cfg)
+    if tp == "gather":
+        params = gathered(params, cfg, mesh)
+    hq, hkv, mesh = local_heads(params, cfg)
+    return params, hq, hkv, mesh
+
+
+def _decode_out(params: dict, o: torch.Tensor, x: torch.Tensor, cfg, mesh) -> torch.Tensor:
+    """``wo`` over the attention's output (B, H, 1, dh).  Where ``wo`` holds
+    a slice of its rows over "model", the rank multiplies its columns of
+    the output (all of them unless it attended its own heads alone) and the
+    partial products are summed over "model"."""
+    o = _merge_heads(o.to(x.dtype))
+    rows = params["wo"]["w"].shape[0]
+    if o.shape[-1] != rows:
+        o = o.narrow(-1, int(mesh.coords["model"]) * rows, rows)
+    out = layers.linear_apply(params["wo"], o)
+    return out if rows == cfg.n_heads * cfg.head_dim_ else coll.tp_reduce(out, mesh)
+
+
+def _decode_cross(params: dict, x: torch.Tensor, cfg, *, pos: torch.Tensor, cache_k, cache_v,
+                  cross_len: torch.Tensor, layout: str) -> torch.Tensor:
+    """Cross-attention of one token over the encoder cache lying over
+    "model" as ``layout`` says; writes nothing."""
+    from repro_torch.launch.mesh import active_mesh
+
+    mesh = _decode_mesh(params, cfg, layout)
+    q = _rope_at(_heads_of(params, "wq", x, cfg, mesh if layout != "heads" else None), pos, cfg)
+    if layout == "seq":
+        kv_mesh = active_mesh()
+        capacity = cache_k.shape[2] * coll.axis_size(kv_mesh, "model")
+        o = _attend_seq(q, cache_k, cache_v, cfg,
+                        torch.clamp(cross_len.to(torch.int32), max=capacity), kv_mesh)
+    else:
+        o = attend_decode(q, cache_k, cache_v, cfg.attention,
+                          lengths=torch.clamp(cross_len.to(torch.int32), max=cache_k.shape[2]))
+    return _decode_out(params, o, x, cfg, mesh)
 
 
 def attention_decode_apply(params: dict, x: torch.Tensor, cfg, *,
                            cache_k: torch.Tensor, cache_v: torch.Tensor,
                            cache_index, length: torch.Tensor | None = None,
-                           is_cross: bool = False, cross_len: torch.Tensor | None = None):
+                           is_cross: bool = False, cross_len: torch.Tensor | None = None,
+                           layout: str = "whole"):
     """One-token decode against a (B, Hkv, S, dh) ring cache: inserts the
     new K/V at ``cache_index`` (in place) and attends over the live window
     through the split-K decode kernel.  Cross-attention (``is_cross``)
     reads the prefilled encoder cache and inserts nothing: each slot
     attends over its first ``min(cross_len, S)`` positions (``cross_len``
-    (B,) is required).  Returns ``(out, (cache_k, cache_v))``."""
+    (B,) is required).  ``layout`` is how the cache lies over "model"
+    (``cache_layout``).  Returns ``(out, (cache_k, cache_v))``."""
     pos = _as_pos_vector(cache_index, x.shape[0], x.device)
     if is_cross:
         if cross_len is None:
             raise ValueError("cross-attention decode needs the slots' cross_len")
-        q = _split_heads(layers.linear_apply(params["wq"], x), cfg.n_heads)
-        if cfg.pos == "rope":
-            q = layers.apply_rope(q, pos[:, None], cfg.rope_theta)
-        lengths = torch.clamp(cross_len.to(torch.int32), max=cache_k.shape[2])
+        out = _decode_cross(params, x, cfg, pos=pos, cache_k=cache_k, cache_v=cache_v,
+                            cross_len=cross_len, layout=layout)
     else:
-        q, k, v = _decode_qkv(params, x, cfg, pos)
-        cache_insert(cache_k, k, pos)
-        cache_insert(cache_v, v, pos)
-        lengths = _live_lengths(length, pos, cache_k.shape[2])
-    o = attend_decode(q, cache_k, cache_v, cfg.attention, lengths=lengths)
-    out = layers.linear_apply(params["wo"], _merge_heads(o.to(x.dtype)))
+        out = _decode_self(params, x, cfg, pos=pos, cache_v=cache_v, cache_k=cache_k,
+                           length=length, layout=layout)
     return out, (cache_k, cache_v)
 
 
 def attention_decode_fused(params: dict, x: torch.Tensor, cfg, *,
                            cache_v: torch.Tensor, cache_k_fused: torch.Tensor,
                            perm: torch.Tensor, cache_index,
-                           length: torch.Tensor | None = None):
+                           length: torch.Tensor | None = None, layout: str = "whole"):
     """One-token decode against the fused-K̂ ring cache: scores read K̂
     (B, Hkv, S, dh/G*) under the layer's static ``perm`` (Hkv, dh) in place
     of K, so the split-K decode kernel streams d/G* score columns a token.
     Writes V and the newly fused K̂ row in place at ``cache_index``; raw K
-    is neither read nor written (it stays as the prefill left it).  Returns
-    ``(out, (cache_v, cache_k_fused))``."""
-    from repro_torch.serve import kv_cache as kvc
-
-    g = cfg.attention.distr.group_size
+    is neither read nor written (it stays as the prefill left it).
+    ``layout`` as ``attention_decode_apply``'s.  Returns ``(out, (cache_v,
+    cache_k_fused))``."""
     pos = _as_pos_vector(cache_index, x.shape[0], x.device)
-    q, k, v = _decode_qkv(params, x, cfg, pos)
-    cache_insert(cache_v, v, pos)
-    cache_insert(cache_k_fused, kvc.fuse_new_k(k, perm, g), pos)
-    lengths = _live_lengths(length, pos, cache_k_fused.shape[2])
-    o = attend_decode(q, None, cache_v, cfg.attention, lengths=lengths,
-                      k_fused=cache_k_fused, perm=perm, group_size=g,
-                      scale=1.0 / (cfg.head_dim_ ** 0.5))
-    out = layers.linear_apply(params["wo"], _merge_heads(o.to(x.dtype)))
+    out = _decode_self(params, x, cfg, pos=pos, cache_v=cache_v, cache_k_fused=cache_k_fused,
+                       perm=perm, length=length, layout=layout)
     return out, (cache_v, cache_k_fused)
 
 
@@ -401,39 +595,71 @@ def mla_apply(params: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor | N
 
 
 def mla_decode_apply(params: dict, x: torch.Tensor, cfg, *, cache_ckv: torch.Tensor,
-                     cache_krope: torch.Tensor, cache_index):
+                     cache_krope: torch.Tensor, cache_index, layout: str = "whole"):
     """Absorbed-matrix MLA decode, attending in the compressed c_kv space.
 
     Scores are q_nope·W_ukᵀ·c_kv + q_rope·k_rope and the output (P·c_kv)·W_uv,
     so the cache holds kv_lora + rope_d values a token and nothing is
     up-projected.  Writes the new token's c_kv and k_rope at ``cache_index``
-    (B,) into ``cache_ckv`` (B, S, kv_lora) and ``cache_krope`` (B, S,
-    rope_d) in place; the slot attends over positions ≤ its index.  Cache
-    reads accumulate in f32.  Returns ``(out, (cache_ckv, cache_krope))``."""
+    (B,), clamped to the last position as a ``dynamic_update_slice`` clamps,
+    into ``cache_ckv`` (B, S, kv_lora) and ``cache_krope`` (B, S, rope_d) in
+    place; the slot attends over positions ≤ its index.  Cache reads
+    accumulate in f32; the softmax weights are rounded to the cache's dtype
+    before the context product, as the reference's are.
+
+    On a mesh: ``wq_b``, ``wk_b`` and ``wv_b`` sliced by heads run this
+    rank's heads and sum ``wo``'s partial products over "model".  Under
+    ``layout`` "seq" the cache holds this rank's S/model positions: the
+    token lands on the rank that owns its position, every head's absorbed q
+    (all-gathered over "model") meets the rank's positions, the softmax's
+    max and sum are reduced over "model" so that each rank rounds the
+    weights one device would, and the ranks' contexts are summed.  Returns
+    ``(out, (cache_ckv, cache_krope))``."""
+    from repro_torch.launch.mesh import active_mesh
+
     b = x.shape[0]
-    h = cfg.n_heads
+    h, mesh = mla_local_heads(params, cfg)
     nope, vd, c = cfg.qk_nope_dim, cfg.v_head_dim, cfg.kv_lora_rank
     scale = 1.0 / (cfg.qk_head_dim ** 0.5)
     pos = _as_pos_vector(cache_index, b, x.device)
-    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(params, x, cfg, pos[:, None])
-    s_len = cache_ckv.shape[1]
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(params, x, cfg, pos[:, None], h)
+    s_loc = cache_ckv.shape[1]
+    kv_mesh = active_mesh() if layout == "seq" else None
+    m = coll.axis_size(kv_mesh, "model") if kv_mesh is not None else 1
+    off = int(kv_mesh.coords["model"]) * s_loc if m > 1 else 0
+    local = torch.clamp(pos.to(torch.int64), max=s_loc * m - 1) - off
+    mine = (local >= 0) & (local < s_loc)
     rows = torch.arange(b, device=x.device)
-    at = torch.clamp(pos.to(torch.int64), max=s_len - 1)  # as a dynamic_update_slice clamps
-    cache_ckv[rows, at] = c_kv_new[:, 0].to(cache_ckv.dtype)
-    cache_krope[rows, at] = k_rope_new[:, 0, 0].to(cache_krope.dtype)
-
+    at = local.clamp(0, s_loc - 1)
+    cache_ckv[rows, at] = torch.where(mine[:, None], c_kv_new[:, 0].to(cache_ckv.dtype),
+                                      cache_ckv[rows, at])
+    cache_krope[rows, at] = torch.where(mine[:, None],
+                                        k_rope_new[:, 0, 0].to(cache_krope.dtype),
+                                        cache_krope[rows, at])
     w_uk = params["wk_b"]["w"].reshape(c, h, nope)
     q_abs = torch.einsum("bhnd,chd->bhnc", q_nope.float(), w_uk.float())
+    if mesh is not None and m > 1:
+        q_abs, q_rope = (coll.all_gather(t, mesh, "model", 1) for t in (q_abs, q_rope))
     ckv = cache_ckv.float()
     s = torch.einsum("bhnc,bsc->bhns", q_abs.to(cache_ckv.dtype).float(), ckv)
     s = s + torch.einsum("bhnr,bsr->bhns", q_rope.to(cache_krope.dtype).float(),
                          cache_krope.float())
     s = s * scale
-    live = torch.arange(s_len, device=x.device)[None, :] <= pos[:, None]
+    live = (off + torch.arange(s_loc, device=x.device))[None, :] <= pos[:, None]
     s = torch.where(live[:, None, None, :], s, -1e30)
-    p = torch.softmax(s, dim=-1)
-    ctx = torch.einsum("bhns,bsc->bhnc", p.to(cache_ckv.dtype).float(), ckv)
+    mx = s.amax(dim=-1, keepdim=True)
+    if m > 1:
+        mx = coll.all_reduce(mx, kv_mesh, "model", op="max")
+    p = torch.exp(s - mx)
+    total = p.sum(dim=-1, keepdim=True)
+    if m > 1:
+        total = coll.all_reduce(total, kv_mesh, "model")
+    ctx = torch.einsum("bhns,bsc->bhnc", (p / total).to(cache_ckv.dtype).float(), ckv)
+    if m > 1:
+        ctx = coll.all_reduce(ctx, kv_mesh, "model")
+        if mesh is not None:
+            ctx = ctx.narrow(1, int(mesh.coords["model"]) * h, h)
     w_uv = params["wv_b"]["w"].reshape(c, h, vd)
     o = torch.einsum("bhnc,chd->bhnd", ctx, w_uv.float())
     out = layers.linear_apply(params["wo"], _merge_heads(o.to(x.dtype)))
-    return out, (cache_ckv, cache_krope)
+    return (out if mesh is None else coll.tp_reduce(out, mesh)), (cache_ckv, cache_krope)

@@ -33,6 +33,14 @@ Otherwise (heads that do not divide "model", rules that dropped some of the
 three and not others, or a prefill that returns its state) the sliced leaves
 are gathered on use (``collectives.gather_slices``) and every rank runs the
 whole layer.
+
+A decode step on a mesh takes its rank's block of the serving cache
+(``serve.kv_cache.cache_pspecs``): the conv state cut into contiguous
+channel blocks over "model", which fall on no head, and the SSM state by
+heads where "model" divides them.  The rank all-gathers the conv state
+over "model", steps its own heads' recurrence where the SSM state is
+sliced (as ``_mamba_apply_tp`` runs them) or the whole layer where it is
+not, and keeps its channel block of the new conv state.
 """
 from __future__ import annotations
 
@@ -318,10 +326,87 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg, *, return_state: bool = Fals
     return out
 
 
+def _mamba_decode_tp(params: dict, x: torch.Tensor, cfg, mesh, groups: tuple[int, int],
+                     conv_state: torch.Tensor, ssm_state: torch.Tensor):
+    """One token through this rank's heads of "model" (``_mamba_apply_tp``'s
+    split): ``conv_state`` (B, k−1, conv_dim) the whole conv state,
+    ``ssm_state`` (B, H/model, S, P) the rank's heads' state → (the output
+    summed over "model", (the whole new conv state, the heads' new SSM
+    state))."""
+    bsz = x.shape[0]
+    m = coll.axis_size(mesh, "model")
+    p, s = cfg.ssm_head_dim, cfg.ssm_state
+    h_loc = cfg.ssm_heads // m
+    h0 = int(mesh.coords["model"]) * h_loc
+    d_in, gs = cfg.d_inner, cfg.ssm_groups * s
+    g0, g_loc = groups
+    proj = coll.all_gather(layers.linear_apply(params["in_proj"], x), mesh, "model", 2)
+    z = proj[..., h0 * p:(h0 + h_loc) * p]
+    xbc = proj[:, :1, d_in:2 * d_in + 2 * gs]
+    dt = proj[:, 0, 2 * d_in + 2 * gs + h0:2 * d_in + 2 * gs + h0 + h_loc]
+    wdtype = torch.promote_types(conv_state.dtype, xbc.dtype)
+    window = torch.cat([conv_state.to(wdtype), xbc.to(wdtype)], dim=1)  # (B, k, C)
+    conv_w = coll.all_gather(params["conv_w"], mesh, "model", 1)
+    conv_b = coll.all_gather(params["conv_b"], mesh, "model", 0)
+
+    def channels(t: torch.Tensor) -> torch.Tensor:
+        spans = ((h0 * p, h_loc * p), (d_in + g0 * s, g_loc * s), (d_in + gs + g0 * s, g_loc * s))
+        return torch.cat([t.narrow(t.ndim - 1, a, w) for a, w in spans], dim=-1)
+
+    conv_out = torch.einsum("bkc,kc->bc", channels(window).float(), channels(conv_w).float())
+    conv_out = F.silu(conv_out + channels(conv_b).float())
+    xs = conv_out[:, :h_loc * p]
+    b = conv_out[:, h_loc * p:h_loc * p + g_loc * s].reshape(bsz, g_loc, s)
+    c = conv_out[:, h_loc * p + g_loc * s:].reshape(bsz, g_loc, s)
+    heads = slice(h0, h0 + h_loc)
+    dt_t = _softplus(dt.float() + params["dt_bias"][heads])
+    a_t = dt_t * -torch.exp(params["a_log"][heads])
+    x_heads = xs.reshape(bsz, h_loc, p)
+    x_in = (x_heads * dt_t[..., None]).to(x.dtype)
+    y, new_ssm = ssd_step(x_in, a_t, b.to(x.dtype), c.to(x.dtype), ssm_state)
+    y = y + x_heads.to(y.dtype) * params["d_skip"][heads][None, :, None].to(y.dtype)
+    y = y.reshape(bsz, 1, h_loc * p) * F.silu(z)
+    # out_norm: one RMSNorm over all of d_inner, its squares summed over
+    # the ranks' heads.
+    yf = y.float()
+    sq = coll.all_reduce(yf.square().sum(dim=-1, keepdim=True), mesh, "model")
+    yf = yf * torch.rsqrt(sq / d_in + cfg.norm_eps)
+    scale = params["out_norm"]["scale"].narrow(0, h0 * p, h_loc * p)
+    y = (yf * scale.float()).to(y.dtype)
+    out = coll.all_reduce(layers.linear_apply(params["out_proj"], y), mesh, "model")
+    return out, (window[:, 1:], new_ssm)
+
+
 def mamba_decode_apply(params: dict, x: torch.Tensor, cfg, *, conv_state: torch.Tensor,
                        ssm_state: torch.Tensor):
     """One-token step.  x: (B, 1, D); conv_state: (B, k−1, conv_dim);
-    ssm_state: (B, H, S, P) f32.  Returns (y, (conv_state, ssm_state))."""
+    ssm_state: (B, H, S, P) f32.  Returns (y, (conv_state, ssm_state)).
+    On a mesh ``conv_state`` may be this rank's channel block and
+    ``ssm_state`` its heads' state (the module docstring); the new states
+    come back in the same blocks."""
+    conv_cut = conv_state.shape[-1] != conv_dim(cfg)
+    heads_cut = ssm_state.shape[1] != cfg.ssm_heads
+    meshes = _tp_meshes(params, cfg)
+    if conv_cut or heads_cut or any(mm is not None for mm in meshes):
+        from repro_torch.launch.mesh import active_mesh
+
+        mesh = active_mesh()
+        conv_full = coll.all_gather(conv_state, mesh, "model", 2) if conv_cut else conv_state
+        if heads_cut:
+            groups = _head_groups(cfg, mesh)
+            if groups is None or any(mm is None for mm in meshes):
+                raise NotImplementedError(
+                    f"{cfg.name}: an SSM state sliced by heads needs in_proj, the conv and "
+                    "out_proj sliced over 'model' by them")
+            y, (new_conv, new_ssm) = _mamba_decode_tp(params, x, cfg, mesh, groups,
+                                                      conv_full, ssm_state)
+        else:
+            y, (new_conv, new_ssm) = mamba_decode_apply(
+                _gathered(params, cfg, meshes), x, cfg, conv_state=conv_full,
+                ssm_state=ssm_state)
+        if conv_cut:
+            new_conv = coll._own_slice(new_conv, mesh, "model", 2)
+        return y, (new_conv, new_ssm)
     bsz = x.shape[0]
     h, p = cfg.ssm_heads, cfg.ssm_head_dim
     g, s = cfg.ssm_groups, cfg.ssm_state

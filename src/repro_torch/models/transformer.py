@@ -120,7 +120,8 @@ def block_apply(params: dict, x: torch.Tensor, cfg, *, positions=None,
 
 def block_decode_apply(params: dict, x: torch.Tensor, cfg, *, cache: dict,
                        cache_index, length=None, layer_type: str = "dense",
-                       perm: torch.Tensor | None = None, cross_len=None):
+                       perm: torch.Tensor | None = None, cross_len=None,
+                       layout: str = "whole", cross_layout: str = "whole"):
     """One-token decode.  A GQA block's ``cache`` holds this layer's
     ``k``/``v`` (B, Hkv, S, dh), updated in place; ``length`` is the
     per-slot live token count including the new token (None: pos + 1).
@@ -130,7 +131,9 @@ def block_decode_apply(params: dict, x: torch.Tensor, cfg, *, cache: dict,
     block's holds ``conv``/``ssm``, returned anew.  An enc-dec decoder
     block's also holds ``cross_k``/``cross_v`` (B, Hkv, S_enc, dh), which it
     reads over ``min(cross_len, S_enc)`` positions a slot and never writes.
-    Returns ``(x, cache)``."""
+    ``layout`` and ``cross_layout`` are how a GQA self and cross cache lie
+    over "model" (``attention.cache_layout``); an MLA cache's positions lie
+    by ``layout``.  Returns ``(x, cache)``."""
     if layer_type == "mamba":
         y, (conv_s, ssm_s) = mamba.mamba_decode_apply(
             params["mixer"], norm_apply(params["norm1"], x, cfg), cfg,
@@ -141,19 +144,19 @@ def block_decode_apply(params: dict, x: torch.Tensor, cfg, *, cache: dict,
     if cfg.use_mla:
         o, (ckv, krope) = attn_mod.mla_decode_apply(
             params["attn"], h, cfg, cache_ckv=cache["ckv"], cache_krope=cache["krope"],
-            cache_index=cache_index,
+            cache_index=cache_index, layout=layout,
         )
         new = {"ckv": ckv, "krope": krope}
     elif perm is not None:
         o, (cv, ckf) = attn_mod.attention_decode_fused(
             params["attn"], h, cfg, cache_v=cache["v"], cache_k_fused=cache["k_fused"],
-            perm=perm, cache_index=cache_index, length=length,
+            perm=perm, cache_index=cache_index, length=length, layout=layout,
         )
         new = {"v": cv, "k_fused": ckf}
     else:
         o, (ck, cv) = attn_mod.attention_decode_apply(
             params["attn"], h, cfg, cache_k=cache["k"], cache_v=cache["v"],
-            cache_index=cache_index, length=length,
+            cache_index=cache_index, length=length, layout=layout,
         )
         new = {"k": ck, "v": cv}
     x = x + o
@@ -161,7 +164,7 @@ def block_decode_apply(params: dict, x: torch.Tensor, cfg, *, cache: dict,
         hc = norm_apply(params["norm_cross"], x, cfg)
         oc, _ = attn_mod.attention_decode_apply(
             params["cross_attn"], hc, cfg, cache_k=cache["cross_k"], cache_v=cache["cross_v"],
-            cache_index=cache_index, is_cross=True, cross_len=cross_len,
+            cache_index=cache_index, is_cross=True, cross_len=cross_len, layout=cross_layout,
         )
         x = x + oc
     y, _ = ffn_apply(params["ffn"], norm_apply(params["norm2"], x, cfg), cfg, layer_type,
@@ -213,10 +216,10 @@ def shared_block_apply(params: dict, x: torch.Tensor, x0: torch.Tensor, cfg, *,
 
 
 def shared_block_decode_apply(params: dict, x: torch.Tensor, x0: torch.Tensor, cfg, *,
-                              cache: dict, cache_index):
+                              cache: dict, cache_index, layout: str = "whole"):
     """One-token decode of a shared block over its site's ``k``/``v``
     cache; the live length is ``cache_index + 1``.  Returns ``(x, cache)``."""
     h = layers.linear_apply(params["fuse"], torch.cat([x, x0], dim=-1))
     y, new_cache = block_decode_apply(params["block"], h, cfg, cache=cache,
-                                      cache_index=cache_index)
+                                      cache_index=cache_index, layout=layout)
     return x + (y - h), new_cache

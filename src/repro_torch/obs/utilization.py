@@ -66,7 +66,7 @@ def utilization_columns(cost: dict, measured_us: float) -> dict:
 
 def kernel_bound(work: dict, measured_ms: float | None = None) -> dict:
     """A kernel's bound from its least work (``kernels.ops.attention_work``,
-    ``delta_work``, ``ssd_work``, ``roofline.analysis.decode_attention_work``):
+    ``delta_work``, ``ssd_work``, ``decode_attention_work``):
     tensor-core FLOPs at ``PEAK_FLOPS``, other FLOPs at ``PEAK_F32_FLOPS``,
     bytes at ``HBM_BW``.  The slowest term is the least time the card could
     take; ``bound_by`` names it ("operations" or "bytes").  With a measured

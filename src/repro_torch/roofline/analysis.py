@@ -1,22 +1,41 @@
-"""Analytic cost models and roofline terms on an NVIDIA H100 SXM.
+"""Cost models, roofline terms and the per-rank cost counter on an NVIDIA
+H100 SXM.
 
-The port of ``repro.roofline.analysis`` without its HLO-text walker: the
-reference counts a compiled XLA module's FLOPs, bytes and collectives for
-its dry runs, which the port has no counterpart of yet.  What is here is
-arithmetic on shapes:
+The port of ``repro.roofline.analysis``.  Three terms a step, per rank:
 
   compute    = flops / PEAK_FLOPS
   memory     = hbm_bytes / HBM_BW
   collective = collective_bytes / NVLINK_BW
 
-the analytic per-layer costs of the split-K decode, the paged decode and
-the mesh-prefill handoff (the reference's models), the least work of a
-decode kernel call for its roofline bound, and MODEL_FLOPS = 6·N_active·D (2·N_active·D
-for inference).  ``obs.utilization`` joins a measured time against them.
+The reference reads them off a compiled, SPMD-partitioned XLA module with
+its HLO-text walker (``hlo_cost``).  Eager PyTorch has no such module, so
+the port counts one rank's step as it runs: ``CostCounter`` is a dispatch
+mode that records the FLOPs of the aten ops (``torch.utils.flop_counter``'s
+formulas), HBM bytes by a stated model, each kernel call's least work and
+the bytes each collective puts on the wire, by the reference's five kinds
+(``COLLECTIVE_OPS``).  ``roofline(cost)`` turns a count into
+``RooflineTerms``.  The dry run (``launch.dryrun``) runs the same step on
+the meta device under the counter, and the card's run under it counts the
+same.
+
+Also here: the analytic per-layer costs of the split-K decode, the paged
+decode and the mesh-prefill handoff (the reference's models), the least
+work of a decode kernel call for its roofline bound, and MODEL_FLOPS =
+6·N_active·D (2·N_active·D for inference).  ``obs.utilization`` joins a
+measured time against them.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+import weakref
 from dataclasses import dataclass
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.utils import counting
+from repro_torch.utils.tree import tree_bytes, tree_leaves
 
 # NVIDIA H100 SXM data-sheet figures (dense, 700 W), not measurements.  A
 # card set below 700 W runs slower under load, so a share of these is
@@ -64,6 +83,191 @@ class RooflineTerms:
             "coll_bytes_per_dev": self.coll_bytes_per_dev,
             "coll_by_op": self.coll_by_op,
         }
+
+
+# ---------------------------------------------------------------------------
+# The per-rank cost counter (the reference's HLO walker's counterpart)
+# ---------------------------------------------------------------------------
+
+# The reference's collective kinds.  The port's five wire sites
+# (``distributed.collectives``) charge them: ``all_reduce``, ``all_gather``,
+# ``reduce_scatter``, ``all_to_all`` and ``send_recv`` (the ring's hops and
+# ``permute``, a collective-permute).
+COLLECTIVE_OPS = (
+    "all-reduce",
+    "all-gather",
+    "reduce-scatter",
+    "all-to-all",
+    "collective-permute",
+)
+
+# Ops whose operands count as read from HBM beside their output (the bytes
+# model below), as the reference counts dot and convolution operands.
+_OPERAND_OPS = frozenset({"mm", "addmm", "bmm", "baddbmm", "convolution",
+                          "convolution_backward"})
+
+def _storage_key(t: torch.Tensor):
+    try:
+        return t.untyped_storage()._cdata
+    except (RuntimeError, NotImplementedError):
+        return None
+
+
+class CostCounter(TorchDispatchMode):
+    """Counts one rank's step as it runs (a context manager):
+
+    * ``flops``: the FLOPs of the aten ops (``torch.utils.flop_counter``'s
+      formulas: matmuls, convolutions, attention ops) plus each kernel
+      call's least work, tensor-core and f32 alike;
+    * ``hbm_bytes``: each op's output bytes (a view writes none), plus the
+      operand bytes of matmuls, kernel calls and collectives.  This models
+      an eager program, which writes every intermediate: it is not
+      comparable with the reference's count of a fused XLA module;
+    * ``kernels``: {name: [calls, flops, bytes]} of the kernel calls, each
+      charged its least work (``kernels.ops.attention_work``, ``delta_work``,
+      ``ssd_work``, ``decode_attention_work``) with the aten ops inside it
+      not counted, so its plain version on the CPU, the kernel on the card
+      and the meta branch all charge the same (the kernels and the
+      collectives report through ``utils.counting``, which needs nothing
+      of this module);
+    * ``coll``: the bytes each collective hands the wire, by
+      ``COLLECTIVE_OPS`` kind.
+
+    With ``track_memory`` it also follows the storages the ops allocate
+    (``live_bytes``, ``peak_bytes``): a storage counts from the op that makes
+    it until the last tensor on it is gone, meta tensors included, so the
+    dry run has a peak to set beside the card's allocator.  Storages that
+    exist before the counter starts (the step's arguments) are not counted.
+    Counters nest; only the innermost counts."""
+
+    def __init__(self, *, track_memory: bool = False):
+        super().__init__()
+        self.flops = 0.0
+        self.hbm_bytes = 0.0
+        self.coll = {op: 0 for op in COLLECTIVE_OPS}
+        self.kernels: dict = {}
+        self.track_memory = track_memory
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self._storages: dict = {}
+        self._quiet = 0
+
+    def __enter__(self):
+        counting.push(self)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        counting.pop(self)
+        return super().__exit__(*exc)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if not self._quiet:
+            packet = func._overloadpacket
+            formula = _flop_registry().get(packet)
+            if formula is not None:
+                self.flops += float(formula(*args, **kwargs, out_val=out))
+            if not func.is_view:
+                self.hbm_bytes += tree_bytes(out)
+            if packet.__name__ in _OPERAND_OPS:
+                self.hbm_bytes += tree_bytes(args)
+        if self.track_memory:
+            self._track((args, tuple(kwargs.values())), out)
+        return out
+
+    def _track(self, args, out) -> None:
+        """Follow the storages ``out`` allocates: a storage that no input
+        of the op holds is new; each tensor on a followed storage holds it
+        until the tensor is gone (a tensor autograd saved lives until the
+        backward frees it)."""
+        inputs = set()
+        for t in tree_leaves(args):
+            key = _storage_key(t)
+            if key is not None:
+                inputs.add(key)
+        for t in tree_leaves(out):
+            key = _storage_key(t)
+            if key is None or (key in inputs and key not in self._storages):
+                continue
+            entry = self._storages.get(key)
+            if entry is None:
+                size = t.untyped_storage().nbytes()
+                entry = self._storages[key] = [size, 0]
+                self.live_bytes += size
+                self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+            entry[1] += 1
+            weakref.finalize(t, self._drop, key)
+
+    def _drop(self, key) -> None:
+        entry = self._storages.get(key)
+        if entry is None:
+            return
+        entry[1] -= 1
+        if entry[1] == 0:
+            self.live_bytes -= entry[0]
+            del self._storages[key]
+
+    @contextlib.contextmanager
+    def quiet(self):
+        """Count no aten op inside (a kernel call's or a collective's own
+        ops, charged as a whole)."""
+        self._quiet += 1
+        try:
+            yield
+        finally:
+            self._quiet -= 1
+
+    def charge_kernel(self, name: str, work: dict) -> None:
+        flops = float(work["tensor_flops"] + work["f32_flops"])
+        self.flops += flops
+        self.hbm_bytes += work["hbm_bytes"]
+        row = self.kernels.setdefault(name, [0, 0.0, 0.0])
+        row[0] += 1
+        row[1] += flops
+        row[2] += work["hbm_bytes"]
+
+    def charge_collective(self, kind: str, nbytes: int) -> None:
+        self.coll[kind] += int(nbytes)
+        self.hbm_bytes += nbytes
+
+    def as_dict(self) -> dict:
+        return {"flops": self.flops, "bytes": self.hbm_bytes, "coll": dict(self.coll),
+                "kernels": {k: list(v) for k, v in self.kernels.items()}}
+
+
+@functools.cache
+def _flop_registry() -> dict:
+    from torch.utils.flop_counter import flop_registry
+
+    return flop_registry
+
+
+def collective_bytes(cost) -> dict[str, int]:
+    """Per-rank collective operand bytes by kind, of a ``CostCounter`` or
+    its ``as_dict()``."""
+    co = cost.coll if isinstance(cost, CostCounter) else cost["coll"]
+    return {op: int(co.get(op, 0)) for op in COLLECTIVE_OPS}
+
+
+def roofline(cost) -> RooflineTerms:
+    """The three terms of a count (a ``CostCounter`` or its ``as_dict()``)
+    at the H100's data-sheet rates.  The collective term prices every byte
+    at ``NVLINK_BW``: a mesh that crosses nodes moves some over slower
+    links, so there it is a lower bound."""
+    d = cost.as_dict() if isinstance(cost, CostCounter) else cost
+    flops, bytes_ = float(d["flops"]), float(d["bytes"])
+    coll = {k: float(v) for k, v in collective_bytes(d).items()}
+    coll_total = float(sum(coll.values()))
+    return RooflineTerms(
+        compute_s=flops / PEAK_FLOPS,
+        memory_s=bytes_ / HBM_BW,
+        collective_s=coll_total / NVLINK_BW,
+        flops_per_dev=flops,
+        hbm_bytes_per_dev=bytes_,
+        coll_bytes_per_dev=coll_total,
+        coll_by_op=coll,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -178,44 +382,13 @@ def paged_decode_attention_cost(
     }
 
 
-def decode_attention_work(
-    lengths,
-    hq: int,
-    hkv: int,
-    d: int,
-    capacity: int,
-    *,
-    group_size: int = 1,
-    q_len: int = 1,
-    table_entries: int = 0,
-) -> dict:
-    """The least work of one decode kernel call over a batch of requests
-    with live ``lengths`` (contiguous or paged): the roofline bound of a
-    kernel row (``obs.utilization.kernel_bound``).
+def decode_attention_work(*args, **kwargs) -> dict:
+    """``kernels.ops.decode_attention_work``, the least work of a decode
+    kernel call, which lives beside the other kernels' (imported on call:
+    the kernels import nothing of this module)."""
+    from repro_torch.kernels.ops import decode_attention_work as work
 
-    Unlike ``decode_attention_cost`` and ``paged_decode_attention_cost``
-    (the reference's models, which round live keys up to whole splits or
-    blocks, give every query row every live key and price the f32 split
-    partials written and read for every split), this counts what the
-    function needs: each request's live keys, at most ``capacity``, read
-    once for K (or K̂, ``d/G*`` wide) and V at their ``hkv`` heads; the
-    ``q_len`` query rows of a request see the causal band (row i of
-    ``q_len`` the keys before ``length − (q_len − 1 − i)``); q, the
-    lengths and ``table_entries`` block-table entries a request (int32)
-    read once; one merged f32 o, m and l a row written once.
-    """
-    d_score = d // group_size
-    live = sum(min(max(n, 0), capacity) for n in lengths)
-    pairs = hq * sum(max(0, min(n - (q_len - 1 - i), capacity))
-                     for n in lengths for i in range(q_len))
-    b = len(lengths)
-    rows = b * hq * q_len
-    return {
-        "tensor_flops": 2 * (d_score + d) * pairs,
-        "f32_flops": 4 * pairs,
-        "hbm_bytes": 2 * hkv * live * (d_score + d) + 2 * rows * d_score
-        + 4 * b * (1 + table_entries) + 4 * rows * (d + 2),
-    }
+    return work(*args, **kwargs)
 
 
 def mesh_prefill_handoff_cost(

@@ -23,6 +23,13 @@ every token ever written, so the live window is the most recent
 hybrid and encdec layouts have no ``length``: their sequences finish before
 the window would wrap (encdec decodes over ``pos + 1`` positions).
 
+On a mesh (``cache_pspecs``, the reference's specs) the batch shards over
+the data-parallel axes and the cache's heads or positions over "model" by
+``cfg.attn_shard``: under "seq" every KV head for S/model positions
+(flash-decoding across the ranks), under "heads" the rank's KV heads; MLA's
+positions, the SSM state's heads and the conv state's channels lie over
+"model" too.  ``local_cache`` cuts a rank's cache out of a whole one.
+
 The fused-K̂ decode cache holds K̂ = fuse(K, perm) under one static
 permutation per (layer, KV head): decode scores read d/G* columns a token
 in place of d, and raw K is no longer written at decode (it stays as the
@@ -79,6 +86,60 @@ def cache_struct(cfg, batch: int, max_len: int, dtype=torch.bfloat16) -> dict:
         cache["k_fused"] = spec((cfg.n_layers, batch, cfg.n_kv_heads, max_len,
                                  cfg.head_dim_ // g))
     return cache
+
+
+def cache_pspecs(cfg, mesh, *, batch: int = 0, max_len: int = 0) -> dict:
+    """The partition spec (``distributed.sharding.P``) of each cache key:
+    the batch over every axis but "model"; the sequence or head dim over
+    "model" by ``cfg.attn_shard`` (flash-decoding style for "seq").  An
+    assignment that does not divide its cache dim (batch 1 of long_500k,
+    say) is dropped; pass ``batch`` and ``max_len`` to check.  The
+    reference's ``cache_pspecs``, key for key; ``mesh`` needs only
+    ``axis_names`` and ``shape``."""
+    from repro_torch.distributed.sharding import P
+
+    dp = tuple(a for a in mesh.axis_names if a != "model")
+    seq_sharded = cfg.attn_shard == "seq"
+
+    def spec_for(key: str, ndim: int) -> P:
+        if key in ("k", "v", "cross_k", "cross_v", "k_fused"):  # (L, B, Hkv, S, dh)
+            return (P(None, dp, None, "model", None) if seq_sharded else
+                    P(None, dp, "model", None, None))
+        if key in ("ckv", "krope"):  # (L, B, S, C)
+            return P(None, dp, "model", None)
+        if key in ("ssm", "tail_ssm"):  # (L, B, H, S, P)
+            return P(None, dp, "model", None, None)
+        if key in ("conv", "tail_conv"):  # (L, B, k-1, conv_dim)
+            return P(None, dp, None, "model")
+        if key == "groups_ssm":  # (G, per, B, H, S, P)
+            return P(None, None, dp, "model", None, None)
+        if key == "groups_conv":  # (G, per, B, k-1, conv_dim)
+            return P(None, None, dp, None, "model")
+        if key in ("shared_k", "shared_v"):  # (G, B, Hkv, S, dh)
+            return P(None, dp, "model", None, None)
+        return P(*([None] * ndim))
+
+    struct = cache_struct(cfg, max(batch, 1), max(max_len, 2))
+    axis_size = {a: int(mesh.shape[a]) for a in mesh.axis_names}
+
+    def prune(spec: P, shape: tuple) -> P:
+        entries = []
+        for i, s in enumerate(spec):
+            need = 1
+            for a in (() if s is None else s if isinstance(s, tuple) else (s,)):
+                need *= axis_size.get(a, 1)
+            entries.append(None if s is None or (batch and shape[i] % need) else s)
+        return P(*entries)
+
+    return {k: prune(spec_for(k, v.ndim), tuple(v.shape)) for k, v in struct.items()}
+
+
+def local_cache(cache: dict, cfg, mesh, *, batch: int, max_len: int) -> dict:
+    """This rank's blocks of a whole cache (views) under ``cache_pspecs``."""
+    from repro_torch.distributed.sharding import local_slice
+
+    specs = cache_pspecs(cfg, mesh, batch=batch, max_len=max_len)
+    return {k: local_slice(v, mesh, specs[k]) for k, v in cache.items()}
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,

@@ -10,14 +10,35 @@ prefills of the degradation dial and of a mesh engine.  A moe config decodes fro
 the reference.
 
 Steps update caches and pools in place.
+
+Tensor-parallel serving (``make_prefill(mesh=)``, ``make_decode_step(mesh=)``
+with a "model" axis): the params are this rank's shards
+(``distributed.sharding.shard_params`` under ``train_step.mesh_specs``), the
+tokens and positions this rank's rows of the batch, and each rank's cache
+is its block of one device's cache under ``kv_cache.cache_pspecs``: the
+prefill moves K/V from the heads its layers ran to the cache's layout (an
+all-to-all over "model" from heads to positions under "seq", this rank's
+slice where a layer ran whole), and the decode writes and attends as
+``models.attention`` describes.  The logits come back whole, gathered over
+"model" from the vocab-parallel head.  The replicated ``length`` vector
+holds the whole batch: a step reads its own rows and all-gathers the new
+counts over the data-parallel axes.  MLA's compressed cache lies by
+positions over "model" and its absorbed decode merges the ranks' stats as
+the GQA decode does; the enc-dec cross cache lies as the self cache.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from repro_torch.core import grouping
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding
+from repro_torch.launch.mesh import set_mesh
 from repro_torch.models import layers, lm, transformer
-from repro_torch.models.attention import _split_heads, paged_insert
+from repro_torch.models.attention import (_split_heads, cache_layout, heads_to_run,
+                                          local_heads, paged_insert)
 from repro_torch.serve import kv_cache
 from repro_torch.serve.paged import check_pageable
 from repro_torch.tune.autotune import sweeps_refused, warm_decode
@@ -57,25 +78,109 @@ def _mamba_prefill_cache(cfg, parts, max_len: int, dtype: torch.dtype) -> dict:
     return cache
 
 
-def _cross_cache(cfg, params: dict, enc_out: torch.Tensor, dtype: torch.dtype) -> dict:
+def _cross_cache(cfg, params: dict, enc_out: torch.Tensor, dtype: torch.dtype,
+                 mesh=None) -> dict:
     """The encoder output's keys and values a decoder layer, projected by its
     ``cross_attn`` and zero-padded or cut to ``cross_len`` positions
-    (``cross_k`` / ``cross_v`` (L, B, Hkv, cross_len, dh)), and each slot's
-    live count ``cross_len`` (B,) = min(N_enc, cfg.cross_len)."""
-    def heads(w, x):
-        return _split_heads(layers.linear_apply(w, x), cfg.n_kv_heads).to(dtype)
-
+    (``cross_k`` / ``cross_v`` (L, B, Hkv, cross_len, dh); on a "model"
+    ``mesh`` this rank's block of them), and each slot's live count
+    ``cross_len`` (B,) = min(N_enc, cfg.cross_len)."""
     n = cfg.cross_len
-    ck = torch.stack([heads(lp["cross_attn"]["wk"], enc_out) for lp in params["blocks"]])
-    cv = torch.stack([heads(lp["cross_attn"]["wv"], enc_out) for lp in params["blocks"]])
+    parts = {"wk": [], "wv": []}
+    for lp in params["blocks"]:
+        attn, _, hkv, heads_mesh = heads_to_run(sharding.gather_on_use(lp["cross_attn"]), cfg)
+        for w in parts:
+            parts[w].append(_split_heads(layers.linear_apply(attn[w], enc_out), hkv).to(dtype))
+    ck, cv = (_pad_seq_to(torch.stack(parts[w]), n, 3)[:, :, :, :n] for w in ("wk", "wv"))
     b, n_enc = enc_out.shape[:2]
-    return {"cross_k": _pad_seq_to(ck, n, 3)[:, :, :, :n],
-            "cross_v": _pad_seq_to(cv, n, 3)[:, :, :, :n],
-            "cross_len": torch.full((b,), min(n_enc, n), dtype=torch.int32,
-                                    device=enc_out.device)}
+    if mesh is not None:
+        layout = cache_layout(cfg, mesh, "cross_k", n)
+        ck, cv = (_kv_layout(t, heads_mesh, layout, mesh, n) for t in (ck, cv))
+    return {"cross_k": ck, "cross_v": cv,
+            "cross_len": _replicated_rows(torch.full((b,), min(n_enc, n), dtype=torch.int32,
+                                                     device=enc_out.device), mesh)}
 
 
-def make_prefill(cfg, max_len: int, backbone_cfg=None, perms: torch.Tensor | None = None):
+def _model_size(mesh) -> int:
+    return coll.axis_size(mesh, "model") if mesh is not None else 1
+
+
+def _mesh_specs(cfg, mesh):
+    if mesh is None:
+        return None
+    from repro_torch.train.train_step import mesh_specs
+
+    return mesh_specs(cfg, mesh)
+
+
+def _scope(mesh, params: dict, specs):
+    """The step's context on ``mesh``: the mesh active, and the FSDP leaves
+    of ``params`` under ``specs`` (``train_step.mesh_specs``) gathered on
+    use."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    stack.enter_context(set_mesh(mesh))
+    stack.enter_context(sharding.fsdp_gathering(mesh, params, specs))
+    return stack
+
+
+def _gathered_top(params: dict) -> dict:
+    """``params`` with its non-layer leaves gathered on use (FSDP)."""
+    return {**params, **sharding.gather_on_use(
+        {k: v for k, v in params.items() if k not in lm.LAYER_KEYS})}
+
+
+def full_logits(params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
+    """``lm.logits_fn`` with the whole vocab: a vocab-parallel head's
+    columns all-gathered over "model"."""
+    logits = lm.logits_fn(params, cfg, hidden)
+    mesh = layers.tp_mesh(logits.shape[-1], cfg.padded_vocab)
+    return logits if mesh is None else coll.all_gather(logits, mesh, "model", logits.ndim - 1)
+
+
+def _kv_layout(kv: torch.Tensor, heads_mesh, layout: str, mesh, max_len: int) -> torch.Tensor:
+    """Stacked K or V (L, B, h, N, dh), ``h`` this rank's heads under a
+    heads-parallel ``heads_mesh`` (else every head), → the cache's block
+    (L, B, ·, ·, dh) under ``layout``, zero-padded to ``max_len``
+    positions."""
+    kv = _pad_seq_to(kv, max_len, 3)
+    if heads_mesh is not None:
+        if layout == "heads":
+            return kv
+        m = _model_size(mesh)
+        if layout == "whole":
+            return coll.all_gather(kv, mesh, "model", 2)
+        l, b, h, s, dh = kv.shape
+        parts = kv.reshape(l, b, h, m, s // m, dh).permute(3, 0, 1, 2, 4, 5)
+        got = coll.all_to_all(parts.contiguous(), mesh, "model")  # chunk i: rank i's heads
+        return got.permute(1, 2, 0, 3, 4, 5).reshape(l, b, m * h, s // m, dh)
+    if layout == "whole":
+        return kv
+    return sharding.local_slice(kv, mesh, (None, None, "model" if layout == "heads" else None,
+                                           "model" if layout == "seq" else None, None))
+
+
+def _model_blocks(cache: dict, cfg, mesh, batch: int, max_len: int) -> dict:
+    """This rank's blocks over "model" (``kv_cache.cache_pspecs``, pruned
+    as for ``batch`` rows) of a cache replicated over "model" whose batch
+    rows are already this rank's, each block a tensor of its own."""
+    specs = kv_cache.cache_pspecs(cfg, mesh, batch=batch, max_len=max_len)
+    return {k: sharding.local_slice(v, mesh, tuple(e if e == "model" else None
+                                                  for e in specs[k])).contiguous()
+            for k, v in cache.items()}
+
+
+def _replicated_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """A (B_local,) vector of this rank's rows → the whole batch's
+    (all-gathered over the data-parallel axes)."""
+    if mesh is None:
+        return x
+    return coll.all_gather(x, mesh, sharding.dp_axes(mesh), 0)
+
+
+def make_prefill(cfg, max_len: int, backbone_cfg=None, perms: torch.Tensor | None = None,
+                 *, mesh=None):
     """→ prefill(params, tokens (B, N), patches=None, frames=None) →
     (logits (B, 1, V) of the last position, cache ready for decode at
     position N, or N + P after a patch prefix of P rows).  For ssm / hybrid
@@ -89,44 +194,71 @@ def make_prefill(cfg, max_len: int, backbone_cfg=None, perms: torch.Tensor | Non
     while the cache layout stays the engine's own.  Under
     ``attention.distr_decode`` a dense cache also holds ``k_fused`` (f32),
     K fused at the engine's own G* under its static ``perms`` (see
-    ``_resolve_perms``), whatever attention ``backbone_cfg`` ran."""
+    ``_resolve_perms``), whatever attention ``backbone_cfg`` ran.
+
+    With ``mesh`` the step runs tensor parallel (see the module docstring):
+    ``tokens`` and ``patches`` are this rank's rows and the cache comes back
+    as this rank's block under ``kv_cache.cache_pspecs``."""
     bcfg = cfg if backbone_cfg is None else backbone_cfg
     perms = _resolve_perms(cfg, perms)
+    specs = _mesh_specs(cfg, mesh)
+
+    def prefill(params, tokens, patches=None, frames=None):
+        with _scope(mesh, params, specs):
+            return step(params, tokens, patches, frames)
 
     @torch.no_grad()
-    def prefill(params, tokens, patches=None, frames=None):
+    def step(params, tokens, patches=None, frames=None):
         nonlocal perms
         hidden, kvs = lm.backbone(params, bcfg, tokens, patches=patches, frames=frames,
                                   collect_cache=True)
-        logits = lm.logits_fn(params, cfg, hidden[:, -1:])
+        logits = full_logits(params, cfg, hidden[:, -1:])
         dtype = lm.compute_dtype(cfg)
         if cfg.family in ("ssm", "hybrid"):
-            return logits, _mamba_prefill_cache(cfg, kvs, max_len, dtype)
+            cache = _mamba_prefill_cache(cfg, kvs, max_len, dtype)
+            if _model_size(mesh) > 1:
+                shared = {k: cache.pop(k) for k in ("shared_k", "shared_v") if k in cache}
+                cache = _model_blocks(cache, cfg, mesh, tokens.shape[0], max_len)
+                if shared:
+                    heads_mesh = local_heads(params["shared"][0]["block"]["attn"], cfg)[2]
+                    layout = cache_layout(cfg, mesh, "shared_k", max_len)
+                    cache.update({k: _kv_layout(t, heads_mesh, layout, mesh, max_len)
+                                  for k, t in shared.items()})
+            return logits, cache
         if cfg.use_mla:
             ckv = torch.stack([c for c, _ in kvs]).to(dtype)  # (L, B, N, kv_lora)
             krope = torch.stack([r[:, 0] for _, r in kvs]).to(dtype)  # (L, B, N, rope_d)
-            return logits, {"ckv": _pad_seq_to(ckv, max_len, 2),
-                            "krope": _pad_seq_to(krope, max_len, 2)}
+            cache = {"ckv": _pad_seq_to(ckv, max_len, 2), "krope": _pad_seq_to(krope, max_len, 2)}
+            if _model_size(mesh) > 1:  # c_kv and k_rope are replicated over "model"
+                cache = _model_blocks(cache, cfg, mesh, tokens.shape[0], max_len)
+            return logits, cache
         cross = None
         if cfg.family == "encdec":
-            cross = _cross_cache(cfg, params, kvs["enc_out"], dtype)
+            cross = _cross_cache(cfg, params, kvs["enc_out"], dtype,
+                                 mesh if _model_size(mesh) > 1 else None)
             kvs = kvs["kv"]
         k = torch.stack([kv[0] for kv in kvs]).to(dtype)  # (L, B, Hkv, N, dh)
         v = torch.stack([kv[1] for kv in kvs]).to(dtype)
-        cache = {"k": _pad_seq_to(k, max_len, 3), "v": _pad_seq_to(v, max_len, 3)}
+        n = k.shape[3]
+        heads_mesh = local_heads(lm.decoder_layers(params, cfg)[0][1]["attn"], cfg)[2]
+        layout = cache_layout(cfg, mesh, max_len=max_len)
+        k, v = (_kv_layout(t, heads_mesh, layout, mesh, max_len) for t in (k, v))
+        cache = {"k": k, "v": v}
         if cross is not None:
             return logits, {**cache, **cross}
         # The whole prompt is live; the engine overrides this for
         # right-padded prompts.
-        cache["length"] = torch.full((tokens.shape[0],), k.shape[3], dtype=torch.int32,
-                                     device=tokens.device)
+        cache["length"] = _replicated_rows(
+            torch.full((tokens.shape[0],), n, dtype=torch.int32, device=tokens.device), mesh)
         if perms is not None:
             if perms.device != tokens.device:
                 perms = perms.to(tokens.device)  # once, not a host copy every call
-            # Fused before the padding: K̂ of a zero row is a zero row.
-            k_fused = grouping.fuse_columns(  # perms (L, 1, Hkv, dh) over B and N
-                k.float(), perms[:, None], cfg.attention.distr.group_size)
-            cache["k_fused"] = _pad_seq_to(k_fused, max_len, 3)
+            p = perms
+            if layout == "heads":
+                p = sharding.local_slice(perms, mesh, (None, "model", None))
+            # K̂ of a zero row is a zero row: fusing the padded cache is exact.
+            cache["k_fused"] = grouping.fuse_columns(  # p (L, 1, Hkv, dh) over B and N
+                k.float(), p[:, None], cfg.attention.distr.group_size)
         return logits, cache
 
     return prefill
@@ -150,14 +282,15 @@ def _mamba_decode(cfg, lp: dict, x: torch.Tensor, conv: torch.Tensor, ssm: torch
     """Decode one Mamba layer and write its new conv / SSM state back into
     ``conv[idx]`` / ``ssm[idx]`` in place."""
     x, nc = transformer.block_decode_apply(
-        lp, x, cfg, cache={"conv": conv[idx], "ssm": ssm[idx]}, cache_index=None,
-        layer_type="mamba")
+        sharding.gather_on_use(lp), x, cfg, cache={"conv": conv[idx], "ssm": ssm[idx]},
+        cache_index=None, layer_type="mamba")
     conv[idx].copy_(nc["conv"])
     ssm[idx].copy_(nc["ssm"])
     return x
 
 
-def _mamba_decode_trunk(cfg, params: dict, x: torch.Tensor, cache: dict, pos) -> torch.Tensor:
+def _mamba_decode_trunk(cfg, params: dict, x: torch.Tensor, cache: dict, pos,
+                        mesh=None) -> torch.Tensor:
     if cfg.family == "ssm":
         for i, lp in enumerate(params["blocks"]):
             x = _mamba_decode(cfg, lp, x, cache["conv"], cache["ssm"], (i,))
@@ -168,14 +301,15 @@ def _mamba_decode_trunk(cfg, params: dict, x: torch.Tensor, cache: dict, pos) ->
             x = _mamba_decode(cfg, lp, x, cache["groups_conv"], cache["groups_ssm"], (gi, li))
         x, _ = transformer.shared_block_decode_apply(
             params["shared"][gi % cfg.n_shared_attn_blocks], x, x0, cfg,
-            cache={"k": cache["shared_k"][gi], "v": cache["shared_v"][gi]}, cache_index=pos)
+            cache={"k": cache["shared_k"][gi], "v": cache["shared_v"][gi]}, cache_index=pos,
+            layout=cache_layout(cfg, mesh, "shared_k"))
     for i, lp in enumerate(params.get("tail", [])):
         x = _mamba_decode(cfg, lp, x, cache["tail_conv"], cache["tail_ssm"], (i,))
     return x
 
 
 def make_decode_step(cfg, perms: torch.Tensor | None = None, *, max_len: int | None = None,
-                     device: str | torch.device = "cuda"):
+                     device: str | torch.device = "cuda", mesh=None):
     """→ decode_step(params, tokens (B, 1), cache, pos (B,)) → (logits
     (B, 1, V), cache).  Dense: each slot writes its token at ``pos mod S``;
     the live length becomes ``min(max(length, pos + 1), S)``, and
@@ -197,60 +331,89 @@ def make_decode_step(cfg, perms: torch.Tensor | None = None, *, max_len: int | N
     ``max_len`` (the self cache's capacity) resolves the decode splits here,
     on ``device`` (``tune.warm_decode``: under ``REPRO_TUNE=measure`` the
     sweeps run now).  A step never sweeps: under ``measure`` a split that
-    is still unresolved raises (``tune.sweeps_refused``)."""
+    is still unresolved raises (``tune.sweeps_refused``).
+
+    With ``mesh`` the step runs tensor parallel (see the module docstring):
+    ``tokens`` and ``pos`` are this rank's rows, ``cache`` this rank's block
+    under ``kv_cache.cache_pspecs``, and the logits the whole vocab."""
     perms = _resolve_perms(cfg, perms)
+    layout = cache_layout(cfg, mesh, max_len=max_len)
     if max_len is not None:
-        warm_decode(cfg, max_len, device=device)
+        warm_decode(cfg, max_len // (_model_size(mesh) if layout == "seq" else 1),
+                    device=device)
+    specs = _mesh_specs(cfg, mesh)
 
     def decode_step(params, tokens, cache, pos):
-        with sweeps_refused("a decode step"):
+        with sweeps_refused("a decode step"), _scope(mesh, params, specs):
             return step(params, tokens, cache, pos)
 
     @torch.no_grad()
     def step(params, tokens, cache, pos):
         nonlocal perms
         pos = pos.to(torch.int32)
+        params = _gathered_top(params)
         x = lm.add_learned_pos(params, cfg, lm.embed(params, cfg, tokens), pos[:, None])
         if cfg.family == "encdec":
+            cross_len = cache["cross_len"][_own_rows(cache["cross_len"], cache["k"].shape[1],
+                                                     mesh)]
+            cross_layout = cache_layout(cfg, mesh, "cross_k", cfg.cross_len)
             for i, lp in enumerate(params["blocks"]):
                 x, _ = transformer.block_decode_apply(
-                    lp, x, cfg, cache={key: cache[key][i] for key in
-                                       ("k", "v", "cross_k", "cross_v")},
-                    cache_index=pos, cross_len=cache["cross_len"])
+                    sharding.gather_on_use(lp), x, cfg,
+                    cache={key: cache[key][i] for key in ("k", "v", "cross_k", "cross_v")},
+                    cache_index=pos, cross_len=cross_len, layout=layout,
+                    cross_layout=cross_layout)
             x = transformer.norm_apply(params["final_norm"], x, cfg)
-            return lm.logits_fn(params, cfg, x), cache
+            return full_logits(params, cfg, x), cache
         if cfg.family in ("ssm", "hybrid"):
             cache = _widen_conv(cache, cfg)
-            x = _mamba_decode_trunk(cfg, params, x, cache, pos)
+            x = _mamba_decode_trunk(cfg, params, x, cache, pos, mesh)
             x = transformer.norm_apply(params["final_norm"], x, cfg)
-            return lm.logits_fn(params, cfg, x), cache
+            return full_logits(params, cfg, x), cache
         stack = lm.decoder_layers(params, cfg)
         if cfg.use_mla:
+            mla_layout = cache_layout(cfg, mesh, "ckv", max_len)
             for i, (layer_type, lp) in enumerate(stack):
                 x, _ = transformer.block_decode_apply(
-                    lp, x, cfg, cache={"ckv": cache["ckv"][i], "krope": cache["krope"][i]},
-                    cache_index=pos, layer_type=layer_type)
+                    sharding.gather_on_use(lp), x, cfg,
+                    cache={"ckv": cache["ckv"][i], "krope": cache["krope"][i]},
+                    cache_index=pos, layer_type=layer_type, layout=mla_layout)
             x = transformer.norm_apply(params["final_norm"], x, cfg)
-            return lm.logits_fn(params, cfg, x), cache
+            return full_logits(params, cfg, x), cache
         if perms is not None and perms.device != x.device:
             # On the eager first call, before any capture: a host copy
             # inside a captured step would fail.
             perms = perms.to(x.device)
-        max_len = cache["k"].shape[3]
-        total = torch.maximum(cache["length"], pos + 1)
-        length = torch.clamp(total, max=max_len)
+        capacity = cache["k"].shape[3] * (_model_size(mesh) if layout == "seq" else 1)
+        rows = _own_rows(cache["length"], cache["k"].shape[1], mesh)
+        total = torch.maximum(cache["length"][rows], pos + 1)
+        length = torch.clamp(total, max=capacity)
         for i, (layer_type, lp) in enumerate(stack):
             layer = ({"v": cache["v"][i], "k_fused": cache["k_fused"][i]} if perms is not None
                      else {"k": cache["k"][i], "v": cache["v"][i]})
             x, _ = transformer.block_decode_apply(
-                lp, x, cfg, cache=layer, cache_index=pos, length=length,
-                layer_type=layer_type, perm=perms[i] if perms is not None else None,
+                sharding.gather_on_use(lp), x, cfg, cache=layer, cache_index=pos,
+                length=length, layer_type=layer_type,
+                perm=perms[i] if perms is not None else None, layout=layout,
             )
-        cache["length"].copy_(total)
+        if rows == slice(None):
+            cache["length"].copy_(total)
+        else:
+            cache["length"].copy_(_replicated_rows(total, mesh))
         x = transformer.norm_apply(params["final_norm"], x, cfg)
-        return lm.logits_fn(params, cfg, x), cache
+        return full_logits(params, cfg, x), cache
 
     return decode_step
+
+
+def _own_rows(length: torch.Tensor, batch: int, mesh):
+    """This rank's rows of the replicated ``length`` vector: all of it when
+    it is as long as the cache's batch, else the block of this rank's
+    coordinate over the data-parallel axes."""
+    if length.shape[0] == batch:
+        return slice(None)
+    idx, _ = coll.axes_index(mesh, sharding.dp_axes(mesh))
+    return slice(idx * batch, (idx + 1) * batch)
 
 
 def _resolve_perms(cfg, perms: torch.Tensor | None) -> torch.Tensor | None:

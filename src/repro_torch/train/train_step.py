@@ -57,14 +57,18 @@ def _attention_heads(cfg) -> tuple:
 
 
 def check_mesh(cfg, mesh) -> None:
-    """Raise for what the port does not train on ``mesh``: a "model" axis
-    that the rules would cut through an attention head, or that would slice
-    some of a layer's head-split weights and leave others whole (the rules
-    drop an assignment that does not divide its dim).  The port's attention
-    runs whole heads on a rank, and the kernels map query heads onto KV heads
-    by q_per_kv; every family trains on any other mesh."""
+    """Raise for what the port does not train on ``mesh``: under
+    ``attn_shard="heads"`` a "model" axis that the rules would cut through
+    an attention head, or that would slice some of a layer's head-split
+    weights and leave others whole (the rules drop an assignment that does
+    not divide its dim).  The port's attention runs whole heads on a rank,
+    and the kernels map query heads onto KV heads by q_per_kv.  Under
+    ``attn_shard="seq"`` (the reference's layout for heads that "model"
+    does not divide) such a layer gathers its sliced weights and runs whole
+    (``models.attention.tp_layout``).  Every family trains on any other
+    mesh."""
     m = coll.axis_size(mesh, "model")
-    if m == 1:
+    if m == 1 or (cfg.attn_shard == "seq" and not cfg.use_mla):
         return
     weights = _attention_heads(cfg)
     sliced = [cols % m == 0 for _, cols in weights]
@@ -155,9 +159,12 @@ class _MeshStep:
     def sum_dp(self, x: torch.Tensor) -> torch.Tensor:
         return coll.all_reduce(x, self.mesh, self.dp)
 
-    def all_ok(self, ok: bool) -> bool:
-        bad = torch.tensor([0.0 if ok else 1.0])
-        return not bool(coll.all_reduce(bad, self.mesh, self.mesh.axis_names, op="max")[0])
+    def all_ok(self, ok: bool, meta: bool = False) -> bool:
+        """Whether every rank's step is ``ok``; a ``meta`` step (the dry
+        run) reduces a meta flag and takes the update."""
+        bad = torch.tensor([0.0 if ok else 1.0], device="meta" if meta else "cpu")
+        flag = coll.all_reduce(bad, self.mesh, self.mesh.axis_names, op="max")
+        return meta or not bool(flag[0])
 
 
 def make_train_step(cfg, opt_cfg: opt_mod.OptimizerConfig, mesh=None):
@@ -232,9 +239,10 @@ def make_train_step(cfg, opt_cfg: opt_mod.OptimizerConfig, mesh=None):
         # reference computes the update and selects where(ok, new, old)
         # inside jit; skipping it gives the same params and state without a
         # second copy of the params on the card.
-        ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
+        # A meta step (the dry run) has no values to read: it takes the update.
+        ok = loss.is_meta or bool(torch.isfinite(loss) & torch.isfinite(gnorm))
         if plan is not None:
-            ok = plan.all_ok(ok)
+            ok = plan.all_ok(ok, meta=loss.is_meta)
         if ok:
             opt_mod.adamw_update(leaves, grads, opt_state, opt_cfg, lr)
         for p in leaves:

@@ -1,8 +1,9 @@
 """Package boundary of the port: repro_torch and chip_smoke.py import
 neither JAX nor the JAX package, repro_torch calls no library attention and
 no torch.compile, entry points refuse to fall back to the CPU (for the
-dense, ssm and hybrid families alike), and a CPU tensor given to a kernel
-wrapper takes the plain path without counting a launch."""
+dense, ssm and hybrid families alike), a CPU tensor given to a kernel
+wrapper takes the plain path without counting a launch, and a meta tensor
+(the dry run's) its meta branch: shapes, no launch, no plain version."""
 import ast
 from pathlib import Path
 
@@ -172,11 +173,26 @@ def test_paged_cpu_tensors_take_the_plain_path_without_counting():
     assert pd.launches == before
 
 
-def test_non_cpu_non_cuda_tensor_raises_instead_of_falling_back():
+def _refuse(*args, **kwargs):
+    raise AssertionError("a plain version ran")
+
+
+def test_non_cpu_non_cuda_tensor_raises_instead_of_falling_back(monkeypatch):
+    """Only a CPU tensor takes a kernel's plain version.  A meta tensor (the
+    dry run's, ``launch/dryrun.py``) takes the wrapper's meta branch:
+    outputs of the right shapes and dtypes, no launch counted and no plain
+    version run; any other tensor off the card meets the launch path's
+    guard and raises."""
+    monkeypatch.setattr(fk, "flash_attention_plain", _refuse)
     q = torch.empty(4, 64, 64, device="meta")
+    before = fk.launches
+    o, lse = fk.flash_attention_kernel_call(q, q[:2], q[:2], q_per_kv=2, scale=0.125,
+                                            causal=True, kv_len=64, return_lse=True)
+    assert o.is_meta and o.shape == q.shape and o.dtype == q.dtype
+    assert lse.shape == (4, 64) and lse.dtype == torch.float32
+    assert fk.launches == before
     with pytest.raises(ValueError, match="CUDA"):
-        fk.flash_attention_kernel_call(q, q[:2], q[:2], q_per_kv=2, scale=0.125,
-                                       causal=True, kv_len=64)
+        build.require_cuda(torch.empty(4, 64, 64))
 
 
 def test_kernel_sources_are_found_without_building():
@@ -221,14 +237,19 @@ def test_ssd_cpu_tensors_take_the_plain_path_without_counting():
     assert mamba.conv_dim(get_config("zamba2-7b")) == 7168 + 2 * 64
 
 
-def test_ssd_on_a_device_without_a_backward_raises_for_grad():
-    """``ops.ssd`` has a backward on every device now; a tensor on a device
-    that is neither the CPU nor CUDA reaches the kernel's wrapper through
-    the autograd Function's forward when it wants a gradient, and raises
-    there as it does without one: no fallback to the plain version."""
+def test_ssd_on_a_device_without_a_backward_raises_for_grad(monkeypatch):
+    """``ops.ssd`` has a backward on every device; a meta tensor (the dry
+    run's) reaches the kernel wrapper's meta branch through the autograd
+    Function's forward, with and without a gradient, and gets shapes, never
+    the plain version; its backward runs on meta too (the dry run's train
+    step).  A tensor off the card elsewhere meets ``build.require_cuda``
+    (``test_non_cpu_non_cuda_tensor_raises_instead_of_falling_back``)."""
+    monkeypatch.setattr(ssd_kernels, "ssd_plain", _refuse)
     x = torch.empty(1, 8, 2, 4, device="meta", requires_grad=True)
     a = torch.empty(1, 8, 2, device="meta")
     b = torch.empty(1, 8, 1, 4, device="meta")
     for xx in (x, x.detach()):
-        with pytest.raises(ValueError, match="CUDA"):
-            ops.ssd(xx, a, b, b, chunk=4)
+        y = ops.ssd(xx, a, b, b, chunk=4)
+        assert y.is_meta and y.shape == xx.shape
+    ops.ssd(x, a, b, b, chunk=4).sum().backward()
+    assert x.grad.is_meta and x.grad.shape == x.shape

@@ -1570,3 +1570,35 @@ def test_mesh_checkpoint_holds_no_full_leaf_on_the_card(cuda, tmp_path):
 
     with np.load(tmp_path / "mesh" / "checkpoints" / path / "params.npz") as npz:
         assert npz["embed/table"].shape == (122880, 2304)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths", [(5, 170, 300), (40, 100, 150)])
+def test_decode_stats_of_two_shards_merge_to_one_call(cuda, dtype, lengths):
+    """Flash decoding across ranks: the decode kernel's folded (o, m, l)
+    over each half of a cache's positions (``ops.decode_attention
+    (return_stats=True)``, the lengths shifted by the half's offset; a half
+    with no live position gives the identity), stacked and merged
+    (``decode.merge_splits``), equal one call over the whole cache, and a
+    dead half's stats are exactly the identity."""
+    b, hkv, q_per_kv, s, d = 3, 4, 9, 300, 128
+    q = _randn((b, hkv * q_per_kv, 1, d), dtype, 21)
+    k, v = _randn((b, hkv, s, d), dtype, 22), _randn((b, hkv, s, d), dtype, 23)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    whole = ops.decode_attention(q, k, v, lengths=lens)
+    half = s // 2
+    parts = []
+    before = dec.launches
+    for i in range(2):
+        local = torch.clamp(lens - i * half, min=0, max=half)
+        parts.append(ops.decode_attention(q, k[:, :, i * half:(i + 1) * half],
+                                          v[:, :, i * half:(i + 1) * half], lengths=local,
+                                          return_stats=True))
+    assert dec.launches == before + 2
+    o, m, l = (torch.stack([p[j] for p in parts], dim=2) for j in range(3))
+    merged = dec.merge_splits(o, m, l)
+    _close(merged.to(dtype), whole, dtype)
+    dead = lens <= half
+    if bool(dead.any()):
+        assert bool((parts[1][1][dead] == -1e30).all()) and bool((parts[1][2][dead] == 0).all())
+        assert bool((parts[1][0][dead] == 0).all())
