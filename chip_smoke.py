@@ -10,8 +10,9 @@ from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a; counts the bf16
 flash forward's and backward's (dq, dkv), the bf16 DistrAttention
 forward's and backward's (dq, dkv), the bf16 decode and paged decode
 kernels' and the bf16 SSD kernel's tensor-core (HMMA),
-ldmatrix (LDSM) and cp.async (LDGSTS) instructions in the library's SASS
-and fails on a zero count or a register spill; checks that every
+ldmatrix (LDSM) and cp.async (LDGSTS) instructions in the library's SASS,
+the attention kernels at every tile their sources compile, and fails on a
+zero count or a register spill; checks that every
 instantiation of the delta kernel loads 16-byte vectors (LDG.E.128) and
 spills nothing; holds each kernel against
 its plain PyTorch version in bf16 at the shapes of the serving path
@@ -19,7 +20,8 @@ its plain PyTorch version in bf16 at the shapes of the serving path
 kernels with their LSE, DistrAttention also at G* = 4, the decode and
 paged decode kernels, the five backward kernels at both, and delta also
 at the training step's own call, head dim 112, a ragged row count and
-f32 — and times
+f32, and every compiled tile of the six tiled attention kernels at small
+ragged GQA shapes (``tiles_phase``) — and times
 kernel, plain version and, as a yardstick only, one PyTorch library call,
 each kernel against its bound, the package's count of the function's
 least work (``kernels/ops.py::attention_work``, ``delta_work``,
@@ -89,7 +91,12 @@ starcoder2-7b's serving shapes sweep the decode split and the paged pool
 block (each table logged), the decode and paged kernels are held against
 their plain versions at the picks, a ``PagedServeEngine`` with
 ``block_size=None`` serves the serve workload at the picked block, and a
-second construction reads the cache without a sweep.  SSM training: ``ops.ssd``'s gradient
+second construction reads the cache without a sweep; the warm-up also
+sweeps the flash forward's tile at each prefill bucket, and
+``attention_tile_sweeps`` the attention keys at the models' shapes
+(``TILE_SWEEPS``): every candidate's median beside its bound and SDPA,
+each pick against its plain version and through ``ops`` to its kernel,
+and a fresh tuner that resolves them all by lookup.  SSM training: ``ops.ssd``'s gradient
 (the kernel forward, the chunked backward) against autograd through the
 plain version at mamba2-130m's layer shape, and mamba2-130m trained at
 its published size (4 steps of 4 × 2048 tokens, the SSD kernel twice a
@@ -204,7 +211,10 @@ checks the forward kernels at llama4-scout's attention on one rank of
 ``mesh_tp_phase`` and ``hybrid112_train_phase``.
 ``python3 chip_smoke.py --sass-against DIR`` builds this tree's kernels and
 those of the checkout at DIR and compares the SASS of every function both
-libraries hold, instruction by instruction.
+libraries hold, instruction by instruction; an attention kernel's
+static-tile instantiation goes by its name from before the tile was a
+template argument (``static_alias``), and the run fails unless every one
+is the same.
 ``python3 chip_smoke.py --serve-load slot|hybrid|paged`` runs none of the
 above: it serves one serve workload as a closed-loop load under both
 impls, the slot workload also over the fused-K̂ cache (timed passes and
@@ -213,6 +223,7 @@ the device's busy share, ``serve_load``) and prints a JSON summary last.
 from __future__ import annotations
 
 import argparse
+import atexit
 import gc
 import itertools
 import json
@@ -226,6 +237,7 @@ import sys
 import tempfile
 import threading
 import time
+from collections import Counter
 from dataclasses import replace
 from pathlib import Path
 
@@ -434,16 +446,24 @@ ATTN_KERNEL_NAMES = ("attn_fwd_mma_kernel", "attn_fwd_kernel", "distr_fwd_exact_
 # state width (4: S ≤ 64, 8: S ≤ 128).  The SASS
 # of every instantiation must hold tensor-core products (HMMA), ldmatrix
 # (LDSM) and cp.async (LDGSTS).
-TC_KERNELS = {"attn_fwd_mma_kernel": ((64,), (112,), (128,)),
-              "distr_fwd_exact_kernel": ((64,), (112,), (128,)),
-              "attn_bwd_dq_mma_kernel": ((64,), (112,), (128,)),
-              "attn_bwd_dkv_mma_kernel": ((64,), (112,), (128,)),
-              "distr_bwd_dq_mma_kernel": ((64,), (112,), (128,)),
-              "distr_bwd_dkv_mma_kernel": ((64,), (112,), (128,)),
-              "decode_mma_kernel": tuple((d, kw) for d in (64, 112, 128) for kw in (4, 2)),
+# The six attention templates take their tile as well (``tc_kernels`` adds
+# every compiled one, ``TILED``).
+TC_KERNELS = {"decode_mma_kernel": tuple((d, kw) for d in (64, 112, 128) for kw in (4, 2)),
               "paged_mma_kernel": tuple((d, kw) for d in (64, 112, 128) for kw in (4, 2, 1)),
               "ssd_mma_kernel": ((16, 4), (16, 8), (32, 4), (32, 8))}
 TC_SASS_OPS = ("HMMA", "LDSM", "LDGSTS")
+# The attention kernels whose tile the tuner sweeps (tune/autotune.py) and
+# their templates: the flash ones take (d, rows, keys), the distr ones (d,
+# keys).  ``tiles_phase`` holds every compiled instantiation against its
+# plain version at TILE_SHAPE: B·Hq over B·Hkv heads (GQA), Nq rows, Nk
+# keys of which kv_len live (kv_len < Nk, both ragged), causal and not;
+# the distr ones at TILE_DISTR_N rows and block_q 64 and 128.
+TILED = {"flash_fwd": "attn_fwd_mma_kernel", "distr_fwd": "distr_fwd_exact_kernel",
+         "flash_dq": "attn_bwd_dq_mma_kernel", "flash_dkv": "attn_bwd_dkv_mma_kernel",
+         "distr_dq": "distr_bwd_dq_mma_kernel", "distr_dkv": "distr_bwd_dkv_mma_kernel"}
+TILE_SHAPE = (4, 2, 300, 320, 290)
+TILE_DISTR_N, TILE_BLOCK_QS = 384, (64, 128)
+SMEM_OPT_IN = 232448  # the most dynamic shared memory a block may take (sm_90)
 # The delta kernel's instantiations (csrc/delta.cu): dtype, lanes a row
 # (8, 16, 32 by head dim) and row-steps a warp takes a pass (4 in bf16, 2
 # in f32: the same bytes).
@@ -517,19 +537,57 @@ def tc_smem_bytes(template: str, args: tuple) -> int:
     chunk 128 and the widest state its k-steps hold (64: zamba2-7b; 128:
     mamba2-130m)."""
     d = args[0]
+    dkv_rows = 32 if d > 64 else 64
     if template == "ssd_mma_kernel":  # 2 stages of b, c, x; H hi, lo; a; 8 warps' scans
         q, s = 128, 16 * args[1]
         return (2 * 2 * q * (s + 8) * 2 + 2 * q * (d + 8) * 2 + 2 * s * (d + 8) * 2
                 + 2 * q * 4 + 8 * 2 * q * 4)
     row = (d + 8) * 2
-    if template in ("attn_fwd_mma_kernel", "distr_fwd_exact_kernel"):  # Q, 2 stages of K and V
-        return (64 + 4 * 64) * row
-    if template in ("attn_bwd_dq_mma_kernel", "distr_bwd_dq_mma_kernel"):  # Q, dO, 2 stages of K, V
-        return (2 * 64 + 4 * 64) * row
     if template in ("decode_mma_kernel", "paged_mma_kernel"):  # 2 stages of K, V and Q
         return 2 * (64 * 2 * row + 16 * (4 // args[1]) * row)
-    rows = 32 if d > 64 else 64  # dkv: K, V, 2 stages of Q, dO, LSE, D
-    return (2 * 64 + 4 * rows) * row + 4 * rows * 4
+    # The attention walks' (rows, keys): the flash templates' arguments, the
+    # distr ones' fixed rows (64; dkv's Q tile 32 or 64) and their keys.
+    rows, keys = args[1:] if len(args) == 3 else (
+        dkv_rows if template == "distr_bwd_dkv_mma_kernel" else 64, args[1])
+    if template in ("attn_fwd_mma_kernel", "distr_fwd_exact_kernel"):  # Q, 2 stages of K and V
+        return (rows + 4 * keys) * row
+    if template in ("attn_bwd_dq_mma_kernel", "distr_bwd_dq_mma_kernel"):  # Q, dO, 2 stages of K, V
+        return (2 * rows + 4 * keys) * row
+    return (2 * keys + 4 * rows) * row + 4 * rows * 4  # dkv: K, V, 2 stages of Q, dO, LSE, D
+
+
+def template_args(kernel: str, d: int, tile) -> tuple:
+    """The template arguments of ``kernel``'s instantiation at head dim d
+    and tile (rows, keys)."""
+    return (d, *tile) if kernel.startswith("flash") else (d, tile[1])
+
+
+def tc_kernels() -> dict:
+    """TC_KERNELS and the attention templates, each at every tile the
+    sources compile at each head dim (``tune.autotune.compiled_tiles``)."""
+    from repro_torch.kernels.build import HEAD_DIMS
+    from repro_torch.tune.autotune import compiled_tiles
+
+    return {**{TILED[k]: tuple(template_args(k, d, t) for d in HEAD_DIMS
+                               for t in compiled_tiles(k, d=d, dtype="bfloat16"))
+               for k in TILED}, **TC_KERNELS}
+
+
+def static_alias(fn: str) -> str:
+    """An attention kernel's static-tile instantiation under the name it had
+    before its tile was a template argument (the head dim alone: the parent
+    commit's); any other name as it is."""
+    from repro_torch.tune.autotune import static_tile
+
+    m = re.search(r"(" + "|".join(TILED.values()) + r")I(Li(\d+)E)((?:Li\d+E)+)E", fn)
+    if m is None:
+        return fn
+    kernel = next(k for k, t in TILED.items() if t == m.group(1))
+    d = int(m.group(3))
+    rest = tuple(int(x) for x in re.findall(r"Li(\d+)E", m.group(4)))
+    if rest != template_args(kernel, d, static_tile(kernel, d=d, dtype="bfloat16"))[1:]:
+        return fn
+    return fn[:m.start(2)] + m.group(2) + fn[m.end(4):]
 
 
 def log(msg: str) -> None:
@@ -576,14 +634,41 @@ def gpu_name_and_power() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# library path → its ``cuobjdump -sass`` text, or the dump still running
+# (``start_sass_dump``): one dump serves every SASS check.
+_SASS: dict = {}
+
+
+def start_sass_dump(build) -> None:
+    """Start ``cuobjdump -sass`` of the built library in the background, so
+    that the dump (tens of seconds for the attention kernels' 47 tiles)
+    runs on the host while the card checks the kernels."""
+    lib = str(build.build())
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = tempfile.TemporaryFile(mode="w+")  # a pipe would stall the dump once full
+    proc = subprocess.Popen([cuobjdump, "-sass", lib], stdout=out, stderr=subprocess.PIPE,
+                            text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())  # a run that fails first
+    _SASS[lib] = (proc, out)
+
+
 def kernel_sass(build, templates, ops: dict) -> dict:
     """Every function of the built library whose name holds one of
     ``templates``: how many of its SASS lines (``cuobjdump -sass``) match
     each pattern of ``ops``, and its registers and spill bytes from nvcc's
     ``-Xptxas -v`` output."""
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass", str(build.build())], check=True,
-                          capture_output=True, text=True, timeout=300).stdout
+    lib = str(build.build())
+    if lib not in _SASS:
+        start_sass_dump(build)
+    if isinstance(_SASS[lib], tuple):
+        proc, out = _SASS[lib]
+        _, err = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"cuobjdump -sass {lib} failed: {err[-2000:]}")
+        out.seek(0)
+        _SASS[lib] = out.read()
+        out.close()
+    sass = _SASS[lib]
     found, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -637,7 +722,7 @@ def sass_against(build, parent: Path) -> dict:
     res = subprocess.run([sys.executable, "-c", code, str(parent / "src")], check=True,
                          capture_output=True, text=True, timeout=1200)
     theirs = sass_functions(Path(res.stdout.strip().splitlines()[-1]))
-    ours = sass_functions(build.build())
+    ours = {static_alias(fn): body for fn, body in sass_functions(build.build()).items()}
     out = {"same": [], "differ": {}, "only_here": sorted(set(ours) - set(theirs)),
            "only_parent": sorted(set(theirs) - set(ours))}
     for fn in sorted(set(ours) & set(theirs)):
@@ -652,25 +737,29 @@ def sass_against(build, parent: Path) -> dict:
 
 def tensor_core_check(build) -> dict:
     """Proof that the bf16 flash forward and backward, the bf16
-    DistrAttention forward and backward, the bf16 decode and paged decode
-    kernels and the bf16 SSD kernel run on the tensor cores: count each
-    instantiation's HMMA, LDSM and LDGSTS instructions in the built
-    library's SASS and read its registers and spills.  Raises if an
-    instantiation is missing, lacks one of the three or spills."""
-    found = kernel_sass(build, TC_KERNELS, {op: re.compile(rf" {op}[. ]") for op in TC_SASS_OPS})
+    DistrAttention forward and backward (each at every compiled tile), the
+    bf16 decode and paged decode kernels and the bf16 SSD kernel run on the
+    tensor cores: count each instantiation's HMMA, LDSM and LDGSTS
+    instructions in the built library's SASS and read its registers and
+    spills.  Raises if an instantiation is missing, lacks one of the three,
+    spills or takes more shared memory than a block may."""
+    kernels = tc_kernels()
+    found = kernel_sass(build, kernels, {op: re.compile(rf" {op}[. ]") for op in TC_SASS_OPS})
     out = {}
     for fn, row in found.items():
-        template = next(name for name in TC_KERNELS if name in fn)
+        template = next(name for name in kernels if name in fn)
         # Template arguments of the mangled name: I Li<n>E ... E.
         args = tuple(int(x) for x in re.findall(r"Li(\d+)E", fn.split(template, 1)[1]))
         key = f"{template}<{', '.join(map(str, args))}>"
         row.update(template=template, args=list(args),
                    dynamic_smem_bytes=tc_smem_bytes(template, args))
         log(f"[tensor cores] {key}: {row}")
-        if any(row[op] == 0 for op in TC_SASS_OPS) or row.get("spill_bytes", 1) != 0:
-            raise AssertionError(f"{fn}: no {TC_SASS_OPS} in its SASS, or spills: {row}")
+        if (any(row[op] == 0 for op in TC_SASS_OPS) or row.get("spill_bytes", 1) != 0
+                or row["dynamic_smem_bytes"] > SMEM_OPT_IN):
+            raise AssertionError(f"{fn}: no {TC_SASS_OPS} in its SASS, spills, or over "
+                                 f"{SMEM_OPT_IN} bytes of shared memory: {row}")
         out[key] = row
-    want = {f"{name}<{', '.join(map(str, args))}>" for name, inst in TC_KERNELS.items()
+    want = {f"{name}<{', '.join(map(str, args))}>" for name, inst in kernels.items()
             for args in inst}
     if set(out) != want:
         raise AssertionError(f"expected the instantiations {sorted(want)} in the SASS, "
@@ -1028,6 +1117,122 @@ def backward_phase(torch, flush) -> dict:
                          bound_by=h["bound_by"], library_ms=h.get("library_ms"))
     out["shapes"] = shapes
     torch.cuda.empty_cache()
+    return out
+
+
+def tile_case(torch, kernel: str, d: int, q, k, v, do, *, causal: bool, kv_len: int,
+              block_q: int = 128) -> tuple:
+    """One tiled kernel on bf16 inputs q, do (B·Hq, N, d) and k, v (B·Hkv,
+    Nk, d): (a call at a tile → its outputs, the plain version's outputs
+    on the same inputs, their tolerances).  The backward kernels take the
+    plain forward's O and LSE and D; the distr kernels Q̂ and the
+    permutations of ``ops.distr_stage1`` at ``block_q`` (G* = 2)."""
+    from repro_torch.core.distr_attention import DistrConfig
+    from repro_torch.kernels import backward as bwd
+    from repro_torch.kernels import distr_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ops
+
+    r = q.shape[0] // k.shape[0]
+    if kernel.startswith("flash"):
+        kw = dict(q_per_kv=r, scale=d ** -0.5, causal=causal, kv_len=kv_len)
+        o, lse = fk.flash_attention_plain(q, k, v, return_lse=True, **kw)
+        if kernel == "flash_fwd":
+            return (lambda t: fk.flash_attention_kernel_call(
+                q, k, v, return_lse=True, block_q=t[0], block_k=t[1], **kw),
+                (o, lse), (TOL["flash"], TOL["lse"]))
+        args = (q, k, v, do, lse, bwd.delta_plain(o, do))
+        call, plain = ((bwd.flash_dq_kernel_call, bwd.flash_dq_plain) if kernel == "flash_dq"
+                       else (bwd.flash_dkv_kernel_call, bwd.flash_dkv_plain))
+        return (lambda t: call(*args, block_q=t[0], block_k=t[1], **kw), plain(*args, **kw),
+                (TOL["bwd"], TOL["bwd"]))
+    q_hat, perms = ops.distr_stage1(DistrConfig(group_size=2, block_q=block_q), q[None],
+                                    d ** -0.5, hkv=k.shape[0])
+    q_hat, perm = q_hat[0].contiguous(), perms[0].to(torch.int32).contiguous()
+    kw = dict(q_per_kv=r, causal=causal, group_size=2, block_q=block_q, kv_len=kv_len)
+    o, lse = dk.distr_attention_plain(q_hat, k, v, perm, return_lse=True, **kw)
+    if kernel == "distr_fwd":
+        return (lambda t: dk.distr_attention_kernel_call(
+            q_hat, k, v, perm, return_lse=True, block_k=t[1], **kw),
+            (o, lse), (TOL["distr"], TOL["lse"]))
+    args = (q_hat, k, v, perm, do, lse, bwd.delta_plain(o, do))
+    call, plain = ((bwd.distr_dq_kernel_call, bwd.distr_dq_plain) if kernel == "distr_dq"
+                   else (bwd.distr_dkv_kernel_call, bwd.distr_dkv_plain))
+    return (lambda t: call(*args, block_k=t[1], **kw), plain(*args, **kw),
+            (TOL["bwd"], TOL["bwd"]))
+
+
+def hold_tile(torch, name: str, got, want, tols) -> float:
+    """Each output of a tile's call against the plain version's → the
+    largest error."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return max(check_close(torch, f"{name} [{i}]", a, b, tol)
+               for i, (a, b, tol) in enumerate(zip(got, want, tols)))
+
+
+def tile_counters() -> dict:
+    """{kernel: its wrapper's launches by (d, rows, keys)} of the TILED
+    kernels (the counters themselves)."""
+    from repro_torch.kernels import backward as bwd
+    from repro_torch.kernels import distr_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+
+    return {"flash_fwd": fk.tile_launches, "distr_fwd": dk.tile_launches,
+            **bwd.tile_launches}
+
+
+def tiles_phase(torch) -> dict:
+    """Every compiled instantiation of the six tiled attention kernels
+    (``TILED``: each bf16 tile the sources compile at each head dim of
+    ``build.HEAD_DIMS``) held element by element against its plain
+    version at TILE_SHAPE, causal and not (``tile_case``): B·Hq over
+    B·Hkv heads (GQA), ragged Nq and Nk with kv_len < Nk; the distr
+    kernels at TILE_DISTR_N rows, at block_q 64 and 128.  Each tile's
+    launches are read from its wrapper's ``tile_launches``; raises if a
+    check fails or an instantiation was launched never.  Returns {kernel:
+    {"d,rows,keys": {"max_abs_err", "launches"}}}."""
+    from repro_torch.kernels.build import HEAD_DIMS
+    from repro_torch.tune.autotune import compiled_tiles
+
+    counters = tile_counters()
+    before = {name: Counter(c) for name, c in counters.items()}
+    hq, hkv, n, nk, kv_len = TILE_SHAPE
+    errs: dict = {k: {} for k in TILED}
+    t0 = time.perf_counter()
+    for d in HEAD_DIMS:
+        gen = torch.Generator(device="cuda").manual_seed(20 + d)
+        for causal in (True, False):
+            k, v = (torch.randn((hkv, nk, d), generator=gen, device="cuda").to(torch.bfloat16)
+                    for _ in range(2))
+            for kernel in TILED:
+                rows = TILE_DISTR_N if kernel.startswith("distr") else n
+                q, do = (torch.randn((hq, rows, d), generator=gen, device="cuda")
+                         .to(torch.bfloat16) for _ in range(2))
+                for block_q in (TILE_BLOCK_QS if kernel.startswith("distr") else (128,)):
+                    run, want, tols = tile_case(torch, kernel, d, q, k, v, do, causal=causal,
+                                                kv_len=kv_len, block_q=block_q)
+                    for t in compiled_tiles(kernel, d=d, dtype="bfloat16"):
+                        key = f"{d},{t[0]},{t[1]}"
+                        name = (f"tile {kernel} d={d} {t[0]}x{t[1]} "
+                                f"{'causal' if causal else 'full'} {hq}/{hkv} heads N={rows} "
+                                f"Nk={nk} kv_len={kv_len} block_q={block_q}")
+                        errs[kernel][key] = max(errs[kernel].get(key, 0.0),
+                                                hold_tile(torch, name, run(t), want, tols))
+    torch.cuda.synchronize()
+    out = {}
+    for kernel, found in errs.items():
+        out[kernel] = {}
+        for key, err in found.items():
+            tile = tuple(int(x) for x in key.split(","))
+            launched = counters[kernel][tile] - before[kernel][tile]
+            if not launched:
+                raise AssertionError(f"tile {kernel} {key}: no launch counted")
+            out[kernel][key] = {"max_abs_err": err, "launches": launched}
+    log(f"[tiles] {sum(len(v) for v in out.values())} instantiations held against their plain "
+        f"versions, {sum(r['launches'] for v in out.values() for r in v.values())} launches, "
+        f"{time.perf_counter() - t0:.1f}s; largest errors "
+        + ", ".join(f"{k} {max(r['max_abs_err'] for r in v.values()):.3g}" for k, v in out.items()))
     return out
 
 
@@ -2196,19 +2401,22 @@ def tune_phase(torch, params) -> dict:
     """The block-size tuner under ``REPRO_TUNE=measure`` with a fresh cache
     in a temporary directory (``REPRO_TUNE_CACHE``) at starcoder2-7b's
     serving shapes: the slot engine's warm-up (``tune.warm_engine``: the
-    prefill buckets, whose flash tile is compiled and only recorded, and the
-    decode split at capacity 2048, swept over DECODE_LENGTHS' 4 slots of 36
-    over 4 heads of 128) and the paged engine's (the pool block size, swept
-    over PAGED_LENGTHS' 8 lanes), each sweep table logged with every
+    flash forward's tile at each prefill bucket, and the decode split at
+    capacity 2048, swept over DECODE_LENGTHS' 4 slots of 36 over 4 heads
+    of 128) and the paged engine's (the pool block size, swept over
+    PAGED_LENGTHS' 8 lanes); then the attention tiles
+    (``attention_tile_sweeps``).  Each sweep table is logged with every
     candidate's median, spread and the copies of K/V each run cycles
-    through (over twice the L2), and whether the pick left the static 128.  The decode and paged kernels are held
-    element-wise against their plain versions at the picked split and
-    block, at the serving shapes (TOL["decode"]).  A ``PagedServeEngine``
-    with ``block_size=None`` takes the picked block and serves the serve
+    through (over twice the L2), and whether the pick left the static
+    value.  The decode and paged kernels are held element-wise against
+    their plain versions at the picked split and block, at the serving
+    shapes (TOL["decode"]).  A ``PagedServeEngine`` with
+    ``block_size=None`` takes the picked block and serves the serve
     workload (SERVE_PROMPTS, 32 new tokens, pallas_flash, raw K) to
     completion; a second construction, by a fresh tuner, reads the JSON
-    cache and sweeps nothing.  Raises if a sweep skipped a candidate, a
-    check fails, a request is not done or the second construction swept."""
+    cache and sweeps nothing, and a fresh tuner resolves every attention
+    key by lookup.  Raises if a sweep skipped a candidate, a check fails,
+    a request is not done or a second resolution swept."""
     import os
 
     import numpy as np
@@ -2219,8 +2427,8 @@ def tune_phase(torch, params) -> dict:
     from repro_torch.kernels.ops import _pack_gqa_rows
     from repro_torch.obs.trace import TraceRecorder, set_recorder
     from repro_torch.serve.engine import PagedServeEngine
-    from repro_torch.tune import (decode_candidates, paged_block_candidates, reset_autotuner,
-                                  warm_engine, warm_paged_engine)
+    from repro_torch.tune import (Autotuner, decode_candidates, paged_block_candidates,
+                                  reset_autotuner, warm_engine, warm_paged_engine)
 
     base = get_config("starcoder2-7b")
     cfg = base.replace(attention=base.attention.with_impl("pallas_flash"))
@@ -2231,7 +2439,7 @@ def tune_phase(torch, params) -> dict:
     rec = TraceRecorder()
     set_recorder(rec)
     reset_autotuner(None)
-    report, launches = {}, {"paged": 0}
+    report, launches, err = {}, {"paged": 0}, {}
     try:
         t0 = time.perf_counter()
         slot = warm_engine(cfg, s, device="cuda", lengths=DECODE_LENGTHS)
@@ -2239,16 +2447,8 @@ def tune_phase(torch, params) -> dict:
         warm_s = time.perf_counter() - t0
         bk, bs = slot["decode"].decode(), paged["paged_decode"]
         entries = json.loads(Path(os.environ["REPRO_TUNE_CACHE"]).read_text())
-        for key, entry in sorted(entries.items()):
-            log(f"[tune] {key}: best {entry['best']}"
-                + ("" if entry.get("compiled") else
-                   f" (static {entry['default']}, {entry['calls']} K/V copies a run)")
-                + "; " + ", ".join(
-                    f"{r['candidate']}: " + ("compiled" if r["seconds"] is None else
-                                             f"{r['seconds'] * 1e3:.5f} ± "
-                                             f"{r['spread'] * 1e3:.5f} ms")
-                    for r in entry["table"]))
-        sweeps = {e["kernel"]: e for e in entries.values() if not e.get("compiled")}
+        sweeps = {e["kernel"]: e for e in entries.values()
+                  if e["kernel"] in ("decode", "paged_decode")}
         want = {"decode": decode_candidates(s), "paged_decode": paged_block_candidates(s)}
         for kernel, cands in want.items():
             timed = sorted(r["candidate"] for r in sweeps[kernel]["table"])
@@ -2256,15 +2456,37 @@ def tune_phase(torch, params) -> dict:
                     math.isfinite(r["seconds"]) and r["seconds"] > 0
                     for r in sweeps[kernel]["table"]):
                 raise AssertionError(f"tune {kernel}: timed {timed} of {cands}")
+        # The prefill warm-up swept the flash forward's tile at each bucket
+        # (starcoder2-7b's 36 over 4 heads); the attention keys follow.
+        flash_keys = sorted(k for k, e in entries.items() if e["kernel"] == "flash_fwd")
         n_measure = sum(e["name"] == "tune/measure" for e in rec.events)
         log(f"[tune] warm-ups {warm_s:.1f}s, {n_measure} sweeps; decode split {bk} "
-            f"({slot['decode'].num_splits} splits), paged block {bs}; {gpu_name_and_power()}")
-        if n_measure != 2:
-            raise AssertionError(f"tune: {n_measure} sweeps, want the decode and paged keys")
+            f"({slot['decode'].num_splits} splits), paged block {bs}; flash_fwd keys "
+            f"{len(flash_keys)}; {gpu_name_and_power()}")
+        if n_measure != 2 + len(flash_keys) or not flash_keys:
+            raise AssertionError(f"tune: {n_measure} sweeps, want the decode and paged keys "
+                                 f"and the flash forward's {flash_keys}")
+        t0 = time.perf_counter()
+        tiles, err["tiles"], pick_launches = attention_tile_sweeps(torch)
+        tiles_s = time.perf_counter() - t0
+        for name, count in pick_launches.items():
+            launches[name] = launches.get(name, 0) + count
+        entries = json.loads(Path(os.environ["REPRO_TUNE_CACHE"]).read_text())
+        for key, entry in sorted(entries.items()):
+            log(f"[tune] {key}: best {entry['best']} (static {entry['default']}"
+                + (f", {entry['calls']} K/V copies a run" if entry["calls"] > 1 else "")
+                + ("" if entry["calls"] else ", one compiled tile: recorded, not timed")
+                + "); " + ", ".join(
+                    f"{r['candidate']}: " + ("-" if r["seconds"] is None else
+                                             f"{r['seconds'] * 1e3:.5f} ± "
+                                             f"{r['spread'] * 1e3:.5f} ms")
+                    for r in entry["table"]))
+        n_measure = sum(e["name"] == "tune/measure" for e in rec.events)
+        log(f"[tune] attention tiles {tiles_s:.1f}s; {n_measure} sweeps in all")
 
         # The kernels at the picked values against their plain versions.
         gen = torch.Generator(device="cuda").manual_seed(11)
-        err = {"decode": 0.0, "paged": 0.0}
+        err.update(decode=0.0, paged=0.0)
         lens = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
         q = torch.randn((len(DECODE_LENGTHS), hq, 1, d), generator=gen,
                         device="cuda").to(torch.bfloat16)
@@ -2325,9 +2547,18 @@ def tune_phase(torch, params) -> dict:
         log(f"[tune] a second PagedServeEngine read block {again.block_size} from the cache, "
             "no sweep")
         del again
+        fresh = Autotuner()  # a fresh tuner on the same file resolves every key by lookup
+        for key in tiles["keys"]:
+            resolve_tile_key(fresh, key)
+        n_after = sum(e["name"] == "tune/measure" for e in rec.events)
+        if n_after != n_measure:
+            raise AssertionError(f"tune: a fresh tuner swept {n_after - n_measure} keys again")
+        log(f"[tune] a fresh tuner read the {len(tiles['keys'])} attention keys from the cache, "
+            "no sweep")
         report = {"decode_block_k": bk, "paged_block_size": bs, "warm_s": warm_s,
                   "sweeps": {k: {f: e[f] for f in ("table", "default", "best", "calls")}
                              for k, e in sweeps.items()}, "max_abs_err": err,
+                  "attention_tiles": tiles["report"], "attention_tiles_s": tiles_s,
                   "paged_serve_wall_s": wall, "paged_serve_tok_per_s": n_tok / wall}
     finally:
         for key, val in saved.items():
@@ -2340,6 +2571,201 @@ def tune_phase(torch, params) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
     return {"launches": launches, "report": report}
+
+
+# The attention keys the tune phase sweeps: the forward kernels at
+# starcoder2-7b's prefill (36 over 4 heads, d = 128, N = 2048, G* = 2) and
+# the backward ones at minicpm-2b's training shape (36 heads, d = 64) and
+# zamba2-7b's shared blocks (32 heads, d = 112), N = 2048, causal, bf16;
+# DistrAttention's backward at block_q 128 (the configs' pin), its
+# forward's static keys carried.  (kernel, d, (hq, hkv)).
+TILE_SWEEPS = (("flash_fwd", 128, (36, 4)), ("distr_fwd", 128, (36, 4)),
+               *((k, d, h) for d, h in ((64, (36, 36)), (112, (32, 32)))
+                 for k in ("flash_dq", "flash_dkv", "distr_dq", "distr_dkv")))
+TILE_SWEEP_N, TILE_SWEEP_BLOCK_Q = 2048, 128
+
+
+def resolve_tile_key(tuner, key) -> tuple:
+    """One TILE_SWEEPS key through ``tuner`` → its (rows or block_q, keys)."""
+    kernel, d, heads = key
+    kw = dict(d=d, n=TILE_SWEEP_N, dtype="bfloat16", causal=True, device="cuda", heads=heads)
+    if kernel in ("distr_dq", "distr_dkv"):
+        return tuner.resolve_distr_bwd(kernel, block_q=TILE_SWEEP_BLOCK_Q, group_size=2,
+                                       fwd_block_k=64, **kw)
+    return tuner.resolve_pair(kernel, group_size=2 if kernel == "distr_fwd" else 1, **kw)
+
+
+def attention_tile_sweeps(torch) -> tuple:
+    """Under ``measure`` (the tune phase's cache): sweep every TILE_SWEEPS
+    key, and fail if its table did not time every candidate the tuner
+    built, or the candidates miss a compiled tile (the distr keys: a
+    compiled key tile).  Each candidate's median beside the function's
+    bound at that shape (``attention_work``) and, for the flash forward,
+    beside SDPA's forward at that shape timed the same way (eager calls
+    between CUDA events, L2 warm); the backward's beside SDPA's backward
+    split 3 : 4 as in ``backward_phase``.  Then each pick against its
+    plain version (``pick_check``), and the picks through ``ops`` as a
+    training step and a prefill reach them: a flash and a DistrAttention
+    step with gradients at minicpm-2b's shape (block_q 128 pinned, so the
+    DistrAttention forward keeps its static keys), and a DistrAttention
+    forward at starcoder2-7b's with block_q and the keys free, each pick
+    read off the wrappers' ``tile_launches``.  Returns (report, largest
+    error, the launches of those ops calls)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.distr_attention import DistrConfig
+    from repro_torch.kernels import backward as bwd
+    from repro_torch.kernels import distr_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ops import attention_work
+    from repro_torch.tune import autotune as at
+    from repro_torch.tune.cache import cache_key
+    from repro_torch.tune.measure import cuda_event_timer
+
+    tuner = at.get_autotuner()
+    entries = {}
+    picks = {}
+    for key in TILE_SWEEPS:
+        kernel, d, heads = key
+        picks[key] = resolve_tile_key(tuner, key)
+        name = f"{kernel}@l={TILE_SWEEP_BLOCK_Q}" if kernel in ("distr_dq", "distr_dkv") \
+            else kernel
+        entry = tuner.cache.get(cache_key(name, backend=at.backend_tag(torch.device("cuda")),
+                                          dtype="bfloat16", d=d,
+                                          group_size=2 if kernel.startswith("distr") else 1,
+                                          n=TILE_SWEEP_N, causal=True))
+        if kernel in ("distr_dq", "distr_dkv"):
+            cands = at.distr_bwd_candidates(kernel, d=d, n=TILE_SWEEP_N, group_size=2)
+            covered = set(cands) == {m for _, m in at.compiled_tiles(kernel, d=d,
+                                                                    dtype="bfloat16")}
+        elif kernel == "distr_fwd":
+            cands = at.distr_pair_candidates(d, n=TILE_SWEEP_N, group_size=2)
+            covered = {m for _, m in cands} == {m for _, m in at.compiled_tiles(
+                kernel, d=d, dtype="bfloat16")}
+        else:
+            cands = at.kernel_pair_candidates(kernel, d=d, n=TILE_SWEEP_N)
+            covered = set(cands) >= set(at.compiled_tiles(kernel, d=d, dtype="bfloat16"))
+        timed = [tuple(r["candidate"]) if isinstance(r["candidate"], list) else r["candidate"]
+                 for r in entry["table"]]
+        if sorted(timed) != sorted(cands) or not covered or (len(cands) > 1 and not all(
+                r["seconds"] and math.isfinite(r["seconds"]) for r in entry["table"])):
+            raise AssertionError(f"tune {key}: timed {timed} of {cands} (all compiled tiles "
+                                 f"among them: {covered})")
+        entries[key] = entry
+
+    # Bounds and SDPA beside each candidate, at the sweep's shape.
+    n, timer = TILE_SWEEP_N, cuda_event_timer()
+    sdpa = {}
+    for d, (hq, hkv) in {(d, h) for _, d, h in TILE_SWEEPS}:
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        q, do = (torch.randn((1, hq, n, d), generator=gen, device="cuda").to(torch.bfloat16)
+                 for _ in range(2))
+        k, v = (torch.randn((1, hq, n, d), generator=gen, device="cuda").to(torch.bfloat16)
+                .requires_grad_(True) for _ in range(2))  # K/V at the query heads
+        qg = q.requires_grad_(True)
+        fwd_s = statistics.median(timer(lambda: F.scaled_dot_product_attention(
+            qg.detach(), k.detach(), v.detach(), is_causal=True), None))
+        o = F.scaled_dot_product_attention(qg, k, v, is_causal=True)
+        bwd_s = statistics.median(timer(lambda: torch.autograd.grad(
+            o, (qg, k, v), do, retain_graph=True), None))
+        sdpa[d] = {"fwd_ms": fwd_s * 1e3, "bwd_ms": bwd_s * 1e3}
+        del q, k, v, qg, do, o
+    report = {}
+    for key, entry in entries.items():
+        kernel, d, (hq, hkv) = key
+        part = {"fwd": "fwd", "dq": "dq", "dkv": "dkv"}[kernel.split("_")[1]]
+        rows = []
+        for r in entry["table"]:
+            bq = r["candidate"][0] if kernel == "distr_fwd" else TILE_SWEEP_BLOCK_Q
+            work = attention_work(1, hq, hkv, n, n, d, causal=True,
+                                  group_size=2 if kernel.startswith("distr") else 1,
+                                  block_q=bq)[part]
+            bound = roofline(work, 1.0)["bound_ms"]
+            ms = None if r["seconds"] is None else r["seconds"] * 1e3
+            yard = {"flash_fwd": sdpa[d]["fwd_ms"], "flash_dq": sdpa[d]["bwd_ms"] * 3 / 7,
+                    "flash_dkv": sdpa[d]["bwd_ms"] * 4 / 7}.get(kernel)
+            rows.append({"candidate": r["candidate"], "ms": ms, "spread_ms": None if ms is None
+                         else r["spread"] * 1e3, "bound_ms": bound,
+                         "x_bound": None if ms is None else ms / bound,
+                         "sdpa_ms": yard, "x_sdpa": None if ms is None or yard is None
+                         else ms / yard})
+            log(f"[tune tiles] {kernel} d={d} {hq}/{hkv} heads N={n} {r['candidate']}: "
+                + ("recorded, not timed" if ms is None else
+                   f"{ms:.4f} ± {r['spread'] * 1e3:.4f} ms, {ms / bound:.2f}x its bound "
+                   f"{bound:.4f}" + ("" if yard is None else
+                                     f", {ms / yard:.2f}x SDPA's {yard:.4f}"))
+                + (" (pick)" if r["candidate"] == entry["best"] else "")
+                + (" (static)" if r["candidate"] == entry["default"] else ""))
+        report[f"{kernel} d={d}"] = {"pick": entry["best"], "static": entry["default"],
+                                     "heads": [hq, hkv], "n": n, "table": rows}
+    log(f"[tune tiles] SDPA at the sweeps' shapes: {sdpa}; {gpu_name_and_power()}")
+
+    err = max(pick_check(torch, key, picks[key]) for key in TILE_SWEEPS)
+
+    # The picks through ops, as a training step and a prefill run them; the
+    # training shape's forward key is swept first, so that the launches
+    # counted from here on are the step's own.
+    d = 64
+    hq, hkv = next(h for kernel, dd, h in TILE_SWEEPS if (kernel, dd) == ("flash_dq", d))
+    fwd_pick = tuner.resolve_pair("flash_fwd", d=d, n=n, causal=True, device="cuda",
+                                  heads=(hq, hkv))
+    counters = tile_counters()
+    before = {name: Counter(c) for name, c in counters.items()}
+    fk.launches, dk.launches = 0, 0
+    for name in bwd.launches:
+        bwd.launches[name] = 0
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    pick = {(kernel, d): p for (kernel, d, _), p in picks.items()}
+    q, k, v = (torch.randn((1, h, n, d), generator=gen, device="cuda").to(torch.bfloat16)
+               .requires_grad_(True) for h in (hq, hkv, hkv))
+    for out in (ops.flash_attention(q, k, v, causal=True),
+                ops.distr_attention(q, k, v, DistrConfig(group_size=2, block_q=128),
+                                    causal=True)):
+        out.float().square().sum().backward()
+    want = {("flash_fwd", fwd_pick),
+            ("flash_dq", pick[("flash_dq", d)]), ("flash_dkv", pick[("flash_dkv", d)]),
+            ("distr_fwd", at.static_tile("distr_fwd", d=d, dtype="bfloat16")),
+            ("distr_dq", (64, pick[("distr_dq", d)][1])),
+            ("distr_dkv", (at.static_tile("distr_dkv", d=d, dtype="bfloat16")[0],
+                           pick[("distr_dkv", d)][1]))}
+    hq, hkv = next(h for kernel, dd, h in TILE_SWEEPS if kernel == "distr_fwd")
+    qs, ks, vs = (torch.randn((1, h, n, 128), generator=gen, device="cuda").to(torch.bfloat16)
+                  for h in (hq, hkv, hkv))
+    with torch.no_grad():
+        ops.distr_attention(qs, ks, vs, DistrConfig(group_size=2, block_q=None), causal=True)
+    bq, bk = pick[("distr_fwd", 128)]
+    want.add(("distr_fwd@128", (64, bk)))
+    torch.cuda.synchronize()
+    for kernel, tile in sorted(want):
+        name, dd = (kernel.split("@")[0], 128) if "@" in kernel else (kernel, d)
+        if counters[name][(dd, *tile)] == before[name][(dd, *tile)]:
+            raise AssertionError(f"tune: the pick {tile} of {kernel} d={dd} did not reach its "
+                                 f"kernel: {dict(counters[name])}")
+    log(f"[tune tiles] the picks reach their kernels through ops: "
+        + ", ".join(f"{k} {t}" for k, t in sorted(want)) + f"; distr_fwd's block_q pick {bq}")
+    launches = {"flash": fk.launches, "distr": dk.launches, **bwd.launches}
+    del q, k, v, qs, ks, vs
+    torch.cuda.empty_cache()
+    return {"report": report, "keys": list(TILE_SWEEPS), "sdpa": sdpa}, err, launches
+
+
+def pick_check(torch, key, pick) -> float:
+    """A tune key's pick at its sweep's shape (its heads, N =
+    TILE_SWEEP_N, causal, bf16; distr_fwd at the pick's block_q, the distr
+    backward at TILE_SWEEP_BLOCK_Q) held element by element against the
+    plain version on the same inputs (``tile_case``).  Returns the largest
+    error."""
+    kernel, d, (hq, hkv) = key
+    n = TILE_SWEEP_N
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, do = (torch.randn((hq, n, d), generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn((hkv, n, d), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    run, want, tols = tile_case(torch, kernel, d, q, k, v, do, causal=True, kv_len=n,
+                                block_q=pick[0] if kernel == "distr_fwd" else TILE_SWEEP_BLOCK_Q)
+    return hold_tile(torch, f"tune pick {kernel} d={d} {pick}", run(pick), want, tols)
 
 
 def paged_serve_phase(torch, params) -> dict:
@@ -6349,11 +6775,17 @@ def mesh_tp_rank(rank: int, world: int, device: str, small: bool) -> dict:
                                 f"{tape['at_p']} permutations and {tape['at_i']} routings "
                                 f"against the single device's {len(tape['perms'])} and "
                                 f"{len(tape['ids'])}")
+            # The sound step's gradients wait on the host through the planted
+            # step: the two ranks share the card, and deepseek-v2-236b's
+            # (≈ 10.7 GB a rank) held there left the pair within a few GB
+            # of the card's 80 (an OOM in one whole run).
+            grads = sink.pop("grads")
             runs.append(({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                           "perms_alike": [tape["same"], tape["total"]]},
-                         sink.pop("grads"), step_s,
+                         grads if fault else [g.cpu() for g in grads], step_s,
                          {COUNTER_NAMES[k]: after[k] - before[k]
                           for k in COUNTER_NAMES if after[k] != before[k]}))
+            del grads
         del params, step
         return {"loss": float(m1["loss"]), "grad_norm": float(m1["grad_norm"])}, want, runs
 
@@ -6787,6 +7219,15 @@ def main() -> int:
         log(f"[sass] only here: {diff['only_here']}")
         log(f"[sass] only in {args.sass_against}: {diff['only_parent']}")
         log(card)
+        static = [fn for fn in diff["same"] + sorted(diff["differ"]) + diff["only_here"]
+                  if any(t in fn for t in TILED.values()) and static_alias(fn) == fn
+                  and not re.search(r"ILi\d+ELi", fn)]
+        same = [fn for fn in static if fn in diff["same"]]
+        log(f"[sass] static-tile instantiations: {len(same)} of {len(static)} the same")
+        if len(same) != len(static) or len(static) != len(TILED) * 3:
+            print(f"chip_smoke: static-tile SASS differs: {sorted(set(static) - set(same))}",
+                  file=sys.stderr)
+            return 1
         print(json.dumps({"same": len(diff["same"]), "differ": sorted(diff["differ"]),
                           "only_here": diff["only_here"]}), flush=True)
         return 0
@@ -6925,8 +7366,7 @@ def main() -> int:
     for line in build.build_log().splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
             log("  " + line.strip())
-    tensor_cores = tensor_core_check(build)
-    delta_sass = delta_sass_check(build)
+    start_sass_dump(build)  # read by tensor_core_check, after the first kernel checks
 
     # The plain versions' f32 products run in full f32, not TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6938,6 +7378,11 @@ def main() -> int:
     dec = decode_phase(torch, flush)
     pdec = paged_kernel_phase(torch, flush)
     back = backward_phase(torch, flush)
+    stamp("prefill, decode, paged and backward checks")
+    tensor_cores = tensor_core_check(build)
+    delta_sass = delta_sass_check(build)
+    stamp("SASS checks")
+    tiles = tiles_phase(torch)
     ssd = ssd_phase(torch, flush)
     a112 = attn112_phase(torch, flush)
     for name in ("flash", "distr"):
@@ -6982,10 +7427,15 @@ def main() -> int:
                "delta_shapes": back.pop("delta_shapes"),
                "ssd_shapes": ssd.pop("shapes"), "head_dim_112": a112, "qwen_kernels": qwen,
                "ssd_grad": ssd_grad, "scores": {"gaussian": gaussian_scores},
-               "noncausal": nc["shapes"], "encdec_decode": enc_dec["shapes"]}
+               "noncausal": nc["shapes"], "encdec_decode": enc_dec["shapes"], "tiles": tiles}
     launches = {"flash": 0, "distr": 0, "decode": 0, "paged": 0, "ssd": 0,
                 **dict.fromkeys(back, 0)}
     stamp("kernel checks")
+    # This process's launches of each attention instantiation from here on,
+    # the tune phase's apart: REPRO_TUNE is off on the main path, so those
+    # are the static tiles only.
+    tile_start = {name: Counter(c) for name, c in tile_counters().items()}
+    tune_tiles = {name: Counter() for name in TILED}
     if args.only != "kernels":
         serve_launches, params, serve_tokens = serve_phase(torch)
         stamp("serve")
@@ -7002,8 +7452,10 @@ def main() -> int:
         results["chaos"] = chaos["report"]
         traced = trace_phase(torch, params)
         results["trace"] = traced["report"]
+        tune_start = {name: Counter(c) for name, c in tile_counters().items()}
         tuned = tune_phase(torch, params)
         stamp("tune")
+        tune_tiles = {name: c - tune_start[name] for name, c in tile_counters().items()}
         results["tune"] = tuned["report"]
         dec["max_abs_err"] = max(dec["max_abs_err"], tuned["report"]["max_abs_err"]["decode"])
         pdec["max_abs_err"] = max(pdec["max_abs_err"], tuned["report"]["max_abs_err"]["paged"])
@@ -7073,6 +7525,18 @@ def main() -> int:
                             *mesh_tp["launches"].items(), *h112["launches"].items()):
             launches[name] += count
 
+    main_tiles = {name: c - tile_start[name] - tune_tiles[name]
+                  for name, c in tile_counters().items()}
+    from repro_torch.tune.autotune import static_tile
+
+    off_tiles = {name: sorted(k for k in c if k[1:] not in (
+        static_tile(name, d=k[0], dtype="bfloat16"), static_tile(name, d=k[0], dtype="float32")))
+        for name, c in main_tiles.items()}
+    if any(off_tiles.values()):
+        raise AssertionError(f"REPRO_TUNE=off launched a tile other than the static one: "
+                             f"{off_tiles}")
+    log(f"[tiles] main path (REPRO_TUNE=off, this process): "
+        + "; ".join(f"{name} {dict(c)}" for name, c in main_tiles.items()))
     csrc = "src/repro_torch/kernels/csrc"
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda", "source": f"{csrc}/flash_attention.cu",
@@ -7101,6 +7565,28 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: kern[k] for k in keys} for kern in kernels]
+    # Each tiled kernel's instantiations: its launches on the main path and
+    # in the tile checks, its error there, and its median in the tune
+    # phase's sweep where that swept its head dim.
+    swept = results.get("tune", {}).get("attention_tiles", {})
+    row_of = {"flash_fwd": "flash_attention_fwd", "distr_fwd": "distr_attention_fwd",
+              **{k: f"{k}_bwd" for k in ("flash_dq", "flash_dkv", "distr_dq", "distr_dkv")}}
+    for kern in kernels:
+        kernel = next((k for k, name in row_of.items() if name == kern["name"]), None)
+        if kernel is None:
+            continue
+        kern["tiles"] = []
+        for key, row in sorted(tiles[kernel].items()):
+            d, rows, keys_ = (int(x) for x in key.split(","))
+            table = swept.get(f"{kernel} d={d}", {}).get("table", [])
+            ms = [r["ms"] for r in table if (r["candidate"][1] if kernel == "distr_fwd"
+                                             else r["candidate"]) in ([rows, keys_], keys_)
+                  and (kernel != "distr_fwd" or r["candidate"][0] == TILE_SWEEP_BLOCK_Q)]
+            kern["tiles"].append({"d": d, "tile": [rows, keys_],
+                                  "launches": main_tiles[kernel][(d, rows, keys_)],
+                                  "check_launches": row["launches"],
+                                  "max_abs_err": row["max_abs_err"],
+                                  "sweep_ms": ms[0] if ms else None})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({**results, "kernels": kernels}, indent=1))

@@ -12,12 +12,14 @@
 
 Block sizes resolve through the tuner (``repro_torch.tune``) under
 ``REPRO_TUNE=off|analytic|measure`` (``resolve_attention_blocks``): the
-decode split (``block_k_decode=None``), DistrAttention's ``block_q``
-(``DistrConfig.block_q=None``) and the paged pool's block size (chosen by
-``PagedServeEngine``; the paged decode path splits once per pool block).
-Unset (``off``) they are the static values: 128, and the decode split
-``min(128, cache length)``.  The flash kernel's tiles and the backward
-kernels' are compiled into the kernels, and ``xla_flash`` keeps 128.
+decode split (``block_k_decode=None``), DistrAttention's ``block_q`` and
+key tile (``DistrConfig.block_q`` / ``block_k`` = None), the flash
+kernel's tile and ``xla_flash``'s blocks (``AttentionConfig.block_q`` /
+``block_k`` = None), the backward kernels' tiles (when the backward runs)
+and the paged pool's block size (chosen by ``PagedServeEngine``; the paged
+decode path splits once per pool block).  Unset (``off``) they are the
+static values: 128, the decode split ``min(128, cache length)``, and each
+kernel's static tile (``tune.autotune.static_tile``).
 """
 from __future__ import annotations
 
@@ -37,7 +39,10 @@ IMPLS = ("reference", "xla_flash", "distr", "pallas_flash", "pallas_distr")
 class AttentionConfig:
     impl: str = "xla_flash"
     distr: DistrConfig = field(default_factory=DistrConfig)
-    # Tiles of the exact blockwise path; None → 128.
+    # Tiles of the exact paths: xla_flash's blocks, or the flash kernel's
+    # tile (one it compiles).  None → the tuner's (REPRO_TUNE; off: 128, or
+    # the kernel's static tile); a partial pin takes the static value for
+    # the free one.
     block_q: int | None = None
     block_k: int | None = None
     # Decode split-K length; None → the tuner's (REPRO_TUNE; off:
@@ -110,23 +115,38 @@ def _ring_dispatch(cfg: AttentionConfig, q, k, v, *, causal: bool, scale, proj):
 
     if cfg.impl == "pallas_flash":
         return ring.ring_flash_attention(q, k, v, mesh, axis=cfg.context_axis, causal=causal,
-                                         scale=scale)
+                                         scale=scale, blocks=_pinned_blocks(cfg, q))
     return ring.ring_distr_attention(q, k, v, cfg.distr, mesh, axis=cfg.context_axis,
                                      causal=causal, scale=scale, proj=proj)
 
 
+def _pinned_blocks(cfg: AttentionConfig, q) -> BlockSizes | None:
+    """The flash kernel's tile the config pins (a partial pin with the
+    static tile for the free one), or None for the tuner's."""
+    if cfg.block_q is None and cfg.block_k is None:
+        return None
+    from repro_torch.tune.autotune import static_tile
+    from repro_torch.tune.cache import dtype_str
+
+    static = static_tile("flash_fwd", d=q.shape[-1], dtype=dtype_str(q))
+    return BlockSizes.from_pair(cfg.block_q or static[0], cfg.block_k or static[1])
+
+
 def resolve_attention_blocks(cfg: AttentionConfig, *, d: int, n_q: int, n_k: int | None = None,
                              dtype: str = "float32", causal: bool = False, bwd: bool = False,
-                             device="cuda") -> BlockSizes:
+                             device="cuda", heads: tuple[int, int] = (1, 1)) -> BlockSizes:
     """The ``BlockSizes`` one dispatch site runs.
 
-    ``pallas_flash``: the kernels' compiled tiles (the config's ints do not
-    reach the kernel).  ``xla_flash``: the config's ints, a free one 128.
-    The distr impls: ``DistrConfig.block_q`` if set, else the tuner's
-    under (impl kind, backend, dtype, d, G*, seq-bucket, causal), with the
-    kernel's KV tile.  ``bwd=True`` (training's warm-up) also fills the
-    backward kernels' tiles.  Under ``REPRO_TUNE=measure`` a key not yet
-    cached is swept on ``device`` here.
+    Explicit ints in the config win; a partial pin takes the static value
+    for the free one (``pallas_flash``: the kernel's static tile;
+    ``xla_flash``: 128); both None resolve through the tuner under (impl
+    kind, backend, dtype, d, G*, seq-bucket, causal).  The distr impls:
+    ``DistrConfig``'s blocks, resolved alike (``DistrConfig.resolved``).
+    ``bwd=True`` (training's warm-up) also fills the backward kernels'
+    tiles, those the backward will run: swept under ``measure`` (the distr
+    keys with block_q pinned), else the static ones.  Under
+    ``REPRO_TUNE=measure`` a key not yet cached is swept on ``device``
+    here, its inputs of ``heads`` (hq, hkv).
 
     Under context parallelism (``cfg.context_axis`` naming an axis of the
     active mesh, a kernel impl, self-attention long enough for the ring)
@@ -143,14 +163,17 @@ def resolve_attention_blocks(cfg: AttentionConfig, *, d: int, n_q: int, n_k: int
         from repro_torch.distributed.ring_attention import context_shard_len
 
         n = context_shard_len(n_q, int(mesh.shape[cfg.context_axis]))
-    kw = dict(d=d, n=n, dtype=dtype, causal=causal, bwd=bwd, device=device)
+    kw = dict(d=d, n=n, dtype=dtype, causal=causal, bwd=bwd, device=device, heads=heads)
     if cfg.impl in ("distr", "pallas_distr"):
+        dcfg = cfg.distr
         return resolve_block_sizes("distr" if cfg.impl == "pallas_distr" else "xla_distr",
-                                   group_size=cfg.distr.group_size,
-                                   block_q=cfg.distr.block_q, **kw)
-    if cfg.impl == "pallas_flash":
-        return resolve_block_sizes("flash", **kw)
-    return BlockSizes.from_pair(cfg.block_q or DEFAULT_BLOCK, cfg.block_k or DEFAULT_BLOCK)
+                                   group_size=dcfg.group_size, block_q=dcfg.block_q,
+                                   block_k=dcfg.block_k if cfg.impl == "pallas_distr" else None,
+                                   **kw)
+    if cfg.impl == "reference":  # the oracle: blocks unused
+        return BlockSizes.from_pair(DEFAULT_BLOCK, DEFAULT_BLOCK)
+    return resolve_block_sizes("flash" if cfg.impl == "pallas_flash" else "xla_flash",
+                               block_q=cfg.block_q, block_k=cfg.block_k, **kw)
 
 
 def attend(q, k, v, cfg: AttentionConfig, *, causal: bool = False,
@@ -171,17 +194,20 @@ def attend(q, k, v, cfg: AttentionConfig, *, causal: bool = False,
     if cfg.impl == "reference":
         return reference_attention(q, k, v, causal=causal, scale=scale)
     if cfg.impl == "xla_flash":
-        return blockwise_flash_reference(
-            q, k, v, block_q=cfg.block_q or DEFAULT_BLOCK,
-            block_k=cfg.block_k or DEFAULT_BLOCK, causal=causal, scale=scale,
-        )
+        from repro_torch.tune.cache import dtype_str
+
+        bs = resolve_attention_blocks(cfg, d=q.shape[-1], n_q=q.shape[2], n_k=k.shape[2],
+                                      dtype=dtype_str(q), causal=causal, device=q.device)
+        return blockwise_flash_reference(q, k, v, block_q=bs.block_q, block_k=bs.block_k,
+                                         causal=causal, scale=scale)
     if cfg.impl == "distr":
         return distr_attention(q, k, v, cfg.distr, causal=causal, scale=scale, proj=proj)
     if cfg.impl in ("pallas_flash", "pallas_distr"):
         from repro_torch.kernels import ops
 
         if cfg.impl == "pallas_flash":
-            return ops.flash_attention(q, k, v, causal=causal, scale=scale)
+            return ops.flash_attention(q, k, v, causal=causal, scale=scale,
+                                       blocks=_pinned_blocks(cfg, q))
         return ops.distr_attention(q, k, v, cfg.distr, causal=causal,
                                    scale=scale, proj=proj)
     raise ValueError(f"unknown attention impl {cfg.impl!r}; choose from {IMPLS}")

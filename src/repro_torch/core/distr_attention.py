@@ -26,10 +26,17 @@ class DistrConfig:
     """The paper's tunables.
 
     group_size: the sampling rate G* (2, 4, 8, 16); d_eff = d / G*.
-    block_q: the Q block of §3.3.1 and the LSH permutation granularity;
-      ``None`` is resolved by the block-size tuner (``repro_torch.tune``,
-      ``REPRO_TUNE``) where the shape is known, and is 128 where it is
-      not.  (The KV tile is the kernel's own choice.)
+    block_q / block_k: the (l, m) blocks of §3.3.1: block_q is also the
+      LSH permutation granularity, block_k the kernel's key tile (one it
+      compiles, ``tune.autotune.compiled_tiles``; the plain impl has none).
+      ``None`` is "auto": resolved by the block-size tuner
+      (``repro_torch.tune``, ``REPRO_TUNE``) where the shape is known, a
+      partial pin taking the static value for the free one; with no shape
+      block_q is 128 and block_k stays None (the kernel's static tile).
+    block_k_bwd: key tile of the backward dQ̂ and dK/dV kernels.  ``None``
+      is "auto": the forward's block_k (where the kernel compiles it), or
+      under ``REPRO_TUNE=measure`` each kernel's own pick.  block_q has no
+      backward override: it is the grouping, and stays pinned.
     estimator: "sample" (paper) | "mean" (beyond-paper).
     shared_kv_perm: one permutation per KV group, hashed from the group's
       mean query block (beyond-paper).
@@ -39,6 +46,8 @@ class DistrConfig:
 
     group_size: int = 2
     block_q: int | None = 128
+    block_k: int | None = None
+    block_k_bwd: int | None = None
     estimator: str = "sample"
     shared_kv_perm: bool = False
     proj_seed: int = 0
@@ -50,20 +59,24 @@ class DistrConfig:
     def resolved(self, d: int | None = None, n: int | None = None, *,
                  dtype: str = "float32", causal: bool = False, xla: bool = True,
                  device="cuda") -> "DistrConfig":
-        """An explicit ``block_q`` passes through.  ``None`` becomes 128 with
-        no shape, and with one (head dim ``d``, sequence length ``n``) goes
-        through the tuner: kernel ``xla_distr`` for the plain impl (``xla``),
+        """Fill ``None`` blocks; explicit ints pass through.  With no shape
+        block_q becomes 128 (block_k stays as it is).  With one (head dim
+        ``d``, sequence length ``n``, ``dtype``): a partial pin takes the
+        static value for the free one (128, or the kernel's static keys),
+        and both None go through the tuner, kernel ``xla_distr`` for the
+        plain impl (``xla``: no KV tile, block_k stays None) or the pair
         ``distr_fwd`` for the kernel, timed on ``device`` under
         ``REPRO_TUNE=measure``."""
-        if self.block_q is not None:
+        if self.block_q is not None and (self.block_k is not None or xla or d is None):
             return self
         if d is None or n is None:
-            return replace(self, block_q=DEFAULT_BLOCK)
+            return replace(self, block_q=self.block_q or DEFAULT_BLOCK)
         from repro_torch.tune.autotune import resolve_block_sizes
 
         bs = resolve_block_sizes("xla_distr" if xla else "distr", d=d, n=n, dtype=dtype,
-                                 group_size=self.group_size, causal=causal, device=device)
-        return replace(self, block_q=bs.block_q)
+                                 group_size=self.group_size, causal=causal, device=device,
+                                 block_q=self.block_q, block_k=self.block_k)
+        return replace(self, block_q=bs.block_q, block_k=None if xla else bs.block_k)
 
 
 def default_projection(cfg: DistrConfig, device=None) -> torch.Tensor:

@@ -68,6 +68,7 @@ from repro_torch.kernels import backward as bwd
 from repro_torch.kernels import ops
 from repro_torch.kernels.distr_attention import distr_attention_kernel_call
 from repro_torch.kernels.flash_attention import flash_attention_kernel_call
+from repro_torch.tune.block_sizes import BlockSizes
 
 # A ring shard is only worth its hop once it holds a full 128-row tile;
 # below this the dispatch keeps the call on one device (short prompts).
@@ -137,7 +138,11 @@ class _RingMeta:
     scale: float
     n_live: int  # global live sequence length (before padding)
     shard: int  # per-rank padded shard length
-    dcfg: DistrConfig | None = None  # DistrAttention when set (block_q resolved)
+    dcfg: DistrConfig | None = None  # DistrAttention when set (block_q, block_k resolved)
+    # The tiles at one rank's shard: flash's forward and backward (unset
+    # backward tiles run the static ones), distr's backward keys (dq, dkv).
+    blocks: BlockSizes = field(default_factory=BlockSizes)
+    bk_bwd_distr: tuple[int, int] | None = None
     # The dead shards (dead_shard_fault) in force when the ring call began:
     # its backward skips the hops its forward skipped, wherever it runs.
     dead: frozenset[int] = field(default_factory=lambda: _DEAD_SHARDS)
@@ -275,7 +280,8 @@ def _ring_flash_fwd_impl(meta: _RingMeta, ring: _Ring, q, k, v):
     def hop_body(src, kernel_causal, k_c, v_c, c):
         o_h, lse_h = _hop_kv_variants(meta, src, lambda kv_len: flash_attention_kernel_call(
             qf, k_c, v_c, q_per_kv=hq // hkv, scale=meta.scale, causal=kernel_causal,
-            kv_len=kv_len, return_lse=True))
+            kv_len=kv_len, return_lse=True, block_q=meta.blocks.block_q,
+            block_k=meta.blocks.block_k))
         return _merge_partial(*c, o_h, lse_h)
 
     o, lse = _ring_hops(meta, ring, kv, (o0, lse0), hop_body)
@@ -297,6 +303,9 @@ def _ring_flash_local_bwd(meta: _RingMeta, ring: _Ring, q, k, v, o, lse, do):
     state = (torch.zeros((b * hq, n_sh, d), dtype=torch.float32, device=q.device),
              torch.zeros((b, hkv, n_sh, d), dtype=torch.float32, device=q.device),
              torch.zeros((b, hkv, n_sh, d), dtype=torch.float32, device=q.device))
+    from repro_torch.tune.cache import dtype_str
+
+    (bq_dq, bk_dq), (bq_dkv, bk_dkv) = ops.bwd_tiles(meta.blocks, d, dtype_str(q))
 
     def hop_body(src, kernel_causal, k_c, v_c, c):
         dq, dk, dv = c
@@ -304,8 +313,10 @@ def _ring_flash_local_bwd(meta: _RingMeta, ring: _Ring, q, k, v, o, lse, do):
         def call(kv_len):
             kw = dict(q_per_kv=hq // hkv, scale=meta.scale, causal=kernel_causal,
                       kv_len=kv_len)
-            dq_h = bwd.flash_dq_kernel_call(qf, k_c, v_c, dof, lse_b, delta, **kw)
-            dk_h, dv_h = bwd.flash_dkv_kernel_call(qf, k_c, v_c, dof, lse_b, delta, **kw)
+            dq_h = bwd.flash_dq_kernel_call(qf, k_c, v_c, dof, lse_b, delta, block_q=bq_dq,
+                                            block_k=bk_dq, **kw)
+            dk_h, dv_h = bwd.flash_dkv_kernel_call(qf, k_c, v_c, dof, lse_b, delta,
+                                                   block_q=bq_dkv, block_k=bk_dkv, **kw)
             return dq_h, dk_h, dv_h
 
         dq_h, dk_h, dv_h = _hop_kv_variants(meta, src, call)
@@ -382,7 +393,8 @@ def _ring_distr_local_fwd(meta: _RingMeta, ring: _Ring, q_hat, perms, k, v):
         # local permutations: it never rides the ring.
         o_h, lse_h = _hop_kv_variants(meta, src, lambda kv_len: distr_attention_kernel_call(
             qf, k_c, v_c, perm_f, q_per_kv=hq // hkv, causal=kernel_causal,
-            group_size=cfg.group_size, block_q=cfg.block_q, kv_len=kv_len, return_lse=True))
+            group_size=cfg.group_size, block_q=cfg.block_q, kv_len=kv_len, return_lse=True,
+            block_k=cfg.block_k))
         return _merge_partial(*c, o_h, lse_h)
 
     o, lse = _ring_hops(meta, ring, kv, (o0, lse0), hop_body)
@@ -412,9 +424,10 @@ def _ring_distr_local_bwd(meta: _RingMeta, ring: _Ring, q_hat, perms, k, v, o, l
         def call(kv_len):
             kw = dict(q_per_kv=hq // hkv, causal=kernel_causal, group_size=cfg.group_size,
                       block_q=cfg.block_q, kv_len=kv_len)
-            dq_h = bwd.distr_dq_kernel_call(qf, k_c, v_c, perm_f, dof, lse_b, delta, **kw)
+            dq_h = bwd.distr_dq_kernel_call(qf, k_c, v_c, perm_f, dof, lse_b, delta,
+                                            block_k=meta.bk_bwd_distr[0], **kw)
             dk_h, dv_h = bwd.distr_dkv_kernel_call(qf, k_c, v_c, perm_f, dof, lse_b, delta,
-                                                   **kw)
+                                                   block_k=meta.bk_bwd_distr[1], **kw)
             return dq_h, dk_h, dv_h
 
         dq_h, dk_h, dv_h = _hop_kv_variants(meta, src, call)
@@ -472,20 +485,31 @@ def _ring_size(q, k, mesh, axis: str) -> int:
 
 
 def ring_flash_attention(q, k, v, mesh, *, axis: str = "context", causal: bool = False,
-                         scale: float | None = None, return_hops: bool = False):
+                         scale: float | None = None, blocks: BlockSizes | None = None,
+                         return_hops: bool = False):
     """Exact FA-2 ring attention.  q: (B, Hq, N, d); k, v: (B, Hkv, N, d)
     with N the global sequence length, sharded over the ``mesh.shape[axis]``
     ranks inside; the same global tensors on every rank.  Differentiable
-    (the reverse ring over the backward kernels).  ``return_hops=True``
-    also returns the count of ring hops that launch kernels, summed over
-    the ring."""
+    (the reverse ring over the backward kernels).  ``blocks`` pins the
+    tiles; None resolves them through the tuner at the shard one rank
+    streams, the backward's too under ``REPRO_TUNE=measure`` (the ring's
+    meta is fixed at dispatch).  ``return_hops=True`` also returns the
+    count of ring hops that launch kernels, summed over the ring."""
     p = _ring_size(q, k, mesh, axis)
     scale = float(scale) if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
     if p == 1:
-        out = ops.flash_attention(q, k, v, causal=causal, scale=scale)
+        out = ops.flash_attention(q, k, v, causal=causal, scale=scale, blocks=blocks)
         return (out, 1) if return_hops else out
-    meta = _RingMeta(size=p, causal=causal, scale=scale, n_live=q.shape[2],
-                     shard=context_shard_len(q.shape[2], p))
+    shard = context_shard_len(q.shape[2], p)
+    if blocks is None:
+        from repro_torch.tune.autotune import resolve_block_sizes, tune_mode
+        from repro_torch.tune.cache import dtype_str
+
+        blocks = resolve_block_sizes("flash", d=q.shape[-1], n=shard, dtype=dtype_str(q),
+                                     causal=causal, bwd=tune_mode() == "measure",
+                                     device=q.device)
+    meta = _RingMeta(size=p, causal=causal, scale=scale, n_live=q.shape[2], shard=shard,
+                     blocks=blocks)
     out = _RingFlash.apply(q, k, v, meta, _Ring(mesh, axis))
     return (out, _count_hops(meta)) if return_hops else out
 
@@ -519,19 +543,19 @@ def ring_distr_attention(q, k, v, cfg: DistrConfig, mesh, *, axis: str = "contex
     # lcm(block_q, 128), so block_q tiles every shard and the ring groups
     # exactly as the single-device op does.
     shard = context_shard_len(n, p, multiple=lcm(128, cfg.block_q))
-    meta = _RingMeta(size=p, causal=causal, scale=scale, n_live=n, shard=shard, dcfg=cfg)
+    meta = _RingMeta(size=p, causal=causal, scale=scale, n_live=n, shard=shard, dcfg=cfg,
+                     bk_bwd_distr=_resolve_distr_bwd_pair(cfg, q, shard, causal))
     out = _RingDistr.apply(q, k, v, meta, _Ring(mesh, axis), proj)
     return (out, _count_hops(meta)) if return_hops else out
 
 
-def _resolve_distr_bwd_pair(q, shard: int):
-    """The backward kernels' KV tiles (dq, dkv) at the shard one rank
-    streams (the reference's name).  The port's backward kernels run the
-    tiles they compile (``tune.autotune.compiled_tile``) at every length,
-    so the ring passes none: this reports them rather than choosing."""
-    from repro_torch.tune.autotune import compiled_tile
+def _resolve_distr_bwd_pair(cfg: DistrConfig, q, shard: int, causal: bool):
+    """The backward kernels' key tiles (dq, dkv) through the single-device
+    op's resolver (``ops.resolve_distr_bwd_blocks``), at dispatch: the
+    ring's meta is fixed when its forward runs, so the lazy resolution of
+    the single-device backward is not available here.  ``n`` is the shard
+    one rank streams."""
     from repro_torch.tune.cache import dtype_str
 
-    dtype = dtype_str(q)
-    return (_fit_block(compiled_tile("distr_dq", d=q.shape[-1], dtype=dtype)[1], shard),
-            _fit_block(compiled_tile("distr_dkv", d=q.shape[-1], dtype=dtype)[1], shard))
+    return ops.resolve_distr_bwd_blocks(cfg, d=q.shape[-1], n=shard, dtype=dtype_str(q),
+                                        causal=causal, device=q.device)

@@ -21,14 +21,26 @@ plain version): the kernels write it, then run the flash walks over it.
 
 dK / dV come out per query head; ``ops._gqa_sum`` reduces each GQA group.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.  ``launches[name]`` counts each wrapper's kernel launches.
+raises.  ``launches[name]`` counts each wrapper's kernel launches,
+``tile_launches[name]`` them by (d, rows, keys).
+
+The dq and dkv kernels take their tile: the flash ones (block_q, block_k)
+= (rows, keys) (dq: a CTA's query rows × a K/V tile's keys; dkv: a Q
+tile's rows × a CTA's keys), the distr ones ``block_k`` alone (their rows
+are fixed: 64 for dq, ``tune.autotune._dkv_rows(d)`` for dkv).  A tile is
+one the sources compile (``tune.autotune.compiled_tiles``), the static one
+when None, checked on every device; the plain versions ignore it.
 """
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.distr_attention import ROW_TILE, fuse_k_columns
+from repro_torch.tune.autotune import check_tile
+from repro_torch.tune.cache import dtype_str
 from repro_torch.utils.counting import charged
 
 # LSE of a padded query row: exp(s − LSE_PAD) ≡ 0, so the row adds nothing
@@ -36,6 +48,7 @@ from repro_torch.utils.counting import charged
 LSE_PAD = 1e30
 
 launches = {"delta": 0, "flash_dq": 0, "flash_dkv": 0, "distr_dq": 0, "distr_dkv": 0}
+tile_launches = {name: Counter() for name in ("flash_dq", "flash_dkv", "distr_dq", "distr_dkv")}
 
 
 def _mask(n: int, nk: int, kv_len: int, causal: bool, device) -> torch.Tensor:
@@ -72,7 +85,7 @@ def _delta_work(o, do) -> dict:
 
 def _flash_work(part: str):
     def work(q, k, v, do, lse, delta, *, q_per_kv: int, scale: float, causal: bool,
-             kv_len: int) -> dict:
+             kv_len: int, block_q=None, block_k=None) -> dict:
         from repro_torch.kernels.ops import attention_work
 
         bhq, n, d = q.shape
@@ -82,7 +95,7 @@ def _flash_work(part: str):
 
 def _distr_work(part: str):
     def work(q_hat, k, v, perm, do, lse, delta, *, q_per_kv: int, causal: bool,
-             group_size: int, block_q: int, kv_len: int) -> dict:
+             group_size: int, block_q: int, kv_len: int, block_k=None) -> dict:
         from repro_torch.kernels.ops import attention_work
 
         bhq, n, _ = q_hat.shape
@@ -131,7 +144,7 @@ def _flash_p_and_ds(q, k, v, do, lse, delta, q_per_kv, scale, causal, kv_len):
 
 
 def flash_dq_plain(q, k, v, do, lse, delta, *, q_per_kv: int, scale: float,
-                   causal: bool, kv_len: int) -> torch.Tensor:
+                   causal: bool, kv_len: int, block_q=None, block_k=None) -> torch.Tensor:
     """Plain version of the dq kernel.  q, do: (BHq, N, d); k, v:
     (BHkv, Nk, d); lse, delta: (BHq, N) f32 → dQ (BHq, N, d) f32."""
     _, _, kf, _, ds = _flash_p_and_ds(q, k, v, do, lse, delta, q_per_kv, scale, causal, kv_len)
@@ -139,7 +152,7 @@ def flash_dq_plain(q, k, v, do, lse, delta, *, q_per_kv: int, scale: float,
 
 
 def flash_dkv_plain(q, k, v, do, lse, delta, *, q_per_kv: int, scale: float,
-                    causal: bool, kv_len: int):
+                    causal: bool, kv_len: int, block_q=None, block_k=None):
     """Plain version of the dkv kernel → (dK, dV), each (BHq, Nk, d) f32,
     per query head."""
     qg, dog, _, p, ds = _flash_p_and_ds(q, k, v, do, lse, delta, q_per_kv, scale, causal,
@@ -167,8 +180,11 @@ def _check_flash(q, k, v, do, lse, delta, q_per_kv, kv_len):
 
 @charged("flash_dq", _flash_work("dq"))
 def flash_dq_kernel_call(q, k, v, do, lse, delta, *, q_per_kv: int, scale: float,
-                         causal: bool, kv_len: int) -> torch.Tensor:
-    """Launch the flash dq kernel; shapes as for the plain version."""
+                         causal: bool, kv_len: int, block_q: int | None = None,
+                         block_k: int | None = None) -> torch.Tensor:
+    """Launch the flash dq kernel at a compiled tile (rows, keys); shapes
+    as for the plain version."""
+    bq, bk = check_tile("flash_dq", (block_q, block_k), d=q.shape[-1], dtype=dtype_str(q))
     if q.device.type == "cpu":
         return flash_dq_plain(q, k, v, do, lse, delta, q_per_kv=q_per_kv, scale=scale,
                               causal=causal, kv_len=kv_len)
@@ -181,17 +197,21 @@ def flash_dq_kernel_call(q, k, v, do, lse, delta, *, q_per_kv: int, scale: float
         err = build.lib().repro_flash_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), build.dtype_code(q), bhq, n, k.shape[1], kv_len,
-            d, q_per_kv, float(scale), int(causal), build.stream_handle(q),
+            d, q_per_kv, float(scale), int(causal), bq, bk, build.stream_handle(q),
         )
         build.check(err, "repro_flash_dq")
         launches["flash_dq"] += 1
+        tile_launches["flash_dq"][(d, bq, bk)] += 1
     return dq
 
 
 @charged("flash_dkv", _flash_work("dkv"))
 def flash_dkv_kernel_call(q, k, v, do, lse, delta, *, q_per_kv: int, scale: float,
-                          causal: bool, kv_len: int):
-    """Launch the flash dkv kernel → (dK, dV) per query head, f32."""
+                          causal: bool, kv_len: int, block_q: int | None = None,
+                          block_k: int | None = None):
+    """Launch the flash dkv kernel at a compiled tile (Q tile rows, keys a
+    CTA) → (dK, dV) per query head, f32."""
+    bq, bk = check_tile("flash_dkv", (block_q, block_k), d=q.shape[-1], dtype=dtype_str(q))
     if q.device.type == "cpu":
         return flash_dkv_plain(q, k, v, do, lse, delta, q_per_kv=q_per_kv, scale=scale,
                                causal=causal, kv_len=kv_len)
@@ -207,10 +227,11 @@ def flash_dkv_kernel_call(q, k, v, do, lse, delta, *, q_per_kv: int, scale: floa
         err = build.lib().repro_flash_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), build.dtype_code(q), bhq, n, nk,
-            kv_len, d, q_per_kv, float(scale), int(causal), build.stream_handle(q),
+            kv_len, d, q_per_kv, float(scale), int(causal), bq, bk, build.stream_handle(q),
         )
         build.check(err, "repro_flash_dkv")
         launches["flash_dkv"] += 1
+        tile_launches["flash_dkv"][(d, bq, bk)] += 1
     return dk, dv
 
 
@@ -240,7 +261,7 @@ def _distr_p_and_ds(q_hat, k, v, perm, do, lse, delta, q_per_kv, causal, group_s
 
 
 def distr_dq_plain(q_hat, k, v, perm, do, lse, delta, *, q_per_kv: int, causal: bool,
-                   group_size: int, block_q: int, kv_len: int) -> torch.Tensor:
+                   group_size: int, block_q: int, kv_len: int, block_k=None) -> torch.Tensor:
     """Plain version of the distr dq kernel.  q_hat: (BHq, N, d/G*)
     sampled and pre-scaled; k, v: (BHkv, Nk, d); perm: (BHq, N/block_q, d);
     do: (BHq, N, d); lse, delta: (BHq, N) → dQ̂ (BHq, N, d/G*) f32 (no
@@ -251,7 +272,7 @@ def distr_dq_plain(q_hat, k, v, perm, do, lse, delta, *, q_per_kv: int, causal: 
 
 
 def distr_dkv_plain(q_hat, k, v, perm, do, lse, delta, *, q_per_kv: int, causal: bool,
-                    group_size: int, block_q: int, kv_len: int):
+                    group_size: int, block_q: int, kv_len: int, block_k=None):
     """Plain version of the distr dkv kernel → (dK, dV), each (BHq, Nk, d)
     f32 per query head.  Keeps the reference's formula: dK̂ = dSᵀ Q̂ per Q
     block, replicated to each fused column's G* members and gathered back
@@ -300,8 +321,11 @@ def _q_tilde_scratch(q_hat: torch.Tensor, d: int) -> torch.Tensor:
 
 @charged("distr_dq", _distr_work("dq"))
 def distr_dq_kernel_call(q_hat, k, v, perm, do, lse, delta, *, q_per_kv: int, causal: bool,
-                         group_size: int, block_q: int, kv_len: int) -> torch.Tensor:
-    """Launch the distr dq kernel; shapes as for the plain version."""
+                         group_size: int, block_q: int, kv_len: int,
+                         block_k: int | None = None) -> torch.Tensor:
+    """Launch the distr dq kernel at a compiled key tile; shapes as for the
+    plain version."""
+    rows, bk = check_tile("distr_dq", (None, block_k), d=k.shape[-1], dtype=dtype_str(q_hat))
     if q_hat.device.type == "cpu":
         return distr_dq_plain(q_hat, k, v, perm, do, lse, delta, q_per_kv=q_per_kv,
                               causal=causal, group_size=group_size, block_q=block_q,
@@ -319,19 +343,22 @@ def distr_dq_kernel_call(q_hat, k, v, perm, do, lse, delta, *, q_per_kv: int, ca
             q_hat.data_ptr(), k.data_ptr(), v.data_ptr(), perm.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq_hat.data_ptr(), q_tilde.data_ptr(),
             build.dtype_code(q_hat), bhq, n, k.shape[1], kv_len, d, group_size, block_q,
-            n // block_q, q_per_kv, int(causal), build.stream_handle(q_hat),
+            n // block_q, q_per_kv, int(causal), rows, bk, build.stream_handle(q_hat),
         )
         build.check(err, "repro_distr_dq")
         launches["distr_dq"] += 1
+        tile_launches["distr_dq"][(d, rows, bk)] += 1
     return dq_hat
 
 
 @charged("distr_dkv", _distr_work("dkv"))
 def distr_dkv_kernel_call(q_hat, k, v, perm, do, lse, delta, *, q_per_kv: int, causal: bool,
-                          group_size: int, block_q: int, kv_len: int):
-    """Launch the distr dkv kernel → (dK, dV) per query head, f32.  The
-    kernel takes dK back through ``perm`` itself, so it takes no inverse
-    permutation."""
+                          group_size: int, block_q: int, kv_len: int,
+                          block_k: int | None = None):
+    """Launch the distr dkv kernel at a compiled key tile → (dK, dV) per
+    query head, f32.  The kernel takes dK back through ``perm`` itself, so
+    it takes no inverse permutation."""
+    rows, bk = check_tile("distr_dkv", (None, block_k), d=k.shape[-1], dtype=dtype_str(q_hat))
     if q_hat.device.type == "cpu":
         return distr_dkv_plain(q_hat, k, v, perm, do, lse, delta, q_per_kv=q_per_kv,
                                causal=causal, group_size=group_size, block_q=block_q,
@@ -351,8 +378,9 @@ def distr_dkv_kernel_call(q_hat, k, v, perm, do, lse, delta, *, q_per_kv: int, c
             q_hat.data_ptr(), k.data_ptr(), v.data_ptr(), perm.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), q_tilde.data_ptr(),
             build.dtype_code(q_hat), bhq, n, nk, kv_len, d, group_size, block_q,
-            n // block_q, q_per_kv, int(causal), build.stream_handle(q_hat),
+            n // block_q, q_per_kv, int(causal), rows, bk, build.stream_handle(q_hat),
         )
         build.check(err, "repro_distr_dkv")
         launches["distr_dkv"] += 1
+        tile_launches["distr_dkv"][(d, rows, bk)] += 1
     return dk, dv

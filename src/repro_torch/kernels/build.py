@@ -34,19 +34,20 @@ HEAD_DIMS = (64, 112, 128)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C entry points and their argument types (see csrc/*.cu).
+# C entry points and their argument types (see csrc/*.cu).  The attention
+# entry points end in the tile, (rows, keys), before the stream.
 SIGNATURES = {
-    "repro_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "repro_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     "repro_distr_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _P),
+                        _I, _I, _I, _P),
     "repro_decode_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _P),
     "repro_paged_decode_fwd": (_P,) * 8 + (_I,) * 9 + (_F, _P),
     "repro_delta": (_P, _P, _P, _I, _I, _I, _P),
-    "repro_flash_dq": (_P,) * 7 + (_I,) * 7 + (_F, _I, _P),
-    "repro_flash_dkv": (_P,) * 8 + (_I,) * 7 + (_F, _I, _P),
-    "repro_distr_dq": (_P,) * 9 + (_I,) * 11 + (_P,),
-    "repro_distr_dkv": (_P,) * 10 + (_I,) * 11 + (_P,),
+    "repro_flash_dq": (_P,) * 7 + (_I,) * 7 + (_F, _I, _I, _I, _P),
+    "repro_flash_dkv": (_P,) * 8 + (_I,) * 7 + (_F, _I, _I, _I, _P),
+    "repro_distr_dq": (_P,) * 9 + (_I,) * 13 + (_P,),
+    "repro_distr_dkv": (_P,) * 10 + (_I,) * 13 + (_P,),
     "repro_ssd_fwd": (_P,) * 6 + (_I,) * 7 + (_P,),
 }
 

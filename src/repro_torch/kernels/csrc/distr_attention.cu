@@ -15,12 +15,17 @@
 // scattered through the permutation, which the backward's recomputed K̂
 // agrees with.  f32 runs the FMA tile (attention_tile.cuh), which fuses K̂
 // per tile: tensor cores would compute f32 as TF32, a different result.
+//
+// (block_rows, block_k) name the CTA's tile: in bf16 64 rows and one of
+// the key tiles distr_fwd_r64.cu compiles, in f32 the FMA tile's 64 × 32.
+// Any other tile returns cudaErrorInvalidValue.
 #include "distr_fwd_tc.cuh"
 
 extern "C" int repro_distr_fwd(const void* q_hat, const void* k, const void* v, const void* perm,
                                void* o, void* lse, int dtype, int bhq, int n_rows, int nk,
                                int kv_len, int d, int group_size, int block_q, int n_perm_blocks,
-                               int q_per_kv, int causal, void* stream) {
+                               int q_per_kv, int causal, int block_rows, int block_k,
+                               void* stream) {
   rt::AttnArgs a;
   a.q = q_hat;
   a.k = k;
@@ -39,8 +44,12 @@ extern "C" int repro_distr_fwd(const void* q_hat, const void* k, const void* v, 
   a.scale = 1.0f;  // Q̂ carries the softmax scale
   a.causal = causal;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == rt::DTYPE_BF16) return rt::tc::dispatch_distr_fwd_mma(a, d, bhq, s);
-  if (dtype != rt::DTYPE_F32) return (int)cudaErrorInvalidValue;
+  if (dtype == rt::DTYPE_BF16) {
+    if (block_rows != rt::tc::BM) return (int)cudaErrorInvalidValue;
+    return rt::tc::distr_fwd_r64(a, d, block_k, bhq, s);
+  }
+  if (dtype != rt::DTYPE_F32 || block_rows != rt::BM || block_k != rt::BN)
+    return (int)cudaErrorInvalidValue;
   if (d == 128) return rt::launch_attn_fwd<float, 128, true>(a, bhq, s);
   if (d == 112) return rt::launch_attn_fwd<float, 112, true>(a, bhq, s);
   if (d == 64) return rt::launch_attn_fwd<float, 64, true>(a, bhq, s);

@@ -19,14 +19,22 @@
 // tile (attention_bwd_tile.cuh), which re-fuses K̂ per Q block in shared
 // memory and scatters dK̂ through the permutation: tensor cores would
 // compute f32 as TF32, a different result.
+//
+// (block_rows, block_k) name the tile: in bf16 the walk's fixed rows (64
+// for dq, dkv_rows<d>() for dkv) and one of the key tiles distr_dq_r64.cu
+// and distr_dkv.cu compile, in f32 the FMA tile's.  Any other tile returns
+// cudaErrorInvalidValue.
 #include "distr_bwd_tc.cuh"
 
 template <bool DKV>
-static int distr_bwd(const rt::BwdArgs& a, void* q_tilde, int dtype, int d, int bhq,
-                     void* stream) {
+static int distr_bwd(const rt::BwdArgs& a, void* q_tilde, int dtype, int d, int bhq, int rows,
+                     int keys, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == rt::DTYPE_BF16) return rt::tc::dispatch_distr_bwd_mma<DKV>(a, q_tilde, d, bhq, s);
-  if (dtype != rt::DTYPE_F32) return (int)cudaErrorInvalidValue;
+  if (dtype == rt::DTYPE_BF16)
+    return rt::tc::dispatch_distr_bwd_mma<DKV>(a, q_tilde, d, rows, keys, bhq, s);
+  const bool fma_tile = DKV ? rows == rt::DKV_BQ && keys == rt::DKV_BK
+                            : rows == rt::DQ_BM && keys == rt::DQ_BN;
+  if (dtype != rt::DTYPE_F32 || !fma_tile) return (int)cudaErrorInvalidValue;
   if (d == 128) return rt::launch_attn_bwd<128, true, DKV>(a, bhq, s);
   if (d == 112) return rt::launch_attn_bwd<112, true, DKV>(a, bhq, s);
   if (d == 64) return rt::launch_attn_bwd<64, true, DKV>(a, bhq, s);
@@ -38,21 +46,22 @@ extern "C" int repro_distr_dq(const void* q_hat, const void* k, const void* v, c
                               const void* dout, const void* lse, const void* delta, void* dq_hat,
                               void* q_tilde, int dtype, int bhq, int n_rows, int nk, int kv_len,
                               int d, int group_size, int block_q, int n_perm_blocks, int q_per_kv,
-                              int causal, void* stream) {
+                              int causal, int block_rows, int block_k, void* stream) {
   const rt::BwdArgs a =
       rt::bwd_args(q_hat, k, v, perm, dout, lse, delta, dq_hat, nullptr, nullptr, n_rows, nk,
                    kv_len, d / group_size, q_per_kv, group_size, block_q, n_perm_blocks, 1.0f,
                    causal);
-  return distr_bwd<false>(a, q_tilde, dtype, d, bhq, stream);
+  return distr_bwd<false>(a, q_tilde, dtype, d, bhq, block_rows, block_k, stream);
 }
 
 extern "C" int repro_distr_dkv(const void* q_hat, const void* k, const void* v, const void* perm,
                                const void* dout, const void* lse, const void* delta, void* dk,
                                void* dv, void* q_tilde, int dtype, int bhq, int n_rows, int nk,
                                int kv_len, int d, int group_size, int block_q, int n_perm_blocks,
-                               int q_per_kv, int causal, void* stream) {
+                               int q_per_kv, int causal, int block_rows, int block_k,
+                               void* stream) {
   const rt::BwdArgs a =
       rt::bwd_args(q_hat, k, v, perm, dout, lse, delta, nullptr, dk, dv, n_rows, nk, kv_len,
                    d / group_size, q_per_kv, group_size, block_q, n_perm_blocks, 1.0f, causal);
-  return distr_bwd<true>(a, q_tilde, dtype, d, bhq, stream);
+  return distr_bwd<true>(a, q_tilde, dtype, d, bhq, block_rows, block_k, stream);
 }

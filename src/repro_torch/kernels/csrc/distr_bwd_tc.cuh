@@ -20,6 +20,13 @@
 // accuracy argument of the flash walks carries over: S and dP from bf16
 // inputs only, P and dS split into bf16 hi + lo as A operands.
 //
+// The key tile is a template argument (KEYS: dq's K/V tile, dkv's CTA),
+// 64 (the static tile) or 128 where it builds without a spill
+// (distr_dq_r64.cu, distr_dkv.cu list them).  The rows stay fixed: dq's
+// CTA holds 64 rows of one permutation block (64 | block_q, which the
+// tuner never varies in the backward: it is the LSH grouping), dkv's Q
+// tile dkv_rows<D>().
+//
 // Bound on this card: operations.  The function's work has the score-side
 // products (S, and dQ̂ or dK̂) at width d/G*; this design runs them at d,
 // so it sits further from that bound than the flash walks from theirs.
@@ -126,38 +133,59 @@ struct DistrDqStore {
   }
 };
 
-template <int D>
+template <int D, int KEYS>
 __global__ void __launch_bounds__(BWD_THREADS) distr_bwd_dq_mma_kernel(BwdArgs a) {
-  bwd_dq_mma_walk<D>(a, DistrDqStore<D>{});
+  bwd_dq_mma_walk<D, DQ_ROWS, KEYS>(a, DistrDqStore<D>{});
 }
+
+template <int D, int KEYS>
+__global__ void __launch_bounds__(KEYS / 16 * 32) distr_bwd_dkv_mma_kernel(BwdArgs a) {
+  bwd_dkv_mma_walk<D, dkv_rows<D>(), KEYS>(a);
+}
+
+// Launch a walk kernel of the tile <D, KEYS> over Q̃ in a.q.
+template <int D, int KEYS, bool DKV>
+int launch_distr_walk(const BwdArgs& a, int bhq, cudaStream_t stream) {
+  if constexpr (DKV) {
+    return launch_bwd_walk<D, dkv_rows<D>(), KEYS, true>(distr_bwd_dkv_mma_kernel<D, KEYS>, a,
+                                                         bhq, stream);
+  } else {
+    return launch_bwd_walk<D, DQ_ROWS, KEYS, false>(distr_bwd_dq_mma_kernel<D, KEYS>, a, bhq,
+                                                    stream);
+  }
+}
+
+// The walks' instantiations, one source each (distr_dq_r64.cu,
+// distr_dkv.cu), so that the build compiles them in parallel: launch the
+// (d, keys) tile over Q̃ in a.q, or return cudaErrorInvalidValue for a tile
+// that was not compiled.
+int distr_dq_r64(const BwdArgs& a, int d, int keys, int bhq, cudaStream_t stream);
+int distr_dkv(const BwdArgs& a, int d, int keys, int bhq, cudaStream_t stream);
 
 template <int D>
-__global__ void __launch_bounds__(BWD_THREADS) distr_bwd_dkv_mma_kernel(BwdArgs a) {
-  bwd_dkv_mma_walk<D>(a);
+int launch_distr_expand(const BwdArgs& a, bf16* q_t, int bhq, cudaStream_t stream) {
+  if (a.n_rows == 0) return (int)cudaSuccess;
+  distr_expand_q_kernel<D><<<dim3(bhq, a.n_rows / EXPAND_ROWS), BWD_THREADS, 0, stream>>>(a, q_t);
+  return (int)cudaGetLastError();
 }
 
-// Expand Q̂ into q_t, then run the dq (DKV = false) or dkv walk over it.
-// a.q is Q̂ on entry; a.scale must be 1.
-template <int D, bool DKV>
-int launch_distr_bwd_mma(BwdArgs a, bf16* q_t, int bhq, cudaStream_t stream) {
-  if (a.n_rows > 0) {
-    distr_expand_q_kernel<D>
-        <<<dim3(bhq, a.n_rows / EXPAND_ROWS), BWD_THREADS, 0, stream>>>(a, q_t);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  a.q = q_t;
-  return launch_bwd_walk<D, DKV>(DKV ? distr_bwd_dkv_mma_kernel<D> : distr_bwd_dq_mma_kernel<D>,
-                                 a, bhq, stream);
-}
-
+// Expand Q̂ into q_t, then run the dq (DKV = false) or dkv walk of the
+// (rows, keys) tile over it.  a.q is Q̂ on entry; a.scale must be 1.  The
+// rows are the walk's fixed ones: any other tile is refused before the
+// expansion runs.
 template <bool DKV>
-int dispatch_distr_bwd_mma(const BwdArgs& a, void* q_t, int d, int bhq, cudaStream_t stream) {
+int dispatch_distr_bwd_mma(BwdArgs a, void* q_t, int d, int rows, int keys, int bhq,
+                           cudaStream_t stream) {
   bf16* qt = static_cast<bf16*>(q_t);
-  if (d == 128) return launch_distr_bwd_mma<128, DKV>(a, qt, bhq, stream);
-  if (d == 112) return launch_distr_bwd_mma<112, DKV>(a, qt, bhq, stream);
-  if (d == 64) return launch_distr_bwd_mma<64, DKV>(a, qt, bhq, stream);
-  return (int)cudaErrorInvalidValue;
+  const int fixed_rows = DKV ? (d > 64 ? dkv_rows<128>() : dkv_rows<64>()) : DQ_ROWS;
+  if (rows != fixed_rows) return (int)cudaErrorInvalidValue;
+  int err = (int)cudaErrorInvalidValue;
+  if (d == 128) err = launch_distr_expand<128>(a, qt, bhq, stream);
+  if (d == 112) err = launch_distr_expand<112>(a, qt, bhq, stream);
+  if (d == 64) err = launch_distr_expand<64>(a, qt, bhq, stream);
+  if (err != (int)cudaSuccess) return err;
+  a.q = q_t;
+  return DKV ? distr_dkv(a, d, keys, bhq, stream) : distr_dq_r64(a, d, keys, bhq, stream);
 }
 
 }  // namespace tc

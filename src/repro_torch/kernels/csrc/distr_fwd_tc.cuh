@@ -11,8 +11,12 @@
 // permutation arrive by cp.async beside the first K/V tile and are
 // scattered into the Q tile once; then the walk is the flash forward's
 // (flash_fwd_tc.cuh: mma.sync bf16 → f32 with ldmatrix operands, P in
-// registers, a 2-stage cp.async K/V ring of 64-key tiles, 64-row CTAs of 4
+// registers, a 2-stage cp.async K/V ring of BN-key tiles, 64-row CTAs of 4
 // warps, the longest causal CTAs first) against raw K at full width d.
+// BN is a template argument (64, the static tile, or 128, where it builds
+// without a spill: distr_fwd_r64.cu lists them); the CTA's rows stay 64,
+// so that they lie in one permutation block for every block_q the tuner
+// takes (kernels/distr_attention.py::ROW_TILE divides block_q).
 // Scores are sums of exact products of bf16 values in f32, as the plain
 // version's f32 K̂ gives them, so the LSE holds 1e-4 and agrees with the K̂
 // the backward kernels recompute.
@@ -23,7 +27,8 @@
 // saves, and K̂ rounded to bf16 moves the LSE past 1e-4 (PERF.md §6, §7).
 //
 // Bound on this card: operations, the score product at d/G* and P·V at d.
-// Shared memory as the flash tile's: 87,040 bytes at d = 128, two CTAs an SM.
+// Shared memory as the flash tile's: 87,040 bytes at d = 128 and BN = 64,
+// two CTAs an SM.
 #pragma once
 
 #include "flash_fwd_tc.cuh"
@@ -36,7 +41,7 @@ namespace tc {
 // contiguous span of 128·ds bytes (the wrapper keeps 64 | N), 16-byte
 // aligned like its permutation's d ints: both go through cp.async into ring
 // stage 1 of K, idle until the walk starts, and are scattered from there.
-template <int D>
+template <int D, int BN_>
 struct DistrExactQK {
   __device__ __forceinline__ void load_q(const AttnArgs& a, bf16*, bf16* sK, int bh, int q0) {
     const int q_bytes = BM * a.ds * (int)sizeof(bf16);
@@ -44,7 +49,7 @@ struct DistrExactQK {
                      ((size_t)bh * a.n_rows + q0) * a.ds * sizeof(bf16);
     const char* perm = reinterpret_cast<const char*>(
         a.perm + ((size_t)bh * a.n_perm_blocks + q0 / a.block_q) * D);
-    unsigned char* dst = reinterpret_cast<unsigned char*>(sK + BN * (D + 8));
+    unsigned char* dst = reinterpret_cast<unsigned char*>(sK + BN_ * (D + 8));
     for (int off = threadIdx.x * 16; off < q_bytes; off += THREADS * 16)
       cp_async16(smem_addr(dst + off), qh + off, true);
     for (int off = threadIdx.x * 16; off < D * 4; off += THREADS * 16)
@@ -53,7 +58,7 @@ struct DistrExactQK {
   // Thread t scatters column t % ds of rows t / ds + i · (THREADS / ds)
   // (ds ≤ d ≤ THREADS).
   __device__ __forceinline__ void finish_q(const AttnArgs& a, bf16* sQ, bf16* sK) {
-    const bf16* scratch = sK + BN * (D + 8);
+    const bf16* scratch = sK + BN_ * (D + 8);
     const int ds = a.ds;
     const int g = a.group_size;
     const int step = THREADS / ds;
@@ -73,18 +78,15 @@ struct DistrExactQK {
 // Two CTAs an SM, what the shared memory allows at d ≥ 112: without the
 // hint ptxas gave the kernel at d = 112 a tighter register budget than the
 // flash kernel's and a slower schedule (PERF.md §6).
-template <int D>
+template <int D, int BN_>
 __global__ void __launch_bounds__(THREADS, 2) distr_fwd_exact_kernel(AttnArgs a) {
-  DistrExactQK<D> qk;
-  fwd_mma_walk<D>(a, qk);
+  DistrExactQK<D, BN_> qk;
+  fwd_mma_walk<D, BM, BN_>(a, qk);
 }
 
-inline int dispatch_distr_fwd_mma(const AttnArgs& a, int d, int bhq, cudaStream_t stream) {
-  if (d == 128) return launch_walk<128>(distr_fwd_exact_kernel<128>, a, bhq, stream);
-  if (d == 112) return launch_walk<112>(distr_fwd_exact_kernel<112>, a, bhq, stream);
-  if (d == 64) return launch_walk<64>(distr_fwd_exact_kernel<64>, a, bhq, stream);
-  return (int)cudaErrorInvalidValue;
-}
+// The instantiations (distr_fwd_r64.cu): launch the (d, bn) tile, or
+// return cudaErrorInvalidValue for one that was not compiled.
+int distr_fwd_r64(const AttnArgs& a, int d, int bn, int bhq, cudaStream_t stream);
 
 }  // namespace tc
 }  // namespace rt

@@ -15,11 +15,17 @@
 // operands and a cp.async K/V ring).  f32 runs the FMA tile that
 // DistrAttention shares (attention_tile.cuh): tensor cores would compute
 // f32 as TF32, a different result.
+//
+// (block_q, block_k) name the tile: in bf16 one of the tensor-core tiles
+// that flash_fwd_r64.cu and flash_fwd_r128.cu compile, in f32 the FMA
+// tile's 64 × 32.  Any other tile returns cudaErrorInvalidValue: nothing
+// falls back to another tile.
 #include "flash_fwd_tc.cuh"
 
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                                int dtype, int bhq, int n_rows, int nk, int kv_len, int d,
-                               int q_per_kv, float scale, int causal, void* stream) {
+                               int q_per_kv, float scale, int causal, int block_q,
+                               int block_k, void* stream) {
   rt::AttnArgs a;
   a.q = q;
   a.k = k;
@@ -38,8 +44,9 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v, void
   a.scale = scale;
   a.causal = causal;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == rt::DTYPE_BF16) return rt::tc::dispatch_attn_fwd_mma(a, d, bhq, s);
-  if (dtype != rt::DTYPE_F32) return (int)cudaErrorInvalidValue;
+  if (dtype == rt::DTYPE_BF16) return rt::tc::dispatch_attn_fwd_mma(a, d, block_q, block_k, bhq, s);
+  if (dtype != rt::DTYPE_F32 || block_q != rt::BM || block_k != rt::BN)
+    return (int)cudaErrorInvalidValue;
   if (d == 128) return rt::launch_attn_fwd<float, 128, false>(a, bhq, s);
   if (d == 112) return rt::launch_attn_fwd<float, 112, false>(a, bhq, s);
   if (d == 64) return rt::launch_attn_fwd<float, 64, false>(a, bhq, s);

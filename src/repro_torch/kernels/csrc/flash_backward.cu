@@ -21,13 +21,21 @@
 // ring).  f32 runs the FMA tile that the DistrAttention backward shares
 // (attention_bwd_tile.cuh): tensor cores would compute f32 as TF32, a
 // different result.
+//
+// (block_q, block_k) name the tile, (rows, keys): in bf16 one of the
+// tensor-core tiles flash_dq_r*.cu and flash_dkv_r*.cu compile, in f32
+// the FMA tile's.  Any other tile returns cudaErrorInvalidValue: nothing
+// falls back to another tile.
 #include "flash_bwd_tc.cuh"
 
 template <bool DKV>
-static int flash_bwd(const rt::BwdArgs& a, int dtype, int d, int bhq, void* stream) {
+static int flash_bwd(const rt::BwdArgs& a, int dtype, int d, int bhq, int rows, int keys,
+                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == rt::DTYPE_BF16) return rt::tc::dispatch_attn_bwd_mma<DKV>(a, d, bhq, s);
-  if (dtype != rt::DTYPE_F32) return (int)cudaErrorInvalidValue;
+  if (dtype == rt::DTYPE_BF16) return rt::tc::dispatch_attn_bwd_mma<DKV>(a, d, rows, keys, bhq, s);
+  const bool fma_tile = DKV ? rows == rt::DKV_BQ && keys == rt::DKV_BK
+                            : rows == rt::DQ_BM && keys == rt::DQ_BN;
+  if (dtype != rt::DTYPE_F32 || !fma_tile) return (int)cudaErrorInvalidValue;
   if (d == 128) return rt::launch_attn_bwd<128, false, DKV>(a, bhq, s);
   if (d == 112) return rt::launch_attn_bwd<112, false, DKV>(a, bhq, s);
   if (d == 64) return rt::launch_attn_bwd<64, false, DKV>(a, bhq, s);
@@ -37,17 +45,18 @@ static int flash_bwd(const rt::BwdArgs& a, int dtype, int d, int bhq, void* stre
 extern "C" int repro_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                               const void* lse, const void* delta, void* dq, int dtype, int bhq,
                               int n_rows, int nk, int kv_len, int d, int q_per_kv, float scale,
-                              int causal, void* stream) {
+                              int causal, int block_q, int block_k, void* stream) {
   const rt::BwdArgs a = rt::bwd_args(q, k, v, nullptr, dout, lse, delta, dq, nullptr, nullptr,
                                      n_rows, nk, kv_len, d, q_per_kv, 1, 0, 0, scale, causal);
-  return flash_bwd<false>(a, dtype, d, bhq, stream);
+  return flash_bwd<false>(a, dtype, d, bhq, block_q, block_k, stream);
 }
 
 extern "C" int repro_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
                                const void* lse, const void* delta, void* dk, void* dv, int dtype,
                                int bhq, int n_rows, int nk, int kv_len, int d, int q_per_kv,
-                               float scale, int causal, void* stream) {
+                               float scale, int causal, int block_q, int block_k,
+                               void* stream) {
   const rt::BwdArgs a = rt::bwd_args(q, k, v, nullptr, dout, lse, delta, nullptr, dk, dv, n_rows,
                                      nk, kv_len, d, q_per_kv, 1, 0, 0, scale, causal);
-  return flash_bwd<true>(a, dtype, d, bhq, stream);
+  return flash_bwd<true>(a, dtype, d, bhq, block_q, block_k, stream);
 }

@@ -24,6 +24,12 @@
 // value their SASS is the one-kernel version's, instruction for
 // instruction (PERF.md §6).
 //
+// The tiles are template arguments of the walks; the static tiles, the
+// ones REPRO_TUNE=off runs, are the sizes below, and the tuner
+// (tune/autotune.py) sweeps dq's ROWS, KEYS ∈ {64, 128} and dkv's R ∈ {32,
+// 64} × KEYS ∈ {64, 128} where they build without a spill (flash_dq_r*.cu,
+// flash_dkv_r*.cu list them).  A CTA has 16 rows (dq) or keys (dkv) a warp.
+//
 // dq: one CTA of 4 warps owns 64 query rows of one (batch, query head), 16
 //     rows a warp, and walks the keys in tiles of 64 (causal tile skip).
 //     S = Q·Kᵀ and dP = dO·Vᵀ take A from ldmatrix on the row-major Q / dO
@@ -60,16 +66,19 @@
 // one ex2.approx.
 //
 // Shared memory, bf16 rows padded by 8 elements as in the forward: dq holds
-// Q and dO (64 × (d + 8) each) and 2 stages of K and V (64 × (d + 8) each):
-// 104,448 bytes at d = 128, 92,160 at d = 112, 55,296 at d = 64.  dkv holds
-// K and V and 2 stages of Q, dO (rows × (d + 8) each), LSE and D (f32):
-// 70,144 bytes at d = 128, 61,952 at d = 112, 56,320 at d = 64.
+// Q and dO (rows × (d + 8) each) and 2 stages of K and V (keys × (d + 8)
+// each): 104,448 bytes at d = 128, 92,160 at d = 112, 55,296 at d = 64 on
+// the static tile.  dkv holds K and V and 2 stages of Q, dO (rows × (d +
+// 8) each), LSE and D (f32): 70,144 bytes at d = 128, 61,952 at d = 112,
+// 56,320 at d = 64 on the static tile.
 //
 // d = 112 (zamba2-7b's heads) is 7 mma depths and 14 chunks of 16 bytes a
-// row: every tile but dkv's Q tile (32 rows × 14 chunks = 3.5 rounds of the
-// 128 threads) loads in whole rounds, and that one's last round is partial.
-// The guard that skips its idle threads is compiled at d = 112 only
-// (``if constexpr``), so d = 64 and 128 keep their SASS.
+// row.  A tile whose rows are as many as the CTA's warps hold (Q and dO in
+// dq, K and V in dkv) loads in whole rounds of the threads; a streamed one
+// whose rows are fewer or more may not (dkv's Q tile of 32 rows × 14
+// chunks is 3.5 rounds of 128 threads), and its last round is partial.
+// The guard that skips its idle threads is compiled only where the rounds
+// are not whole (``if constexpr``), so the other tiles keep their SASS.
 #pragma once
 
 #include "attention_bwd_tile.cuh"
@@ -78,25 +87,24 @@
 namespace rt {
 namespace tc {
 
-constexpr int DQ_ROWS = 64;   // dq: query rows per CTA, 16 a warp
-constexpr int DQ_KEYS = 64;   // dq: keys per K/V tile
-constexpr int DKV_KEYS = 64;  // dkv: keys per CTA, 16 a warp
+constexpr int DQ_ROWS = 64;   // dq's static tile: query rows per CTA, 16 a warp
+constexpr int DQ_KEYS = 64;   // dq's static tile: keys per K/V tile
+constexpr int DKV_KEYS = 64;  // dkv's static tile: keys per CTA, 16 a warp
 
-// dkv: query rows per Q tile.
+// dkv's static tile: query rows per Q tile.
 template <int D>
 __host__ __device__ constexpr int dkv_rows() {
   return D > 64 ? 32 : 64;
 }
 
-template <int D>
+template <int D, int ROWS = DQ_ROWS, int KEYS = DQ_KEYS>
 constexpr size_t dq_smem_bytes() {
-  return (size_t)(2 * DQ_ROWS + 4 * DQ_KEYS) * (D + 8) * sizeof(__nv_bfloat16);
+  return (size_t)(2 * ROWS + 4 * KEYS) * (D + 8) * sizeof(__nv_bfloat16);
 }
 
-template <int D>
+template <int D, int R = dkv_rows<D>(), int KEYS = DKV_KEYS>
 constexpr size_t dkv_smem_bytes() {
-  return (size_t)(2 * DKV_KEYS + 4 * dkv_rows<D>()) * (D + 8) * sizeof(__nv_bfloat16) +
-         4 * dkv_rows<D>() * sizeof(float);
+  return (size_t)(2 * KEYS + 4 * R) * (D + 8) * sizeof(__nv_bfloat16) + 4 * R * sizeof(float);
 }
 
 // 4 bytes global → shared (cp.async.ca: the only form below 16 bytes).
@@ -127,14 +135,19 @@ struct FlashDqStore {
   }
 };
 
-// One dq CTA: its 64 rows of one (batch, query head) against every key tile
-// they see; the accumulator leaves through st.store() after the last tile's
-// __syncthreads(), when shared memory is free.
-template <int D, class Store>
+// One dq CTA: its ROWS rows of one (batch, query head) against every key
+// tile of KEYS keys they see; the accumulator leaves through st.store()
+// after the last tile's __syncthreads(), when shared memory is free.
+template <int D, int ROWS, int KEYS, class Store>
 __device__ __forceinline__ void bwd_dq_mma_walk(const BwdArgs a, const Store& st) {
   static_assert(D % 16 == 0, "head dim must be a multiple of the mma depth");
-  static_assert(DQ_ROWS * (D / 8) % BWD_THREADS == 0 && DQ_KEYS * (D / 8) % BWD_THREADS == 0,
-                "every thread loads the same number of 16-byte chunks");
+  static_assert(ROWS % 16 == 0 && KEYS % 16 == 0, "tiles of whole warps and k-steps");
+  constexpr int BWD_THREADS = warp_threads<ROWS>();
+  constexpr int DQ_ROWS = ROWS;
+  constexpr int DQ_KEYS = KEYS;
+  static_assert(DQ_ROWS * (D / 8) % BWD_THREADS == 0,
+                "every thread loads the same number of the Q / dO tile's 16-byte chunks");
+  constexpr int KV_CHUNKS = DQ_KEYS * (D / 8);  // a K (or V) tile's 16-byte chunks
   constexpr int LD = D + 8;          // shared-memory row stride, elements
   constexpr int CHUNKS = D / 8;      // 16-byte chunks a row
   constexpr int KSTEPS = D / 16;     // k-steps of Q·Kᵀ and dO·Vᵀ
@@ -168,8 +181,11 @@ __device__ __forceinline__ void bwd_dq_mma_walk(const BwdArgs a, const Store& st
     bf16* dk = sK + stage * DQ_KEYS * LD;
     bf16* dv = sV + stage * DQ_KEYS * LD;
 #pragma unroll
-    for (int it = 0; it < DQ_KEYS * CHUNKS / BWD_THREADS; ++it) {
+    for (int it = 0; it < (KV_CHUNKS + BWD_THREADS - 1) / BWD_THREADS; ++it) {
       const int i = tid + it * BWD_THREADS;
+      if constexpr (KV_CHUNKS % BWD_THREADS != 0) {
+        if (i >= KV_CHUNKS) break;
+      }
       const int row = i / CHUNKS;
       const int col = (i - row * CHUNKS) * 8;
       const int key = t * DQ_KEYS + row;
@@ -223,7 +239,7 @@ __device__ __forceinline__ void bwd_dq_mma_walk(const BwdArgs a, const Store& st
     cp_async_wait<1>();
     __syncthreads();
 
-    // S = Q Kᵀ and dP = dO Vᵀ: 16 × 64 a warp each, in 8 n-tiles of 8 keys.
+    // S = Q Kᵀ and dP = dO Vᵀ: 16 × KEYS a warp each, in n-tiles of 8 keys.
     float s[NT_S][4], dp[NT_S][4];
 #pragma unroll
     for (int j = 0; j < NT_S; ++j) {
@@ -268,7 +284,7 @@ __device__ __forceinline__ void bwd_dq_mma_walk(const BwdArgs a, const Store& st
       }
     }
 
-    // dQ += dS K: dS as hi + lo A fragments of 4 k-steps of 16 keys.
+    // dQ += dS K: dS as hi + lo A fragments of KEYS/16 k-steps of 16 keys.
     const uint32_t kt_tile = smem_addr(sK + stage * DQ_KEYS * LD + bt_off);
 #pragma unroll
     for (int kk = 0; kk < DQ_KEYS / 16; ++kk) {
@@ -285,17 +301,19 @@ __device__ __forceinline__ void bwd_dq_mma_walk(const BwdArgs a, const Store& st
   st.store(a, acc, bh, q0, r_lo);
 }
 
-template <int D>
-__global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dq_mma_kernel(BwdArgs a) {
-  bwd_dq_mma_walk<D>(a, FlashDqStore<D>{});
+template <int D, int ROWS, int KEYS>
+__global__ void __launch_bounds__(ROWS / 16 * 32) attn_bwd_dq_mma_kernel(BwdArgs a) {
+  bwd_dq_mma_walk<D, ROWS, KEYS>(a, FlashDqStore<D>{});
 }
 
-// One dkv CTA: its 64 keys of one query head against every Q tile that
-// sees them.
-template <int D>
+// One dkv CTA: its KEYS keys of one query head against every Q tile of R
+// rows that sees them.
+template <int D, int R, int KEYS>
 __device__ __forceinline__ void bwd_dkv_mma_walk(const BwdArgs a) {
-  constexpr int R = dkv_rows<D>();  // query rows per Q tile
-  static_assert(D % 16 == 0 && R % 16 == 0, "head dim and Q tile must be multiples of 16");
+  static_assert(D % 16 == 0 && R % 16 == 0 && KEYS % 16 == 0,
+                "head dim and tiles must be multiples of 16");
+  constexpr int BWD_THREADS = warp_threads<KEYS>();
+  constexpr int DKV_KEYS = KEYS;
   static_assert(DKV_KEYS * (D / 8) % BWD_THREADS == 0 && R <= BWD_THREADS,
                 "every thread loads the same number of the K / V tile's 16-byte chunks");
   constexpr int LD = D + 8;       // shared-memory row stride, elements
@@ -329,8 +347,8 @@ __device__ __forceinline__ void bwd_dkv_mma_walk(const BwdArgs a) {
   const int t_end = k0 < a.kv_len ? (a.n_rows + R - 1) / R : 0;  // all keys masked: none
 
   // Rows at or past N land as zeros, with LSE = LSE_PAD and D = 0.  The
-  // tile's R · CHUNKS chunks take whole rounds of the threads except at
-  // d = 112, whose last round is half of them.
+  // tile's R · CHUNKS chunks may end in a partial round of the threads
+  // (d = 112), whose idle threads skip it.
   constexpr int Q_CHUNKS = R * CHUNKS;
   auto load_q = [&](int t, int stage) {
     bf16* dq_ = sQ + stage * R * LD;
@@ -485,38 +503,45 @@ __device__ __forceinline__ void bwd_dkv_mma_walk(const BwdArgs a) {
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dkv_mma_kernel(BwdArgs a) {
-  bwd_dkv_mma_walk<D>(a);
+template <int D, int R, int KEYS>
+__global__ void __launch_bounds__(KEYS / 16 * 32) attn_bwd_dkv_mma_kernel(BwdArgs a) {
+  bwd_dkv_mma_walk<D, R, KEYS>(a);
 }
 
 // Launch a dq (DKV = false) or dkv kernel of the walks above, flash's or
-// DistrAttention's, on the walk's grid and shared memory.
-template <int D, bool DKV>
+// DistrAttention's, on the walk's grid and shared memory: ROWS query rows
+// (dq's CTA; dkv's Q tile) and KEYS keys (dq's K/V tile; dkv's CTA).
+template <int D, int ROWS, int KEYS, bool DKV>
 int launch_bwd_walk(void (*kern)(BwdArgs), const BwdArgs& a, int bhq, cudaStream_t stream) {
-  const size_t bytes = DKV ? dkv_smem_bytes<D>() : dq_smem_bytes<D>();
-  const int blocks =
-      DKV ? (a.nk + DKV_KEYS - 1) / DKV_KEYS : (a.n_rows + DQ_ROWS - 1) / DQ_ROWS;
+  constexpr size_t bytes = DKV ? dkv_smem_bytes<D, ROWS, KEYS>() : dq_smem_bytes<D, ROWS, KEYS>();
+  static_assert(bytes <= 232448, "a tile over the opt-in shared memory of a block");
+  const int blocks = DKV ? (a.nk + KEYS - 1) / KEYS : (a.n_rows + ROWS - 1) / ROWS;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   // Heads vary fastest, so CTAs of one KV head are neighbours in L2.
   const dim3 grid(bhq, blocks);
-  kern<<<grid, BWD_THREADS, bytes, stream>>>(a);
+  kern<<<grid, warp_threads<DKV ? KEYS : ROWS>(), bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+// The flash backward's instantiations, one source for each walk and row
+// tile (flash_dq_r64.cu, flash_dq_r128.cu, flash_dkv_r32.cu,
+// flash_dkv_r64.cu) so that the build compiles them in parallel: launch
+// the (d, keys) tile there, or return cudaErrorInvalidValue for a tile
+// that was not compiled.
+int flash_dq_r64(const BwdArgs& a, int d, int keys, int bhq, cudaStream_t stream);
+int flash_dq_r128(const BwdArgs& a, int d, int keys, int bhq, cudaStream_t stream);
+int flash_dkv_r32(const BwdArgs& a, int d, int keys, int bhq, cudaStream_t stream);
+int flash_dkv_r64(const BwdArgs& a, int d, int keys, int bhq, cudaStream_t stream);
+
 template <bool DKV>
-int dispatch_attn_bwd_mma(const BwdArgs& a, int d, int bhq, cudaStream_t stream) {
-  if (d == 128)
-    return launch_bwd_walk<128, DKV>(
-        DKV ? attn_bwd_dkv_mma_kernel<128> : attn_bwd_dq_mma_kernel<128>, a, bhq, stream);
-  if (d == 112)
-    return launch_bwd_walk<112, DKV>(
-        DKV ? attn_bwd_dkv_mma_kernel<112> : attn_bwd_dq_mma_kernel<112>, a, bhq, stream);
-  if (d == 64)
-    return launch_bwd_walk<64, DKV>(
-        DKV ? attn_bwd_dkv_mma_kernel<64> : attn_bwd_dq_mma_kernel<64>, a, bhq, stream);
+int dispatch_attn_bwd_mma(const BwdArgs& a, int d, int rows, int keys, int bhq,
+                          cudaStream_t stream) {
+  if (!DKV && rows == 64) return flash_dq_r64(a, d, keys, bhq, stream);
+  if (!DKV && rows == 128) return flash_dq_r128(a, d, keys, bhq, stream);
+  if (DKV && rows == 32) return flash_dkv_r32(a, d, keys, bhq, stream);
+  if (DKV && rows == 64) return flash_dkv_r64(a, d, keys, bhq, stream);
   return (int)cudaErrorInvalidValue;
 }
 

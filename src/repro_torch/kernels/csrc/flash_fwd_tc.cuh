@@ -16,10 +16,14 @@
 // (distr_fwd_tc.cuh): a policy class fills its Q tile, and everything else
 // (K/V ring, scores, softmax, P·V, masks, epilogue) is one code.
 //
-// One CTA of 4 warps owns BM = 64 query rows of one (batch, query head),
-// 16 rows a warp, and walks the keys in tiles of BN = 64.  A warp keeps its
-// Q fragments (d/16 k-steps × 4 registers), its 16 × 64 f32 scores and its
-// 16 × d f32 output in registers.  In the m16n8k16 layouts, lane l holds
+// The tile is a template argument of the walk: a CTA of BM/16 warps owns
+// BM query rows of one (batch, query head), 16 rows a warp, and walks the
+// keys in tiles of BN.  The static tile, the one REPRO_TUNE=off runs, is
+// BM = BN = 64 (4 warps); the tuner (tune/autotune.py) sweeps BM, BN ∈
+// {64, 128} where they build without a spill (flash_fwd_r64.cu,
+// flash_fwd_r128.cu list them).  A warp keeps its Q fragments (d/16 k-steps
+// × 4 registers), its 16 × BN f32 scores and its 16 × d f32 output in
+// registers.  In the m16n8k16 layouts, lane l holds
 // rows l/4 and l/4 + 8 of a fragment, and columns 2(l%4) and 2(l%4) + 1 of
 // each 8-wide n-tile; so a row's values lie in a quad of lanes, and the
 // accumulator of two adjacent n-tiles of S is, packed to bf16, the A operand
@@ -28,7 +32,8 @@
 // Shared memory, bf16, rows padded by 8 elements (16 bytes) so that the 8
 // row addresses of each ldmatrix phase fall in distinct bank groups: Q
 // (BM × (d + 8)), then K and V, each 2 stages of BN × (d + 8).  At d = 128
-// that is 87,040 bytes and 231 registers a thread: two CTAs an SM.  The grid
+// and the static tile that is 87,040 bytes and 231 registers a thread: two
+// CTAs an SM.  The grid
 // is (heads, row blocks) with the last row block first, so under a causal
 // mask the CTAs with the most key tiles start first.
 //
@@ -49,27 +54,27 @@
 namespace rt {
 namespace tc {
 
-constexpr int BM = 64;  // query rows per CTA
-constexpr int BN = 64;  // keys per KV tile
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
+constexpr int BM = 64;  // the static tile: query rows per CTA
+constexpr int BN = 64;  // the static tile: keys per KV tile
+constexpr int THREADS = warp_threads<BM>();
 
 using bf16 = __nv_bfloat16;
 
-// How a walk fills its Q tile (BM × (D + 8)).  A policy QK gives load_q(),
+// How a walk fills its Q tile (BM_ × (D + 8)).  A policy QK gives load_q(),
 // which issues the tile's loads beside the first K/V tile's and may use
 // ring stage 1 of K (idle until the walk starts) as scratch, and finish_q(),
 // which runs after they landed and the prologue's __syncthreads().  The
 // flash forward's: Q through cp.async, nothing to finish.
-template <int D>
+template <int D, int BM_ = BM>
 struct FlashQK {
   __device__ __forceinline__ void load_q(const AttnArgs& a, bf16* sQ, bf16*, int bh, int q0) {
     constexpr int CHUNKS = D / 8;
-    static_assert(BM * CHUNKS % THREADS == 0, "every thread loads the same number of chunks");
+    constexpr int T = warp_threads<BM_>();
+    static_assert(BM_ * CHUNKS % T == 0, "every thread loads the same number of chunks");
     const bf16* q = static_cast<const bf16*>(a.q) + (size_t)bh * a.n_rows * D;
 #pragma unroll
-    for (int it = 0; it < BM * CHUNKS / THREADS; ++it) {
-      const int i = threadIdx.x + it * THREADS;
+    for (int it = 0; it < BM_ * CHUNKS / T; ++it) {
+      const int i = threadIdx.x + it * T;
       const int row = i / CHUNKS;
       const int col = (i - row * CHUNKS) * 8;
       const size_t src = (size_t)min(q0 + row, a.n_rows - 1) * D + col;
@@ -80,23 +85,27 @@ struct FlashQK {
 };
 
 // Bytes of dynamic shared memory: Q, then two stages each of K and V.
-template <int D>
+template <int D, int BM_ = BM, int BN_ = BN>
 constexpr size_t smem_bytes() {
-  return (size_t)(BM + 4 * BN) * (D + 8) * sizeof(__nv_bfloat16);
+  return (size_t)(BM_ + 4 * BN_) * (D + 8) * sizeof(__nv_bfloat16);
 }
 
-// One CTA's walk over the keys: its BM rows of one (batch, query head)
-// against every key tile they see, at head dim D, its Q tile as QK fills it.
-template <int D, class QK>
+// One CTA's walk over the keys: its BM_ rows of one (batch, query head)
+// against every key tile of BN_ keys they see, at head dim D, its Q tile
+// as QK fills it.
+template <int D, int BM_, int BN_, class QK>
 __device__ __forceinline__ void fwd_mma_walk(const AttnArgs& a, QK& qk) {
   static_assert(D % 16 == 0, "head dim must be a multiple of the mma depth");
-  static_assert(BN * (D / 8) % THREADS == 0,
-                "every thread loads the same number of 16-byte chunks");
+  static_assert(BM_ % 16 == 0 && BN_ % 16 == 0, "tiles of whole warps and k-steps");
+  constexpr int THREADS = warp_threads<BM_>();
+  constexpr int BM = BM_;
+  constexpr int BN = BN_;
   constexpr int LD = D + 8;         // shared-memory row stride, elements
   constexpr int CHUNKS = D / 8;     // 16-byte chunks a row
   constexpr int KSTEPS = D / 16;    // k-steps of Q·Kᵀ
   constexpr int NT_S = BN / 8;      // n-tiles of a warp's scores
   constexpr int NT_O = D / 8;       // n-tiles of a warp's output
+  constexpr int KV_CHUNKS = BN * CHUNKS;  // a K (or V) tile's 16-byte chunks
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [BM][LD]
   bf16* sK = sQ + BM * LD;                       // [2][BN][LD]
@@ -120,13 +129,19 @@ __device__ __forceinline__ void fwd_mma_walk(const AttnArgs& a, QK& qk) {
     n_tiles = min(n_tiles, last_row / BN + 1);  // skip tiles above the diagonal
   }
 
-  // Keys at or past kv_len land as zeros, read from a clamped address.
+  // Keys at or past kv_len land as zeros, read from a clamped address.  A
+  // tile whose chunks are not whole rounds of the threads (d = 112 with 8
+  // warps to 64 keys: 3.5 rounds) skips the idle threads of its last one;
+  // the guard is compiled only there.
   auto load_kv = [&](int t, int stage) {
     bf16* dk = sK + stage * BN * LD;
     bf16* dv = sV + stage * BN * LD;
 #pragma unroll
-    for (int it = 0; it < BN * CHUNKS / THREADS; ++it) {
+    for (int it = 0; it < (KV_CHUNKS + THREADS - 1) / THREADS; ++it) {
       const int i = tid + it * THREADS;
+      if constexpr (KV_CHUNKS % THREADS != 0) {
+        if (i >= KV_CHUNKS) break;
+      }
       const int row = i / CHUNKS;
       const int col = (i - row * CHUNKS) * 8;
       const int key = t * BN + row;
@@ -180,7 +195,7 @@ __device__ __forceinline__ void fwd_mma_walk(const AttnArgs& a, QK& qk) {
     cp_async_wait<1>();
     __syncthreads();
 
-    // S = Q Kᵀ: 16 × 64 a warp, in 8 n-tiles of 8 keys.
+    // S = Q Kᵀ: 16 × BN a warp, in BN/8 n-tiles of 8 keys.
     float s[NT_S][4];
 #pragma unroll
     for (int j = 0; j < NT_S; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
@@ -245,7 +260,7 @@ __device__ __forceinline__ void fwd_mma_walk(const AttnArgs& a, QK& qk) {
     }
 
     // O += P V: P's accumulator registers, rounded to bf16, are the A
-    // fragments of 4 k-steps of 16 keys.
+    // fragments of BN/16 k-steps of 16 keys.
     const uint32_t v_base = smem_addr(sV + stage * BN * LD + v_off);
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
@@ -286,28 +301,36 @@ __device__ __forceinline__ void fwd_mma_walk(const AttnArgs& a, QK& qk) {
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS) attn_fwd_mma_kernel(AttnArgs a) {
-  FlashQK<D> qk;
-  fwd_mma_walk<D>(a, qk);
+template <int D, int BM_, int BN_>
+__global__ void __launch_bounds__(BM_ / 16 * 32) attn_fwd_mma_kernel(AttnArgs a) {
+  FlashQK<D, BM_> qk;
+  fwd_mma_walk<D, BM_, BN_>(a, qk);
 }
 
-// Launch a walk kernel on a grid of (heads, row blocks).
-template <int D>
+// Launch a walk kernel of tile BM_ × BN_ on a grid of (heads, row blocks).
+template <int D, int BM_, int BN_>
 int launch_walk(void (*kern)(AttnArgs), const AttnArgs& a, int bhq, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<D>();
+  constexpr size_t bytes = smem_bytes<D, BM_, BN_>();
+  static_assert(bytes <= 232448, "a tile over the opt-in shared memory of a block");
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(bhq, (a.n_rows + BM - 1) / BM);
-  kern<<<grid, THREADS, bytes, stream>>>(a);
+  const dim3 grid(bhq, (a.n_rows + BM_ - 1) / BM_);
+  kern<<<grid, warp_threads<BM_>(), bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-inline int dispatch_attn_fwd_mma(const AttnArgs& a, int d, int bhq, cudaStream_t stream) {
-  if (d == 128) return launch_walk<128>(attn_fwd_mma_kernel<128>, a, bhq, stream);
-  if (d == 112) return launch_walk<112>(attn_fwd_mma_kernel<112>, a, bhq, stream);
-  if (d == 64) return launch_walk<64>(attn_fwd_mma_kernel<64>, a, bhq, stream);
+// The flash forward's instantiations of BM = 64 and 128 rows, each in a
+// source of its own (flash_fwd_r64.cu, flash_fwd_r128.cu) so that the
+// build compiles them in parallel: launch the (d, bn) tile there, or
+// return cudaErrorInvalidValue for a tile that was not compiled.
+int flash_fwd_r64(const AttnArgs& a, int d, int bn, int bhq, cudaStream_t stream);
+int flash_fwd_r128(const AttnArgs& a, int d, int bn, int bhq, cudaStream_t stream);
+
+inline int dispatch_attn_fwd_mma(const AttnArgs& a, int d, int bm, int bn, int bhq,
+                                 cudaStream_t stream) {
+  if (bm == 64) return flash_fwd_r64(a, d, bn, bhq, stream);
+  if (bm == 128) return flash_fwd_r128(a, d, bn, bhq, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -19,6 +19,12 @@ namespace tc {
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
+// Threads of a CTA whose warps own 16 rows (or keys) each of its ROWS.
+template <int ROWS>
+__host__ __device__ constexpr int warp_threads() {
+  return ROWS / 16 * 32;
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

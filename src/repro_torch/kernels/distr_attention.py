@@ -7,18 +7,26 @@ and pre-scaled, with one permutation per block_q rows.  In bf16 it runs on
 the tensor cores (``csrc/distr_fwd_tc.cuh``) as the exact product Q̃·Kᵀ,
 Q̂ scattered through the permutation (``scatter_q_hat``), so its scores
 and LSE agree with the f32 K̂ the plain version and the backward use.  f32
-runs an FMA tile that fuses K̂ in f32.  ``launches`` counts the wrapper's
-kernel launches.
+runs an FMA tile that fuses K̂ in f32.  A CTA holds ROW_TILE rows and
+walks the keys in tiles of ``block_k``, one the sources compile
+(``tune.autotune.compiled_tiles``), the static one when None.
+``launches`` counts the wrapper's kernel launches, ``tile_launches`` them
+by (d, ROW_TILE, block_k).
 """
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
 from repro_torch.core.flash_reference import NEG_INF
 from repro_torch.kernels import build
+from repro_torch.tune.autotune import check_tile
+from repro_torch.tune.cache import dtype_str
 from repro_torch.utils.counting import charged
 
 launches = 0
+tile_launches: Counter = Counter()
 ROW_TILE = 64  # query rows per CUDA block; must divide block_q
 
 
@@ -47,8 +55,8 @@ def scatter_q_hat(q_hat: torch.Tensor, perm: torch.Tensor, group_size: int,
 
 def distr_attention_plain(q_hat, k, v, perm, *, q_per_kv: int, causal: bool,
                           group_size: int, block_q: int, kv_len: int,
-                          return_lse: bool = False):
-    """Plain version of the kernel.
+                          return_lse: bool = False, block_k: int | None = None):
+    """Plain version of the kernel (the key tile ``block_k`` is ignored).
 
     q_hat: (BHq, N, d/G*) sampled, pre-scaled; k, v: (BHkv, Nk, d);
     perm: (BHq, N/block_q, d) int.  Returns ``o`` (BHq, N, d) or ``(o, lse)``.
@@ -81,7 +89,8 @@ def distr_attention_plain(q_hat, k, v, perm, *, q_per_kv: int, causal: bool,
 
 
 def _fwd_work(q_hat, k, v, perm, *, q_per_kv: int, causal: bool, group_size: int,
-              block_q: int, kv_len: int, return_lse: bool = False) -> dict:
+              block_q: int, kv_len: int, return_lse: bool = False,
+              block_k: int | None = None) -> dict:
     from repro_torch.kernels.ops import attention_work
 
     bhq, n, _ = q_hat.shape
@@ -92,12 +101,15 @@ def _fwd_work(q_hat, k, v, perm, *, q_per_kv: int, causal: bool, group_size: int
 @charged("distr_fwd", _fwd_work)
 def distr_attention_kernel_call(q_hat, k, v, perm, *, q_per_kv: int,
                                 causal: bool, group_size: int, block_q: int,
-                                kv_len: int, return_lse: bool = False):
+                                kv_len: int, return_lse: bool = False,
+                                block_k: int | None = None):
     """Launch the DistrAttention kernel.  Shapes as for the plain version;
     N is a multiple of block_q, ROW_TILE divides block_q, and each row of
-    ``perm`` is a permutation of range(d).  A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel or raises."""
+    ``perm`` is a permutation of range(d); ``block_k`` a compiled key tile
+    (None: the static one), checked on every device.  A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel or raises."""
     global launches
+    rows, bk = check_tile("distr_fwd", (None, block_k), d=k.shape[-1], dtype=dtype_str(q_hat))
     if q_hat.device.type == "cpu":
         return distr_attention_plain(
             q_hat, k, v, perm, q_per_kv=q_per_kv, causal=causal,
@@ -132,8 +144,9 @@ def distr_attention_kernel_call(q_hat, k, v, perm, *, q_per_kv: int,
             q_hat.data_ptr(), k.data_ptr(), v.data_ptr(), perm.data_ptr(),
             o.data_ptr(), lse.data_ptr() if lse is not None else None,
             build.dtype_code(q_hat), bhq, n, nk, kv_len, d, group_size, block_q,
-            n // block_q, q_per_kv, int(causal), build.stream_handle(q_hat),
+            n // block_q, q_per_kv, int(causal), rows, bk, build.stream_handle(q_hat),
         )
         build.check(err, "repro_distr_fwd")
         launches += 1
+        tile_launches[(d, rows, bk)] += 1
     return (o, lse) if return_lse else o

@@ -15,6 +15,15 @@ DistrAttention backward treats the LSH permutation as fixed
 (straight-through): gradients flow through the Q̂ sampling and the K̂
 fusion only, never into the projection or the hash.  Without grad the
 primal path runs the forward kernel alone, with no LSE.
+
+Tiles: the kernels take theirs at run time (``tune.autotune.compiled_tiles``).
+``flash_attention``'s ``block_q`` / ``block_k`` and ``DistrConfig.block_k``
+follow the reference's rule: explicit ints win, a partial pin takes the
+static tile for the free one, and both None resolve through the tuner
+(``REPRO_TUNE``).  The backward's tiles resolve when the backward first
+runs, and are swept only under ``measure`` (``_resolve_bwd_blocks``,
+``resolve_distr_bwd_blocks``), so a serving process never pays a backward
+sweep.
 """
 from __future__ import annotations
 
@@ -32,6 +41,8 @@ from repro_torch.kernels.distr_attention import distr_attention_kernel_call
 from repro_torch.kernels.flash_attention import flash_attention_kernel_call
 from repro_torch.kernels.paged_decode import paged_decode_kernel_call
 from repro_torch.kernels.ssd import ssd_kernel_call
+from repro_torch.tune.block_sizes import BlockSizes
+from repro_torch.tune.cache import dtype_str
 
 DEFAULT_DECODE_BLOCK = DEFAULT_BLOCK  # the split REPRO_TUNE=off resolves to
 
@@ -57,52 +68,112 @@ def _wants_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def _resolve_flash_blocks(q, k, causal: bool, block_q, block_k) -> BlockSizes:
+    """Explicit ints win (a partial pin takes the static tile for the free
+    one, never a value tuned for another pair); both None resolve the
+    forward pair through the tuner.  The backward tiles stay unset here:
+    ``_resolve_bwd_blocks`` fills them when the backward runs."""
+    from repro_torch.tune.autotune import resolve_block_sizes, static_tile
+
+    if block_q is not None or block_k is not None:
+        static = static_tile("flash_fwd", d=q.shape[-1], dtype=dtype_str(q))
+        return BlockSizes.from_pair(block_q or static[0], block_k or static[1])
+    return resolve_block_sizes("flash", d=q.shape[-1], n=max(q.shape[2], k.shape[2]),
+                               dtype=dtype_str(q), causal=causal, device=q.device)
+
+
+def _resolve_bwd_blocks(blocks: BlockSizes, q, k, causal: bool) -> BlockSizes:
+    """The backward's dq and dkv tiles, filled when the backward first runs
+    and only under ``REPRO_TUNE=measure`` (a sweep each, at the call's
+    shape): forward-only dispatch (serving) never pays a backward sweep.
+    Tiles already set, and the other modes, pass through (``bwd_tiles``
+    then runs the static tiles).  q, k: (B·H, N, d)."""
+    if blocks.block_q_dq is not None or blocks.block_q_dkv is not None:
+        return blocks
+    from repro_torch.tune.autotune import get_autotuner, tune_mode
+
+    if tune_mode() != "measure":
+        return blocks
+    kw = dict(d=q.shape[-1], n=max(q.shape[1], k.shape[1]), dtype=dtype_str(q),
+              causal=causal, device=q.device)
+    tuner = get_autotuner()
+    dq = tuner.resolve_pair("flash_dq", **kw)
+    dkv = tuner.resolve_pair("flash_dkv", **kw)
+    return blocks.with_(block_q_dq=dq[0], block_k_dq=dq[1], block_q_dkv=dkv[0],
+                        block_k_dkv=dkv[1])
+
+
+def bwd_tiles(blocks: BlockSizes, d: int, dtype: str):
+    """The flash backward's (dq tile, dkv tile): the ones ``blocks`` sets,
+    else each kernel's static tile (the port's dq and dkv tile spaces are
+    not the forward's, so the forward pair does not carry over)."""
+    from repro_torch.tune.autotune import static_tile
+
+    dq = ((blocks.block_q_dq, blocks.block_k_dq) if blocks.block_q_dq is not None
+          else static_tile("flash_dq", d=d, dtype=dtype))
+    dkv = ((blocks.block_q_dkv, blocks.block_k_dkv) if blocks.block_q_dkv is not None
+           else static_tile("flash_dkv", d=d, dtype=dtype))
+    return dq, dkv
+
+
 class _FlashAttention(torch.autograd.Function):
     """Exact FA-2 with a kernel backward (``ops._flash_vjp_fwd/_bwd`` of the
     reference).  The kernels mask ragged tiles themselves, so nothing is
-    padded; rows past N inside a kernel tile take LSE = ``bwd.LSE_PAD``."""
+    padded; rows past N inside a kernel tile take LSE = ``bwd.LSE_PAD``.
+    ``blocks`` is the resolved forward tile; the backward's resolve when it
+    runs (``_resolve_bwd_blocks``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
+    def forward(ctx, q, k, v, causal: bool, scale: float, blocks: BlockSizes):
         b, hq, n, d = q.shape
         hkv = k.shape[1]
         qf, kf, vf = _flatten_heads(q), _flatten_heads(k), _flatten_heads(v)
         o, lse = flash_attention_kernel_call(
             qf, kf, vf, q_per_kv=hq // hkv, scale=scale, causal=causal,
-            kv_len=k.shape[2], return_lse=True,
+            kv_len=k.shape[2], return_lse=True, block_q=blocks.block_q, block_k=blocks.block_k,
         )
         ctx.save_for_backward(qf, kf, vf, o, lse)
-        ctx.meta = (b, hq, hkv, causal, scale)
+        ctx.meta = (b, hq, hkv, causal, scale, blocks)
         return o.reshape(b, hq, n, d)
 
     @staticmethod
     def backward(ctx, do):
         qf, kf, vf, o, lse = ctx.saved_tensors
-        b, hq, hkv, causal, scale = ctx.meta
+        b, hq, hkv, causal, scale, blocks = ctx.meta
+        blocks = _resolve_bwd_blocks(blocks, qf, kf, causal)
+        (bq_dq, bk_dq), (bq_dkv, bk_dkv) = bwd_tiles(blocks, qf.shape[-1], dtype_str(qf))
         dof = _flatten_heads(do.to(qf.dtype))
         kw = dict(q_per_kv=hq // hkv, scale=scale, causal=causal, kv_len=kf.shape[1])
         delta = bwd.delta_kernel_call(o, dof)
-        dq = bwd.flash_dq_kernel_call(qf, kf, vf, dof, lse, delta, **kw)
-        dk_h, dv_h = bwd.flash_dkv_kernel_call(qf, kf, vf, dof, lse, delta, **kw)
+        dq = bwd.flash_dq_kernel_call(qf, kf, vf, dof, lse, delta, block_q=bq_dq,
+                                      block_k=bk_dq, **kw)
+        dk_h, dv_h = bwd.flash_dkv_kernel_call(qf, kf, vf, dof, lse, delta, block_q=bq_dkv,
+                                               block_k=bk_dkv, **kw)
         dq = dq.reshape(b, hq, *qf.shape[1:]).to(qf.dtype)
         dk = _gqa_sum(dk_h, b, hkv).to(kf.dtype)
         dv = _gqa_sum(dv_h, b, hkv).to(vf.dtype)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
-def flash_attention(q, k, v, *, causal: bool = False,
-                    scale: float | None = None) -> torch.Tensor:
+def flash_attention(q, k, v, *, causal: bool = False, scale: float | None = None,
+                    block_q: int | None = None, block_k: int | None = None,
+                    blocks: BlockSizes | None = None) -> torch.Tensor:
     """Exact FA-2, differentiable.  q: (B, Hq, N, d); k, v: (B, Hkv, Nk, d)
     → (B, Hq, N, d).  The kernel masks the ragged KV tail itself, so nothing
-    is padded."""
+    is padded.  The tile: ``blocks`` (a whole ``BlockSizes``, the backward's
+    tiles too), or ``block_q`` / ``block_k`` (``_resolve_flash_blocks``);
+    None resolves through the tuner (``REPRO_TUNE``)."""
     b, hq, n, d = q.shape
     hkv = k.shape[1]
     scale = float(scale) if scale is not None else 1.0 / (d ** 0.5)
+    if blocks is None:
+        blocks = _resolve_flash_blocks(q, k, causal, block_q, block_k)
     if _wants_grad(q, k, v):
-        return _FlashAttention.apply(q, k, v, causal, scale)
+        return _FlashAttention.apply(q, k, v, causal, scale, blocks)
     out = flash_attention_kernel_call(
         _flatten_heads(q), _flatten_heads(k), _flatten_heads(v),
         q_per_kv=hq // hkv, scale=scale, causal=causal, kv_len=k.shape[2],
+        block_q=blocks.block_q, block_k=blocks.block_k,
     )
     return out.reshape(b, hq, n, v.shape[-1])
 
@@ -169,10 +240,33 @@ def _distr_fwd(q, k, v, cfg: DistrConfig, causal: bool, scale: float, proj,
         q_hat, _flatten_heads(k), _flatten_heads(v),
         perms.reshape(b * hq, n_pad // cfg.block_q, d),
         q_per_kv=hq // hkv, causal=causal, group_size=cfg.group_size,
-        block_q=cfg.block_q, kv_len=k.shape[2], return_lse=return_lse,
+        block_q=cfg.block_q, kv_len=k.shape[2], return_lse=return_lse, block_k=cfg.block_k,
     )
     out, lse = res if return_lse else (res, None)
     return out.reshape(b, hq, n_pad, v.shape[-1]), lse, q_hat, perms
+
+
+def resolve_distr_bwd_blocks(cfg: DistrConfig, *, d: int, n: int, dtype: str, causal: bool,
+                             device="cuda") -> tuple[int, int]:
+    """The DistrAttention backward kernels' key tiles ``(keys_dq,
+    keys_dkv)`` (the reference's, mirroring ``_resolve_bwd_blocks``).
+    ``block_q`` never resolves here: it is the LSH grouping granularity the
+    forward's permutations were drawn at, and stays pinned
+    (``Autotuner.resolve_distr_bwd`` asserts it).  An explicit
+    ``cfg.block_k_bwd`` wins; else the tuner: outside ``measure`` the
+    forward's ``block_k`` where the kernel compiles it, under it a sweep of
+    each kernel's own.  The one resolver of the single-device backward
+    (when it runs) and the ring's (at dispatch, ``n`` the shard one rank
+    streams)."""
+    if cfg.block_k_bwd is not None:
+        return cfg.block_k_bwd, cfg.block_k_bwd
+    from repro_torch.tune.autotune import get_autotuner
+
+    tuner = get_autotuner()
+    kw = dict(block_q=cfg.block_q, d=d, n=n, dtype=dtype, group_size=cfg.group_size,
+              causal=causal, device=device, fwd_block_k=cfg.block_k)
+    return (tuner.resolve_distr_bwd("distr_dq", **kw)[1],
+            tuner.resolve_distr_bwd("distr_dkv", **kw)[1])
 
 
 class _DistrAttention(torch.autograd.Function):
@@ -200,11 +294,16 @@ class _DistrAttention(torch.autograd.Function):
         o = _flatten_heads(out)
         dof = _flatten_heads(pad_to_multiple(do.to(qf.dtype), cfg.block_q, dim=2))
         perm_f = perms.reshape(b * hq, nq, d)
+        bk_dq, bk_dkv = resolve_distr_bwd_blocks(
+            cfg, d=d, n=max(n, kf.shape[1]), dtype=dtype_str(kf), causal=causal,
+            device=kf.device)
         kw = dict(q_per_kv=hq // hkv, causal=causal, group_size=cfg.group_size,
                   block_q=cfg.block_q, kv_len=kf.shape[1])
         delta = bwd.delta_kernel_call(o, dof)
-        dq_hat = bwd.distr_dq_kernel_call(qf, kf, vf, perm_f, dof, lse, delta, **kw)
-        dk_h, dv_h = bwd.distr_dkv_kernel_call(qf, kf, vf, perm_f, dof, lse, delta, **kw)
+        dq_hat = bwd.distr_dq_kernel_call(qf, kf, vf, perm_f, dof, lse, delta, block_k=bk_dq,
+                                          **kw)
+        dk_h, dv_h = bwd.distr_dkv_kernel_call(qf, kf, vf, perm_f, dof, lse, delta,
+                                               block_k=bk_dkv, **kw)
         dq = distr_dq_from_dq_hat(
             cfg.estimator, dq_hat.reshape(b, hq, n_pad, -1), perms,
             block_q=cfg.block_q, group_size=cfg.group_size, scale=scale,

@@ -87,14 +87,16 @@ def init_train_params(cfg, *, seed: int = 0, device: str | torch.device = "cuda"
 def warm_train(cfg, seq: int, *, device: str | torch.device = "cuda"):
     """Resolve (under ``REPRO_TUNE=measure``: sweep and persist) the
     attention blocks of a ``seq``-token training step, forward and
-    backward → their ``BlockSizes``, or None for a model that runs no
-    attention kernel (the reference impl, MLA, the SSM family)."""
+    backward (the flash kernels' tiles, or DistrAttention's with the
+    backward's keys swept at the pinned block_q) → their ``BlockSizes``,
+    or None for a model that runs no attention kernel (the reference impl,
+    MLA, the SSM family)."""
     if not tuned_attention(cfg):
         return None
     return resolve_attention_blocks(
         cfg.attention, d=cfg.head_dim_, n_q=seq,
         dtype="bfloat16" if cfg.compute_dtype == "bfloat16" else "float32", causal=True,
-        bwd=True, device=resolve_device(device))
+        bwd=True, device=resolve_device(device), heads=(cfg.n_heads, cfg.n_kv_heads))
 
 
 def join_world() -> None:

@@ -4,7 +4,9 @@ The analytic model in ``core.block_size`` ranks candidate blocks by the
 paper's HBM-I/O objective on Hopper's shared memory; this package measures
 the top candidates on the live device and caches the pick (the static
 value unless a candidate beats it by more than its timings' spread), keyed by
-``(kernel, backend, dtype, d, G*, seq-bucket, causal)``.
+``(kernel, backend, dtype, d, G*, seq-bucket, causal)``.  Among the keys are
+the attention kernels' tiles: a kernel takes the tiles its sources compile
+(``compiled_tiles``), ``off`` their static ones (``static_tile``).
 
 Environment:
 
@@ -17,7 +19,9 @@ from repro_torch.tune.cache import TuneCache, cache_key, default_cache_path, seq
 from repro_torch.tune.measure import cuda_event_timer, measure_candidates, wall_timer
 from repro_torch.tune.autotune import (
     Autotuner,
+    compiled_tiles,
     decode_candidates,
+    distr_bwd_candidates,
     get_autotuner,
     pair_candidates,
     paged_block_candidates,
@@ -25,6 +29,7 @@ from repro_torch.tune.autotune import (
     resolve_block_sizes,
     resolve_decode_block,
     resolve_paged_decode_block,
+    static_tile,
     sweeps_refused,
     tune_mode,
     warm_decode,
@@ -37,9 +42,11 @@ __all__ = [
     "BlockSizes",
     "TuneCache",
     "cache_key",
+    "compiled_tiles",
     "cuda_event_timer",
     "decode_candidates",
     "default_cache_path",
+    "distr_bwd_candidates",
     "get_autotuner",
     "measure_candidates",
     "pair_candidates",
@@ -49,6 +56,7 @@ __all__ = [
     "resolve_decode_block",
     "resolve_paged_decode_block",
     "seq_bucket",
+    "static_tile",
     "sweeps_refused",
     "tune_mode",
     "wall_timer",

@@ -2,7 +2,8 @@
 §3.3.1 on Hopper's shared memory) against the reference's
 (``repro.core.block_size``, its TPU re-derivation) where the two share the
 contract, the Hopper selection rule on its own, and the tuner's table of
-compiled tiles against the constants in ``kernels/csrc``."""
+compiled tiles against the template grids and constants in
+``kernels/csrc``."""
 import re
 from pathlib import Path
 
@@ -12,7 +13,7 @@ torch = pytest.importorskip("torch")
 
 from repro.core import block_size as ref  # noqa: E402
 from repro_torch.core import block_size as bsz  # noqa: E402
-from repro_torch.tune.autotune import compiled_tile  # noqa: E402
+from repro_torch.tune.autotune import compiled_tiles, static_tile  # noqa: E402
 
 CSRC = Path(__file__).resolve().parent.parent / "src" / "repro_torch" / "kernels" / "csrc"
 SMEM = 227 * 1024
@@ -81,27 +82,60 @@ def _constants(name: str) -> dict:
     return {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
 
 
-@pytest.mark.parametrize("d", [64, 112, 128])
-def test_compiled_tiles_match_the_kernel_sources(d):
-    """The tuner's compiled tiles are the tiles in ``kernels/csrc``: the
-    bf16 tensor-core tiles and the f32 FMA tiles."""
-    fwd_tc, bwd_tc = _constants("flash_fwd_tc.cuh"), _constants("flash_bwd_tc.cuh")
-    fwd_f32, bwd_f32 = _constants("attention_tile.cuh"), _constants("attention_bwd_tile.cuh")
+def _instantiated(d: int) -> dict:
+    """{kernel: {(rows, keys)}} the tile sources under ``kernels/csrc``
+    instantiate at head dim ``d``: the template grids of their launches."""
+    bwd_tc = _constants("flash_bwd_tc.cuh")
     src = (CSRC / "flash_bwd_tc.cuh").read_text()
     rows = re.search(r"dkv_rows\(\) \{\s*return D > (\d+) \? (\d+) : (\d+);", src)
     dkv_rows = int(rows[2]) if d > int(rows[1]) else int(rows[3])
-    for kernel in ("flash_fwd", "distr_fwd"):
-        assert compiled_tile(kernel, d=d, dtype="bfloat16") == (fwd_tc["BM"], fwd_tc["BN"])
-        assert compiled_tile(kernel, d=d, dtype="float32") == (fwd_f32["BM"], fwd_f32["BN"])
-    for kernel in ("flash_dq", "distr_dq"):
-        assert compiled_tile(kernel, d=d, dtype="bfloat16") == (bwd_tc["DQ_ROWS"],
-                                                                bwd_tc["DQ_KEYS"])
-        assert compiled_tile(kernel, d=d, dtype="float32") == (bwd_f32["DQ_BM"],
-                                                               bwd_f32["DQ_BN"])
-    for kernel in ("flash_dkv", "distr_dkv"):
-        assert compiled_tile(kernel, d=d, dtype="bfloat16") == (dkv_rows, bwd_tc["DKV_KEYS"])
-        assert compiled_tile(kernel, d=d, dtype="float32") == (bwd_f32["DKV_BQ"],
-                                                               bwd_f32["DKV_BK"])
+    walks = {"attn_fwd_mma_kernel": "flash_fwd", "distr_fwd_exact_kernel": "distr_fwd",
+             "attn_bwd_dq_mma_kernel": "flash_dq", "attn_bwd_dkv_mma_kernel": "flash_dkv"}
+    found: dict = {k: set() for k in ("flash_fwd", "distr_fwd", "flash_dq", "flash_dkv",
+                                      "distr_dq", "distr_dkv")}
+    for path in sorted(CSRC.glob("*.cu")):
+        text = path.read_text()
+        for dd, r, k, kern in re.findall(
+                r"launch_(?:bwd_)?walk<(\d+), (\d+), (\d+)(?:, \w+)?>\((\w+)<", text):
+            if int(dd) == d:
+                found[walks[kern]].add((int(r), int(k)))
+        for dd, k, dkv in re.findall(r"launch_distr_walk<(\d+), (\d+), (\w+)>\(", text):
+            if int(dd) == d:
+                found["distr_dkv" if dkv == "true" else "distr_dq"].add(
+                    (dkv_rows if dkv == "true" else bwd_tc["DQ_ROWS"], int(k)))
+    return found, dkv_rows
+
+
+@pytest.mark.parametrize("d", [64, 112, 128])
+def test_compiled_tiles_match_the_kernel_sources(d):
+    """The tuner's compiled tiles are the tiles the sources in
+    ``kernels/csrc`` instantiate: in bf16 the template grid of each walk's
+    launches (``*_r<rows>.cu``, ``distr_dkv.cu``), which is the tuner's
+    grid less its dropped tiles, with the static tile among them; in f32
+    the FMA tile alone."""
+    from repro_torch.tune import autotune
+
+    fwd_tc, bwd_tc = _constants("flash_fwd_tc.cuh"), _constants("flash_bwd_tc.cuh")
+    fwd_f32, bwd_f32 = _constants("attention_tile.cuh"), _constants("attention_bwd_tile.cuh")
+    found, dkv_rows = _instantiated(d)
+    static = {"flash_fwd": (fwd_tc["BM"], fwd_tc["BN"]), "distr_fwd": (fwd_tc["BM"], fwd_tc["BN"]),
+              "flash_dq": (bwd_tc["DQ_ROWS"], bwd_tc["DQ_KEYS"]),
+              "distr_dq": (bwd_tc["DQ_ROWS"], bwd_tc["DQ_KEYS"]),
+              "flash_dkv": (dkv_rows, bwd_tc["DKV_KEYS"]),
+              "distr_dkv": (dkv_rows, bwd_tc["DKV_KEYS"])}
+    fma = {"flash_fwd": (fwd_f32["BM"], fwd_f32["BN"]), "distr_fwd": (fwd_f32["BM"], fwd_f32["BN"]),
+           "flash_dq": (bwd_f32["DQ_BM"], bwd_f32["DQ_BN"]),
+           "distr_dq": (bwd_f32["DQ_BM"], bwd_f32["DQ_BN"]),
+           "flash_dkv": (bwd_f32["DKV_BQ"], bwd_f32["DKV_BK"]),
+           "distr_dkv": (bwd_f32["DKV_BQ"], bwd_f32["DKV_BK"])}
+    for kernel, tiles in found.items():
+        compiled = compiled_tiles(kernel, d=d, dtype="bfloat16")
+        assert set(compiled) == tiles and len(compiled) == len(tiles)
+        dropped = {t for (k, dd, t) in autotune.DROPPED_TILES if (k, dd) == (kernel, d)}
+        assert tiles | dropped == set(autotune.tile_grid(kernel, d=d)) and not tiles & dropped
+        assert static_tile(kernel, d=d, dtype="bfloat16") == static[kernel] in tiles
+        assert compiled_tiles(kernel, d=d, dtype="float32") == [fma[kernel]]
+        assert static_tile(kernel, d=d, dtype="float32") == fma[kernel]
 
 
 def test_sweep_granularities_match_the_kernel_sources():

@@ -198,7 +198,10 @@ def test_non_cpu_non_cuda_tensor_raises_instead_of_falling_back(monkeypatch):
 def test_kernel_sources_are_found_without_building():
     names = [p.name for p in build.sources()]
     assert names == ["decode.cu", "delta.cu", "distr_attention.cu", "distr_backward.cu",
-                     "flash_attention.cu", "flash_backward.cu", "paged_decode.cu", "ssd.cu"]
+                     "distr_dkv.cu", "distr_dq_r64.cu", "distr_fwd_r64.cu",
+                     "flash_attention.cu", "flash_backward.cu", "flash_dkv_r32.cu",
+                     "flash_dkv_r64.cu", "flash_dq_r128.cu", "flash_dq_r64.cu",
+                     "flash_fwd_r128.cu", "flash_fwd_r64.cu", "paged_decode.cu", "ssd.cu"]
     assert set(build.SIGNATURES) == {
         "repro_flash_fwd", "repro_distr_fwd", "repro_decode_fwd", "repro_delta",
         "repro_flash_dq", "repro_flash_dkv", "repro_distr_dq", "repro_distr_dkv",

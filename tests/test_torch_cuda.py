@@ -843,9 +843,9 @@ def test_moe_train_step_on_card_matches_cpu(cuda, arch):
 def test_tuner_sweeps_the_decode_and_paged_keys_on_card(cuda, monkeypatch, tmp_path):
     """``REPRO_TUNE=measure`` with a fresh cache at starcoder2-7b's serving
     shapes (4 slots, 36 over 4 heads of 128, capacity 2048, bf16): the
-    decode split, the paged pool block and DistrAttention's block_q (N =
-    2048, G* = 2, causal) are swept with CUDA events, every candidate
-    timed with its spread beside the static 128, the decode and paged
+    decode split, the paged pool block and DistrAttention's (block_q, keys)
+    pair (N = 2048, G* = 2, causal) are swept with CUDA events, every
+    candidate timed with its spread beside the static value, the decode and paged
     sweeps over several K/V copies (their live bytes over twice the L2),
     under an ``sm_`` backend key, one ``tune/measure`` span each; a
     second tuner on the file resolves by lookup with no timing; the decode
@@ -858,7 +858,7 @@ def test_tuner_sweeps_the_decode_and_paged_keys_on_card(cuda, monkeypatch, tmp_p
     from repro_torch.obs.trace import TraceRecorder, set_recorder
     from repro_torch.tune import (Autotuner, TuneCache, decode_candidates,
                                   paged_block_candidates)
-    from repro_torch.tune.autotune import distr_candidates
+    from repro_torch.tune.autotune import distr_pair_candidates
 
     def no_timing(run_fn, cand):
         raise AssertionError("a cached key must not be timed")
@@ -882,13 +882,15 @@ def test_tuner_sweeps_the_decode_and_paged_keys_on_card(cuda, monkeypatch, tmp_p
     entries = json.load(open(path))
     assert all("|backend=sm_" in key for key in entries)
     swept = {e["kernel"]: e for e in entries.values()}
-    for kernel, cands in (("decode", decode_candidates(2048)),
-                          ("paged_decode", paged_block_candidates(2048)),
-                          ("distr_fwd", distr_candidates(128, n=2048, group_size=2))):
+    for kernel, cands, default in (
+            ("decode", decode_candidates(2048), 128),
+            ("paged_decode", paged_block_candidates(2048), 128),
+            ("distr_fwd", distr_pair_candidates(128, n=2048, group_size=2), [128, 64])):
         table = swept[kernel]["table"]
-        assert sorted(r["candidate"] for r in table) == sorted(cands)
+        assert sorted(tuple(c) if isinstance(c, list) else c
+                      for c in (r["candidate"] for r in table)) == sorted(cands)
         assert all(0 < r["seconds"] < 1 and 0 <= r["spread"] < 1 for r in table)
-        assert swept[kernel]["default"] == 128
+        assert swept[kernel]["default"] == default
     assert swept["decode"]["calls"] > 1 and swept["paged_decode"]["calls"] > 1  # over L2
 
     lengths = torch.tensor([1, 200, 1537, 2048], dtype=torch.int32, device="cuda")
@@ -920,6 +922,108 @@ def test_tuner_sweeps_the_decode_and_paged_keys_on_card(cuda, monkeypatch, tmp_p
     got = ops.distr_attention(qd, kd, vd, dcfg, causal=True)
     assert dk.launches == before + 1
     _close(got, distr_attention(qd, kd, vd, dcfg, causal=True), torch.float32)
+
+
+# Every tile the sources compile, by kernel and head dim (the tuner's
+# table; ``test_compiled_tiles_match_the_build_log`` holds it to the build).
+TILED_KERNELS = ("flash_fwd", "distr_fwd", "flash_dq", "flash_dkv", "distr_dq", "distr_dkv")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 112, 128])
+@pytest.mark.parametrize("kernel", TILED_KERNELS)
+def test_every_compiled_tile_matches_plain(cuda, kernel, d, causal):
+    """Each compiled bf16 tile of a tiled attention kernel against its
+    plain version: GQA 4 over 2, ragged N = 200 rows (the distr kernels
+    256, block_q 128 and 64) over 232 keys of which 201 live; the forward's
+    O and LSE, the backward's dQ (dQ̂), dK and dV on the plain O and LSE;
+    and each launch counted on its tile."""
+    from repro_torch.tune.autotune import compiled_tiles
+
+    hkv, r, nk, kv_len = 2, 2, 232, 201
+    n = 256 if kernel.startswith("distr") else 200
+    k, v = _randn((hkv, nk, d), torch.bfloat16, 80), _randn((hkv, nk, d), torch.bfloat16, 81)
+    q = _randn((hkv * r, n, d), torch.bfloat16, 82)
+    do = _randn((hkv * r, n, d), torch.bfloat16, 83)
+    counter = (fk.tile_launches if kernel == "flash_fwd" else dk.tile_launches
+               if kernel == "distr_fwd" else bwd.tile_launches[kernel])
+    for block_q in ((128, 64) if kernel.startswith("distr") else (None,)):
+        if kernel.startswith("distr"):
+            cfg = DistrConfig(group_size=2, block_q=block_q)
+            q_hat, perms = ops.distr_stage1(cfg, q[None], d ** -0.5, hkv=hkv)
+            q_hat, perm = q_hat[0].contiguous(), perms[0].to(torch.int32).contiguous()
+            kw = dict(q_per_kv=r, causal=causal, group_size=2, block_q=block_q, kv_len=kv_len)
+            o, lse = dk.distr_attention_plain(q_hat, k, v, perm, return_lse=True, **kw)
+            args = (q_hat, k, v, perm, do, lse, bwd.delta_plain(o, do))
+            calls = {"distr_fwd": (dk.distr_attention_kernel_call, dk.distr_attention_plain,
+                                   (q_hat, k, v, perm), dict(return_lse=True)),
+                     "distr_dq": (bwd.distr_dq_kernel_call, bwd.distr_dq_plain, args, {}),
+                     "distr_dkv": (bwd.distr_dkv_kernel_call, bwd.distr_dkv_plain, args, {})}
+        else:
+            kw = dict(q_per_kv=r, scale=d ** -0.5, causal=causal, kv_len=kv_len)
+            o, lse = fk.flash_attention_plain(q, k, v, return_lse=True, **kw)
+            args = (q, k, v, do, lse, bwd.delta_plain(o, do))
+            calls = {"flash_fwd": (fk.flash_attention_kernel_call, fk.flash_attention_plain,
+                                   (q, k, v), dict(return_lse=True)),
+                     "flash_dq": (bwd.flash_dq_kernel_call, bwd.flash_dq_plain, args, {}),
+                     "flash_dkv": (bwd.flash_dkv_kernel_call, bwd.flash_dkv_plain, args, {})}
+        call, plain, cargs, extra = calls[kernel]
+        want = plain(*cargs, **kw, **extra)
+        want = want if isinstance(want, tuple) else (want,)
+        for tile in compiled_tiles(kernel, d=d, dtype="bfloat16"):
+            tkw = dict(block_k=tile[1]) if kernel.startswith("distr") else dict(
+                block_q=tile[0], block_k=tile[1])
+            before = counter[(d, *tile)]
+            got = call(*cargs, **kw, **extra, **tkw)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            assert counter[(d, *tile)] == before + 1
+            for i, (a, b) in enumerate(zip(got, want)):
+                tol = (TOL[torch.bfloat16] if i == 0 else 1e-4) if kernel.endswith("fwd") \
+                    else BWD_TOL
+                torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol,
+                                           msg=lambda m: f"{kernel} d={d} {tile} [{i}]: {m}")
+
+
+def test_compiled_tiles_match_the_build_log(cuda):
+    """The tuner's compiled tiles are exactly the tiled templates' entry
+    functions in ``build.log`` (nvcc's ``-Xptxas -v``), each without a
+    spill or a stack frame; a tile outside them is refused by its wrapper
+    on the card, before any launch."""
+    import re
+
+    from repro_torch.kernels import build
+    from repro_torch.tune.autotune import compiled_tiles
+
+    templates = {"attn_fwd_mma_kernel": "flash_fwd", "distr_fwd_exact_kernel": "distr_fwd",
+                 "attn_bwd_dq_mma_kernel": "flash_dq", "attn_bwd_dkv_mma_kernel": "flash_dkv",
+                 "distr_bwd_dq_mma_kernel": "distr_dq", "distr_bwd_dkv_mma_kernel": "distr_dkv"}
+    build.lib()
+    found, fn = {}, None
+    for line in build.build_log().splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            m = re.search(r"(" + "|".join(templates) + r")I((?:Li\d+E)+)E", fn)
+            if m is None:
+                fn = None
+                continue
+            args = tuple(int(x) for x in re.findall(r"Li(\d+)E", m.group(2)))
+            kernel = templates[m.group(1)]
+            d = args[0]
+            tile = args[1:] if len(args) == 3 else (compiled_tiles(kernel, d=d,
+                                                                  dtype="bfloat16")[0][0],
+                                                   args[1])
+            found.setdefault((kernel, d), set()).add(tile)
+        elif fn is not None and "stack frame" in line:
+            assert line.strip().startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                                           "spill loads"), (fn, line)
+    for kernel in templates.values():
+        for d in build.HEAD_DIMS:
+            assert found[(kernel, d)] == set(compiled_tiles(kernel, d=d, dtype="bfloat16"))
+    q = _randn((2, 64, 128), torch.bfloat16, 84)
+    with pytest.raises(ValueError, match="not compiled"):
+        fk.flash_attention_kernel_call(q, q, q, q_per_kv=1, scale=1.0, causal=True, kv_len=64,
+                                       block_q=32, block_k=64)
 
 
 def _tree_to(tree, dev):

@@ -200,7 +200,9 @@ def test_pair_candidates_aligned_fit_and_keep_the_default():
         cands = pair_candidates(d, n=4096)
         assert (128, 128) in cands
         assert all(l % 16 == 0 and m % 16 == 0 for l, m in cands)
-    assert all(m == 64 for _, m in pair_candidates(128, n=2048, m=64))
+    assert all(m == 64 for _, m in pair_candidates(128, n=2048, ms=(64,), default=(128, 64)))
+    tiles = [(64, 64), (128, 128), (512, 512)]  # the last does not fit at d = 128
+    assert pair_candidates(128, n=2048, tiles=tiles, default=(64, 64)) == [(128, 128), (64, 64)]
 
 
 def test_pruner_never_drops_the_measured_best():
@@ -294,35 +296,73 @@ def test_off_mode_equals_the_static_blocks(dtype):
 
 
 def test_compiled_tiles_resolve_without_a_sweep(monkeypatch, tmp_path):
-    """The flash and backward keys resolve to the kernels' compiled tiles in
-    every mode; under ``measure`` each is recorded once as a single
-    candidate, and nothing is timed."""
+    """The attention kernels' tiles: ``off`` resolves each key to its
+    static tile and ``analytic`` to the largest compiled tile the model
+    admits, neither with a sweep; ``measure`` times every compiled tile of
+    the flash forward, dq and dkv keys and of the distr backward's keys at
+    a pinned block_q (a fake timer: the largest tile wins), and an f32 key,
+    whose kernel compiles one FMA tile, is recorded with it and timed
+    never."""
     def no_sweeps(run_fn, cand):
-        raise AssertionError("a compiled tile must not be swept")
+        raise AssertionError("off and analytic must not sweep")
 
     path = str(tmp_path / "c.json")
-    for mode in ("off", "analytic", "measure"):
-        monkeypatch.setenv("REPRO_TUNE", mode)
-        rec = TraceRecorder()
-        set_recorder(rec)
-        tuner = Autotuner(cache=TuneCache(path), timer=no_sweeps)
-        flash = tuner.resolve("flash", d=128, n=2048, dtype="bfloat16", causal=True,
-                              bwd=True, device=CPU)
-        assert (flash.fwd(), flash.dq(), flash.dkv()) == ((64, 64), (64, 64), (32, 64))
-        distr = tuner.resolve("distr", d=64, n=2048, dtype="float32", group_size=2,
-                              causal=True, bwd=True, block_q=128, device=CPU)
-        assert (distr.fwd(), distr.dq(), distr.dkv()) == ((128, 32), (128, 32), (128, 64))
-        assert not _spans(rec, "tune/measure")
-    entries = json.load(open(path)).values()
-    assert sorted(e["kernel"] for e in entries) == ["distr_dkv", "distr_dq", "flash_dkv",
-                                                    "flash_dq", "flash_fwd"]
-    assert all(e["compiled"] and len(e["table"]) == 1 for e in entries)
+    d, kw = 128, dict(n=2048, dtype="bfloat16", causal=True, device=CPU)
+    monkeypatch.setenv("REPRO_TUNE", "off")
+    tuner = Autotuner(cache=TuneCache(path), timer=no_sweeps)
+    flash = tuner.resolve("flash", d=d, bwd=True, **kw)
+    assert (flash.fwd(), flash.dq(), flash.dkv()) == ((64, 64), (64, 64), (32, 64))
+    distr = tuner.resolve("distr", d=d, group_size=2, bwd=True, block_q=128, **kw)
+    assert (distr.fwd(), distr.dq(), distr.dkv()) == ((128, 64), (128, 64), (128, 64))
+    monkeypatch.setenv("REPRO_TUNE", "analytic")
+    flash = tuner.resolve("flash", d=d, **kw)
+    assert flash.fwd() == (128, 128) == max(autotune.compiled_tiles("flash_fwd", d=d,
+                                                                    dtype="bfloat16"))
+    assert not os.path.exists(path)
+
+    monkeypatch.setenv("REPRO_TUNE", "measure")
+    rec = TraceRecorder()
+    set_recorder(rec)
+    timed = []
+
+    def largest(run_fn, cand):
+        timed.append(cand)
+        return _largest_wins(run_fn, cand)
+
+    tuner = Autotuner(cache=TuneCache(path), timer=largest)
+    flash = tuner.resolve("flash", d=d, bwd=True, **kw)
+    want = {k: max(autotune.compiled_tiles(k, d=d, dtype="bfloat16"))
+            for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+    assert (flash.fwd(), flash.dq(), flash.dkv()) == (
+        want["flash_fwd"], want["flash_dq"], want["flash_dkv"]) == ((128, 128), (128, 128),
+                                                                   (64, 128))
+    # d = 128 compiles one distr dq key tile (PERF.md: 128 keys spill): d = 64 has both.
+    distr = tuner.resolve("distr", d=64, group_size=2, bwd=True, block_q=128, **kw)
+    assert (distr.fwd(), distr.dq(), distr.dkv()) == ((128, 64), (128, 128), (128, 128))
+    f32 = tuner.resolve("flash", d=d, bwd=True, **{**kw, "dtype": "float32"})
+    assert (f32.fwd(), f32.dq(), f32.dkv()) == ((64, 32), (64, 32), (32, 64))
+    entries = json.load(open(path))
+    swept = {e["kernel"]: e for e in entries.values() if e["calls"]}
+    assert sorted(swept) == ["distr_dkv", "distr_dq", "flash_dkv", "flash_dq", "flash_fwd"]
+    for kernel in ("flash_fwd", "flash_dq", "flash_dkv"):
+        assert sorted(tuple(r["candidate"]) for r in swept[kernel]["table"]) == sorted(
+            autotune.compiled_tiles(kernel, d=d, dtype="bfloat16"))
+    for kernel in ("distr_dq", "distr_dkv"):
+        assert sorted(r["candidate"] for r in swept[kernel]["table"]) == sorted(
+            k for _, k in autotune.compiled_tiles(kernel, d=64, dtype="bfloat16"))
+    assert any(key.startswith("distr_dq@l=128|") for key in entries)
+    records = [e for e in entries.values() if not e["calls"]]
+    assert len(records) == 3 and all(len(e["table"]) == 1 and e["table"][0]["seconds"] is None
+                                     for e in records)
+    assert len(_spans(rec, "tune/measure")) == 5 and len(timed) == ROUNDS * sum(
+        len(e["table"]) for e in swept.values())
 
 
 def test_a_real_sweep_on_the_cpu(monkeypatch, tmp_path):
     """With no injected timer, measure mode times every candidate of the
-    decode, paged and distr keys with the host clock on the CPU's plain
-    versions and keeps a full table."""
+    decode, paged, distr and flash forward keys with the host clock on the
+    CPU's plain versions and keeps a full table (distr's an f32 one: its
+    block_q beside the FMA tile's 32 keys)."""
     monkeypatch.setenv("REPRO_TUNE", "measure")
     path = str(tmp_path / "c.json")
     tuner = Autotuner(cache=TuneCache(path))
@@ -331,10 +371,17 @@ def test_a_real_sweep_on_the_cpu(monkeypatch, tmp_path):
                                       device=CPU) in (64, 128, 256)
     assert tuner.resolve_distr(d=64, n=256, dtype="float32", group_size=2, causal=True,
                                device=CPU) in (64, 128, 256)
+    assert tuner.resolve_pair("flash_fwd", d=64, n=256, dtype="bfloat16", causal=True,
+                              device=CPU) in autotune.compiled_tiles("flash_fwd", d=64,
+                                                                     dtype="bfloat16")
     entries = {e["kernel"]: e for e in json.load(open(path)).values()}
-    assert set(entries) == {"decode", "paged_decode", "distr_fwd"}
-    for e in entries.values():
-        assert len(e["table"]) == 3 and e["default"] == 128 and e["calls"] == 1
+    assert set(entries) == {"decode", "paged_decode", "distr_fwd", "flash_fwd"}
+    defaults = {"decode": 128, "paged_decode": 128, "distr_fwd": [128, 32],
+                "flash_fwd": [64, 64]}
+    sizes = {"decode": 3, "paged_decode": 3, "distr_fwd": 3, "flash_fwd": 4}
+    for kernel, e in entries.items():
+        assert len(e["table"]) == sizes[kernel] and e["default"] == defaults[kernel]
+        assert e["calls"] == 1
         assert all(np.isfinite(r["seconds"]) and r["seconds"] > 0 and r["spread"] >= 0
                    for r in e["table"])
 
@@ -632,10 +679,17 @@ def test_serve_engine_warms_its_keys(monkeypatch, tmp_path):
 
 def test_train_launcher_tune_flag(monkeypatch, tmp_path):
     """``launch.train --tune measure`` resolves the training shape's blocks,
-    forward and backward, before the first step: the distr backward tiles
-    are recorded as compiled, nothing is swept for a pinned block_q."""
+    forward and backward, before the first step: with block_q pinned the
+    DistrAttention forward keeps its static keys unswept, and each backward
+    kernel's keys are swept over every compiled key tile at that block_q
+    (a bf16 step of the reduced config)."""
     from repro_torch.launch import train
 
+    def bf16_config(arch, reduced=False):
+        cfg = get_config(arch, reduced=reduced)
+        return cfg.replace(compute_dtype="bfloat16")
+
+    monkeypatch.setattr(train, "get_config", bf16_config)
     monkeypatch.setenv("REPRO_TUNE", "off")
     path = tmp_path / "train.json"
     reset_autotuner(Autotuner(cache=TuneCache(str(path)), timer=_largest_wins))
@@ -644,6 +698,11 @@ def test_train_launcher_tune_flag(monkeypatch, tmp_path):
                       "--tune", "measure", "--workdir", str(tmp_path / "wd")])
     assert os.environ["REPRO_TUNE"] == "measure"
     assert len(out["history"]) == 1
-    entries = json.load(open(path)).values()
-    assert sorted(e["kernel"] for e in entries) == ["distr_dkv", "distr_dq"]
-    assert all(e["compiled"] for e in entries)
+    entries = json.load(open(path))
+    assert sorted(e["kernel"] for e in entries.values()) == ["distr_dkv", "distr_dq"]
+    d = get_config("minicpm-2b", reduced=True).head_dim_
+    for key, e in entries.items():
+        assert key.startswith(f"{e['kernel']}@l=32|")
+        assert sorted(r["candidate"] for r in e["table"]) == sorted(
+            k for _, k in autotune.compiled_tiles(e["kernel"], d=d, dtype="bfloat16"))
+        assert e["best"] == 128  # the fake timer's largest
