@@ -180,12 +180,14 @@ model 2), llama4-scout's MoE layer at full width under ``ep_a2a`` and
 ``ep_psum`` against one device's, and a training step at full width cut
 to 1 layer, with a planted all-to-all fault that must fail its gradient
 gate).  Then the tensor-parallel phase (``mesh_tp_phase``: 2 ranks on
-(data 1, model 2), one training step each of mamba2-130m, zamba2-7b at
-head dim 112 cut to 12 layers, whisper-small and deepseek-v2-236b cut to 2
-layers at full width, in f32 against one device's step at the mesh phase's
-gates with one planted fault a family; first, tensor-parallel serving of
-starcoder2-7b cut to 4 layers under both cache layouts and both kernel
-impls against one device, ``tp_serve_checks``, and the dry run's count of
+(data 1, model 2), one training step each of mamba2-130m cut to 12
+layers, zamba2-7b at head dim 112 cut to 6 layers, whisper-small and
+deepseek-v2-236b cut to 2 layers at full width, in f32 against one
+device's step at the mesh phase's gates with one planted fault a family,
+after starcoder2-7b's steps under the "seq" layout (attention's positions
+over "model"); first, tensor-parallel serving of starcoder2-7b cut to 4
+layers under both cache layouts and both kernel impls against one device,
+``tp_serve_checks``, and the dry run's count of
 each mesh call and of mamba2-130m's step held to the card's,
 ``dry_compare``, while the host prices DRY_CELLS on (data 16, model 16)
 with ``launch.dryrun``) and zamba2-7b's 12-layer step at head dim 112 on
@@ -721,7 +723,10 @@ def sass_against(build, parent: Path) -> dict:
             "from repro_torch.kernels import build; print(build.build())")
     res = subprocess.run([sys.executable, "-c", code, str(parent / "src")], check=True,
                          capture_output=True, text=True, timeout=1200)
-    theirs = sass_functions(Path(res.stdout.strip().splitlines()[-1]))
+    # Both sides under ``static_alias``: a parent whose static tiles already
+    # carry their tile in the name meets this tree's under the same name.
+    theirs = {static_alias(fn): body for fn, body in
+              sass_functions(Path(res.stdout.strip().splitlines()[-1])).items()}
     ours = {static_alias(fn): body for fn, body in sass_functions(build.build()).items()}
     out = {"same": [], "differ": {}, "only_here": sorted(set(ours) - set(theirs)),
            "only_parent": sorted(set(theirs) - set(ours))}
@@ -4848,11 +4853,13 @@ def ring_phase(torch, device="cuda", small: bool = False) -> dict:
 # ``distributed/pipeline.py``): MESH_WORLD ranks sharing cuda:0 on gloo, as
 # the ring phase's.  One card checks what the mesh computes, not its speed.
 MESH_WORLD = RING_WORLD
-MESH_LAYERS = 4  # of minicpm-2b's 40, at full width
-# One step a run keeps the whole script, mesh serving, expert and tensor
-# parallelism included, inside its 1200 s limit (two took it to 1220 s on
-# one H100, tensor parallelism's phase 134 s of it).
-MESH_BATCH, MESH_SEQ, MESH_STEPS, MESH_LR = 2, 2048, 1, 1e-3
+MESH_LAYERS = 2  # of minicpm-2b's 40, at full width (the pipeline: MESH_WORLD)
+# One step a run of 2 × 1024 tokens keeps the whole script, mesh serving,
+# expert and tensor parallelism and the "seq" layout's steps included,
+# inside its 1200 s limit (two steps took it to 1220 s on one H100, tensor
+# parallelism's phase 134 s of it; 4 layers of 2 × 2048 tokens, 1041 s with
+# the "seq" steps).
+MESH_BATCH, MESH_SEQ, MESH_STEPS, MESH_LR = 2, 1024, 1, 1e-3
 MESH_SMALL_SEQ = 256
 MESH_IMPLS = ("pallas_distr", "pallas_flash")
 # The reference's own tolerances for a sharded step against the single
@@ -4880,6 +4887,24 @@ MESH_F32_TOL = {"perms_restaged": 1e-3, "perms_unequal": 0.05, "loss": 1e-4,
 MESH_MATMUL_TOL = 1e-4
 MESH_PIPE_MICRO = 4
 MESH_PIPE_TOL = 1e-2
+
+
+def replay_perms(want, got, m_idx: int):
+    """The part of one device's recorded LSH permutations ``want`` (B, H,
+    nq, d) that a mesh rank's stage 1 draws as ``got``: its heads where
+    attention runs by heads over "model", or, under the "seq" layout (every
+    head, the rank's positions), its blocks [m_idx·nq, (m_idx + 1)·nq), the
+    all-padding blocks past one device's own taken from ``got``."""
+    import torch
+
+    h, nq = got.shape[1], got.shape[2]
+    if want.shape[1] != h:
+        want = want[:, m_idx * h:(m_idx + 1) * h]
+    want = want.to(got.device)
+    if want.shape[2] != nq:
+        want = want[:, :, m_idx * nq:(m_idx + 1) * nq]
+        want = torch.cat([want, got[:, :, want.shape[2]:]], dim=2)
+    return want
 
 
 def mesh_rank(rank: int, world: int, device: str, small: bool) -> dict:
@@ -4958,7 +4983,7 @@ def mesh_rank(rank: int, world: int, device: str, small: bool) -> dict:
     # permutations.
     real_perms = ops.block_permutations
     tape = {"record": None, "args": None, "keep": None, "replay": None, "replay_on": True,
-            "at": 0, "same": 0, "total": 0, "rows": None, "heads": None}
+            "at": 0, "same": 0, "total": 0, "rows": None, "m": 0}
 
     def taped_perms(qp, dcfg, proj, hkv):
         perms = real_perms(qp, dcfg, proj, hkv)
@@ -4969,7 +4994,7 @@ def mesh_rank(rank: int, world: int, device: str, small: bool) -> dict:
             tape["keep"].append((qp.detach().cpu(), perms.cpu()))
         if tape["replay"] is not None:
             want = tape["replay"][tape["at"]]  # the single device's call in the same order
-            want = want[tape["rows"], tape["heads"]].to(perms.device)
+            want = replay_perms(want[tape["rows"]], perms, tape["m"])
             tape["at"] += 1
             eq = (perms == want).all(dim=-1)
             tape["same"] += int(eq.sum())
@@ -5039,13 +5064,12 @@ def mesh_rank(rank: int, world: int, device: str, small: bool) -> dict:
 
     def tape_slices(mesh):
         """Which of the single device's permutations this rank's stage 1
-        draws: its batch rows and its "model" heads."""
+        draws: its batch rows, and its "model" heads or positions
+        (``replay_perms``)."""
         dp_idx, dp_n = coll.axes_index(mesh, sharding.dp_axes(mesh))
         rows = MESH_BATCH // dp_n
-        heads = base_cfg.n_heads // coll.axis_size(mesh, "model")
-        m_idx = int(mesh.coords["model"])
         tape.update(rows=slice(dp_idx * rows, (dp_idx + 1) * rows),
-                    heads=slice(m_idx * heads, (m_idx + 1) * heads))
+                    m=int(mesh.coords["model"]))
 
     def shard_seed(cfg, mesh, specs):
         params = sharding.shard_params(init_train_params(cfg, seed=0, device=device), mesh,
@@ -5247,10 +5271,13 @@ def mesh_rank(rank: int, world: int, device: str, small: bool) -> dict:
             out["loss"], out["grad_norm"] = float(m["loss"]), float(m["grad_norm"])
             errs = leaf_errors(mine, want_g, mesh, lspecs, names)
             del params, state, mine, m
-            # The single device's stage 1 on the mesh's q, gathered.
-            spec = sharding.P(sharding.dp_axes(mesh), "model", None, None)
+            # The single device's stage 1 on the mesh's q, gathered: over its
+            # heads, or, under the "seq" layout, its positions.
             same = total = 0
             for (qp, perms), call in zip(kept, args or [None] * len(kept)):
+                by_seq = qp.shape[1] == cfg.n_heads and coll.axis_size(mesh, "model") > 1
+                spec = sharding.P(sharding.dp_axes(mesh), None if by_seq else "model",
+                                  "model" if by_seq else None, None)
                 q_full = sharding.gather_to(qp, mesh, spec)
                 p_full = sharding.gather_to(perms, mesh, spec)
                 if lead:
@@ -5341,7 +5368,8 @@ def mesh_rank(rank: int, world: int, device: str, small: bool) -> dict:
     del grads, mine, mean, res, exact
     # The pipeline: stage s runs block s of the model (bf16 compute).
     mesh_p = make_mesh((world,), ("pod",))
-    cfg = base_cfg.replace(attention=replace(base_cfg.attention, impl="pallas_flash"))
+    cfg = base_cfg.replace(n_layers=world,
+                           attention=replace(base_cfg.attention, impl="pallas_flash"))
     params = init_train_params(cfg, seed=0, device=device)
     cdt = lm.compute_dtype(cfg)
     xs = (torch.randn((MESH_PIPE_MICRO, 1, seq, d), generator=gen, device=device) * 0.5).to(cdt)
@@ -6283,9 +6311,10 @@ def moe_ep_phase(torch, reports: list, device: str = "cuda") -> dict:
 # ``models/attention.py``'s cross-attention and MLA, ``train/train_step.py``):
 # MESH_TP_WORLD ranks sharing cuda:0 on gloo, a (data 1, model 2) mesh.  Each
 # run is (arch, layers kept or None for all, tokens, encoder frames or 0):
-# mamba2-130m whole (24 layers), zamba2-7b cut to 12 of 81 layers (its two
-# groups of 6 Mamba layers, each followed by one of the two shared attention
-# blocks; ≈ 1.6 B params), whisper-small whole (12 + 12 layers, 448 tokens
+# mamba2-130m cut to 12 of 24 layers, zamba2-7b cut to 6 of 81 layers (one
+# group of 6 Mamba layers and the first shared attention block; both cut
+# for the script's time, from 24 and 12), whisper-small whole (12 + 12
+# layers, 448 tokens
 # over 1500 frames) and deepseek-v2-236b cut to 2 layers (the dense one and
 # one MoE layer, expert parallel at MESH_TP_NODROP_CF; ≈ 5.4 B params, 20
 # GiB in f32) on 1024 tokens: at 2048 its mesh step, 10.4 GB of params and
@@ -6294,7 +6323,7 @@ def moe_ep_phase(torch, reports: list, device: str = "cuda") -> dict:
 # MESH_TP_DTYPES).  Attention runs pallas_distr (deepseek's MLA then runs
 # plain DistrAttention, no kernel, as in the reference).
 MESH_TP_WORLD = 2
-MESH_TP_RUNS = (("mamba2-130m", None, 2048, 0), ("zamba2-7b", 12, 2048, 0),
+MESH_TP_RUNS = (("mamba2-130m", 12, 2048, 0), ("zamba2-7b", 6, 2048, 0),
                 ("whisper-small", None, 448, 1500), ("deepseek-v2-236b", 2, 1024, 0))
 MESH_TP_SMALL_SEQ = 64
 # The training run whose step the dry run's count is held to.
@@ -6323,11 +6352,13 @@ MESH_TP_DTYPES = ("float32", "bfloat16")
 # the per-head Mamba parameters taken without take_slice's gather (zamba2);
 # the encoder output entering the cross-attention without tp_enter
 # (whisper); MLA's latent q, c_kv and rope key entering the region without
-# tp_enter (deepseek).
+# tp_enter (deepseek); under the "seq" layout each rank's positions rolled
+# by one after the all-to-all from columns to positions (starcoder2).
 MESH_TP_FAULTS = {"mamba2-130m": "out_norm squares not summed over model",
                   "zamba2-7b": "per-head parameters without take_slice",
                   "whisper-small": "cross-attention K/V source without tp_enter",
-                  "deepseek-v2-236b": "MLA latents without tp_enter"}
+                  "deepseek-v2-236b": "MLA latents without tp_enter",
+                  "starcoder2-7b": "each rank's shard offset by one position"}
 # The kernels the mesh steps must launch on every rank, by family.
 MESH_TP_KERNELS = {"ssm": ("ssd",), "hybrid": ("ssd", "distr", "delta", "distr_dq", "distr_dkv"),
                    "encdec": ("distr", "delta", "distr_dq", "distr_dkv"), "moe": ()}
@@ -6335,6 +6366,26 @@ COUNTER_NAMES = {"flash_attention": "flash", "distr_attention": "distr", "ssd": 
                  **{f"backward.{k}": k for k in ("delta", "flash_dq", "flash_dkv", "distr_dq",
                                                  "distr_dkv")}}
 
+
+# The "seq" layout in the same world: SEQ_TP_ARCH at full width (d_model
+# 4608, 36 query and 4 KV heads of 128) cut to SEQ_TP_LAYERS of its 32
+# layers, one row of SEQ_TP_SEQ tokens on (data 1, model 2): each rank
+# projects and attends its own 1024 positions over a ring on "model".  One
+# f32 step a kernel impl, through ``mesh_tp_rank``'s ``steps`` as the
+# families' runs (one device's permutations replayed: the rank's blocks),
+# held to one device's step at MESH_TOL, MESH_GNORM_REL and MESH_GRAD_TOL,
+# with MESH_TP_FAULTS[SEQ_TP_ARCH] planted in one more step, which must be
+# at least SEQ_TP_PLANTED_MIN times the gradient gate; then one bf16 step,
+# reported beside one device's bf16 step and not gated (seeded weights
+# amplify bf16 rounding with depth, see MESH_TP_DTYPES).  Every
+# attention call must take the "seq" layout and every rank launch the
+# impl's SEQ_TP_KERNELS.
+SEQ_TP_ARCH, SEQ_TP_LAYERS, SEQ_TP_SEQ, SEQ_TP_SMALL_SEQ = "starcoder2-7b", 4, 2048, 256
+SEQ_TP_RUNS = (("pallas_distr", "float32"), ("pallas_flash", "float32"),
+               ("pallas_flash", "bfloat16"))
+SEQ_TP_PLANTED_MIN = 10.0
+SEQ_TP_KERNELS = {"pallas_flash": ("flash", "delta", "flash_dq", "flash_dkv"),
+                  "pallas_distr": ("distr", "delta", "distr_dq", "distr_dkv")}
 
 # Tensor-parallel serving in the same world: starcoder2-7b at full width cut
 # to TP_SERVE_LAYERS of its 32 layers on (data 1, model 2), under both cache
@@ -6347,7 +6398,7 @@ COUNTER_NAMES = {"flash_attention": "flash", "distr_attention": "distr", "ssd": 
 # from the same weights, the greedy tokens be equal under f32 flash, and
 # each rank's cache be its ``cache_pspecs`` block of one device's cache.
 TP_SERVE_ARCH, TP_SERVE_LAYERS = "starcoder2-7b", 4
-TP_SERVE_PROMPTS, TP_SERVE_MAX_LEN, TP_SERVE_STEPS = (96, 700, 1537, 2048), 2048, 16
+TP_SERVE_PROMPTS, TP_SERVE_MAX_LEN, TP_SERVE_STEPS = (96, 700, 1537, 2048), 2048, 8
 TP_SERVE_SMALL = ((8, 20, 33, 64), 64, 4)
 TP_SERVE_TOL = 1e-4
 TP_SERVE_RUNS = tuple((layout, impl, dtype) for dtype in ("float32", "bfloat16")
@@ -6424,10 +6475,7 @@ def tp_serve_checks(rank: int, world: int, device: str, small: bool, mesh) -> di
             return perms
         want = tape["perms"][tape["at"]]
         tape["at"] += 1
-        h = perms.shape[1]
-        if want.shape[1] != h:
-            want = want[:, tape["m"] * h:(tape["m"] + 1) * h]
-        return want.to(perms.device)
+        return replay_perms(want, perms, tape["m"])
 
     def sync():
         if cuda:
@@ -6609,6 +6657,7 @@ def mesh_tp_rank(rank: int, world: int, device: str, small: bool) -> dict:
     import torch
     import torch.distributed as dist
 
+    from repro_torch.configs import get_config
     from repro_torch.distributed import collectives as coll
     from repro_torch.distributed import sharding
     from repro_torch.kernels import ops
@@ -6668,11 +6717,8 @@ def mesh_tp_rank(rank: int, world: int, device: str, small: bool) -> dict:
         if not tape["replay"]:
             tape["perms"].append(perms.cpu())
             return perms
-        want = tape["perms"][tape["at_p"]]
+        want = replay_perms(tape["perms"][tape["at_p"]], perms, m_idx)
         tape["at_p"] += 1
-        h = perms.shape[1]
-        want = want[:, m_idx * h:(m_idx + 1) * h] if want.shape[1] != h else want
-        want = want.to(perms.device)
         eq = (perms == want).all(dim=-1)
         tape["same"] += int(eq.sum())
         tape["total"] += eq.numel()
@@ -6724,23 +6770,44 @@ def mesh_tp_rank(rank: int, world: int, device: str, small: bool) -> dict:
             stack.enter_context(swapped(lm, "encode", encode))
             stack.enter_context(swapped(coll, "tp_enter", enter))
             return stack
+        if arch == SEQ_TP_ARCH:
+            real_rows = attention._cols_to_rows
+            return swapped(attention, "_cols_to_rows", lambda t, mesh_, shard: torch.roll(
+                real_rows(t, mesh_, shard), 1, dims=1))
         real_qkv = attention._mla_qkv
         return swapped(attention, "_mla_qkv", lambda p, x, c, pos, h=None, mesh_=None:
                        real_qkv(p, x, c, pos, h, None))
 
-    def steps(cfg, batch, mesh_specs_, lspecs, arch):
+    def rise_of(fn, measure: bool):
+        """fn() → (its result, the card's allocation rise over it in this
+        process when ``measure``, else None; None off the card)."""
+        if not (cuda and measure):
+            return fn(), None
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        sync()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    def steps(cfg, batch, mesh_specs_, lspecs, arch, plant=True):
         """The single device's step (each rank in turn draws the seed
         weights, takes it and keeps its slices of the clipped gradients on
         its host, then keeps its own shards: the two ranks never hold the
-        whole model at once), then the mesh step, sound and with ``arch``'s
-        fault planted → (one device's metrics, its gradient slices, [(the
-        mesh's metrics, its gradients, seconds, launches)] sound first)."""
+        whole model at once), then the mesh step, sound and, with ``plant``,
+        with ``arch``'s fault planted → (one device's metrics, its gradient
+        slices, [(the mesh's metrics, its gradients, seconds, launches)]
+        sound first).  The metrics hold the step's allocation rise on the
+        card, and the mesh's the layout each attention call took."""
         tape.update(perms=[], ids=[], replay=False)
         m1 = want = params = None
+        one_rise = None
         for turn in range(world):
             if turn == rank:
                 full = init_train_params(cfg, seed=0, device=device)
-                _, _, m1 = make_train_step(cfg, ocfg)(full, {"count": 0}, batch, 0)
+                (_, _, m1), one_rise = rise_of(
+                    lambda: make_train_step(cfg, ocfg)(full, {"count": 0}, batch, 0),
+                    arch == SEQ_TP_ARCH)
                 want = [sharding.local_slice(g, mesh, sp).cpu()
                         for g, sp in zip(sink.pop("grads"), lspecs)]
                 with torch.no_grad():  # the step made the full leaves require grad
@@ -6750,25 +6817,27 @@ def mesh_tp_rank(rank: int, world: int, device: str, small: bool) -> dict:
             dist.barrier()
         step = make_train_step(cfg, ocfg, mesh)
         runs = []
-        for fault in (False, True):
+        for fault in (False, True) if plant else (False,):
             tape.update(replay=True, at_p=0, at_i=0, same=0, total=0)
             sync()
             # The sound step of DRY_TRAIN_ARCH under the cost counter, held
             # to the dry run's count of the same step below.
             count = arch == DRY_TRAIN_ARCH and not fault
-            if count and cuda:
+            measure = cuda and (count or arch == SEQ_TP_ARCH)
+            if measure:
                 torch.cuda.reset_peak_memory_stats()
                 base = torch.cuda.memory_allocated()
             before = counters.read()
+            layouts.clear()
             t0 = time.perf_counter()
             with (planted(arch) if fault else contextlib.nullcontext()), \
                     (CostCounter() if count else contextlib.nullcontext()) as ctr:
                 _, _, m = step(params, {"count": 0}, batch, 0)
             sync()
             step_s = time.perf_counter() - t0
+            rise = torch.cuda.max_memory_allocated() - base if measure else None
             if count:
-                sink["count"] = (ctr, torch.cuda.max_memory_allocated() - base if cuda else None,
-                                 dryrun.argument_bytes(params, {"count": 0}, batch))
+                sink["count"] = (ctr, rise, dryrun.argument_bytes(params, {"count": 0}, batch))
             after = counters.read()
             if tape["at_p"] != len(tape["perms"]) or tape["at_i"] != len(tape["ids"]):
                 failures.append(f"{cfg.name} {cfg.compute_dtype}: the mesh step drew "
@@ -6781,7 +6850,8 @@ def mesh_tp_rank(rank: int, world: int, device: str, small: bool) -> dict:
             # of the card's 80 (an OOM in one whole run).
             grads = sink.pop("grads")
             runs.append(({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-                          "perms_alike": [tape["same"], tape["total"]]},
+                          "perms_alike": [tape["same"], tape["total"]], "rise": rise,
+                          "one_rise": one_rise, "layouts": list(layouts)},
                          grads if fault else [g.cpu() for g in grads], step_s,
                          {COUNTER_NAMES[k]: after[k] - before[k]
                           for k in COUNTER_NAMES if after[k] != before[k]}))
@@ -6903,17 +6973,117 @@ def mesh_tp_rank(rank: int, world: int, device: str, small: bool) -> dict:
             log(f"[mesh tp] {arch}: {out['seconds']:.1f} s")
         return out
 
+    def seq_run(impl: str, dtype: str) -> dict:
+        """One SEQ_TP_RUNS entry: SEQ_TP_ARCH's step under the "seq" layout
+        against one device's (see SEQ_TP_RUNS) → its reading, with this
+        rank's launches under "launches"."""
+        t_run = time.perf_counter()
+        cfg = get_config(SEQ_TP_ARCH, reduced=small).replace(compute_dtype=dtype)
+        if not small:
+            cfg = cfg.replace(n_layers=SEQ_TP_LAYERS)
+        cfg = cfg.replace(attention=cfg.attention.with_impl(impl))
+        seq = SEQ_TP_SMALL_SEQ if small else SEQ_TP_SEQ
+        label = f"{SEQ_TP_ARCH} seq {impl} {dtype}"
+        gated = dtype == "float32"
+        gen = torch.Generator(device=device).manual_seed(7)
+        toks = torch.randint(0, cfg.vocab, (1, seq + 1), generator=gen, device=device)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        specs = mesh_specs(cfg, mesh)
+        shapes = lm.param_shapes(cfg)
+        lspecs = leaf_specs(shapes, specs)
+        names = [n for n, _ in lm.named_trainable(shapes)]
+        one, want, runs = steps(cfg, batch, specs, lspecs, SEQ_TP_ARCH, plant=gated)
+        m, got, step_s, counts = runs[0]
+        stats = leaf_stats(got, want, lspecs)
+        planted_stats = leaf_stats(runs[1][1], want, lspecs) if gated else None
+        del runs, got, want
+        free()
+        silent = [k for k in SEQ_TP_KERNELS[impl] if not counts.get(k)]
+        if cuda and silent:
+            failures.append(f"rank {rank}: {label}'s mesh step never launched {silent}")
+        if any(lay != "seq" for lay in m["layouts"]):
+            failures.append(f"rank {rank}: {label}: attention took {m['layouts']}, not 'seq'")
+        per_rank = [None] * world
+        dist.all_gather_object(per_rank, {"rise": m["rise"], "one_rise": m["one_rise"],
+                                          "launches": counts, "step_s": step_s})
+        out = {"label": label, "tokens": seq, "layers": cfg.n_layers, "one": one,
+               "mesh": {k: m[k] for k in ("loss", "grad_norm", "perms_alike")},
+               "layouts": m["layouts"][:cfg.n_layers], "per_rank": per_rank,
+               "launches": counts}
+        if lead:
+            loss_err = abs(m["loss"] - one["loss"])
+            gnorm_err = abs(m["grad_norm"] - one["grad_norm"]) / one["grad_norm"]
+            share, at = grad_share(label, "step", stats, names)
+            dsq, wsq = float(stats[:, 1].sum()), float(stats[:, 3].sum())
+            out.update(loss_err=loss_err, grad_norm_rel_err=gnorm_err, grad_share=share,
+                       worst_leaf=at, grad_rel_l2=(dsq / max(wsq, 1e-60)) ** 0.5)
+            if gated:
+                for what, value, tol in (("loss", loss_err, MESH_TOL["loss"]),
+                                         ("grad norm", gnorm_err, MESH_GNORM_REL)):
+                    readings.append({"check": f"{label} step {what}", "value": value,
+                                     "tol": tol})
+                    log(f"  [seq tp] {label} step {what}: {value:.4g} (tolerance {tol}); "
+                        f"{value / tol:.3g} of it")
+                    if not value <= tol:
+                        failures.append(f"{label} step {what}: {value} against {tol}")
+                p_share, p_at = grad_share(label, f"step, planted ({MESH_TP_FAULTS[SEQ_TP_ARCH]})",
+                                           planted_stats, names)
+                out.update(planted=MESH_TP_FAULTS[SEQ_TP_ARCH], planted_share=p_share,
+                           planted_worst_leaf=p_at)
+                if not share <= 1.0:
+                    failures.append(f"{label} step gradient {at}: {share:.3g} of MESH_GRAD_TOL")
+                if not p_share >= SEQ_TP_PLANTED_MIN:
+                    failures.append(f"{label}: the planted fault ({MESH_TP_FAULTS[SEQ_TP_ARCH]}) "
+                                    f"is {p_share:.3g}× the gradient gate, under "
+                                    f"{SEQ_TP_PLANTED_MIN}×")
+            summed = Counter()
+            for r in per_rank:
+                summed.update(r["launches"])
+            out["launches_summed"] = dict(summed)
+            log(f"[seq tp] {label} ({cfg.n_layers} layers, {seq} tokens): layout by layer "
+                f"{out['layouts']}; loss {m['loss']!r} (mesh) vs {one['loss']!r} (one device), "
+                f"grad norm {m['grad_norm']!r} vs {one['grad_norm']!r}; gradients "
+                f"{share:.3g} of MESH_GRAD_TOL (worst {at}), relative L2 "
+                f"{out['grad_rel_l2']:.4g}" + ("" if gated else " (bf16: reported, not gated)")
+                + (f"; the planted fault {out['planted_share']:.3g}× over" if gated else "")
+                + f"; {m['perms_alike'][0]} of {m['perms_alike'][1]} replayed permutations "
+                f"drawn alike; launches summed over ranks {dict(summed)}; mesh step by rank "
+                f"{[round(r['step_s'], 2) for r in per_rank]} s")
+            log(f"  [seq tp] {label} peak-allocated rise by rank: mesh "
+                f"{[round(r['rise'] / 2**30, 3) if r['rise'] else r['rise'] for r in per_rank]}"
+                f" GiB, one device {[round(r['one_rise'] / 2**30, 3) if r['one_rise'] else None for r in per_rank]} GiB")
+        out["seconds"] = time.perf_counter() - t_run
+        return out
+
+    layouts: list = []
+    real_seq, real_heads = attention._attention_seq, attention.heads_to_run
+
+    def seq_recorded(*a, **k):
+        layouts.append("seq")
+        return real_seq(*a, **k)
+
+    def heads_recorded(params_, cfg_):
+        layouts.append(attention.tp_layout(params_, cfg_)[0])
+        return real_heads(params_, cfg_)
+
     # Tensor-parallel serving first (its own permutation tape), then the
     # training runs.
     serving = tp_serve_checks(rank, world, device, small, mesh)
     failures.extend(serving["failures"])
     dist.barrier()
-    report, launches = {}, {}
+    report, launches, seq_report = {}, {}, []
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     with swapped(ops, "block_permutations", taped_perms), \
             swapped(core_distr, "block_permutations", taped_perms), \
-            swapped(moe, "route", taped_route), swapped(opt, "adamw_update", record):
+            swapped(moe, "route", taped_route), swapped(opt, "adamw_update", record), \
+            swapped(attention, "_attention_seq", seq_recorded), \
+            swapped(attention, "heads_to_run", heads_recorded):
+        for impl, dtype in SEQ_TP_RUNS:
+            row = seq_run(impl, dtype)
+            launches[row["label"]] = row.pop("launches")
+            seq_report.append(row)
+            dist.barrier()
         for arch, n_layers, seq, frames in MESH_TP_RUNS:
             report[arch] = run(arch, n_layers, seq, frames)
             launches[arch] = report[arch].pop("launches")
@@ -6935,8 +7105,8 @@ def mesh_tp_rank(rank: int, world: int, device: str, small: bool) -> dict:
     return {"rank": rank, "launches": launches, "serve_decode_launches": serving["launches"],
             "peak_allocated": torch.cuda.max_memory_allocated() if cuda else 0,
             "dry_readings": serving["readings"] + dry_readings,
-            **({"report": report, "readings": readings, "serving": serving["rows"]}
-               if lead else {})}
+            **({"report": report, "readings": readings, "serving": serving["rows"],
+                "seq": seq_report} if lead else {})}
 
 
 def mesh_tp_phase(torch, reports: list, cells: dict, device: str = "cuda") -> dict:
@@ -6958,7 +7128,8 @@ def mesh_tp_phase(torch, reports: list, cells: dict, device: str = "cuda") -> di
     an expert assignment, when a mesh step did not launch its family's
     MESH_TP_KERNELS on some rank, and when the card's memory is not back.
     The same world holds the tensor-parallel serving checks
-    (``tp_serve_checks``) and the dry run's accounting against the card
+    (``tp_serve_checks``), the "seq" layout's steps (SEQ_TP_RUNS, before
+    the families' runs) and the dry run's accounting against the card
     (``dry_compare``), and the host prices DRY_CELLS (``dry_cells``) into
     ``cells`` beside it (``paired_phases``, whose world gives the ranks'
     ``reports``)."""
@@ -6977,7 +7148,8 @@ def mesh_tp_phase(torch, reports: list, cells: dict, device: str = "cuda") -> di
               for (a, sh), rec in cells.items() if rec.get("status") != "ok"]
     if failed or len(cells) != len(DRY_CELLS):
         raise AssertionError(f"production-mesh dry-run cells not ok: {failed or cells}")
-    report = {"runs": reports[0]["report"], "readings": reports[0]["readings"], "wall_s": wall,
+    report = {"runs": reports[0]["report"], "seq_runs": reports[0]["seq"],
+              "readings": reports[0]["readings"], "wall_s": wall,
               "launches": launches,
               "launches_by_rank": [r["launches"] for r in reports],
               "peak_allocated_by_rank": [r["peak_allocated"] for r in reports],
@@ -7008,8 +7180,8 @@ def dry_cells(out: dict) -> None:
 
 
 def hybrid112_train_phase(torch, device="cuda", small: bool = False) -> dict:
-    """zamba2-7b at its own widths (head dim 112) cut to 12 layers, as
-    MESH_TP_RUNS has it, one training step on one device under
+    """zamba2-7b at its own widths (head dim 112) cut to 12 layers (its two
+    groups and both shared blocks), one training step on one device under
     pallas_distr (f32 params, full remat, 1 × 2048 tokens; ``reduced()``
     and MESH_TP_SMALL_SEQ when ``small``) on the kernels, then the same step
     with every kernel wrapper it reaches swapped for its plain version (the
@@ -7171,10 +7343,12 @@ def main() -> int:
                          "the card); mesh_serve: the qwen1.5-4b kernel checks, then serving "
                          "over a context mesh (2 ranks sharing the card); moe_ep: the "
                          "llama4-scout forward kernel check, then MoE expert parallelism "
-                         "(2 ranks sharing the card); mesh_tp: tensor parallelism for the "
-                         "ssm, hybrid and enc-dec families and MLA (2 ranks sharing the "
-                         "card), then zamba2-7b's step at head dim 112 on the kernels "
-                         "against the plain versions; each prints a JSON summary")
+                         "(2 ranks sharing the card); mesh_tp: tensor-parallel serving, "
+                         "starcoder2-7b's steps under the \"seq\" layout, then tensor "
+                         "parallelism for the ssm, hybrid and enc-dec families and MLA (2 "
+                         "ranks sharing the card), then zamba2-7b's step at head dim 112 "
+                         "on the kernels against the plain versions; each prints a JSON "
+                         "summary")
     ap.add_argument("--sass-against", default=None, metavar="DIR",
                     help="only build this tree's kernels and those of the checkout at DIR "
                          "(a parent commit, say) and compare the SASS of every function "

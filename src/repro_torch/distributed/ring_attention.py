@@ -37,15 +37,21 @@ locally while (K, V, dK, dV) rotate together; after P rotations dK and dV
 are back on their owner.  The merged LSE and the local D = rowsum(dO ∘ O)
 are row statistics of the local Q shard, so no statistic crosses the ring.
 
-The calling contract is the reference's over the context axis: (B, H, N,
-d) tensors with the global N go in on every rank of the context group and
-the output comes out, unpadded to N, on every one of them; the gradients of
-q, k and v are equal on every rank of the group.  Beside the ring the batch
-rows and heads are this rank's: on a mesh with data-parallel axes and
-"model" (the reference's ``_ring_specs``: batch over the data-parallel
-axes, heads over "model") the caller passes its own rows and heads (the
-trainer splits the batch, tensor-parallel attention its heads), and the
-ring runs on the context group of this rank's (data, model) coordinate.
+The calling contract of ``ring_flash_attention`` / ``ring_distr_attention``
+is the reference's over the context axis: (B, H, N, d) tensors with the
+global N go in on every rank of the context group and the output comes out,
+unpadded to N, on every one of them; the gradients of q, k and v are equal
+on every rank of the group.  ``ring_attention_shard`` is the same ring
+shard in, shard out: each rank passes its own rows of q, k and v (its
+contiguous shard, zero-padded to ``shard_len``) and gets its rows of the
+output and of the gradients, nothing gathered; the "seq" layout of
+``models.attention`` runs it over "model", DistrAttention's stage 1 on the
+rank's own rows.  Beside the ring the batch rows and heads are this
+rank's: on a mesh with data-parallel axes and "model" (the reference's
+``_ring_specs``: batch over the data-parallel axes, heads over "model")
+the caller passes its own rows and heads (the trainer splits the batch,
+tensor-parallel attention its heads), and the ring runs on the context
+group of this rank's (data, model) coordinate.
 The context group must be a ``gloo`` group, which moves host tensors only
 (and is the backend that can put several ranks on one card): CUDA tensors
 are staged through pinned host buffers by the wire layer of
@@ -68,6 +74,7 @@ from repro_torch.kernels import backward as bwd
 from repro_torch.kernels import ops
 from repro_torch.kernels.distr_attention import distr_attention_kernel_call
 from repro_torch.kernels.flash_attention import flash_attention_kernel_call
+from repro_torch.launch.mesh import DryMesh
 from repro_torch.tune.block_sizes import BlockSizes
 
 # A ring shard is only worth its hop once it holds a full 128-row tile;
@@ -105,11 +112,14 @@ class _Ring:
         self.mesh, self.axis = mesh, axis
         self.size = int(mesh.shape[axis])
         self.idx = int(mesh.coords[axis])
-        self.group = mesh.groups[axis]
         ranks = mesh.ranks[axis]
         self.next = ranks[(self.idx + 1) % self.size]
         self.prev = ranks[(self.idx - 1) % self.size]
-        coll.require_gloo(self.group, "the ring")
+        if isinstance(mesh, DryMesh):  # the dry run: hops charged, nothing sent
+            self.group = coll.DRY
+        else:
+            self.group = mesh.groups[axis]
+            coll.require_gloo(self.group, "the ring")
 
     def rotate(self, tensors):
         """Every rank sends ``tensors`` to the next ring position; returns
@@ -146,6 +156,9 @@ class _RingMeta:
     # The dead shards (dead_shard_fault) in force when the ring call began:
     # its backward skips the hops its forward skipped, wherever it runs.
     dead: frozenset[int] = field(default_factory=lambda: _DEAD_SHARDS)
+    # Shard in, shard out (``ring_attention_shard``): q, k, v and the output
+    # are this rank's rows, and so are the gradients.
+    local: bool = False
 
     @property
     def tail_idx(self) -> int:
@@ -328,26 +341,37 @@ def _ring_flash_local_bwd(meta: _RingMeta, ring: _Ring, q, k, v, o, lse, do):
     return dq.reshape(b, hq, n_sh, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _shard_in(x: torch.Tensor, meta: _RingMeta, ring: _Ring) -> torch.Tensor:
+    """This rank's rows of an operand: the operand itself when the call is
+    shard in, shard out (``meta.local``), else its shard of the global one."""
+    return x.contiguous() if meta.local else _local_shard(x, meta, ring.idx)
+
+
+def _shard_out(x: torch.Tensor, meta: _RingMeta, ring: _Ring) -> torch.Tensor:
+    """A result of this rank's rows as the call returns it: as it is
+    (``meta.local``), else the ring's shards gathered and cut to N."""
+    return x if meta.local else ring.gather_seq(x)[:, :, :meta.n_live]
+
+
 class _RingFlash(torch.autograd.Function):
-    """Global q, k, v in, the global output out; the backward runs the
-    reverse ring and gathers the global gradients."""
+    """q, k, v in, the output out (global, or this rank's rows under
+    ``meta.local``); the backward runs the reverse ring and returns the
+    gradients the same way."""
 
     @staticmethod
     def forward(ctx, q, k, v, meta: _RingMeta, ring: _Ring):
-        ql, kl, vl = (_local_shard(x, meta, ring.idx) for x in (q, k, v))
+        ql, kl, vl = (_shard_in(x, meta, ring) for x in (q, k, v))
         out, lse = _ring_flash_fwd_impl(meta, ring, ql, kl, vl)
         ctx.save_for_backward(ql, kl, vl, out, lse)
         ctx.meta, ctx.ring = meta, ring
-        return ring.gather_seq(out)[:, :, :meta.n_live]
+        return _shard_out(out, meta, ring)
 
     @staticmethod
     def backward(ctx, do):
         meta, ring = ctx.meta, ctx.ring
         dq, dk, dv = _ring_flash_local_bwd(meta, ring, *ctx.saved_tensors,
-                                           _local_shard(do, meta, ring.idx))
-        n = meta.n_live
-        return (ring.gather_seq(dq)[:, :, :n], ring.gather_seq(dk)[:, :, :n],
-                ring.gather_seq(dv)[:, :, :n], None, None)
+                                           _shard_in(do, meta, ring))
+        return (*(_shard_out(g, meta, ring) for g in (dq, dk, dv)), None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -364,8 +388,11 @@ def _distr_stage1(meta: _RingMeta, q: torch.Tensor, hkv: int, proj):
     the reference runs it on the global array): every rank then holds the
     same permutations.  The blocks the single-device op pads Q to are
     hashed in one call with its shapes; the all-zero blocks past them, in
-    a second."""
+    a second.  Shard in, shard out (``meta.local``) the rank hashes its own
+    rows alone: the same blocks, hence the same permutations."""
     cfg = meta.dcfg
+    if meta.local:
+        return ops.distr_stage1(cfg, q, meta.scale, proj=proj, hkv=hkv)
     qp = pad_to_multiple(q, cfg.block_q, dim=2)
     q_hat, perms = ops.distr_stage1(cfg, qp, meta.scale, proj=proj, hkv=hkv)
     extra = meta.size * meta.shard - qp.shape[2]
@@ -447,15 +474,18 @@ class _RingDistr(torch.autograd.Function):
     def forward(ctx, q, k, v, meta: _RingMeta, ring: _Ring, proj):
         cfg = meta.dcfg
         q_hat, perms = _distr_stage1(meta, q, k.shape[1], proj)
-        nb = meta.shard // cfg.block_q
-        i = ring.idx
-        qh_l = q_hat[:, :, i * meta.shard:(i + 1) * meta.shard].contiguous()
-        perms_l = perms[:, :, i * nb:(i + 1) * nb].contiguous()
-        kl, vl = (_local_shard(x, meta, i) for x in (k, v))
+        if meta.local:
+            qh_l, perms_l = q_hat.contiguous(), perms.contiguous()
+        else:
+            nb = meta.shard // cfg.block_q
+            i = ring.idx
+            qh_l = q_hat[:, :, i * meta.shard:(i + 1) * meta.shard].contiguous()
+            perms_l = perms[:, :, i * nb:(i + 1) * nb].contiguous()
+        kl, vl = (_shard_in(x, meta, ring) for x in (k, v))
         out, lse = _ring_distr_local_fwd(meta, ring, qh_l, perms_l, kl, vl)
         ctx.save_for_backward(qh_l, perms_l, kl, vl, out, lse, perms)
         ctx.meta, ctx.ring, ctx.q_dtype = meta, ring, q.dtype
-        return ring.gather_seq(out)[:, :, :meta.n_live]
+        return _shard_out(out, meta, ring)
 
     @staticmethod
     def backward(ctx, do):
@@ -463,13 +493,15 @@ class _RingDistr(torch.autograd.Function):
         cfg = meta.dcfg
         qh_l, perms_l, kl, vl, out, lse, perms = ctx.saved_tensors
         dq_hat, dk, dv = _ring_distr_local_bwd(meta, ring, qh_l, perms_l, kl, vl, out, lse,
-                                               _local_shard(do, meta, ring.idx))
-        n = meta.n_live
-        dq = ops.distr_dq_from_dq_hat(cfg.estimator, ring.gather_seq(dq_hat), perms,
+                                               _shard_in(do, meta, ring))
+        dq = ops.distr_dq_from_dq_hat(cfg.estimator, dq_hat if meta.local
+                                      else ring.gather_seq(dq_hat), perms,
                                       block_q=cfg.block_q, group_size=cfg.group_size,
                                       scale=meta.scale)
-        return (dq[:, :, :n].to(ctx.q_dtype), ring.gather_seq(dk)[:, :, :n],
-                ring.gather_seq(dv)[:, :, :n], None, None, None)
+        if not meta.local:
+            dq = dq[:, :, :meta.n_live]
+        return (dq.to(ctx.q_dtype), *(_shard_out(g, meta, ring) for g in (dk, dv)),
+                None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -484,6 +516,51 @@ def _ring_size(q, k, mesh, axis: str) -> int:
     return int(mesh.shape[axis]) if axis in mesh.axis_names else 1
 
 
+def _flash_meta(like: torch.Tensor, n: int, p: int, *, causal: bool, scale: float,
+                blocks: BlockSizes | None, local: bool = False) -> _RingMeta:
+    """The flash ring's meta for N = ``n`` over ``p`` ranks (``like``: a
+    tensor of q's head dim, dtype and device): 128-row multiples of shards,
+    the tiles pinned by ``blocks`` or resolved through the tuner at the
+    shard one rank streams (the backward's too under
+    ``REPRO_TUNE=measure``: the meta is fixed at dispatch)."""
+    shard = context_shard_len(n, p)
+    if blocks is None:
+        from repro_torch.tune.autotune import resolve_block_sizes, tune_mode
+        from repro_torch.tune.cache import dtype_str
+
+        blocks = resolve_block_sizes("flash", d=like.shape[-1], n=shard, dtype=dtype_str(like),
+                                     causal=causal, bwd=tune_mode() == "measure",
+                                     device=like.device)
+    return _RingMeta(size=p, causal=causal, scale=scale, n_live=n, shard=shard, blocks=blocks,
+                     local=local)
+
+
+def _distr_meta(cfg: DistrConfig, proj, like: torch.Tensor, n: int, p: int, *, causal: bool,
+                scale: float, local: bool = False):
+    """(the DistrAttention ring's meta, the LSH projection) for N = ``n``
+    over ``p`` ranks (``like`` as ``_flash_meta``'s).  The tuner's key is
+    the length one rank streams, not the global N; a projection drawn for
+    another block_q is dropped when the tuner chose block_q (None: drawn
+    from ``cfg.proj_seed``), refused when the config pinned it."""
+    from repro_torch.tune.cache import dtype_str
+
+    tuned = cfg.block_q is None
+    cfg = cfg.resolved(like.shape[-1], context_shard_len(n, p), dtype=dtype_str(like),
+                       causal=causal, xla=False, device=like.device)
+    if proj is not None and proj.shape[-1] != cfg.block_q:
+        if not tuned:
+            raise ValueError(f"LSH projection over {proj.shape[-1]} rows given for "
+                             f"block_q={cfg.block_q}")
+        proj = None
+    # The grouping grain does not move: shards are a multiple of
+    # lcm(block_q, 128), so block_q tiles every shard and the ring groups
+    # exactly as the single-device op does.
+    shard = context_shard_len(n, p, multiple=lcm(128, cfg.block_q))
+    return _RingMeta(size=p, causal=causal, scale=scale, n_live=n, shard=shard, dcfg=cfg,
+                     bk_bwd_distr=_resolve_distr_bwd_pair(cfg, like, shard, causal),
+                     local=local), proj
+
+
 def ring_flash_attention(q, k, v, mesh, *, axis: str = "context", causal: bool = False,
                          scale: float | None = None, blocks: BlockSizes | None = None,
                          return_hops: bool = False):
@@ -492,24 +569,14 @@ def ring_flash_attention(q, k, v, mesh, *, axis: str = "context", causal: bool =
     ranks inside; the same global tensors on every rank.  Differentiable
     (the reverse ring over the backward kernels).  ``blocks`` pins the
     tiles; None resolves them through the tuner at the shard one rank
-    streams, the backward's too under ``REPRO_TUNE=measure`` (the ring's
-    meta is fixed at dispatch).  ``return_hops=True`` also returns the
-    count of ring hops that launch kernels, summed over the ring."""
+    streams.  ``return_hops=True`` also returns the count of ring hops that
+    launch kernels, summed over the ring."""
     p = _ring_size(q, k, mesh, axis)
     scale = float(scale) if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
     if p == 1:
         out = ops.flash_attention(q, k, v, causal=causal, scale=scale, blocks=blocks)
         return (out, 1) if return_hops else out
-    shard = context_shard_len(q.shape[2], p)
-    if blocks is None:
-        from repro_torch.tune.autotune import resolve_block_sizes, tune_mode
-        from repro_torch.tune.cache import dtype_str
-
-        blocks = resolve_block_sizes("flash", d=q.shape[-1], n=shard, dtype=dtype_str(q),
-                                     causal=causal, bwd=tune_mode() == "measure",
-                                     device=q.device)
-    meta = _RingMeta(size=p, causal=causal, scale=scale, n_live=q.shape[2], shard=shard,
-                     blocks=blocks)
+    meta = _flash_meta(q, q.shape[2], p, causal=causal, scale=scale, blocks=blocks)
     out = _RingFlash.apply(q, k, v, meta, _Ring(mesh, axis))
     return (out, _count_hops(meta)) if return_hops else out
 
@@ -527,26 +594,57 @@ def ring_distr_attention(q, k, v, cfg: DistrConfig, mesh, *, axis: str = "contex
     if p == 1:
         out = ops.distr_attention(q, k, v, cfg, causal=causal, scale=scale, proj=proj)
         return (out, 1) if return_hops else out
-    from repro_torch.tune.cache import dtype_str
-
-    n = q.shape[2]
-    tuned = cfg.block_q is None
-    # The tuner's key is the length one rank streams, not the global N.
-    cfg = cfg.resolved(q.shape[-1], context_shard_len(n, p), dtype=dtype_str(q),
-                       causal=causal, xla=False, device=q.device)
-    if proj is not None and proj.shape[-1] != cfg.block_q:
-        if not tuned:
-            raise ValueError(f"LSH projection over {proj.shape[-1]} rows given for "
-                             f"block_q={cfg.block_q}")
-        proj = None
-    # The grouping grain does not move: shards are a multiple of
-    # lcm(block_q, 128), so block_q tiles every shard and the ring groups
-    # exactly as the single-device op does.
-    shard = context_shard_len(n, p, multiple=lcm(128, cfg.block_q))
-    meta = _RingMeta(size=p, causal=causal, scale=scale, n_live=n, shard=shard, dcfg=cfg,
-                     bk_bwd_distr=_resolve_distr_bwd_pair(cfg, q, shard, causal))
+    meta, proj = _distr_meta(cfg, proj, q, q.shape[2], p, causal=causal, scale=scale)
     out = _RingDistr.apply(q, k, v, meta, _Ring(mesh, axis), proj)
     return (out, _count_hops(meta)) if return_hops else out
+
+
+def _shard_meta(attn_cfg, like: torch.Tensor, n: int, p: int, *, causal: bool, scale: float,
+                proj=None):
+    """(the meta of a shard-in, shard-out ring under ``attn_cfg``'s kernel
+    impl, the LSH projection)."""
+    from repro_torch.core.api import _pinned_blocks
+
+    if attn_cfg.impl == "pallas_flash":
+        return _flash_meta(like, n, p, causal=causal, scale=scale,
+                           blocks=_pinned_blocks(attn_cfg, like), local=True), None
+    if attn_cfg.impl != "pallas_distr":
+        raise ValueError(f"the ring runs the kernel impls, not {attn_cfg.impl!r}")
+    return _distr_meta(attn_cfg.distr, proj, like, n, p, causal=causal, scale=scale, local=True)
+
+
+def shard_len(attn_cfg, n: int, p: int, *, d: int, dtype: torch.dtype, causal: bool,
+              device) -> int:
+    """The rows one rank of a ring of ``p`` holds of a sequence of ``n``
+    under ``attn_cfg``'s kernel impl (``pallas_flash`` or
+    ``pallas_distr``): what ``ring_attention_shard`` takes, the last shards
+    zero-padded."""
+    like = torch.empty((0, d), dtype=dtype, device=device)
+    return _shard_meta(attn_cfg, like, n, p, causal=causal, scale=1.0)[0].shard
+
+
+def ring_attention_shard(q, k, v, attn_cfg, mesh, *, n_live: int, axis: str = "model",
+                         causal: bool = False, scale: float | None = None,
+                         proj: torch.Tensor | None = None):
+    """The ring over ``axis``, shard in and shard out: q (B, Hq, s, d), k, v
+    (B, Hkv, s, d) are this rank's rows [i·s, (i+1)·s) of a sequence of
+    ``n_live`` positions (s = ``shard_len``, rows past ``n_live`` zero or
+    anything: they are masked) → this rank's rows of the output (B, Hq, s,
+    d); the backward returns this rank's rows of dq, dk and dv.  The same
+    autograd Functions, kernels and hop schedule as the global entries,
+    without their gathers.  ``attn_cfg.impl`` picks flash
+    (``pallas_flash``, its pinned tile) or DistrAttention
+    (``pallas_distr``: stage 1 on the rank's own rows, under ``proj``)."""
+    p = int(mesh.shape[axis])
+    scale = float(scale) if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    meta, proj = _shard_meta(attn_cfg, q, n_live, p, causal=causal, scale=scale, proj=proj)
+    if q.shape[2] != meta.shard or k.shape[2] != meta.shard or v.shape[2] != meta.shard:
+        raise ValueError(f"ring shards of {q.shape[2]} / {k.shape[2]} rows for a shard of "
+                         f"{meta.shard} (N = {n_live} over {p} ranks)")
+    ring = _Ring(mesh, axis)
+    if meta.dcfg is None:
+        return _RingFlash.apply(q, k, v, meta, ring)
+    return _RingDistr.apply(q, k, v, meta, ring, proj)
 
 
 def _resolve_distr_bwd_pair(cfg: DistrConfig, q, shard: int, causal: bool):

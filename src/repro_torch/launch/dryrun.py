@@ -55,6 +55,7 @@ from repro_torch.configs import ARCH_NAMES, SHAPES, get_config, input_specs
 from repro_torch.distributed import sharding
 from repro_torch.launch.mesh import make_production_mesh, set_mesh
 from repro_torch.models import lm
+from repro_torch.models.attention import seq_layout
 from repro_torch.roofline import analysis as roof
 from repro_torch.serve import kv_cache
 from repro_torch.serve.serve_step import make_decode_step, make_prefill
@@ -237,16 +238,19 @@ def _configure(arch: str, impl: str | None, overrides: dict | None):
     return cfg
 
 
-def attention_layout(cfg, mesh) -> str:
-    """How the port runs attention over "model": "heads" ("model" divides
-    the query and KV heads: each rank runs its own), "gather" (it cuts
-    them: prefill and training gather the sliced weights and run every
-    head, a decode step gathers the token's projected columns; this is the
-    port's layout, where the reference shards the sequence) or "none" (no
-    attention)."""
-    m = int(mesh.shape.get("model", 1))
+def attention_layout(cfg, mesh, shape=None) -> str:
+    """How the port runs attention over "model" in a cell of ``shape``
+    (None: a long training sequence): "seq" (``models.attention.
+    seq_layout``: each rank projects and attends its own positions, over a
+    ring on "model" in training and prefill; a decode cell's cache lies by
+    positions too), "heads" ("model" divides the query and KV heads: each
+    rank runs its own), "gather" (it cuts them: the layer gathers the sliced
+    weights and runs every head) or "none" (no attention)."""
     if cfg.family == "ssm":
         return "none"
+    if seq_layout(cfg, mesh, shape.seq_len if shape is not None else 1 << 30):
+        return "seq"
+    m = int(mesh.shape.get("model", 1))
     return "heads" if cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0 else "gather"
 
 
@@ -268,7 +272,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, impl: str | None = 
     p_shapes = master_shapes(cfg)
     total, active = roof.active_params(cfg, p_shapes)
     meta = {**head, "devices": mesh_devices(mesh), "impl": cfg.attention.impl,
-            "attention_layout": attention_layout(cfg, mesh),
+            "attention_layout": attention_layout(cfg, mesh, shape),
             "total_params": total, "active_params": active,
             "model_flops": roof.model_flops(cfg, shape, active),
             "memory_estimate": memory_estimate(cfg, shape, mesh, p_shapes)}

@@ -18,6 +18,26 @@ slices are gathered on use (``collectives.gather_slices``) and every rank
 runs the whole layer (``tp_layout``: "gather"); a decode step gathers the
 new token's projected columns instead.  A weight held whole although
 "model" divides its columns is not a layout the rules give, and raises.
+
+The "seq" layout (``cfg.attn_shard == "seq"``, the reference's
+``_constrain_bhnd(x, "seq")``): a training or prefill self-attention on a
+"model" axis greater than 1 (and "context" 1), GQA under a kernel impl,
+over N ≥ model × ``MIN_RING_SHARD`` positions (``seq_mesh``), shards the
+sequence over "model" whether or not "model" divides the heads.  Rank r
+owns rows [r·s, (r+1)·s) of the sequence zero-padded to model · s (s =
+``ring_attention.shard_len``).  A weight sliced over "model" (by heads or
+through them) projects every row (``tp_enter``) and one all-to-all
+(``collectives.exchange``) takes its columns to the ranks' positions; a
+weight held whole projects the rank's rows alone (its gradient summed over
+"model" by ``tp_enter``).  RoPE rotates the rank's absolute positions, the
+ring over "model" attends them shard in, shard out
+(``ring_attention.ring_attention_shard``: kernels 1 or 2 a hop, the
+backward kernels in reverse), and ``wo`` either takes the output back to
+its column slices by a second all-to-all and sums the partial products
+(``tp_reduce``), or, held whole, multiplies the rank's rows and all-gathers
+them.  No weight is gathered; the output is (B, N, D), replicated over
+"model", and the returned (k, v) are the rank's positions.  Below the guard,
+or off those conditions, the layer runs "heads" or "gather" as above.
 Cross-attention runs the same way: Q from the decoder's input and K,
 V from the encoder output, each entering the region through ``tp_enter``, so
 the encoder output's gradient sums over "model".  MLA's ``wq_b``, ``wk_b``
@@ -61,10 +81,10 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, n, h * d)
 
 
-def _constrain_bhnd(x: torch.Tensor, attn_shard: str) -> torch.Tensor:
-    """The reference's layout hint for (B, H, N, d) (``layers.constrain``)."""
-    if attn_shard == "seq":
-        return layers.constrain(x, "data", None, "model", None)
+def _constrain_bhnd(x: torch.Tensor) -> torch.Tensor:
+    """The reference's "heads" layout hint for (B, H, N, d)
+    (``layers.constrain``).  Its "seq" hint is the "seq" layout
+    (``_attention_seq``)."""
     return layers.constrain(x, "data", "model", "seq", None)
 
 
@@ -165,6 +185,111 @@ def cache_layout(cfg, mesh, key: str = "k", max_len: int | None = None) -> str:
     return "heads" if cfg.n_kv_heads % m == 0 else "whole"
 
 
+def seq_layout(cfg, mesh, n: int) -> bool:
+    """Whether a self-attention over ``n`` positions on ``mesh`` takes the
+    "seq" layout (see the module docstring).  The hybrid's shared blocks
+    keep theirs (their cache lies by heads, ``cache_layout``)."""
+    from repro_torch.distributed.ring_attention import MIN_RING_SHARD
+
+    if (mesh is None or cfg.attn_shard != "seq" or cfg.use_mla or cfg.family == "hybrid"
+            or cfg.attention.impl not in ("pallas_flash", "pallas_distr")):
+        return False
+    m = coll.axis_size(mesh, "model")
+    return m > 1 and coll.axis_size(mesh, "context") == 1 and n >= m * MIN_RING_SHARD
+
+
+def seq_mesh(cfg, n: int):
+    """The active mesh when a self-attention over ``n`` positions takes the
+    "seq" layout (``seq_layout``), else None."""
+    from repro_torch.launch.mesh import active_mesh
+
+    mesh = active_mesh()
+    return mesh if seq_layout(cfg, mesh, n) else None
+
+
+def _own_rows(t: torch.Tensor, mesh, shard: int) -> torch.Tensor:
+    """This rank's rows [r·shard, (r+1)·shard) of ``t`` (B, N, ...) along
+    dim 1, zero-padded past N."""
+    lo = int(mesh.coords["model"]) * shard
+    part = t[:, lo:lo + shard]
+    if part.shape[1] < shard:
+        pad = part.new_zeros((part.shape[0], shard - part.shape[1], *part.shape[2:]))
+        part = torch.cat([part, pad], dim=1)
+    return part
+
+
+def _cols_to_rows(t: torch.Tensor, mesh, shard: int) -> torch.Tensor:
+    """(B, N, C/m) this rank's column slice at every position → (B, s, C)
+    every column at this rank's positions: one all-to-all over "model"."""
+    b, n, c = t.shape
+    m = coll.axis_size(mesh, "model")
+    if m * shard > n:
+        t = torch.cat([t, t.new_zeros((b, m * shard - n, c))], dim=1)
+    parts = t.reshape(b, m, shard, c).transpose(0, 1).contiguous()  # chunk j: rank j's rows
+    got = coll.exchange(parts, mesh, "model")  # chunk i: rank i's columns
+    return got.permute(1, 2, 0, 3).reshape(b, shard, m * c)
+
+
+def _rows_to_cols(t: torch.Tensor, mesh, n: int) -> torch.Tensor:
+    """``_cols_to_rows``' inverse: (B, s, C) at this rank's positions →
+    (B, N, C/m) this rank's column slice at every position (the padding
+    dropped)."""
+    b, shard, c = t.shape
+    m = coll.axis_size(mesh, "model")
+    parts = t.reshape(b, shard, m, c // m).permute(2, 0, 1, 3).contiguous()  # chunk j: cols j
+    got = coll.exchange(parts, mesh, "model")  # chunk i: rank i's rows
+    return got.transpose(0, 1).reshape(b, m * shard, c // m)[:, :n]
+
+
+def _entered(p: dict, mesh) -> dict:
+    """A weight held whole, entering the region: each rank's gradient
+    (from its rows alone) is summed over "model" (``tp_enter``)."""
+    return {key: coll.tp_enter(t, mesh) for key, t in p.items()}
+
+
+def _attention_seq(params: dict, x: torch.Tensor, cfg, mesh, *, positions, causal: bool,
+                   proj, use_rope: bool):
+    """The "seq" layout of ``attention_apply`` (see the module docstring)
+    → (out (B, N, D) replicated over "model", (k, v) (B, Hkv, s, dh) at this
+    rank's positions)."""
+    from repro_torch.distributed import ring_attention as ring
+
+    b, n, _ = x.shape
+    dh = cfg.head_dim_
+    shard = ring.shard_len(cfg.attention, n, coll.axis_size(mesh, "model"), d=dh,
+                           dtype=x.dtype, causal=causal, device=x.device)
+    x = coll.tp_enter(x, mesh)
+    x_own = None
+
+    def project(name: str, heads: int) -> torch.Tensor:
+        nonlocal x_own
+        p = params[name]
+        if p["w"].shape[1] == heads * dh:  # whole: this rank's rows alone
+            if x_own is None:
+                x_own = _own_rows(x, mesh, shard)
+            t = layers.linear_apply(_entered(p, mesh), x_own)
+        else:  # a column slice: every row, then to this rank's positions
+            t = _cols_to_rows(layers.linear_apply(p, x), mesh, shard)
+        return _split_heads(t, heads)
+
+    q, k, v = (project(name, h) for name, h in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
+                                                  ("wv", cfg.n_kv_heads)))
+    if use_rope:
+        if positions is None:
+            positions = torch.arange(n, device=x.device).expand(b, n)
+        pos = _own_rows(positions, mesh, shard)
+        q = layers.apply_rope(q, pos, cfg.rope_theta)
+        k = layers.apply_rope(k, pos, cfg.rope_theta)
+    o = _merge_heads(ring.ring_attention_shard(q, k, v, cfg.attention, mesh, n_live=n,
+                                               axis="model", causal=causal, proj=proj))
+    wo = params["wo"]
+    if wo["w"].shape[0] == cfg.n_heads * dh:  # whole: this rank's rows, gathered
+        out = layers.linear_apply(_entered(wo, mesh), o)
+        return coll.gather_slices(out, mesh, "model", 1)[:, :n], (k, v)
+    out = layers.linear_apply(wo, _rows_to_cols(o, mesh, n))
+    return coll.tp_reduce(out, mesh), (k, v)
+
+
 def attention_apply(params: dict, x: torch.Tensor, cfg, *,
                     positions: torch.Tensor | None = None, causal: bool = True,
                     proj: torch.Tensor | None = None, x_kv: torch.Tensor | None = None,
@@ -174,9 +299,14 @@ def attention_apply(params: dict, x: torch.Tensor, cfg, *,
     ``x_kv``.  RoPE (``use_rope``, default ``cfg.pos == "rope"``) rotates Q
     at ``positions`` and K at ``positions`` (self) or 0..Nk-1 (cross).
     Returns ``(out, (k, v))`` with the raw per-head K/V (B, Hkv, Nk, dh) so
-    the serve layer can build caches."""
+    the serve layer can build caches; under the "seq" layout (``seq_mesh``)
+    they are this rank's positions (B, Hkv, s, dh)."""
     b, n, _ = x.shape
     use_rope = cfg.pos == "rope" if use_rope is None else use_rope
+    mesh = seq_mesh(cfg, n) if x_kv is None else None
+    if mesh is not None:
+        return _attention_seq(params, x, cfg, mesh, positions=positions, causal=causal,
+                              proj=proj, use_rope=use_rope)
     params, hq, hkv, mesh = heads_to_run(params, cfg)
     if mesh is not None:
         x = coll.tp_enter(x, mesh)
@@ -193,9 +323,8 @@ def attention_apply(params: dict, x: torch.Tensor, cfg, *,
                         torch.arange(src.shape[1], device=x.device).expand(b, src.shape[1]))
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, kv_positions, cfg.rope_theta)
-    q, k, v = (_constrain_bhnd(t, cfg.attn_shard) for t in (q, k, v))
-    o = _constrain_bhnd(attend(q, k, v, cfg.attention, causal=causal, proj=proj),
-                        cfg.attn_shard)
+    q, k, v = (_constrain_bhnd(t) for t in (q, k, v))
+    o = _constrain_bhnd(attend(q, k, v, cfg.attention, causal=causal, proj=proj))
     out = layers.linear_apply(params["wo"], _merge_heads(o))
     return (out if mesh is None else coll.tp_reduce(out, mesh)), (k, v)
 

@@ -18,7 +18,8 @@ tokens and positions this rank's rows of the batch, and each rank's cache
 is its block of one device's cache under ``kv_cache.cache_pspecs``: the
 prefill moves K/V from the heads its layers ran to the cache's layout (an
 all-to-all over "model" from heads to positions under "seq", this rank's
-slice where a layer ran whole), and the decode writes and attends as
+slice where a layer ran whole or sharded the sequence, whose positions are
+all-gathered first), and the decode writes and attends as
 ``models.attention`` describes.  The logits come back whole, gathered over
 "model" from the vocab-parallel head.  The replicated ``length`` vector
 holds the whole batch: a step reads its own rows and all-gathers the new
@@ -38,7 +39,7 @@ from repro_torch.distributed import sharding
 from repro_torch.launch.mesh import set_mesh
 from repro_torch.models import layers, lm, transformer
 from repro_torch.models.attention import (_split_heads, cache_layout, heads_to_run,
-                                          local_heads, paged_insert)
+                                          local_heads, paged_insert, seq_mesh)
 from repro_torch.serve import kv_cache
 from repro_torch.serve.paged import check_pageable
 from repro_torch.tune.autotune import sweeps_refused, warm_decode
@@ -239,8 +240,16 @@ def make_prefill(cfg, max_len: int, backbone_cfg=None, perms: torch.Tensor | Non
             kvs = kvs["kv"]
         k = torch.stack([kv[0] for kv in kvs]).to(dtype)  # (L, B, Hkv, N, dh)
         v = torch.stack([kv[1] for kv in kvs]).to(dtype)
-        n = k.shape[3]
-        heads_mesh = local_heads(lm.decoder_layers(params, cfg)[0][1]["attn"], cfg)[2]
+        n = hidden.shape[1]
+        ring_mesh = seq_mesh(bcfg, n)
+        if ring_mesh is not None:
+            # The "seq" layout's K/V are this rank's positions (B, Hkv, s,
+            # dh): gathered over "model" and cut to N, then taken as the
+            # cache's block below like a layer that ran whole.
+            k, v = (coll.all_gather(t, ring_mesh, "model", 3)[:, :, :, :n] for t in (k, v))
+            heads_mesh = None
+        else:
+            heads_mesh = local_heads(lm.decoder_layers(params, cfg)[0][1]["attn"], cfg)[2]
         layout = cache_layout(cfg, mesh, max_len=max_len)
         k, v = (_kv_layout(t, heads_mesh, layout, mesh, max_len) for t in (k, v))
         cache = {"k": k, "v": v}

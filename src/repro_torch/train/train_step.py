@@ -11,8 +11,10 @@ shards over the data-parallel axes), and:
 * under FSDP a block's ``"data"``-sharded leaves are gathered on use inside
   its remat checkpoint, and their gradients reduce-scattered back;
 * every family runs tensor parallel over "model": attention (GQA, MLA and
-  the enc-dec cross-attention) by heads, the MLP and the vocab Megatron
-  style, Mamba-2 by SSM heads (``models.mamba``), the MoE expert parallel
+  the enc-dec cross-attention) by heads, or a GQA layer under
+  ``attn_shard="seq"`` by positions over a ring on "model"
+  (``models.attention``), the MLP and the vocab Megatron style, Mamba-2
+  by SSM heads (``models.mamba``), the MoE expert parallel
   (``models.moe``); and the ring over "context" where the config names it;
 * ``lm.loss_fn`` normalises by the whole batch's labels, so the ranks'
   losses sum to the single device's mean; the gradients are summed over the
@@ -64,9 +66,12 @@ def check_mesh(cfg, mesh) -> None:
     not divide its dim).  The port's attention runs whole heads on a rank,
     and the kernels map query heads onto KV heads by q_per_kv.  Under
     ``attn_shard="seq"`` (the reference's layout for heads that "model"
-    does not divide) such a layer gathers its sliced weights and runs whole
-    (``models.attention.tp_layout``).  Every family trains on any other
-    mesh."""
+    does not divide) a GQA layer trains on any "model" axis: over N ≥
+    model × 128 positions under a kernel impl it shards the sequence over
+    "model" and attends over a ring on that axis
+    (``models.attention.seq_mesh``), below that it gathers its sliced
+    weights and runs whole (``tp_layout``).  Every family trains on any
+    other mesh."""
     m = coll.axis_size(mesh, "model")
     if m == 1 or (cfg.attn_shard == "seq" and not cfg.use_mla):
         return

@@ -15,10 +15,14 @@ stands in for the reference's HLO walker (``roofline/analysis.py``):
   ``tests/test_roofline.py``'s three functions;
 * one 4-rank gloo world at (data 2, model 2): each rank counts the
   minicpm-2b ``reduced()`` train step and the starcoder2-7b ``reduced()``
-  prefill and two decode steps it runs, and the dry run of the same steps
-  on meta over a dry mesh at its coordinates must count the same FLOPs,
-  collective bytes by kind and argument bytes; the dry mesh's coordinates
-  and the collectives' dry shapes equal the live world's.
+  prefill and two decode steps it runs, and the same train step and
+  prefill at N_SEQ positions under the kernel impls (the "seq" layout: a
+  ring on "model"), and the dry run of the same steps on meta over a dry
+  mesh at its coordinates must count the same FLOPs, collective bytes by
+  kind and argument bytes; the dry mesh's coordinates and the collectives'
+  dry shapes equal the live world's;
+* ``attention_layout`` on the production mesh: "seq" for the seven
+  ``attn_shard="seq"`` configs.
 
 The world's ranks import this module, which imports no JAX at its top.
 """
@@ -41,6 +45,9 @@ ARCHS = ("minicpm-2b", "starcoder2-7b", "qwen2.5-32b", "qwen1.5-4b", "whisper-sm
 SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 WORLD = 4
 B, N, S = 4, 32, 64
+# A sequence long enough for the "seq" layout on a "model" axis of 2
+# (model × 128 positions), and its prefill's cache.
+N_SEQ, S_SEQ = 256, 512
 
 
 class StandIn:
@@ -344,6 +351,32 @@ def test_a_live_mesh_without_its_group_raises():
         compat_make_mesh((2, 2), ("data", "model"))
 
 
+def test_attention_layout_follows_the_seq_layout():
+    """The seven ``attn_shard="seq"`` configs shard attention's positions
+    over "model" on the production mesh (every cell's sequence is past the
+    guard); zamba2-7b and deepseek-v2-236b run by heads, mamba2-130m has
+    none; a sequence below model × 128, "context" beside "model" and a plain
+    impl keep the heads' layout or gather."""
+    from repro_torch.configs import SHAPES as PORT_SHAPES
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import dry_mesh, make_production_mesh
+
+    mesh = make_production_mesh()
+    want = {"deepseek-v2-236b": "heads", "zamba2-7b": "heads", "mamba2-130m": "none"}
+    for arch in ARCHS:
+        cfg = dryrun._configure(arch, None, None)
+        for shape in PORT_SHAPES.values():
+            assert dryrun.attention_layout(cfg, mesh, shape) == want.get(arch, "seq"), arch
+    cfg = dryrun._configure("qwen2.5-32b", None, None)
+    assert dryrun.attention_layout(cfg, mesh, ShapeSpec("short", "train", 2047, 256)) == "gather"
+    assert dryrun.attention_layout(cfg, mesh, ShapeSpec("at", "train", 2048, 256)) == "seq"
+    ctx = dry_mesh((4, 2, 2), ("data", "context", "model"))
+    assert dryrun.attention_layout(cfg, ctx, PORT_SHAPES["train_4k"]) == "heads"
+    plain = cfg.replace(attention=cfg.attention.with_impl("distr"))
+    assert dryrun.attention_layout(plain, mesh, PORT_SHAPES["train_4k"]) == "gather"
+
+
 def test_dry_run_prices_a_cell_on_meta():
     from repro_torch.launch import dryrun
 
@@ -460,6 +493,42 @@ def _world_cases(rank, world, _):
         nxt = logits.argmax(-1).to(torch.int32)
         pos = pos + 1
 
+    # The "seq" layout (attention's positions over "model", a ring on that
+    # axis): minicpm-2b's train step and starcoder2-7b's prefill at N_SEQ
+    # positions under the kernel impls.
+    rng_seq = np.random.default_rng(1)
+    for key, arch, impl in (("train_seq", "minicpm-2b", "pallas_distr"),
+                            ("prefill_seq", "starcoder2-7b", "pallas_flash")):
+        cfg = get_config(arch, reduced=True)
+        cfg = cfg.replace(attention=cfg.attention.with_impl(impl))
+        toks = torch.from_numpy(rng_seq.integers(0, cfg.vocab, (B, N_SEQ + 1)).astype(np.int32))
+        if key == "train_seq":
+            batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+            params = sharding.shard_params(init_train_params(cfg, seed=0, device="cpu"), mesh,
+                                           mesh_specs(cfg, mesh))
+            state = adamw_init(lm.trainable(params))
+            card_args = dryrun.argument_bytes(params, state, local_batch(batch, mesh))
+            with CostCounter() as card:
+                make_train_step(cfg, ocfg, mesh)(params, state, batch, 0)
+            mparams = dryrun.rank_params(cfg, dmesh, lm.param_dtype(cfg))
+            mstate = adamw_init(lm.trainable(mparams))
+            mbatch = {k: meta(v) for k, v in batch.items()}
+            _, dry, _ = dryrun.run_step(cfg, "train", dmesh, mparams, batch=mbatch, opt_cfg=ocfg,
+                                        opt_state=mstate)
+            out[key] = compare(card, card_args, dry, dryrun.argument_bytes(
+                mparams, mstate, local_batch(mbatch, dmesh)))
+        else:
+            full = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+            params = sharding.shard_params(full, mesh, mesh_specs(cfg, mesh))
+            own = toks[idx * rows:(idx + 1) * rows, :-1]
+            with CostCounter() as card:
+                make_prefill(cfg, S_SEQ, mesh=mesh)(params, own)
+            mparams = dryrun.rank_params(cfg, dmesh, lm.compute_dtype(cfg))
+            mtok = {"tokens": meta(own)}
+            _, dry, _ = dryrun.run_step(cfg, "prefill", dmesh, mparams, batch=mtok, max_len=S_SEQ)
+            out[key] = compare(card, dryrun.argument_bytes(params, {"tokens": own}), dry,
+                               dryrun.argument_bytes(mparams, mtok))
+
     # A prefill cache replicated over "model" (the SSM states, MLA's c_kv)
     # is cut into its "model" blocks only: its rows are this rank's already.
     for arch in ("mamba2-130m", "deepseek-v2-236b"):
@@ -500,7 +569,8 @@ def test_prefill_cache_blocks_have_the_dry_run_shapes(world, arch):
             assert got == want, (arch, key)
 
 
-@pytest.mark.parametrize("step", ["train", "prefill", "decode0", "decode1"])
+@pytest.mark.parametrize("step", ["train", "prefill", "decode0", "decode1", "train_seq",
+                                  "prefill_seq"])
 def test_dry_run_counts_what_each_rank_counts(world, step):
     for rank, r in enumerate(world):
         got = r[step]
